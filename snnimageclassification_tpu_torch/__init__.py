@@ -1,0 +1,25 @@
+"""snnimageclassification_tpu_torch: the PyTorch + CUDA port of
+``snnimageclassification_tpu``.
+
+The serving path runs on one NVIDIA Hopper card: pixels -> on-device
+latencies -> the whole single-hidden-layer LIF/ALIF network in one
+hand-written CUDA kernel (ops/fused.py, csrc/fused_head.cu) -> logits,
+behind the dynamic-batching :class:`InferenceServer`.  Other configs run
+a plain PyTorch time loop.  Entry points take ``device`` ("cuda" by
+default) and raise without CUDA unless ``device="cpu"`` is passed.
+Importing the package builds nothing; the kernel is compiled at first use.
+"""
+__version__ = "0.1.0"
+
+from .ops import (  # noqa: F401
+    LayerType,
+    SpikeFuncType,
+    ToSpikes,
+    batchwise_temporal_filter,
+    encode_spikes,
+    heaviside_phi,
+    heaviside_sigmoid,
+)
+from .models import ForwardMth, ReadoutMth, SNNConfig  # noqa: F401
+from .data import EncodeConfig  # noqa: F401
+from .serve import InferenceServer, ServerStats  # noqa: F401

@@ -1,0 +1,319 @@
+// Whole-network head forward for single-hidden-layer LIF/ALIF classifiers:
+// latencies -> spike rows -> W_in -> (recurrent) LIF/ALIF scan -> readout
+// kappa-integrator -> first-argmax max over time.  Only logits leave the
+// kernel.
+//
+// Replaces the inference primal of the TPU kernel
+// snnimageclassification_tpu/ops/pallas_fused.py:_fused_fwd_kernel
+// (head=True, store_traces=False; pl.pallas_call in _fused_fwd_call), which
+// serves fused_encode_{rec,ff}_scan_head.
+//
+// What bounds it on an H100: neither bytes nor peak FLOPs.  The inputs are
+// ~13 MB (latencies) and the dense work ~97 GFLOP at B=4096, T=100,
+// 784-128-10, but every step of the scan depends on the previous one, so the
+// kernel is bound by the latency of the serial T-chain.  The design keeps
+// that chain short and on chip:
+//   * spikes are 0/1, so every product with them is a sum of selected weight
+//     rows: the input current is a sum over the features that fire at step t
+//     (compacted in ascending f by one warp per row with a ballot), the
+//     recurrent current and the readout sums over the hidden units that
+//     spiked, found from a bitmask of z;
+//   * the block's latencies (as int16), W_rec and W_out sit in shared
+//     memory, W_in (400 KB in f32) in L2;
+//   * the readout of step t-1 runs on other warps while step t's spike list
+//     is compacted, so each step costs two block barriers.
+// All sums are f32 in a fixed order (ascending index); the file is built
+// with --fmad=false so a*b+c rounds twice, as in the plain PyTorch version.
+// Layout: one block = `rows` batch rows x HP threads (HP = H rounded up to a
+// warp multiple); thread (h, r) owns hidden unit h of row r, and each warp
+// holds 32 consecutive units of one row.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float w) { return w; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 w) {
+  return __bfloat162float(w);
+}
+
+// Spike of a feature with latency L at step t.  TTFS: one spike at t == L
+// (a latency outside [0, T) never fires).  Periodic: period clamped to
+// [1, T-1], spike where t >= p and (t - p) % p == 0, in integers, with
+// x % 0 == 0 as in ops/encoding.py.
+__device__ __forceinline__ bool fires(int L, int t, int T, int periodic) {
+  if (!periodic) return L == t;
+  int p = min(max(L, 1), T - 1);
+  int d = t - p;
+  if (d < 0) return false;
+  return p <= 0 ? true : (d % p) == 0;
+}
+
+// Sum of w[j * stride] over the set bits j of mask words m[0..nw), in
+// ascending j.
+template <typename W>
+__device__ __forceinline__ float masked_sum(const unsigned* m, int nw,
+                                            const W* w, int stride) {
+  float acc = 0.f;
+  for (int k = 0; k < nw; ++k) {
+    unsigned bits = m[k];
+    while (bits) {
+      const int j = (k << 5) + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      acc += to_f32(w[j * stride]);
+    }
+  }
+  return acc;
+}
+
+struct Layout {
+  size_t wrec, wout, b, zm, vr, m, cnt, lat, list, total;
+};
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// Shared-memory layout of one block; the host uses it to size the launch.
+__host__ __device__ inline Layout layout(int F, int H, int O, int rows,
+                                         int HP, int rec, int wsize) {
+  Layout L;
+  size_t off = 0;
+  L.wrec = off;
+  off = align16(off + (rec ? (size_t)H * H * wsize : 0));
+  L.wout = off;
+  off = align16(off + (size_t)H * O * wsize);
+  L.b = off;
+  off = align16(off + (size_t)O * 4);
+  L.zm = off;  // two buffers of z bitmasks, (rows, HP / 32) words each
+  off = align16(off + (size_t)2 * rows * (HP / 32) * 4);
+  L.vr = off;
+  off = align16(off + (size_t)rows * O * 4);
+  L.m = off;
+  off = align16(off + (size_t)rows * O * 4);
+  L.cnt = off;
+  off = align16(off + (size_t)rows * 4);
+  L.lat = off;  // latencies clamped to [-1, T], (rows, F) int16
+  off = align16(off + (size_t)rows * F * 2);
+  L.list = off;  // firing feature indices, (rows, F) uint16
+  off = align16(off + (size_t)rows * F * 2);
+  L.total = off;
+  return L;
+}
+
+struct Args {
+  const int* lat;
+  const void* w_in;
+  const void* w_rec;
+  const float* beta;
+  const void* w_out;
+  const float* b_out;
+  float* logits;
+  int B, F, H, O, T, periodic;
+  float alpha, rho, threshold, kappa;
+};
+
+// Readout of one row at one step: r = z @ W_out + b, v_r = kappa v_r + r,
+// running max with strict > (the first maximal step wins, as torch.max).
+template <typename W>
+__device__ __forceinline__ void readout_row(const Args& a, const W* s_wout,
+                                            const float* s_b,
+                                            const unsigned* zmask, int nw,
+                                            float* vr, float* m, int lane) {
+  for (int o = lane; o < a.O; o += 32) {
+    const float r = masked_sum(zmask, nw, s_wout + o, a.O) + s_b[o];
+    const float v = a.kappa * vr[o] + r;
+    vr[o] = v;
+    if (v > m[o]) m[o] = v;
+  }
+}
+
+template <bool REC, bool ALIF, typename W>
+__global__ void __launch_bounds__(1024)
+    fused_head_fwd_kernel(Args a, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int HP = blockDim.x, HW = HP >> 5;
+  const int H = a.H, O = a.O, F = a.F, T = a.T;
+  const Layout L = layout(F, H, O, rows, HP, REC, sizeof(W));
+  W* s_wrec = reinterpret_cast<W*>(smem + L.wrec);
+  W* s_wout = reinterpret_cast<W*>(smem + L.wout);
+  float* s_b = reinterpret_cast<float*>(smem + L.b);
+  unsigned* s_zm = reinterpret_cast<unsigned*>(smem + L.zm);
+  float* s_vr = reinterpret_cast<float*>(smem + L.vr);
+  float* s_m = reinterpret_cast<float*>(smem + L.m);
+  int* s_cnt = reinterpret_cast<int*>(smem + L.cnt);
+  int16_t* s_lat = reinterpret_cast<int16_t*>(smem + L.lat);
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(smem + L.list);
+
+  const int h = threadIdx.x, r = threadIdx.y;
+  const int tid = r * HP + h, nthreads = HP * rows;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int row0 = blockIdx.x * rows;
+  const W* w_in = static_cast<const W*>(a.w_in);
+
+  if (REC) {
+    const W* g = static_cast<const W*>(a.w_rec);
+    for (int i = tid; i < H * H; i += nthreads) s_wrec[i] = g[i];
+  }
+  {
+    const W* g = static_cast<const W*>(a.w_out);
+    for (int i = tid; i < H * O; i += nthreads) s_wout[i] = g[i];
+  }
+  for (int i = tid; i < O; i += nthreads) s_b[i] = a.b_out[i];
+  for (int i = tid; i < 2 * rows * HW; i += nthreads) s_zm[i] = 0u;
+  for (int i = tid; i < rows * O; i += nthreads) {
+    s_vr[i] = 0.f;
+    s_m[i] = -INFINITY;
+  }
+  // Clamping to [-1, T] keeps every spike time of both encodings (the
+  // host requires T <= 32767).
+  for (int i = tid; i < rows * F; i += nthreads) {
+    const int b = row0 + i / F;
+    const int L0 = b < a.B ? a.lat[(size_t)row0 * F + i] : -1;
+    s_lat[i] = (int16_t)min(max(L0, -1), T);
+  }
+  const float beta = ALIF ? *a.beta : 0.f;
+  const bool mine = (row0 + r < a.B) && (h < H);
+  float v = 0.f, ad = 0.f;
+  __syncthreads();
+
+  // z_t lives in mask buffer (t + 1) & 1; z_{-1} = 0 in buffer 0.
+  for (int t = 0; t <= T; ++t) {
+    const unsigned* z_prev = s_zm + (t & 1) * rows * HW;
+    // Readout of step t-1 (its z is z_prev), on the warp after the rows'
+    // compaction warps, so it overlaps the compaction below.
+    if (t > 0) {
+      for (int rr = 0; rr < rows; ++rr) {
+        if ((rows + rr) % nwarps != warp || row0 + rr >= a.B) continue;
+        readout_row<W>(a, s_wout, s_b, z_prev + rr * HW, HW, s_vr + rr * O,
+                       s_m + rr * O, lane);
+      }
+    }
+    if (t == T) break;
+    // Features firing at step t, ascending, one warp per row.
+    if (warp < rows) {
+      int n = 0;
+      if (row0 + warp < a.B) {
+        const int16_t* lrow = s_lat + warp * F;
+        uint16_t* lst = s_list + warp * F;
+        for (int f0 = 0; f0 < F; f0 += 32) {
+          const int f = f0 + lane;
+          const bool fire = f < F && fires(lrow[f], t, T, a.periodic);
+          const unsigned bal = __ballot_sync(0xffffffffu, fire);
+          if (fire) lst[n + __popc(bal & ((1u << lane) - 1u))] = (uint16_t)f;
+          n += __popc(bal);
+        }
+      }
+      if (lane == 0) s_cnt[warp] = n;
+    }
+    __syncthreads();
+    bool z_new = false;
+    if (mine) {
+      float cin = 0.f;
+      const int n = s_cnt[r];
+      const uint16_t* lst = s_list + r * F;
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) cin += to_f32(w_in[(size_t)lst[k] * H + h]);
+      const unsigned* zr = z_prev + r * HW;
+      const float cur = REC ? cin + masked_sum(zr, HW, s_wrec + h, H) : cin;
+      const float zp = (zr[h >> 5] >> (h & 31)) & 1u ? 1.f : 0.f;
+      v = (a.alpha * v + cur) * (1.f - zp);
+      float thr = a.threshold;
+      if (ALIF) {
+        ad = a.rho * ad + zp;
+        thr = a.threshold + beta * ad;
+      }
+      z_new = v - thr >= 0.f;
+    }
+    // Each warp holds 32 consecutive units of one row: one mask word.
+    const unsigned word = __ballot_sync(0xffffffffu, z_new);
+    if (lane == 0) s_zm[((t + 1) & 1) * rows * HW + r * HW + (h >> 5)] = word;
+    __syncthreads();
+  }
+  // The readout warp of each row wrote its s_m entries; it writes them out.
+  for (int rr = 0; rr < rows; ++rr) {
+    if ((rows + rr) % nwarps != warp || row0 + rr >= a.B) continue;
+    for (int o = lane; o < O; o += 32)
+      a.logits[(size_t)(row0 + rr) * O + o] = s_m[rr * O + o];
+  }
+}
+
+template <bool REC, bool ALIF, typename W>
+cudaError_t launch(const Args& a, int rows, int HP, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_head_fwd_kernel<REC, ALIF, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 block(HP, rows);
+  dim3 grid((a.B + rows - 1) / rows);
+  fused_head_fwd_kernel<REC, ALIF, W><<<grid, block, smem, stream>>>(a, rows);
+  return cudaGetLastError();
+}
+
+template <typename W>
+cudaError_t dispatch(const Args& a, int rec, int alif, int rows, int HP,
+                     size_t smem, cudaStream_t s) {
+  if (rec && alif) return launch<true, true, W>(a, rows, HP, smem, s);
+  if (rec) return launch<true, false, W>(a, rows, HP, smem, s);
+  if (alif) return launch<false, true, W>(a, rows, HP, smem, s);
+  return launch<false, false, W>(a, rows, HP, smem, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows per block and shared-memory bytes for a shape on `device`.
+// Returns 0 when the shape fits, 1 when it does not, or a CUDA error code.
+int snn_fused_head_plan(int F, int H, int O, int rec, int bf16, int device,
+                        int* rows_out, int* smem_out) {
+  int max_smem = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const int HP = (H + 31) / 32 * 32;
+  if (H < 1 || O < 1 || F < 1 || F > 65535 || HP > 1024) return 1;
+  const int wsize = bf16 ? 2 : 4;
+  // Up to 512 threads a block; fewer rows where shared memory is short.
+  for (int rows = 512 / HP > 0 ? 512 / HP : 1; rows >= 1; rows /= 2) {
+    const size_t smem = layout(F, H, O, rows, HP, rec, wsize).total;
+    if (smem <= (size_t)max_smem) {
+      *rows_out = rows;
+      *smem_out = (int)smem;
+      return 0;
+    }
+  }
+  return 1;
+}
+
+int snn_fused_head_fwd(const int* lat, const void* w_in, const void* w_rec,
+                       const float* beta, const void* w_out,
+                       const float* b_out, float* logits, int B, int F, int H,
+                       int O, int T, int periodic, int alif, int bf16,
+                       float alpha, float rho, float threshold, float kappa,
+                       int rows, int device, void* stream) {
+  if (B == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Args a{lat, w_in, w_rec, beta, w_out, b_out, logits, B, F, H, O, T,
+         periodic, alpha, rho, threshold, kappa};
+  const int HP = (H + 31) / 32 * 32;
+  const int rec = w_rec != nullptr;
+  const size_t smem = layout(F, H, O, rows, HP, rec, bf16 ? 2 : 4).total;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = bf16 ? dispatch<__nv_bfloat16>(a, rec, alif, rows, HP, smem, s)
+             : dispatch<float>(a, rec, alif, rows, HP, smem, s);
+  return (int)err;
+}
+
+const char* snn_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
