@@ -1,13 +1,15 @@
 """snnimageclassification_tpu_torch: the PyTorch + CUDA port of
 ``snnimageclassification_tpu``.
 
-The serving path runs on one NVIDIA Hopper card: pixels -> on-device
-latencies -> the whole single-hidden-layer LIF/ALIF network in one
-hand-written CUDA kernel (ops/fused.py, csrc/fused_head.cu) -> logits,
-behind the dynamic-batching :class:`InferenceServer`.  Other configs run
-a plain PyTorch time loop.  Entry points take ``device`` ("cuda" by
-default) and raise without CUDA unless ``device="cpu"`` is passed.
-Importing the package builds nothing; the kernel is compiled at first use.
+Both the serving and the training path run on one NVIDIA Hopper card:
+pixels -> on-device latencies -> the whole single-hidden-layer LIF/ALIF
+network in hand-written CUDA kernels (ops/fused.py, csrc/): one for
+inference behind the dynamic-batching :class:`InferenceServer`, a
+training forward and a reverse-time backward behind
+:class:`train.Trainer`.  Other configs run a plain PyTorch time loop.
+Entry points take ``device`` ("cuda" by default) and raise without CUDA
+unless ``device="cpu"`` is passed.  Importing the package builds nothing;
+the kernels are compiled at first use.
 """
 __version__ = "0.1.0"
 
@@ -23,3 +25,4 @@ from .ops import (  # noqa: F401
 from .models import ForwardMth, ReadoutMth, SNNConfig  # noqa: F401
 from .data import EncodeConfig  # noqa: F401
 from .serve import InferenceServer, ServerStats  # noqa: F401
+from .train import Trainer  # noqa: F401

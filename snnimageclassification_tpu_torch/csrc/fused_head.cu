@@ -1,12 +1,21 @@
 // Whole-network head forward for single-hidden-layer LIF/ALIF classifiers:
 // latencies -> spike rows -> W_in -> (recurrent) LIF/ALIF scan -> readout
-// kappa-integrator -> first-argmax max over time.  Only logits leave the
-// kernel.
+// kappa-integrator -> first-argmax max over time.
 //
-// Replaces the inference primal of the TPU kernel
+// Two kernels from one template.  fused_head_fwd (TRAIN = false): only the
+// logits leave the kernel.  fused_head_fwd_train (TRAIN = true): the same
+// arithmetic in the same order, so its logits are bitwise equal, plus what
+// the backward (fused_head_bwd.cu) needs: the residual delta = V' - thr
+// (and the adaptation trace a for ALIF with the Phi surrogate) as (T, B, H)
+// in the weights' type, the argmax step tstar (B, O), and on request the
+// spike counts (B, H).  A warp holds 32 consecutive units of one row, so
+// each residual store of a warp is one contiguous segment.
+//
+// Replaces the TPU kernel
 // snnimageclassification_tpu/ops/pallas_fused.py:_fused_fwd_kernel
-// (head=True, store_traces=False; pl.pallas_call in _fused_fwd_call), which
-// serves fused_encode_{rec,ff}_scan_head.
+// (head=True; pl.pallas_call in _fused_fwd_call): store_traces=False is the
+// inference primal of fused_encode_{rec,ff}_scan_head, store_traces=True
+// the training forward of those and of their _counts variants.
 //
 // What bounds it on an H100: neither bytes nor peak FLOPs.  The inputs are
 // ~13 MB (latencies) and the dense work ~97 GFLOP at B=4096, T=100,
@@ -21,36 +30,20 @@
 //   * the block's latencies (as int16), W_rec and W_out sit in shared
 //     memory, W_in (400 KB in f32) in L2;
 //   * the readout of step t-1 runs on other warps while step t's spike list
-//     is compacted, so each step costs two block barriers.
+//     is compacted, so each step costs two block barriers;
+//   * under periodic encoding a feature of period 1 fires at every step
+//     t >= 1 (at the production tau that is every supra-threshold pixel), so
+//     the sum of those features' weight rows is taken once per row and the
+//     per-step lists hold the other features only.
 // All sums are f32 in a fixed order (ascending index); the file is built
 // with --fmad=false so a*b+c rounds twice, as in the plain PyTorch version.
 // Layout: one block = `rows` batch rows x HP threads (HP = H rounded up to a
 // warp multiple); thread (h, r) owns hidden unit h of row r, and each warp
 // holds 32 consecutive units of one row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "head_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float w) { return w; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 w) {
-  return __bfloat162float(w);
-}
-
-// Spike of a feature with latency L at step t.  TTFS: one spike at t == L
-// (a latency outside [0, T) never fires).  Periodic: period clamped to
-// [1, T-1], spike where t >= p and (t - p) % p == 0, in integers, with
-// x % 0 == 0 as in ops/encoding.py.
-__device__ __forceinline__ bool fires(int L, int t, int T, int periodic) {
-  if (!periodic) return L == t;
-  int p = min(max(L, 1), T - 1);
-  int d = t - p;
-  if (d < 0) return false;
-  return p <= 0 ? true : (d % p) == 0;
-}
 
 // Sum of w[j * stride] over the set bits j of mask words m[0..nw), in
 // ascending j.
@@ -70,12 +63,8 @@ __device__ __forceinline__ float masked_sum(const unsigned* m, int nw,
 }
 
 struct Layout {
-  size_t wrec, wout, b, zm, vr, m, cnt, lat, list, total;
+  size_t wrec, wout, b, zm, vr, m, cnt, lat, list, ts, total;
 };
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
 
 // Shared-memory layout of one block; the host uses it to size the launch.
 __host__ __device__ inline Layout layout(int F, int H, int O, int rows,
@@ -100,6 +89,8 @@ __host__ __device__ inline Layout layout(int F, int H, int O, int rows,
   off = align16(off + (size_t)rows * F * 2);
   L.list = off;  // firing feature indices, (rows, F) uint16
   off = align16(off + (size_t)rows * F * 2);
+  L.ts = off;  // argmax step of the running max, (rows, O) int
+  off = align16(off + (size_t)rows * O * 4);
   L.total = off;
   return L;
 }
@@ -112,26 +103,56 @@ struct Args {
   const void* w_out;
   const float* b_out;
   float* logits;
+  // Training outputs, each optional (null: not written).
+  void* delta;    // (T, B, H) weights' type
+  void* a_tr;     // (T, B, H) weights' type, ALIF only
+  int* tstar;     // (B, O)
+  float* counts;  // (B, H)
   int B, F, H, O, T, periodic;
   float alpha, rho, threshold, kappa;
 };
 
+// One warp writes the features f of a row whose latency passes `pick` to
+// `lst`, in ascending f, and returns how many (the same on every lane).  A
+// row past the batch (`live` false) lists nothing.
+template <typename Pick>
+__device__ __forceinline__ int compact(const int16_t* lrow, uint16_t* lst,
+                                       int F, int lane, bool live,
+                                       Pick pick) {
+  int n = 0;
+  if (live) {
+    for (int f0 = 0; f0 < F; f0 += 32) {
+      const int f = f0 + lane;
+      const bool fire = f < F && pick(lrow[f]);
+      const unsigned bal = __ballot_sync(0xffffffffu, fire);
+      if (fire) lst[n + __popc(bal & ((1u << lane) - 1u))] = (uint16_t)f;
+      n += __popc(bal);
+    }
+  }
+  return n;
+}
+
 // Readout of one row at one step: r = z @ W_out + b, v_r = kappa v_r + r,
-// running max with strict > (the first maximal step wins, as torch.max).
-template <typename W>
+// running max with strict > (the first maximal step wins, as torch.max);
+// in training also the step of that max.
+template <bool TRAIN, typename W>
 __device__ __forceinline__ void readout_row(const Args& a, const W* s_wout,
                                             const float* s_b,
                                             const unsigned* zmask, int nw,
-                                            float* vr, float* m, int lane) {
+                                            float* vr, float* m, int* ts,
+                                            int step, int lane) {
   for (int o = lane; o < a.O; o += 32) {
     const float r = masked_sum(zmask, nw, s_wout + o, a.O) + s_b[o];
     const float v = a.kappa * vr[o] + r;
     vr[o] = v;
-    if (v > m[o]) m[o] = v;
+    if (v > m[o]) {
+      m[o] = v;
+      if (TRAIN) ts[o] = step;
+    }
   }
 }
 
-template <bool REC, bool ALIF, typename W>
+template <bool REC, bool ALIF, bool TRAIN, typename W>
 __global__ void __launch_bounds__(1024)
     fused_head_fwd_kernel(Args a, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -147,6 +168,7 @@ __global__ void __launch_bounds__(1024)
   int* s_cnt = reinterpret_cast<int*>(smem + L.cnt);
   int16_t* s_lat = reinterpret_cast<int16_t*>(smem + L.lat);
   uint16_t* s_list = reinterpret_cast<uint16_t*>(smem + L.list);
+  int* s_ts = reinterpret_cast<int*>(smem + L.ts);
 
   const int h = threadIdx.x, r = threadIdx.y;
   const int tid = r * HP + h, nthreads = HP * rows;
@@ -167,6 +189,7 @@ __global__ void __launch_bounds__(1024)
   for (int i = tid; i < rows * O; i += nthreads) {
     s_vr[i] = 0.f;
     s_m[i] = -INFINITY;
+    s_ts[i] = 0;
   }
   // Clamping to [-1, T] keeps every spike time of both encodings (the
   // host requires T <= 32767).
@@ -177,8 +200,31 @@ __global__ void __launch_bounds__(1024)
   }
   const float beta = ALIF ? *a.beta : 0.f;
   const bool mine = (row0 + r < a.B) && (h < H);
-  float v = 0.f, ad = 0.f;
+  float v = 0.f, ad = 0.f, n_spikes = 0.f;
   __syncthreads();
+
+  // Periodic encoding: the features of period 1 (latency <= 1; the clamp
+  // to [1, T-1] needs T >= 2) fire at every t >= 1.  Their weight rows are
+  // summed once, in ascending f, and added first at each of those steps.
+  const int periodic = a.periodic;
+  const bool every_step = periodic && T >= 2;
+  float cin_every = 0.f;
+  if (every_step) {
+    if (warp < rows) {
+      const int n = compact(s_lat + warp * F, s_list + warp * F, F, lane,
+                            row0 + warp < a.B, [](int L) { return L <= 1; });
+      if (lane == 0) s_cnt[warp] = n;
+    }
+    __syncthreads();
+    if (mine) {
+      const int n = s_cnt[r];
+      const uint16_t* lst = s_list + r * F;
+#pragma unroll 4
+      for (int k = 0; k < n; ++k)
+        cin_every += to_f32(w_in[(size_t)lst[k] * H + h]);
+    }
+    __syncthreads();
+  }
 
   // z_t lives in mask buffer (t + 1) & 1; z_{-1} = 0 in buffer 0.
   for (int t = 0; t <= T; ++t) {
@@ -188,31 +234,26 @@ __global__ void __launch_bounds__(1024)
     if (t > 0) {
       for (int rr = 0; rr < rows; ++rr) {
         if ((rows + rr) % nwarps != warp || row0 + rr >= a.B) continue;
-        readout_row<W>(a, s_wout, s_b, z_prev + rr * HW, HW, s_vr + rr * O,
-                       s_m + rr * O, lane);
+        readout_row<TRAIN, W>(a, s_wout, s_b, z_prev + rr * HW, HW,
+                              s_vr + rr * O, s_m + rr * O, s_ts + rr * O,
+                              t - 1, lane);
       }
     }
     if (t == T) break;
-    // Features firing at step t, ascending, one warp per row.
+    // Features firing at step t (but those of every step), ascending, one
+    // warp per row.
     if (warp < rows) {
-      int n = 0;
-      if (row0 + warp < a.B) {
-        const int16_t* lrow = s_lat + warp * F;
-        uint16_t* lst = s_list + warp * F;
-        for (int f0 = 0; f0 < F; f0 += 32) {
-          const int f = f0 + lane;
-          const bool fire = f < F && fires(lrow[f], t, T, a.periodic);
-          const unsigned bal = __ballot_sync(0xffffffffu, fire);
-          if (fire) lst[n + __popc(bal & ((1u << lane) - 1u))] = (uint16_t)f;
-          n += __popc(bal);
-        }
-      }
+      const int n = compact(
+          s_lat + warp * F, s_list + warp * F, F, lane, row0 + warp < a.B,
+          [t, T, periodic, every_step](int L) {
+            return fires(L, t, T, periodic) && !(every_step && L <= 1);
+          });
       if (lane == 0) s_cnt[warp] = n;
     }
     __syncthreads();
     bool z_new = false;
     if (mine) {
-      float cin = 0.f;
+      float cin = t >= 1 ? cin_every : 0.f;
       const int n = s_cnt[r];
       const uint16_t* lst = s_list + r * F;
 #pragma unroll 4
@@ -226,7 +267,16 @@ __global__ void __launch_bounds__(1024)
         ad = a.rho * ad + zp;
         thr = a.threshold + beta * ad;
       }
-      z_new = v - thr >= 0.f;
+      const float delta = v - thr;
+      z_new = delta >= 0.f;
+      if (TRAIN) {
+        // Rounded to the weights' type once, here; the backward recomputes
+        // z = (delta >= 0) from the stored value (the sign survives).
+        const size_t at = ((size_t)t * a.B + row0 + r) * H + h;
+        if (a.delta) from_f32(delta, static_cast<W*>(a.delta) + at);
+        if (ALIF && a.a_tr) from_f32(ad, static_cast<W*>(a.a_tr) + at);
+        if (z_new) n_spikes += 1.f;
+      }
     }
     // Each warp holds 32 consecutive units of one row: one mask word.
     const unsigned word = __ballot_sync(0xffffffffu, z_new);
@@ -238,29 +288,51 @@ __global__ void __launch_bounds__(1024)
     if ((rows + rr) % nwarps != warp || row0 + rr >= a.B) continue;
     for (int o = lane; o < O; o += 32)
       a.logits[(size_t)(row0 + rr) * O + o] = s_m[rr * O + o];
+    if (TRAIN && a.tstar) {
+      for (int o = lane; o < O; o += 32)
+        a.tstar[(size_t)(row0 + rr) * O + o] = s_ts[rr * O + o];
+    }
   }
+  if (TRAIN && a.counts && mine)
+    a.counts[(size_t)(row0 + r) * H + h] = n_spikes;
 }
 
-template <bool REC, bool ALIF, typename W>
+template <bool REC, bool ALIF, bool TRAIN, typename W>
 cudaError_t launch(const Args& a, int rows, int HP, size_t smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_head_fwd_kernel<REC, ALIF, W>,
+      fused_head_fwd_kernel<REC, ALIF, TRAIN, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 block(HP, rows);
   dim3 grid((a.B + rows - 1) / rows);
-  fused_head_fwd_kernel<REC, ALIF, W><<<grid, block, smem, stream>>>(a, rows);
+  fused_head_fwd_kernel<REC, ALIF, TRAIN, W>
+      <<<grid, block, smem, stream>>>(a, rows);
   return cudaGetLastError();
 }
 
-template <typename W>
+template <bool TRAIN, typename W>
 cudaError_t dispatch(const Args& a, int rec, int alif, int rows, int HP,
                      size_t smem, cudaStream_t s) {
-  if (rec && alif) return launch<true, true, W>(a, rows, HP, smem, s);
-  if (rec) return launch<true, false, W>(a, rows, HP, smem, s);
-  if (alif) return launch<false, true, W>(a, rows, HP, smem, s);
-  return launch<false, false, W>(a, rows, HP, smem, s);
+  if (rec && alif) return launch<true, true, TRAIN, W>(a, rows, HP, smem, s);
+  if (rec) return launch<true, false, TRAIN, W>(a, rows, HP, smem, s);
+  if (alif) return launch<false, true, TRAIN, W>(a, rows, HP, smem, s);
+  return launch<false, false, TRAIN, W>(a, rows, HP, smem, s);
+}
+
+template <bool TRAIN>
+int run(Args a, int alif, int bf16, int rows, int device, void* stream) {
+  if (a.B == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int HP = (a.H + 31) / 32 * 32;
+  const int rec = a.w_rec != nullptr;
+  const size_t smem =
+      layout(a.F, a.H, a.O, rows, HP, rec, bf16 ? 2 : 4).total;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = bf16 ? dispatch<TRAIN, __nv_bfloat16>(a, rec, alif, rows, HP, smem, s)
+             : dispatch<TRAIN, float>(a, rec, alif, rows, HP, smem, s);
+  return (int)err;
 }
 
 }  // namespace
@@ -298,18 +370,26 @@ int snn_fused_head_fwd(const int* lat, const void* w_in, const void* w_rec,
                        int O, int T, int periodic, int alif, int bf16,
                        float alpha, float rho, float threshold, float kappa,
                        int rows, int device, void* stream) {
-  if (B == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  Args a{lat, w_in, w_rec, beta, w_out, b_out, logits, B, F, H, O, T,
-         periodic, alpha, rho, threshold, kappa};
-  const int HP = (H + 31) / 32 * 32;
-  const int rec = w_rec != nullptr;
-  const size_t smem = layout(F, H, O, rows, HP, rec, bf16 ? 2 : 4).total;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = bf16 ? dispatch<__nv_bfloat16>(a, rec, alif, rows, HP, smem, s)
-             : dispatch<float>(a, rec, alif, rows, HP, smem, s);
-  return (int)err;
+  Args a{lat, w_in, w_rec, beta, w_out, b_out, logits, nullptr, nullptr,
+         nullptr, nullptr, B, F, H, O, T, periodic, alpha, rho, threshold,
+         kappa};
+  return run<false>(a, alif, bf16, rows, device, stream);
+}
+
+// The training forward: also writes delta, a_tr, tstar and counts, each
+// where its pointer is not null.
+int snn_fused_head_fwd_train(const int* lat, const void* w_in,
+                             const void* w_rec, const float* beta,
+                             const void* w_out, const float* b_out,
+                             float* logits, void* delta, void* a_tr,
+                             int* tstar, float* counts, int B, int F, int H,
+                             int O, int T, int periodic, int alif, int bf16,
+                             float alpha, float rho, float threshold,
+                             float kappa, int rows, int device,
+                             void* stream) {
+  Args a{lat, w_in, w_rec, beta, w_out, b_out, logits, delta, a_tr, tstar,
+         counts, B, F, H, O, T, periodic, alpha, rho, threshold, kappa};
+  return run<true>(a, alif, bf16, rows, device, stream);
 }
 
 const char* snn_cuda_error_string(int err) {

@@ -8,8 +8,9 @@ Two paths compute the logits:
 
 * the whole-network head (ops/fused.py): single-hidden-layer LIF/ALIF
   classifiers with the max-over-time readout and on-device encoding run
-  as one call -- the hand-written CUDA kernel on the card, its plain
-  PyTorch version on the CPU;
+  as one call -- the hand-written CUDA kernels on the card (inference;
+  training forward and reverse-time backward when a parameter requires a
+  gradient), their plain PyTorch versions on the CPU;
 * everything else: :func:`apply`, a per-layer time loop (the reference's
   layer-then-time order, snn.py:209-214), then
   :func:`prediction_logits`.  On the card a config that gates off the
@@ -38,8 +39,12 @@ from ..ops.cells import (
 from ..ops.encoding import encode_spikes, pixels_to_firing_periods
 from ..ops.fused import (
     KERNEL,
+    KERNEL_BWD,
+    KERNEL_TRAIN,
     fused_encode_ff_scan_head,
+    fused_encode_ff_scan_head_counts,
     fused_encode_rec_scan_head,
+    fused_encode_rec_scan_head_counts,
     fused_head_supported,
 )
 from ..ops.temporal import batchwise_temporal_filter, temporal_max
@@ -54,7 +59,9 @@ __all__ = [
     "prediction_logits",
     "forward_logits",
     "forward_logits_pixels",
+    "forward_logits_counts_pixels",
     "explain_dispatch",
+    "param_labels",
 ]
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -91,6 +98,12 @@ def _log_fused_fallback(kind: str, reason: str, _level=logging.INFO,
 def _to(params: Params, device: torch.device) -> Params:
     return {n: {k: v.to(device) for k, v in g.items()}
             for n, g in params.items()}
+
+
+def _needs_grad(params: Params) -> bool:
+    """A backward may follow: grad mode is on and a leaf asks for one."""
+    return torch.is_grad_enabled() and any(
+        v.requires_grad for g in params.values() for v in g.values())
 
 
 def init(cfg: SNNConfig, generator: torch.Generator,
@@ -145,13 +158,18 @@ def format_inputs(cfg: SNNConfig, inputs: torch.Tensor,
 
 def apply(cfg: SNNConfig, params: Params, inputs, *,
           return_hidden: bool = False,
-          initial_state: Optional[Tuple] = None, device="cuda"):
+          initial_state: Optional[Tuple] = None,
+          return_spike_counts: bool = False, device="cuda"):
     """Simulate ``cfg.int_time_steps`` steps, one layer at a time.
 
     Each layer computes its input currents for all steps in one matmul,
     then loops over time.  Returns ``(outputs_trace (B, T, O),
     hidden_states)``; ``hidden_states`` is ``{layer: tuple of (B, T,
-    width)}`` when ``return_hidden``, else None."""
+    width)}`` when ``return_hidden``, else None.  ``return_spike_counts``
+    appends ``{layer: (B, width) float32}``, the per-sample per-neuron
+    spike counts ``sum_t z_t`` of the LIF/ALIF layers (the reference's
+    ``isinstance(layer, LIFLayer)`` filter, snn.py:268: no Izhikevich, no
+    readout)."""
     dev = resolve_device(device)
     compute_dtype = _dtype(cfg.compute_dtype)
     matmul_dtype = _dtype(cfg.matmul_dtype_eff)
@@ -162,6 +180,7 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
     states = (initial_state if initial_state is not None
               else init_state(cfg, batch, compute_dtype, device=dev))
     hidden = {} if return_hidden else None
+    counts = {} if return_spike_counts else None
 
     def mm(a, w):
         """a @ w with matmul_dtype operands accumulating in compute_dtype
@@ -195,29 +214,34 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
                 for leaf in zip(*trace)
             )
         x_tm = torch.stack(outs)
-    return x_tm.transpose(0, 1).to(torch.float32), hidden
+        if counts is not None and type(lcfg) in (LIFConfig, ALIFConfig):
+            counts[name] = x_tm.to(torch.float32).sum(0)
+    trace = x_tm.transpose(0, 1).to(torch.float32)
+    if return_spike_counts:
+        return trace, hidden, counts
+    return trace, hidden
 
 
 def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
-                 return_hidden: bool = False, device="cuda"):
+                 return_hidden: bool = False,
+                 return_spike_counts: bool = False, device="cuda"):
     """Simulate from raw pixels ``(B, F)``, encoding on the device
     (``enc`` is a ``data.datasets.EncodeConfig``)."""
     dev = resolve_device(device)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
-    if not enc.as_timeseries:
-        return apply(cfg, params, pixels, return_hidden=return_hidden,
-                     device=dev)
-    spikes = encode_spikes(pixels, n_steps=enc.n_steps,
-                           use_periods=enc.use_periods, tau=enc.tau,
-                           thr=enc.thr, epsilon=enc.epsilon)
-    return apply(cfg, params, spikes, return_hidden=return_hidden,
-                 device=dev)
+    inputs = pixels if not enc.as_timeseries else encode_spikes(
+        pixels, n_steps=enc.n_steps, use_periods=enc.use_periods,
+        tau=enc.tau, thr=enc.thr, epsilon=enc.epsilon)
+    return apply(cfg, params, inputs, return_hidden=return_hidden,
+                 return_spike_counts=return_spike_counts, device=dev)
 
 
-def _head_fusible(cfg: SNNConfig, enc, device: torch.device) -> bool:
+def _head_fusible(cfg: SNNConfig, enc, device: torch.device,
+                  training: bool = False) -> bool:
     """Whole-network head available: one LIF/ALIF hidden layer, the
     max-over-time readout, on-device encoding at ``int_time_steps`` and
-    float32 compute.  On the card every gate a config hits is logged."""
+    float32 compute; with ``training`` the backward kernel must cover the
+    shape too.  On the card every gate a config hits is logged."""
     on_card = device.type == "cuda"
     if not cfg.use_kernels:
         return False
@@ -248,49 +272,47 @@ def _head_fusible(cfg: SNNConfig, enc, device: torch.device) -> bool:
         cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
         last_cfg.output_size, recurrent=first_cfg.use_recurrent_connection,
         itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
+        training=training, use_periods=enc.use_periods,
     )
     if not ok and on_card:
         _log_fused_fallback(
             "whole-network head", "shape exceeds the kernel's limits",
             n_steps=cfg.int_time_steps, n_features=cfg.input_size,
             hidden=first_cfg.output_size, n_out=last_cfg.output_size,
-            matmul_dtype=cfg.matmul_dtype_eff)
+            matmul_dtype=cfg.matmul_dtype_eff, training=training)
     return ok
 
 
 def _lif_alif_head_call(cfg, first_cfg, last_cfg, lparams0, latencies, w0,
-                        w_out, b_out, enc):
+                        w_out, b_out, enc, counts=False):
     """The LIF/ALIF head call: beta from params under ``learn_beta``, else
     ``cfg.beta``; LIF passes 0.  ``W_rec`` is eye-masked before the cast
-    to the matmul dtype."""
+    to the matmul dtype.  ``counts=True`` takes the ``_counts`` variants
+    and returns ``(logits, spike_counts (B, H))``."""
     matmul_dtype = _dtype(cfg.matmul_dtype_eff)
     alif = type(first_cfg) is ALIFConfig
     beta = ((lparams0["beta"] if first_cfg.learn_beta else first_cfg.beta)
             if alif else 0.0)
     rho = first_cfg.rho if alif else 0.0
     common = (cfg.int_time_steps, enc.use_periods, alif, first_cfg.alpha,
-              rho, first_cfg.threshold, last_cfg.kappa)
+              rho, first_cfg.threshold, first_cfg.gamma, last_cfg.kappa,
+              first_cfg.spike_func)
     w_rec_eff = masked_recurrent(first_cfg, lparams0)
     if w_rec_eff is not None:
         w_rec_eff = w_rec_eff.to(matmul_dtype).contiguous()
-        return fused_encode_rec_scan_head(latencies, w0, w_rec_eff, beta,
-                                          w_out, b_out, *common)
-    return fused_encode_ff_scan_head(latencies, w0, beta, w_out, b_out,
-                                     *common)
+        fn = (fused_encode_rec_scan_head_counts if counts
+              else fused_encode_rec_scan_head)
+        return fn(latencies, w0, w_rec_eff, beta, w_out, b_out, *common)
+    fn = (fused_encode_ff_scan_head_counts if counts
+          else fused_encode_ff_scan_head)
+    return fn(latencies, w0, beta, w_out, b_out, *common)
 
 
-def forward_logits_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
-                          device="cuda") -> torch.Tensor:
-    """Raw pixels ``(B, F)`` -> class logits ``(B, O)``, encoding inside.
-
-    Head-fusible configs run the whole network as one head call; the rest
-    compose :func:`apply_pixels` with :func:`prediction_logits`."""
-    dev = resolve_device(device)
-    params = _to(params, dev)
-    pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
-    if not _head_fusible(cfg, enc, dev):
-        trace, _ = apply_pixels(cfg, params, pixels, enc, device=dev)
-        return prediction_logits(cfg, trace)
+def _head_forward(cfg: SNNConfig, params: Params, pixels, enc,
+                  counts: bool):
+    """The head-fusible branch of the two ``forward_logits_*_pixels``:
+    latencies on the device, weights cast to the matmul dtype (the casts
+    carry the gradient back to the float32 leaves)."""
     (first_name, first_cfg), (last_name, last_cfg) = cfg.layer_configs
     latencies = pixels_to_firing_periods(
         pixels, t_max=float(cfg.int_time_steps), tau=enc.tau, thr=enc.thr,
@@ -301,8 +323,47 @@ def forward_logits_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
     w0 = lparams0["w_in"].to(matmul_dtype).contiguous()
     w_out = params[last_name]["w_in"].to(matmul_dtype).contiguous()
     b_out = params[last_name]["b"].to(torch.float32).contiguous()
-    return _lif_alif_head_call(cfg, first_cfg, last_cfg, lparams0, latencies,
-                               w0, w_out, b_out, enc)
+    out = _lif_alif_head_call(cfg, first_cfg, last_cfg, lparams0, latencies,
+                              w0, w_out, b_out, enc, counts=counts)
+    if counts:
+        return out[0], {first_name: out[1]}
+    return out
+
+
+def forward_logits_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
+                          device="cuda") -> torch.Tensor:
+    """Raw pixels ``(B, F)`` -> class logits ``(B, O)``, encoding inside;
+    differentiable with respect to ``params`` on both paths.
+
+    Head-fusible configs run the whole network as one head call; the rest
+    compose :func:`apply_pixels` with :func:`prediction_logits`."""
+    dev = resolve_device(device)
+    params = _to(params, dev)
+    pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
+    if not _head_fusible(cfg, enc, dev, _needs_grad(params)):
+        trace, _ = apply_pixels(cfg, params, pixels, enc, device=dev)
+        return prediction_logits(cfg, trace)
+    return _head_forward(cfg, params, pixels, enc, counts=False)
+
+
+def forward_logits_counts_pixels(cfg: SNNConfig, params: Params, pixels, enc,
+                                 *, device="cuda"):
+    """Raw pixels ``(B, F)`` -> ``(logits, spike_counts)``, encoding
+    inside.
+
+    ``spike_counts`` is ``{layer: (B, width) float32}`` for the LIF/ALIF
+    layers: all the spike regularizers (train/losses.py) need, without
+    the ``(B, T, H)`` hidden traces.  Head-fusible configs keep the
+    whole-network head (its ``_counts`` variants); the rest run
+    :func:`apply_pixels` with ``return_spike_counts=True``."""
+    dev = resolve_device(device)
+    params = _to(params, dev)
+    pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
+    if _head_fusible(cfg, enc, dev, _needs_grad(params)):
+        return _head_forward(cfg, params, pixels, enc, counts=True)
+    trace, _, counts = apply_pixels(cfg, params, pixels, enc,
+                                    return_spike_counts=True, device=dev)
+    return prediction_logits(cfg, trace), counts
 
 
 def prediction_logits(cfg: SNNConfig, outputs_trace: torch.Tensor):
@@ -321,23 +382,27 @@ def forward_logits(cfg: SNNConfig, params: Params, inputs, *,
     return prediction_logits(cfg, trace)
 
 
-def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda") -> list:
+def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
+                     training: bool = False) -> list:
     """Which implementation :func:`forward_logits_pixels` (with ``enc``)
     or :func:`apply` runs for each layer, and why: a list of ``{"layer",
     "path", "reason"}`` dicts.  Paths: ``cuda:fused_head_fwd`` (the
-    kernel), ``torch:fused_head_reference`` (its plain version, on the
-    CPU) and ``torch:loop``.  It fires the same fallback logs the real
-    dispatch would."""
+    inference kernel), ``cuda:fused_head_fwd_train+fused_head_bwd`` (the
+    pair a ``training`` step launches), ``torch:fused_head_reference``
+    (their plain versions, on the CPU) and ``torch:loop``.  It fires the
+    same fallback logs the real dispatch would."""
     dev = resolve_device(device)
     names = tuple(name for name, _ in cfg.layer_configs)
-    if enc is not None and _head_fusible(cfg, enc, dev):
+    if enc is not None and _head_fusible(cfg, enc, dev, training):
         on_card = dev.type == "cuda"
+        kernels = f"{KERNEL_TRAIN}+{KERNEL_BWD}" if training else KERNEL
         return [{
             "layer": names,
-            "path": f"cuda:{KERNEL}" if on_card
+            "path": f"cuda:{kernels}" if on_card
             else "torch:fused_head_reference",
             "reason": "single-hidden-layer classifier with max-over-time "
                       "readout: encode + scan + readout + max in one call"
+                      + (", reverse-time BPTT in another" if training else "")
                       + ("" if on_card else " (plain version on the CPU)"),
         }]
     if not cfg.use_kernels:
@@ -348,3 +413,16 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda") -> list:
         reason = "no CUDA kernel of this port covers this config"
     return [{"layer": name, "path": "torch:loop", "reason": reason}
             for name in names]
+
+
+def param_labels(cfg: SNNConfig, params: Params) -> Dict[str, Dict[str, str]]:
+    """Label every leaf for the optimizer: matmul weights and biases are
+    ``"weight"``, a learnable ALIF beta is ``"beta"``.  Beta's gradient is
+    dead (it enters only through the threshold), and the reference's Adam
+    skips parameters without a gradient, so beta stays out of both the
+    update and the L2 decay."""
+    return {
+        name: {leaf: ("beta" if leaf == "beta" else "weight")
+               for leaf in group}
+        for name, group in params.items()
+    }

@@ -1,5 +1,6 @@
 """Semantic ops (surrogates, cells, encoding, temporal reductions) and the
-whole-network head kernel with its plain PyTorch version."""
+whole-network head kernels (forward, training forward, backward) with
+their plain PyTorch versions."""
 from .cells import LayerType  # noqa: F401
 from .encoding import ToSpikes, encode_spikes  # noqa: F401
 from .surrogate import SpikeFuncType, heaviside_phi, heaviside_sigmoid  # noqa: F401

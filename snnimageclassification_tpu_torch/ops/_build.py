@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with :mod:`ctypes`; the
 wrappers pass ``tensor.data_ptr()`` and PyTorch's current stream.  A build
 happens at first use, never at import, into ``.torch_ext_build/`` beside
-the package (listed in ``.gitignore``), keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads.
+the package (listed in ``.gitignore``), keyed by a hash of the source, the
+headers in ``csrc/`` and the flags, so an edited source rebuilds and an
+unchanged one loads.
 A failed build raises :class:`KernelBuildError`; nothing falls back.
 """
 from __future__ import annotations
@@ -28,6 +29,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "-I", str(_CSRC),
 )
 
 _lock = threading.Lock()
@@ -59,8 +61,9 @@ def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless an identical build exists; returns
     the shared library's path."""
     src = _CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():

@@ -39,8 +39,8 @@ VARIANTS = {  # name -> (statement in fused_head.cu, its replacement)
         ": cin;",
         "const float cur = cin;"),
     "no_compaction": (
-        "const bool fire = f < F && fires(lrow[f], t, T, a.periodic);",
-        "const bool fire = f < F && t == 0 && lrow[f] == 0;"),
+        "return fires(L, t, T, periodic) && !(every_step && L <= 1);",
+        "return t == 0 && L == 0;"),
 }
 
 
@@ -88,7 +88,8 @@ def main() -> None:
         w_rec=masked_recurrent(lcfg, p0).contiguous(), beta=p0["beta"],
         w_out=pr["w_in"].contiguous(), b_out=pr["b"].contiguous(),
         n_steps=100, use_periods=False, alif=True, alpha=lcfg.alpha,
-        rho=lcfg.rho, threshold=lcfg.threshold, kappa=rcfg.kappa)
+        rho=lcfg.rho, threshold=lcfg.threshold, gamma=lcfg.gamma,
+        kappa=rcfg.kappa)
     source = (_build._CSRC / "fused_head.cu").read_text()
     libs = {"kernel": _build.load("fused_head")}
     for name, (old, new) in VARIANTS.items():

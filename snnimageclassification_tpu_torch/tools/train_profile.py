@@ -1,0 +1,88 @@
+"""Where a training step's time goes: profile ``Trainer.train_step`` on the
+flagship (784 -> ALIF-128 recurrent, learn_beta, T=100) at batch 8192 on
+the synthetic prototype task ``chip_smoke.py`` trains.
+
+Run on a CUDA card from the repository root::
+
+    python3 -m snnimageclassification_tpu_torch.tools.train_profile \
+        [--matmul-dtype float32|bfloat16] [--periodic] [--steps 10]
+
+After 3 warm-up steps it traces ``--steps`` steps with ``torch.profiler``
+(CPU and CUDA activities) and prints one JSON line: the step's wall time
+(host clock around the traced steps, ending in a synchronize, so it
+includes the profiler's own cost), the device time per step of every
+device kernel by name (the four ``__global__`` functions of
+``fused_head_bwd`` appear apart), the device's busy and idle share of
+the window, and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .. import EncodeConfig, LayerType, SNNConfig
+from ..train import Trainer
+
+BATCH = 8192
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--matmul-dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--periodic", action="store_true")
+    ap.add_argument("--steps", type=int, default=10)
+    ns = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("train_profile needs a CUDA card")
+    cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,
+                    hidden_layer_type=LayerType.ALIF, learn_beta=True,
+                    int_time_steps=100, matmul_dtype=ns.matmul_dtype)
+    enc = EncodeConfig(n_steps=100, use_periods=ns.periodic)
+    trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+    rng = np.random.default_rng(3)
+    protos = rng.random((10, 784), dtype=np.float32)
+    y = rng.integers(0, 10, BATCH)
+    x = np.clip(protos[y] + 0.15 * rng.standard_normal(
+        (BATCH, 784), dtype=np.float32), 0.0, 1.0)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    for _ in range(3):
+        trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ns.steps):
+            trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
+    busy_ms = sum(kernels.values()) / 1e3 / ns.steps
+    step_ms = wall / ns.steps * 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({
+        "matmul_dtype": ns.matmul_dtype, "periodic": ns.periodic,
+        "steps": ns.steps, "step_ms_wall_traced": step_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+        "kernel_ms_per_step": {k[:70]: v / 1e3 / ns.steps for k, v in top},
+        "card": card,
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -3,9 +3,10 @@ Pallas kernel run in interpret mode, on identical numpy inputs, for the
 JAX suite's head cases (T=24 spans several time blocks) in float32 and
 bfloat16 weights.  Tolerance atol=rtol=1e-5: the two sum in different
 orders and the JAX kernel's readout adds the bias before the kappa sum.
+The gradients are held in tests/test_torch_fused_bwd.py.
 
-The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py
-holds it against the plain version there.
+The CUDA kernels run only on the card: tests/test_torch_cuda.py holds
+them against the plain versions there.
 """
 import numpy as np
 import pytest
@@ -30,7 +31,7 @@ B, F, H, O = 5, 30, 20, 10
 KAPPA = ReadoutConfig(input_size=H, output_size=O).kappa
 
 # tests/test_pallas_fused.py:HEAD_CASES (the surrogate only shapes the
-# backward, which this slice does not port).
+# backward).
 HEAD_CASES = [
     ("alif-rec-ttfs", True, True, False, SpikeFuncType.FastSigmoid, 12),
     ("alif-ff-periodic", True, False, True, SpikeFuncType.FastSigmoid, 12),
@@ -78,7 +79,7 @@ def test_reference_matches_pallas_head(name, alif, rec, use_periods,
     jcommon = (n_steps, use_periods, alif, cfg.alpha, rho, cfg.threshold,
                cfg.gamma, KAPPA, spike_func, True)
     tcommon = (n_steps, use_periods, alif, cfg.alpha, rho, cfg.threshold,
-               KAPPA)
+               cfg.gamma, KAPPA, spike_func.name)
     if rec:
         want = jfused.fused_encode_rec_scan_head(
             jnp.asarray(lat), jw["w_in"], jw["w_rec"], beta, jw["w_out"],
@@ -102,7 +103,7 @@ def test_reference_matches_pallas_head(name, alif, rec, use_periods,
 def test_wrapper_on_cpu_is_the_reference(rec):
     lat, b_out, _, tw = _inputs(3, 12, rec, "float32")
     cfg, beta, rho = _scalars(True, SpikeFuncType.FastSigmoid)
-    args = (12, False, True, cfg.alpha, rho, cfg.threshold, KAPPA)
+    args = (12, False, True, cfg.alpha, rho, cfg.threshold, cfg.gamma, KAPPA)
     lat_t, b_t = torch.from_numpy(lat), torch.from_numpy(b_out)
     tfused.reset_launch_counts()
     if rec:
@@ -117,7 +118,7 @@ def test_wrapper_on_cpu_is_the_reference(rec):
         want = tfused.fused_encode_ff_scan_head_reference(
             lat_t, tw["w_in"], beta, tw["w_out"], b_t, *args)
     assert torch.equal(got, want)
-    assert tfused.launch_counts()[tfused.KERNEL] == 0  # no kernel on CPU
+    assert not any(tfused.launch_counts().values())  # no kernel on CPU
 
 
 def test_readout_max_without_hidden_spikes():
@@ -128,7 +129,7 @@ def test_readout_max_without_hidden_spikes():
     w_out = torch.ones((3, 2))
     b = torch.tensor([0.5, -0.5])
     got = tfused.fused_encode_ff_scan_head_reference(
-        lat, w_in, 0.0, w_out, b, 6, False, False, 0.9, 0.0, 1.0, 0.9)
+        lat, w_in, 0.0, w_out, b, 6, False, False, 0.9, 0.0, 1.0, 1.0, 0.9)
     ramp_pos = sum(0.5 * 0.9 ** k for k in range(6))
     np.testing.assert_allclose(got.numpy(), [[ramp_pos, -0.5]] * 2,
                                rtol=1e-6)
@@ -138,17 +139,21 @@ def test_supported_gate():
     assert tfused.fused_head_supported(100, 784, 128, 10, device="cpu")
     assert not tfused.fused_head_supported(0, 784, 128, 10, device="cpu")
     assert not tfused.fused_head_supported(100, 784, 128, 0, device="cpu")
+    assert tfused.fused_head_supported(100, 784, 128, 10, device="cpu",
+                                       training=True)
 
 
 def test_cuda_tensor_never_takes_the_reference(monkeypatch):
     """A non-CPU tensor goes to the kernel or raises; here the device is
     unsupported, so it raises instead of running the plain version."""
     called = []
-    monkeypatch.setattr(tfused, "_head_reference",
-                        lambda *a: called.append(a))
+    for name in ("_head_reference", "_head_train_reference",
+                 "_head_bwd_reference"):
+        monkeypatch.setattr(tfused, name, lambda *a: called.append(a))
     lat = torch.zeros((1, 4), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no implementation"):
-        tfused.fused_encode_ff_scan_head(
-            lat, torch.zeros((4, 3)), 0.0, torch.zeros((3, 2)),
-            torch.zeros(2), 6, False, False, 0.9, 0.0, 1.0, 0.9)
+    for w_in in (torch.zeros((4, 3)), torch.zeros((4, 3), requires_grad=True)):
+        with pytest.raises(ValueError, match="no implementation"):
+            tfused.fused_encode_ff_scan_head(
+                lat, w_in, 0.0, torch.zeros((3, 2)), torch.zeros(2), 6,
+                False, False, 0.9, 0.0, 1.0, 1.0, 0.9)
     assert not called

@@ -28,7 +28,11 @@ def _imports(path: pathlib.Path):
 
 def test_port_files_found():
     assert len(FILES) > 10
-    assert (PORT / "csrc" / "fused_head.cu").exists()
+    names = {str(p.relative_to(PORT)) for p in FILES[:-1]}
+    assert {"train/__init__.py", "train/losses.py", "train/trainer.py",
+            "ops/fused.py", "models/convert.py"} <= names
+    for src in ("fused_head.cu", "fused_head_bwd.cu", "head_common.cuh"):
+        assert (PORT / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
