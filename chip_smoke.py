@@ -32,7 +32,25 @@ Phases (any failure exits non-zero before the final line):
    backward kernel once and the inference kernel never, and the first
    step's gradients must agree with the plain backward.  Then 10 steps
    with periodic encoding for the times, and 3 with a count regularizer
-   for the launches.
+   for the launches;
+6. deep serve -- 784 -> 128 -> 128 -> 96 -> 10 (ALIF, recurrent,
+   learn_beta, T=100) served as in 4: results bitwise equal to a direct
+   forward, one ``fused_layer0_fwd`` and two ``fused_mid_fwd`` launches a
+   batch; then each of the three kernels alone on a 4096-row batch against
+   its plain version, timed, with its bound;
+7. deep train -- the same network through ``Trainer`` at batch 8192 as in
+   5: 3 warm-up and 20 timed TTFS steps (finite falling loss, every beta
+   bitwise, every trained leaf moves, three forward and three backward
+   launches a step), each of the six kernels alone on a training batch
+   against its plain version (the backward ones on the forward kernel's
+   residuals), 5 periodic steps and 3 with a count regularizer for times
+   and launches.
+
+Phase 3 also holds the deep-network kernels (``fused_layer0_fwd/bwd``,
+``fused_mid_fwd/bwd``) against their plain versions: LIF/ALIF x ff/rec x
+FastSigmoid/Phi x {float32, bfloat16} at small shapes with T = 24 (TTFS and
+periodic) and T = 100, and ALIF recurrent at the deep network's full width
+with B = 8192 (``phase_deep_kernels``).
 
 Then one JSON line describing every kernel (launches from its phase's
 main run, times and bound on that run's inputs), the card's name and
@@ -53,7 +71,7 @@ import torch
 
 import snnimageclassification_tpu_torch as pt
 from snnimageclassification_tpu_torch.models import snn as model_lib
-from snnimageclassification_tpu_torch.ops import _build, fused
+from snnimageclassification_tpu_torch.ops import _build, fused, fused_mid
 from snnimageclassification_tpu_torch.ops.cells import (
     ALIFConfig,
     LIFConfig,
@@ -111,7 +129,8 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # Phase 2: build every kernel source in parallel
 # ---------------------------------------------------------------------------
-SOURCES = ("fused_head", "fused_head_bwd")
+SOURCES = ("fused_head", "fused_head_bwd", "fused_layer0_bwd", "fused_mid",
+           "fused_mid_bwd")
 
 
 def phase_build() -> None:
@@ -355,6 +374,239 @@ def phase_train_kernels() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the deep-network kernels against their plain versions
+# ---------------------------------------------------------------------------
+FS = SpikeFuncType.FastSigmoid
+DEEP_CASES = [  # name, alif, recurrent, surrogate
+    (f"{'alif' if alif else 'lif'}-{'rec' if rec else 'ff'}-"
+     f"{'fs' if spike == FS else 'phi'}", alif, rec, spike)
+    for alif in (True, False) for rec in (True, False)
+    for spike in (FS, PHI)
+]
+
+
+def rand_w(rng, shape, std, wdtype=torch.float32):
+    return torch.from_numpy(
+        (std * rng.standard_normal(shape)).astype(np.float32)).cuda().to(wdtype)
+
+
+def deep_layer(rng, n_in, n, rec, std_in, std_rec, wdtype):
+    """(w_in, masked w_rec | None) of one hidden layer."""
+    w_rec = ((rand_w(rng, (n, n), std_rec)
+              * (1 - torch.eye(n, device="cuda"))).to(wdtype) if rec else None)
+    return rand_w(rng, (n_in, n), std_in, wdtype), w_rec
+
+
+def rows_equal(a, b):
+    """Share of batch rows of two (T, B, H) traces that are equal
+    everywhere."""
+    return float((a == b).all(dim=2).all(dim=0).float().mean())
+
+
+def trace_close(label, got, want, f32):
+    """Residual traces: 1e-5 (float32: another summation order) or 2**-7
+    relative (bfloat16: one rounding of the stored value)."""
+    tol = 1e-5 if f32 else 2.0 ** -7
+    if (got is None) != (want is None):
+        fail(f"{label}: residual set differs")
+    if got is not None and not torch.allclose(got.float(), want.float(),
+                                              atol=tol, rtol=tol):
+        fail(f"{label}: residuals differ by "
+             f"{float((got.float() - want.float()).abs().max()):.3g}")
+
+
+def check_grads(label, fn, plain_fn, bar):
+    """A backward kernel against its plain version on the same residuals
+    and cotangents, and twice for equal bits; returns the largest error of
+    max|g|."""
+    got, again, want = fn(), fn(), plain_fn()
+    torch.cuda.synchronize()
+    for g, g2 in zip(got, again):
+        if g is not None and not torch.equal(g, g2):
+            fail(f"{label}: the backward is not reproducible bit for bit")
+        if g is not None and not bool(torch.isfinite(g.float()).all()):
+            fail(f"{label}: non-finite gradient")
+    err = grad_error(got, want)
+    if err > bar:
+        fail(f"{label}: gradient error {err:.3g} of max|g| above {bar:.3g}")
+    return err
+
+
+def layer_scalars(alif):
+    cfg = (ALIFConfig if alif else LIFConfig)(input_size=1, output_size=1)
+    return cfg.alpha, (cfg.rho if alif else 0.0), cfg.threshold, cfg.gamma
+
+
+def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
+                     wdtype, flagship, bar_small):
+    """Layer 0 -> mid layers -> mid head at one shape: every forward kernel
+    against its plain version fed the same input (the kernel's own trace
+    from the layer before, so no spike flip of an earlier layer stands
+    between them), and every backward kernel against its plain version on
+    the forward kernel's residuals.  Returns the lowest share of rows with
+    equal spikes, the worst logit and gradient error."""
+    f32 = wdtype == torch.float32
+    alpha, rho, thr, gamma = layer_scalars(alif)
+    kappa = ReadoutConfig(input_size=1, output_size=1).kappa
+    beta = 1.6 if alif else 0.0
+    store_a = alif and spike == PHI
+    res_is_v = fused._residual_is_v(alif, spike)
+    s_in, s_rec = (thr, thr) if flagship else (0.5, 0.3)
+    pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+    w0, wr0 = deep_layer(rng, F, widths[0], rec, s_in, s_rec, wdtype)
+    sc0 = (T, per, alif, alpha, rho, thr)
+    worst_rows, worst_grad = 1.0, 0.0
+    gbar = 2.0 ** -7 if not f32 else (1e-4 if flagship else bar_small)
+
+    # Layer 0.
+    z, res, a_tr = fused._layer0_cuda(lat, w0, wr0, beta, *sc0, True,
+                                      store_a, res_is_v)
+    z_inf = fused._layer0_cuda(lat, w0, wr0, beta, *sc0, False, False,
+                               False)[0]
+    zp, resp, ap = fused._layer0_reference(lat, w0, wr0, beta, *sc0, True,
+                                           store_a, res_is_v)
+    if not torch.equal(z, z_inf):
+        fail(f"{label}: layer-0 inference and training spikes differ")
+    w_out0 = rand_w(rng, (widths[0], O), 1.0, wdtype)
+    b0 = rand_w(rng, (O,), 0.1)
+    delta_head = fused._head_train_cuda(
+        lat, w0, wr0, beta, w_out0, b0, *sc0, kappa, True, False, False)[1]
+    if not torch.equal(z, (delta_head.float() >= 0).to(wdtype)):
+        fail(f"{label}: layer-0 spikes differ from the head kernel's")
+    share = rows_equal(z, zp)
+    worst_rows = min(worst_rows, share)
+    if not flagship:
+        if share < 1.0:
+            fail(f"{label}: layer-0 spikes differ from the plain version's")
+        trace_close(f"{label} layer 0", res, resp, f32)
+        trace_close(f"{label} layer 0 a", a_tr, ap, f32)
+    g_z = rand_w(rng, tuple(z.shape), 1.0 / B, wdtype)
+    bw = (lat, w0, wr0, beta, T, per, alpha, thr, gamma, spike)
+    worst_grad = max(worst_grad, check_grads(
+        f"{label} layer-0 backward",
+        lambda: fused._layer0_bwd_cuda(g_z, z, res, a_tr, res_is_v, *bw),
+        lambda: fused._layer0_bwd_reference(g_z, z, res, a_tr, res_is_v,
+                                            *bw), gbar))
+    del res, a_tr, zp, resp, ap, delta_head, z_inf, g_z
+
+    # Mid layers, then the mid head, each fed the kernel's trace.
+    z_in = z
+    for n_in, n in zip(widths[:-2], widths[1:-1]):
+        w1, wr1 = deep_layer(rng, n_in, n, rec, s_in, s_rec, wdtype)
+        sc = (T, alif, alpha, rho, thr, 0.0)
+        out = fused_mid._mid_cuda(z_in, w1, wr1, beta, None, None, *sc, True,
+                                  store_a, False, res_is_v)
+        inf = fused_mid._mid_cuda(z_in, w1, wr1, beta, None, None, *sc,
+                                  False, False, False, False)
+        ref = fused_mid._mid_reference(z_in, w1, wr1, beta, None, None, *sc,
+                                       True, store_a, False, res_is_v)
+        if not torch.equal(out[1], inf[1]):
+            fail(f"{label}: mid inference and training spikes differ")
+        share = rows_equal(out[1], ref[1])
+        worst_rows = min(worst_rows, share)
+        if not flagship:
+            if share < 1.0:
+                fail(f"{label}: mid spikes differ from the plain version's")
+            trace_close(f"{label} mid", out[2], ref[2], f32)
+            trace_close(f"{label} mid a", out[3], ref[3], f32)
+        g_z = rand_w(rng, tuple(out[1].shape), 1.0 / B, wdtype)
+        bw = (res_is_v, z_in, w1, wr1, beta, None, T, alpha, thr, gamma, 0.0,
+              spike)
+        worst_grad = max(worst_grad, check_grads(
+            f"{label} mid backward",
+            lambda: fused_mid._mid_bwd_cuda(None, None, None, g_z, out[1],
+                                            out[2], out[3], *bw),
+            lambda: fused_mid._mid_bwd_reference(None, None, None, g_z,
+                                                 out[1], out[2], out[3],
+                                                 *bw), gbar))
+        z_in = out[1]
+        del out, inf, ref, g_z
+
+    n_in, n = widths[-2], widths[-1]
+    wh, wrh = deep_layer(rng, n_in, n, rec, s_in, s_rec, wdtype)
+    w_out = rand_w(rng, (n, O), 1.0, wdtype)
+    b_out = rand_w(rng, (O,), 0.1)
+    sc = (T, alif, alpha, rho, thr, kappa)
+    out = fused_mid._mid_cuda(z_in, wh, wrh, beta, w_out, b_out, *sc, True,
+                              store_a, True, False)
+    inf = fused_mid._mid_cuda(z_in, wh, wrh, beta, w_out, b_out, *sc, False,
+                              False, False, False)
+    ref = fused_mid._mid_reference(z_in, wh, wrh, beta, w_out, b_out, *sc,
+                                   True, store_a, True, False)
+    torch.cuda.synchronize()
+    if not torch.equal(out[0], inf[0]):
+        fail(f"{label}: mid-head inference and training logits differ")
+    agree, close, err, scale = compare_flagship(out[0], ref[0])
+    if flagship:
+        if agree < 0.995 or close < 0.99:
+            fail(f"{label}: mid-head agreement below the bar "
+                 f"({agree:.4f}, {close:.4f})")
+        same = (out[0] - ref[0]).abs().amax(1) <= 1e-4 * scale
+        if not torch.equal(out[4][same], ref[4][same]):
+            fail(f"{label}: mid-head tstar differs on rows whose logits "
+                 "agree")
+    else:
+        if not torch.allclose(out[0], ref[0], atol=1e-5, rtol=1e-5):
+            fail(f"{label}: mid-head logits differ by {err:.3g}")
+        if not (torch.equal(out[4], ref[4]) and torch.equal(out[5], ref[5])):
+            fail(f"{label}: mid-head tstar or counts differ")
+        trace_close(f"{label} mid head", out[2], ref[2], f32)
+        trace_close(f"{label} mid head a", out[3], ref[3], f32)
+    g_logits = rand_w(rng, (B, O), 1.0 / B)
+    g_counts = rand_w(rng, (B, n), 1e-3 / B)
+    bw = (False, z_in, wh, wrh, beta, w_out, T, alpha, thr, gamma, kappa,
+          spike)
+    worst_grad = max(worst_grad, check_grads(
+        f"{label} mid-head backward",
+        lambda: fused_mid._mid_bwd_cuda(g_logits, g_counts, out[4], None,
+                                        None, out[2], out[3], *bw),
+        lambda: fused_mid._mid_bwd_reference(g_logits, g_counts, out[4],
+                                             None, None, out[2], out[3],
+                                             *bw), gbar))
+    return worst_rows, agree, close, err, worst_grad
+
+
+DEEP_WIDTHS = (128, 128, 96)
+
+
+def phase_deep_kernels() -> None:
+    """``fused_layer0_fwd/bwd`` and ``fused_mid_fwd/bwd`` against their
+    plain versions.  Small shapes (T = 24 and 100): spikes, ``tstar`` and
+    counts equal, logits to 1e-5, residuals to 1e-5 (float32) or 2**-7
+    (bfloat16), gradients to 2e-6 of max|g| (float32; T = 100 sums four
+    times the terms: 5e-6) or 2**-7 (bfloat16).  Full width
+    (784-128-128-96-10, B = 8192, T = 100): per layer the share of rows with
+    equal spikes is printed, the mid head holds the head kernel's row bars,
+    gradients 1e-4 / 2**-7."""
+    rng = np.random.default_rng(4)
+    for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for name, alif, rec, spike in DEEP_CASES:
+            for T, per in ((24, False), (24, True), (100, False)):
+                label = (f"deep small {name} {wname} T={T} "
+                         f"{'periodic' if per else 'ttfs'}")
+                rows, _, _, err, gerr = check_deep_stack(
+                    label, rng, 37, 30, (20, 24, 18), 10, T, alif, rec,
+                    spike, per, wdtype, False, 2e-6 if T < 100 else 5e-6)
+                log(f"[deep-kernels] {label}: spikes equal, logits err="
+                    f"{err:.3g}, grad_err={gerr:.3g} ok")
+        for per in (False, True):
+            label = (f"deep full alif-rec-fs {wname} "
+                     f"{'periodic' if per else 'ttfs'}")
+            rows, agree, close, err, gerr = check_deep_stack(
+                label, rng, TRAIN_B, 784, DEEP_WIDTHS, 10, 100, True, True,
+                FS, per, wdtype, True, 0.0)
+            log(f"[deep-kernels] {label} B={TRAIN_B}: lowest share of rows "
+                f"with equal spikes={rows:.5f}; mid head argmax_agree="
+                f"{agree:.5f} rows_within_1e-4max={close:.5f} max_abs_err="
+                f"{err:.3g}; grad_err={gerr:.3g} of max|g|, reproducible")
+            if rows < 0.995:
+                fail(f"{label}: spikes equal on {rows:.5f} of rows only")
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the main path through InferenceServer
 # ---------------------------------------------------------------------------
 N_THREADS, PER_THREAD, ROWS = 4, 4, 512
@@ -413,15 +665,12 @@ def flagship_head_args(cfg, params, lat, use_periods=False):
         spike_func=lcfg.spike_func)
 
 
-def phase_serve(matmul_dtype: str) -> dict:
-    tag = "f32" if matmul_dtype == "float32" else "bf16"
-    cfg = flagship_cfg(matmul_dtype)
-    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
-                            device="cuda")
-    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
-    path = model_lib.explain_dispatch(cfg, enc, device="cuda")[0]["path"]
-    if path != f"cuda:{fused.KERNEL}":
-        fail(f"serve {tag}: dispatch is {path}, not the head kernel")
+def serve_requests(label, cfg, params, enc, want_launches):
+    """Serve 16 requests of 512 uint8 rows from 4 threads through
+    ``InferenceServer`` at batch 4096; every result must equal a direct
+    forward on the card bitwise (same kernels, same per-row arithmetic),
+    and each kernel of ``want_launches`` must have been launched that many
+    times a batch, no other kernel at all.  Returns (requests, launches)."""
     rng = np.random.default_rng(1)
     reqs = [rng.integers(0, 256, size=(ROWS, 784), dtype=np.uint8)
             for _ in range(N_THREADS * PER_THREAD)]
@@ -446,34 +695,51 @@ def phase_serve(matmul_dtype: str) -> dict:
         for t in threads:
             t.join(timeout=300)
         wall = time.perf_counter() - t0
-        launches = fused.launch_counts()[fused.KERNEL]
+        launches = fused.launch_counts()
         if any(t.is_alive() for t in threads):
-            fail(f"serve {tag}: requests did not finish")
+            fail(f"{label}: requests did not finish")
         snap = srv.stats.snapshot()
     batches = snap["batches"] - warm_batches
-    log(f"[serve] {tag} stats={json.dumps(snap)}")
-    log(f"[serve] {tag} served {len(reqs) * ROWS} rows in {wall:.4f} s = "
+    log(f"[{label}] stats={json.dumps(snap)}")
+    log(f"[{label}] served {len(reqs) * ROWS} rows in {wall:.4f} s = "
         f"{len(reqs) * ROWS / wall:.1f} img/s over {batches} batches; "
-        f"{fused.KERNEL} launches={launches} [{card_line()}]")
-    if launches < 1:
-        fail(f"serve {tag}: the head kernel was never launched")
-    if launches != batches:
-        fail(f"serve {tag}: {launches} launches for {batches} batches")
-
-    # Every result against a direct forward on the card: same kernel, same
-    # per-row arithmetic, so bitwise.
+        f"launches={json.dumps(launched(launches))} [{card_line()}]")
+    if batches < 1:
+        fail(f"{label}: no batch was served")
+    want = {k: n * batches for k, n in want_launches.items()}
+    if launched(launches) != want:
+        fail(f"{label}: launches {launched(launches)} for {batches} "
+             f"batches, expected {want}")
     for req, got in zip(reqs, results):
         x = torch.from_numpy(req).cuda().to(torch.float32) / 255.0
-        want = model_lib.forward_logits_pixels(cfg, params, x, enc,
-                                               device="cuda")
-        want = want.cpu().numpy()
+        want_l = model_lib.forward_logits_pixels(cfg, params, x, enc,
+                                                 device="cuda").cpu().numpy()
         if got.shape != (ROWS, 10) or not np.isfinite(got).all():
-            fail(f"serve {tag}: bad result {got.shape}")
-        if not np.array_equal(got, want):
-            fail(f"serve {tag}: result differs from the direct forward by "
-                 f"{np.abs(got - want).max():.3g}")
-    log(f"[serve] {tag}: {len(reqs)} results equal the direct forward "
-        "bitwise")
+            fail(f"{label}: bad result {got.shape}")
+        if not np.array_equal(got, want_l):
+            fail(f"{label}: result differs from the direct forward by "
+                 f"{np.abs(got - want_l).max():.3g}")
+    log(f"[{label}]: {len(reqs)} results equal the direct forward bitwise")
+    return reqs, launches
+
+
+def launched(counts: dict) -> dict:
+    """The kernels of a launch-count snapshot that were launched at all."""
+    return {k: n for k, n in counts.items() if n}
+
+
+def phase_serve(matmul_dtype: str) -> dict:
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    cfg = flagship_cfg(matmul_dtype)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    path = model_lib.explain_dispatch(cfg, enc, device="cuda")[0]["path"]
+    if path != f"cuda:{fused.KERNEL}":
+        fail(f"serve {tag}: dispatch is {path}, not the head kernel")
+    reqs, counts = serve_requests(f"serve {tag}", cfg, params, enc,
+                                  {fused.KERNEL: 1})
+    launches = counts[fused.KERNEL]
 
     # The kernel alone on a 4096-row batch of these inputs.
     batch = np.concatenate(reqs[:4096 // ROWS])
@@ -676,8 +942,8 @@ def phase_train(matmul_dtype: str) -> list:
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if not last < first:
         fail(f"train {tag}: loss did not fall ({first:.4f} -> {last:.4f})")
-    if launches != {fused.KERNEL: 0, fused.KERNEL_TRAIN: TIMED,
-                    fused.KERNEL_BWD: TIMED}:
+    if launched(launches) != {fused.KERNEL_TRAIN: TIMED,
+                              fused.KERNEL_BWD: TIMED}:
         fail(f"train {tag}: launches {launches} in {TIMED} steps")
     for n, g in trainer.params.items():
         for k, v in g.items():
@@ -691,7 +957,7 @@ def phase_train(matmul_dtype: str) -> list:
     log(f"[train] {tag} ttfs {TIMED} steps of {TRAIN_B}: {step_ms:.3f} ms a "
         f"step = {TRAIN_B * TIMED / seconds:.1f} img/s; loss first5="
         f"{first:.4f} last5={last:.4f}; batch accuracy={acc:.4f}; launches="
-        f"{json.dumps(launches)} [{card_line()}]")
+        f"{json.dumps(launched(launches))} [{card_line()}]")
     log(f"[train] {tag} ttfs losses={[round(v, 3) for v in losses]}")
     args = flagship_head_args(cfg, trainer.params, lat)
     rows = train_kernel_rows(tag, args, md, launches, k1_err, k2_err, "ttfs")
@@ -716,12 +982,315 @@ def phase_train(matmul_dtype: str) -> list:
     fused.reset_launch_counts()
     rlosses, _ = timed_steps(reg, batches, 3)
     got = fused.launch_counts()
-    if got != {fused.KERNEL: 0, fused.KERNEL_TRAIN: 3, fused.KERNEL_BWD: 3}:
+    if launched(got) != {fused.KERNEL_TRAIN: 3, fused.KERNEL_BWD: 3}:
         fail(f"train {tag}: count-regularized launches {got}")
     if not all(np.isfinite([float(v) for v in rlosses])):
         fail(f"train {tag}: non-finite count-regularized loss")
     log(f"[train] {tag} L2SpikesPerNeuron 3 steps: launches="
-        f"{json.dumps(got)} losses={[round(float(v), 4) for v in rlosses]}")
+        f"{json.dumps(launched(got))} losses={[round(float(v), 4) for v in rlosses]}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the deep network (784-128-128-96-10) served and trained
+# ---------------------------------------------------------------------------
+DEEP_TIMED = 20
+L0_SITE = ("fused_head.cu", "pallas_fused.py:703")
+L0_BWD_SITE = ("fused_layer0_bwd.cu", "pallas_fused.py:1092")
+MID_SITE = ("fused_mid.cu", "pallas_fused_mid.py:540")
+MID_BWD_SITE = ("fused_mid_bwd.cu", "pallas_fused_mid.py:673")
+
+
+def deep_cfg(matmul_dtype):
+    return pt.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=list(DEEP_WIDTHS),
+        hidden_layer_type=pt.LayerType.ALIF, use_recurrent_connection=True,
+        learn_beta=True, int_time_steps=100, matmul_dtype=matmul_dtype,
+    )
+
+
+def deep_paths(training: bool):
+    both = (lambda f, b: f"cuda:{f}+{b}") if training else (
+        lambda f, b: f"cuda:{f}")
+    return [both(fused.KERNEL_L0, fused.KERNEL_L0_BWD),
+            both(fused.KERNEL_MID, fused.KERNEL_MID_BWD),
+            both(fused.KERNEL_MID, fused.KERNEL_MID_BWD) + "[head]"]
+
+
+def kernel_row(label, name, site, launches, err, ms, plain_ms, nbytes, ops,
+               md):
+    """One row of the kernels line, and its log line.  ``nbytes``: every
+    input read once and every output written once; ``ops``: what this
+    run's data needs (one add per selected weight of a 0/1 product, 2 FLOP
+    a term of a dense one, ~10-12 a (row, step, unit) of the chain)."""
+    peak = H100_F32_FLOPS if md == torch.float32 else H100_BF16_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+    log(f"[{label}] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms; bytes="
+        f"{nbytes} ops={ops} -> bound {max(t_bytes, t_ops):.5f} ms; "
+        f"launches={launches} err={err:.3g} [{card_line()}]")
+    return {
+        "name": name, "route": "cuda",
+        "source": f"snnimageclassification_tpu_torch/csrc/{site[0]}",
+        "replaces": f"snnimageclassification_tpu/ops/{site[1]}",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+
+
+def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
+                     launches):
+    """Each kernel of the deep path alone on one batch, at the arguments
+    ``forward_logits_pixels`` gives it: against its plain version on the
+    same input (the forward kernels on the kernel's trace of the layer
+    before, the backward kernels on the forward kernel's residuals and a
+    random cotangent), timed, with its bound.  No single PyTorch call
+    computes any of them."""
+    md = getattr(torch, cfg.matmul_dtype_eff)
+    f32 = md == torch.float32
+    it = md.itemsize
+    T = cfg.int_time_steps
+    B, F = x.shape
+    lat = pixels_to_firing_periods(x, t_max=float(T)).contiguous()
+    layers = cfg.layer_configs
+    O = layers[-1][1].output_size
+    kappa = layers[-1][1].kappa
+    ro = params[layers[-1][0]]
+    w_out = ro["w_in"].detach().to(md).contiguous()
+    b_out = ro["b"].detach().to(torch.float32).contiguous()
+    rng = np.random.default_rng(6)
+    gbar = 1e-4 if f32 else 2.0 ** -7
+    n_fwd, n_plain = 10, 3
+    rows = []
+    z_in, in_spikes, n_in = None, input_spike_count(lat, T, use_periods), F
+    for idx, (name, lcfg) in enumerate(layers[:-1]):
+        p = params[name]
+        H = lcfg.output_size
+        head = idx == len(layers) - 2
+        w_in = p["w_in"].detach().to(md).contiguous()
+        w_rec = masked_recurrent(lcfg, p).detach().to(md).contiguous()
+        beta = p["beta"].detach()
+        sc = (lcfg.alpha, lcfg.rho, lcfg.threshold)
+        weights = (n_in * H + H * H + (H * O if head else 0)) * it
+        trace = T * B * H * it
+        if idx == 0:
+            def fwd(plain, tr=train):
+                fn = fused._layer0_reference if plain else fused._layer0_cuda
+                return fn(lat, w_in, w_rec, beta, T, use_periods, True, *sc,
+                          tr, False, False)
+            kname, site, bsite = fused.KERNEL_L0, L0_SITE, L0_BWD_SITE
+            bname = fused.KERNEL_L0_BWD
+            in_bytes = B * F * 4
+        else:
+            def fwd(plain, tr=train, z_in=z_in, head=head):
+                fn = fused_mid._mid_reference if plain else fused_mid._mid_cuda
+                return fn(z_in, w_in, w_rec, beta, w_out if head else None,
+                          b_out if head else None, T, True, *sc,
+                          kappa if head else 0.0, tr, False, False, False)
+            kname, site, bsite = fused.KERNEL_MID, MID_SITE, MID_BWD_SITE
+            bname = fused.KERNEL_MID_BWD
+            in_bytes = T * B * n_in * it
+        out, ref = fwd(False), fwd(True)
+        torch.cuda.synchronize()
+        if idx == 0:
+            z, res = out[0], out[1]
+            share = rows_equal(z, ref[0])
+            err = float((z.float() - ref[0].float()).abs().max())
+        elif not head:
+            z, res = out[1], out[2]
+            share = rows_equal(z, ref[1])
+            err = float((z.float() - ref[1].float()).abs().max())
+        else:
+            z, res = None, out[2]
+            agree, close, err, _ = compare_flagship(out[0], ref[0])
+            share = close
+            if agree < 0.995 or close < 0.99:
+                fail(f"{label} {name}: mid head below the bar ({agree:.4f}, "
+                     f"{close:.4f})")
+            if not bool(torch.isfinite(out[0]).all()):
+                fail(f"{label} {name}: non-finite logits")
+        if share < 0.995:
+            fail(f"{label} {name}: {share:.5f} of rows agree with the plain "
+                 "version")
+        ms = cuda_ms(lambda: fwd(False), n_fwd)
+        plain_ms = cuda_ms(lambda: fwd(True), n_plain, warmup=1)
+        if head:  # its spikes: the counts of one more forward
+            hidden = int(fused_mid._mid_cuda(
+                z_in, w_in, w_rec, beta, w_out, b_out, T, True, *sc, kappa,
+                False, False, True, False)[5].sum())
+        else:
+            hidden = int(z.float().sum())
+        nbytes = (in_bytes + weights + 4 + (B * O * 4 if head else trace)
+                  + (trace if train else 0) + (B * O * 4 if head and train
+                                               else 0))
+        ops = (in_spikes * H + hidden * (H + (O if head else 0))
+               + 10 * B * T * H + (3 * B * T * O if head else 0))
+        mode = ("head" if head else "z") if idx else ""
+        full = f"{kname}[{' '.join(filter(None, (tag, mode, 'train' if train else '')))}]"
+        log(f"[{label}] {name}: input spikes={in_spikes} spikes={hidden} "
+            f"({hidden / (B * T * H):.4f} of unit-steps); rows agreeing "
+            f"with the plain version={share:.5f}")
+        n_launch = launches[kname] if idx == 0 else launches[kname] // 2
+        rows.append(kernel_row(label, full, site, n_launch, err, ms, plain_ms,
+                               nbytes, ops, md))
+        if train:
+            if head:
+                tstar = out[4]
+                g_logits = rand_w(rng, (B, O), 1.0 / B)
+
+                def bwd(plain, z_in=z_in, res=res, tstar=tstar,
+                        g_logits=g_logits):
+                    fn = (fused_mid._mid_bwd_reference if plain
+                          else fused_mid._mid_bwd_cuda)
+                    return fn(g_logits, None, tstar, None, None, res, None,
+                              False, z_in, w_in, w_rec, beta, w_out, T,
+                              lcfg.alpha, lcfg.threshold, lcfg.gamma, kappa,
+                              lcfg.spike_func)
+            else:
+                g_z = rand_w(rng, tuple(z.shape), 1.0 / B, md)
+                if idx == 0:
+                    def bwd(plain, z=z, res=res, g_z=g_z):
+                        fn = (fused._layer0_bwd_reference if plain
+                              else fused._layer0_bwd_cuda)
+                        return fn(g_z, z, res, None, False, lat, w_in, w_rec,
+                                  beta, T, use_periods, lcfg.alpha,
+                                  lcfg.threshold, lcfg.gamma,
+                                  lcfg.spike_func)
+                else:
+                    def bwd(plain, z_in=z_in, z=z, res=res, g_z=g_z):
+                        fn = (fused_mid._mid_bwd_reference if plain
+                              else fused_mid._mid_bwd_cuda)
+                        return fn(None, None, None, g_z, z, res, None, False,
+                                  z_in, w_in, w_rec, beta, None, T,
+                                  lcfg.alpha, lcfg.threshold, lcfg.gamma,
+                                  0.0, lcfg.spike_func)
+            gerr = check_grads(f"{label} {name} backward",
+                               lambda: bwd(False), lambda: bwd(True), gbar)
+            bms = cuda_ms(lambda: bwd(False), n_fwd)
+            bplain = cuda_ms(lambda: bwd(True), n_plain, warmup=1)
+            # Read: the residual, and g_z and z (z-layer) or g_logits and
+            # tstar (head), the input and the weights; written: the
+            # weights' gradients and, past layer 0, g_z_in.
+            bbytes = (trace * (1 if head else 3) + in_bytes + 2 * weights
+                      + (2 * B * O * 4 if head else 0)
+                      + (in_bytes if idx else 0))
+            bops = (2 * B * T * H * H + (2 * B * T * H * n_in if idx else 0)
+                    + (2 * B * T * H * O if head else 0) + in_spikes * H
+                    + hidden * (H + (O if head else 0)) + 12 * B * T * H)
+            bfull = f"{bname}[{' '.join(filter(None, (tag, mode)))}]"
+            n_launch = (launches[bname] if idx == 0
+                        else launches[bname] // 2)
+            rows.append(kernel_row(label, bfull, bsite, n_launch, gerr, bms,
+                                   bplain, bbytes, bops, md))
+            del bwd
+        z_in, in_spikes, n_in = z, (0 if head else hidden), H
+        del out, ref, fwd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_deep_serve(matmul_dtype: str) -> list:
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"deep-serve {tag}"
+    cfg = deep_cfg(matmul_dtype)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    paths = [r["path"] for r in
+             model_lib.explain_dispatch(cfg, enc, device="cuda")]
+    if paths != deep_paths(False):
+        fail(f"{label}: dispatch is {paths}")
+    reqs, launches = serve_requests(
+        label, cfg, params, enc, {fused.KERNEL_L0: 1, fused.KERNEL_MID: 2})
+    batch = np.concatenate(reqs[:4096 // ROWS])
+    x = torch.from_numpy(batch).cuda().to(torch.float32) / 255.0
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model_lib.forward_logits_pixels(
+            cfg, params, x, enc, device="cuda"), 10)
+    log(f"[{label}] forward_logits_pixels on a 4096-row batch: {ms:.4f} ms "
+        f"[{card_line()}]")
+    return deep_kernel_rows(label, tag, cfg, params, x, False, False,
+                            launches)
+
+
+def phase_deep_train(matmul_dtype: str) -> list:
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"deep-train {tag}"
+    cfg = deep_cfg(matmul_dtype)
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    paths = [r["path"] for r in model_lib.explain_dispatch(
+        cfg, enc, device="cuda", training=True)]
+    if paths != deep_paths(True):
+        fail(f"{label}: dispatch is {paths}")
+    trainer = Trainer(cfg, seed=0, lr=1e-3, weight_decay=1e-5,
+                      encode_config=enc, device="cuda")
+    before = {n: {k: v.detach().clone() for k, v in g.items()}
+              for n, g in trainer.params.items()}
+    batches = synthetic_task(4)
+    a_step = {fused.KERNEL_L0: 1, fused.KERNEL_MID: 2,
+              fused.KERNEL_MID_BWD: 2, fused.KERNEL_L0_BWD: 1}
+
+    warm, _ = timed_steps(trainer, batches, WARMUP)
+    fused.reset_launch_counts()
+    timed, seconds = timed_steps(trainer, batches, DEEP_TIMED, start=WARMUP)
+    launches = fused.launch_counts()
+    losses = [float(v) for v in warm + timed]
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite loss {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
+    if launched(launches) != {k: n * DEEP_TIMED for k, n in a_step.items()}:
+        fail(f"{label}: launches {launches} in {DEEP_TIMED} steps")
+    for n, g in trainer.params.items():
+        for k, v in g.items():
+            same = torch.equal(v, before[n][k])
+            if k == "beta" and not same:
+                fail(f"{label}: {n}.beta moved")
+            if k != "beta" and same:
+                fail(f"{label}: {n}.{k} did not change")
+    x, y = batches[0]
+    acc = float((trainer.predict_logits(x).argmax(1) == y).float().mean())
+    log(f"[{label}] ttfs {DEEP_TIMED} steps of {TRAIN_B}: "
+        f"{seconds / DEEP_TIMED * 1e3:.3f} ms a step = "
+        f"{TRAIN_B * DEEP_TIMED / seconds:.1f} img/s; loss first5="
+        f"{first:.4f} last5={last:.4f}; batch accuracy={acc:.4f}; launches="
+        f"{json.dumps(launched(launches))} [{card_line()}]")
+    log(f"[{label}] ttfs losses={[round(v, 3) for v in losses]}")
+    rows = deep_kernel_rows(f"{label} ttfs", tag, cfg, trainer.params, x,
+                            False, True, launches)
+
+    # Periodic encoding, for the times and the launches.
+    enc_p = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
+    periodic = Trainer(cfg, seed=0, encode_config=enc_p, device="cuda")
+    timed_steps(periodic, batches, 1)
+    fused.reset_launch_counts()
+    plosses, pseconds = timed_steps(periodic, batches, 5)
+    got = fused.launch_counts()
+    if launched(got) != {k: n * 5 for k, n in a_step.items()}:
+        fail(f"{label}: periodic launches {got}")
+    if not all(np.isfinite([float(v) for v in plosses])):
+        fail(f"{label}: non-finite loss with periodic encoding")
+    log(f"[{label}] periodic 5 steps of {TRAIN_B}: "
+        f"{pseconds / 5 * 1e3:.3f} ms a step = "
+        f"{TRAIN_B * 5 / pseconds:.1f} img/s [{card_line()}]")
+    deep_kernel_rows(f"{label} periodic", tag, cfg, periodic.params, x, True,
+                     True, got)
+
+    # A count regularizer keeps every kernel pair (the trunk's counts are
+    # sums of traces that exist anyway, the last layer's the kernel's).
+    reg = Trainer(cfg, seed=0, reg_fn=L2SpikesPerNeuron(scale=1e-9),
+                  encode_config=enc, device="cuda")
+    fused.reset_launch_counts()
+    rlosses, rseconds = timed_steps(reg, batches, 3)
+    got = fused.launch_counts()
+    if launched(got) != {k: n * 3 for k, n in a_step.items()}:
+        fail(f"{label}: count-regularized launches {got}")
+    if not all(np.isfinite([float(v) for v in rlosses])):
+        fail(f"{label}: non-finite count-regularized loss")
+    log(f"[{label}] L2SpikesPerNeuron 3 steps: {rseconds / 3 * 1e3:.3f} ms a "
+        f"step (first step included); launches={json.dumps(launched(got))} "
+        f"losses={[round(float(v), 4) for v in rlosses]}")
     return rows
 
 
@@ -735,8 +1304,13 @@ def main() -> int:
     phase_build()
     phase_kernels()
     phase_train_kernels()
+    phase_deep_kernels()
     kernels = [phase_serve("float32"), phase_serve("bfloat16")]
     kernels += phase_train("float32") + phase_train("bfloat16")
+    for md in ("float32", "bfloat16"):
+        kernels += phase_deep_serve(md)
+    for md in ("float32", "bfloat16"):
+        kernels += phase_deep_train(md)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,14 @@
 // inference primal of fused_encode_{rec,ff}_scan_head, store_traces=True
 // the training forward of those and of their _counts variants.
 //
+// A third kernel from the same template, fused_layer0_fwd (HEAD = false):
+// the first layer of a deeper network, the same arithmetic with the readout
+// compiled out, so its spikes are bitwise the spikes inside the head.  It
+// writes the spike trace z (T, B, H) in the weights' type and, for training,
+// the residual of the TPU kernel's head=False mode: delta for ALIF with the
+// FastSigmoid surrogate, the membrane v otherwise (and a for ALIF with Phi).
+// It replaces that mode of the same TPU kernel (fused_encode_{rec,ff}_scan).
+//
 // What bounds it on an H100: neither bytes nor peak FLOPs.  The inputs are
 // ~13 MB (latencies) and the dense work ~97 GFLOP at B=4096, T=100,
 // 784-128-10, but every step of the scan depends on the previous one, so the
@@ -44,23 +52,6 @@
 #include "head_common.cuh"
 
 namespace {
-
-// Sum of w[j * stride] over the set bits j of mask words m[0..nw), in
-// ascending j.
-template <typename W>
-__device__ __forceinline__ float masked_sum(const unsigned* m, int nw,
-                                            const W* w, int stride) {
-  float acc = 0.f;
-  for (int k = 0; k < nw; ++k) {
-    unsigned bits = m[k];
-    while (bits) {
-      const int j = (k << 5) + __ffs(bits) - 1;
-      bits &= bits - 1u;
-      acc += to_f32(w[j * stride]);
-    }
-  }
-  return acc;
-}
 
 struct Layout {
   size_t wrec, wout, b, zm, vr, m, cnt, lat, list, ts, total;
@@ -110,6 +101,10 @@ struct Args {
   float* counts;  // (B, H)
   int B, F, H, O, T, periodic;
   float alpha, rho, threshold, kappa;
+  // Layer-0 mode (HEAD = false): the spike trace, always written, and
+  // whether `delta` keeps v instead of v - thr.
+  void* z;  // (T, B, H) weights' type
+  int res_is_v;
 };
 
 // One warp writes the features f of a row whose latency passes `pick` to
@@ -132,32 +127,12 @@ __device__ __forceinline__ int compact(const int16_t* lrow, uint16_t* lst,
   return n;
 }
 
-// Readout of one row at one step: r = z @ W_out + b, v_r = kappa v_r + r,
-// running max with strict > (the first maximal step wins, as torch.max);
-// in training also the step of that max.
-template <bool TRAIN, typename W>
-__device__ __forceinline__ void readout_row(const Args& a, const W* s_wout,
-                                            const float* s_b,
-                                            const unsigned* zmask, int nw,
-                                            float* vr, float* m, int* ts,
-                                            int step, int lane) {
-  for (int o = lane; o < a.O; o += 32) {
-    const float r = masked_sum(zmask, nw, s_wout + o, a.O) + s_b[o];
-    const float v = a.kappa * vr[o] + r;
-    vr[o] = v;
-    if (v > m[o]) {
-      m[o] = v;
-      if (TRAIN) ts[o] = step;
-    }
-  }
-}
-
-template <bool REC, bool ALIF, bool TRAIN, typename W>
+template <bool REC, bool ALIF, bool TRAIN, bool HEAD, typename W>
 __global__ void __launch_bounds__(1024)
     fused_head_fwd_kernel(Args a, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HP = blockDim.x, HW = HP >> 5;
-  const int H = a.H, O = a.O, F = a.F, T = a.T;
+  const int H = a.H, O = HEAD ? a.O : 0, F = a.F, T = a.T;
   const Layout L = layout(F, H, O, rows, HP, REC, sizeof(W));
   W* s_wrec = reinterpret_cast<W*>(smem + L.wrec);
   W* s_wout = reinterpret_cast<W*>(smem + L.wout);
@@ -180,11 +155,11 @@ __global__ void __launch_bounds__(1024)
     const W* g = static_cast<const W*>(a.w_rec);
     for (int i = tid; i < H * H; i += nthreads) s_wrec[i] = g[i];
   }
-  {
+  if (HEAD) {
     const W* g = static_cast<const W*>(a.w_out);
     for (int i = tid; i < H * O; i += nthreads) s_wout[i] = g[i];
+    for (int i = tid; i < O; i += nthreads) s_b[i] = a.b_out[i];
   }
-  for (int i = tid; i < O; i += nthreads) s_b[i] = a.b_out[i];
   for (int i = tid; i < 2 * rows * HW; i += nthreads) s_zm[i] = 0u;
   for (int i = tid; i < rows * O; i += nthreads) {
     s_vr[i] = 0.f;
@@ -231,10 +206,10 @@ __global__ void __launch_bounds__(1024)
     const unsigned* z_prev = s_zm + (t & 1) * rows * HW;
     // Readout of step t-1 (its z is z_prev), on the warp after the rows'
     // compaction warps, so it overlaps the compaction below.
-    if (t > 0) {
+    if (HEAD && t > 0) {
       for (int rr = 0; rr < rows; ++rr) {
         if ((rows + rr) % nwarps != warp || row0 + rr >= a.B) continue;
-        readout_row<TRAIN, W>(a, s_wout, s_b, z_prev + rr * HW, HW,
+        readout_row<TRAIN, W>(O, a.kappa, s_wout, s_b, z_prev + rr * HW, HW,
                               s_vr + rr * O, s_m + rr * O, s_ts + rr * O,
                               t - 1, lane);
       }
@@ -269,11 +244,14 @@ __global__ void __launch_bounds__(1024)
       }
       const float delta = v - thr;
       z_new = delta >= 0.f;
+      const size_t at = ((size_t)t * a.B + row0 + r) * H + h;
+      if (!HEAD) from_f32(z_new ? 1.f : 0.f, static_cast<W*>(a.z) + at);
       if (TRAIN) {
-        // Rounded to the weights' type once, here; the backward recomputes
-        // z = (delta >= 0) from the stored value (the sign survives).
-        const size_t at = ((size_t)t * a.B + row0 + r) * H + h;
-        if (a.delta) from_f32(delta, static_cast<W*>(a.delta) + at);
+        // Rounded to the weights' type once, here; the head's backward
+        // recomputes z = (delta >= 0) from the stored value (the sign
+        // survives).
+        const float keep = (!HEAD && a.res_is_v) ? v : delta;
+        if (a.delta) from_f32(keep, static_cast<W*>(a.delta) + at);
         if (ALIF && a.a_tr) from_f32(ad, static_cast<W*>(a.a_tr) + at);
         if (z_new) n_spikes += 1.f;
       }
@@ -284,7 +262,7 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
   }
   // The readout warp of each row wrote its s_m entries; it writes them out.
-  for (int rr = 0; rr < rows; ++rr) {
+  for (int rr = 0; HEAD && rr < rows; ++rr) {
     if ((rows + rr) % nwarps != warp || row0 + rr >= a.B) continue;
     for (int o = lane; o < O; o += 32)
       a.logits[(size_t)(row0 + rr) * O + o] = s_m[rr * O + o];
@@ -297,30 +275,31 @@ __global__ void __launch_bounds__(1024)
     a.counts[(size_t)(row0 + r) * H + h] = n_spikes;
 }
 
-template <bool REC, bool ALIF, bool TRAIN, typename W>
+template <bool REC, bool ALIF, bool TRAIN, bool HEAD, typename W>
 cudaError_t launch(const Args& a, int rows, int HP, size_t smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_head_fwd_kernel<REC, ALIF, TRAIN, W>,
+      fused_head_fwd_kernel<REC, ALIF, TRAIN, HEAD, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 block(HP, rows);
   dim3 grid((a.B + rows - 1) / rows);
-  fused_head_fwd_kernel<REC, ALIF, TRAIN, W>
+  fused_head_fwd_kernel<REC, ALIF, TRAIN, HEAD, W>
       <<<grid, block, smem, stream>>>(a, rows);
   return cudaGetLastError();
 }
 
-template <bool TRAIN, typename W>
+template <bool TRAIN, bool HEAD, typename W>
 cudaError_t dispatch(const Args& a, int rec, int alif, int rows, int HP,
                      size_t smem, cudaStream_t s) {
-  if (rec && alif) return launch<true, true, TRAIN, W>(a, rows, HP, smem, s);
-  if (rec) return launch<true, false, TRAIN, W>(a, rows, HP, smem, s);
-  if (alif) return launch<false, true, TRAIN, W>(a, rows, HP, smem, s);
-  return launch<false, false, TRAIN, W>(a, rows, HP, smem, s);
+  if (rec && alif)
+    return launch<true, true, TRAIN, HEAD, W>(a, rows, HP, smem, s);
+  if (rec) return launch<true, false, TRAIN, HEAD, W>(a, rows, HP, smem, s);
+  if (alif) return launch<false, true, TRAIN, HEAD, W>(a, rows, HP, smem, s);
+  return launch<false, false, TRAIN, HEAD, W>(a, rows, HP, smem, s);
 }
 
-template <bool TRAIN>
+template <bool TRAIN, bool HEAD>
 int run(Args a, int alif, int bf16, int rows, int device, void* stream) {
   if (a.B == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -328,21 +307,18 @@ int run(Args a, int alif, int bf16, int rows, int device, void* stream) {
   const int HP = (a.H + 31) / 32 * 32;
   const int rec = a.w_rec != nullptr;
   const size_t smem =
-      layout(a.F, a.H, a.O, rows, HP, rec, bf16 ? 2 : 4).total;
+      layout(a.F, a.H, HEAD ? a.O : 0, rows, HP, rec, bf16 ? 2 : 4).total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = bf16 ? dispatch<TRAIN, __nv_bfloat16>(a, rec, alif, rows, HP, smem, s)
-             : dispatch<TRAIN, float>(a, rec, alif, rows, HP, smem, s);
+  err = bf16 ? dispatch<TRAIN, HEAD, __nv_bfloat16>(a, rec, alif, rows, HP,
+                                                    smem, s)
+             : dispatch<TRAIN, HEAD, float>(a, rec, alif, rows, HP, smem, s);
   return (int)err;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Rows per block and shared-memory bytes for a shape on `device`.
-// Returns 0 when the shape fits, 1 when it does not, or a CUDA error code.
-int snn_fused_head_plan(int F, int H, int O, int rec, int bf16, int device,
-                        int* rows_out, int* smem_out) {
+// Rows per block and shared-memory bytes for a shape on `device` (O == 0:
+// the layer-0 mode).  0 when it fits, 1 when not, or a CUDA error code.
+int plan(int F, int H, int O, int rec, int bf16, int device, int* rows_out,
+         int* smem_out) {
   int max_smem = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
@@ -350,7 +326,7 @@ int snn_fused_head_plan(int F, int H, int O, int rec, int bf16, int device,
         &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   const int HP = (H + 31) / 32 * 32;
-  if (H < 1 || O < 1 || F < 1 || F > 65535 || HP > 1024) return 1;
+  if (H < 1 || O < 0 || F < 1 || F > 65535 || HP > 1024) return 1;
   const int wsize = bf16 ? 2 : 4;
   // Up to 512 threads a block; fewer rows where shared memory is short.
   for (int rows = 512 / HP > 0 ? 512 / HP : 1; rows >= 1; rows /= 2) {
@@ -364,6 +340,23 @@ int snn_fused_head_plan(int F, int H, int O, int rec, int bf16, int device,
   return 1;
 }
 
+}  // namespace
+
+extern "C" {
+
+// Rows per block and shared-memory bytes for a shape on `device`.
+// Returns 0 when the shape fits, 1 when it does not, or a CUDA error code.
+int snn_fused_head_plan(int F, int H, int O, int rec, int bf16, int device,
+                        int* rows_out, int* smem_out) {
+  if (O < 1) return 1;
+  return plan(F, H, O, rec, bf16, device, rows_out, smem_out);
+}
+
+int snn_fused_layer0_plan(int F, int H, int rec, int bf16, int device,
+                          int* rows_out, int* smem_out) {
+  return plan(F, H, 0, rec, bf16, device, rows_out, smem_out);
+}
+
 int snn_fused_head_fwd(const int* lat, const void* w_in, const void* w_rec,
                        const float* beta, const void* w_out,
                        const float* b_out, float* logits, int B, int F, int H,
@@ -372,8 +365,8 @@ int snn_fused_head_fwd(const int* lat, const void* w_in, const void* w_rec,
                        int rows, int device, void* stream) {
   Args a{lat, w_in, w_rec, beta, w_out, b_out, logits, nullptr, nullptr,
          nullptr, nullptr, B, F, H, O, T, periodic, alpha, rho, threshold,
-         kappa};
-  return run<false>(a, alif, bf16, rows, device, stream);
+         kappa, nullptr, 0};
+  return run<false, true>(a, alif, bf16, rows, device, stream);
 }
 
 // The training forward: also writes delta, a_tr, tstar and counts, each
@@ -388,8 +381,25 @@ int snn_fused_head_fwd_train(const int* lat, const void* w_in,
                              float kappa, int rows, int device,
                              void* stream) {
   Args a{lat, w_in, w_rec, beta, w_out, b_out, logits, delta, a_tr, tstar,
-         counts, B, F, H, O, T, periodic, alpha, rho, threshold, kappa};
-  return run<true>(a, alif, bf16, rows, device, stream);
+         counts, B, F, H, O, T, periodic, alpha, rho, threshold, kappa,
+         nullptr, 0};
+  return run<true, true>(a, alif, bf16, rows, device, stream);
+}
+
+// The first layer of a deeper network: writes z (T, B, H) and, where `res`
+// is not null (training), the residual `res` (v where res_is_v, else
+// v - thr) and `a_tr` where that is not null.
+int snn_fused_layer0_fwd(const int* lat, const void* w_in, const void* w_rec,
+                         const float* beta, void* z, void* res, void* a_tr,
+                         int B, int F, int H, int T, int periodic, int alif,
+                         int bf16, int res_is_v, float alpha, float rho,
+                         float threshold, int rows, int device,
+                         void* stream) {
+  Args a{lat, w_in, w_rec, beta, nullptr, nullptr, nullptr, res, a_tr,
+         nullptr, nullptr, B, F, H, 0, T, periodic, alpha, rho, threshold,
+         0.f, z, res_is_v};
+  return res ? run<true, false>(a, alif, bf16, rows, device, stream)
+             : run<false, false>(a, alif, bf16, rows, device, stream);
 }
 
 const char* snn_cuda_error_string(int err) {

@@ -1,0 +1,127 @@
+// Backward of the first layer of a deeper network: reverse-time
+// surrogate-gradient BPTT of fused_layer0_fwd (fused_head.cu), from the
+// cotangent of its spike trace z (T, B, H) to g_W_in and g_W_rec.
+//
+// Replaces the TPU kernel
+// snnimageclassification_tpu/ops/pallas_fused.py:_fused_bwd_kernel
+// (head=False; pl.pallas_call in _fused_bwd_call), the backward of
+// fused_encode_{rec,ff}_scan.
+//
+// The chain of bwd_common.cuh in its z-layer mode: dz(t) = g_z(t) read from
+// device memory, z(t-1) read from the stored spike trace, the surrogate from
+// the residual the forward kept (delta for ALIF with FastSigmoid, the
+// membrane v otherwise, with a for ALIF with Phi).  Then g_W_in through the
+// per-row table of bwd_gwin and g_W_rec through bwd_gbits; slabs, no atomics.
+// What bounds it on an H100: as the head's backward, the serial chain and
+// dcur @ W_rec^T in shared memory; the traces it reads are 4 (T, B, H)
+// tensors against the head's one.
+
+#include "bwd_common.cuh"
+
+namespace {
+
+struct Plan {
+  int rows, smem_chain, G, smem_in, smem_rec, n_f, n_j, n_in, n_rec;
+};
+
+// 0 when the shape fits, 1 when it does not, else a CUDA error code.
+int make_plan(int B, int F, int H, int T, int rec, int bf16, int periodic,
+              int device, Plan* p) {
+  Limits lim;
+  cudaError_t err = limits(device, &lim);
+  if (err != cudaSuccess) return (int)err;
+  const int HP = (H + 31) / 32 * 32;
+  if (H < 1 || F < 1 || T < 1 || T > 32767 || HP > 1024) return 1;
+  const int G = 512 / HP > 0 ? 512 / HP : 1;
+  p->rows = chain_rows(H, 0, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
+                       &p->smem_chain);
+  if (p->rows == 0) return 1;
+  p->G = G;
+  p->smem_in = (int)in_layout(T, HP, G, periodic).total;
+  p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
+  if (p->smem_in > lim.max_smem || p->smem_rec > lim.max_smem) return 1;
+  p->n_f = (F + G * NACC - 1) / (G * NACC);
+  p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
+  p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP * G, p->n_f, B);
+  p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
+                              p->n_j, B)
+                 : 0;
+  return 0;
+}
+
+template <bool REC, typename W>
+cudaError_t launch_all(const Args& a, const Plan& p, cudaStream_t s) {
+  const int HP = (a.H + 31) / 32 * 32;
+  cudaError_t err = opt_in(bwd_chain_kernel<REC, false, W>, p.smem_chain);
+  if (err != cudaSuccess) return err;
+  bwd_chain_kernel<REC, false, W>
+      <<<dim3((a.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
+         s>>>(a, p.rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
+    return err;
+  bwd_gwin_kernel<W>
+      <<<dim3(p.n_in, p.n_f), dim3(HP, p.G), p.smem_in, s>>>(a, p.G);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (REC) {
+    if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
+      return err;
+    bwd_gbits_kernel<W>
+        <<<dim3(p.n_rec, p.n_j), dim3(HP, p.G), p.smem_rec, s>>>(
+            a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H, a.H, a.T + 1, HP / 32,
+            p.G);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Slab counts for a shape on `device`: out[0] = blocks of g_W_in slabs,
+// out[1] = of g_W_rec slabs (0 without recurrence).  Returns 0 when the
+// shape fits the kernels, 1 when it does not, or a CUDA error code.
+int snn_fused_layer0_bwd_plan(int B, int F, int H, int T, int rec, int bf16,
+                              int periodic, int device, int* out) {
+  Plan p;
+  const int rc = make_plan(B, F, H, T, rec, bf16, periodic, device, &p);
+  if (rc == 0) {
+    out[0] = p.n_in;
+    out[1] = p.n_rec;
+  }
+  return rc;
+}
+
+int snn_fused_layer0_bwd(const void* g_z, const void* z, const void* res,
+                         const void* a_tr, const int* lat, const void* w_rec,
+                         const float* beta, void* dcur, void* zmask,
+                         float* slab_in, float* slab_rec, int B, int F, int H,
+                         int T, int periodic, int phi, int bf16, int res_is_v,
+                         float alpha, float threshold, float gamma,
+                         int device, void* stream) {
+  Plan p;
+  const int rec = w_rec != nullptr;
+  const int rc = make_plan(B, F, H, T, rec, bf16, periodic, device, &p);
+  if (rc != 0) return rc == 1 ? (int)cudaErrorInvalidConfiguration : rc;
+  if (B == 0) return 0;
+  Args a{nullptr, nullptr, nullptr, g_z, z, res, a_tr, lat, w_rec, nullptr,
+         beta, dcur, static_cast<unsigned*>(zmask), slab_in, slab_rec,
+         nullptr, B, F, H, 0, T, periodic, phi, res_is_v, alpha, threshold,
+         gamma, 0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16)
+    err = rec ? launch_all<true, __nv_bfloat16>(a, p, s)
+              : launch_all<false, __nv_bfloat16>(a, p, s);
+  else
+    err = rec ? launch_all<true, float>(a, p, s)
+              : launch_all<false, float>(a, p, s);
+  return (int)err;
+}
+
+const char* snn_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

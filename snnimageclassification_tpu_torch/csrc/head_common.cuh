@@ -1,6 +1,6 @@
-// Shared by the whole-network head kernels (fused_head.cu: forward;
-// fused_head_bwd.cu: backward): weight-type conversions and the integer
-// spike test of the two encodings.
+// Shared by every kernel source of the port: weight-type conversions, the
+// integer spike test of the two encodings, sums over the set bits of a spike
+// mask and the readout step of the head kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +43,43 @@ __device__ __forceinline__ bool fires(int L, int t, int T, int periodic) {
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~(size_t)15;
+}
+
+// Sum of w[j * stride] over the set bits j of mask words m[0..nw), in
+// ascending j.
+template <typename W>
+__device__ __forceinline__ float masked_sum(const unsigned* m, int nw,
+                                            const W* w, int stride) {
+  float acc = 0.f;
+  for (int k = 0; k < nw; ++k) {
+    unsigned bits = m[k];
+    while (bits) {
+      const int j = (k << 5) + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      acc += to_f32(w[j * stride]);
+    }
+  }
+  return acc;
+}
+
+// Readout of one row at one step: r = z @ W_out + b, v_r = kappa v_r + r,
+// running max with strict > (the first maximal step wins, as torch.max);
+// in training also the step of that max.
+template <bool TRAIN, typename W>
+__device__ __forceinline__ void readout_row(int O, float kappa,
+                                            const W* s_wout, const float* s_b,
+                                            const unsigned* zmask, int nw,
+                                            float* vr, float* m, int* ts,
+                                            int step, int lane) {
+  for (int o = lane; o < O; o += 32) {
+    const float r = masked_sum(zmask, nw, s_wout + o, O) + s_b[o];
+    const float v = kappa * vr[o] + r;
+    vr[o] = v;
+    if (v > m[o]) {
+      m[o] = v;
+      if (TRAIN) ts[o] = step;
+    }
+  }
 }
 
 }  // namespace

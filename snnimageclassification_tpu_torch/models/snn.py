@@ -4,16 +4,22 @@ Port of the JAX package's models/snn.py.  ``params`` is a
 ``{layer_name: {leaf: tensor}}`` dict in the JAX layout, so weights carry
 across as plain copies (models/convert.py).
 
-Two paths compute the logits:
+Three paths compute the logits:
 
 * the whole-network head (ops/fused.py): single-hidden-layer LIF/ALIF
   classifiers with the max-over-time readout and on-device encoding run
   as one call -- the hand-written CUDA kernels on the card (inference;
   training forward and reverse-time backward when a parameter requires a
   gradient), their plain PyTorch versions on the CPU;
+* the deep dispatch, for two or more hidden layers: layer 0 as one
+  encode + scan call (ops/fused.py ``fused_encode_{rec,ff}_scan``), each
+  further LIF/ALIF layer as one mid call, and the last hidden layer with
+  the readout and the max over time as one mid-head call
+  (ops/fused_mid.py); a layer no kernel covers (Izhikevich, a shape past
+  the limits) takes the loop below in its place;
 * everything else: :func:`apply`, a per-layer time loop (the reference's
   layer-then-time order, snn.py:209-214), then
-  :func:`prediction_logits`.  On the card a config that gates off the
+  :func:`prediction_logits`.  On the card a config that gates off a
   kernel says so in the log, once per config.
 
 The entry points take ``device`` ("cuda" by default); without CUDA they
@@ -40,12 +46,29 @@ from ..ops.encoding import encode_spikes, pixels_to_firing_periods
 from ..ops.fused import (
     KERNEL,
     KERNEL_BWD,
+    KERNEL_L0,
+    KERNEL_L0_BWD,
+    KERNEL_MID,
+    KERNEL_MID_BWD,
     KERNEL_TRAIN,
+    fused_encode_ff_scan,
     fused_encode_ff_scan_head,
     fused_encode_ff_scan_head_counts,
+    fused_encode_rec_scan,
     fused_encode_rec_scan_head,
     fused_encode_rec_scan_head_counts,
     fused_head_supported,
+    fused_supported,
+)
+from ..ops.fused_mid import (
+    fused_mid_ff_scan,
+    fused_mid_ff_scan_head,
+    fused_mid_ff_scan_head_counts,
+    fused_mid_head_supported,
+    fused_mid_rec_scan,
+    fused_mid_rec_scan_head,
+    fused_mid_rec_scan_head_counts,
+    fused_mid_supported,
 )
 from ..ops.temporal import batchwise_temporal_filter, temporal_max
 from .config import ReadoutMth, SNNConfig
@@ -159,22 +182,38 @@ def format_inputs(cfg: SNNConfig, inputs: torch.Tensor,
 def apply(cfg: SNNConfig, params: Params, inputs, *,
           return_hidden: bool = False,
           initial_state: Optional[Tuple] = None,
-          return_spike_counts: bool = False, device="cuda"):
+          first_layer_output: Optional[torch.Tensor] = None,
+          return_spike_counts: bool = False, _upto: Optional[int] = None,
+          device="cuda"):
     """Simulate ``cfg.int_time_steps`` steps, one layer at a time.
 
-    Each layer computes its input currents for all steps in one matmul,
-    then loops over time.  Returns ``(outputs_trace (B, T, O),
-    hidden_states)``; ``hidden_states`` is ``{layer: tuple of (B, T,
-    width)}`` when ``return_hidden``, else None.  ``return_spike_counts``
-    appends ``{layer: (B, width) float32}``, the per-sample per-neuron
-    spike counts ``sum_t z_t`` of the LIF/ALIF layers (the reference's
-    ``isinstance(layer, LIFLayer)`` filter, snn.py:268: no Izhikevich, no
-    readout)."""
+    A LIF/ALIF layer past the first runs as one mid call (input product
+    and scan together, ops/fused_mid.py) unless hidden traces or an
+    initial state are asked for; every other layer computes its input
+    currents for all steps in one matmul, then loops over time.
+    ``first_layer_output`` is layer 0's time-major spike trace ``(T, B,
+    H0)`` computed upstream (``inputs`` is then ignored).  Returns
+    ``(outputs_trace (B, T, O), hidden_states)``; ``hidden_states`` is
+    ``{layer: tuple of (B, T, width)}`` when ``return_hidden``, else None.
+    ``return_spike_counts`` appends ``{layer: (B, width) float32}``, the
+    per-sample per-neuron spike counts ``sum_t z_t`` of the LIF/ALIF
+    layers (the reference's ``isinstance(layer, LIFLayer)`` filter,
+    snn.py:268: no Izhikevich, no readout).
+
+    ``_upto`` (private, for the deep dispatch): process layers
+    ``0.._upto`` only and return the last one's time-major ``(T, B,
+    width)`` trace (and the counts dict with ``return_spike_counts``)."""
     dev = resolve_device(device)
     compute_dtype = _dtype(cfg.compute_dtype)
     matmul_dtype = _dtype(cfg.matmul_dtype_eff)
-    x = format_inputs(cfg, torch.as_tensor(inputs, device=dev), compute_dtype)
-    batch = x.shape[0]
+    if first_layer_output is not None:
+        x = None
+        batch = first_layer_output.shape[1]
+    else:
+        x = format_inputs(cfg, torch.as_tensor(inputs, device=dev),
+                          compute_dtype)
+        batch = x.shape[0]
+    training = _needs_grad(params)
     cparams = {n: {k: v.to(dev, compute_dtype) for k, v in g.items()}
                for n, g in params.items()}
     states = (initial_state if initial_state is not None
@@ -190,13 +229,30 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
         return (a.to(matmul_dtype).to(torch.float32)
                 @ w.to(matmul_dtype).to(torch.float32)).to(compute_dtype)
 
+    def collect_counts(name, lcfg, z_tm):
+        if counts is not None and type(lcfg) in (LIFConfig, ALIFConfig):
+            counts[name] = z_tm.to(torch.float32).sum(0)
+
     x_tm = None  # layer outputs are time-major (T, B, width)
     for idx, (name, lcfg) in enumerate(cfg.layer_configs):
+        if _upto is not None and idx > _upto:
+            break
+        if idx == 0 and first_layer_output is not None:
+            x_tm = first_layer_output  # keeps the kernel's trace dtype
+            collect_counts(name, lcfg, x_tm)
+            continue
         lparams = cparams[name]
         step_fn = STEP_FNS[type(lcfg)]
         w_rec_eff = masked_recurrent(lcfg, lparams)
         if w_rec_eff is not None and w_rec_eff.dtype != matmul_dtype:
             w_rec_eff = w_rec_eff.to(matmul_dtype)
+        if (x_tm is not None and initial_state is None
+                and _mid_layer_fusible(cfg, lcfg, return_hidden, dev,
+                                       training)):
+            x_tm = _fused_mid_layer(cfg, lcfg, lparams, x_tm, w_rec_eff,
+                                    matmul_dtype)
+            collect_counts(name, lcfg, x_tm)
+            continue
         currents = (mm(x, lparams["w_in"]).transpose(0, 1) if x_tm is None
                     else mm(x_tm, lparams["w_in"]))
         state = states[idx]
@@ -214,26 +270,144 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
                 for leaf in zip(*trace)
             )
         x_tm = torch.stack(outs)
-        if counts is not None and type(lcfg) in (LIFConfig, ALIFConfig):
-            counts[name] = x_tm.to(torch.float32).sum(0)
+        collect_counts(name, lcfg, x_tm)
+    if _upto is not None:
+        return (x_tm, counts) if return_spike_counts else x_tm
     trace = x_tm.transpose(0, 1).to(torch.float32)
     if return_spike_counts:
         return trace, hidden, counts
     return trace, hidden
 
 
+def _kernels_on(cfg: SNNConfig, device: torch.device, kind: str) -> bool:
+    """The gates every kernel shares: ``use_kernels`` and float32
+    compute."""
+    if not cfg.use_kernels:
+        return False
+    if _dtype(cfg.compute_dtype) != torch.float32:
+        if device.type == "cuda":
+            _log_fused_fallback(
+                kind, "compute_dtype != float32; for the bf16 recipe keep "
+                "compute_dtype='float32' and set matmul_dtype='bfloat16'",
+                _level=logging.WARNING, compute_dtype=cfg.compute_dtype)
+        return False
+    return True
+
+
+def _beta_rho(lcfg, lparams):
+    """(alif, beta, rho) of a LIF/ALIF layer: beta from the parameters
+    under ``learn_beta``, else the config's; LIF passes zeros."""
+    alif = type(lcfg) is ALIFConfig
+    if not alif:
+        return False, 0.0, 0.0
+    return True, (lparams["beta"] if lcfg.learn_beta else lcfg.beta), lcfg.rho
+
+
+def _mid_layer_fusible(cfg: SNNConfig, lcfg, return_hidden: bool,
+                       device: torch.device, training: bool = False) -> bool:
+    """Run this layer past the first as one mid call?  LIF/ALIF, no
+    hidden traces, and a shape the kernel (with ``training`` its backward
+    too) covers on ``device``."""
+    if return_hidden or type(lcfg) not in (LIFConfig, ALIFConfig):
+        return False
+    if not _kernels_on(cfg, device, "mid layer"):
+        return False
+    ok = fused_mid_supported(
+        cfg.int_time_steps, lcfg.input_size, lcfg.output_size,
+        recurrent=lcfg.use_recurrent_connection,
+        itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
+        training=training)
+    if not ok and device.type == "cuda":
+        _log_fused_fallback(
+            "mid layer", "shape exceeds the kernel's limits",
+            n_steps=cfg.int_time_steps, hidden_in=lcfg.input_size,
+            hidden=lcfg.output_size, matmul_dtype=cfg.matmul_dtype_eff,
+            training=training)
+    return ok
+
+
+def _fused_mid_layer(cfg: SNNConfig, lcfg, lparams, z_in, w_rec_eff,
+                     matmul_dtype) -> torch.Tensor:
+    """One LIF/ALIF layer past the first as a mid call: ``z_in (T, B,
+    Hin)`` -> ``z (T, B, H)``."""
+    w_in = lparams["w_in"].to(matmul_dtype).contiguous()
+    alif, beta, rho = _beta_rho(lcfg, lparams)
+    common = (cfg.int_time_steps, alif, lcfg.alpha, rho, lcfg.threshold,
+              lcfg.gamma, lcfg.spike_func)
+    if w_rec_eff is not None:
+        return fused_mid_rec_scan(z_in, w_in, w_rec_eff.contiguous(), beta,
+                                  *common)
+    return fused_mid_ff_scan(z_in, w_in, beta, *common)
+
+
+def _layer0_fusible(cfg: SNNConfig, enc, return_hidden: bool,
+                    device: torch.device, training: bool = False) -> bool:
+    """Run layer 0 as one encode + scan call?  A LIF/ALIF first layer,
+    on-device encoding at ``int_time_steps``, no hidden traces, and a
+    shape the kernel covers on ``device``."""
+    first_cfg = cfg.layer_configs[0][1]
+    if return_hidden or type(first_cfg) not in (LIFConfig, ALIFConfig):
+        return False
+    if not (enc.as_timeseries and enc.n_steps == cfg.int_time_steps):
+        return False
+    if not _kernels_on(cfg, device, "encode + layer 0"):
+        return False
+    ok = fused_supported(
+        cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
+        recurrent=first_cfg.use_recurrent_connection,
+        itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
+        training=training, use_periods=enc.use_periods)
+    if not ok and device.type == "cuda":
+        _log_fused_fallback(
+            "encode + layer 0", "shape exceeds the kernel's limits",
+            n_steps=cfg.int_time_steps, n_features=cfg.input_size,
+            hidden=first_cfg.output_size, matmul_dtype=cfg.matmul_dtype_eff,
+            training=training)
+    return ok
+
+
 def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
                  return_hidden: bool = False,
-                 return_spike_counts: bool = False, device="cuda"):
+                 return_spike_counts: bool = False,
+                 _upto: Optional[int] = None, device="cuda"):
     """Simulate from raw pixels ``(B, F)``, encoding on the device
-    (``enc`` is a ``data.datasets.EncodeConfig``)."""
+    (``enc`` is a ``data.datasets.EncodeConfig``).
+
+    A LIF/ALIF first layer runs as one encode + input product + scan call
+    from the integer latencies (ops/fused.py), so the ``(B, T, F)`` spike
+    tensor never exists; otherwise ``encode_spikes`` feeds :func:`apply`."""
     dev = resolve_device(device)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
-    inputs = pixels if not enc.as_timeseries else encode_spikes(
+    rest = dict(return_hidden=return_hidden,
+                return_spike_counts=return_spike_counts, _upto=_upto,
+                device=dev)
+    if not enc.as_timeseries:
+        return apply(cfg, params, pixels, **rest)
+    if _layer0_fusible(cfg, enc, return_hidden, dev, _needs_grad(params)):
+        first_name, first_cfg = cfg.layer_configs[0]
+        matmul_dtype = _dtype(cfg.matmul_dtype_eff)
+        latencies = pixels_to_firing_periods(
+            pixels, t_max=float(cfg.int_time_steps), tau=enc.tau,
+            thr=enc.thr, epsilon=enc.epsilon,
+        ).contiguous()
+        lparams0 = {k: v.to(dev) for k, v in params[first_name].items()}
+        w0 = lparams0["w_in"].to(matmul_dtype).contiguous()
+        alif, beta, rho = _beta_rho(first_cfg, lparams0)
+        common = (cfg.int_time_steps, enc.use_periods, alif, first_cfg.alpha,
+                  rho, first_cfg.threshold, first_cfg.gamma,
+                  first_cfg.spike_func)
+        w_rec_eff = masked_recurrent(first_cfg, lparams0)
+        if w_rec_eff is not None:
+            z0 = fused_encode_rec_scan(
+                latencies, w0, w_rec_eff.to(matmul_dtype).contiguous(), beta,
+                *common)
+        else:
+            z0 = fused_encode_ff_scan(latencies, w0, beta, *common)
+        return apply(cfg, params, None, first_layer_output=z0, **rest)
+    inputs = encode_spikes(
         pixels, n_steps=enc.n_steps, use_periods=enc.use_periods,
         tau=enc.tau, thr=enc.thr, epsilon=enc.epsilon)
-    return apply(cfg, params, inputs, return_hidden=return_hidden,
-                 return_spike_counts=return_spike_counts, device=dev)
+    return apply(cfg, params, inputs, **rest)
 
 
 def _head_fusible(cfg: SNNConfig, enc, device: torch.device,
@@ -243,15 +417,7 @@ def _head_fusible(cfg: SNNConfig, enc, device: torch.device,
     float32 compute; with ``training`` the backward kernel must cover the
     shape too.  On the card every gate a config hits is logged."""
     on_card = device.type == "cuda"
-    if not cfg.use_kernels:
-        return False
-    if _dtype(cfg.compute_dtype) != torch.float32:
-        if on_card:
-            _log_fused_fallback(
-                "whole-network head", "compute_dtype != float32; for the "
-                "bf16 recipe keep compute_dtype='float32' and set "
-                "matmul_dtype='bfloat16'", _level=logging.WARNING,
-                compute_dtype=cfg.compute_dtype)
+    if not _kernels_on(cfg, device, "whole-network head"):
         return False
     if not (enc.as_timeseries and enc.n_steps == cfg.int_time_steps):
         return False
@@ -259,14 +425,16 @@ def _head_fusible(cfg: SNNConfig, enc, device: torch.device,
         return False
     layer_cfgs = cfg.layer_configs
     first_cfg, last_cfg = layer_cfgs[0][1], layer_cfgs[-1][1]
-    if len(layer_cfgs) != 2 or type(first_cfg) not in (LIFConfig, ALIFConfig):
-        # The JAX package fuses these too (deep, two-layer and Izhikevich
-        # heads); their kernels are later slices of the port.
-        if on_card and type(last_cfg) is ReadoutConfig and len(layer_cfgs) > 1:
+    if len(layer_cfgs) != 2:
+        return False  # no hidden layer, or the deep dispatch
+    if type(first_cfg) not in (LIFConfig, ALIFConfig):
+        # The JAX package fuses an Izhikevich head too; that kernel is a
+        # later slice of the port.
+        if on_card and type(last_cfg) is ReadoutConfig:
             _log_fused_fallback(
-                "whole-network head", "this network's head kernel is not "
+                "whole-network head", "the Izhikevich head kernel is not "
                 "ported yet", _level=logging.WARNING,
-                n_layers=len(layer_cfgs), layer=type(first_cfg).__name__)
+                layer=type(first_cfg).__name__)
         return False
     ok = fused_head_supported(
         cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
@@ -290,10 +458,7 @@ def _lif_alif_head_call(cfg, first_cfg, last_cfg, lparams0, latencies, w0,
     to the matmul dtype.  ``counts=True`` takes the ``_counts`` variants
     and returns ``(logits, spike_counts (B, H))``."""
     matmul_dtype = _dtype(cfg.matmul_dtype_eff)
-    alif = type(first_cfg) is ALIFConfig
-    beta = ((lparams0["beta"] if first_cfg.learn_beta else first_cfg.beta)
-            if alif else 0.0)
-    rho = first_cfg.rho if alif else 0.0
+    alif, beta, rho = _beta_rho(first_cfg, lparams0)
     common = (cfg.int_time_steps, enc.use_periods, alif, first_cfg.alpha,
               rho, first_cfg.threshold, first_cfg.gamma, last_cfg.kappa,
               first_cfg.spike_func)
@@ -330,20 +495,96 @@ def _head_forward(cfg: SNNConfig, params: Params, pixels, enc,
     return out
 
 
+def _deep_head_fusible(cfg: SNNConfig, enc, device: torch.device,
+                       training: bool = False) -> bool:
+    """Deep-network head available: two or more hidden layers, the last
+    one LIF/ALIF, and the max-over-time readout.  That last (hidden,
+    readout) pair then runs as one mid-head call; the trunk (layers
+    0..N-2) keeps its per-layer dispatch.
+
+    The JAX package sends exactly-two-hidden configs to a kernel pair of
+    its own (``fused2``), which this port does not have yet: they take
+    this composed dispatch, which the JAX package itself uses where that
+    pair does not fit, with equal logits."""
+    layer_cfgs = cfg.layer_configs
+    if len(layer_cfgs) < 3 or cfg.readout_mth != ReadoutMth.RNN:
+        return False
+    lh_cfg, last_cfg = layer_cfgs[-2][1], layer_cfgs[-1][1]
+    if type(last_cfg) is not ReadoutConfig:
+        return False
+    if type(lh_cfg) not in (LIFConfig, ALIFConfig):
+        return False
+    if not _kernels_on(cfg, device, "mid head (deep network)"):
+        return False
+    on_card = device.type == "cuda"
+    ok = fused_mid_head_supported(
+        cfg.int_time_steps, lh_cfg.input_size, lh_cfg.output_size,
+        last_cfg.output_size, recurrent=lh_cfg.use_recurrent_connection,
+        itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
+        training=training)
+    if not ok and on_card:
+        _log_fused_fallback(
+            "mid head (deep network)", "shape exceeds the kernel's limits",
+            n_steps=cfg.int_time_steps, hidden_in=lh_cfg.input_size,
+            hidden=lh_cfg.output_size, n_out=last_cfg.output_size,
+            matmul_dtype=cfg.matmul_dtype_eff, training=training)
+    if ok and on_card and len(layer_cfgs) == 3:
+        key = ("two-hidden", cfg.input_size, lh_cfg.input_size,
+               lh_cfg.output_size)
+        if key not in _fallback_logged:
+            _fallback_logged.add(key)
+            logger.warning(
+                "Two hidden layers: the single two-layer kernel pair is not "
+                "ported yet; running layer 0 and the mid head as two kernel "
+                "pairs (same logits).")
+    return ok
+
+
+def _mid_head_call(cfg: SNNConfig, params: Params, x_tm: torch.Tensor,
+                   counts: bool = False):
+    """The last hidden layer + readout as one mid-head call.  ``x_tm`` is
+    the trunk's time-major ``(T, B, Hin)`` spike trace; returns logits
+    ``(B, O)``, or ``(logits, counts (B, H))`` with ``counts``."""
+    (lh_name, lh_cfg), (last_name, last_cfg) = cfg.layer_configs[-2:]
+    matmul_dtype = _dtype(cfg.matmul_dtype_eff)
+    lp = params[lh_name]
+    w_in = lp["w_in"].to(matmul_dtype).contiguous()
+    w_out = params[last_name]["w_in"].to(matmul_dtype).contiguous()
+    b_out = params[last_name]["b"].to(torch.float32).contiguous()
+    alif, beta, rho = _beta_rho(lh_cfg, lp)
+    common = (cfg.int_time_steps, alif, lh_cfg.alpha, rho, lh_cfg.threshold,
+              lh_cfg.gamma, last_cfg.kappa, lh_cfg.spike_func)
+    w_rec_eff = masked_recurrent(lh_cfg, lp)
+    if w_rec_eff is not None:
+        w_rec_eff = w_rec_eff.to(matmul_dtype).contiguous()
+        fn = (fused_mid_rec_scan_head_counts if counts
+              else fused_mid_rec_scan_head)
+        return fn(x_tm, w_in, w_rec_eff, beta, w_out, b_out, *common)
+    fn = fused_mid_ff_scan_head_counts if counts else fused_mid_ff_scan_head
+    return fn(x_tm, w_in, beta, w_out, b_out, *common)
+
+
 def forward_logits_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
                           device="cuda") -> torch.Tensor:
     """Raw pixels ``(B, F)`` -> class logits ``(B, O)``, encoding inside;
     differentiable with respect to ``params`` on both paths.
 
-    Head-fusible configs run the whole network as one head call; the rest
-    compose :func:`apply_pixels` with :func:`prediction_logits`."""
+    Head-fusible configs run the whole network as one head call, deeper
+    ones the trunk layer by layer and the last hidden layer with the
+    readout as one mid-head call; the rest compose :func:`apply_pixels`
+    with :func:`prediction_logits`."""
     dev = resolve_device(device)
     params = _to(params, dev)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
-    if not _head_fusible(cfg, enc, dev, _needs_grad(params)):
-        trace, _ = apply_pixels(cfg, params, pixels, enc, device=dev)
-        return prediction_logits(cfg, trace)
-    return _head_forward(cfg, params, pixels, enc, counts=False)
+    training = _needs_grad(params)
+    if _head_fusible(cfg, enc, dev, training):
+        return _head_forward(cfg, params, pixels, enc, counts=False)
+    if _deep_head_fusible(cfg, enc, dev, training):
+        x_tm = apply_pixels(cfg, params, pixels, enc,
+                            _upto=len(cfg.layer_configs) - 3, device=dev)
+        return _mid_head_call(cfg, params, x_tm)
+    trace, _ = apply_pixels(cfg, params, pixels, enc, device=dev)
+    return prediction_logits(cfg, trace)
 
 
 def forward_logits_counts_pixels(cfg: SNNConfig, params: Params, pixels, enc,
@@ -354,13 +595,24 @@ def forward_logits_counts_pixels(cfg: SNNConfig, params: Params, pixels, enc,
     ``spike_counts`` is ``{layer: (B, width) float32}`` for the LIF/ALIF
     layers: all the spike regularizers (train/losses.py) need, without
     the ``(B, T, H)`` hidden traces.  Head-fusible configs keep the
-    whole-network head (its ``_counts`` variants); the rest run
-    :func:`apply_pixels` with ``return_spike_counts=True``."""
+    whole-network head (its ``_counts`` variants) and deeper ones the
+    mid head's; the rest run :func:`apply_pixels` with
+    ``return_spike_counts=True``."""
     dev = resolve_device(device)
     params = _to(params, dev)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
-    if _head_fusible(cfg, enc, dev, _needs_grad(params)):
+    training = _needs_grad(params)
+    if _head_fusible(cfg, enc, dev, training):
         return _head_forward(cfg, params, pixels, enc, counts=True)
+    if _deep_head_fusible(cfg, enc, dev, training):
+        # The trunk's traces exist anyway (their counts are a sum over
+        # time); the last hidden layer's come from the mid-head call.
+        x_tm, counts = apply_pixels(
+            cfg, params, pixels, enc, return_spike_counts=True,
+            _upto=len(cfg.layer_configs) - 3, device=dev)
+        logits, cnt_last = _mid_head_call(cfg, params, x_tm, counts=True)
+        counts[cfg.layer_configs[-2][0]] = cnt_last
+        return logits, counts
     trace, _, counts = apply_pixels(cfg, params, pixels, enc,
                                     return_spike_counts=True, device=dev)
     return prediction_logits(cfg, trace), counts
@@ -386,33 +638,84 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                      training: bool = False) -> list:
     """Which implementation :func:`forward_logits_pixels` (with ``enc``)
     or :func:`apply` runs for each layer, and why: a list of ``{"layer",
-    "path", "reason"}`` dicts.  Paths: ``cuda:fused_head_fwd`` (the
-    inference kernel), ``cuda:fused_head_fwd_train+fused_head_bwd`` (the
-    pair a ``training`` step launches), ``torch:fused_head_reference``
-    (their plain versions, on the CPU) and ``torch:loop``.  It fires the
-    same fallback logs the real dispatch would."""
+    "path", "reason"}`` dicts in execution order.  Paths on the card:
+    ``cuda:fused_head_fwd`` (the whole network, inference),
+    ``cuda:fused_layer0_fwd`` (encode + layer 0), ``cuda:fused_mid_fwd``
+    (a layer past the first) and ``cuda:fused_mid_fwd[head]`` (the last
+    hidden layer + readout); with ``training`` each names the pair a step
+    launches (``cuda:fused_head_fwd_train+fused_head_bwd``,
+    ``cuda:fused_layer0_fwd+fused_layer0_bwd``, ...).  On the CPU their
+    plain versions: ``torch:fused_head_reference``,
+    ``torch:fused_layer0_reference``, ``torch:fused_mid_reference``,
+    ``torch:fused_mid_reference[head]``.  ``torch:loop`` is the per-step
+    loop.  It fires the same fallback logs the real dispatch would."""
     dev = resolve_device(device)
-    names = tuple(name for name, _ in cfg.layer_configs)
+    on_card = dev.type == "cuda"
+    layer_cfgs = cfg.layer_configs
+    names = tuple(name for name, _ in layer_cfgs)
+
+    def path(fwd, bwd, plain, mode=""):
+        if not on_card:
+            return f"torch:{plain}{mode}"
+        return f"cuda:{fwd}{'+' + bwd if training else ''}{mode}"
+
+    also = ", reverse-time BPTT in another" if training else ""
+    where = "" if on_card else " (plain version on the CPU)"
     if enc is not None and _head_fusible(cfg, enc, dev, training):
-        on_card = dev.type == "cuda"
-        kernels = f"{KERNEL_TRAIN}+{KERNEL_BWD}" if training else KERNEL
         return [{
             "layer": names,
-            "path": f"cuda:{kernels}" if on_card
-            else "torch:fused_head_reference",
+            "path": path(KERNEL_TRAIN if training else KERNEL, KERNEL_BWD,
+                         "fused_head_reference"),
             "reason": "single-hidden-layer classifier with max-over-time "
                       "readout: encode + scan + readout + max in one call"
-                      + (", reverse-time BPTT in another" if training else "")
-                      + ("" if on_card else " (plain version on the CPU)"),
+                      + also + where,
         }]
     if not cfg.use_kernels:
-        reason = "use_kernels=False"
-    elif enc is None:
-        reason = "no encoding config: apply() has no kernel in this port"
+        loop_reason = "use_kernels=False"
+    elif _dtype(cfg.compute_dtype) != torch.float32:
+        loop_reason = "compute_dtype != float32 turns every kernel off"
     else:
-        reason = "no CUDA kernel of this port covers this config"
-    return [{"layer": name, "path": "torch:loop", "reason": reason}
-            for name in names]
+        loop_reason = "no CUDA kernel of this port covers this layer"
+    deep = enc is not None and _deep_head_fusible(cfg, enc, dev, training)
+    entries = []
+    for idx, (name, lcfg) in enumerate(layer_cfgs):
+        if deep and idx == len(layer_cfgs) - 2:
+            two = (" (two hidden layers: the single two-layer kernel pair "
+                   "is not ported yet)" if len(layer_cfgs) == 3 else "")
+            entries.append({
+                "layer": (name, names[-1]),
+                "path": path(KERNEL_MID, KERNEL_MID_BWD,
+                             "fused_mid_reference", "[head]"),
+                "reason": "deep network's last hidden layer + readout + "
+                          "max over time in one call" + also + where + two,
+            })
+            break
+        if (idx == 0 and enc is not None
+                and _layer0_fusible(cfg, enc, False, dev, training)):
+            entries.append({
+                "layer": name,
+                "path": path(KERNEL_L0, KERNEL_L0_BWD,
+                             "fused_layer0_reference"),
+                "reason": "encoding + input product + scan in one call"
+                          + also + where,
+            })
+            continue
+        if idx > 0 and _mid_layer_fusible(cfg, lcfg, False, dev, training):
+            entries.append({
+                "layer": name,
+                "path": path(KERNEL_MID, KERNEL_MID_BWD,
+                             "fused_mid_reference"),
+                "reason": "input product inside the scan call (no currents "
+                          "tensor)" + also + where,
+            })
+            continue
+        entries.append({
+            "layer": name, "path": "torch:loop",
+            "reason": "readout layer (consumed by prediction_logits)"
+            if type(lcfg) is ReadoutConfig and cfg.use_kernels
+            else loop_reason,
+        })
+    return entries
 
 
 def param_labels(cfg: SNNConfig, params: Params) -> Dict[str, Dict[str, str]]:

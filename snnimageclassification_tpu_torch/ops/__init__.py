@@ -1,6 +1,7 @@
 """Semantic ops (surrogates, cells, encoding, temporal reductions) and the
-whole-network head kernels (forward, training forward, backward) with
-their plain PyTorch versions."""
+kernels with their plain PyTorch versions: the whole-network head and the
+z-emitting first layer (fused.py), the layers past the first and the deep
+network's head (fused_mid.py)."""
 from .cells import LayerType  # noqa: F401
 from .encoding import ToSpikes, encode_spikes  # noqa: F401
 from .surrogate import SpikeFuncType, heaviside_phi, heaviside_sigmoid  # noqa: F401

@@ -15,12 +15,14 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 from typing import Dict
 
-__all__ = ["BUILD_DIR", "KernelBuildError", "build", "load", "build_log"]
+__all__ = ["BUILD_DIR", "KernelBuildError", "build", "load", "build_log",
+           "inlined_source"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
@@ -55,6 +57,29 @@ def _nvcc() -> str:
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
         "kernels are built from csrc/ at first use"
     )
+
+
+def inlined_source(name: str) -> str:
+    """``csrc/<name>.cu`` with its ``#include "x.cuh"`` lines replaced by
+    the headers' text (each once, as ``#pragma once`` has it): one
+    self-contained source, for tools that build a variant of a kernel with
+    a statement replaced wherever it lives."""
+    seen = set()
+
+    def expand(path: pathlib.Path) -> str:
+        out = []
+        for line in path.read_text().splitlines(keepends=True):
+            m = re.match(r'\s*#include\s+"([^"]+\.cuh)"', line)
+            if not m:
+                if line.strip() != "#pragma once":
+                    out.append(line)
+                continue
+            if m.group(1) not in seen:
+                seen.add(m.group(1))
+                out.append(expand(_CSRC / m.group(1)))
+        return "".join(out)
+
+    return expand(_CSRC / f"{name}.cu")
 
 
 def build(name: str) -> pathlib.Path:

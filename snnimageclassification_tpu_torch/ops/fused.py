@@ -35,6 +35,17 @@ backward ``s`` and ``dcur`` are rounded to the weights' dtype before each
 product, and the gradients of the weights come back in the weights' dtype.
 The recurrent weights must already be eye-masked
 (``cells.masked_recurrent``).
+
+Layer 0 of a deeper network is the same computation without the readout:
+``fused_encode_{rec,ff}_scan`` return the spike trace ``z (T, B, H)`` in
+the weights' dtype (JAX package: the ``head=False`` mode of the same two
+kernels).  ``fused_layer0_fwd`` (``csrc/fused_head.cu``, the head kernels'
+template with the readout compiled out, so its spikes are bitwise the
+spikes inside the head) writes ``z`` and, for training, the residuals of
+the JAX kernel: ``delta`` for ALIF with FastSigmoid, ``v`` for LIF, ``v``
+and ``a`` for ALIF with Phi.  ``fused_layer0_bwd``
+(``csrc/fused_layer0_bwd.cu``) runs the reverse chain from the cotangent
+of ``z`` to ``g_W_in, g_W_rec``.
 """
 from __future__ import annotations
 
@@ -57,6 +68,11 @@ __all__ = [
     "fused_encode_rec_scan_head_counts_reference",
     "fused_encode_ff_scan_head_counts_reference",
     "fused_head_supported",
+    "fused_encode_rec_scan",
+    "fused_encode_ff_scan",
+    "fused_encode_rec_scan_reference",
+    "fused_encode_ff_scan_reference",
+    "fused_supported",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -64,9 +80,14 @@ __all__ = [
 KERNEL = "fused_head_fwd"
 KERNEL_TRAIN = "fused_head_fwd_train"
 KERNEL_BWD = "fused_head_bwd"
+KERNEL_L0 = "fused_layer0_fwd"
+KERNEL_L0_BWD = "fused_layer0_bwd"
+KERNEL_MID = "fused_mid_fwd"  # wrappers in ops/fused_mid.py
+KERNEL_MID_BWD = "fused_mid_bwd"
 MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
 _counts_lock = threading.Lock()
-_launches = {KERNEL: 0, KERNEL_TRAIN: 0, KERNEL_BWD: 0}
+_launches = {KERNEL: 0, KERNEL_TRAIN: 0, KERNEL_BWD: 0, KERNEL_L0: 0,
+             KERNEL_L0_BWD: 0, KERNEL_MID: 0, KERNEL_MID_BWD: 0}
 
 Beta = Union[float, torch.Tensor]
 
@@ -97,32 +118,49 @@ def _stores_a(alif: bool, spike_func: SpikeFuncType) -> bool:
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
-def _head_loop(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods,
-               alif, alpha, rho, threshold, kappa, train, store, store_a,
-               want_counts):
+def _residual_is_v(alif: bool, spike_func: SpikeFuncType) -> bool:
+    """The z-emitting kernels keep the membrane ``v`` as their residual
+    except for ALIF with FastSigmoid, whose surrogate needs ``delta = v -
+    thr`` only; the heads always keep ``delta``."""
+    return not (alif and spike_func == SpikeFuncType.FastSigmoid)
+
+
+def _scan_loop(cur_in, n_rows, hidden, dev, wdtype, w_rec, beta, w_out,
+               b_out, n_steps, alif, alpha, rho, threshold, kappa, train,
+               store, store_a, want_counts, res_is_v=False):
     """Per-step loop with the kernels' arithmetic in the kernels' order.
+
+    ``cur_in(t)`` is the float32 input current ``(B, H)`` of step ``t``.
+    With ``w_out`` it is a head (readout, running max, no ``z`` leaves);
+    without, the spike trace ``z (T, B, H)`` leaves in ``wdtype``.
+    ``train`` tracks ``tstar``, ``store`` keeps the residual (and ``a``
+    with ``store_a``), ``want_counts`` the spike counts.  Returns
+    ``(logits, z, res, a, tstar, counts)`` with None for what the mode does
+    not produce; the traces are rounded once to ``wdtype``.
 
     bf16 weights are upcast to float32 (exact), so every product with a
     0/1 spike is exact and every sum is float32.  On a CUDA device, run it
     with ``torch.backends.cuda.matmul.allow_tf32 = False``: TF32 would
     round float32 weights."""
     f32 = torch.float32
-    dev = lat.device
-    w_in32, w_out32 = w_in.to(f32), w_out.to(f32)
+    head = w_out is not None
     w_rec32 = None if w_rec is None else w_rec.to(f32)
-    b = b_out.to(f32)
     beta_t = torch.as_tensor(beta, dtype=f32, device=dev) if alif else None
-    B, H, O = lat.shape[0], w_in.shape[1], w_out.shape[1]
-    v = torch.zeros((B, H), dtype=f32, device=dev)
+    v = torch.zeros((n_rows, hidden), dtype=f32, device=dev)
     a = torch.zeros_like(v)
     z = torch.zeros_like(v)
-    v_r = torch.zeros((B, O), dtype=f32, device=dev)
-    m = torch.full((B, O), float("-inf"), dtype=f32, device=dev)
-    tstar = torch.zeros((B, O), dtype=torch.int32, device=dev)
-    counts = torch.zeros_like(v) if train and want_counts else None
-    deltas, a_trace = [], []
+    counts = torch.zeros_like(v) if want_counts else None
+    if head:
+        w_out32, b = w_out.to(f32), b_out.to(f32)
+        n_out = w_out.shape[1]
+        v_r = torch.zeros((n_rows, n_out), dtype=f32, device=dev)
+        m = torch.full((n_rows, n_out), float("-inf"), dtype=f32, device=dev)
+        tstar = torch.zeros((n_rows, n_out), dtype=torch.int32, device=dev)
+    else:
+        m = tstar = None
+    zs, res, a_trace = [], [], []
     for t in range(n_steps):
-        cur = spike_row(lat, t, n_steps, use_periods).to(f32) @ w_in32
+        cur = cur_in(t)
         if w_rec32 is not None:
             cur = cur + z @ w_rec32
         v = (alpha * v + cur) * (1.0 - z)
@@ -133,22 +171,44 @@ def _head_loop(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods,
             thr = threshold
         delta = v - thr
         z = (delta >= 0).to(f32)
-        v_r = kappa * v_r + (z @ w_out32 + b)
-        better = v_r > m
-        m = torch.where(better, v_r, m)
-        if train:
-            tstar = torch.where(better, torch.full_like(tstar, t), tstar)
-            if counts is not None:
-                counts = counts + z
-            if store:
-                deltas.append(delta.to(w_in.dtype))  # rounded once, here
-                if store_a:
-                    a_trace.append(a.to(w_in.dtype))
+        if head:
+            v_r = kappa * v_r + (z @ w_out32 + b)
+            better = v_r > m
+            m = torch.where(better, v_r, m)
+            if train:
+                tstar = torch.where(better, torch.full_like(tstar, t), tstar)
+        else:
+            zs.append(z.to(wdtype))
+        if counts is not None:
+            counts = counts + z
+        if store:  # rounded once, here
+            res.append((v if res_is_v else delta).to(wdtype))
+            if store_a:
+                a_trace.append(a.to(wdtype))
+    return (m, torch.stack(zs) if zs else None,
+            torch.stack(res) if res else None,
+            torch.stack(a_trace) if a_trace else None, tstar, counts)
+
+
+def _latency_currents(lat, w_in, n_steps, use_periods):
+    """``cur_in`` of :func:`_scan_loop` for an encoded first layer."""
+    w_in32 = w_in.to(torch.float32)
+    return lambda t: (spike_row(lat, t, n_steps, use_periods)
+                      .to(torch.float32) @ w_in32)
+
+
+def _head_loop(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods,
+               alif, alpha, rho, threshold, kappa, train, store, store_a,
+               want_counts):
+    """The whole-network head through :func:`_scan_loop`."""
+    m, _, delta, a_tr, tstar, counts = _scan_loop(
+        _latency_currents(lat, w_in, n_steps, use_periods), lat.shape[0],
+        w_in.shape[1], lat.device, w_in.dtype, w_rec, beta, w_out, b_out,
+        n_steps, alif, alpha, rho, threshold, kappa, train, train and store,
+        store_a, train and want_counts)
     if not train:
         return m
-    return (m, torch.stack(deltas) if store else None,
-            torch.stack(a_trace) if store and store_a else None, tstar,
-            counts)
+    return m, delta, a_tr, tstar, counts
 
 
 def _head_reference(lat, w_in, w_rec, beta, w_out, b_out, n_steps,
@@ -170,61 +230,124 @@ def _head_train_reference(lat, w_in, w_rec, beta, w_out, b_out, n_steps,
                       True, store, store_a, want_counts)
 
 
-def _head_bwd_reference(g_logits, g_counts, tstar, delta, a_tr, lat, w_in,
-                        w_rec, beta, w_out, n_steps, use_periods, alpha,
-                        threshold, gamma, kappa, spike_func):
-    """Plain version of ``fused_head_bwd``: an explicit reverse-time loop
-    from the residuals, rounding ``s`` and ``dcur`` through the weights'
-    dtype before each product; ``(g_w_in, g_w_rec | None, g_w_out, g_b)``,
-    the weights' gradients in the weights' dtype."""
+def _layer0_reference(lat, w_in, w_rec, beta, n_steps, use_periods, alif,
+                      alpha, rho, threshold, train, store_a, res_is_v):
+    """Plain version of ``fused_layer0_fwd``: ``(z (T, B, H), res | None,
+    a | None)`` in the weights' dtype; ``res`` is ``v`` or ``delta``."""
+    _, z, res, a_tr, _, _ = _scan_loop(
+        _latency_currents(lat, w_in, n_steps, use_periods), lat.shape[0],
+        w_in.shape[1], lat.device, w_in.dtype, w_rec, beta, None, None,
+        n_steps, alif, alpha, rho, threshold, 0.0, train, train, store_a,
+        False, res_is_v)
+    return z, res, a_tr
+
+
+def _bwd_loop(spikes_in, w_in_t, g_logits, g_counts, tstar, g_z, res, a_tr,
+              z, res_is_v, w_rec, beta, w_out, n_steps, alpha, threshold,
+              gamma, kappa, spike_func, wd):
+    """Plain version of the reverse-time kernels: an explicit loop from the
+    residuals, rounding ``s`` and ``dcur`` through the weights' dtype
+    ``wd`` before each product.
+
+    A head (``w_out`` given) takes ``g_logits, tstar`` (and ``g_counts``)
+    and recomputes ``z = res >= 0`` from its ``delta`` residual; a
+    z-emitting layer takes ``g_z`` and the stored ``z``, and its residual
+    is ``v`` where ``res_is_v``.  ``spikes_in(t)`` is the float32 0/1 input
+    ``(B, F_in)`` of step ``t``; with ``w_in_t`` (``W_in^T`` as float32)
+    the input's cotangent ``g_z_in (T, B, F_in)`` float32 is returned too.
+    Returns ``(g_z_in | None, g_w_in, g_w_rec | None, g_w_out | None, g_b
+    | None)``, all float32."""
     f32 = torch.float32
-    dev = lat.device
-    wd = w_out.dtype
+    head = w_out is not None
+    dev = res.device
+    _, B, H = res.shape
 
     def r(x):
         return x if wd == f32 else x.to(wd).to(f32)
 
-    w_out32 = w_out.to(f32)
     w_rec32 = None if w_rec is None else w_rec.to(f32)
-    B, F = lat.shape
-    H, O = w_out.shape
-    g = g_logits.to(f32)
     beta_t = (torch.as_tensor(beta, dtype=f32, device=dev)
               if a_tr is not None else None)
-    s = torch.zeros((B, O), dtype=f32, device=dev)
     dcur = torch.zeros((B, H), dtype=f32, device=dev)
-    g_w_in = torch.zeros((F, H), dtype=f32, device=dev)
+    g_w_in = None
     g_w_rec = None if w_rec is None else torch.zeros((H, H), dtype=f32,
                                                      device=dev)
-    g_w_out = torch.zeros((H, O), dtype=f32, device=dev)
-    g_b = torch.zeros((O,), dtype=f32, device=dev)
+    g_w_out = g_b = None
+    if head:
+        w_out32 = w_out.to(f32)
+        O = w_out.shape[1]
+        g = g_logits.to(f32)
+        s = torch.zeros((B, O), dtype=f32, device=dev)
+        g_w_out = torch.zeros((H, O), dtype=f32, device=dev)
+        g_b = torch.zeros((O,), dtype=f32, device=dev)
+    g_z_in = [None] * n_steps if w_in_t is not None else None
     no_spikes = torch.zeros((B, H), dtype=f32, device=dev)
     for t in range(n_steps - 1, -1, -1):
-        s = kappa * s + g * (tstar == t).to(f32)
-        s_r = r(s)
-        dz = s_r @ w_out32.T
-        if g_counts is not None:
-            dz = dz + g_counts
+        if head:
+            s = kappa * s + g * (tstar == t).to(f32)
+            s_r = r(s)
+            dz = s_r @ w_out32.T
+            if g_counts is not None:
+                dz = dz + g_counts
+        else:
+            dz = g_z[t].to(f32)
         if w_rec32 is not None:
             dz = dz + r(dcur) @ w_rec32.T
-        d_t = delta[t].to(f32)
         thr = (threshold + beta_t * a_tr[t].to(f32) if a_tr is not None
                else threshold)
+        d_t = res[t].to(f32) - thr if res_is_v else res[t].to(f32)
         surr = surrogate_grad_from_delta(spike_func, d_t, thr, gamma)
         dv = dz * surr + alpha * dcur
-        z_prev = ((delta[t - 1].to(f32) >= 0).to(f32) if t > 0
-                  else no_spikes)
+        if t == 0:
+            z_prev = no_spikes
+        elif head:
+            z_prev = (res[t - 1].to(f32) >= 0).to(f32)
+        else:
+            z_prev = z[t - 1].to(f32)
         dcur = dv * (1.0 - z_prev)
         dcr = r(dcur)
-        # Spike rows at the forward step index of the dcur row they meet.
-        g_w_in += spike_row(lat, t, n_steps, use_periods).to(f32).T @ dcr
+        # Input spikes at the forward step index of the dcur row they meet.
+        part = spikes_in(t).T @ dcr
+        g_w_in = part if g_w_in is None else g_w_in + part
+        if g_z_in is not None:
+            g_z_in[t] = dcr @ w_in_t
         if g_w_rec is not None:
             g_w_rec += z_prev.T @ dcr
-        g_w_out += (d_t >= 0).to(f32).T @ s_r
-        g_b += s.sum(0)
+        if head:
+            g_w_out += (d_t >= 0).to(f32).T @ s_r
+            g_b += s.sum(0)
+    return (None if g_z_in is None else torch.stack(g_z_in), g_w_in, g_w_rec,
+            g_w_out, g_b)
+
+
+def _head_bwd_reference(g_logits, g_counts, tstar, delta, a_tr, lat, w_in,
+                        w_rec, beta, w_out, n_steps, use_periods, alpha,
+                        threshold, gamma, kappa, spike_func):
+    """Plain version of ``fused_head_bwd``: ``(g_w_in, g_w_rec | None,
+    g_w_out, g_b)``, the weights' gradients in the weights' dtype."""
+    f32 = torch.float32
+    _, g_w_in, g_w_rec, g_w_out, g_b = _bwd_loop(
+        lambda t: spike_row(lat, t, n_steps, use_periods).to(f32), None,
+        g_logits, g_counts, tstar, None, delta, a_tr, None, False, w_rec,
+        beta, w_out, n_steps, alpha, threshold, gamma, kappa, spike_func,
+        w_out.dtype)
     return (g_w_in.to(w_in.dtype),
             None if g_w_rec is None else g_w_rec.to(w_rec.dtype),
-            g_w_out.to(wd), g_b)
+            g_w_out.to(w_out.dtype), g_b)
+
+
+def _layer0_bwd_reference(g_z, z, res, a_tr, res_is_v, lat, w_in, w_rec,
+                          beta, n_steps, use_periods, alpha, threshold,
+                          gamma, spike_func):
+    """Plain version of ``fused_layer0_bwd``: ``(g_w_in, g_w_rec | None)``
+    in the weights' dtype."""
+    f32 = torch.float32
+    _, g_w_in, g_w_rec, _, _ = _bwd_loop(
+        lambda t: spike_row(lat, t, n_steps, use_periods).to(f32), None,
+        None, None, None, g_z, res, a_tr, z, res_is_v, w_rec, beta, None,
+        n_steps, alpha, threshold, gamma, 0.0, spike_func, w_in.dtype)
+    return (g_w_in.to(w_in.dtype),
+            None if g_w_rec is None else g_w_rec.to(w_rec.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -242,12 +365,25 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.snn_fused_head_fwd_train.argtypes = (
             [vp] * 11 + [i] * 8 + [f] * 4 + [i, i, vp])
         lib.snn_fused_head_fwd_train.restype = i
-    else:
+        lib.snn_fused_layer0_plan.argtypes = [i, i, i, i, i, ip, ip]
+        lib.snn_fused_layer0_plan.restype = i
+        lib.snn_fused_layer0_fwd.argtypes = (
+            [vp] * 7 + [i] * 8 + [f] * 3 + [i, i, vp])
+        lib.snn_fused_layer0_fwd.restype = i
+    elif name == "fused_head_bwd":
         lib.snn_fused_head_bwd_plan.argtypes = [i] * 9 + [ip]
         lib.snn_fused_head_bwd_plan.restype = i
         lib.snn_fused_head_bwd.argtypes = (
             [vp] * 14 + [i] * 8 + [f] * 4 + [i, vp])
         lib.snn_fused_head_bwd.restype = i
+    elif name == "fused_layer0_bwd":
+        lib.snn_fused_layer0_bwd_plan.argtypes = [i] * 8 + [ip]
+        lib.snn_fused_layer0_bwd_plan.restype = i
+        lib.snn_fused_layer0_bwd.argtypes = (
+            [vp] * 11 + [i] * 8 + [f] * 3 + [i, vp])
+        lib.snn_fused_layer0_bwd.restype = i
+    else:
+        raise ValueError(f"no kernel source named {name!r}")
     lib.snn_cuda_error_string.argtypes = [i]
     lib.snn_cuda_error_string.restype = ctypes.c_char_p
     lib._snn_declared = True
@@ -495,6 +631,152 @@ def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
     return g_w_in, g_w_rec, g_w_out, out_sum[H * O:].clone()
 
 
+def _check_weights(kernel, w_in):
+    if w_in.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{kernel}: weights must be float32 or bfloat16, "
+                         f"got {w_in.dtype}")
+
+
+def _plan_layer0(device: torch.device, F: int, H: int, recurrent: bool,
+                 bf16: bool) -> Optional[Tuple[int, int]]:
+    """(rows per block, shared-memory bytes) of ``fused_layer0_fwd`` on
+    ``device``, or None when the shape does not fit it."""
+    lib = _lib()
+    rows, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.snn_fused_layer0_plan(F, H, int(recurrent), int(bf16),
+                                   _index(device), ctypes.byref(rows),
+                                   ctypes.byref(smem))
+    if rc == 1:
+        return None
+    _raise_on(rc, lib, f"{KERNEL_L0} plan")
+    return rows.value, smem.value
+
+
+def _plan_layer0_bwd(device: torch.device, B: int, F: int, H: int, T: int,
+                     recurrent: bool, bf16: bool,
+                     use_periods: bool) -> Optional[Tuple[int, int]]:
+    """Blocks of (g_W_in, g_W_rec) partial slabs of ``fused_layer0_bwd``
+    on ``device``, or None when the shape does not fit."""
+    lib = _lib("fused_layer0_bwd")
+    out = (ctypes.c_int * 2)()
+    rc = lib.snn_fused_layer0_bwd_plan(B, F, H, T, int(recurrent), int(bf16),
+                                       int(use_periods), _index(device), out)
+    if rc == 1:
+        return None
+    _raise_on(rc, lib, f"{KERNEL_L0_BWD} plan")
+    return out[0], out[1]
+
+
+def fused_supported(
+    n_steps: int, n_features: int, hidden: int, recurrent: bool = True,
+    itemsize: int = 4, device="cuda", training: bool = False,
+    use_periods: bool = True,
+) -> bool:
+    """Whether the z-emitting first layer covers this shape on ``device``:
+    the gates of :func:`fused_head_supported` without a readout."""
+    device = torch.device(device)
+    if n_steps < 1 or hidden < 1 or n_features < 1:
+        return False
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda" or itemsize not in (2, 4) \
+            or n_steps > MAX_STEPS:
+        return False
+    if _plan_layer0(device, n_features, hidden, recurrent,
+                    itemsize == 2) is None:
+        return False
+    return not training or _plan_layer0_bwd(
+        device, 1, n_features, hidden, n_steps, recurrent, itemsize == 2,
+        use_periods) is not None
+
+
+def _layer0_cuda(lat, w_in, w_rec, beta, n_steps, use_periods, alif, alpha,
+                 rho, threshold, train, store_a, res_is_v):
+    """Launch ``fused_layer0_fwd``; returns as :func:`_layer0_reference`."""
+    k = KERNEL_L0
+    dev = lat.device
+    B, F = lat.shape
+    H = w_in.shape[1]
+    wdt = w_in.dtype
+    _check_weights(k, w_in)
+    _check(k, "latencies", lat, torch.int32, (B, F), dev)
+    _check(k, "w_in", w_in, wdt, (F, H), dev)
+    if w_rec is not None:
+        _check(k, "w_rec", w_rec, wdt, (H, H), dev)
+    if not 1 <= n_steps <= MAX_STEPS:
+        raise ValueError(
+            f"{k}: n_steps must be in [1, {MAX_STEPS}], got {n_steps}")
+    plan = _plan_layer0(dev, F, H, w_rec is not None, wdt == torch.bfloat16)
+    if plan is None:
+        raise ValueError(f"{k}: shape F={F} H={H} does not fit the kernel "
+                         "(gate on fused_supported)")
+    trace = dict(dtype=wdt, device=dev)
+    z = torch.empty((n_steps, B, H), **trace)
+    res = torch.empty((n_steps, B, H), **trace) if train else None
+    a_tr = torch.empty((n_steps, B, H), **trace) if train and store_a \
+        else None
+    lib = _lib()
+    rc = lib.snn_fused_layer0_fwd(
+        lat.data_ptr(), w_in.data_ptr(), _ptr(w_rec),
+        _beta_tensor(beta, dev).data_ptr(), z.data_ptr(), _ptr(res),
+        _ptr(a_tr), B, F, H, n_steps, int(use_periods), int(alif),
+        int(wdt == torch.bfloat16), int(res_is_v), alpha, rho, threshold,
+        plan[0], dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, f"{k} launch")
+    _launched(k)
+    return z, res, a_tr
+
+
+def _layer0_bwd_cuda(g_z, z, res, a_tr, res_is_v, lat, w_in, w_rec, beta,
+                     n_steps, use_periods, alpha, threshold, gamma,
+                     spike_func):
+    """Launch ``fused_layer0_bwd`` (chain, ``g_W_in`` and ``g_W_rec``
+    functions in one call) and add the blocks' slabs in a fixed order."""
+    k = KERNEL_L0_BWD
+    dev = lat.device
+    B, F = lat.shape
+    H = w_in.shape[1]
+    wdt = w_in.dtype
+    _check_weights(k, w_in)
+    for name, t in (("g_z", g_z), ("z", z), ("res", res), ("a", a_tr)):
+        if t is not None:
+            _check(k, name, t, wdt, (n_steps, B, H), dev)
+    _check(k, "latencies", lat, torch.int32, (B, F), dev)
+    if w_rec is not None:
+        _check(k, "w_rec", w_rec, wdt, (H, H), dev)
+    bf16 = wdt == torch.bfloat16
+    plan = _plan_layer0_bwd(dev, B, F, H, n_steps, w_rec is not None, bf16,
+                            use_periods)
+    if plan is None:
+        raise ValueError(
+            f"{k}: shape T={n_steps} F={F} H={H} does not fit the kernel "
+            "(gate on fused_supported(training=True))")
+    n_in, n_rec = plan
+    f32 = dict(dtype=torch.float32, device=dev)
+    dcur = torch.empty((B, n_steps, H), dtype=wdt, device=dev)
+    zmask = torch.empty((B, n_steps + 1, (H + 31) // 32), dtype=torch.int32,
+                        device=dev)
+    slab_in = torch.empty((n_in, F * H), **f32)
+    slab_rec = torch.empty((n_rec, H * H), **f32)
+    lib = _lib("fused_layer0_bwd")
+    rc = lib.snn_fused_layer0_bwd(
+        g_z.data_ptr(), z.data_ptr(), res.data_ptr(), _ptr(a_tr),
+        lat.data_ptr(), _ptr(w_rec), _beta_tensor(beta, dev).data_ptr(),
+        dcur.data_ptr(), zmask.data_ptr(), slab_in.data_ptr(),
+        slab_rec.data_ptr(), B, F, H, n_steps, int(use_periods),
+        int(spike_func == SpikeFuncType.Phi), int(bf16), int(res_is_v),
+        alpha, threshold, gamma, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, f"{k} launch")
+    _launched(k)
+    g_w_in = slab_in.sum(0).view(F, H).to(wdt)
+    g_w_rec = (None if w_rec is None
+               else slab_rec.sum(0).view(H, H).to(wdt))
+    return g_w_in, g_w_rec
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and autograd
 # ---------------------------------------------------------------------------
@@ -546,12 +828,8 @@ class _HeadFn(torch.autograd.Function):
             g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
             ctx.beta, w_out, n_steps, use_periods, alpha, threshold, gamma,
             kappa, spike_func)
-        # No gradient reaches beta: it enters only through the threshold.
-        g_beta = (torch.zeros_like(ctx.beta)
-                  if isinstance(ctx.beta, torch.Tensor)
-                  and ctx.beta.requires_grad else None)
-        return (None, g_w_in, g_w_rec, g_beta, g_w_out, g_b, None, None,
-                None)
+        return (None, g_w_in, g_w_rec, _zero_beta_grad(ctx.beta), g_w_out,
+                g_b, None, None, None)
 
 
 def _head(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods, alif,
@@ -562,10 +840,7 @@ def _head(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods, alif,
     kappa = float(kappa)
     if isinstance(spike_func, str):
         spike_func = SpikeFuncType[spike_func]
-    needs_grad = torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad
-        for t in (w_in, w_rec, beta, w_out, b_out))
-    if needs_grad:
+    if _wants_grad(w_in, w_rec, beta, w_out, b_out):
         statics = (*scalars, float(gamma), kappa, spike_func)
         return _HeadFn.apply(lat, w_in, w_rec, beta, w_out, b_out, statics,
                              want_counts, plain)
@@ -576,6 +851,125 @@ def _head(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods, alif,
     fwd = _head_train_cuda if cuda else _head_train_reference
     logits, _, _, _, counts = fwd(*args, False, False, True)
     return logits, counts
+
+
+def _zero_beta_grad(beta):
+    """No gradient reaches beta: it enters only through the threshold."""
+    if isinstance(beta, torch.Tensor) and beta.requires_grad:
+        return torch.zeros_like(beta)
+    return None
+
+
+class _Layer0Fn(torch.autograd.Function):
+    """The z-emitting first layer with its backward."""
+
+    @staticmethod
+    def forward(ctx, lat, w_in, w_rec, beta, statics, plain):
+        (n_steps, use_periods, alif, alpha, rho, threshold, gamma,
+         spike_func) = statics
+        impl = _impl(lat, plain)
+        fwd = _layer0_cuda if impl == "cuda" else _layer0_reference
+        res_is_v = _residual_is_v(alif, spike_func)
+        z, res, a_tr = fwd(lat, w_in, w_rec, beta, n_steps, use_periods,
+                           alif, alpha, rho, threshold, True,
+                           _stores_a(alif, spike_func), res_is_v)
+        ctx.impl, ctx.statics, ctx.beta, ctx.res_is_v = (impl, statics, beta,
+                                                         res_is_v)
+        ctx.save_for_backward(lat, w_in, w_rec, z, res, a_tr)
+        return z
+
+    @staticmethod
+    def backward(ctx, g_z):
+        lat, w_in, w_rec, z, res, a_tr = ctx.saved_tensors
+        (n_steps, use_periods, _, alpha, _, threshold, gamma,
+         spike_func) = ctx.statics
+        g_z = g_z.to(z.dtype).contiguous()
+        bwd = (_layer0_bwd_cuda if ctx.impl == "cuda"
+               else _layer0_bwd_reference)
+        g_w_in, g_w_rec = bwd(g_z, z, res, a_tr, ctx.res_is_v, lat, w_in,
+                              w_rec, ctx.beta, n_steps, use_periods, alpha,
+                              threshold, gamma, spike_func)
+        return None, g_w_in, g_w_rec, _zero_beta_grad(ctx.beta), None, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _layer0(lat, w_in, w_rec, beta, n_steps, use_periods, alif, alpha, rho,
+            threshold, gamma, spike_func, plain=False):
+    scalars = (int(n_steps), bool(use_periods), bool(alif), float(alpha),
+               float(rho), float(threshold))
+    if isinstance(spike_func, str):
+        spike_func = SpikeFuncType[spike_func]
+    if _wants_grad(w_in, w_rec, beta):
+        return _Layer0Fn.apply(lat, w_in, w_rec, beta,
+                               (*scalars, float(gamma), spike_func), plain)
+    fwd = (_layer0_cuda if _impl(lat, plain) == "cuda"
+           else _layer0_reference)
+    # Inference: only the spike trace leaves.
+    return fwd(lat, w_in, w_rec, beta, *scalars, False, False, False)[0]
+
+
+def fused_encode_rec_scan(
+    latencies: torch.Tensor,
+    w_in: torch.Tensor,
+    w_rec: torch.Tensor,
+    beta: Beta,
+    n_steps: int,
+    use_periods: bool,
+    alif: bool,
+    alpha: float,
+    rho: float,
+    threshold: float,
+    gamma: float,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """(latencies (B, F) int32, W_in, masked W_rec) -> spikes ``(T, B, H)``
+    in the weights' dtype, differentiable in the weights: encoding, input
+    product and the recurrent LIF/ALIF scan of a deeper network's first
+    layer in one call."""
+    return _layer0(latencies, w_in, w_rec, beta, n_steps, use_periods, alif,
+                   alpha, rho, threshold, gamma, spike_func)
+
+
+def fused_encode_ff_scan(
+    latencies: torch.Tensor,
+    w_in: torch.Tensor,
+    beta: Beta,
+    n_steps: int,
+    use_periods: bool,
+    alif: bool,
+    alpha: float,
+    rho: float,
+    threshold: float,
+    gamma: float,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """Feedforward variant: no recurrent weights."""
+    return _layer0(latencies, w_in, None, beta, n_steps, use_periods, alif,
+                   alpha, rho, threshold, gamma, spike_func)
+
+
+def fused_encode_rec_scan_reference(
+    latencies, w_in, w_rec, beta, n_steps, use_periods, alif, alpha, rho,
+    threshold, gamma,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """:func:`fused_encode_rec_scan` through the plain PyTorch versions,
+    forward and backward, on whatever device the tensors lie."""
+    return _layer0(latencies, w_in, w_rec, beta, n_steps, use_periods, alif,
+                   alpha, rho, threshold, gamma, spike_func, plain=True)
+
+
+def fused_encode_ff_scan_reference(
+    latencies, w_in, beta, n_steps, use_periods, alif, alpha, rho, threshold,
+    gamma, spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_encode_ff_scan`."""
+    return _layer0(latencies, w_in, None, beta, n_steps, use_periods, alif,
+                   alpha, rho, threshold, gamma, spike_func, plain=True)
 
 
 def fused_encode_rec_scan_head(

@@ -1,0 +1,565 @@
+"""Hidden layers past the first: input product + LIF/ALIF scan in one call,
+and the last hidden layer with the readout and the max over time.
+
+Port of the JAX package's ops/pallas_fused_mid.py.  A hidden layer past
+layer 0 consumes the previous layer's spike trace ``z_in (T, B, Hin)``:
+
+* ``fused_mid_{rec,ff}_scan`` return this layer's spikes ``z (T, B, H)`` in
+  the weights' dtype; the backward returns the cotangent of ``z_in`` for
+  the layer before, ``g_W_in`` and ``g_W_rec``.
+* ``fused_mid_{rec,ff}_scan_head`` run the last hidden layer, the readout
+  ``v = kappa v + z @ W_out + b`` and the running max with strict ``>``
+  (the first maximal step wins), and return the logits ``(B, O)``; the
+  ``_counts`` variants also return the spike counts ``(B, H)``.
+
+A network of N hidden layers is then layer 0 (``ops/fused.py``:
+``fused_encode_{rec,ff}_scan``) -> N - 2 mid calls -> one mid-head call,
+and neither a currents tensor, nor the readout trace, nor the last layer's
+spike-trace cotangent exists in device memory.
+
+Two hand-written CUDA kernels stand behind the wrappers:
+
+* ``fused_mid_fwd`` (``csrc/fused_mid.cu``): one template for both modes,
+  inference and training.  The z-emitting mode writes ``z`` and, for
+  training, the residuals of the JAX kernel (``delta`` for ALIF with
+  FastSigmoid, ``v`` for LIF, ``v`` and ``a`` for ALIF with Phi); the head
+  mode writes the logits and, for training, ``delta`` (and ``a`` for ALIF
+  with Phi), ``tstar`` and on request the counts.  Inference and training
+  logits are bitwise equal.
+* ``fused_mid_bwd`` (``csrc/fused_mid_bwd.cu``): the reverse chain, the
+  weight gradients as sums over set bits, and ``g_z_in = dcur @ W_in^T`` as
+  a tiled product of its own.
+
+On a CUDA tensor a wrapper launches the kernels or raises; on the CPU it
+runs the plain PyTorch versions (``_mid_reference``,
+``_mid_bwd_reference``), which the tests hold against the JAX kernels.  The
+``*_reference`` entry points run the plain versions on any device.
+
+Operand and rounding rules are those of ``ops/fused.py``: products take the
+weights' dtype, sums are float32, ``s`` and ``dcur`` are rounded to the
+weights' dtype before each product, ``z`` and ``g_z_in`` carry the dtype of
+the weights and of ``z_in``; ``beta`` gets a zero cotangent.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import fused as _f
+from .fused import KERNEL_MID, KERNEL_MID_BWD, MAX_STEPS, Beta
+from .surrogate import SpikeFuncType
+
+__all__ = [
+    "fused_mid_rec_scan",
+    "fused_mid_ff_scan",
+    "fused_mid_rec_scan_head",
+    "fused_mid_ff_scan_head",
+    "fused_mid_rec_scan_head_counts",
+    "fused_mid_ff_scan_head_counts",
+    "fused_mid_rec_scan_reference",
+    "fused_mid_ff_scan_reference",
+    "fused_mid_rec_scan_head_reference",
+    "fused_mid_ff_scan_head_reference",
+    "fused_mid_rec_scan_head_counts_reference",
+    "fused_mid_ff_scan_head_counts_reference",
+    "fused_mid_supported",
+    "fused_mid_head_supported",
+]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+def _mid_reference(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif,
+                   alpha, rho, threshold, kappa, train, store_a,
+                   want_counts, res_is_v):
+    """Plain version of ``fused_mid_fwd``: ``(logits, z, res, a, tstar,
+    counts)`` as :func:`ops.fused._scan_loop`; a head where ``w_out`` is
+    given.  The input current of a step is the sum of the rows of ``W_in``
+    that ``z_in(t)`` selects.  ``train`` keeps the residuals and
+    ``tstar``; the counts come on request in either mode."""
+    f32 = torch.float32
+    w_in32 = w_in.to(f32)
+    return _f._scan_loop(
+        lambda t: z_in[t].to(f32) @ w_in32, z_in.shape[1], w_in.shape[1],
+        z_in.device, w_in.dtype, w_rec, beta, w_out, b_out, n_steps, alif,
+        alpha, rho, threshold, kappa, train, train, store_a, want_counts,
+        res_is_v)
+
+
+def _mid_bwd_reference(g_logits, g_counts, tstar, g_z, z, res, a_tr,
+                       res_is_v, z_in, w_in, w_rec, beta, w_out, n_steps,
+                       alpha, threshold, gamma, kappa, spike_func):
+    """Plain version of ``fused_mid_bwd``: ``(g_z_in (T, B, Hin) in the
+    dtype of z_in, g_w_in, g_w_rec | None, g_w_out | None, g_b | None)``,
+    the weights' gradients in the weights' dtype."""
+    f32 = torch.float32
+    g_z_in, g_w_in, g_w_rec, g_w_out, g_b = _f._bwd_loop(
+        lambda t: z_in[t].to(f32), w_in.to(f32).T, g_logits, g_counts,
+        tstar, g_z, res, a_tr, z, res_is_v, w_rec, beta, w_out, n_steps,
+        alpha, threshold, gamma, kappa, spike_func, w_in.dtype)
+    return (g_z_in.to(z_in.dtype), g_w_in.to(w_in.dtype),
+            None if g_w_rec is None else g_w_rec.to(w_rec.dtype),
+            None if g_w_out is None else g_w_out.to(w_out.dtype), g_b)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+def _declare(lib: ctypes.CDLL, name: str) -> None:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(i)
+    if name == "fused_mid":
+        lib.snn_fused_mid_plan.argtypes = [i] * 6 + [ip, ip]
+        lib.snn_fused_mid_plan.restype = i
+        lib.snn_fused_mid_fwd.argtypes = (
+            [vp] * 12 + [i] * 8 + [f] * 4 + [i, i, vp])
+        lib.snn_fused_mid_fwd.restype = i
+    else:
+        lib.snn_fused_mid_bwd_plan.argtypes = [i] * 8 + [ip]
+        lib.snn_fused_mid_bwd_plan.restype = i
+        lib.snn_fused_mid_bwd.argtypes = (
+            [vp] * 19 + [i] * 8 + [f] * 4 + [i, vp])
+        lib.snn_fused_mid_bwd.restype = i
+    lib.snn_cuda_error_string.argtypes = [i]
+    lib.snn_cuda_error_string.restype = ctypes.c_char_p
+    lib._snn_declared = True
+
+
+def _lib(name: str = "fused_mid") -> ctypes.CDLL:
+    from . import _build
+
+    lib = _build.load(name)
+    if not getattr(lib, "_snn_declared", False):
+        _declare(lib, name)
+    return lib
+
+
+def _plan(device: torch.device, Hin: int, H: int, O: int, recurrent: bool,
+          bf16: bool) -> Optional[Tuple[int, int]]:
+    """(rows per block, shared-memory bytes) of ``fused_mid_fwd`` on
+    ``device`` (``O == 0``: the z-emitting mode), or None when the shape
+    does not fit."""
+    lib = _lib()
+    rows, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.snn_fused_mid_plan(Hin, H, O, int(recurrent), int(bf16),
+                                _f._index(device), ctypes.byref(rows),
+                                ctypes.byref(smem))
+    if rc == 1:
+        return None
+    _f._raise_on(rc, lib, f"{KERNEL_MID} plan")
+    return rows.value, smem.value
+
+
+def _plan_bwd(device: torch.device, B: int, Hin: int, H: int, O: int, T: int,
+              recurrent: bool, bf16: bool) -> Optional[Tuple[int, int, int]]:
+    """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) partial slabs of
+    ``fused_mid_bwd`` on ``device``, or None when the shape does not fit."""
+    lib = _lib("fused_mid_bwd")
+    out = (ctypes.c_int * 3)()
+    rc = lib.snn_fused_mid_bwd_plan(B, Hin, H, O, T, int(recurrent),
+                                    int(bf16), _f._index(device), out)
+    if rc == 1:
+        return None
+    _f._raise_on(rc, lib, f"{KERNEL_MID_BWD} plan")
+    return out[0], out[1], out[2]
+
+
+def _supported(n_steps, hidden_in, hidden, n_out, recurrent, itemsize,
+               device, training) -> bool:
+    device = torch.device(device)
+    if n_steps < 1 or hidden_in < 1 or hidden < 1 or n_out < 0:
+        return False
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda" or itemsize not in (2, 4) \
+            or n_steps > MAX_STEPS:
+        return False
+    if _plan(device, hidden_in, hidden, n_out, recurrent,
+             itemsize == 2) is None:
+        return False
+    return not training or _plan_bwd(
+        device, 1, hidden_in, hidden, n_out, n_steps, recurrent,
+        itemsize == 2) is not None
+
+
+def fused_mid_supported(n_steps: int, hidden_in: int, hidden: int,
+                        recurrent: bool = True, itemsize: int = 4,
+                        device="cuda", training: bool = False) -> bool:
+    """Whether the z-emitting mid layer covers this shape on ``device``.
+
+    On the CPU the plain versions cover every shape.  On a CUDA device the
+    kernel needs float32 or bfloat16 weights, ``hidden <= 1024`` (one
+    thread per unit), ``hidden_in`` at most four times ``hidden`` (both
+    rounded up to 32: a thread stages at most four input spikes a step),
+    and ``W_in`` (and ``W_rec``) within the block's shared memory; with
+    ``training`` the backward kernel must fit too (one row's ``(n_steps,
+    hidden)`` float32 table in shared memory)."""
+    return _supported(n_steps, hidden_in, hidden, 0, recurrent, itemsize,
+                      device, training)
+
+
+def fused_mid_head_supported(n_steps: int, hidden_in: int, hidden: int,
+                             n_out: int, recurrent: bool = True,
+                             itemsize: int = 4, device="cuda",
+                             training: bool = False) -> bool:
+    """:func:`fused_mid_supported` for the head mode, which also keeps
+    ``W_out`` and the readout state in shared memory."""
+    if n_out < 1:
+        return False
+    return _supported(n_steps, hidden_in, hidden, n_out, recurrent, itemsize,
+                      device, training)
+
+
+def _check_inputs(k, z_in, w_in, w_rec, w_out, b_out, n_steps):
+    """Validate the forward's inputs; returns (B, Hin, H, O, rows)."""
+    dev = z_in.device
+    _f._check_weights(k, w_in)
+    wdt = w_in.dtype
+    T, B, Hin = z_in.shape
+    H = w_in.shape[1]
+    O = 0 if w_out is None else w_out.shape[1]
+    if T != n_steps or not 1 <= n_steps <= MAX_STEPS:
+        raise ValueError(f"{k}: z_in has {T} steps, n_steps={n_steps} "
+                         f"(at most {MAX_STEPS})")
+    _f._check(k, "z_in", z_in, wdt, (T, B, Hin), dev)
+    _f._check(k, "w_in", w_in, wdt, (Hin, H), dev)
+    if w_rec is not None:
+        _f._check(k, "w_rec", w_rec, wdt, (H, H), dev)
+    if w_out is not None:
+        _f._check(k, "w_out", w_out, wdt, (H, O), dev)
+        _f._check(k, "b_out", b_out, torch.float32, (O,), dev)
+    plan = _plan(dev, Hin, H, O, w_rec is not None, wdt == torch.bfloat16)
+    if plan is None:
+        raise ValueError(
+            f"{k}: shape Hin={Hin} H={H} O={O} does not fit the kernel "
+            "(gate on fused_mid_supported / fused_mid_head_supported)")
+    return B, Hin, H, O, plan[0]
+
+
+def _mid_cuda(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha,
+              rho, threshold, kappa, train, store_a, want_counts, res_is_v):
+    """Launch ``fused_mid_fwd``; returns as :func:`_mid_reference`."""
+    k = KERNEL_MID
+    dev = z_in.device
+    B, Hin, H, O, rows = _check_inputs(k, z_in, w_in, w_rec, w_out, b_out,
+                                       n_steps)
+    head = w_out is not None
+    trace = dict(dtype=w_in.dtype, device=dev)
+    shape = (n_steps, B, H)
+    z = None if head else torch.empty(shape, **trace)
+    res = torch.empty(shape, **trace) if train else None
+    a_tr = torch.empty(shape, **trace) if train and store_a else None
+    logits = tstar = counts = None
+    if head:
+        logits = torch.empty((B, O), dtype=torch.float32, device=dev)
+        if train:
+            tstar = torch.empty((B, O), dtype=torch.int32, device=dev)
+        if want_counts:
+            counts = torch.empty((B, H), dtype=torch.float32, device=dev)
+    lib = _lib()
+    p = _f._ptr
+    rc = lib.snn_fused_mid_fwd(
+        z_in.data_ptr(), w_in.data_ptr(), p(w_rec),
+        _f._beta_tensor(beta, dev).data_ptr(), p(w_out), p(b_out), p(z),
+        p(res), p(a_tr), p(logits), p(tstar), p(counts), B, Hin, H, O,
+        n_steps, int(alif), int(w_in.dtype == torch.bfloat16),
+        int(res_is_v), alpha, rho, threshold, kappa, rows, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _f._raise_on(rc, lib, f"{k} launch")
+    _f._launched(k)
+    return logits, z, res, a_tr, tstar, counts
+
+
+def _mid_bwd_cuda(g_logits, g_counts, tstar, g_z, z, res, a_tr, res_is_v,
+                  z_in, w_in, w_rec, beta, w_out, n_steps, alpha, threshold,
+                  gamma, kappa, spike_func):
+    """Launch ``fused_mid_bwd`` (its ``__global__`` functions in one call)
+    and add the blocks' partial slabs in a fixed order."""
+    k = KERNEL_MID_BWD
+    dev = z_in.device
+    T, B, Hin = z_in.shape
+    H = w_in.shape[1]
+    head = w_out is not None
+    O = w_out.shape[1] if head else 0
+    wdt = w_in.dtype
+    _f._check_weights(k, w_in)
+    _f._check(k, "z_in", z_in, wdt, (T, B, Hin), dev)
+    _f._check(k, "w_in", w_in, wdt, (Hin, H), dev)
+    _f._check(k, "res", res, wdt, (T, B, H), dev)
+    if a_tr is not None:
+        _f._check(k, "a", a_tr, wdt, (T, B, H), dev)
+    if w_rec is not None:
+        _f._check(k, "w_rec", w_rec, wdt, (H, H), dev)
+    if head:
+        _f._check(k, "w_out", w_out, wdt, (H, O), dev)
+        _f._check(k, "g_logits", g_logits, torch.float32, (B, O), dev)
+        _f._check(k, "tstar", tstar, torch.int32, (B, O), dev)
+        if g_counts is not None:
+            _f._check(k, "g_counts", g_counts, torch.float32, (B, H), dev)
+    else:
+        _f._check(k, "g_z", g_z, wdt, (T, B, H), dev)
+        _f._check(k, "z", z, wdt, (T, B, H), dev)
+    bf16 = wdt == torch.bfloat16
+    plan = _plan_bwd(dev, B, Hin, H, O, T, w_rec is not None, bf16)
+    if plan is None:
+        raise ValueError(
+            f"{k}: shape T={T} Hin={Hin} H={H} O={O} does not fit the "
+            "kernel (gate on fused_mid[_head]_supported(training=True))")
+    n_in, n_rec, n_out = plan
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    # Scratch of the call: dcur(t) per row, the bits of z and of z_in.
+    dcur = torch.empty((B, T, H), dtype=wdt, device=dev)
+    zmask = torch.empty((B, T + 1, (H + 31) // 32), **i32)
+    zinmask = torch.empty((B, T, (Hin + 31) // 32), **i32)
+    g_z_in = torch.empty((T, B, Hin), dtype=wdt, device=dev)
+    slab_in = torch.empty((n_in, Hin * H), **f32)
+    slab_rec = torch.empty((n_rec, H * H), **f32)
+    slab_out = torch.empty((n_out, H * O + O), **f32)
+    lib = _lib("fused_mid_bwd")
+    p = _f._ptr
+    rc = lib.snn_fused_mid_bwd(
+        p(g_logits), p(tstar), p(g_counts), p(g_z), p(z), res.data_ptr(),
+        p(a_tr), z_in.data_ptr(), w_in.data_ptr(), p(w_rec), p(w_out),
+        _f._beta_tensor(beta, dev).data_ptr(), dcur.data_ptr(),
+        zmask.data_ptr(), zinmask.data_ptr(), g_z_in.data_ptr(),
+        slab_in.data_ptr(), slab_rec.data_ptr(), slab_out.data_ptr(), B, Hin,
+        H, O, T, int(spike_func == SpikeFuncType.Phi), int(bf16),
+        int(res_is_v), alpha, threshold, gamma, kappa, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _f._raise_on(rc, lib, f"{k} launch")
+    _f._launched(k)
+    g_w_in = slab_in.sum(0).view(Hin, H).to(wdt)
+    g_w_rec = (None if w_rec is None
+               else slab_rec.sum(0).view(H, H).to(wdt))
+    if not head:
+        return g_z_in, g_w_in, g_w_rec, None, None
+    out_sum = slab_out.sum(0)
+    return (g_z_in, g_w_in, g_w_rec, out_sum[:H * O].view(H, O).to(wdt),
+            out_sum[H * O:].clone())
+
+
+# ---------------------------------------------------------------------------
+# Dispatch and autograd
+# ---------------------------------------------------------------------------
+class _MidFn(torch.autograd.Function):
+    """A mid layer (z-emitting or head) with its backward.  Outputs: ``z``,
+    or ``logits``, or ``(logits, counts)``."""
+
+    @staticmethod
+    def forward(ctx, z_in, w_in, w_rec, beta, w_out, b_out, statics,
+                want_counts, plain):
+        (n_steps, alif, alpha, rho, threshold, gamma, kappa,
+         spike_func) = statics
+        head = w_out is not None
+        impl = _f._impl(z_in, plain)
+        fwd = _mid_cuda if impl == "cuda" else _mid_reference
+        res_is_v = not head and _f._residual_is_v(alif, spike_func)
+        logits, z, res, a_tr, tstar, counts = fwd(
+            z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha, rho,
+            threshold, kappa, True, _f._stores_a(alif, spike_func),
+            want_counts, res_is_v)
+        ctx.impl, ctx.statics, ctx.beta, ctx.res_is_v = (impl, statics, beta,
+                                                         res_is_v)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(z_in, w_in, w_rec, w_out, z, res, a_tr, tstar)
+        if not head:
+            return z
+        return (logits, counts) if want_counts else logits
+
+    @staticmethod
+    def backward(ctx, g_out, g_counts=None):
+        z_in, w_in, w_rec, w_out, z, res, a_tr, tstar = ctx.saved_tensors
+        (n_steps, _, alpha, _, threshold, gamma, kappa,
+         spike_func) = ctx.statics
+        g_logits = g_z = None
+        if w_out is None:
+            g_z = (torch.zeros_like(z) if g_out is None
+                   else g_out.to(z.dtype).contiguous())
+        else:
+            g_logits = (torch.zeros(tstar.shape, dtype=torch.float32,
+                                    device=z_in.device) if g_out is None
+                        else g_out.to(torch.float32).contiguous())
+            if g_counts is not None:
+                g_counts = g_counts.to(torch.float32).contiguous()
+        bwd = _mid_bwd_cuda if ctx.impl == "cuda" else _mid_bwd_reference
+        g_z_in, g_w_in, g_w_rec, g_w_out, g_b = bwd(
+            g_logits, g_counts, tstar, g_z, z, res, a_tr, ctx.res_is_v, z_in,
+            w_in, w_rec, ctx.beta, w_out, n_steps, alpha, threshold, gamma,
+            kappa, spike_func)
+        return (g_z_in, g_w_in, g_w_rec, _f._zero_beta_grad(ctx.beta),
+                g_w_out, g_b, None, None, None)
+
+
+def _mid(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha, rho,
+         threshold, gamma, kappa, spike_func, want_counts, plain=False):
+    scalars = (int(n_steps), bool(alif), float(alpha), float(rho),
+               float(threshold))
+    kappa = float(kappa)
+    if isinstance(spike_func, str):
+        spike_func = SpikeFuncType[spike_func]
+    if z_in.dtype != w_in.dtype:
+        z_in = z_in.to(w_in.dtype)  # 0/1: exact in either dtype
+    z_in = z_in.contiguous()
+    if _f._wants_grad(z_in, w_in, w_rec, beta, w_out, b_out):
+        statics = (*scalars, float(gamma), kappa, spike_func)
+        return _MidFn.apply(z_in, w_in, w_rec, beta, w_out, b_out, statics,
+                            want_counts, plain)
+    fwd = _mid_cuda if _f._impl(z_in, plain) == "cuda" else _mid_reference
+    # Inference: no residual leaves the kernel.
+    logits, z, _, _, _, counts = fwd(
+        z_in, w_in, w_rec, beta, w_out, b_out, *scalars, kappa, False,
+        False, want_counts, False)
+    if w_out is None:
+        return z
+    return (logits, counts) if want_counts else logits
+
+
+def fused_mid_rec_scan(
+    z_in: torch.Tensor,
+    w_in: torch.Tensor,
+    w_rec: torch.Tensor,
+    beta: Beta,
+    n_steps: int,
+    alif: bool,
+    alpha: float,
+    rho: float,
+    threshold: float,
+    gamma: float,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """(z_in (T, B, Hin) spike trace, W_in, masked W_rec) -> spikes ``(T,
+    B, H)`` in the weights' dtype, differentiable in ``z_in`` and the
+    weights.  For LIF pass ``alif=False`` (``beta``, ``rho`` ignored)."""
+    return _mid(z_in, w_in, w_rec, beta, None, None, n_steps, alif, alpha,
+                rho, threshold, gamma, 0.0, spike_func, False)
+
+
+def fused_mid_ff_scan(
+    z_in: torch.Tensor,
+    w_in: torch.Tensor,
+    beta: Beta,
+    n_steps: int,
+    alif: bool,
+    alpha: float,
+    rho: float,
+    threshold: float,
+    gamma: float,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """Feedforward mid-layer variant: no recurrent weights."""
+    return _mid(z_in, w_in, None, beta, None, None, n_steps, alif, alpha,
+                rho, threshold, gamma, 0.0, spike_func, False)
+
+
+def fused_mid_rec_scan_head(
+    z_in: torch.Tensor,
+    w_in: torch.Tensor,
+    w_rec: torch.Tensor,
+    beta: Beta,
+    w_out: torch.Tensor,
+    b_out: torch.Tensor,
+    n_steps: int,
+    alif: bool,
+    alpha: float,
+    rho: float,
+    threshold: float,
+    gamma: float,
+    kappa: float,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """(z_in (T, B, Hin) spike trace, weights) -> max-over-time logits
+    ``(B, O)``; the backward also returns the cotangent of ``z_in``."""
+    return _mid(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, False)
+
+
+def fused_mid_ff_scan_head(
+    z_in, w_in, beta, w_out, b_out, n_steps, alif, alpha, rho, threshold,
+    gamma, kappa, spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """Feedforward mid-head variant: no recurrent weights."""
+    return _mid(z_in, w_in, None, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, False)
+
+
+def fused_mid_rec_scan_head_counts(
+    z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha, rho,
+    threshold, gamma, kappa,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like :func:`fused_mid_rec_scan_head` but returns ``(logits (B, O),
+    spike_counts (B, H))``, differentiable in both."""
+    return _mid(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, True)
+
+
+def fused_mid_ff_scan_head_counts(
+    z_in, w_in, beta, w_out, b_out, n_steps, alif, alpha, rho, threshold,
+    gamma, kappa, spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Feedforward mid-head + counts variant."""
+    return _mid(z_in, w_in, None, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, True)
+
+
+def fused_mid_rec_scan_reference(
+    z_in, w_in, w_rec, beta, n_steps, alif, alpha, rho, threshold, gamma,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """:func:`fused_mid_rec_scan` through the plain PyTorch versions,
+    forward and backward, on whatever device the tensors lie."""
+    return _mid(z_in, w_in, w_rec, beta, None, None, n_steps, alif, alpha,
+                rho, threshold, gamma, 0.0, spike_func, False, plain=True)
+
+
+def fused_mid_ff_scan_reference(
+    z_in, w_in, beta, n_steps, alif, alpha, rho, threshold, gamma,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_mid_ff_scan`."""
+    return _mid(z_in, w_in, None, beta, None, None, n_steps, alif, alpha,
+                rho, threshold, gamma, 0.0, spike_func, False, plain=True)
+
+
+def fused_mid_rec_scan_head_reference(
+    z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha, rho,
+    threshold, gamma, kappa,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_mid_rec_scan_head`."""
+    return _mid(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, False, plain=True)
+
+
+def fused_mid_ff_scan_head_reference(
+    z_in, w_in, beta, w_out, b_out, n_steps, alif, alpha, rho, threshold,
+    gamma, kappa, spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_mid_ff_scan_head`."""
+    return _mid(z_in, w_in, None, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, False, plain=True)
+
+
+def fused_mid_rec_scan_head_counts_reference(
+    z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha, rho,
+    threshold, gamma, kappa,
+    spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_mid_rec_scan_head_counts`."""
+    return _mid(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, True, plain=True)
+
+
+def fused_mid_ff_scan_head_counts_reference(
+    z_in, w_in, beta, w_out, b_out, n_steps, alif, alpha, rho, threshold,
+    gamma, kappa, spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_mid_ff_scan_head_counts`."""
+    return _mid(z_in, w_in, None, beta, w_out, b_out, n_steps, alif, alpha,
+                rho, threshold, gamma, kappa, spike_func, True, plain=True)

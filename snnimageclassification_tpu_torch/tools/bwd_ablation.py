@@ -1,6 +1,8 @@
 """Where the backward kernel's time goes: time the four ``__global__``
-functions of ``csrc/fused_head_bwd.cu`` apart, as built and with one
-piece of work removed at a time.
+functions of ``fused_head_bwd`` (``csrc/fused_head_bwd.cu`` over
+``csrc/bwd_common.cuh``: the chain, ``g_W_in``, ``bwd_gbits`` for
+``g_W_rec``, the readout gradients) apart, as built and with one piece of
+work removed at a time.
 
 Run on a CUDA card from the repository root::
 
@@ -10,7 +12,7 @@ Run on a CUDA card from the repository root::
 The inputs are one training batch of the flagship (784 -> ALIF-128
 recurrent, learn_beta, T=100, batch 8192, init weights from seed 0, random
 pixels) with the residuals of ``fused_head_fwd_train``.  Each variant is
-the source with one statement replaced (removing work changes the
+the source, headers inlined, with one statement replaced (removing work changes the
 gradients, so only the times mean anything).  Prints one JSON line per
 variant: device milliseconds per launch of each function (median of 5
 launches, ``torch.profiler``), then the card's name and power limit.
@@ -33,10 +35,11 @@ from ..ops import _build, fused
 from ..ops.cells import masked_recurrent
 from ..ops.encoding import pixels_to_firing_periods
 
-VARIANTS = {  # name -> (statement in fused_head_bwd.cu, its replacement)
-    "no_rec_sums": ("if ((bits >> i) & 1u) acc[i] += d;",
+VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
+    "no_rec_sums": ("if ((m >> i) & 1u) acc[i] += d;",
                     "if (i == 0) acc[0] += d;"),
-    "no_mask_reads": ("s_zm[i] = zrow[i];", "s_zm[i] = 0x55555555u << (i & 1);"),
+    "no_mask_reads": ("s_bm[i] = brow[i];",
+                      "s_bm[i] = 0x55555555u << (i & 1);"),
     "no_dcur_reads": ("const uint4 v = q[i];",
                       "const uint4 v = make_uint4(i, i, i, i);"),
     "no_out_sums": ("if ((zw[t * HW] >> (h & 31)) & 1u) sum += s_sr[t * O + o];",
@@ -47,6 +50,7 @@ VARIANTS = {  # name -> (statement in fused_head_bwd.cu, its replacement)
     "no_chain_rec_product": ("dz = dz + rec_product(dp, s_wrec, H, h);",
                              "dz = dz + dp[h & 3];"),
 }
+FUNCTIONS = ("bwd_chain", "bwd_gwin", "bwd_gbits", "bwd_gout")
 
 
 def _variant_lib(name: str, source: str) -> ctypes.CDLL:
@@ -71,7 +75,7 @@ def _function_ms(fn, n: int = 5) -> dict:
             fn()
             torch.cuda.synchronize()
         for ev in prof.key_averages():
-            for part in ("bwd_chain", "bwd_gwin", "bwd_grec", "bwd_gout"):
+            for part in FUNCTIONS:
                 if part in ev.key:
                     times.setdefault(part, []).append(
                         ev.self_device_time_total / 1e3)
@@ -113,7 +117,7 @@ def main() -> None:
                              lcfg.alpha, lcfg.threshold, lcfg.gamma,
                              rcfg.kappa, lcfg.spike_func)
 
-    source = (_build._CSRC / "fused_head_bwd.cu").read_text()
+    source = _build.inlined_source("fused_head_bwd")
     libs = {"kernel": _build.load("fused_head_bwd")}
     for name, (old, new) in VARIANTS.items():
         if old not in source:

@@ -30,9 +30,9 @@ from ..ops import _build, fused
 from ..ops.cells import masked_recurrent
 from ..ops.encoding import pixels_to_firing_periods
 
-VARIANTS = {  # name -> (statement in fused_head.cu, its replacement)
+VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
     "no_readout": (
-        "const float r = masked_sum(zmask, nw, s_wout + o, a.O) + s_b[o];",
+        "const float r = masked_sum(zmask, nw, s_wout + o, O) + s_b[o];",
         "const float r = s_b[o];"),
     "no_recurrent_sum": (
         "const float cur = REC ? cin + masked_sum(zr, HW, s_wrec + h, H) "
@@ -90,7 +90,7 @@ def main() -> None:
         n_steps=100, use_periods=False, alif=True, alpha=lcfg.alpha,
         rho=lcfg.rho, threshold=lcfg.threshold, gamma=lcfg.gamma,
         kappa=rcfg.kappa)
-    source = (_build._CSRC / "fused_head.cu").read_text()
+    source = _build.inlined_source("fused_head")
     libs = {"kernel": _build.load("fused_head")}
     for name, (old, new) in VARIANTS.items():
         if old not in source:

@@ -1,19 +1,23 @@
 """Where a training step's time goes: profile ``Trainer.train_step`` on the
-flagship (784 -> ALIF-128 recurrent, learn_beta, T=100) at batch 8192 on
-the synthetic prototype task ``chip_smoke.py`` trains.
+flagship (784 -> ALIF-128 recurrent, learn_beta, T=100) or, with ``--deep``,
+on the deep network 784 -> 128 -> 128 -> 96 -> 10 (same cell), at batch 8192
+on the synthetic prototype task ``chip_smoke.py`` trains.
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.train_profile \
-        [--matmul-dtype float32|bfloat16] [--periodic] [--steps 10]
+        [--deep] [--matmul-dtype float32|bfloat16] [--periodic] [--steps 10]
 
 After 3 warm-up steps it traces ``--steps`` steps with ``torch.profiler``
 (CPU and CUDA activities) and prints one JSON line: the step's wall time
 (host clock around the traced steps, ending in a synchronize, so it
 includes the profiler's own cost), the device time per step of every
-device kernel by name (the four ``__global__`` functions of
-``fused_head_bwd`` appear apart), the device's busy and idle share of
-the window, and the card's name and power limit.
+device kernel by name (the ``__global__`` functions of a backward kernel
+appear apart, each template instance under its own name: the chain of the
+head mode is ``bwd_chain_kernel<.., true, ..>``, of a z-emitting layer
+``<.., false, ..>``; ``bwd_gbits_kernel`` sums its ``g_W_rec`` and ``g_W_in``
+launches), the device's busy and idle share of the window, and the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -36,11 +40,14 @@ def main() -> None:
     ap.add_argument("--matmul-dtype", default="float32",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--periodic", action="store_true")
+    ap.add_argument("--deep", action="store_true",
+                    help="three hidden layers (128, 128, 96)")
     ap.add_argument("--steps", type=int, default=10)
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA card")
-    cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,
+    cfg = SNNConfig(input_size=784, output_size=10,
+                    n_hidden_neurons=[128, 128, 96] if ns.deep else 128,
                     hidden_layer_type=LayerType.ALIF, learn_beta=True,
                     int_time_steps=100, matmul_dtype=ns.matmul_dtype)
     enc = EncodeConfig(n_steps=100, use_periods=ns.periodic)
@@ -69,17 +76,18 @@ def main() -> None:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
     busy_ms = sum(kernels.values()) / 1e3 / ns.steps
     step_ms = wall / ns.steps * 1e3
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "matmul_dtype": ns.matmul_dtype, "periodic": ns.periodic,
+        "deep": ns.deep, "matmul_dtype": ns.matmul_dtype,
+        "periodic": ns.periodic,
         "steps": ns.steps, "step_ms_wall_traced": step_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-        "kernel_ms_per_step": {k[:70]: v / 1e3 / ns.steps for k, v in top},
+        "kernel_ms_per_step": {k[:90]: v / 1e3 / ns.steps for k, v in top},
         "card": card,
     }))
 

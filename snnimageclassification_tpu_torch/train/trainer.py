@@ -3,8 +3,10 @@
 Port of the core of the JAX package's train/trainer.py.  One step is:
 pixels -> on-device latencies -> the whole-network head in training mode
 (``fused_head_fwd_train``) -> NLL loss -> the head's reverse-time backward
-(``fused_head_bwd``) -> Adam with L2.  Configs the head does not cover run
-the plain time loop under PyTorch autograd.
+(``fused_head_bwd``) -> Adam with L2.  Deeper configs run one forward and
+one backward kernel a hidden layer (``fused_layer0_fwd/bwd``,
+``fused_mid_fwd/bwd``); layers no kernel covers run the plain time loop
+under PyTorch autograd.
 
 Optimizer parity: the reference uses ``torch.optim.Adam(lr=1e-3,
 weight_decay=1e-5)`` (snn.py:298-299): L2 is added to the gradient before

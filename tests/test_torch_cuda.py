@@ -17,13 +17,19 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   them; each gradient scaled by its max, within 2e-6 (sums of a few
   hundred float32 terms in another order), bf16 within one rounding of the
   result (2**-7); two runs give equal bits.
+* the deep-network kernels (``fused_layer0_fwd/bwd``, ``fused_mid_fwd/bwd``)
+  as a chain layer 0 -> mid -> mid head through the public functions,
+  forward and backward, against the same chain of ``*_reference``
+  functions, at T = 24 and T = 100: spikes and counts equal, logits 1e-5,
+  gradients 2e-6 of max|g| (5e-6 at T = 100, 2e-5 for ALIF with Phi; bf16
+  2**-6: a chain of three roundings), launches counted.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from snnimageclassification_tpu_torch.ops import fused  # noqa: E402
+from snnimageclassification_tpu_torch.ops import fused, fused_mid  # noqa: E402
 from snnimageclassification_tpu_torch.ops.cells import (  # noqa: E402
     ALIFConfig,
     LIFConfig,
@@ -84,6 +90,11 @@ def _args(dev, B, F, H, O, T, alif, rec, use_periods, wdtype,
     return dict(latencies=lat.contiguous(), w_in=w_in, w_rec=w_rec,
                 beta=1.6 if alif else 0.0, w_out=w_out, b_out=b_out,
                 **common)
+
+
+def _launched():
+    """The kernels launched since the last reset, with their counts."""
+    return {k: n for k, n in fused.launch_counts().items() if n}
 
 
 def _call(args, plain=False, counts=False):
@@ -230,8 +241,7 @@ def test_autograd_runs_the_kernel_pair(card, counts):
 
     fused.reset_launch_counts()
     got = grads(False)
-    assert fused.launch_counts() == {fused.KERNEL: 0, fused.KERNEL_TRAIN: 1,
-                                     fused.KERNEL_BWD: 1}
+    assert _launched() == {fused.KERNEL_TRAIN: 1, fused.KERNEL_BWD: 1}
     for g, p in zip(got, grads(True)):
         scale = float(p.abs().max()) or 1.0
         assert float((g - p).abs().max()) / scale <= 2e-6
@@ -307,3 +317,118 @@ def test_kernel_pair_odd_shapes(card, shape, use_periods, wdtype):
         assert g.shape == p.shape and torch.equal(g, g2)
         scale = float(p.float().abs().max()) or 1.0
         assert float((g.float() - p.float()).abs().max()) / scale <= bar
+
+
+DEEP_CASES = [  # name, alif, recurrent, use_periods, surrogate
+    ("alif-rec-fs", True, True, False, FAST),
+    ("alif-ff-phi-periodic", True, False, True, PHI),
+    ("lif-rec-phi", False, True, False, PHI),
+    ("lif-ff-fs-periodic", False, False, True, FAST),
+]
+
+
+def _deep_chain(dev, T, alif, rec, use_periods, spike, wdtype, plain, seed=5,
+                backward=True):
+    """Layer 0 -> mid -> mid head with counts on fresh leaves; returns
+    (z0, z1, logits, counts, gradients of every weight)."""
+    B, F, H0, H1, H2, O = 9, 30, 20, 24, 18, 10
+    rng = np.random.default_rng(seed)
+    cfg = (ALIFConfig if alif else LIFConfig)(input_size=F, output_size=H0)
+    kappa = ReadoutConfig(input_size=H2, output_size=O).kappa
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(dev)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+
+    def w(shape, std, dtype=wdtype, mask=False):
+        t = torch.from_numpy(
+            (std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        if mask:
+            t = t * (1 - torch.eye(shape[0], device=dev))
+        return t.to(dtype).requires_grad_(True)
+
+    leaves = {}
+    for i, (n_in, n) in enumerate(((F, H0), (H0, H1), (H1, H2))):
+        leaves[f"w_in{i}"] = w((n_in, n), 0.5)
+        if rec:
+            leaves[f"w_rec{i}"] = w((n, n), 0.3, mask=True)
+    leaves["w_out"] = w((H2, O), 1.0)
+    leaves["b_out"] = w((O,), 0.1, torch.float32)
+    r = torch.from_numpy(rng.standard_normal((B, O)).astype(np.float32)).to(
+        dev)
+    beta = torch.tensor(1.6 if alif else 0.0, device=dev, requires_grad=True)
+    sfx = "_reference" if plain else ""
+    kind = "rec" if rec else "ff"
+    sc = (alif, cfg.alpha, cfg.rho if alif else 0.0, cfg.threshold,
+          cfg.gamma)
+
+    def weights(i):
+        return ((leaves[f"w_in{i}"], leaves[f"w_rec{i}"], beta) if rec
+                else (leaves[f"w_in{i}"], beta))
+
+    z0 = getattr(fused, f"fused_encode_{kind}_scan{sfx}")(
+        lat, *weights(0), T, use_periods, *sc, spike)
+    z1 = getattr(fused_mid, f"fused_mid_{kind}_scan{sfx}")(
+        z0, *weights(1), T, *sc, spike)
+    logits, counts = getattr(
+        fused_mid, f"fused_mid_{kind}_scan_head_counts{sfx}")(
+            z1, *weights(2), leaves["w_out"], leaves["b_out"], T, *sc, kappa,
+            spike)
+    if not backward:
+        return z0, z1, logits, counts, None
+    loss = ((logits * r).sum() + 1e-3 * (counts ** 2).sum()
+            + 1e-3 * (z0.float().sum(0) ** 2).sum())
+    loss.backward()
+    assert float(beta.grad) == 0.0
+    return z0, z1, logits, counts, {k: v.grad for k, v in leaves.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("name,alif,rec,use_periods,spike", DEEP_CASES,
+                         ids=[c[0] for c in DEEP_CASES])
+def test_deep_chain_matches_plain_versions(card, name, alif, rec,
+                                           use_periods, spike, n_steps,
+                                           wdtype):
+    fused.reset_launch_counts()
+    got = _deep_chain(card, n_steps, alif, rec, use_periods, spike, wdtype,
+                      plain=False)
+    assert _launched() == {fused.KERNEL_L0: 1, fused.KERNEL_L0_BWD: 1,
+                           fused.KERNEL_MID: 2, fused.KERNEL_MID_BWD: 2}
+    want = _deep_chain(card, n_steps, alif, rec, use_periods, spike, wdtype,
+                       plain=True)
+    assert _launched()[fused.KERNEL_MID] == 2  # the plain chain launches none
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[1].float().sum()) > 0
+    assert torch.allclose(got[2], want[2], atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[3], want[3])
+    if wdtype == torch.bfloat16:
+        bar = 2.0 ** -6
+    elif spike == PHI and alif:
+        bar = 2e-5
+    else:
+        bar = 2e-6 if n_steps < 100 else 5e-6
+    for k, p in want[4].items():
+        g = got[4][k]
+        assert g.dtype == p.dtype and bool(torch.isfinite(g.float()).all())
+        scale = float(p.float().abs().max()) or 1.0
+        err = float((g.float() - p.float()).abs().max()) / scale
+        assert err <= bar, f"{name} {k}: {err:.3g} of max|g|"
+
+
+@pytest.mark.cuda
+def test_deep_inference_launches_one_kernel_a_layer(card):
+    """Under ``no_grad`` the chain writes no residual, launches three
+    forward kernels, and gives the training forward's bits."""
+    with torch.no_grad():
+        fused.reset_launch_counts()
+        z0, z1, logits, counts, _ = _deep_chain(
+            card, 24, True, True, False, FAST, torch.float32, plain=False,
+            backward=False)
+        assert _launched() == {fused.KERNEL_L0: 1, fused.KERNEL_MID: 2}
+    train = _deep_chain(card, 24, True, True, False, FAST, torch.float32,
+                        plain=False)
+    assert torch.equal(z0, train[0]) and torch.equal(z1, train[1])
+    assert torch.equal(logits, train[2]) and torch.equal(counts, train[3])

@@ -30,8 +30,11 @@ def test_port_files_found():
     assert len(FILES) > 10
     names = {str(p.relative_to(PORT)) for p in FILES[:-1]}
     assert {"train/__init__.py", "train/losses.py", "train/trainer.py",
-            "ops/fused.py", "models/convert.py"} <= names
-    for src in ("fused_head.cu", "fused_head_bwd.cu", "head_common.cuh"):
+            "ops/fused.py", "ops/fused_mid.py", "models/convert.py",
+            "tools/train_profile.py"} <= names
+    for src in ("fused_head.cu", "fused_head_bwd.cu", "fused_layer0_bwd.cu",
+                "fused_mid.cu", "fused_mid_bwd.cu", "head_common.cuh",
+                "bwd_common.cuh"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -48,3 +51,27 @@ def test_checker_tells_names_apart():
     assert not _forbidden("snnimageclassification_tpu_torch")
     assert not _forbidden("snnimageclassification_tpu_torch.ops")
     assert not _forbidden("jaxlike")
+
+
+def _ablation_variants():
+    from snnimageclassification_tpu_torch.tools import (
+        bwd_ablation,
+        head_ablation,
+    )
+    return [(src, name, old)
+            for src, mod in (("fused_head_bwd", bwd_ablation),
+                             ("fused_head", head_ablation))
+            for name, (old, _) in mod.VARIANTS.items()]
+
+
+@pytest.mark.parametrize("source,name,statement", _ablation_variants(),
+                         ids=lambda v: v if " " not in str(v) else "stmt")
+def test_ablation_statements_exist_in_the_sources(source, name, statement):
+    """The ablation tools replace one statement of a kernel's source (its
+    headers inlined); a statement that moved or changed must be found
+    again, exactly once."""
+    from snnimageclassification_tpu_torch.ops import _build
+
+    text = _build.inlined_source(source)
+    assert '#include "' not in text and "#pragma once" not in text
+    assert text.count(statement) == 1, f"{source} {name}"

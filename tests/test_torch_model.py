@@ -82,30 +82,35 @@ def test_head_slice_matches_jax(name, ckw, ekw, n_steps, matmul_dtype):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-LOOP = [
+L0_REF = "torch:fused_layer0_reference"
+LOOP = [  # name, config, encoding, layer 0's path
     ("deep-alif", dict(hidden_layer_type="ALIF", n_hidden_neurons=[16, 12]),
-     dict(tau=20.0)),
-    ("izhikevich", dict(hidden_layer_type="Izhikevich"), dict(tau=20.0)),
+     dict(tau=20.0), L0_REF),
+    ("izhikevich", dict(hidden_layer_type="Izhikevich"), dict(tau=20.0),
+     "torch:loop"),
     ("temporal-filter", dict(hidden_layer_type="ALIF",
                              readout_mth=jst.ReadoutMth.TEMPORAL_FILTER),
-     dict(tau=20.0)),
+     dict(tau=20.0), L0_REF),
     ("not-timeseries", dict(hidden_layer_type="ALIF"),
-     dict(as_timeseries=False)),
+     dict(as_timeseries=False), "torch:loop"),
     ("short-encoding", dict(hidden_layer_type="LIF", threshold=0.05),
-     dict(n_steps=8, tau=20.0, use_periods=True)),
+     dict(n_steps=8, tau=20.0, use_periods=True), "torch:loop"),
     ("no-hidden", dict(hidden_layer_type="LIF", n_hidden_neurons=None),
-     dict(tau=20.0)),
+     dict(tau=20.0), "torch:loop"),
 ]
 
 
-@pytest.mark.parametrize("name,ckw,ekw", LOOP, ids=[s[0] for s in LOOP])
-def test_loop_path_matches_jax(name, ckw, ekw):
+@pytest.mark.parametrize("name,ckw,ekw,path", LOOP,
+                         ids=[s[0] for s in LOOP])
+def test_loop_path_matches_jax(name, ckw, ekw, path):
+    """Configs off the whole-network head: the deep dispatch, or the loop
+    for every layer the kernels do not cover."""
     jcfg, tcfg = _pair(int_time_steps=12, **ckw)
     jp, tp = _params(jcfg)
     x = np.random.default_rng(1).random((4, 30)).astype(np.float32)
     enc = {"n_steps": 12, **ekw}
     assert tsnn.explain_dispatch(tcfg, tst.EncodeConfig(**enc),
-                                 device="cpu")[0]["path"] == "torch:loop"
+                                 device="cpu")[0]["path"] == path
     got, want = _logits(jcfg, tcfg, jp, tp, x, **enc)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 

@@ -162,7 +162,7 @@ COUNT_CFGS = [
                                   use_recurrent_connection=False),
      dict(use_periods=True), "torch:fused_head_reference"),
     ("deep-loop", dict(hidden_layer_type="ALIF", n_hidden_neurons=[H, 8]),
-     dict(), "torch:loop"),
+     dict(), "torch:fused_layer0_reference"),
     ("izhikevich-loop", dict(hidden_layer_type="Izhikevich"), dict(),
      "torch:loop"),
 ]
