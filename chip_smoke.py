@@ -44,7 +44,41 @@ Phases (any failure exits non-zero before the final line):
    launches a step), each of the six kernels alone on a training batch
    against its plain version (the backward ones on the forward kernel's
    residuals), 5 periodic steps and 3 with a count regularizer for times
-   and launches.
+   and launches;
+8. Izhikevich kernels -- ``izh_scan_fwd/bwd``, ``fused_izh_fwd[_train]``,
+   ``fused_izh_layer0_fwd`` and ``fused_izh[_layer0]_bwd`` against their
+   plain versions at the JAX tests' scale (W_in 3e6, W_rec 5e5, default
+   constants, where units fire; every case asserts that some do): ff/rec x
+   FastSigmoid/Phi x TTFS/periodic x T = 24 and 100 x {float32, bfloat16}
+   at small shapes (spikes, ``tstar`` and counts equal, logits 1e-5, ``v``
+   1e-6 relative and 1e-3 mV, gradients on the same residuals 2e-6 of
+   max|g|, 5e-6 at T = 100, 2**-7 bf16, equal bits on a repeated call),
+   then 784-128-10 and
+   784-128-128-10 at B = 8192, T = 100 (the share of rows with equal spikes,
+   the head's row bars, gradients 1e-4 / 2**-7).  There dt a b = -6e-5,
+   and the chain's u carry moves a gradient by less than those bars, so
+   the three backward kernels are also held at dt = 30 (dt a b = -1.8),
+   with init-scale weights, ff/rec, on their forward kernels' residuals:
+   1e-4 of max|g| float32, 2**-7 bf16;
+9. Izhikevich serve -- 784 -> Izhikevich-128 recurrent -> 10, T = 100,
+   dt = 30 (at the default dt = 1e-3 no unit fires at the init scale)
+   served as in 4, f32 and bf16: results bitwise equal to a direct forward,
+   one ``fused_izh_fwd`` launch a batch; the kernel alone timed.  At dt =
+   30 the cell is unstable between spikes, so the kernel and its plain
+   version (torch.matmul sums) part on some rows; a second plain version
+   with every sum in the kernel's order must equal the kernel bitwise on
+   256 rows (``ordered_izh_head``);
+10. Izhikevich train -- that network through ``Trainer`` at batch 8192,
+   TTFS (3 warm-up, 20 timed steps: finite falling loss and gradients, the
+   readout moves, one ``fused_izh_fwd_train`` and one ``fused_izh_bwd``
+   launch a step; the hidden weights Adam moved are counted, see
+   ``izh_train_run``) and
+   periodic (5 steps, times); then 784-128-128-10 (layer 0 + one scan call
+   + the readout loop) the same way: one ``fused_izh_layer0_fwd/bwd`` and
+   one ``izh_scan_fwd/bwd`` launch a step.  Each backward kernel against
+   its plain version on the forward kernel's residuals with the trained
+   weights (1e-4 of max|g| / 2**-7); each kernel alone on its phase's
+   batch, timed, with its bound and its error on those inputs.
 
 Phase 3 also holds the deep-network kernels (``fused_layer0_fwd/bwd``,
 ``fused_mid_fwd/bwd``) against their plain versions: LIF/ALIF x ff/rec x
@@ -71,9 +105,16 @@ import torch
 
 import snnimageclassification_tpu_torch as pt
 from snnimageclassification_tpu_torch.models import snn as model_lib
-from snnimageclassification_tpu_torch.ops import _build, fused, fused_mid
+from snnimageclassification_tpu_torch.ops import (
+    _build,
+    fused,
+    fused_izh,
+    fused_mid,
+    izh,
+)
 from snnimageclassification_tpu_torch.ops.cells import (
     ALIFConfig,
+    IzhikevichConfig,
     LIFConfig,
     ReadoutConfig,
     masked_recurrent,
@@ -129,8 +170,7 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # Phase 2: build every kernel source in parallel
 # ---------------------------------------------------------------------------
-SOURCES = ("fused_head", "fused_head_bwd", "fused_layer0_bwd", "fused_mid",
-           "fused_mid_bwd")
+SOURCES = _build.SOURCES
 
 
 def phase_build() -> None:
@@ -1294,6 +1334,616 @@ def phase_deep_train(matmul_dtype: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-10: Izhikevich
+# ---------------------------------------------------------------------------
+IZH = IzhikevichConfig(input_size=1, output_size=1)
+IZH_KP = izh.izh_kernel_params(IZH)
+IZH_SITES = {  # kernel -> (its source, the TPU kernel's pl.pallas_call site)
+    fused.KERNEL_IZH: ("fused_izh.cu", "pallas_fused_izh.py:464"),
+    fused.KERNEL_IZH_TRAIN: ("fused_izh.cu", "pallas_fused_izh.py:464"),
+    fused.KERNEL_IZH_L0: ("fused_izh.cu", "pallas_fused_izh.py:484"),
+    fused.KERNEL_IZH_BWD: ("fused_izh_bwd.cu", "pallas_fused_izh.py:631"),
+    fused.KERNEL_IZH_L0_BWD: ("fused_izh_bwd.cu", "pallas_fused_izh.py:631"),
+    fused.KERNEL_IZH_SCAN: ("izh_scan.cu", "pallas_izh.py:157"),
+    fused.KERNEL_IZH_SCAN_BWD: ("izh_scan.cu", "pallas_izh.py:211"),
+}
+IZH_CELL_OPS, IZH_CHAIN_OPS = 20, 24  # float32 ops a (row, step, unit)
+IZH_TIMED, IZH_DEEP_TIMED = 20, 10
+# dt = 30, where the models are served and trained: dt a b = -1.8 and
+# 1 - dt a = 0.1, so the u carry moves the backward chain as much as v's.
+IZH30 = IzhikevichConfig(input_size=1, output_size=1, dt=30.0)
+IZH30_KP = izh.izh_kernel_params(IZH30)
+IZH30_BAR = 1e-4  # float32 gradients of max|g| at dt = 30
+WITNESS_ROWS = 256
+
+
+def izh_bar(T, f32, full):
+    """Gradients against the plain version on the same residuals, of
+    max|g|: bf16 one rounding; float32 2e-6 (5e-6 at T = 100, four times
+    the terms), 1e-4 at full width."""
+    if not f32:
+        return 2.0 ** -7
+    if full:
+        return 1e-4
+    return 2e-6 if T < 100 else 5e-6
+
+
+def izh_weights(rng, n_in, n, O, rec, wdtype):
+    """(w_in, masked w_rec | None, w_out, b_out) at the JAX tests' scale."""
+    w_rec = ((rand_w(rng, (n, n), 5e5) * (1 - torch.eye(n, device="cuda")))
+             .to(wdtype) if rec else None)
+    return (rand_w(rng, (n_in, n), 3e6, wdtype), w_rec,
+            rand_w(rng, (n, O), 1.0, wdtype), rand_w(rng, (O,), 0.1))
+
+
+def v_close(label, got, want):
+    """Membrane traces: 1e-6 relative, 1e-3 mV absolute.  At this scale a
+    step's input sum reaches ~1e8, where a float32 ulp is 8; a summation in
+    another order moves v by ~1e-4 mV a step (dt/C = 1e-5), and T steps
+    add up."""
+    if not torch.allclose(got, want, rtol=1e-6, atol=1e-3):
+        fail(f"{label}: v differs by {float((got - want).abs().max()):.3g}")
+
+
+def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
+    """The three Izhikevich kernel pairs at one shape: the head, layer 0,
+    and ``izh_scan`` on layer 1's currents ``z0 @ W1``.  Each forward
+    kernel against its plain version on the same inputs, each backward
+    kernel against its plain version on the forward kernel's residuals and
+    twice for equal bits.  Returns ({kernel: error}, {layer: share of rows
+    with equal spikes}, {layer: firing share})."""
+    f32 = wdtype == torch.float32
+    bar = izh_bar(T, f32, full)
+    kappa = ReadoutConfig(input_size=1, output_size=1).kappa
+    pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+    w_in, w_rec, w_out, b_out = izh_weights(rng, F, H0, O, rec, wdtype)
+    head = (lat, w_in, w_rec, w_out, b_out, T, per, IZH_KP, kappa)
+    errs, shares, fire = {}, {}, {}
+
+    # The head: inference, training forward, backward.
+    infer = fused_izh._head_cuda(*head, False, False)[0]
+    logits, v, tstar, counts = fused_izh._head_cuda(*head, True, True)
+    ref = fused_izh._head_reference(*head, True, True)
+    torch.cuda.synchronize()
+    if not torch.equal(logits, infer):
+        fail(f"{label}: training and inference logits differ")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: non-finite logits")
+    fire["hidden"] = float(counts.sum()) / (B * T * H0)
+    if fire["hidden"] == 0:
+        fail(f"{label}: no unit fires")
+    agree, close, err, scale = compare_flagship(logits, ref[0])
+    errs[fused.KERNEL_IZH] = errs[fused.KERNEL_IZH_TRAIN] = err
+    shares["head"] = float((counts == ref[3]).all(1).float().mean())
+    if full:
+        if agree < 0.995 or close < 0.99:
+            fail(f"{label}: head agreement below the bar ({agree:.4f}, "
+                 f"{close:.4f})")
+        same = (logits - ref[0]).abs().amax(1) <= 1e-4 * scale
+        if not torch.equal(tstar[same], ref[2][same]):
+            fail(f"{label}: tstar differs on rows whose logits agree")
+    else:
+        if not torch.allclose(logits, ref[0], atol=1e-5, rtol=1e-5):
+            fail(f"{label}: logits differ by {err:.3g}")
+        if not (torch.equal(tstar, ref[2]) and torch.equal(counts, ref[3])):
+            fail(f"{label}: tstar or counts differ")
+        v_close(f"{label} head", v, ref[1])
+    del ref
+    g_logits = rand_w(rng, (B, O), 1.0 / B)
+    g_counts = rand_w(rng, (B, H0), 1e-3 / B)
+    hb = (g_logits, g_counts, tstar, None, None, v, lat, w_in, w_rec, w_out,
+          T, per, IZH_KP, IZH.gamma, kappa, spike)
+    errs[fused.KERNEL_IZH_BWD] = check_grads(
+        f"{label} head backward", lambda: fused_izh._bwd_cuda(*hb),
+        lambda: fused_izh._bwd_reference(*hb), bar)
+
+    # Layer 0: the head's template without the readout, so its v and z
+    # are the head's bits.
+    z0, v0 = fused_izh._layer0_cuda(lat, w_in, w_rec, T, per, IZH_KP, True)
+    z0_inf = fused_izh._layer0_cuda(lat, w_in, w_rec, T, per, IZH_KP,
+                                    False)[0]
+    if not (torch.equal(z0, z0_inf) and torch.equal(v0, v)
+            and torch.equal(z0, (v >= IZH.v_peak).float())):
+        fail(f"{label}: layer 0 differs from the head's scan")
+    del hb, v
+    z0p, v0p = fused_izh._layer0_reference(lat, w_in, w_rec, T, per, IZH_KP,
+                                           True)
+    shares["layer 0"] = rows_equal(z0, z0p)
+    errs[fused.KERNEL_IZH_L0] = float((z0 - z0p).abs().max())
+    if not full:
+        if shares["layer 0"] < 1.0:
+            fail(f"{label}: layer-0 spikes differ from the plain version's")
+        v_close(f"{label} layer 0", v0, v0p)
+    del z0p, v0p
+    g_z = rand_w(rng, (T, B, H0), 1.0 / B)
+    lb = (None, None, None, g_z, z0, v0, lat, w_in, w_rec, None, T, per,
+          IZH_KP, IZH.gamma, 0.0, spike)
+    errs[fused.KERNEL_IZH_L0_BWD] = check_grads(
+        f"{label} layer-0 backward", lambda: fused_izh._bwd_cuda(*lb),
+        lambda: fused_izh._bwd_reference(*lb), bar)
+    del lb, g_z, v0
+
+    # izh_scan on the currents of a layer past the first.
+    w1, w_rec1, _, _ = izh_weights(rng, H0, H1, 1, rec, wdtype)
+    cur = (z0 @ w1.float()).contiguous()
+    z1, v1 = izh._scan_cuda(cur, w_rec1, IZH_KP, True)
+    z1_inf = izh._scan_cuda(cur, w_rec1, IZH_KP, False)[0]
+    z1p, v1p = izh._scan_reference(cur, w_rec1, IZH_KP, True)
+    torch.cuda.synchronize()
+    if not torch.equal(z1, z1_inf):
+        fail(f"{label}: scan inference and training spikes differ")
+    fire["layer 0"], fire["layer 1"] = float(z0.mean()), float(z1.mean())
+    if fire["layer 1"] == 0:
+        fail(f"{label}: no unit of the scan fires")
+    shares["scan"] = rows_equal(z1, z1p)
+    errs[fused.KERNEL_IZH_SCAN] = float((z1 - z1p).abs().max())
+    if not full:
+        if shares["scan"] < 1.0:
+            fail(f"{label}: scan spikes differ from the plain version's")
+        v_close(f"{label} scan", v1, v1p)
+    elif min(shares.values()) < 0.995:
+        fail(f"{label}: spikes equal on too few rows: {shares}")
+    del z1p, v1p, cur
+    g_z1 = rand_w(rng, (T, B, H1), 1.0 / B)
+    sb = (g_z1, z1, v1, w_rec1, IZH_KP, IZH.gamma, spike)
+    errs[fused.KERNEL_IZH_SCAN_BWD] = check_grads(
+        f"{label} scan backward", lambda: izh._scan_bwd_cuda(*sb),
+        lambda: izh._scan_bwd_reference(*sb), bar)
+    return errs, shares, fire
+
+
+def izh30_bwd_checks(label, fwd, kp, gamma, spike, f32, rng):
+    """Each Izhikevich backward kernel against its plain version at dt =
+    30 on its forward kernel's residuals and twice for equal bits.  At the
+    JAX tests' scale (dt = 1e-3, check_izh) dt a b = -6e-5 and the u carry
+    moves a gradient by ~6e-8 of max|g|, under every bar there; at dt = 30
+    it dominates.  The forwards are not held together here: the cell
+    amplifies a last-bit difference of v about threefold a step between
+    spikes.  ``fwd``: {"head": (lat, w_in, w_rec, w_out, T, per, kappa,
+    tstar, v)}, {"layer 0": (lat, w_in, w_rec, T, per, z0, v0)}, {"scan":
+    (w_rec1, z1, v1)}, any of them.  Bar 1e-4 of max|g| (bfloat16: one
+    rounding).  Returns {kernel: error}."""
+    bar = IZH30_BAR if f32 else 2.0 ** -7
+    errs = {}
+    if "head" in fwd:
+        lat, w_in, w_rec, w_out, T, per, kappa, tstar, v = fwd["head"]
+        B, O = tstar.shape
+        hb = (rand_w(rng, (B, O), 1.0 / B), None, tstar, None, None, v, lat,
+              w_in, w_rec, w_out, T, per, kp, gamma, kappa, spike)
+        errs[fused.KERNEL_IZH_BWD] = check_grads(
+            f"{label} head backward dt=30", lambda: fused_izh._bwd_cuda(*hb),
+            lambda: fused_izh._bwd_reference(*hb), bar)
+    if "layer 0" in fwd:
+        lat, w_in, w_rec, T, per, z0, v0 = fwd["layer 0"]
+        g_z = rand_w(rng, tuple(z0.shape), 1.0 / z0.shape[1])
+        lb = (None, None, None, g_z, z0, v0, lat, w_in, w_rec, None, T, per,
+              kp, gamma, 0.0, spike)
+        errs[fused.KERNEL_IZH_L0_BWD] = check_grads(
+            f"{label} layer-0 backward dt=30",
+            lambda: fused_izh._bwd_cuda(*lb),
+            lambda: fused_izh._bwd_reference(*lb), bar)
+    if "scan" in fwd:
+        w_rec1, z1, v1 = fwd["scan"]
+        sb = (rand_w(rng, tuple(z1.shape), 1.0 / z1.shape[1]), z1, v1, w_rec1,
+              kp, gamma, spike)
+        errs[fused.KERNEL_IZH_SCAN_BWD] = check_grads(
+            f"{label} scan backward dt=30", lambda: izh._scan_bwd_cuda(*sb),
+            lambda: izh._scan_bwd_reference(*sb), bar)
+    return errs
+
+
+def check_izh_dt30(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype):
+    """The three Izhikevich kernel pairs at dt = 30 with init-scale weights
+    (N(0, 1)): each forward kernel runs, some unit fires, and each backward
+    kernel holds its plain version on the forward's residuals
+    (izh30_bwd_checks).  Returns ({kernel: error}, lowest firing share)."""
+    kappa = ReadoutConfig(input_size=1, output_size=1).kappa
+    pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(pixels, t_max=float(T)).contiguous()
+    eye = 1 - torch.eye(H0, device="cuda")
+    w_in = rand_w(rng, (F, H0), 1.0, wdtype)
+    w_rec = (rand_w(rng, (H0, H0), 1.0) * eye).to(wdtype) if rec else None
+    w_out = rand_w(rng, (H0, O), 1.0, wdtype)
+    b_out = rand_w(rng, (O,), 0.1)
+    _, v, tstar, counts = fused_izh._head_cuda(
+        lat, w_in, w_rec, w_out, b_out, T, per, IZH30_KP, kappa, True, True)
+    z0, v0 = fused_izh._layer0_cuda(lat, w_in, w_rec, T, per, IZH30_KP, True)
+    w1 = rand_w(rng, (H0, H1), 1.0, wdtype)
+    w_rec1 = ((rand_w(rng, (H1, H1), 1.0) * (1 - torch.eye(H1, device="cuda")))
+              .to(wdtype) if rec else None)
+    z1, v1 = izh._scan_cuda((z0 @ w1.float()).contiguous(), w_rec1, IZH30_KP,
+                            True)
+    fire = min(float(counts.sum()) / (B * T * H0), float(z0.mean()),
+               float(z1.mean()))
+    if fire == 0 or not bool(torch.isfinite(v).all()):
+        fail(f"{label}: no unit fires or v is not finite")
+    errs = izh30_bwd_checks(label, {
+        "head": (lat, w_in, w_rec, w_out, T, per, kappa, tstar, v),
+        "layer 0": (lat, w_in, w_rec, T, per, z0, v0),
+        "scan": (w_rec1, z1, v1)}, IZH30_KP, IZH30.gamma, spike,
+        wdtype == torch.float32, rng)
+    return errs, fire
+
+
+def phase_izh_kernels() -> None:
+    """Every Izhikevich kernel against its plain version: small shapes
+    (ff/rec x FastSigmoid/Phi x TTFS/periodic x T = 24, 100) and the full
+    width of both Izhikevich paths (784-128-10, 784-128-128-10, B = 8192,
+    T = 100, periodic), float32 and bfloat16 weights."""
+    rng = np.random.default_rng(8)
+    for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        worst, lowest = 0.0, 1.0
+        for rec in (True, False):
+            for spike in (FS, PHI):
+                for per in (False, True):
+                    for T in (24, 100):
+                        label = (f"izh small {'rec' if rec else 'ff'} "
+                                 f"{'fs' if spike == FS else 'phi'} "
+                                 f"{'periodic' if per else 'ttfs'} {wname} "
+                                 f"T={T}")
+                        errs, _, fire = check_izh(
+                            label, rng, 37, 30, 20, 24, 10, T, rec, spike,
+                            per, wdtype, False)
+                        worst = max(worst, max(errs.values()))
+                        lowest = min(lowest, min(fire.values()))
+        log(f"[izh-kernels] 32 small cases {wname}: spikes, tstar and counts "
+            f"equal, worst error {worst:.3g}, lowest firing share "
+            f"{lowest:.4f} ok")
+        label = f"izh full {wname}"
+        errs, shares, fire = check_izh(label, rng, TRAIN_B, 784, 128, 128,
+                                       10, 100, True, FS, True, wdtype, True)
+        log(f"[izh-kernels] {label} B={TRAIN_B} periodic tau=20: firing "
+            f"shares {json.dumps(fire)}; rows with equal spikes "
+            f"{json.dumps(shares)}; errors {json.dumps(errs)} (gradients of "
+            f"max|g|), reproducible")
+        torch.cuda.empty_cache()
+        worst, lowest = {}, 1.0
+        for rec, spike, per in ((True, FS, False), (False, PHI, False),
+                                (True, PHI, True), (False, FS, True)):
+            label = (f"izh dt=30 {'rec' if rec else 'ff'} "
+                     f"{'fs' if spike == FS else 'phi'} "
+                     f"{'periodic' if per else 'ttfs'} {wname}")
+            errs, fire = check_izh_dt30(label, rng, 37, 100, 20, 24, 10, 100,
+                                        rec, spike, per, wdtype)
+            worst = {k: max(e, worst.get(k, 0.0)) for k, e in errs.items()}
+            lowest = min(lowest, fire)
+        log(f"[izh-kernels] 4 cases at dt=30 {wname} (ff/rec, T=100, init "
+            f"weights): backward errors of max|g| {json.dumps(worst)} within "
+            f"{IZH30_BAR if wname == 'f32' else 2.0 ** -7:.3g}, lowest firing "
+            f"share {lowest:.4f} ok")
+
+
+def izh_cfg(matmul_dtype, hidden=128):
+    """The Izhikevich flagship (bench.py's izh leg) at dt = 30, where units
+    fire with the init weights; ``hidden=[128, 128]`` is the deep one."""
+    return pt.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=hidden,
+        hidden_layer_type=pt.LayerType.Izhikevich,
+        use_recurrent_connection=True, int_time_steps=100, dt=30.0,
+        matmul_dtype=matmul_dtype)
+
+
+def izh_layer_args(cfg, params, name):
+    """(w_in, masked w_rec) of a layer as ``forward_logits_pixels`` casts
+    them, and its config."""
+    md = getattr(torch, cfg.matmul_dtype_eff)
+    lcfg = dict(cfg.layer_configs)[name]
+    p = params[name]
+    return (p["w_in"].detach().to(md).contiguous(),
+            masked_recurrent(lcfg, p).detach().to(md).contiguous(), lcfg)
+
+
+def izh_head_args(cfg, params, lat, use_periods):
+    w_in, w_rec, lcfg = izh_layer_args(cfg, params, "input")
+    md = getattr(torch, cfg.matmul_dtype_eff)
+    ro = params["readout"]
+    return (lat, w_in, w_rec, ro["w_in"].detach().to(md).contiguous(),
+            ro["b"].detach().contiguous(), cfg.int_time_steps, use_periods,
+            izh.izh_kernel_params(lcfg), cfg.layer_configs[-1][1].kappa)
+
+
+def izh_row(label, tag, kernel, launches, err, ms, plain_ms, nbytes, ops,
+            md):
+    """A row of the kernels line; ``err`` is measured on the row's own
+    inputs against the plain version."""
+    return kernel_row(label, f"{kernel}[{tag}]", IZH_SITES[kernel], launches,
+                      err, ms, plain_ms, nbytes, ops, md)
+
+
+def ordered_sum(s, w):
+    """``s @ w`` for a 0/1 ``s`` (B, K) in the kernels' order: ascending k,
+    one rounding an add (masked_sum in head_common.cuh).  A column of s
+    that is zero in every row adds +-0 and is skipped."""
+    acc = torch.zeros((s.shape[0], w.shape[1]), device=s.device)
+    for k in torch.nonzero(s.any(0)).flatten().tolist():
+        acc = acc + s[:, k:k + 1] * w[k]
+    return acc
+
+
+def ordered_izh_head(lat, w_in, w_rec, w_out, b_out, T, kp, kappa):
+    """A second plain version of the Izhikevich head (TTFS): izh._izh_loop's
+    cell in the same expressions, but every sum -- input, recurrent,
+    readout -- in the kernel's order instead of torch.matmul's."""
+    p = dict(kp)
+    C = torch.full((), p["C"], device="cuda")  # a true division, as the loop
+    w_in, w_out = w_in.float(), w_out.float()
+    B, H = lat.shape[0], w_in.shape[1]
+    v = torch.full((B, H), p["v_rest"], device="cuda")
+    u, z = torch.zeros_like(v), torch.zeros_like(v)
+    v_r = torch.zeros((B, w_out.shape[1]), device="cuda")
+    m = torch.full_like(v_r, float("-inf"))
+    for t in range(T):
+        cur = ordered_sum((lat == t).float(), w_in)
+        if w_rec is not None:
+            cur = cur + ordered_sum(z, w_rec.float())
+        dvdt = p["k"] * (v - p["v_rest"]) * (v - p["v_th"]) - u + cur
+        v_new = (v + p["dt"] * dvdt / C) * (1.0 - z) + p["c"] * z
+        dudt = p["a"] * (p["b"] * (v - p["v_rest"]) - u)
+        u = (u + p["dt"] * dudt) + p["d"] * z
+        v = v_new
+        z = (v >= p["v_peak"]).float()
+        v_r = kappa * v_r + (ordered_sum(z, w_out) + b_out)
+        m = torch.where(v_r > m, v_r, m)
+    return m
+
+
+def phase_izh_serve(matmul_dtype: str) -> dict:
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"izh-serve {tag}"
+    md = getattr(torch, matmul_dtype)
+    cfg = izh_cfg(matmul_dtype)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    paths = [r["path"] for r in model_lib.explain_dispatch(cfg, enc)]
+    if paths != [f"cuda:{fused.KERNEL_IZH}"]:
+        fail(f"{label}: dispatch is {paths}")
+    reqs, launches = serve_requests(label, cfg, params, enc,
+                                    {fused.KERNEL_IZH: 1})
+    batch = np.concatenate(reqs[:4096 // ROWS])
+    x = torch.from_numpy(batch).cuda().to(torch.float32) / 255.0
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    args = izh_head_args(cfg, params, lat, False)
+    got = fused_izh._head_cuda(*args, False, False)[0]
+    ref = fused_izh._head_reference(*args, False, True)
+    torch.cuda.synchronize()
+    agree, close, err, _ = compare_flagship(got, ref[0])
+    # The second witness: on the first WITNESS_ROWS rows, the plain cell
+    # with every sum in the kernel's order equals the kernel bitwise.
+    n = WITNESS_ROWS
+    wit = ordered_izh_head(lat[:n], *args[1:6], args[7], args[8])
+    if not torch.equal(wit, got[:n]):
+        fail(f"{label}: the kernel differs from the plain cell summed in its "
+             f"order on {int((wit != got[:n]).any(1).sum())} of {n} rows")
+    w_agree = compare_flagship(wit, ref[0][:n])[0]
+    log(f"[{label}] kernel == plain cell with the kernel's summation order, "
+        f"bitwise, on {n} of {n} rows; that version against the plain "
+        f"version (torch.matmul sums): argmax_agree={w_agree:.4f}")
+    ms = cuda_ms(lambda: fused_izh._head_cuda(*args, False, False), 25)
+    plain_ms = cuda_ms(lambda: fused_izh._head_reference(*args, False, False),
+                       5, warmup=1)
+    B, F = lat.shape
+    T, H, O = 100, 128, 10
+    hidden = int(fused_izh._head_cuda(*args, False, True)[3].sum())
+    in_spikes = input_spike_count(lat, T)
+    log(f"[{label}] kernel vs plain at dt=30 (not gated: the cell is "
+        f"unstable between spikes): argmax_agree={agree:.4f} "
+        f"rows_within_1e-4max={close:.4f} max_abs_err={err:.3g}; hidden "
+        f"spikes of the plain version {int(ref[3].sum())}")
+    log(f"[{label}] input spikes={in_spikes} ({in_spikes / lat.numel():.4f} "
+        f"of features), hidden spikes={hidden} "
+        f"({hidden / (B * T * H):.4f} of unit-steps)")
+    weights = (F * H + H * H + H * O) * md.itemsize
+    nbytes = B * F * 4 + weights + O * 4 + B * O * 4
+    ops = (in_spikes * H + hidden * (H + O) + IZH_CELL_OPS * B * T * H
+           + 3 * B * T * O)
+    return izh_row(label, tag, fused.KERNEL_IZH, launches[fused.KERNEL_IZH],
+                   err, ms, plain_ms, nbytes, ops, md)
+
+
+def izh_train_run(label, cfg, enc, a_step, n_timed, batches):
+    """Train ``cfg`` from seed 0: WARMUP steps, then ``n_timed`` timed ones
+    with the launch counts zeroed just before; the loss must be finite and
+    fall, each step launch the kernels of ``a_step`` once, the readout's
+    leaves move and every gradient be finite.  The hidden layers' share of
+    weights that moved is printed, not gated: at dt = 30 their BPTT
+    gradients reach ~1e24 (the cell amplifies between spikes), their
+    squares overflow float32 in Adam's second moment and the step of such
+    a weight is exactly 0, in the JAX reference's optax as in
+    torch.optim.Adam.  Returns (trainer, launches)."""
+    trainer = Trainer(cfg, seed=0, lr=1e-3, weight_decay=1e-5,
+                      encode_config=enc, device="cuda")
+    before = {n: {k: v.detach().clone() for k, v in g.items()}
+              for n, g in trainer.params.items()}
+    warm, _ = timed_steps(trainer, batches, WARMUP)
+    fused.reset_launch_counts()
+    timed, seconds = timed_steps(trainer, batches, n_timed, start=WARMUP)
+    launches = fused.launch_counts()
+    losses = [float(v) for v in warm + timed]
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite loss {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
+    if launched(launches) != {k: n * n_timed for k, n in a_step.items()}:
+        fail(f"{label}: launches {launches} in {n_timed} steps")
+    moved = {f"{n}.{k}": float((v != before[n][k]).float().mean())
+             for n, g in trainer.params.items() for k, v in g.items()}
+    if not all(moved[f"readout.{k}"] > 0 for k in trainer.params["readout"]):
+        fail(f"{label}: a readout leaf did not change: {moved}")
+    _, grads = trainer.loss_and_grads(*batches[0])
+    biggest = {f"{n}.{k}": float(v.abs().max())
+               for n, g in grads.items() for k, v in g.items()}
+    if not all(np.isfinite(list(biggest.values()))):
+        fail(f"{label}: non-finite gradients {biggest}")
+    log(f"[{label}] share of each leaf's weights that moved: "
+        f"{json.dumps(moved)}; max|g| {json.dumps(biggest)}")
+    log(f"[{label}] {n_timed} steps of {TRAIN_B}: "
+        f"{seconds / n_timed * 1e3:.3f} ms a step = "
+        f"{TRAIN_B * n_timed / seconds:.1f} img/s; loss first5={first:.4f} "
+        f"last5={last:.4f}; launches={json.dumps(launched(launches))} "
+        f"[{card_line()}]")
+    log(f"[{label}] losses={[round(v, 3) for v in losses]}")
+    return trainer, launches
+
+
+def izh_periodic_times(label, cfg, batches, n=5):
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
+    periodic = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+    timed_steps(periodic, batches, 1)
+    losses, seconds = timed_steps(periodic, batches, n)
+    if not all(np.isfinite([float(v) for v in losses])):
+        fail(f"{label}: non-finite loss with periodic encoding")
+    log(f"[{label}] periodic {n} steps of {TRAIN_B}: "
+        f"{seconds / n * 1e3:.3f} ms a step = "
+        f"{TRAIN_B * n / seconds:.1f} img/s [{card_line()}]")
+
+
+def phase_izh_train(matmul_dtype: str) -> list:
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    md = getattr(torch, matmul_dtype)
+    it = md.itemsize
+    batches = synthetic_task(4)
+    x = batches[0][0]
+    T, F, H, O, B = 100, 784, 128, 10, TRAIN_B
+    lat = pixels_to_firing_periods(x, t_max=float(T)).contiguous()
+    in_spikes = input_spike_count(lat, T)
+    trace = T * B * H * 4  # the Izhikevich traces are float32
+    rows = []
+
+    # The flagship: one head pair a step.
+    label = f"izh-train {tag}"
+    cfg = izh_cfg(matmul_dtype)
+    enc = pt.EncodeConfig(n_steps=T)
+    paths = [r["path"] for r in model_lib.explain_dispatch(
+        cfg, enc, training=True)]
+    if paths != [f"cuda:{fused.KERNEL_IZH_TRAIN}+{fused.KERNEL_IZH_BWD}"]:
+        fail(f"{label}: dispatch is {paths}")
+    trainer, launches = izh_train_run(
+        label, cfg, enc, {fused.KERNEL_IZH_TRAIN: 1, fused.KERNEL_IZH_BWD: 1},
+        IZH_TIMED, batches)
+    args = izh_head_args(cfg, trainer.params, lat, False)
+    res = fused_izh._head_cuda(*args, True, False)
+    plain = fused_izh._head_reference(*args, True, False)
+    torch.cuda.synchronize()
+    agree, close, k1_err, _ = compare_flagship(res[0], plain[0])
+    hidden = int(fused_izh._head_cuda(*args, False, True)[3].sum())
+    log(f"[{label}] hidden spikes={hidden} ({hidden / (B * T * H):.4f} of "
+        f"unit-steps); K1 vs plain at dt=30, not gated: argmax_agree="
+        f"{agree:.4f} rows_within_1e-4max={close:.4f} max_abs_err="
+        f"{k1_err:.3g}")
+    del plain
+    lcfg = cfg.layer_configs[0][1]
+    rng = np.random.default_rng(10)
+    k2_err = izh30_bwd_checks(label, {"head": (*args[:4], T, False, args[8],
+                                               res[2], res[1])},
+                              args[7], lcfg.gamma, lcfg.spike_func,
+                              md == torch.float32, rng)[fused.KERNEL_IZH_BWD]
+    log(f"[{label}] K2 vs plain on K1's residuals at dt=30 (the trained "
+        f"weights): {k2_err:.3g} of max|g| ok")
+    g_logits = torch.full((B, O), 1.0 / B, device="cuda")
+    bwd = (g_logits, None, res[2], None, None, res[1], *args[:4], T, False,
+           args[7], lcfg.gamma, args[8], lcfg.spike_func)
+    ms1 = cuda_ms(lambda: fused_izh._head_cuda(*args, True, False), 10)
+    plain1 = cuda_ms(lambda: fused_izh._head_reference(*args, True, False),
+                     3, 1)
+    ms2 = cuda_ms(lambda: fused_izh._bwd_cuda(*bwd), 10)
+    plain2 = cuda_ms(lambda: fused_izh._bwd_reference(*bwd), 3, 1)
+    weights = (F * H + H * H + H * O) * it
+    fwd_ops = (in_spikes * H + hidden * (H + O) + IZH_CELL_OPS * B * T * H
+               + 3 * B * T * O)
+    bwd_ops = (2 * B * T * H * (H + O) + in_spikes * H + hidden * (H + O)
+               + IZH_CHAIN_OPS * B * T * H)
+    rows.append(izh_row(label, tag, fused.KERNEL_IZH_TRAIN,
+                        launches[fused.KERNEL_IZH_TRAIN], k1_err, ms1, plain1,
+                        B * F * 4 + weights + O * 4 + trace + 2 * B * O * 4,
+                        fwd_ops, md))
+    rows.append(izh_row(label, tag, fused.KERNEL_IZH_BWD,
+                        launches[fused.KERNEL_IZH_BWD], k2_err, ms2, plain2,
+                        trace + B * F * 4 + 2 * B * O * 4 + 2 * weights
+                        + O * 4, bwd_ops, md))
+    del res, bwd, trainer
+    izh_periodic_times(label, cfg, batches)
+
+    # The deep network: layer 0's pair, one scan pair, the readout loop.
+    label = f"izh-deep-train {tag}"
+    cfg = izh_cfg(matmul_dtype, [128, 128])
+    want = [f"cuda:{fused.KERNEL_IZH_L0}+{fused.KERNEL_IZH_L0_BWD}",
+            f"cuda:{fused.KERNEL_IZH_SCAN}+{fused.KERNEL_IZH_SCAN_BWD}",
+            "torch:loop"]
+    paths = [r["path"] for r in model_lib.explain_dispatch(
+        cfg, enc, training=True)]
+    if paths != want:
+        fail(f"{label}: dispatch is {paths}")
+    a_step = {fused.KERNEL_IZH_L0: 1, fused.KERNEL_IZH_L0_BWD: 1,
+              fused.KERNEL_IZH_SCAN: 1, fused.KERNEL_IZH_SCAN_BWD: 1}
+    trainer, launches = izh_train_run(label, cfg, enc, a_step,
+                                      IZH_DEEP_TIMED, batches)
+    w_in, w_rec, lcfg = izh_layer_args(cfg, trainer.params, "input")
+    w1, w_rec1, _ = izh_layer_args(cfg, trainer.params, "hidden_0")
+    kp = izh.izh_kernel_params(lcfg)
+    l0 = (lat, w_in, w_rec, T, False, kp, True)
+    z0, v0 = fused_izh._layer0_cuda(*l0)
+    z0p = fused_izh._layer0_reference(*l0)[0]
+    cur = (z0 @ w1.float()).contiguous()
+    z1, v1 = izh._scan_cuda(cur, w_rec1, kp, True)
+    z1p = izh._scan_reference(cur, w_rec1, kp, True)[0]
+    torch.cuda.synchronize()
+    spikes0, spikes1 = int(z0.sum()), int(z1.sum())
+    log(f"[{label}] firing shares: layer 0 {spikes0 / (B * T * H):.4f}, "
+        f"layer 1 {spikes1 / (B * T * H):.4f} of unit-steps; rows with "
+        f"spikes equal to the plain versions' at dt=30, not gated: layer 0 "
+        f"{rows_equal(z0, z0p):.4f}, scan {rows_equal(z1, z1p):.4f}")
+    errs = {fused.KERNEL_IZH_L0: float((z0 - z0p).abs().max()),
+            fused.KERNEL_IZH_SCAN: float((z1 - z1p).abs().max())}
+    del z0p, z1p
+    rng = np.random.default_rng(9)
+    errs.update(izh30_bwd_checks(
+        label, {"layer 0": (lat, w_in, w_rec, T, False, z0, v0),
+                "scan": (w_rec1, z1, v1)}, kp, lcfg.gamma, lcfg.spike_func,
+        md == torch.float32, rng))
+    bwd_errs = {k: errs[k] for k in (fused.KERNEL_IZH_L0_BWD,
+                                     fused.KERNEL_IZH_SCAN_BWD)}
+    log(f"[{label}] backward kernels vs plain on the forward kernels' "
+        f"residuals at dt=30 (the trained weights): {json.dumps(bwd_errs)} "
+        f"of max|g| ok")
+    g_z = rand_w(rng, (T, B, H), 1.0 / B)
+    lb = (None, None, None, g_z, z0, v0, lat, w_in, w_rec, None, T, False,
+          kp, lcfg.gamma, 0.0, lcfg.spike_func)
+    sb = (g_z, z1, v1, w_rec1, kp, lcfg.gamma, lcfg.spike_func)
+    timing = [
+        (fused.KERNEL_IZH_L0, lambda: fused_izh._layer0_cuda(*l0),
+         lambda: fused_izh._layer0_reference(*l0),
+         B * F * 4 + (F * H + H * H) * it + 2 * trace,
+         in_spikes * H + spikes0 * H + IZH_CELL_OPS * B * T * H),
+        (fused.KERNEL_IZH_L0_BWD, lambda: fused_izh._bwd_cuda(*lb),
+         lambda: fused_izh._bwd_reference(*lb),
+         3 * trace + B * F * 4 + H * H * it + (F * H + H * H) * it,
+         2 * B * T * H * H + in_spikes * H + spikes0 * H
+         + IZH_CHAIN_OPS * B * T * H),
+        (fused.KERNEL_IZH_SCAN,
+         lambda: izh._scan_cuda(cur, w_rec1, kp, True),
+         lambda: izh._scan_reference(cur, w_rec1, kp, True),
+         3 * trace + H * H * it, spikes1 * H + IZH_CELL_OPS * B * T * H),
+        (fused.KERNEL_IZH_SCAN_BWD, lambda: izh._scan_bwd_cuda(*sb),
+         lambda: izh._scan_bwd_reference(*sb),
+         4 * trace + 2 * H * H * it,
+         2 * B * T * H * H + spikes1 * H + IZH_CHAIN_OPS * B * T * H),
+    ]
+    for kernel, fn, plain_fn, nbytes, ops in timing:
+        ms = cuda_ms(fn, 10)
+        plain_ms = cuda_ms(plain_fn, 3, 1)
+        rows.append(izh_row(label, tag, kernel, launches[kernel],
+                            errs[kernel], ms, plain_ms, nbytes, ops, md))
+    del timing, lb, sb, z0, v0, z1, v1, cur, g_z, trainer
+    izh_periodic_times(label, cfg, batches)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1311,6 +1961,10 @@ def main() -> int:
         kernels += phase_deep_serve(md)
     for md in ("float32", "bfloat16"):
         kernels += phase_deep_train(md)
+    phase_izh_kernels()
+    kernels += [phase_izh_serve("float32"), phase_izh_serve("bfloat16")]
+    for md in ("float32", "bfloat16"):
+        kernels += phase_izh_train(md)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

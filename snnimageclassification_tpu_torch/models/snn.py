@@ -6,16 +6,19 @@ across as plain copies (models/convert.py).
 
 Three paths compute the logits:
 
-* the whole-network head (ops/fused.py): single-hidden-layer LIF/ALIF
-  classifiers with the max-over-time readout and on-device encoding run
-  as one call -- the hand-written CUDA kernels on the card (inference;
-  training forward and reverse-time backward when a parameter requires a
-  gradient), their plain PyTorch versions on the CPU;
+* the whole-network head (ops/fused.py, ops/fused_izh.py for
+  Izhikevich): single-hidden-layer classifiers with the max-over-time
+  readout and on-device encoding run as one call -- the hand-written CUDA
+  kernels on the card (inference; training forward and reverse-time
+  backward when a parameter requires a gradient), their plain PyTorch
+  versions on the CPU;
 * the deep dispatch, for two or more hidden layers: layer 0 as one
-  encode + scan call (ops/fused.py ``fused_encode_{rec,ff}_scan``), each
-  further LIF/ALIF layer as one mid call, and the last hidden layer with
-  the readout and the max over time as one mid-head call
-  (ops/fused_mid.py); a layer no kernel covers (Izhikevich, a shape past
+  encode + scan call (ops/fused.py ``fused_encode_{rec,ff}_scan``,
+  ops/fused_izh.py ``fused_encode_izh_scan``), each further LIF/ALIF layer
+  as one mid call, and a last LIF/ALIF hidden layer with the readout and
+  the max over time as one mid-head call (ops/fused_mid.py); an
+  Izhikevich layer past the first scans its ``z_in @ W_in`` currents in one
+  call (ops/izh.py ``izh_scan``); a layer no kernel covers (a shape past
   the limits) takes the loop below in its place;
 * everything else: :func:`apply`, a per-layer time loop (the reference's
   layer-then-time order, snn.py:209-214), then
@@ -37,6 +40,7 @@ from ..ops.cells import (
     ALIFConfig,
     INIT_PARAM_FNS,
     INIT_STATE_FNS,
+    IzhikevichConfig,
     LIFConfig,
     ReadoutConfig,
     STEP_FNS,
@@ -46,6 +50,13 @@ from ..ops.encoding import encode_spikes, pixels_to_firing_periods
 from ..ops.fused import (
     KERNEL,
     KERNEL_BWD,
+    KERNEL_IZH,
+    KERNEL_IZH_BWD,
+    KERNEL_IZH_L0,
+    KERNEL_IZH_L0_BWD,
+    KERNEL_IZH_SCAN,
+    KERNEL_IZH_SCAN_BWD,
+    KERNEL_IZH_TRAIN,
     KERNEL_L0,
     KERNEL_L0_BWD,
     KERNEL_MID,
@@ -60,6 +71,12 @@ from ..ops.fused import (
     fused_head_supported,
     fused_supported,
 )
+from ..ops.fused_izh import (
+    fused_encode_izh_scan,
+    fused_encode_izh_scan_head,
+    fused_izh_head_supported,
+    fused_izh_supported,
+)
 from ..ops.fused_mid import (
     fused_mid_ff_scan,
     fused_mid_ff_scan_head,
@@ -70,6 +87,7 @@ from ..ops.fused_mid import (
     fused_mid_rec_scan_head_counts,
     fused_mid_supported,
 )
+from ..ops.izh import izh_kernel_params, izh_scan, izh_scan_supported
 from ..ops.temporal import batchwise_temporal_filter, temporal_max
 from .config import ReadoutMth, SNNConfig
 
@@ -190,7 +208,9 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
     A LIF/ALIF layer past the first runs as one mid call (input product
     and scan together, ops/fused_mid.py) unless hidden traces or an
     initial state are asked for; every other layer computes its input
-    currents for all steps in one matmul, then loops over time.
+    currents for all steps in one matmul, then scans them in one
+    ``izh_scan`` call (an Izhikevich layer, on the same conditions) or
+    loops over time.
     ``first_layer_output`` is layer 0's time-major spike trace ``(T, B,
     H0)`` computed upstream (``inputs`` is then ignored).  Returns
     ``(outputs_trace (B, T, O), hidden_states)``; ``hidden_states`` is
@@ -255,6 +275,14 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
             continue
         currents = (mm(x, lparams["w_in"]).transpose(0, 1) if x_tm is None
                     else mm(x_tm, lparams["w_in"]))
+        if initial_state is None and _izh_layer_fusible(
+                cfg, lcfg, return_hidden, dev, training):
+            # (an initial state takes the loop: the kernel starts at rest)
+            x_tm = izh_scan(currents, None if w_rec_eff is None
+                            else w_rec_eff.contiguous(),
+                            izh_kernel_params(lcfg), lcfg.gamma,
+                            lcfg.spike_func)
+            continue
         state = states[idx]
         outs, trace = [], []
         for t in range(currents.shape[0]):
@@ -326,6 +354,29 @@ def _mid_layer_fusible(cfg: SNNConfig, lcfg, return_hidden: bool,
     return ok
 
 
+def _izh_layer_fusible(cfg: SNNConfig, lcfg, return_hidden: bool,
+                       device: torch.device, training: bool = False) -> bool:
+    """Scan this Izhikevich layer's precomputed currents in one
+    ``izh_scan`` call?  No hidden traces, and a shape the kernel (with
+    ``training`` its backward too) covers on ``device`` (the JAX package's
+    ``_pallas_layer_eligible``)."""
+    if return_hidden or type(lcfg) is not IzhikevichConfig:
+        return False
+    if not _kernels_on(cfg, device, "Izhikevich scan"):
+        return False
+    ok = izh_scan_supported(
+        cfg.int_time_steps, lcfg.output_size,
+        recurrent=lcfg.use_recurrent_connection,
+        itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
+        training=training)
+    if not ok and device.type == "cuda":
+        _log_fused_fallback(
+            "Izhikevich scan", "shape exceeds the kernel's limits",
+            n_steps=cfg.int_time_steps, hidden=lcfg.output_size,
+            matmul_dtype=cfg.matmul_dtype_eff, training=training)
+    return ok
+
+
 def _fused_mid_layer(cfg: SNNConfig, lcfg, lparams, z_in, w_rec_eff,
                      matmul_dtype) -> torch.Tensor:
     """One LIF/ALIF layer past the first as a mid call: ``z_in (T, B,
@@ -342,17 +393,20 @@ def _fused_mid_layer(cfg: SNNConfig, lcfg, lparams, z_in, w_rec_eff,
 
 def _layer0_fusible(cfg: SNNConfig, enc, return_hidden: bool,
                     device: torch.device, training: bool = False) -> bool:
-    """Run layer 0 as one encode + scan call?  A LIF/ALIF first layer,
-    on-device encoding at ``int_time_steps``, no hidden traces, and a
-    shape the kernel covers on ``device``."""
+    """Run layer 0 as one encode + scan call?  A LIF/ALIF/Izhikevich first
+    layer, on-device encoding at ``int_time_steps``, no hidden traces, and
+    a shape the kernel covers on ``device``."""
     first_cfg = cfg.layer_configs[0][1]
-    if return_hidden or type(first_cfg) not in (LIFConfig, ALIFConfig):
+    if return_hidden or type(first_cfg) not in (LIFConfig, ALIFConfig,
+                                                IzhikevichConfig):
         return False
     if not (enc.as_timeseries and enc.n_steps == cfg.int_time_steps):
         return False
     if not _kernels_on(cfg, device, "encode + layer 0"):
         return False
-    ok = fused_supported(
+    supported = (fused_izh_supported if type(first_cfg) is IzhikevichConfig
+                 else fused_supported)
+    ok = supported(
         cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
         recurrent=first_cfg.use_recurrent_connection,
         itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
@@ -373,9 +427,10 @@ def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
     """Simulate from raw pixels ``(B, F)``, encoding on the device
     (``enc`` is a ``data.datasets.EncodeConfig``).
 
-    A LIF/ALIF first layer runs as one encode + input product + scan call
-    from the integer latencies (ops/fused.py), so the ``(B, T, F)`` spike
-    tensor never exists; otherwise ``encode_spikes`` feeds :func:`apply`."""
+    A LIF/ALIF/Izhikevich first layer runs as one encode + input product +
+    scan call from the integer latencies (ops/fused.py, ops/fused_izh.py),
+    so the ``(B, T, F)`` spike tensor never exists; otherwise
+    ``encode_spikes`` feeds :func:`apply`."""
     dev = resolve_device(device)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
     rest = dict(return_hidden=return_hidden,
@@ -392,15 +447,22 @@ def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
         ).contiguous()
         lparams0 = {k: v.to(dev) for k, v in params[first_name].items()}
         w0 = lparams0["w_in"].to(matmul_dtype).contiguous()
+        w_rec_eff = masked_recurrent(first_cfg, lparams0)
+        if w_rec_eff is not None:
+            w_rec_eff = w_rec_eff.to(matmul_dtype).contiguous()
+        if type(first_cfg) is IzhikevichConfig:
+            z0 = fused_encode_izh_scan(
+                latencies, w0, w_rec_eff, izh_kernel_params(first_cfg),
+                cfg.int_time_steps, enc.use_periods, first_cfg.gamma,
+                first_cfg.spike_func)
+            return apply(cfg, params, None, first_layer_output=z0, **rest)
         alif, beta, rho = _beta_rho(first_cfg, lparams0)
         common = (cfg.int_time_steps, enc.use_periods, alif, first_cfg.alpha,
                   rho, first_cfg.threshold, first_cfg.gamma,
                   first_cfg.spike_func)
-        w_rec_eff = masked_recurrent(first_cfg, lparams0)
         if w_rec_eff is not None:
-            z0 = fused_encode_rec_scan(
-                latencies, w0, w_rec_eff.to(matmul_dtype).contiguous(), beta,
-                *common)
+            z0 = fused_encode_rec_scan(latencies, w0, w_rec_eff, beta,
+                                       *common)
         else:
             z0 = fused_encode_ff_scan(latencies, w0, beta, *common)
         return apply(cfg, params, None, first_layer_output=z0, **rest)
@@ -412,8 +474,8 @@ def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
 
 def _head_fusible(cfg: SNNConfig, enc, device: torch.device,
                   training: bool = False) -> bool:
-    """Whole-network head available: one LIF/ALIF hidden layer, the
-    max-over-time readout, on-device encoding at ``int_time_steps`` and
+    """Whole-network head available: one LIF/ALIF/Izhikevich hidden layer,
+    the max-over-time readout, on-device encoding at ``int_time_steps`` and
     float32 compute; with ``training`` the backward kernel must cover the
     shape too.  On the card every gate a config hits is logged."""
     on_card = device.type == "cuda"
@@ -427,16 +489,12 @@ def _head_fusible(cfg: SNNConfig, enc, device: torch.device,
     first_cfg, last_cfg = layer_cfgs[0][1], layer_cfgs[-1][1]
     if len(layer_cfgs) != 2:
         return False  # no hidden layer, or the deep dispatch
-    if type(first_cfg) not in (LIFConfig, ALIFConfig):
-        # The JAX package fuses an Izhikevich head too; that kernel is a
-        # later slice of the port.
-        if on_card and type(last_cfg) is ReadoutConfig:
-            _log_fused_fallback(
-                "whole-network head", "the Izhikevich head kernel is not "
-                "ported yet", _level=logging.WARNING,
-                layer=type(first_cfg).__name__)
+    if type(first_cfg) not in (LIFConfig, ALIFConfig, IzhikevichConfig):
         return False
-    ok = fused_head_supported(
+    supported = (fused_izh_head_supported
+                 if type(first_cfg) is IzhikevichConfig
+                 else fused_head_supported)
+    ok = supported(
         cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
         last_cfg.output_size, recurrent=first_cfg.use_recurrent_connection,
         itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
@@ -477,7 +535,9 @@ def _head_forward(cfg: SNNConfig, params: Params, pixels, enc,
                   counts: bool):
     """The head-fusible branch of the two ``forward_logits_*_pixels``:
     latencies on the device, weights cast to the matmul dtype (the casts
-    carry the gradient back to the float32 leaves)."""
+    carry the gradient back to the float32 leaves).  An Izhikevich head
+    with ``counts`` returns ``(logits, {})``: the reference collects counts
+    of LIF/ALIF layers only (snn.py:268), as :func:`apply` does."""
     (first_name, first_cfg), (last_name, last_cfg) = cfg.layer_configs
     latencies = pixels_to_firing_periods(
         pixels, t_max=float(cfg.int_time_steps), tau=enc.tau, thr=enc.thr,
@@ -488,6 +548,16 @@ def _head_forward(cfg: SNNConfig, params: Params, pixels, enc,
     w0 = lparams0["w_in"].to(matmul_dtype).contiguous()
     w_out = params[last_name]["w_in"].to(matmul_dtype).contiguous()
     b_out = params[last_name]["b"].to(torch.float32).contiguous()
+    if type(first_cfg) is IzhikevichConfig:
+        w_rec_eff = masked_recurrent(first_cfg, lparams0)
+        if w_rec_eff is not None:
+            w_rec_eff = w_rec_eff.to(matmul_dtype).contiguous()
+        logits = fused_encode_izh_scan_head(
+            latencies, w0, w_rec_eff, w_out, b_out,
+            izh_kernel_params(first_cfg), cfg.int_time_steps,
+            enc.use_periods, first_cfg.gamma, last_cfg.kappa,
+            first_cfg.spike_func)
+        return (logits, {}) if counts else logits
     out = _lif_alif_head_call(cfg, first_cfg, last_cfg, lparams0, latencies,
                               w0, w_out, b_out, enc, counts=counts)
     if counts:
@@ -595,9 +665,9 @@ def forward_logits_counts_pixels(cfg: SNNConfig, params: Params, pixels, enc,
     ``spike_counts`` is ``{layer: (B, width) float32}`` for the LIF/ALIF
     layers: all the spike regularizers (train/losses.py) need, without
     the ``(B, T, H)`` hidden traces.  Head-fusible configs keep the
-    whole-network head (its ``_counts`` variants) and deeper ones the
-    mid head's; the rest run :func:`apply_pixels` with
-    ``return_spike_counts=True``."""
+    whole-network head (its ``_counts`` variants; an Izhikevich head
+    returns ``{}``) and deeper ones the mid head's; the rest run
+    :func:`apply_pixels` with ``return_spike_counts=True``."""
     dev = resolve_device(device)
     params = _to(params, dev)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
@@ -642,13 +712,18 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     ``cuda:fused_head_fwd`` (the whole network, inference),
     ``cuda:fused_layer0_fwd`` (encode + layer 0), ``cuda:fused_mid_fwd``
     (a layer past the first) and ``cuda:fused_mid_fwd[head]`` (the last
-    hidden layer + readout); with ``training`` each names the pair a step
-    launches (``cuda:fused_head_fwd_train+fused_head_bwd``,
+    hidden layer + readout), and for Izhikevich layers
+    ``cuda:fused_izh_fwd`` (the whole network), ``cuda:fused_izh_layer0_fwd``
+    and ``cuda:izh_scan_fwd`` (a layer past the first, on its currents);
+    with ``training`` each names the pair a step launches
+    (``cuda:fused_head_fwd_train+fused_head_bwd``,
     ``cuda:fused_layer0_fwd+fused_layer0_bwd``, ...).  On the CPU their
     plain versions: ``torch:fused_head_reference``,
     ``torch:fused_layer0_reference``, ``torch:fused_mid_reference``,
-    ``torch:fused_mid_reference[head]``.  ``torch:loop`` is the per-step
-    loop.  It fires the same fallback logs the real dispatch would."""
+    ``torch:fused_mid_reference[head]``, ``torch:fused_izh_head_reference``,
+    ``torch:fused_izh_layer0_reference``, ``torch:izh_scan_reference``.
+    ``torch:loop`` is the per-step loop.  It fires the same fallback logs
+    the real dispatch would."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     layer_cfgs = cfg.layer_configs
@@ -661,11 +736,17 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
 
     also = ", reverse-time BPTT in another" if training else ""
     where = "" if on_card else " (plain version on the CPU)"
+    izh = type(layer_cfgs[0][1]) is IzhikevichConfig
     if enc is not None and _head_fusible(cfg, enc, dev, training):
+        if izh:
+            kernels = (KERNEL_IZH_TRAIN if training else KERNEL_IZH,
+                       KERNEL_IZH_BWD, "fused_izh_head_reference")
+        else:
+            kernels = (KERNEL_TRAIN if training else KERNEL, KERNEL_BWD,
+                       "fused_head_reference")
         return [{
             "layer": names,
-            "path": path(KERNEL_TRAIN if training else KERNEL, KERNEL_BWD,
-                         "fused_head_reference"),
+            "path": path(*kernels),
             "reason": "single-hidden-layer classifier with max-over-time "
                       "readout: encode + scan + readout + max in one call"
                       + also + where,
@@ -694,10 +775,21 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                 and _layer0_fusible(cfg, enc, False, dev, training)):
             entries.append({
                 "layer": name,
-                "path": path(KERNEL_L0, KERNEL_L0_BWD,
-                             "fused_layer0_reference"),
+                "path": (path(KERNEL_IZH_L0, KERNEL_IZH_L0_BWD,
+                              "fused_izh_layer0_reference") if izh
+                         else path(KERNEL_L0, KERNEL_L0_BWD,
+                                   "fused_layer0_reference")),
                 "reason": "encoding + input product + scan in one call"
                           + also + where,
+            })
+            continue
+        if _izh_layer_fusible(cfg, lcfg, False, dev, training):
+            entries.append({
+                "layer": name,
+                "path": path(KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
+                             "izh_scan_reference"),
+                "reason": "currents of all steps in one product, then the "
+                          "scan in one call" + also + where,
             })
             continue
         if idx > 0 and _mid_layer_fusible(cfg, lcfg, False, dev, training):

@@ -1,8 +1,16 @@
 """Semantic ops (surrogates, cells, encoding, temporal reductions) and the
 kernels with their plain PyTorch versions: the whole-network head and the
 z-emitting first layer (fused.py), the layers past the first and the deep
-network's head (fused_mid.py)."""
+network's head (fused_mid.py), and their Izhikevich counterparts (the head
+and first layer in fused_izh.py, the scan over a layer's currents in
+izh.py)."""
 from .cells import LayerType  # noqa: F401
 from .encoding import ToSpikes, encode_spikes  # noqa: F401
+from .fused_izh import (  # noqa: F401
+    fused_encode_izh_scan,
+    fused_encode_izh_scan_head,
+    fused_encode_izh_scan_head_counts,
+)
+from .izh import izh_kernel_params, izh_scan  # noqa: F401
 from .surrogate import SpikeFuncType, heaviside_phi, heaviside_sigmoid  # noqa: F401
 from .temporal import batchwise_temporal_filter, temporal_max  # noqa: F401

@@ -84,10 +84,20 @@ KERNEL_L0 = "fused_layer0_fwd"
 KERNEL_L0_BWD = "fused_layer0_bwd"
 KERNEL_MID = "fused_mid_fwd"  # wrappers in ops/fused_mid.py
 KERNEL_MID_BWD = "fused_mid_bwd"
+# The Izhikevich kernels (wrappers in ops/fused_izh.py and ops/izh.py).
+KERNEL_IZH = "fused_izh_fwd"
+KERNEL_IZH_TRAIN = "fused_izh_fwd_train"
+KERNEL_IZH_BWD = "fused_izh_bwd"
+KERNEL_IZH_L0 = "fused_izh_layer0_fwd"
+KERNEL_IZH_L0_BWD = "fused_izh_layer0_bwd"
+KERNEL_IZH_SCAN = "izh_scan_fwd"
+KERNEL_IZH_SCAN_BWD = "izh_scan_bwd"
 MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
 _counts_lock = threading.Lock()
-_launches = {KERNEL: 0, KERNEL_TRAIN: 0, KERNEL_BWD: 0, KERNEL_L0: 0,
-             KERNEL_L0_BWD: 0, KERNEL_MID: 0, KERNEL_MID_BWD: 0}
+_launches = {k: 0 for k in (
+    KERNEL, KERNEL_TRAIN, KERNEL_BWD, KERNEL_L0, KERNEL_L0_BWD, KERNEL_MID,
+    KERNEL_MID_BWD, KERNEL_IZH, KERNEL_IZH_TRAIN, KERNEL_IZH_BWD,
+    KERNEL_IZH_L0, KERNEL_IZH_L0_BWD, KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD)}
 
 Beta = Union[float, torch.Tensor]
 

@@ -1,12 +1,17 @@
 """Where a training step's time goes: profile ``Trainer.train_step`` on the
 flagship (784 -> ALIF-128 recurrent, learn_beta, T=100) or, with ``--deep``,
 on the deep network 784 -> 128 -> 128 -> 96 -> 10 (same cell), at batch 8192
-on the synthetic prototype task ``chip_smoke.py`` trains.
+on the synthetic prototype task ``chip_smoke.py`` trains.  ``--izh`` takes
+the Izhikevich cell instead (784 -> Izhikevich-128 recurrent -> 10, with
+``--deep`` 784 -> 128 -> 128 -> 10, dt = 30 where units fire), and
+``--loop`` the per-step time loop (``use_kernels=False``) instead of the
+kernels.
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.train_profile \
-        [--deep] [--matmul-dtype float32|bfloat16] [--periodic] [--steps 10]
+        [--deep] [--izh] [--loop] [--matmul-dtype float32|bfloat16] \
+        [--periodic] [--steps 10]
 
 After 3 warm-up steps it traces ``--steps`` steps with ``torch.profiler``
 (CPU and CUDA activities) and prints one JSON line: the step's wall time
@@ -41,15 +46,25 @@ def main() -> None:
                     choices=("float32", "bfloat16"))
     ap.add_argument("--periodic", action="store_true")
     ap.add_argument("--deep", action="store_true",
-                    help="three hidden layers (128, 128, 96)")
+                    help="three hidden layers (128, 128, 96); with --izh two "
+                         "(128, 128)")
+    ap.add_argument("--izh", action="store_true",
+                    help="Izhikevich layers at dt=30")
+    ap.add_argument("--loop", action="store_true",
+                    help="use_kernels=False: the per-step time loop")
     ap.add_argument("--steps", type=int, default=10)
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA card")
-    cfg = SNNConfig(input_size=784, output_size=10,
-                    n_hidden_neurons=[128, 128, 96] if ns.deep else 128,
-                    hidden_layer_type=LayerType.ALIF, learn_beta=True,
-                    int_time_steps=100, matmul_dtype=ns.matmul_dtype)
+    if ns.izh:
+        cell = dict(hidden_layer_type=LayerType.Izhikevich, dt=30.0,
+                    n_hidden_neurons=[128, 128] if ns.deep else 128)
+    else:
+        cell = dict(hidden_layer_type=LayerType.ALIF, learn_beta=True,
+                    n_hidden_neurons=[128, 128, 96] if ns.deep else 128)
+    cfg = SNNConfig(input_size=784, output_size=10, int_time_steps=100,
+                    matmul_dtype=ns.matmul_dtype, use_kernels=not ns.loop,
+                    **cell)
     enc = EncodeConfig(n_steps=100, use_periods=ns.periodic)
     trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
     rng = np.random.default_rng(3)
@@ -82,7 +97,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "deep": ns.deep, "matmul_dtype": ns.matmul_dtype,
+        "deep": ns.deep, "izh": ns.izh, "loop": ns.loop,
+        "matmul_dtype": ns.matmul_dtype,
         "periodic": ns.periodic,
         "steps": ns.steps, "step_ms_wall_traced": step_ms,
         "device_busy_ms_per_step": busy_ms,

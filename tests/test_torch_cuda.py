@@ -23,15 +23,33 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   functions, at T = 24 and T = 100: spikes and counts equal, logits 1e-5,
   gradients 2e-6 of max|g| (5e-6 at T = 100, 2e-5 for ALIF with Phi; bf16
   2**-6: a chain of three roundings), launches counted.
+* the Izhikevich kernels (``izh_scan_fwd/bwd``, ``fused_izh_fwd[_train]``,
+  ``fused_izh_layer0_fwd``, ``fused_izh_bwd``, ``fused_izh_layer0_bwd``) at
+  the JAX suite's weight scale (W_in 3e6, W_rec 5e5, currents 3e6 + 1e6
+  N(0, 1)), T = 24 and 100: spikes, ``tstar`` and counts equal, ``v``
+  bitwise where no recurrent sum differs in order (ff) and within 1e-6
+  relative and 1e-3 mV otherwise (input sums of ~1e8 in another order move
+  v by ~1e-4 mV a step), logits 1e-5; each backward on the forward kernel's
+  own residuals within 2e-6 of max|g| (5e-6 at T = 100, bf16 2**-7), equal
+  bits on a second run; the three backward kernels again at dt = 30 with
+  init-scale weights, where the chain's u carry matters (1e-4 of max|g|,
+  bf16 2**-7); the models' dispatch names the kernels and launches each
+  once.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from snnimageclassification_tpu_torch.ops import fused, fused_mid  # noqa: E402
+from snnimageclassification_tpu_torch.ops import (  # noqa: E402
+    fused,
+    fused_izh,
+    fused_mid,
+    izh,
+)
 from snnimageclassification_tpu_torch.ops.cells import (  # noqa: E402
     ALIFConfig,
+    IzhikevichConfig,
     LIFConfig,
     ReadoutConfig,
 )
@@ -432,3 +450,277 @@ def test_deep_inference_launches_one_kernel_a_layer(card):
                         plain=False)
     assert torch.equal(z0, train[0]) and torch.equal(z1, train[1])
     assert torch.equal(logits, train[2]) and torch.equal(counts, train[3])
+
+
+# ---------------------------------------------------------------------------
+# Izhikevich
+# ---------------------------------------------------------------------------
+IZH = IzhikevichConfig(input_size=1, output_size=1)
+IZH_KP = izh.izh_kernel_params(IZH)
+IZH_CASES = [  # name, recurrent, use_periods, n_steps, surrogate
+    ("rec-ttfs-fs", True, False, 24, FAST),
+    ("ff-periodic-phi", False, True, 24, PHI),
+    ("rec-periodic-fs-100", True, True, 100, FAST),
+    ("ff-ttfs-phi-100", False, False, 100, PHI),
+]
+
+
+def _izh_weights(dev, rng, F, H, O, rec, wdtype):
+    def w(shape, std):
+        return torch.from_numpy(
+            (std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    w_rec = ((w((H, H), 5e5) * (1 - torch.eye(H, device=dev))).to(wdtype)
+             if rec else None)
+    return (w((F, H), 3e6).to(wdtype), w_rec, w((H, O), 1.0).to(wdtype),
+            w((O,), 0.1))
+
+
+def _izh_bar(n_steps, wdtype):
+    """Backward against its plain version on the same residuals, of max|g|:
+    float32 2e-6, 5e-6 at T = 100 (four times the terms in another order);
+    bfloat16 one rounding."""
+    if wdtype == torch.bfloat16:
+        return 2.0 ** -7
+    return 2e-6 if n_steps < 100 else 5e-6
+
+
+def _grads_close(got, again, want, bar):
+    for g, g2, p in zip(got, again, want):
+        if p is None:
+            assert g is None
+            continue
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.equal(g, g2), "not reproducible bit for bit"
+        assert bool(torch.isfinite(g.float()).all())
+        scale = float(p.float().abs().max()) or 1.0
+        err = float((g.float() - p.float()).abs().max()) / scale
+        assert err <= bar, f"{err:.3g} of max|g|"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,rec,use_periods,n_steps,spike", IZH_CASES,
+                         ids=[c[0] for c in IZH_CASES])
+def test_izh_scan_kernels_match_plain_versions(card, name, rec, use_periods,
+                                               n_steps, spike, wdtype):
+    B, H = 37, 20
+    rng = np.random.default_rng(3)
+    cur = torch.from_numpy((3e6 + 1e6 * rng.standard_normal(
+        (n_steps, B, H))).astype(np.float32)).to(card)
+    w_rec = _izh_weights(card, rng, 1, H, 1, rec, wdtype)[1]
+    fused.reset_launch_counts()
+    z, v = izh._scan_cuda(cur, w_rec, IZH_KP, True)
+    z_inf, v_inf = izh._scan_cuda(cur, w_rec, IZH_KP, False)
+    zp, vp = izh._scan_reference(cur, w_rec, IZH_KP, True)
+    torch.cuda.synchronize()
+    assert v_inf is None and torch.equal(z, z_inf)
+    assert torch.equal(z, zp) and 0 < float(z.mean()) < 1
+    if rec:
+        torch.testing.assert_close(v, vp, rtol=1e-6, atol=1e-3)
+    else:  # the same expression in the same order, IEEE division
+        assert torch.equal(v, vp)
+    g_z = torch.from_numpy(rng.standard_normal(
+        (n_steps, B, H)).astype(np.float32)).to(card)
+    args = (g_z, z, v, w_rec, IZH_KP, IZH.gamma, spike)
+    _grads_close(izh._scan_bwd_cuda(*args), izh._scan_bwd_cuda(*args),
+                 izh._scan_bwd_reference(*args), _izh_bar(n_steps, wdtype))
+    assert _launched() == {fused.KERNEL_IZH_SCAN: 2,
+                           fused.KERNEL_IZH_SCAN_BWD: 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,rec,use_periods,n_steps,spike", IZH_CASES,
+                         ids=[c[0] for c in IZH_CASES])
+def test_fused_izh_kernels_match_plain_versions(card, name, rec, use_periods,
+                                                n_steps, spike, wdtype):
+    B, F, H, O = 37, 30, 20, 10
+    rng = np.random.default_rng(4)
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(card)
+    lat = pixels_to_firing_periods(pixels, t_max=float(n_steps),
+                                   tau=20.0).contiguous()
+    w_in, w_rec, w_out, b_out = _izh_weights(card, rng, F, H, O, rec, wdtype)
+    kappa = ReadoutConfig(input_size=H, output_size=O).kappa
+    head = (lat, w_in, w_rec, w_out, b_out, n_steps, use_periods, IZH_KP,
+            kappa)
+    fused.reset_launch_counts()
+    infer = fused_izh._head_cuda(*head, False, False)[0]
+    logits, v, tstar, counts = fused_izh._head_cuda(*head, True, True)
+    want = fused_izh._head_reference(*head, True, True)
+    z0, v0 = fused_izh._layer0_cuda(lat, w_in, w_rec, n_steps, use_periods,
+                                    IZH_KP, True)
+    z0p, v0p = fused_izh._layer0_reference(lat, w_in, w_rec, n_steps,
+                                           use_periods, IZH_KP, True)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, infer)  # same arithmetic, same order
+    torch.testing.assert_close(logits, want[0], atol=1e-5, rtol=1e-5)
+    assert torch.equal(tstar, want[2]) and torch.equal(counts, want[3])
+    assert float(counts.sum()) > 0
+    assert v.dtype == torch.float32  # whatever the weights' type
+    torch.testing.assert_close(v, want[1], rtol=1e-6, atol=1e-3)
+    # The first layer is the head's template without the readout.
+    assert torch.equal(v0, v) and torch.equal(z0, (v >= IZH.v_peak).float())
+    assert torch.equal(z0, z0p)
+    torch.testing.assert_close(v0, v0p, rtol=1e-6, atol=1e-3)
+    bar = _izh_bar(n_steps, wdtype)
+    g_logits = torch.from_numpy(
+        rng.standard_normal((B, O)).astype(np.float32)).to(card)
+    g_counts = torch.from_numpy(
+        (0.01 * rng.standard_normal((B, H))).astype(np.float32)).to(card)
+    for gc in (None, g_counts):
+        bargs = (g_logits, gc, tstar, None, None, v, lat, w_in, w_rec, w_out,
+                 n_steps, use_periods, IZH_KP, IZH.gamma, kappa, spike)
+        _grads_close(fused_izh._bwd_cuda(*bargs), fused_izh._bwd_cuda(*bargs),
+                     fused_izh._bwd_reference(*bargs), bar)
+    g_z = torch.from_numpy(rng.standard_normal(
+        (n_steps, B, H)).astype(np.float32)).to(card)
+    bargs = (None, None, None, g_z, z0, v0, lat, w_in, w_rec, None, n_steps,
+             use_periods, IZH_KP, IZH.gamma, 0.0, spike)
+    _grads_close(fused_izh._bwd_cuda(*bargs), fused_izh._bwd_cuda(*bargs),
+                 fused_izh._bwd_reference(*bargs), bar)
+    assert _launched() == {fused.KERNEL_IZH: 1, fused.KERNEL_IZH_TRAIN: 1,
+                           fused.KERNEL_IZH_L0: 1, fused.KERNEL_IZH_BWD: 4,
+                           fused.KERNEL_IZH_L0_BWD: 2}
+
+
+IZH30 = IzhikevichConfig(input_size=1, output_size=1, dt=30.0)
+IZH30_KP = izh.izh_kernel_params(IZH30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rec,use_periods,spike",
+                         [(False, False, PHI), (True, True, FAST)],
+                         ids=["ff-ttfs-phi", "rec-periodic-fs"])
+def test_izh_backward_kernels_match_plain_versions_at_dt30(
+        card, rec, use_periods, spike, wdtype):
+    """dt = 30, where the models are served and trained: dt a b = -1.8 and
+    1 - dt a = 0.1, so the chain's u carry moves the gradients as much as
+    its v carry (at dt = 1e-3, the cases above, it moves them by ~6e-8 of
+    max|g|, under their bars).  Init-scale weights; each backward kernel
+    against its plain version on its forward kernel's residuals (the
+    forwards are not compared: between spikes the cell triples a last-bit
+    difference of v each step), 1e-4 of max|g| float32, one rounding
+    bfloat16."""
+    B, F, H, O, T = 37, 100, 20, 10, 100
+    rng = np.random.default_rng(12)
+
+    def w(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(card)
+
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(card)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T)).contiguous()
+    eye = 1 - torch.eye(H, device=card)
+    w_in, w_out, w1 = (w(s).to(wdtype) for s in ((F, H), (H, O), (H, H)))
+    w_rec, w_rec1 = ((w((H, H)) * eye).to(wdtype) if rec else None
+                     for _ in range(2))
+    b_out = 0.1 * w((O,))
+    kappa = ReadoutConfig(input_size=H, output_size=O).kappa
+    _, v, tstar, counts = fused_izh._head_cuda(
+        lat, w_in, w_rec, w_out, b_out, T, use_periods, IZH30_KP, kappa,
+        True, True)
+    z0, v0 = fused_izh._layer0_cuda(lat, w_in, w_rec, T, use_periods,
+                                    IZH30_KP, True)
+    z1, v1 = izh._scan_cuda((z0 @ w1.float()).contiguous(), w_rec1,
+                            IZH30_KP, True)
+    for rate in (float(counts.mean()) / T, float(z0.mean()),
+                 float(z1.mean())):
+        assert 0 < rate < 1
+    bar = 1e-4 if wdtype == torch.float32 else 2.0 ** -7
+    g_logits, g_z = w((B, O)) / B, w((T, B, H)) / B
+    cases = [(g_logits, gc, tstar, None, None, v, lat, w_in, w_rec, w_out, T,
+              use_periods, IZH30_KP, IZH30.gamma, kappa, spike)
+             for gc in (None, 1e-3 * w((B, H)) / B)]
+    cases.append((None, None, None, g_z, z0, v0, lat, w_in, w_rec, None, T,
+                  use_periods, IZH30_KP, IZH30.gamma, 0.0, spike))
+    for bargs in cases:
+        _grads_close(fused_izh._bwd_cuda(*bargs), fused_izh._bwd_cuda(*bargs),
+                     fused_izh._bwd_reference(*bargs), bar)
+    sargs = (g_z, z1, v1, w_rec1, IZH30_KP, IZH30.gamma, spike)
+    _grads_close(izh._scan_bwd_cuda(*sargs), izh._scan_bwd_cuda(*sargs),
+                 izh._scan_bwd_reference(*sargs), bar)
+
+
+@pytest.mark.cuda
+def test_izh_autograd_runs_the_kernel_pairs(card):
+    """The public wrappers under autograd: the head (with counts) and the
+    first layer followed by a scan launch one forward and one backward
+    kernel each and agree with the plain versions' gradients."""
+    B, F, H, O, T = 16, 30, 20, 10, 24
+    rng = np.random.default_rng(6)
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(card)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+    base = _izh_weights(card, rng, F, H, O, True, torch.float32)
+    w1 = torch.from_numpy((0.1 * rng.standard_normal((H, H))).astype(
+        np.float32)).to(card)
+    kappa = ReadoutConfig(input_size=H, output_size=O).kappa
+    r = torch.from_numpy(rng.standard_normal((B, O)).astype(np.float32)).to(
+        card)
+
+    def grads(plain):
+        sfx = "_reference" if plain else ""
+        w_in, w_rec, w_out, b_out = (t.clone().requires_grad_(True)
+                                     for t in base)
+        logits, counts = getattr(
+            fused_izh, f"fused_encode_izh_scan_head_counts{sfx}")(
+                lat, w_in, w_rec, w_out, b_out, IZH_KP, T, False, IZH.gamma,
+                kappa)
+        z0 = getattr(fused_izh, f"fused_encode_izh_scan{sfx}")(
+            lat, w_in, w_rec, IZH_KP, T, True, IZH.gamma)
+        z1 = getattr(izh, f"izh_scan{sfx}")(
+            3e6 + 1e7 * (z0 @ w1), w_rec, IZH_KP, IZH.gamma)
+        loss = ((logits * r).sum() + 1e-3 * (counts ** 2).sum()
+                + 1e-3 * z1.sum(0).pow(2).sum())
+        loss.backward()
+        return [t.grad for t in (w_in, w_rec, w_out, b_out)]
+
+    fused.reset_launch_counts()
+    got = grads(False)
+    assert _launched() == {fused.KERNEL_IZH_TRAIN: 1, fused.KERNEL_IZH_BWD: 1,
+                           fused.KERNEL_IZH_L0: 1, fused.KERNEL_IZH_L0_BWD: 1,
+                           fused.KERNEL_IZH_SCAN: 1,
+                           fused.KERNEL_IZH_SCAN_BWD: 1}
+    for g, p in zip(got, grads(True)):
+        scale = float(p.abs().max()) or 1.0
+        assert float((g - p).abs().max()) / scale <= 1e-4
+
+
+@pytest.mark.cuda
+def test_izh_models_dispatch_to_the_kernels(card):
+    """Flagship and deep Izhikevich configs (dt = 30, where units fire) on
+    the card: ``explain_dispatch`` names the kernels, inference launches the
+    head (or layer 0 and one scan) once, a training step each pair once."""
+    import snnimageclassification_tpu_torch as tst
+    from snnimageclassification_tpu_torch.models import snn as tsnn
+    from snnimageclassification_tpu_torch.train import Trainer
+
+    enc = tst.EncodeConfig(n_steps=24)
+    x = torch.rand((64, 784), device=card)
+    y = torch.randint(0, 10, (64,), device=card)
+    for hidden, fwd, step in (
+            (128, {fused.KERNEL_IZH: 1},
+             {fused.KERNEL_IZH_TRAIN: 1, fused.KERNEL_IZH_BWD: 1}),
+            ([128, 128], {fused.KERNEL_IZH_L0: 1, fused.KERNEL_IZH_SCAN: 1},
+             {fused.KERNEL_IZH_L0: 1, fused.KERNEL_IZH_L0_BWD: 1,
+              fused.KERNEL_IZH_SCAN: 1, fused.KERNEL_IZH_SCAN_BWD: 1})):
+        cfg = tst.SNNConfig(input_size=784, output_size=10,
+                            n_hidden_neurons=hidden,
+                            hidden_layer_type="Izhikevich",
+                            int_time_steps=24, dt=30.0)
+        paths = [r["path"] for r in tsnn.explain_dispatch(cfg, enc)]
+        assert all(p.startswith("cuda:") or p == "torch:loop"
+                   for p in paths), paths
+        trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+        fused.reset_launch_counts()
+        with torch.no_grad():
+            logits = tsnn.forward_logits_pixels(cfg, trainer.params, x, enc)
+        assert _launched() == fwd and bool(torch.isfinite(logits).all())
+        fused.reset_launch_counts()
+        loss = trainer.train_step(x, y)
+        assert _launched() == step and np.isfinite(float(loss))

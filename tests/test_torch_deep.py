@@ -251,12 +251,16 @@ def test_deep_explain_dispatch_rows():
                             "readout_mth": tst.ReadoutMth.TEMPORAL_FILTER})
     assert _rows(filt, enc) == [(n3[0], L0), (n3[1], MID), (n3[2], MID),
                                 (n3[3], "torch:loop")]
-    # Izhikevich layers and use_kernels=False take the loop everywhere.
+    # Izhikevich layers take the encoded first-layer call and one scan call
+    # a layer after it (no mid head: the readout loops); use_kernels=False
+    # takes the loop everywhere.
     izh = tst.SNNConfig(**{**three.__dict__,
                            "hidden_layer_type": tst.LayerType.Izhikevich})
     off = tst.SNNConfig(**{**three.__dict__, "use_kernels": False})
-    for cfg in (izh, off):
-        assert [p for _, p in _rows(cfg, enc)] == ["torch:loop"] * 4
+    assert [p for _, p in _rows(izh, enc)] == [
+        "torch:fused_izh_layer0_reference", "torch:izh_scan_reference",
+        "torch:izh_scan_reference", "torch:loop"]
+    assert [p for _, p in _rows(off, enc)] == ["torch:loop"] * 4
 
 
 def test_params_round_trip_on_a_deep_config():

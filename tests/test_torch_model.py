@@ -87,7 +87,7 @@ LOOP = [  # name, config, encoding, layer 0's path
     ("deep-alif", dict(hidden_layer_type="ALIF", n_hidden_neurons=[16, 12]),
      dict(tau=20.0), L0_REF),
     ("izhikevich", dict(hidden_layer_type="Izhikevich"), dict(tau=20.0),
-     "torch:loop"),
+     "torch:fused_izh_head_reference"),
     ("temporal-filter", dict(hidden_layer_type="ALIF",
                              readout_mth=jst.ReadoutMth.TEMPORAL_FILTER),
      dict(tau=20.0), L0_REF),
@@ -103,8 +103,9 @@ LOOP = [  # name, config, encoding, layer 0's path
 @pytest.mark.parametrize("name,ckw,ekw,path", LOOP,
                          ids=[s[0] for s in LOOP])
 def test_loop_path_matches_jax(name, ckw, ekw, path):
-    """Configs off the whole-network head: the deep dispatch, or the loop
-    for every layer the kernels do not cover."""
+    """Configs off the LIF/ALIF whole-network head: the Izhikevich head,
+    the deep dispatch, or the loop for every layer the kernels do not
+    cover."""
     jcfg, tcfg = _pair(int_time_steps=12, **ckw)
     jp, tp = _params(jcfg)
     x = np.random.default_rng(1).random((4, 30)).astype(np.float32)
@@ -229,8 +230,10 @@ def test_entry_points_raise_without_cuda(name, call):
 
 def test_fallback_is_logged_once_on_card_only(caplog, monkeypatch):
     """Gates log only for the card (as the JAX package logs only on a
-    TPU); on the CPU the plain paths are the expected ones."""
-    _, tcfg = _pair(hidden_layer_type="Izhikevich", int_time_steps=12)
+    TPU); on the CPU the plain paths are the expected ones.  The gate here,
+    float32 compute, is decided before any kernel is asked."""
+    _, tcfg = _pair(hidden_layer_type="ALIF", int_time_steps=12,
+                    compute_dtype="bfloat16")
     enc = tst.EncodeConfig(n_steps=12)
     with caplog.at_level("INFO"):
         assert not tsnn._head_fusible(tcfg, enc, torch.device("cpu"))
@@ -240,7 +243,7 @@ def test_fallback_is_logged_once_on_card_only(caplog, monkeypatch):
         for _ in range(2):
             assert not tsnn._head_fusible(tcfg, enc, torch.device("cuda"))
     assert len(caplog.records) == 1
-    assert "not ported yet" in caplog.records[0].getMessage()
+    assert "compute_dtype != float32" in caplog.records[0].getMessage()
 
 
 def test_use_kernels_false_takes_the_loop():

@@ -163,8 +163,10 @@ COUNT_CFGS = [
      dict(use_periods=True), "torch:fused_head_reference"),
     ("deep-loop", dict(hidden_layer_type="ALIF", n_hidden_neurons=[H, 8]),
      dict(), "torch:fused_layer0_reference"),
+    # The Izhikevich head keeps its call and returns no counts (the
+    # reference counts LIF/ALIF layers only).
     ("izhikevich-loop", dict(hidden_layer_type="Izhikevich"), dict(),
-     "torch:loop"),
+     "torch:fused_izh_head_reference"),
 ]
 
 
