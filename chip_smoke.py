@@ -80,6 +80,28 @@ Phases (any failure exits non-zero before the final line):
    weights (1e-4 of max|g| / 2**-7); each kernel alone on its phase's
    batch, timed, with its bound and its error on those inputs.
 
+11. two-layer kernels -- ``fused2_fwd[_train]`` and ``fused2_bwd`` against
+   their plain versions on phase 3b's grid (spikes, ``tstar`` and counts
+   equal, logits 1e-5, gradients on the same residuals 2e-6 of max|g|, 5e-6
+   at T = 100, 2**-7 bf16, equal bits on a repeated call) and against the
+   composed kernels (``fused_layer0_fwd`` + ``fused_mid_fwd[head]``): logits,
+   ``tstar``, both counts and both residuals bit for bit, small and at
+   784-128-128-10, B = 8192 (there the gradients within 1e-4 of max|g| of
+   ``fused_mid_bwd`` + ``fused_layer0_bwd``, 2**-6 bf16);
+12. two-layer serve -- 784-ALIF128-ALIF128-10 (``bench.py``'s twolayer leg)
+   served as in 4: one ``fused2_fwd`` launch a batch and no layer-0 or mid
+   kernel, results bitwise a direct forward; on a 4096-row batch the pair
+   equals the composed kernels bitwise, both timed;
+13. two-layer train -- that network through ``Trainer`` at batch 8192, lr
+   3e-5: 3 warm-up and 20 timed TTFS steps (finite falling loss, both betas bitwise,
+   every trained leaf moves, one ``fused2_fwd_train`` and one ``fused2_bwd``
+   launch a step), each kernel against its plain version on the trained
+   weights (the backward on the forward's residuals), timed beside the
+   composed kernels and a forward + backward through the composed public
+   functions on the same batch; at lr 1e-3 the first step's gradients
+   against the per-step loop's (1e-4 of max|g|) and both paths' losses; 5
+   periodic steps (times), 3 with ``L2SpikesPerNeuron`` (launches).
+
 Phase 3 also holds the deep-network kernels (``fused_layer0_fwd/bwd``,
 ``fused_mid_fwd/bwd``) against their plain versions: LIF/ALIF x ff/rec x
 FastSigmoid/Phi x {float32, bfloat16} at small shapes with T = 24 (TTFS and
@@ -108,6 +130,7 @@ from snnimageclassification_tpu_torch.models import snn as model_lib
 from snnimageclassification_tpu_torch.ops import (
     _build,
     fused,
+    fused2,
     fused_izh,
     fused_mid,
     izh,
@@ -1944,6 +1967,508 @@ def phase_izh_train(matmul_dtype: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13: two hidden layers as one kernel pair (784-ALIF128-ALIF128-10)
+# ---------------------------------------------------------------------------
+F2_SITE = ("fused2.cu", "pallas_fused2.py:434")
+F2_BWD_SITE = ("fused2_bwd.cu", "pallas_fused2.py:857")
+TWO_WIDTHS = (128, 128)
+TWO_TIMED = 20
+# Adam's step size for the two-layer network at B = 8192: at 1e-3 and
+# down to 1e-4 its loss on the prototype task falls for 4-6 steps and then
+# climbs, through the per-step loop as through the pair (phase 13 shows
+# both at 1e-3); at 3e-5 it falls.
+TWO_LR = 3e-5
+
+
+def f2_random_args(rng, B, F, H1, H2, O, T, alif, rec, per, wdtype, flagship):
+    """Latencies and random weights as ``fused2._fused2_cuda`` takes them
+    up to ``kappa``, and gamma: at full width the production tau (most
+    features fire at t = 0, as the served batches) and the init scale,
+    small with tau = 20 where both layers of a small network fire."""
+    alpha, rho, thr, gamma = layer_scalars(alif)
+    kappa = ReadoutConfig(input_size=1, output_size=1).kappa
+    pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
+    tau = {} if flagship else {"tau": 20.0}
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   **tau).contiguous()
+    s0, s1, s_rec = (thr, thr, thr) if flagship else (1.5, 1.0, 0.4)
+    w0, w0r = deep_layer(rng, F, H1, rec, s0, s_rec, wdtype)
+    w1, w1r = deep_layer(rng, H1, H2, rec, s1, s_rec, wdtype)
+    # Full width: betas of the learn_beta init's scale (N(0, thr^2)).
+    b0, b1 = ((0.03, 0.02) if flagship else (1.6, 1.2)) if alif else (0, 0)
+    return (lat, w0, w0r, b0, w1, w1r, b1, rand_w(rng, (H2, O), 1.0, wdtype),
+            rand_w(rng, (O,), 0.1), T, per, alif, alpha, rho, thr,
+            kappa), gamma
+
+
+def f2_bwd_args(args, out, g_logits, g_c0, g_c1, gamma, spike):
+    """``fused2._fused2_bwd_cuda``'s arguments on the training forward
+    ``out``'s residuals."""
+    lat, w0, w0r, b0, w1, w1r, b1, w_out = args[:8]
+    _, d0, a0, d1, a1, tstar, _, _ = out
+    return (g_logits, g_c0, g_c1, tstar, d0, a0, d1, a1, lat, w0, w0r, b0, w1,
+            w1r, b1, w_out, args[9], args[10], args[12], args[14], gamma,
+            args[15], spike)
+
+
+def composed_forward(args, train, store_a):
+    """The composed kernels on the pair's inputs: ``fused_layer0_fwd`` (its
+    residual delta, as the pair stores) then ``fused_mid_fwd[head]``;
+    returns (z0, layer-0 residual, its a, the mid head's outputs)."""
+    lat, w0, w0r, b0, w1, w1r, b1, w_out, b_out, T, per, alif = args[:12]
+    sc = args[12:15]
+    z0, r0, a0 = fused._layer0_cuda(lat, w0, w0r, b0, T, per, alif, *sc,
+                                    train, store_a, False)
+    m = fused_mid._mid_cuda(z0, w1, w1r, b1, w_out, b_out, T, alif, *sc,
+                            args[15], train, store_a, train, False)
+    return z0, r0, a0, m
+
+
+def composed_backward(args, z0, r0, a0, m, g_logits, g_c0, g_c1, gamma,
+                      spike):
+    """``fused_mid_bwd[head]`` then ``fused_layer0_bwd`` on the composed
+    forward's residuals, the counts' cotangent of layer 0 added to its
+    ``g_z`` as autograd adds it: the pair's six gradients."""
+    lat, w0, w0r, b0, w1, w1r, b1, w_out, _, T, per = args[:11]
+    alpha, thr, kappa = args[12], args[14], args[15]
+    g_z_in, g_w1, g_w1r, g_wout, g_b = fused_mid._mid_bwd_cuda(
+        g_logits, g_c1, m[4], None, None, m[2], m[3], False, z0, w1, w1r, b1,
+        w_out, T, alpha, thr, gamma, kappa, spike)
+    g_z = (g_z_in.float() + g_c0).to(z0.dtype).contiguous()
+    g_w0, g_w0r = fused._layer0_bwd_cuda(g_z, z0, r0, a0, False, lat, w0, w0r,
+                                         b0, T, per, alpha, thr, gamma, spike)
+    return g_w0, g_w0r, g_w1, g_w1r, g_wout, g_b
+
+
+def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
+                 wdtype, flagship, bar_small):
+    """``fused2_fwd[_train]`` and ``fused2_bwd`` at one shape: the forward
+    against its plain version (small: logits 1e-5, tstar, counts and spikes
+    equal, residuals 1e-5 / 2**-7; full width: the head's row bars) and
+    against the composed kernels (logits, tstar, both counts and both
+    residuals bit for bit), twice for equal bits; the backward against its
+    plain version on the same residuals and twice for equal bits, and at
+    full width against ``fused_mid_bwd`` + ``fused_layer0_bwd`` (1e-4 of
+    max|g| float32; bfloat16 2**-6: the composed pair rounds layer 0's
+    ``g_z`` to bfloat16, the pair keeps it float32, and each gradient is
+    rounded once more).  Returns (agree, close, logit error,
+    gradient error vs plain, gradient error vs composed, firing shares)."""
+    f32 = wdtype == torch.float32
+    store_a = alif and spike == PHI
+    args, gamma = f2_random_args(rng, B, F, H1, H2, O, T, alif, rec, per,
+                                 wdtype, flagship)
+    infer = fused2._fused2_cuda(*args, False, False, False)[0]
+    out = fused2._fused2_cuda(*args, True, store_a, True)
+    again = fused2._fused2_cuda(*args, True, store_a, True)
+    ref = fused2._fused2_reference(*args, True, store_a, True)
+    torch.cuda.synchronize()
+    if not torch.equal(out[0], infer):
+        fail(f"{label}: training and inference logits differ")
+    for g, g2 in zip(out, again):
+        if g is not None and not torch.equal(g, g2):
+            fail(f"{label}: the forward is not reproducible bit for bit")
+    logits, d0, a0, d1, a1, tstar, c0, c1 = out
+    fire = (float(c0.sum()) / (B * T * H1), float(c1.sum()) / (B * T * H2))
+    if min(fire) == 0:
+        fail(f"{label}: a layer does not fire {fire}")
+    agree, close, err, scale = compare_flagship(logits, ref[0])
+    if flagship:
+        if agree < 0.995 or close < 0.99:
+            fail(f"{label}: agreement below the bar ({agree:.4f}, "
+                 f"{close:.4f})")
+        same = (logits - ref[0]).abs().amax(1) <= 1e-4 * scale
+        if not torch.equal(tstar[same], ref[5][same]):
+            fail(f"{label}: tstar differs on rows whose logits agree")
+    else:
+        if not torch.allclose(logits, ref[0], atol=1e-5, rtol=1e-5):
+            fail(f"{label}: logits differ by {err:.3g}")
+        if not (torch.equal(tstar, ref[5]) and torch.equal(c0, ref[6])
+                and torch.equal(c1, ref[7])):
+            fail(f"{label}: tstar or counts differ")
+        for name, g, p in (("d0", d0, ref[1]), ("d1", d1, ref[3])):
+            if not torch.equal(g.float() >= 0, p.float() >= 0):
+                fail(f"{label}: {name}'s spikes differ")
+            trace_close(f"{label} {name}", g, p, f32)
+        trace_close(f"{label} a0", a0, ref[2], f32)
+        trace_close(f"{label} a1", a1, ref[4], f32)
+    del ref
+    z0, r0, ra0, m = composed_forward(args, True, store_a)
+    torch.cuda.synchronize()
+    if not (torch.equal(logits, m[0]) and torch.equal(tstar, m[4])
+            and torch.equal(c1, m[5]) and torch.equal(c0, z0.float().sum(0))):
+        fail(f"{label}: logits, tstar or counts differ from the composed "
+             "kernels'")
+    if not (torch.equal(d0, r0) and torch.equal(d1, m[2])
+            and (a0 is None or (torch.equal(a0, ra0)
+                                and torch.equal(a1, m[3])))):
+        fail(f"{label}: residuals differ from the composed kernels'")
+    g_logits = rand_w(rng, (B, O), 1.0 / B)
+    g_c0 = rand_w(rng, (B, H1), 1e-3 / B)
+    g_c1 = rand_w(rng, (B, H2), 1e-3 / B)
+    bargs = f2_bwd_args(args, out, g_logits, g_c0, g_c1, gamma, spike)
+    gbar = 2.0 ** -7 if not f32 else (1e-4 if flagship else bar_small)
+    gerr = check_grads(f"{label} backward",
+                       lambda: fused2._fused2_bwd_cuda(*bargs),
+                       lambda: fused2._fused2_bwd_reference(*bargs), gbar)
+    cerr = 0.0
+    if flagship:
+        got = fused2._fused2_bwd_cuda(*bargs)
+        want = composed_backward(args, z0, r0, ra0, m, g_logits, g_c0, g_c1,
+                                 gamma, spike)
+        cerr = grad_error(got, want)
+        if cerr > (1e-4 if f32 else 2.0 ** -6):
+            fail(f"{label}: gradients differ from the composed kernels' by "
+                 f"{cerr:.3g} of max|g|")
+    return agree, close, err, gerr, cerr, fire
+
+
+def phase_fused2_kernels() -> None:
+    """Phase 11: ``fused2_fwd[_train]`` and ``fused2_bwd`` against their
+    plain versions on phase 3b's grid (LIF/ALIF x ff/rec x
+    FastSigmoid/Phi, T = 24 TTFS and periodic, T = 100, f32 and bf16,
+    B = 37, 30-20-24-10: forward 1e-5, backward 2e-6 of max|g| (5e-6 at T =
+    100), 2**-7 bf16) and against the composed kernels bit for bit; then
+    784-128-128-10 at B = 8192, T = 100, ALIF recurrent, TTFS and periodic,
+    f32 and bf16: the composed kernels' logits, tstar and counts bit for
+    bit, their gradients within 1e-4 (2**-6 bf16) of max|g|."""
+    rng = np.random.default_rng(12)
+    for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        worst, worst_g = 0.0, 0.0
+        for name, alif, rec, spike in DEEP_CASES:
+            for T, per in ((24, False), (24, True), (100, False)):
+                label = (f"fused2 small {name} {wname} T={T} "
+                         f"{'periodic' if per else 'ttfs'}")
+                _, _, err, gerr, _, _ = check_fused2(
+                    label, rng, 37, 30, 20, 24, 10, T, alif, rec, spike, per,
+                    wdtype, False, 2e-6 if T < 100 else 5e-6)
+                worst, worst_g = max(worst, err), max(worst_g, gerr)
+        log(f"[fused2-kernels] 24 small cases {wname}: logits err <= "
+            f"{worst:.3g}, tstar, counts and spikes equal the plain "
+            f"version's; logits, tstar, counts and residuals equal the "
+            f"composed kernels' bitwise; grad_err <= {worst_g:.3g} of max|g|,"
+            f" reproducible")
+        for per in (False, True):
+            label = (f"fused2 full alif-rec-fs {wname} "
+                     f"{'periodic' if per else 'ttfs'}")
+            agree, close, err, gerr, cerr, fire = check_fused2(
+                label, rng, TRAIN_B, 784, *TWO_WIDTHS, 10, 100, True, True, FS,
+                per, wdtype, True, 0.0)
+            log(f"[fused2-kernels] {label} B={TRAIN_B}: firing shares "
+                f"{fire[0]:.4f} / {fire[1]:.4f}; logits, tstar, both counts "
+                f"and residuals bitwise the composed kernels'; vs plain "
+                f"argmax_agree={agree:.5f} rows_within_1e-4max={close:.5f} "
+                f"max_abs_err={err:.3g}; grad_err vs plain={gerr:.3g}, vs "
+                f"composed kernels={cerr:.3g} of max|g|, reproducible")
+            torch.cuda.empty_cache()
+
+
+def twolayer_cfg(matmul_dtype):
+    """``bench.py``'s twolayer leg (bench.py:176-183)."""
+    return pt.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=list(TWO_WIDTHS),
+        hidden_layer_type=pt.LayerType.ALIF, use_recurrent_connection=True,
+        learn_beta=True, int_time_steps=100, matmul_dtype=matmul_dtype)
+
+
+def twolayer_args(cfg, params, lat, use_periods=False):
+    """The pair's arguments as ``forward_logits_pixels`` builds them, and
+    (gamma, surrogate)."""
+    md = getattr(torch, cfg.matmul_dtype_eff)
+    (n0, c0), (n1, c1), (nl, cl) = cfg.layer_configs
+    p0, p1, ro = params[n0], params[n1], params[nl]
+
+    def cast(t):
+        return t.detach().to(md).contiguous()
+
+    return (lat, cast(p0["w_in"]), cast(masked_recurrent(c0, p0)),
+            p0["beta"].detach(), cast(p1["w_in"]),
+            cast(masked_recurrent(c1, p1)), p1["beta"].detach(),
+            cast(ro["w_in"]), ro["b"].detach().contiguous(),
+            cfg.int_time_steps, use_periods, True, c0.alpha, c0.rho,
+            c0.threshold, cl.kappa), (c0.gamma, c0.spike_func)
+
+
+def twolayer_work(args, spikes0, spikes1, train, itemsize):
+    """(bytes, operations) of the pair's forward on these inputs: each
+    input read once, each output written once; one add per selected weight
+    of each 0/1 product (input spikes x H1, layer-0 spikes x (H1 + H2),
+    layer-1 spikes x (H2 + O)), ~10 float32 operations per (row, step,
+    unit) of each layer and 3 per (row, step, output) of the readout."""
+    lat, T = args[0], args[9]
+    B, F = lat.shape
+    H1, H2, O = args[1].shape[1], args[4].shape[1], args[7].shape[1]
+    weights = (F * H1 + H1 * H1 + H1 * H2 + H2 * H2 + H2 * O) * itemsize
+    nbytes = lat.numel() * 4 + weights + O * 4 + 8 + B * O * 4
+    if train:
+        nbytes += T * B * (H1 + H2) * itemsize + B * O * 4
+    in_spikes = input_spike_count(lat, T, args[10])
+    ops = (in_spikes * H1 + spikes0 * (H1 + H2) + spikes1 * (H2 + O)
+           + 10 * B * T * (H1 + H2) + 3 * B * T * O)
+    return nbytes, ops, in_spikes
+
+
+def twolayer_spikes(args):
+    """Both layers' spikes over the run: the training kernel's counts."""
+    out = fused2._fused2_cuda(*args, False, False, True)
+    return int(out[6].sum()), int(out[7].sum())
+
+
+def phase_twolayer_serve(matmul_dtype: str) -> dict:
+    """Phase 12: 784-ALIF128-ALIF128-10 served as in phase 4; one
+    ``fused2_fwd`` launch a batch and no layer-0 or mid kernel; the kernel
+    alone on a 4096-row batch against its plain version and against the
+    composed kernels (bitwise), each timed."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"twolayer-serve {tag}"
+    md = getattr(torch, matmul_dtype)
+    cfg = twolayer_cfg(matmul_dtype)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    paths = [r["path"] for r in model_lib.explain_dispatch(cfg, enc)]
+    if paths != [f"cuda:{fused.KERNEL_2}"]:
+        fail(f"{label}: dispatch is {paths}")
+    reqs, launches = serve_requests(label, cfg, params, enc,
+                                    {fused.KERNEL_2: 1})
+    batch = np.concatenate(reqs[:4096 // ROWS])
+    x = torch.from_numpy(batch).cuda().to(torch.float32) / 255.0
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    args, _ = twolayer_args(cfg, params, lat)
+    got = fused2._fused2_cuda(*args, False, False, False)[0]
+    ref = fused2._fused2_reference(*args, False, False, False)[0]
+    comp = composed_forward(args, False, False)[3][0]
+    torch.cuda.synchronize()
+    if not torch.equal(got, comp):
+        fail(f"{label}: the pair's logits differ from the composed kernels'")
+    agree, close, err, _ = compare_flagship(got, ref)
+    if agree < 0.995 or close < 0.99:
+        fail(f"{label}: kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: fused2._fused2_cuda(*args, False, False, False), 25)
+    plain_ms = cuda_ms(lambda: fused2._fused2_reference(
+        *args, False, False, False), 5, warmup=1)
+    comp_ms = cuda_ms(lambda: composed_forward(args, False, False), 25)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model_lib.forward_logits_pixels(
+            cfg, params, x, enc, device="cuda"), 10)
+    spikes0, spikes1 = twolayer_spikes(args)
+    nbytes, ops, in_spikes = twolayer_work(args, spikes0, spikes1, False,
+                                           md.itemsize)
+    B = lat.shape[0]
+    log(f"[{label}] the pair == the composed kernels bitwise on the served "
+        f"batch; vs plain argmax_agree={agree:.4f} rows_within_1e-4max="
+        f"{close:.4f} max_abs_err={err:.3g}; input spikes={in_spikes}, "
+        f"spikes layer 0={spikes0} ({spikes0 / (B * 100 * 128):.4f}), layer "
+        f"1={spikes1} ({spikes1 / (B * 100 * 128):.4f}) of unit-steps")
+    log(f"[{label}] per 4096-row batch: {fused.KERNEL_2} {ms:.4f} ms = "
+        f"{B / ms * 1e3:.1f} img/s; composed fused_layer0_fwd + "
+        f"fused_mid_fwd[head] {comp_ms:.4f} ms = {B / comp_ms * 1e3:.1f} "
+        f"img/s; forward_logits_pixels {fwd_ms:.4f} ms [{card_line()}]")
+    return kernel_row(label, f"{fused.KERNEL_2}[{tag}]", F2_SITE,
+                      launches[fused.KERNEL_2], err, ms, plain_ms, nbytes,
+                      ops, md)
+
+
+def phase_twolayer_train(matmul_dtype: str) -> list:
+    """Phase 13: 784-ALIF128-ALIF128-10 through ``Trainer`` at batch 8192:
+    3 warm-up and TWO_TIMED timed TTFS steps (finite falling loss, both
+    betas bitwise, every trained leaf moves, one ``fused2_fwd_train`` and
+    one ``fused2_bwd`` launch a step); each kernel alone on a training batch
+    against its plain version (the backward on the forward kernel's
+    residuals), timed beside the composed kernels on the same batch, and a
+    whole forward + backward of the loss through the pair and through the
+    composed public functions; f32: at lr 1e-3 the first step's gradients
+    against the per-step loop's and ten steps' losses of both; 5 periodic
+    steps (times) and 3 with ``L2SpikesPerNeuron`` (launches)."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"twolayer-train {tag}"
+    md = getattr(torch, matmul_dtype)
+    cfg = twolayer_cfg(matmul_dtype)
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    paths = [r["path"] for r in model_lib.explain_dispatch(
+        cfg, enc, device="cuda", training=True)]
+    if paths != [f"cuda:{fused.KERNEL_2_TRAIN}+{fused.KERNEL_2_BWD}"]:
+        fail(f"{label}: dispatch is {paths}")
+    trainer = Trainer(cfg, seed=0, lr=TWO_LR, weight_decay=1e-5,
+                      encode_config=enc, device="cuda")
+    before = {n: {k: v.detach().clone() for k, v in g.items()}
+              for n, g in trainer.params.items()}
+    batches = synthetic_task(4)
+    a_step = {fused.KERNEL_2_TRAIN: 1, fused.KERNEL_2_BWD: 1}
+
+    warm, _ = timed_steps(trainer, batches, WARMUP)
+    fused.reset_launch_counts()
+    timed, seconds = timed_steps(trainer, batches, TWO_TIMED, start=WARMUP)
+    launches = fused.launch_counts()
+    losses = [float(v) for v in warm + timed]
+    log(f"[{label}] ttfs losses={[round(v, 3) for v in losses]}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite loss {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
+    if launched(launches) != {k: n * TWO_TIMED for k, n in a_step.items()}:
+        fail(f"{label}: launches {launches} in {TWO_TIMED} steps")
+    for n, g in trainer.params.items():
+        for k, v in g.items():
+            same = torch.equal(v, before[n][k])
+            if k == "beta" and not same:
+                fail(f"{label}: {n}.beta moved")
+            if k != "beta" and same:
+                fail(f"{label}: {n}.{k} did not change")
+    x, y = batches[0]
+    step_ms = seconds / TWO_TIMED * 1e3
+    log(f"[{label}] ttfs {TWO_TIMED} steps of {TRAIN_B}: {step_ms:.3f} ms a "
+        f"step = {TRAIN_B * TWO_TIMED / seconds:.1f} img/s; loss first5="
+        f"{first:.4f} last5={last:.4f}; launches="
+        f"{json.dumps(launched(launches))} [{card_line()}]")
+
+    # Each kernel alone on the trained weights and batch 0.
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    args, (gamma, spike) = twolayer_args(cfg, trainer.params, lat)
+    out = fused2._fused2_cuda(*args, True, False, False)
+    ref = fused2._fused2_reference(*args, True, False, False)
+    torch.cuda.synchronize()
+    agree, close, k1_err, _ = compare_flagship(out[0], ref[0])
+    if agree < 0.995 or close < 0.99:
+        fail(f"{label}: the training kernel disagrees with its plain version")
+    del ref
+    logits = out[0].clone().requires_grad_(True)
+    (g_logits,) = torch.autograd.grad(nll_loss(logits, y), logits)
+    bargs = f2_bwd_args(args, out, g_logits.contiguous(), None, None, gamma,
+                        spike)
+    k2_err = check_grads(f"{label} backward",
+                         lambda: fused2._fused2_bwd_cuda(*bargs),
+                         lambda: fused2._fused2_bwd_reference(*bargs),
+                         1e-4 if md == torch.float32 else 2.0 ** -7)
+    k1_ms = cuda_ms(lambda: fused2._fused2_cuda(*args, True, False, False),
+                    10)
+    k2_ms = cuda_ms(lambda: fused2._fused2_bwd_cuda(*bargs), 10)
+    k1_plain = cuda_ms(lambda: fused2._fused2_reference(
+        *args, True, False, False), 3, 1)
+    k2_plain = cuda_ms(lambda: fused2._fused2_bwd_reference(*bargs), 3, 1)
+    z0, r0, ra0, m = composed_forward(args, True, False)
+    zeros0 = torch.zeros((TRAIN_B, TWO_WIDTHS[0]), device="cuda")
+    c_fwd = cuda_ms(lambda: composed_forward(args, True, False), 10)
+    c_bwd = cuda_ms(lambda: composed_backward(
+        args, z0, r0, ra0, m, g_logits, zeros0, None, gamma, spike), 10)
+    del z0, r0, ra0, m
+
+    def fwd_bwd(composed):
+        """Forward and backward of the loss through the public functions,
+        as a training step runs them (no optimizer)."""
+        leaves = [a.clone().requires_grad_(True) if i in (1, 2, 4, 5, 7, 8)
+                  else a for i, a in enumerate(args)]
+        lt, w0, w0r, b0, w1, w1r, b1, w_out, b_out, T, per, alif = leaves[:12]
+        sc = args[12:15]
+        if composed:
+            z = fused.fused_encode_rec_scan(lt, w0, w0r, b0, T, per, alif, *sc,
+                                            gamma, spike)
+            lg = fused_mid.fused_mid_rec_scan_head(
+                z, w1, w1r, b1, w_out, b_out, T, alif, *sc, gamma, args[15],
+                spike)
+        else:
+            lg = fused2.fused2_rec_head(*leaves[:15], gamma, args[15], spike)
+        nll_loss(lg, y).backward()
+
+    fb_ms = cuda_ms(lambda: fwd_bwd(False), 10)
+    fb_comp = cuda_ms(lambda: fwd_bwd(True), 10)
+    spikes0, spikes1 = twolayer_spikes(args)
+    T, F, (H1, H2), O, B, it = 100, 784, TWO_WIDTHS, 10, TRAIN_B, md.itemsize
+    in_spikes = input_spike_count(lat, T)
+    fwd_bytes, fwd_ops, _ = twolayer_work(args, spikes0, spikes1, True, it)
+    trace = T * B * (H1 + H2) * it
+    grads = (F * H1 + H1 * H1 + H1 * H2 + H2 * H2 + H2 * O) * it + O * 4
+    # The backward: the two residuals, latencies, g_logits, tstar and the
+    # weights (but W0) read; the six gradients written.  Dense: dcur1 @
+    # W1r^T, s @ W_out^T, dcur1 @ W1^T, dcur0 @ W0r^T; 0/1 products: one
+    # add a selected weight; ~12 float32 operations a (row, step, unit) of
+    # each chain.
+    bwd_bytes = (trace + B * F * 4 + 2 * B * O * 4
+                 + (H1 * H1 + H1 * H2 + H2 * H2 + H2 * O) * it + grads)
+    bwd_ops = (2 * B * T * (H2 * H2 + H2 * O + H1 * H2 + H1 * H1)
+               + in_spikes * H1 + spikes0 * (H1 + H2) + spikes1 * (H2 + O)
+               + 12 * B * T * (H1 + H2))
+    log(f"[{label}] spikes layer 0={spikes0} ({spikes0 / (B * T * H1):.4f}),"
+        f" layer 1={spikes1} ({spikes1 / (B * T * H2):.4f}) of unit-steps; "
+        f"K1 vs plain argmax_agree={agree:.4f} rows_within_1e-4max="
+        f"{close:.4f}; K2 vs plain on K1's residuals {k2_err:.3g} of max|g|")
+    log(f"[{label}] per {B}-row batch: pair {k1_ms:.4f} + {k2_ms:.4f} = "
+        f"{k1_ms + k2_ms:.4f} ms; composed kernels fused_layer0_fwd + "
+        f"fused_mid_fwd[head] {c_fwd:.4f} + fused_mid_bwd + fused_layer0_bwd "
+        f"{c_bwd:.4f} = {c_fwd + c_bwd:.4f} ms; forward + backward of the "
+        f"loss: pair {fb_ms:.4f} ms, composed {fb_comp:.4f} ms "
+        f"[{card_line()}]")
+    rows = [
+        kernel_row(label, f"{fused.KERNEL_2_TRAIN}[{tag}]", F2_SITE,
+                   launches[fused.KERNEL_2_TRAIN], k1_err, k1_ms, k1_plain,
+                   fwd_bytes, fwd_ops, md),
+        kernel_row(label, f"{fused.KERNEL_2_BWD}[{tag}]", F2_BWD_SITE,
+                   launches[fused.KERNEL_2_BWD], k2_err, k2_ms, k2_plain,
+                   bwd_bytes, bwd_ops, md)]
+    del out, bargs, trainer
+
+    if md == torch.float32:
+        # The pair against the per-step loop (use_kernels=False: no kernel,
+        # no two-layer code) from the same init on the same batches at the
+        # flagship's lr 1e-3: the first step's gradients (gated) and ten
+        # steps' losses (printed; both climb after a few steps, and a
+        # near-tie spike that flips parts them).
+        loop_cfg = pt.SNNConfig(**{**cfg.__dict__, "use_kernels": False})
+        runs = {}
+        for name, c in (("pair", cfg), ("loop", loop_cfg)):
+            t = Trainer(c, seed=0, lr=1e-3, weight_decay=1e-5,
+                        encode_config=enc, device="cuda")
+            _, g = t.loss_and_grads(x, y)
+            runs[name] = ([g[n][k] for n in g for k in g[n]],
+                          [round(float(v), 3)
+                           for v in timed_steps(t, batches, 10)[0]])
+            del t
+        loop_err = grad_error(runs["pair"][0], runs["loop"][0])
+        if loop_err > 1e-4:
+            fail(f"{label}: the first step's gradients differ from the "
+                 f"per-step loop's by {loop_err:.3g} of max|g|")
+        log(f"[{label}] lr 1e-3 from the same init: first step's gradients "
+            f"vs the per-step loop {loop_err:.3g} of max|g|; losses pair="
+            f"{runs['pair'][1]} loop={runs['loop'][1]}")
+        del runs
+
+    # Periodic encoding (bench.py's), for the times and the launches.
+    enc_p = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
+    periodic = Trainer(cfg, seed=0, lr=TWO_LR, encode_config=enc_p,
+                       device="cuda")
+    timed_steps(periodic, batches, 1)
+    fused.reset_launch_counts()
+    plosses, pseconds = timed_steps(periodic, batches, 5)
+    got = fused.launch_counts()
+    if launched(got) != {k: n * 5 for k, n in a_step.items()}:
+        fail(f"{label}: periodic launches {got}")
+    if not all(np.isfinite([float(v) for v in plosses])):
+        fail(f"{label}: non-finite loss with periodic encoding")
+    log(f"[{label}] periodic 5 steps of {TRAIN_B}: "
+        f"{pseconds / 5 * 1e3:.3f} ms a step = "
+        f"{TRAIN_B * 5 / pseconds:.1f} img/s [{card_line()}]")
+    del periodic
+
+    # A count regularizer takes the _counts variant: both layers' counts
+    # come from the pair.
+    reg = Trainer(cfg, seed=0, lr=TWO_LR,
+                  reg_fn=L2SpikesPerNeuron(scale=1e-9), encode_config=enc,
+                  device="cuda")
+    fused.reset_launch_counts()
+    rlosses, rseconds = timed_steps(reg, batches, 3)
+    got = fused.launch_counts()
+    if launched(got) != {k: n * 3 for k, n in a_step.items()}:
+        fail(f"{label}: count-regularized launches {got}")
+    if not all(np.isfinite([float(v) for v in rlosses])):
+        fail(f"{label}: non-finite count-regularized loss")
+    log(f"[{label}] L2SpikesPerNeuron 3 steps: {rseconds / 3 * 1e3:.3f} ms a "
+        f"step (first step included); launches={json.dumps(launched(got))} "
+        f"losses={[round(float(v), 4) for v in rlosses]}")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1951,20 +2476,41 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[device] {card_line()}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    phase_build()
-    phase_kernels()
-    phase_train_kernels()
-    phase_deep_kernels()
-    kernels = [phase_serve("float32"), phase_serve("bfloat16")]
-    kernels += phase_train("float32") + phase_train("bfloat16")
-    for md in ("float32", "bfloat16"):
-        kernels += phase_deep_serve(md)
-    for md in ("float32", "bfloat16"):
-        kernels += phase_deep_train(md)
-    phase_izh_kernels()
-    kernels += [phase_izh_serve("float32"), phase_izh_serve("bfloat16")]
-    for md in ("float32", "bfloat16"):
-        kernels += phase_izh_train(md)
+    kernels = []
+
+    def run(label, fn, *args):
+        """One phase, its seconds logged; its rows join the kernels line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] phase {label}: {time.perf_counter() - t0:.1f} s")
+        if isinstance(out, dict):
+            kernels.append(out)
+        elif out:
+            kernels.extend(out)
+
+    both = ("float32", "bfloat16")
+    run("2 build", phase_build)
+    run("3 head kernels", phase_kernels)
+    run("3 training kernels", phase_train_kernels)
+    run("3b deep kernels", phase_deep_kernels)
+    for md in both:
+        run(f"4 serve {md}", phase_serve, md)
+    for md in both:
+        run(f"5 train {md}", phase_train, md)
+    for md in both:
+        run(f"6 deep serve {md}", phase_deep_serve, md)
+    for md in both:
+        run(f"7 deep train {md}", phase_deep_train, md)
+    run("8 Izhikevich kernels", phase_izh_kernels)
+    for md in both:
+        run(f"9 Izhikevich serve {md}", phase_izh_serve, md)
+    for md in both:
+        run(f"10 Izhikevich train {md}", phase_izh_train, md)
+    run("11 two-layer kernels", phase_fused2_kernels)
+    for md in both:
+        run(f"12 two-layer serve {md}", phase_twolayer_serve, md)
+    for md in both:
+        run(f"13 two-layer train {md}", phase_twolayer_train, md)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

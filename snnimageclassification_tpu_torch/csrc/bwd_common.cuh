@@ -1,11 +1,13 @@
 // Shared by the backward kernel sources (fused_head_bwd.cu,
-// fused_layer0_bwd.cu, fused_mid_bwd.cu): the reverse-time chain and the
-// weight-gradient functions, as templates that each source instantiates.
+// fused_layer0_bwd.cu, fused_mid_bwd.cu, fused2_bwd.cu): the reverse-time
+// chain and the weight-gradient functions, as templates that each source
+// instantiates.
 //
 // For t = T-1 .. 0, per batch row (z(-1) = 0):
 //   head:     s(t)  = kappa s(t+1) + g_logits [t == tstar]
 //             dz(t) = s(t) @ W_out^T (+ g_counts)        z(t) = [res(t) >= 0]
 //   z-layer:  dz(t) = g_z(t)                             z(t) as stored
+//   fused2's layer 0: dz(t) = g_z(t) (+ g_counts)        z(t) = [res(t) >= 0]
 //   dz(t)  += dcur(t+1) @ W_rec^T
 //   dv(t)   = dz(t) surr(delta(t)) + alpha dcur(t+1)
 //   dcur(t) = dv(t) (1 - z(t-1))
@@ -36,6 +38,8 @@
 //     z_in(t)).  The row's dcur and its bits are staged in shared memory,
 //     each thread adds dcur(t)[h] where bit j is set, for its 32 j.
 //   bwd_gout: g_W_out and g_b from the row's z bits and its s chain.
+//   bwd_gzin: g_z_in = dcur @ W_in^T, the cotangent of a layer's input
+//     spikes, as a tiled dense product.
 // The sums cross rows and blocks.  Blocks run in any order, so each block
 // walks its rows in ascending order and writes its partial sums to a slab
 // of its own; the host adds the slabs in a fixed order.  No atomics: the
@@ -131,7 +135,10 @@ __device__ __forceinline__ float rec_product(const float* dp, const W* wt,
   return acc;
 }
 
-template <bool REC, bool HEAD, typename W>
+// Modes: the head (HEAD); a z-layer (!HEAD, !ZD); and the first layer of the
+// two-layer kernel (fused2_bwd.cu; !HEAD, ZD): dz(t) = g_z(t) + g_counts
+// with g_z read as GZ (float32 there), z(t) the sign of the residual delta.
+template <bool REC, bool HEAD, typename W, bool ZD = HEAD, typename GZ = W>
 __global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HP = blockDim.x;
@@ -171,18 +178,20 @@ __global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a, int rows) {
   const bool mine = row < B && h < H;
   const W* delta = static_cast<const W*>(a.delta);
   const W* a_tr = static_cast<const W*>(a.a_tr);
-  const W* g_z = static_cast<const W*>(a.g_z);
+  const GZ* g_z = static_cast<const GZ*>(a.g_z);
   const W* z_tr = static_cast<const W*>(a.z);
   W* dcur_out = static_cast<W*>(a.dcur);
   const float beta = a_tr ? *a.beta : 0.f;
-  const float gcnt =
-      (HEAD && mine && a.g_counts) ? a.g_counts[(size_t)row * H + h] : 0.f;
+  const float gcnt = ((HEAD || ZD) && mine && a.g_counts)
+                         ? a.g_counts[(size_t)row * H + h]
+                         : 0.f;
   const size_t step_stride = (size_t)B * H;
   const size_t at0 = (size_t)row * H + h;
   float dcur = 0.f;  // dcur(t+1), float32
-  // The residual of step t, and z(t): its sign for a head, else as stored.
+  // The residual of step t, and z(t): its sign for a head (and ZD), else
+  // as stored.
   float d_t = mine ? to_f32(delta[(size_t)(T - 1) * step_stride + at0]) : 0.f;
-  bool z_t = HEAD ? d_t >= 0.f
+  bool z_t = ZD ? d_t >= 0.f
                   : (mine &&
                      to_f32(z_tr[(size_t)(T - 1) * step_stride + at0]) != 0.f);
   // This warp's word of the row's z bits (a warp = 32 units of one row).
@@ -207,7 +216,7 @@ __global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a, int rows) {
     const float d_prev =
         prev ? to_f32(delta[(size_t)(t - 1) * step_stride + at0]) : -1.f;
     const bool z_prev =
-        HEAD ? d_prev >= 0.f
+        ZD ? d_prev >= 0.f
              : (prev && to_f32(z_tr[(size_t)(t - 1) * step_stride + at0]) != 0.f);
     const float gz_t =
         (!HEAD && mine) ? to_f32(g_z[(size_t)t * step_stride + at0]) : 0.f;
@@ -220,6 +229,8 @@ __global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a, int rows) {
         for (int o = 0; o < O; ++o)
           dz = __fmaf_rn(sr[o], to_f32(s_wout[h * O + o]), dz);
         if (a.g_counts) dz = dz + gcnt;
+      } else if (ZD && a.g_counts) {
+        dz = dz + gcnt;
       }
       if (REC) {
         const float* dp = s_dcr + (buf ^ 1) * rows * HP + r * HP;
@@ -443,6 +454,78 @@ __global__ void __launch_bounds__(1024)
     for (int i = 0; i < NACC; ++i) {
       const int j = word * 32 + i;
       if (j < J) slab[(size_t)j * H + h] = acc[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// g_z_in = dcur @ W_in^T: the cotangent of a layer's input spike trace
+// ---------------------------------------------------------------------------
+constexpr int GM = 128, GN = 64, GK = 16, GPAD = 4;
+
+// C[m, n] = sum_k A[m, k] Wn[n, k]: A = dcur as (B T, H) row-major (m = b T +
+// t), Wn = W_in (Hin, H) row-major.  C goes to g_z_in[t, b, n], rounded once
+// to OUT (the type of z_in in fused_mid_bwd.cu; float32 in fused2_bwd.cu).
+// 256 threads; thread (tx, ty) owns rows ty * 8 .. + 8 and columns
+// tx * 4 .. + 4 of the tile.
+template <typename W, typename OUT = W>
+__global__ void __launch_bounds__(256)
+    bwd_gzin_kernel(const void* dcur_, const void* w_in_, void* g_z_in_,
+                    int B, int T, int H, int Hin) {
+  __shared__ __align__(16) float s_a[GK][GM + GPAD];
+  __shared__ __align__(16) float s_b[GK][GN + GPAD];
+  const W* A = static_cast<const W*>(dcur_);
+  const W* Wn = static_cast<const W*>(w_in_);
+  OUT* C = static_cast<OUT*>(g_z_in_);
+  const size_t M = (size_t)B * T;
+  const size_t m0 = (size_t)blockIdx.x * GM;
+  const int n0 = blockIdx.y * GN;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < H; k0 += GK) {
+    // Tiles into shared memory, k-major, zero past the edges.
+    for (int i = tid; i < GM * GK; i += 256) {
+      const int m = i / GK, k = i % GK;
+      const size_t gm = m0 + m;
+      s_a[k][m] = (gm < M && k0 + k < H) ? to_f32(A[gm * H + k0 + k]) : 0.f;
+    }
+    for (int i = tid; i < GN * GK; i += 256) {
+      const int n = i / GK, k = i % GK;
+      s_b[k][n] = (n0 + n < Hin && k0 + k < H)
+                      ? to_f32(Wn[(size_t)(n0 + n) * H + k0 + k])
+                      : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&s_a[k][ty * 8]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&s_a[k][ty * 8 + 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&s_b[k][tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const size_t gm = m0 + ty * 8 + i;
+    if (gm >= M) continue;
+    const size_t b = gm / T, t = gm % T;
+    OUT* out = C + (t * B + b) * Hin;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < Hin) from_f32(acc[i][j], out + n);
     }
   }
 }

@@ -1,0 +1,243 @@
+// Two-hidden-layer whole-network backward: reverse-time surrogate-gradient
+// BPTT of the training forward in fused2.cu, from the logits' (and both
+// layers' spike counts') cotangent to the six weight gradients.
+//
+// Replaces the TPU kernel
+// snnimageclassification_tpu/ops/pallas_fused2.py:_fused2_bwd_kernel
+// (pl.pallas_call in _fused2_bwd_call), the backward of fused2_{rec,ff}_head
+// and of their _counts variants.
+//
+// One C entry point launches, in this order (the chain and the gradient
+// functions are bwd_common.cuh's; z(-1) = 0 for both layers):
+//   1. bwd_chain, head mode, layer 1: s(t) = kappa s(t+1) + g [t == tstar],
+//      dz1(t) = s(t) W_out^T + g_counts1 + dcur1(t+1) W1r^T,
+//      dcur1(t) = (dz1 surr(delta1) + alpha dcur1(t+1)) (1 - z1(t-1)), with
+//      z1 = [delta1 >= 0]: dcur1 (B, T, H2) and the bits of z1.
+//   2. bwd_gzin: dz0_in(t) = dcur1(t) W1^T as a separate tiled product into
+//      a (T, B, H1) float32 scratch (the TPU kernel's dz0 pipe, which it
+//      keeps in float32 too).
+//   3. bwd_chain, fused2's layer-0 mode: dz0(t) = dz0_in(t) + g_counts0 +
+//      dcur0(t+1) W0r^T, the same step, z0 = [delta0 >= 0] (the forward
+//      stores delta for LIF too, so z0 is rebuilt from the sign, as in the
+//      head; the z-emitting layers of the composed pair keep v instead):
+//      dcur0 (B, T, H1) and the bits of z0, mask row k = z0(k - 1).
+//   4. bwd_gwin: g_W0 from the latencies and dcur0 (the per-row period
+//      table under periodic encoding).
+//   5. bwd_gbits three times: g_W0r = sum_t z0(t-1)^T dcur0(t) (z0's mask
+//      rows as stored), g_W1 = sum_t z0(t)^T dcur1(t) (the same masks one
+//      row on: z0 at the same step t as dcur1(t), the layer's input at step
+//      t; the TPU kernel's one-block offset between its two stages is
+//      scheduling only), g_W1r = sum_t z1(t-1)^T dcur1(t).
+//   6. bwd_gout: g_W_out and g_b from z1's bits and the s chain.
+// Every block writes partial sums to a slab of its own, the host adds the
+// slabs in a fixed order: no atomics, a repeated call gives the same bits.
+// What bounds it on an H100: the two serial chains (dcur @ W_rec^T from
+// shared memory), then bwd_gzin, the one dense product, 2 B T H1 H2 FLOP
+// (26.8 GFLOP at B=8192, T=100, 128 x 128: 0.4 ms at the float32 peak), and
+// the traces: two residuals, dcur0, dcur1 and the float32 dz0_in scratch.
+
+#include "bwd_common.cuh"
+
+namespace {
+
+struct Plan2 {
+  int rows0, smem_chain0, rows1, smem_chain1, G0, G1, smem_in, smem_rec0,
+      smem_w1, smem_rec1, smem_out, n_f, n_j0, n_jw1, n_j1, n_in, n_rec0, n_w1,
+      n_rec1, n_out;
+};
+
+// 0 when the shape fits, 1 when it does not, else a CUDA error code.
+int make_plan2(int B, int F, int H1, int H2, int O, int T, int rec, int bf16,
+               int periodic, int device, Plan2* p) {
+  Limits lim;
+  cudaError_t err = limits(device, &lim);
+  if (err != cudaSuccess) return (int)err;
+  const int HP0 = (H1 + 31) / 32 * 32, HP1 = (H2 + 31) / 32 * 32;
+  const int HW0 = HP0 / 32, HW1 = HP1 / 32;
+  if (H1 < 1 || H2 < 1 || O < 1 || F < 1 || T < 1 || T > 32767 ||
+      HP0 > 1024 || HP1 > 1024)
+    return 1;
+  const int G0 = 512 / HP0 > 0 ? 512 / HP0 : 1;
+  const int G1 = 512 / HP1 > 0 ? 512 / HP1 : 1;
+  // The readout block keeps g_W_out[h, o] for NACC o per thread and walks
+  // the s chain on one thread per output.
+  if (O > G1 * NACC || O > G1 * HP1) return 1;
+  const int wsize = bf16 ? 2 : 4;
+  p->rows1 = chain_rows(H2, O, HP1, G1, rec, wsize, lim.max_smem,
+                        &p->smem_chain1);
+  p->rows0 = chain_rows(H1, 0, HP0, G0, rec, wsize, lim.max_smem,
+                        &p->smem_chain0);
+  if (p->rows0 == 0 || p->rows1 == 0) return 1;
+  p->G0 = G0;
+  p->G1 = G1;
+  p->smem_in = (int)in_layout(T, HP0, G0, periodic).total;
+  p->smem_rec0 = (int)bits_layout(T, HP0, T + 1, HW0).total;
+  p->smem_w1 = (int)bits_layout(T, HP1, T + 1, HW0).total;
+  p->smem_rec1 = (int)bits_layout(T, HP1, T + 1, HW1).total;
+  p->smem_out = (int)out_layout(T, HP1, O).total;
+  if (p->smem_in > lim.max_smem || p->smem_rec0 > lim.max_smem ||
+      p->smem_w1 > lim.max_smem || p->smem_rec1 > lim.max_smem ||
+      p->smem_out > lim.max_smem)
+    return 1;
+  p->n_f = (F + G0 * NACC - 1) / (G0 * NACC);
+  p->n_j0 = rec ? (HW0 + G0 - 1) / G0 : 0;
+  p->n_jw1 = (HW0 + G1 - 1) / G1;
+  p->n_j1 = rec ? (HW1 + G1 - 1) / G1 : 0;
+  // As many blocks as the card holds at once; each walks its share of the
+  // rows in ascending order.
+  p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP0 * G0, p->n_f, B);
+  p->n_rec0 = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec0, HP0 * G0,
+                               p->n_j0, B)
+                  : 0;
+  p->n_w1 =
+      row_groups(lim.sms, lim.sm_smem, p->smem_w1, HP1 * G1, p->n_jw1, B);
+  p->n_rec1 = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec1, HP1 * G1,
+                               p->n_j1, B)
+                  : 0;
+  p->n_out = row_groups(lim.sms, lim.sm_smem, p->smem_out, HP1 * G1, 1, B);
+  return 0;
+}
+
+struct Extra2 {
+  const void* w1;  // (H1, H2)
+  float* dz0;      // (T, B, H1) float32 scratch: dcur1 @ W1^T
+  float* slab_w1;  // (n_w1, H1 * H2)
+};
+
+// a0: layer 0 (z-layer fields, F, lat, slab_in = g_W0, slab_rec = g_W0r);
+// a1: layer 1 (head fields, slab_rec = g_W1r, slab_out = g_W_out, g_b).
+template <bool REC, typename W>
+cudaError_t launch_all2(const Args& a0, const Args& a1, const Extra2& x,
+                        const Plan2& p, cudaStream_t s) {
+  const int HP0 = (a0.H + 31) / 32 * 32, HP1 = (a1.H + 31) / 32 * 32;
+  const int HW0 = HP0 / 32, HW1 = HP1 / 32;
+  const int B = a0.B, T = a0.T;
+  cudaError_t err = opt_in(bwd_chain_kernel<REC, true, W>, p.smem_chain1);
+  if (err != cudaSuccess) return err;
+  bwd_chain_kernel<REC, true, W>
+      <<<dim3((B + p.rows1 - 1) / p.rows1), dim3(HP1, p.rows1),
+         p.smem_chain1, s>>>(a1, p.rows1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t M = (size_t)B * T;
+  bwd_gzin_kernel<W, float>
+      <<<dim3((unsigned)((M + GM - 1) / GM), (a0.H + GN - 1) / GN), 256, 0,
+         s>>>(a1.dcur, x.w1, x.dz0, B, T, a1.H, a0.H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = opt_in(bwd_chain_kernel<REC, false, W, true, float>,
+                    p.smem_chain0)) != cudaSuccess)
+    return err;
+  bwd_chain_kernel<REC, false, W, true, float>
+      <<<dim3((B + p.rows0 - 1) / p.rows0), dim3(HP0, p.rows0),
+         p.smem_chain0, s>>>(a0, p.rows0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
+    return err;
+  bwd_gwin_kernel<W>
+      <<<dim3(p.n_in, p.n_f), dim3(HP0, p.G0), p.smem_in, s>>>(a0, p.G0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  int smem_bits = p.smem_w1;
+  if (REC) {
+    smem_bits = smem_bits > p.smem_rec0 ? smem_bits : p.smem_rec0;
+    smem_bits = smem_bits > p.smem_rec1 ? smem_bits : p.smem_rec1;
+  }
+  if ((err = opt_in(bwd_gbits_kernel<W>, smem_bits)) != cudaSuccess)
+    return err;
+  if (REC) {
+    // Mask row t of z0's masks holds z0(t - 1), the left operand of g_W0r.
+    bwd_gbits_kernel<W>
+        <<<dim3(p.n_rec0, p.n_j0), dim3(HP0, p.G0), p.smem_rec0, s>>>(
+            a0.dcur, a0.zmask, a0.slab_rec, B, T, a0.H, a0.H, T + 1, HW0,
+            p.G0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // The same masks one row on: row t holds z0(t), the left operand of g_W1
+  // (the buffer has one mask row of padding past its last batch row).
+  bwd_gbits_kernel<W>
+      <<<dim3(p.n_w1, p.n_jw1), dim3(HP1, p.G1), p.smem_w1, s>>>(
+          a1.dcur, a0.zmask + HW0, x.slab_w1, B, T, a1.H, a0.H, T + 1, HW0,
+          p.G1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (REC) {
+    bwd_gbits_kernel<W>
+        <<<dim3(p.n_rec1, p.n_j1), dim3(HP1, p.G1), p.smem_rec1, s>>>(
+            a1.dcur, a1.zmask, a1.slab_rec, B, T, a1.H, a1.H, T + 1, HW1,
+            p.G1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if ((err = opt_in(bwd_gout_kernel<W>, p.smem_out)) != cudaSuccess)
+    return err;
+  bwd_gout_kernel<W>
+      <<<dim3(p.n_out), dim3(HP1, p.G1), p.smem_out, s>>>(a1, p.G1);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Slab counts for a shape on `device`: out[0] = blocks of g_W0 slabs, out[1]
+// = of g_W0r slabs, out[2] = of g_W1 slabs, out[3] = of g_W1r slabs (0 and 0
+// without recurrence), out[4] = of g_W_out/g_b slabs.  Returns 0 when the
+// shape fits the kernels, 1 when it does not, or a CUDA error code.
+int snn_fused2_bwd_plan(int B, int F, int H1, int H2, int O, int T, int rec,
+                        int bf16, int periodic, int device, int* out) {
+  Plan2 p;
+  const int rc =
+      make_plan2(B, F, H1, H2, O, T, rec, bf16, periodic, device, &p);
+  if (rc == 0) {
+    out[0] = p.n_in;
+    out[1] = p.n_rec0;
+    out[2] = p.n_w1;
+    out[3] = p.n_rec1;
+    out[4] = p.n_out;
+  }
+  return rc;
+}
+
+// g_cnt0 / g_cnt1 may be null (no cotangent for that layer's counts); a0
+// and a1 (ALIF with Phi) are both given or both null; w0r and w1r likewise.
+// zmask0 holds B * (T + 1) + 1 mask rows of H1 / 32 words, zmask1 B * (T + 1)
+// rows of H2 / 32 words.
+int snn_fused2_bwd(const float* g_logits, const int* tstar,
+                   const float* g_cnt0, const float* g_cnt1, const void* d0,
+                   const void* a0, const void* d1, const void* a1,
+                   const int* lat, const void* w0r, const void* w1,
+                   const void* w1r, const void* w_out, const float* beta0,
+                   const float* beta1, void* dcur0, void* dcur1, void* zmask0,
+                   void* zmask1, float* dz0, float* slab_w0, float* slab_w0r,
+                   float* slab_w1, float* slab_w1r, float* slab_out, int B,
+                   int F, int H1, int H2, int O, int T, int periodic, int phi,
+                   int bf16, float alpha, float threshold, float gamma,
+                   float kappa, int device, void* stream) {
+  Plan2 p;
+  if ((w0r == nullptr) != (w1r == nullptr)) return (int)cudaErrorInvalidValue;
+  const int rec = w0r != nullptr;
+  const int rc =
+      make_plan2(B, F, H1, H2, O, T, rec, bf16, periodic, device, &p);
+  if (rc != 0) return rc == 1 ? (int)cudaErrorInvalidConfiguration : rc;
+  if (B == 0) return 0;
+  Args l0{nullptr, nullptr, g_cnt0, dz0, nullptr, d0, a0, lat, w0r, nullptr,
+          beta0, dcur0, static_cast<unsigned*>(zmask0), slab_w0, slab_w0r,
+          nullptr, B, F, H1, 0, T, periodic, phi, 0, alpha, threshold, gamma,
+          0.f};
+  Args l1{g_logits, tstar, g_cnt1, nullptr, nullptr, d1, a1, nullptr, w1r,
+          w_out, beta1, dcur1, static_cast<unsigned*>(zmask1), nullptr,
+          slab_w1r, slab_out, B, F, H2, O, T, periodic, phi, 0, alpha,
+          threshold, gamma, kappa};
+  Extra2 x{w1, dz0, slab_w1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16)
+    err = rec ? launch_all2<true, __nv_bfloat16>(l0, l1, x, p, s)
+              : launch_all2<false, __nv_bfloat16>(l0, l1, x, p, s);
+  else
+    err = rec ? launch_all2<true, float>(l0, l1, x, p, s)
+              : launch_all2<false, float>(l0, l1, x, p, s);
+  return (int)err;
+}
+
+const char* snn_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -25,56 +25,15 @@
 // FastSigmoid surrogate, the membrane v otherwise (and a for ALIF with Phi).
 // It replaces that mode of the same TPU kernel (fused_encode_{rec,ff}_scan).
 //
-// The cell, its state and its traces are the LifCell policy below; the
+// The cell, its state and its traces are the LifCell policy of
+// lif_cell.cuh (shared with the two-layer kernel, fused2.cu); the
 // kernel, its shared-memory layout and its launch are head_fwd.cuh's,
 // shared with the Izhikevich kernels (fused_izh.cu).
 
 #include "head_fwd.cuh"
+#include "lif_cell.cuh"
 
 namespace {
-
-struct LifParams {
-  const float* beta;  // ALIF's adaptation strength, on the device
-  float alpha, rho, threshold;
-  void* z;      // (T, B, H) weights' type, first-layer mode
-  void* delta;  // (T, B, H) weights' type or null: v - thr (v where res_is_v)
-  void* a_tr;   // (T, B, H) weights' type or null: ALIF's adaptation trace
-  int res_is_v;
-};
-
-// LIF (ALIF = false) or ALIF: v' = (alpha v + cur)(1 - z(t-1)), z' =
-// [v' - thr >= 0] with thr = threshold (+ beta a', a' = rho a + z(t-1)).
-template <bool ALIF>
-struct LifCell {
-  using Params = LifParams;
-  float beta, v = 0.f, ad = 0.f, delta = 0.f;
-
-  __device__ explicit LifCell(const Params& p) : beta(ALIF ? *p.beta : 0.f) {}
-
-  __device__ bool step(const Params& p, float cur, float zp) {
-    v = (p.alpha * v + cur) * (1.f - zp);
-    float thr = p.threshold;
-    if (ALIF) {
-      ad = p.rho * ad + zp;
-      thr = p.threshold + beta * ad;
-    }
-    delta = v - thr;
-    return delta >= 0.f;
-  }
-
-  template <bool TRAIN, bool HEAD, typename W>
-  __device__ void store(const Params& p, size_t at, bool z) const {
-    if (!HEAD) from_f32(z ? 1.f : 0.f, static_cast<W*>(p.z) + at);
-    if (TRAIN) {
-      // Rounded to the weights' type once, here; the head's backward
-      // recomputes z = (delta >= 0) from the stored value (the sign
-      // survives).
-      const float keep = (!HEAD && p.res_is_v) ? v : delta;
-      if (p.delta) from_f32(keep, static_cast<W*>(p.delta) + at);
-      if (ALIF && p.a_tr) from_f32(ad, static_cast<W*>(p.a_tr) + at);
-    }
-  }
-};
 
 template <bool TRAIN, bool HEAD>
 int run_lif(const FwdArgs<LifParams>& a, int alif, int bf16, int rows,

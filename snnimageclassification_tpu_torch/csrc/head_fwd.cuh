@@ -116,6 +116,54 @@ __device__ __forceinline__ int compact(const int16_t* lrow, uint16_t* lst,
   return n;
 }
 
+// acc plus the rows lst[0..n) of w (row stride H), column h, added one at a
+// time in list order.
+template <typename W>
+__device__ __forceinline__ float add_rows(float acc, const uint16_t* lst,
+                                          int n, const W* w, int H, int h) {
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) acc += to_f32(w[(size_t)lst[k] * H + h]);
+  return acc;
+}
+
+// Periodic encoding: the features of period 1 (latency <= 1; the clamp to
+// [1, T-1] needs T >= 2) fire at every t >= 1.  Returns the sum of their
+// weight rows, in ascending f, for unit h of row r (0 where not `mine`).
+// Warp w < rows lists row w's features.  Every thread of the block calls it:
+// it holds two block barriers.
+template <typename W>
+__device__ float every_step_sum(const int16_t* s_lat, uint16_t* s_list,
+                                int* s_cnt, int F, int rows, int row0, int B,
+                                int warp, int lane, bool mine, int r,
+                                const W* w_in, int H, int h) {
+  if (warp < rows) {
+    const int n = compact(s_lat + warp * F, s_list + warp * F, F, lane,
+                          row0 + warp < B, [](int L) { return L <= 1; });
+    if (lane == 0) s_cnt[warp] = n;
+  }
+  __syncthreads();
+  const float sum =
+      mine ? add_rows(0.f, s_list + r * F, s_cnt[r], w_in, H, h) : 0.f;
+  __syncthreads();
+  return sum;
+}
+
+// Warp w < rows lists the features of row w firing at step t but those of
+// every step, ascending, in s_list, and their number in s_cnt[w].
+__device__ __forceinline__ void list_step(const int16_t* s_lat,
+                                          uint16_t* s_list, int* s_cnt,
+                                          int F, int rows, int row0, int B,
+                                          int warp, int lane, int t, int T,
+                                          int periodic, bool every_step) {
+  if (warp >= rows) return;
+  const int n = compact(
+      s_lat + warp * F, s_list + warp * F, F, lane, row0 + warp < B,
+      [t, T, periodic, every_step](int L) {
+        return fires(L, t, T, periodic) && !(every_step && L <= 1);
+      });
+  if (lane == 0) s_cnt[warp] = n;
+}
+
 template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W>
 __global__ void __launch_bounds__(1024)
     head_fwd_kernel(FwdArgs<typename Cell::Params> a, int rows) {
@@ -167,28 +215,14 @@ __global__ void __launch_bounds__(1024)
   float n_spikes = 0.f;
   __syncthreads();
 
-  // Periodic encoding: the features of period 1 (latency <= 1; the clamp
-  // to [1, T-1] needs T >= 2) fire at every t >= 1.  Their weight rows are
-  // summed once, in ascending f, and added first at each of those steps.
+  // Periodic encoding: the weight rows of the features of every step are
+  // summed once and added first at each step t >= 1.
   const int periodic = a.periodic;
   const bool every_step = periodic && T >= 2;
-  float cin_every = 0.f;
-  if (every_step) {
-    if (warp < rows) {
-      const int n = compact(s_lat + warp * F, s_list + warp * F, F, lane,
-                            row0 + warp < a.B, [](int L) { return L <= 1; });
-      if (lane == 0) s_cnt[warp] = n;
-    }
-    __syncthreads();
-    if (mine) {
-      const int n = s_cnt[r];
-      const uint16_t* lst = s_list + r * F;
-#pragma unroll 4
-      for (int k = 0; k < n; ++k)
-        cin_every += to_f32(w_in[(size_t)lst[k] * H + h]);
-    }
-    __syncthreads();
-  }
+  const float cin_every =
+      every_step ? every_step_sum(s_lat, s_list, s_cnt, F, rows, row0, a.B,
+                                  warp, lane, mine, r, w_in, H, h)
+                 : 0.f;
 
   // z_t lives in mask buffer (t + 1) & 1; z_{-1} = 0 in buffer 0.
   for (int t = 0; t <= T; ++t) {
@@ -206,22 +240,13 @@ __global__ void __launch_bounds__(1024)
     if (t == T) break;
     // Features firing at step t (but those of every step), ascending, one
     // warp per row.
-    if (warp < rows) {
-      const int n = compact(
-          s_lat + warp * F, s_list + warp * F, F, lane, row0 + warp < a.B,
-          [t, T, periodic, every_step](int L) {
-            return fires(L, t, T, periodic) && !(every_step && L <= 1);
-          });
-      if (lane == 0) s_cnt[warp] = n;
-    }
+    list_step(s_lat, s_list, s_cnt, F, rows, row0, a.B, warp, lane, t, T,
+              periodic, every_step);
     __syncthreads();
     bool z_new = false;
     if (mine) {
-      float cin = t >= 1 ? cin_every : 0.f;
-      const int n = s_cnt[r];
-      const uint16_t* lst = s_list + r * F;
-#pragma unroll 4
-      for (int k = 0; k < n; ++k) cin += to_f32(w_in[(size_t)lst[k] * H + h]);
+      const float cin = add_rows(t >= 1 ? cin_every : 0.f, s_list + r * F,
+                                 s_cnt[r], w_in, H, h);
       const unsigned* zr = z_prev + r * HW;
       const float cur = REC ? cin + masked_sum(zr, HW, s_wrec + h, H) : cin;
       const float zp = (zr[h >> 5] >> (h & 31)) & 1u ? 1.f : 0.f;

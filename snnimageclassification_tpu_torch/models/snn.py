@@ -12,6 +12,10 @@ Three paths compute the logits:
   kernels on the card (inference; training forward and reverse-time
   backward when a parameter requires a gradient), their plain PyTorch
   versions on the CPU;
+* the two-layer pair (ops/fused2.py): exactly two LIF/ALIF hidden layers
+  with one scalar set, the max-over-time readout and on-device encoding run
+  as one call, the hand-written CUDA kernel pair on the card, its plain
+  PyTorch versions on the CPU;
 * the deep dispatch, for two or more hidden layers: layer 0 as one
   encode + scan call (ops/fused.py ``fused_encode_{rec,ff}_scan``,
   ops/fused_izh.py ``fused_encode_izh_scan``), each further LIF/ALIF layer
@@ -49,6 +53,9 @@ from ..ops.cells import (
 from ..ops.encoding import encode_spikes, pixels_to_firing_periods
 from ..ops.fused import (
     KERNEL,
+    KERNEL_2,
+    KERNEL_2_BWD,
+    KERNEL_2_TRAIN,
     KERNEL_BWD,
     KERNEL_IZH,
     KERNEL_IZH_BWD,
@@ -70,6 +77,13 @@ from ..ops.fused import (
     fused_encode_rec_scan_head_counts,
     fused_head_supported,
     fused_supported,
+)
+from ..ops.fused2 import (
+    fused2_ff_head,
+    fused2_ff_head_counts,
+    fused2_head_supported,
+    fused2_rec_head,
+    fused2_rec_head_counts,
 )
 from ..ops.fused_izh import (
     fused_encode_izh_scan,
@@ -565,17 +579,94 @@ def _head_forward(cfg: SNNConfig, params: Params, pixels, enc,
     return out
 
 
+def _twolayer_head_fusible(cfg: SNNConfig, enc, device: torch.device,
+                           training: bool = False) -> bool:
+    """The two-layer pair available: exactly two hidden layers of one
+    LIF/ALIF class with equal ``alpha``, ``threshold``, ``gamma``,
+    ``spike_func``, ``use_recurrent_connection`` (and for ALIF ``rho`` and
+    ``learn_beta``), the max-over-time readout, on-device encoding at
+    ``int_time_steps``, float32 compute, and a shape the kernels (with
+    ``training`` the backward too) cover on ``device``.  A hand-built
+    config with per-layer scalar overrides takes the composed deep
+    dispatch, which supports them."""
+    if cfg.readout_mth != ReadoutMth.RNN:
+        return False
+    if not (enc.as_timeseries and enc.n_steps == cfg.int_time_steps):
+        return False
+    layer_cfgs = cfg.layer_configs
+    if len(layer_cfgs) != 3:
+        return False
+    h0_cfg, h1_cfg, last_cfg = (lc for _, lc in layer_cfgs)
+    if type(last_cfg) is not ReadoutConfig:
+        return False
+    if type(h0_cfg) not in (LIFConfig, ALIFConfig):
+        return False
+    if type(h1_cfg) is not type(h0_cfg):
+        return False
+    names = ["alpha", "threshold", "gamma", "spike_func",
+             "use_recurrent_connection"]
+    if type(h0_cfg) is ALIFConfig:
+        names += ["rho", "learn_beta"]
+    if any(getattr(h0_cfg, n) != getattr(h1_cfg, n) for n in names):
+        return False
+    if not _kernels_on(cfg, device, "two-layer whole-network head"):
+        return False
+    ok = fused2_head_supported(
+        cfg.int_time_steps, h0_cfg.input_size, h0_cfg.output_size,
+        h1_cfg.output_size, last_cfg.output_size,
+        recurrent=h0_cfg.use_recurrent_connection,
+        itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
+        training=training, use_periods=enc.use_periods)
+    if not ok and device.type == "cuda":
+        _log_fused_fallback(
+            "two-layer whole-network head", "shape exceeds the kernels' "
+            "limits (the composed layer-0 + mid-head dispatch takes over)",
+            n_steps=cfg.int_time_steps, n_features=h0_cfg.input_size,
+            h1=h0_cfg.output_size, h2=h1_cfg.output_size,
+            n_out=last_cfg.output_size, matmul_dtype=cfg.matmul_dtype_eff,
+            training=training)
+    return ok
+
+
+def _twolayer_head_call(cfg: SNNConfig, params: Params, pixels, enc,
+                        counts: bool = False):
+    """The two-hidden-layer network as one call of the fused2 pair:
+    per-layer betas, each ``W_rec`` eye-masked before the cast to the
+    matmul dtype.  Returns logits ``(B, O)``, or ``(logits, (cnt0, cnt1))``
+    with ``counts``."""
+    (n0, c0), (n1, c1), (nl, cl) = cfg.layer_configs
+    latencies = pixels_to_firing_periods(
+        pixels, t_max=float(cfg.int_time_steps), tau=enc.tau, thr=enc.thr,
+        epsilon=enc.epsilon,
+    ).contiguous()
+    md = _dtype(cfg.matmul_dtype_eff)
+    lp0, lp1 = params[n0], params[n1]
+    w0 = lp0["w_in"].to(md).contiguous()
+    w1 = lp1["w_in"].to(md).contiguous()
+    w_out = params[nl]["w_in"].to(md).contiguous()
+    b_out = params[nl]["b"].to(torch.float32).contiguous()
+    alif, beta0, rho = _beta_rho(c0, lp0)
+    beta1 = _beta_rho(c1, lp1)[1]
+    common = (cfg.int_time_steps, enc.use_periods, alif, c0.alpha, rho,
+              c0.threshold, c0.gamma, cl.kappa, c0.spike_func)
+    w0r = masked_recurrent(c0, lp0)
+    if w0r is not None:
+        w0r = w0r.to(md).contiguous()
+        w1r = masked_recurrent(c1, lp1).to(md).contiguous()
+        fn = fused2_rec_head_counts if counts else fused2_rec_head
+        return fn(latencies, w0, w0r, beta0, w1, w1r, beta1, w_out, b_out,
+                  *common)
+    fn = fused2_ff_head_counts if counts else fused2_ff_head
+    return fn(latencies, w0, beta0, w1, beta1, w_out, b_out, *common)
+
+
 def _deep_head_fusible(cfg: SNNConfig, enc, device: torch.device,
                        training: bool = False) -> bool:
     """Deep-network head available: two or more hidden layers, the last
     one LIF/ALIF, and the max-over-time readout.  That last (hidden,
     readout) pair then runs as one mid-head call; the trunk (layers
-    0..N-2) keeps its per-layer dispatch.
-
-    The JAX package sends exactly-two-hidden configs to a kernel pair of
-    its own (``fused2``), which this port does not have yet: they take
-    this composed dispatch, which the JAX package itself uses where that
-    pair does not fit, with equal logits."""
+    0..N-2) keeps its per-layer dispatch.  Two-hidden configs reach it
+    where the two-layer pair's gate says no."""
     layer_cfgs = cfg.layer_configs
     if len(layer_cfgs) < 3 or cfg.readout_mth != ReadoutMth.RNN:
         return False
@@ -598,15 +689,6 @@ def _deep_head_fusible(cfg: SNNConfig, enc, device: torch.device,
             n_steps=cfg.int_time_steps, hidden_in=lh_cfg.input_size,
             hidden=lh_cfg.output_size, n_out=last_cfg.output_size,
             matmul_dtype=cfg.matmul_dtype_eff, training=training)
-    if ok and on_card and len(layer_cfgs) == 3:
-        key = ("two-hidden", cfg.input_size, lh_cfg.input_size,
-               lh_cfg.output_size)
-        if key not in _fallback_logged:
-            _fallback_logged.add(key)
-            logger.warning(
-                "Two hidden layers: the single two-layer kernel pair is not "
-                "ported yet; running layer 0 and the mid head as two kernel "
-                "pairs (same logits).")
     return ok
 
 
@@ -639,16 +721,19 @@ def forward_logits_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
     """Raw pixels ``(B, F)`` -> class logits ``(B, O)``, encoding inside;
     differentiable with respect to ``params`` on both paths.
 
-    Head-fusible configs run the whole network as one head call, deeper
-    ones the trunk layer by layer and the last hidden layer with the
-    readout as one mid-head call; the rest compose :func:`apply_pixels`
-    with :func:`prediction_logits`."""
+    Head-fusible configs run the whole network as one head call,
+    two-hidden ones as one call of the two-layer pair, deeper ones the
+    trunk layer by layer and the last hidden layer with the readout as one
+    mid-head call; the rest compose :func:`apply_pixels` with
+    :func:`prediction_logits`."""
     dev = resolve_device(device)
     params = _to(params, dev)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
     training = _needs_grad(params)
     if _head_fusible(cfg, enc, dev, training):
         return _head_forward(cfg, params, pixels, enc, counts=False)
+    if _twolayer_head_fusible(cfg, enc, dev, training):
+        return _twolayer_head_call(cfg, params, pixels, enc)
     if _deep_head_fusible(cfg, enc, dev, training):
         x_tm = apply_pixels(cfg, params, pixels, enc,
                             _upto=len(cfg.layer_configs) - 3, device=dev)
@@ -666,7 +751,8 @@ def forward_logits_counts_pixels(cfg: SNNConfig, params: Params, pixels, enc,
     layers: all the spike regularizers (train/losses.py) need, without
     the ``(B, T, H)`` hidden traces.  Head-fusible configs keep the
     whole-network head (its ``_counts`` variants; an Izhikevich head
-    returns ``{}``) and deeper ones the mid head's; the rest run
+    returns ``{}``), two-hidden ones the two-layer pair's (both layers'
+    counts from the kernel) and deeper ones the mid head's; the rest run
     :func:`apply_pixels` with ``return_spike_counts=True``."""
     dev = resolve_device(device)
     params = _to(params, dev)
@@ -674,6 +760,11 @@ def forward_logits_counts_pixels(cfg: SNNConfig, params: Params, pixels, enc,
     training = _needs_grad(params)
     if _head_fusible(cfg, enc, dev, training):
         return _head_forward(cfg, params, pixels, enc, counts=True)
+    if _twolayer_head_fusible(cfg, enc, dev, training):
+        (n0, _), (n1, _) = cfg.layer_configs[:2]
+        logits, (cnt0, cnt1) = _twolayer_head_call(cfg, params, pixels, enc,
+                                                   counts=True)
+        return logits, {n0: cnt0, n1: cnt1}
     if _deep_head_fusible(cfg, enc, dev, training):
         # The trunk's traces exist anyway (their counts are a sum over
         # time); the last hidden layer's come from the mid-head call.
@@ -722,8 +813,10 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     ``torch:fused_layer0_reference``, ``torch:fused_mid_reference``,
     ``torch:fused_mid_reference[head]``, ``torch:fused_izh_head_reference``,
     ``torch:fused_izh_layer0_reference``, ``torch:izh_scan_reference``.
-    ``torch:loop`` is the per-step loop.  It fires the same fallback logs
-    the real dispatch would."""
+    A two-hidden-layer network that takes the two-layer pair is one row:
+    ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
+    ``torch:fused2_reference`` on the CPU.  ``torch:loop`` is the per-step
+    loop.  It fires the same fallback logs the real dispatch would."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     layer_cfgs = cfg.layer_configs
@@ -751,6 +844,15 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                       "readout: encode + scan + readout + max in one call"
                       + also + where,
         }]
+    if enc is not None and _twolayer_head_fusible(cfg, enc, dev, training):
+        return [{
+            "layer": names,
+            "path": path(KERNEL_2_TRAIN if training else KERNEL_2,
+                         KERNEL_2_BWD, "fused2_reference"),
+            "reason": "two-hidden-layer classifier with max-over-time "
+                      "readout: encode + both hidden scans + readout + max "
+                      "in one call" + also + where,
+        }]
     if not cfg.use_kernels:
         loop_reason = "use_kernels=False"
     elif _dtype(cfg.compute_dtype) != torch.float32:
@@ -761,14 +863,12 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     entries = []
     for idx, (name, lcfg) in enumerate(layer_cfgs):
         if deep and idx == len(layer_cfgs) - 2:
-            two = (" (two hidden layers: the single two-layer kernel pair "
-                   "is not ported yet)" if len(layer_cfgs) == 3 else "")
             entries.append({
                 "layer": (name, names[-1]),
                 "path": path(KERNEL_MID, KERNEL_MID_BWD,
                              "fused_mid_reference", "[head]"),
                 "reason": "deep network's last hidden layer + readout + "
-                          "max over time in one call" + also + where + two,
+                          "max over time in one call" + also + where,
             })
             break
         if (idx == 0 and enc is not None

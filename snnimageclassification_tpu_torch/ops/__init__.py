@@ -1,7 +1,8 @@
 """Semantic ops (surrogates, cells, encoding, temporal reductions) and the
 kernels with their plain PyTorch versions: the whole-network head and the
 z-emitting first layer (fused.py), the layers past the first and the deep
-network's head (fused_mid.py), and their Izhikevich counterparts (the head
+network's head (fused_mid.py), a two-hidden-layer network as one pair
+(fused2.py), and their Izhikevich counterparts (the head
 and first layer in fused_izh.py, the scan over a layer's currents in
 izh.py)."""
 from .cells import LayerType  # noqa: F401

@@ -27,7 +27,8 @@ __all__ = ["BUILD_DIR", "KernelBuildError", "SOURCES", "build", "load",
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 # Every kernel source of the port, one shared library each.
 SOURCES = ("fused_head", "fused_head_bwd", "fused_layer0_bwd", "fused_mid",
-           "fused_mid_bwd", "fused_izh", "fused_izh_bwd", "izh_scan")
+           "fused_mid_bwd", "fused2", "fused2_bwd", "fused_izh",
+           "fused_izh_bwd", "izh_scan")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
 # --fmad=false: the kernels round a*b+c twice, as PyTorch's separate
 # elementwise ops do, so they agree with their plain versions.

@@ -84,6 +84,10 @@ KERNEL_L0 = "fused_layer0_fwd"
 KERNEL_L0_BWD = "fused_layer0_bwd"
 KERNEL_MID = "fused_mid_fwd"  # wrappers in ops/fused_mid.py
 KERNEL_MID_BWD = "fused_mid_bwd"
+# The two-hidden-layer kernel pair (wrappers in ops/fused2.py).
+KERNEL_2 = "fused2_fwd"
+KERNEL_2_TRAIN = "fused2_fwd_train"
+KERNEL_2_BWD = "fused2_bwd"
 # The Izhikevich kernels (wrappers in ops/fused_izh.py and ops/izh.py).
 KERNEL_IZH = "fused_izh_fwd"
 KERNEL_IZH_TRAIN = "fused_izh_fwd_train"
@@ -96,7 +100,8 @@ MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
 _counts_lock = threading.Lock()
 _launches = {k: 0 for k in (
     KERNEL, KERNEL_TRAIN, KERNEL_BWD, KERNEL_L0, KERNEL_L0_BWD, KERNEL_MID,
-    KERNEL_MID_BWD, KERNEL_IZH, KERNEL_IZH_TRAIN, KERNEL_IZH_BWD,
+    KERNEL_MID_BWD, KERNEL_2, KERNEL_2_TRAIN, KERNEL_2_BWD, KERNEL_IZH,
+    KERNEL_IZH_TRAIN, KERNEL_IZH_BWD,
     KERNEL_IZH_L0, KERNEL_IZH_L0_BWD, KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD)}
 
 Beta = Union[float, torch.Tensor]
@@ -135,6 +140,64 @@ def _residual_is_v(alif: bool, spike_func: SpikeFuncType) -> bool:
     return not (alif and spike_func == SpikeFuncType.FastSigmoid)
 
 
+class _Cell:
+    """One LIF/ALIF layer's state in the plain loops, stepped with the
+    kernels' arithmetic in the kernels' order."""
+
+    def __init__(self, n_rows, hidden, dev, w_rec, beta, alif, want_counts):
+        f32 = torch.float32
+        self.w_rec = None if w_rec is None else w_rec.to(f32)
+        self.beta = (torch.as_tensor(beta, dtype=f32, device=dev) if alif
+                     else None)
+        self.v = torch.zeros((n_rows, hidden), dtype=f32, device=dev)
+        self.a = torch.zeros_like(self.v)
+        self.z = torch.zeros_like(self.v)
+        self.counts = torch.zeros_like(self.v) if want_counts else None
+
+    def step(self, cur, alpha, rho, threshold):
+        """``v = (alpha v + cur + z_prev @ W_rec)(1 - z_prev)``, ``a = rho a
+        + z_prev``, ``delta = v - (threshold + beta a)``, ``z = delta >=
+        0``; returns ``delta``."""
+        if self.w_rec is not None:
+            cur = cur + self.z @ self.w_rec
+        self.v = (alpha * self.v + cur) * (1.0 - self.z)
+        if self.beta is not None:
+            self.a = rho * self.a + self.z
+            thr = threshold + self.beta * self.a
+        else:
+            thr = threshold
+        delta = self.v - thr
+        self.z = (delta >= 0).to(torch.float32)
+        if self.counts is not None:
+            self.counts = self.counts + self.z
+        return delta
+
+
+class _Readout:
+    """The readout ``v = kappa v + z @ W_out + b`` and its running max with
+    strict ``>`` (the first maximal step wins, as ``torch.max``); with
+    ``track`` also the step of that max, ``tstar``."""
+
+    def __init__(self, n_rows, w_out, b_out, kappa, dev):
+        f32 = torch.float32
+        self.w_out, self.b, self.kappa = w_out.to(f32), b_out.to(f32), kappa
+        self.v = torch.zeros((n_rows, w_out.shape[1]), dtype=f32, device=dev)
+        self.m = torch.full_like(self.v, float("-inf"))
+        self.tstar = torch.zeros(self.v.shape, dtype=torch.int32, device=dev)
+
+    def step(self, z, t, track):
+        self.v = self.kappa * self.v + (z @ self.w_out + self.b)
+        better = self.v > self.m
+        self.m = torch.where(better, self.v, self.m)
+        if track:
+            self.tstar = torch.where(better, torch.full_like(self.tstar, t),
+                                     self.tstar)
+
+
+def _stack(trace):
+    return torch.stack(trace) if trace else None
+
+
 def _scan_loop(cur_in, n_rows, hidden, dev, wdtype, w_rec, beta, w_out,
                b_out, n_steps, alif, alpha, rho, threshold, kappa, train,
                store, store_a, want_counts, res_is_v=False):
@@ -152,52 +215,25 @@ def _scan_loop(cur_in, n_rows, hidden, dev, wdtype, w_rec, beta, w_out,
     0/1 spike is exact and every sum is float32.  On a CUDA device, run it
     with ``torch.backends.cuda.matmul.allow_tf32 = False``: TF32 would
     round float32 weights."""
-    f32 = torch.float32
-    head = w_out is not None
-    w_rec32 = None if w_rec is None else w_rec.to(f32)
-    beta_t = torch.as_tensor(beta, dtype=f32, device=dev) if alif else None
-    v = torch.zeros((n_rows, hidden), dtype=f32, device=dev)
-    a = torch.zeros_like(v)
-    z = torch.zeros_like(v)
-    counts = torch.zeros_like(v) if want_counts else None
-    if head:
-        w_out32, b = w_out.to(f32), b_out.to(f32)
-        n_out = w_out.shape[1]
-        v_r = torch.zeros((n_rows, n_out), dtype=f32, device=dev)
-        m = torch.full((n_rows, n_out), float("-inf"), dtype=f32, device=dev)
-        tstar = torch.zeros((n_rows, n_out), dtype=torch.int32, device=dev)
-    else:
-        m = tstar = None
+    cell = _Cell(n_rows, hidden, dev, w_rec, beta, alif, want_counts)
+    readout = (None if w_out is None
+               else _Readout(n_rows, w_out, b_out, kappa, dev))
     zs, res, a_trace = [], [], []
     for t in range(n_steps):
-        cur = cur_in(t)
-        if w_rec32 is not None:
-            cur = cur + z @ w_rec32
-        v = (alpha * v + cur) * (1.0 - z)
-        if alif:
-            a = rho * a + z
-            thr = threshold + beta_t * a
+        delta = cell.step(cur_in(t), alpha, rho, threshold)
+        if readout is not None:
+            readout.step(cell.z, t, train)
         else:
-            thr = threshold
-        delta = v - thr
-        z = (delta >= 0).to(f32)
-        if head:
-            v_r = kappa * v_r + (z @ w_out32 + b)
-            better = v_r > m
-            m = torch.where(better, v_r, m)
-            if train:
-                tstar = torch.where(better, torch.full_like(tstar, t), tstar)
-        else:
-            zs.append(z.to(wdtype))
-        if counts is not None:
-            counts = counts + z
+            zs.append(cell.z.to(wdtype))
         if store:  # rounded once, here
-            res.append((v if res_is_v else delta).to(wdtype))
+            res.append((cell.v if res_is_v else delta).to(wdtype))
             if store_a:
-                a_trace.append(a.to(wdtype))
-    return (m, torch.stack(zs) if zs else None,
-            torch.stack(res) if res else None,
-            torch.stack(a_trace) if a_trace else None, tstar, counts)
+                a_trace.append(cell.a.to(wdtype))
+    if readout is None:
+        return None, _stack(zs), _stack(res), _stack(a_trace), None, \
+            cell.counts
+    return (readout.m, None, _stack(res), _stack(a_trace), readout.tstar,
+            cell.counts)
 
 
 def _latency_currents(lat, w_in, n_steps, use_periods):

@@ -1,6 +1,8 @@
 """Where a training step's time goes: profile ``Trainer.train_step`` on the
 flagship (784 -> ALIF-128 recurrent, learn_beta, T=100) or, with ``--deep``,
-on the deep network 784 -> 128 -> 128 -> 96 -> 10 (same cell), at batch 8192
+on the deep network 784 -> 128 -> 128 -> 96 -> 10 (same cell), with
+``--twolayer`` on 784 -> 128 -> 128 -> 10 (``bench.py``'s twolayer leg, one
+kernel pair: ``fused2``), at batch 8192
 on the synthetic prototype task ``chip_smoke.py`` trains.  ``--izh`` takes
 the Izhikevich cell instead (784 -> Izhikevich-128 recurrent -> 10, with
 ``--deep`` 784 -> 128 -> 128 -> 10, dt = 30 where units fire), and
@@ -10,7 +12,8 @@ kernels.
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.train_profile \
-        [--deep] [--izh] [--loop] [--matmul-dtype float32|bfloat16] \
+        [--deep | --twolayer] [--izh] [--loop] \
+        [--matmul-dtype float32|bfloat16] \
         [--periodic] [--steps 10]
 
 After 3 warm-up steps it traces ``--steps`` steps with ``torch.profiler``
@@ -48,6 +51,8 @@ def main() -> None:
     ap.add_argument("--deep", action="store_true",
                     help="three hidden layers (128, 128, 96); with --izh two "
                          "(128, 128)")
+    ap.add_argument("--twolayer", action="store_true",
+                    help="two hidden layers (128, 128), the fused2 pair")
     ap.add_argument("--izh", action="store_true",
                     help="Izhikevich layers at dt=30")
     ap.add_argument("--loop", action="store_true",
@@ -56,12 +61,16 @@ def main() -> None:
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA card")
+    if ns.twolayer and (ns.deep or ns.izh):
+        raise SystemExit("--twolayer is an ALIF network of its own")
     if ns.izh:
         cell = dict(hidden_layer_type=LayerType.Izhikevich, dt=30.0,
                     n_hidden_neurons=[128, 128] if ns.deep else 128)
     else:
+        widths = ([128, 128, 96] if ns.deep else [128, 128] if ns.twolayer
+                  else 128)
         cell = dict(hidden_layer_type=LayerType.ALIF, learn_beta=True,
-                    n_hidden_neurons=[128, 128, 96] if ns.deep else 128)
+                    n_hidden_neurons=widths)
     cfg = SNNConfig(input_size=784, output_size=10, int_time_steps=100,
                     matmul_dtype=ns.matmul_dtype, use_kernels=not ns.loop,
                     **cell)
@@ -97,7 +106,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "deep": ns.deep, "izh": ns.izh, "loop": ns.loop,
+        "deep": ns.deep, "twolayer": ns.twolayer, "izh": ns.izh,
+        "loop": ns.loop,
         "matmul_dtype": ns.matmul_dtype,
         "periodic": ns.periodic,
         "steps": ns.steps, "step_ms_wall_traced": step_ms,

@@ -35,6 +35,15 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   init-scale weights, where the chain's u carry matters (1e-4 of max|g|,
   bf16 2**-7); the models' dispatch names the kernels and launches each
   once.
+* the two-layer pair (``fused2_fwd[_train]``, ``fused2_bwd``) at T = 24 and
+  100: logits 1e-5, ``tstar``, counts and spikes equal to the plain
+  version's, residuals 1e-5 (bf16 2**-7), training logits bitwise the
+  inference kernel's; the backward on the forward kernel's residuals within
+  2e-6 of max|g| (5e-6 at T = 100, 2e-5 ALIF with Phi, bf16 2**-7), equal
+  bits on a second run; logits, ``tstar`` and counts bitwise those of the
+  composed kernels (``fused_layer0_fwd`` + ``fused_mid_fwd[head]``); the
+  public functions under autograd and the model's dispatch launch the pair
+  once.
 """
 import numpy as np
 import pytest
@@ -43,6 +52,7 @@ torch = pytest.importorskip("torch")
 
 from snnimageclassification_tpu_torch.ops import (  # noqa: E402
     fused,
+    fused2,
     fused_izh,
     fused_mid,
     izh,
@@ -724,3 +734,214 @@ def test_izh_models_dispatch_to_the_kernels(card):
         fused.reset_launch_counts()
         loss = trainer.train_step(x, y)
         assert _launched() == step and np.isfinite(float(loss))
+
+
+# ---------------------------------------------------------------------------
+# The two-layer pair
+# ---------------------------------------------------------------------------
+F2_CASES = [  # name, alif, recurrent, use_periods, surrogate
+    ("alif-rec-fs-ttfs", True, True, False, FAST),
+    ("alif-rec-phi-periodic", True, True, True, PHI),
+    ("lif-ff-phi-ttfs", False, False, False, PHI),
+    ("lif-rec-fs-periodic", False, True, True, FAST),
+]
+
+
+def _f2_args(dev, T, alif, rec, use_periods, wdtype, B=9, F=30, H1=20, H2=24,
+             O=10, seed=7):
+    """Positional arguments of ``fused2._fused2_cuda`` / its plain version
+    up to ``kappa``, at a scale where both layers fire."""
+    rng = np.random.default_rng(seed)
+    cfg = (ALIFConfig if alif else LIFConfig)(input_size=F, output_size=H1)
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(dev)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+
+    def w(shape, std, mask=False):
+        t = torch.from_numpy(
+            (std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        if mask:
+            t = t * (1 - torch.eye(shape[0], device=dev))
+        return t.to(wdtype)
+
+    w0r = w((H1, H1), 0.4, True) if rec else None
+    w1r = w((H2, H2), 0.4, True) if rec else None
+    return (lat, w((F, H1), 1.5), w0r, 1.6 if alif else 0.0, w((H1, H2), 1.0),
+            w1r, 1.2 if alif else 0.0, w((H2, O), 1.0),
+            w((O,), 0.1).float(), T, use_periods, alif, cfg.alpha,
+            cfg.rho if alif else 0.0, cfg.threshold,
+            ReadoutConfig(input_size=H2, output_size=O).kappa), cfg.gamma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("name,alif,rec,use_periods,spike", F2_CASES,
+                         ids=[c[0] for c in F2_CASES])
+def test_fused2_kernels_match_plain_versions(card, name, alif, rec,
+                                             use_periods, spike, n_steps,
+                                             wdtype):
+    args, gamma = _f2_args(card, n_steps, alif, rec, use_periods, wdtype)
+    store_a = alif and spike == PHI
+    fused.reset_launch_counts()
+    infer = fused2._fused2_cuda(*args, False, False, False)[0]
+    got = fused2._fused2_cuda(*args, True, store_a, True)
+    want = fused2._fused2_reference(*args, True, store_a, True)
+    torch.cuda.synchronize()
+    assert _launched() == {fused.KERNEL_2: 1, fused.KERNEL_2_TRAIN: 1}
+    logits, d0, a0, d1, a1, tstar, c0, c1 = got
+    assert torch.equal(logits, infer)  # same arithmetic, same order
+    torch.testing.assert_close(logits, want[0], atol=1e-5, rtol=1e-5)
+    assert torch.equal(tstar, want[5])
+    assert torch.equal(c0, want[6]) and torch.equal(c1, want[7])
+    assert float(c0.sum()) > 0 and float(c1.sum()) > 0
+    tol = 1e-5 if wdtype == torch.float32 else 2.0 ** -7
+    for g, p in zip((d0, a0, d1, a1), want[1:5]):
+        assert (g is None) == (p is None)
+        if g is not None:
+            torch.testing.assert_close(g.float(), p.float(), atol=tol,
+                                       rtol=tol)
+    assert torch.equal(d0.float() >= 0, want[1].float() >= 0)
+    assert torch.equal(d1.float() >= 0, want[3].float() >= 0)
+    rng = np.random.default_rng(8)
+    g_logits = torch.from_numpy(
+        rng.standard_normal(logits.shape).astype(np.float32)).to(card)
+    g_c0, g_c1 = (torch.from_numpy((0.01 * rng.standard_normal(c.shape))
+                                   .astype(np.float32)).to(card)
+                  for c in (c0, c1))
+    lat, w0, w0r, b0, w1, w1r, b1, w_out = args[:8]
+    tail = (n_steps, use_periods, args[12], args[14], gamma, args[15], spike)
+    if wdtype == torch.bfloat16:
+        bar = 2.0 ** -7
+    elif spike == PHI and alif:
+        bar = 2e-5
+    else:
+        bar = 2e-6 if n_steps < 100 else 5e-6
+    for gc in ((None, None), (g_c0, g_c1)):
+        bargs = (g_logits, *gc, tstar, d0, a0, d1, a1, lat, w0, w0r, b0, w1,
+                 w1r, b1, w_out, *tail)
+        grads = fused2._fused2_bwd_cuda(*bargs)
+        again = fused2._fused2_bwd_cuda(*bargs)
+        plain = fused2._fused2_bwd_reference(*bargs)
+        torch.cuda.synchronize()
+        for gname, g, g2, p in zip(("w0", "w0r", "w1", "w1r", "w_out", "b"),
+                                   grads, again, plain):
+            if p is None:
+                assert g is None
+                continue
+            assert g.dtype == p.dtype and g.shape == p.shape
+            assert torch.equal(g, g2), f"{gname}: not reproducible"
+            scale = float(p.float().abs().max()) or 1.0
+            err = float((g.float() - p.float()).abs().max()) / scale
+            assert err <= bar, f"{gname}: {err:.3g} of max|g|"
+    assert fused.launch_counts()[fused.KERNEL_2_BWD] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("name,alif,rec,use_periods,spike", F2_CASES,
+                         ids=[c[0] for c in F2_CASES])
+def test_fused2_equals_the_composed_kernels_bitwise(card, name, alif, rec,
+                                                    use_periods, spike,
+                                                    n_steps, wdtype):
+    """The same sums in the same order: logits, ``tstar`` and both counts of
+    ``fused2_fwd_train`` equal those of ``fused_layer0_fwd`` +
+    ``fused_mid_fwd[head]`` bit for bit."""
+    args, _ = _f2_args(card, n_steps, alif, rec, use_periods, wdtype, B=40)
+    lat, w0, w0r, b0, w1, w1r, b1, w_out, b_out = args[:9]
+    sc = args[12:15]
+    logits, _, _, _, _, tstar, c0, c1 = fused2._fused2_cuda(
+        *args, True, False, True)
+    z0 = fused._layer0_cuda(lat, w0, w0r, b0, n_steps, use_periods, alif,
+                            *sc, False, False, False)[0]
+    m = fused_mid._mid_cuda(z0, w1, w1r, b1, w_out, b_out, n_steps, alif,
+                            *sc, args[15], True, False, True, False)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, m[0]) and torch.equal(tstar, m[4])
+    assert torch.equal(c1, m[5]) and torch.equal(c0, z0.float().sum(0))
+    assert float(c1.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [False, True], ids=["logits", "counts"])
+def test_fused2_autograd_runs_the_kernel_pair(card, counts):
+    """The public wrappers under autograd launch one training forward and
+    one backward and agree with the plain versions' gradients; the betas
+    get zero; without a gradient the inference kernel runs."""
+    args, gamma = _f2_args(card, 24, True, True, False, torch.float32, B=16)
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (16, 10)).astype(np.float32)).to(card)
+
+    def grads(plain):
+        a = list(args)
+        idx = (1, 2, 4, 5, 7, 8)
+        for i in idx:
+            a[i] = a[i].clone().requires_grad_(True)
+        a[3] = torch.tensor(1.6, device=card, requires_grad=True)
+        a[6] = torch.tensor(1.2, device=card, requires_grad=True)
+        name = ("fused2_rec_head" + ("_counts" if counts else "")
+                + ("_reference" if plain else ""))
+        out = getattr(fused2, name)(*a[:15], gamma, a[15])
+        loss = ((out[0] * r).sum() + 1e-3 * (out[1][0] ** 2).sum()
+                + 1e-3 * (out[1][1] ** 2).sum()) if counts else (out * r).sum()
+        loss.backward()
+        assert float(a[3].grad) == 0.0 and float(a[6].grad) == 0.0
+        return [a[i].grad for i in idx]
+
+    fused.reset_launch_counts()
+    got = grads(False)
+    assert _launched() == {fused.KERNEL_2_TRAIN: 1, fused.KERNEL_2_BWD: 1}
+    for g, p in zip(got, grads(True)):
+        scale = float(p.abs().max()) or 1.0
+        assert float((g - p).abs().max()) / scale <= 2e-6
+    with torch.no_grad():
+        fused2.fused2_rec_head(*args[:15], gamma, args[15])
+    assert fused.launch_counts()[fused.KERNEL_2] == 1
+
+
+@pytest.mark.cuda
+def test_fused2_model_dispatch_and_gate(card):
+    """784-ALIF128-ALIF128-10 on the card: ``explain_dispatch`` names the
+    pair, inference launches ``fused2_fwd`` once and no layer-0 or mid
+    kernel, a training step (with a count regularizer too) the training pair
+    once; the gate takes the shape, f32 and bf16."""
+    import snnimageclassification_tpu_torch as tst
+    from snnimageclassification_tpu_torch.models import snn as tsnn
+    from snnimageclassification_tpu_torch.train import (
+        L2SpikesPerNeuron,
+        Trainer,
+    )
+
+    assert fused2.fused2_head_supported(100, 784, 128, 128, 10, True, 4,
+                                        device=card, training=True)
+    assert fused2.fused2_head_supported(100, 784, 128, 128, 10, True, 2,
+                                        device=card, training=True)
+    assert not fused2.fused2_head_supported(100, 784, 512, 512, 10,
+                                            device=card)  # 2 MB of weights
+    enc = tst.EncodeConfig(n_steps=24)
+    cfg = tst.SNNConfig(input_size=784, output_size=10,
+                        n_hidden_neurons=[128, 128], hidden_layer_type="ALIF",
+                        learn_beta=True, int_time_steps=24)
+    assert [r["path"] for r in tsnn.explain_dispatch(cfg, enc)] == [
+        f"cuda:{fused.KERNEL_2}"]
+    assert [r["path"] for r in tsnn.explain_dispatch(cfg, enc,
+                                                     training=True)] == [
+        f"cuda:{fused.KERNEL_2_TRAIN}+{fused.KERNEL_2_BWD}"]
+    x = torch.rand((64, 784), device=card)
+    y = torch.randint(0, 10, (64,), device=card)
+    for reg in (None, L2SpikesPerNeuron(scale=1e-9)):
+        trainer = Trainer(cfg, seed=0, encode_config=enc, reg_fn=reg,
+                          device="cuda")
+        fused.reset_launch_counts()
+        with torch.no_grad():
+            logits = tsnn.forward_logits_pixels(cfg, trainer.params, x, enc)
+        assert _launched() == {fused.KERNEL_2: 1}
+        assert bool(torch.isfinite(logits).all())
+        fused.reset_launch_counts()
+        loss = trainer.train_step(x, y)
+        assert _launched() == {fused.KERNEL_2_TRAIN: 1,
+                               fused.KERNEL_2_BWD: 1}
+        assert np.isfinite(float(loss))

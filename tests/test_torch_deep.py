@@ -1,8 +1,9 @@
-"""Deep networks (two and three hidden layers) through the port's deep
-dispatch on the CPU -- layer 0 as one encode + scan call, further layers as
-mid calls, the last hidden layer with the readout as one mid-head call, all
-through their plain PyTorch versions -- against the JAX package's
-composition of the same layers on identical numpy parameters and inputs.
+"""Deep networks (two and three hidden layers) through the port's
+dispatch on the CPU -- two hidden layers as one call of the two-layer pair,
+three as layer 0 in one encode + scan call, further layers as mid calls,
+the last hidden layer with the readout as one mid-head call, all through
+their plain PyTorch versions -- against the JAX package's composition of the
+same layers on identical numpy parameters and inputs.
 
 Sizes: 30 -> 16 -> 12 (-> 10) -> 10, T = 24, B = 6.  Tolerances as in
 tests/test_torch_train.py: logits and losses 1e-5, spike counts equal,
@@ -38,6 +39,7 @@ B, F, O, T = 6, 30, 10, 24
 L0, MID, MID_HEAD = ("torch:fused_layer0_reference",
                      "torch:fused_mid_reference",
                      "torch:fused_mid_reference[head]")
+FUSED2 = "torch:fused2_reference"
 
 CONFIGS = [  # name, config, encoding
     ("alif-rec-2", dict(hidden_layer_type="ALIF", learn_beta=True,
@@ -83,6 +85,8 @@ def _batches(n, seed=0):
 
 def _expected_paths(tcfg):
     n_hidden = len(tcfg.layer_configs) - 1
+    if n_hidden == 2:  # one call of the two-layer pair
+        return [FUSED2]
     return [L0] + [MID] * (n_hidden - 2) + [MID_HEAD]
 
 
@@ -159,6 +163,7 @@ def test_deep_dispatch_gradients_equal_autograd_through_the_loop(name, ckw,
 
 STEP_CASES = [  # name, config index, regularizer
     ("alif-rec-2", 0, None),
+    ("alif-rec-2-l2counts", 0, "L2SpikesPerNeuron"),
     ("alif-rec-3", 1, None),
     ("alif-rec-3-l2counts", 1, "L2SpikesPerNeuron"),
     ("lif-ff-3-periodic", 2, None),
@@ -230,11 +235,12 @@ def test_deep_explain_dispatch_rows():
                           n_hidden_neurons=[16, 12, 10])
     n2 = [n for n, _ in two.layer_configs]
     n3 = [n for n, _ in three.layer_configs]
-    assert _rows(two, enc) == [(n2[0], L0), ((n2[1], n2[2]), MID_HEAD)]
+    assert _rows(two, enc) == [(tuple(n2), FUSED2)]
+    assert _rows(two, enc, training=True) == [(tuple(n2), FUSED2)]
     assert _rows(three, enc, training=True) == [
         (n3[0], L0), (n3[1], MID), ((n3[2], n3[3]), MID_HEAD)]
     note = tsnn.explain_dispatch(two, enc, device="cpu")[-1]["reason"]
-    assert "two-layer kernel pair is not ported" in note
+    assert "encode + both hidden scans + readout + max in one call" in note
     assert "BPTT" in tsnn.explain_dispatch(three, enc, device="cpu",
                                            training=True)[1]["reason"]
     # apply() without an encoding: the first layer loops, the rest are mid
@@ -301,3 +307,43 @@ def test_apply_first_layer_output_and_upto():
     assert torch.equal(trace, again)
     np.testing.assert_allclose(tsnn.prediction_logits(tcfg, trace).numpy(),
                                direct.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_full_width_two_layer_training_falls_in_both_trainers(tmp_path):
+    """784-ALIF128-ALIF128-10, T = 100, on ``chip_smoke.py``'s prototype
+    task (B = 128) from the port's seed-0 init in both trainers at lr 3e-4:
+    the first losses agree and the loss falls in both over 12 steps.  (With
+    B = 8192 at this lr it falls for four steps and then climbs on the card,
+    through the per-step loop as through the pair: ROADMAP.md Queue 3;
+    chip_smoke.py's phase 13 trains at 3e-5.)"""
+    kw = dict(input_size=784, output_size=10, n_hidden_neurons=[128, 128],
+              hidden_layer_type="ALIF", learn_beta=True, int_time_steps=100)
+    jcfg, tcfg = jst.SNNConfig(**kw), tst.SNNConfig(**kw)
+    rng = np.random.default_rng(3)
+    protos = rng.random((10, 784), dtype=np.float32)
+    batches = []
+    for _ in range(4):
+        y = rng.integers(0, 10, 128)
+        x = np.clip(protos[y] + 0.15 * rng.standard_normal(
+            (128, 784), dtype=np.float32), 0.0, 1.0)
+        batches.append((x, y.astype(np.int32)))
+    enc = dict(n_steps=100)
+    tt = ttrainer.Trainer(tcfg, seed=0, lr=3e-4, weight_decay=1e-5,
+                          encode_config=tst.EncodeConfig(**enc), device="cpu")
+    jp = jax.tree.map(jnp.asarray, params_to_numpy(tt.params))
+    jt = jtrainer.Trainer(jcfg, checkpoint_folder=str(tmp_path))
+    tx = jtrainer.make_optimizer(jsnn.param_labels(jcfg, jp), lr=3e-4,
+                                 weight_decay=1e-5)
+    step = jt._build_steps(JEnc(**enc), tx)[0]
+    opt_state = tx.init(jp)
+    w = jnp.ones(128)
+    jl, tl = [], []
+    for i in range(12):
+        x, y = batches[i % 4]
+        jp, opt_state, loss = step(jp, opt_state, jnp.asarray(x),
+                                   jnp.asarray(y), w)
+        jl.append(float(loss))
+        tl.append(float(tt.train_step(x, y)))
+    np.testing.assert_allclose(tl[0], jl[0], rtol=1e-5)
+    for losses in (jl, tl):
+        assert np.mean(losses[-4:]) < 0.75 * np.mean(losses[:4]), losses

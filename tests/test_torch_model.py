@@ -84,8 +84,9 @@ def test_head_slice_matches_jax(name, ckw, ekw, n_steps, matmul_dtype):
 
 L0_REF = "torch:fused_layer0_reference"
 LOOP = [  # name, config, encoding, layer 0's path
+    # Two hidden layers take the two-layer pair (ops/fused2.py).
     ("deep-alif", dict(hidden_layer_type="ALIF", n_hidden_neurons=[16, 12]),
-     dict(tau=20.0), L0_REF),
+     dict(tau=20.0), "torch:fused2_reference"),
     ("izhikevich", dict(hidden_layer_type="Izhikevich"), dict(tau=20.0),
      "torch:fused_izh_head_reference"),
     ("temporal-filter", dict(hidden_layer_type="ALIF",

@@ -161,8 +161,9 @@ COUNT_CFGS = [
     ("lif-ff-periodic-head", dict(hidden_layer_type="LIF", threshold=0.05,
                                   use_recurrent_connection=False),
      dict(use_periods=True), "torch:fused_head_reference"),
+    # Two hidden layers: both layers' counts from the two-layer pair.
     ("deep-loop", dict(hidden_layer_type="ALIF", n_hidden_neurons=[H, 8]),
-     dict(), "torch:fused_layer0_reference"),
+     dict(), "torch:fused2_reference"),
     # The Izhikevich head keeps its call and returns no counts (the
     # reference counts LIF/ALIF layers only).
     ("izhikevich-loop", dict(hidden_layer_type="Izhikevich"), dict(),
