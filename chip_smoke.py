@@ -100,7 +100,31 @@ Phases (any failure exits non-zero before the final line):
    composed kernels and a forward + backward through the composed public
    functions on the same batch; at lr 1e-3 the first step's gradients
    against the per-step loop's (1e-4 of max|g|) and both paths' losses; 5
-   periodic steps (times), 3 with ``L2SpikesPerNeuron`` (launches).
+   periodic steps (times), 3 with ``L2SpikesPerNeuron`` (launches);
+14. wide kernels -- the unfused tier's ``encode_matmul_fwd/bwd`` and
+   ``rec_scan_fwd[_train]/bwd`` against their plain versions: TTFS and
+   periodic, LIF/ALIF x FastSigmoid/Phi (recurrent), T = 24 and 100, f32
+   and bf16 at small shapes (spikes equal, currents 1e-5 of max|current|,
+   residuals 1e-5 / 2**-7, gradients on the same residuals 2e-6 of max|g|,
+   5e-6 at T = 100, 2**-7 bf16, equal bits twice), then B = 8192 at 784 ->
+   512 and B = 256 at H = 1024 (spikes equal on >= 99.5 % of rows,
+   gradients 1e-4 of max|g|);
+15. wide serve -- 784-ALIF512-10 (recurrent, learn_beta, T = 100), whose
+   W_rec no fused kernel holds, served as in 4: results bitwise a direct
+   forward, one ``encode_matmul_fwd`` and one ``rec_scan_fwd`` launch a
+   batch and no training kernel; on a served batch spikes equal the plain
+   versions' on >= 99.5 % of rows and logits within 1e-4 of max|logit| on
+   >= 99 %; each kernel alone timed beside its plain version (and cuBLAS on
+   the materialised raster for the encoded product);
+16. wide train -- that network through ``Trainer`` at batch 8192: the
+   first step's gradients against the per-step loop's (1e-4 of max|g|,
+   f32), 3 warm-up and 20 timed TTFS steps (finite falling loss, beta
+   bitwise, every trained leaf moves, one launch a step of each of
+   ``encode_matmul_fwd``, ``rec_scan_fwd_train``, ``rec_scan_bwd``,
+   ``encode_matmul_bwd``), the logits of batch 0 against the plain
+   versions' composition (the bars of 15), each kernel alone on the trained
+   weights against its plain version, timed; 5 periodic steps (times,
+   launches).
 
 Phase 3 also holds the deep-network kernels (``fused_layer0_fwd/bwd``,
 ``fused_mid_fwd/bwd``) against their plain versions: LIF/ALIF x ff/rec x
@@ -129,11 +153,13 @@ import snnimageclassification_tpu_torch as pt
 from snnimageclassification_tpu_torch.models import snn as model_lib
 from snnimageclassification_tpu_torch.ops import (
     _build,
+    encode,
     fused,
     fused2,
     fused_izh,
     fused_mid,
     izh,
+    rec_scan,
 )
 from snnimageclassification_tpu_torch.ops.cells import (
     ALIFConfig,
@@ -1081,15 +1107,16 @@ def deep_paths(training: bool):
 
 
 def kernel_row(label, name, site, launches, err, ms, plain_ms, nbytes, ops,
-               md):
+               md, library_ms=None):
     """One row of the kernels line, and its log line.  ``nbytes``: every
     input read once and every output written once; ``ops``: what this
     run's data needs (one add per selected weight of a 0/1 product, 2 FLOP
     a term of a dense one, ~10-12 a (row, step, unit) of the chain)."""
     peak = H100_F32_FLOPS if md == torch.float32 else H100_BF16_FLOPS
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
-    log(f"[{label}] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms; bytes="
-        f"{nbytes} ops={ops} -> bound {max(t_bytes, t_ops):.5f} ms; "
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    log(f"[{label}] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; "
+        f"bytes={nbytes} ops={ops} -> bound {max(t_bytes, t_ops):.5f} ms; "
         f"launches={launches} err={err:.3g} [{card_line()}]")
     return {
         "name": name, "route": "cuda",
@@ -1098,7 +1125,7 @@ def kernel_row(label, name, site, launches, err, ms, plain_ms, nbytes, ops,
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}
+        "library_ms": library_ms}
 
 
 def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
@@ -2469,6 +2496,480 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-16: wide recurrent layers (784-ALIF512-10) on the unfused tier
+# ---------------------------------------------------------------------------
+WIDE_H = 512
+WIDE_TIMED = 20
+ENC_SITE = ("encode_matmul.cu", "pallas_encode.py:165")
+ENC_BWD_SITE = ("encode_matmul.cu", "pallas_encode.py:209")
+REC_SITE = ("rec_scan.cu", "pallas_rec.py:184")
+REC_BWD_SITE = ("rec_scan.cu", "pallas_rec.py:314")
+
+
+def wide_bar(T, md, full=False):
+    """A backward against its plain version on the same residuals, of
+    max|g|: float32 2e-6 small (5e-6 at T = 100), 1e-4 at full width;
+    bfloat16 one rounding, 2**-7."""
+    if md == torch.bfloat16:
+        return 2.0 ** -7
+    return 1e-4 if full else (2e-6 if T < 100 else 5e-6)
+
+
+def rec_inputs(rng, B, H, T, md):
+    """Currents 0.3 + 0.6 N(0, 1) and a masked W_rec of std 1.3 / sqrt(H)
+    (10-20 % of unit-steps fire, a tenth of them pushed by the
+    recurrence)."""
+    cur = torch.from_numpy((0.3 + 0.6 * rng.standard_normal((T, B, H)))
+                           .astype(np.float32)).cuda()
+    w = rand_w(rng, (H, H), 1.3 / np.sqrt(H)) * (1 - torch.eye(H,
+                                                               device="cuda"))
+    return cur, w.to(md)
+
+
+def check_encode(label, rng, B, F, H, T, per, md, full):
+    """``encode_matmul_fwd`` against its plain version (currents within
+    1e-5 of max|current|: up to F terms of either sign summed in another
+    order, so the error scales with their absolute sum, not with the
+    current) and ``encode_matmul_bwd`` on a random cotangent (``wide_bar``;
+    equal bits twice).  Returns the two errors."""
+    pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+    w = rand_w(rng, (F, H), 0.5, md)
+    got = encode._fwd_cuda(lat, w, T, per)
+    want = encode._fwd_reference(lat, w, T, per)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > 1e-5 * float(want.abs().max()):
+        fail(f"{label}: encoded currents differ by {err:.3g}")
+    del got, want
+    g = rand_w(rng, (T, B, H), 1.0)
+    gerr = check_grads(f"{label} backward",
+                       lambda: (encode._bwd_cuda(lat, g, md, T, per),),
+                       lambda: (encode._bwd_reference(lat, g, md, T, per),),
+                       wide_bar(T, md, full))
+    return err, gerr
+
+
+def check_rec(label, rng, B, H, T, alif, spike, md, full):
+    """``rec_scan_fwd[_train]`` against the plain version fed the same
+    currents: inference spikes the training kernel's bit for bit, spikes
+    equal on every row small (>= 99.5 % of rows at full width, where a
+    near-tie flip between two float32 summation orders takes its row's trace
+    with it), residuals 1e-5 (bf16 2**-7) on the equal rows;
+    ``rec_scan_bwd`` on the training kernel's residuals (``wide_bar``,
+    equal bits twice).  Returns (share of equal rows, residual error,
+    gradient error)."""
+    f32 = md == torch.float32
+    alpha, rho, thr, gamma = layer_scalars(alif)
+    beta = 1.6 if alif else 0.0
+    store_a = alif and spike == PHI
+    res_is_v = fused._residual_is_v(alif, spike)
+    cur, w = rec_inputs(rng, B, H, T, md)
+    fwd = (cur, w, beta, alif, alpha, rho, thr)
+    z, res, a_tr = rec_scan._fwd_cuda(*fwd, True, store_a, res_is_v)
+    z_inf = rec_scan._fwd_cuda(*fwd, False, False, False)[0]
+    zp, resp, ap = rec_scan._fwd_reference(*fwd, True, store_a, res_is_v)
+    torch.cuda.synchronize()
+    if not torch.equal(z, z_inf):
+        fail(f"{label}: inference and training spikes differ")
+    same = (z == zp).all(dim=2).all(dim=0)
+    share = float(same.float().mean())
+    rate = float(z.float().mean())
+    if not 0.02 < rate < 0.6:
+        fail(f"{label}: firing rate {rate:.3f} out of range")
+    if share < (0.995 if full else 1.0):
+        fail(f"{label}: spikes equal on {share:.4f} of rows")
+    res_err = 0.0
+    tol = 1e-5 if f32 else 2.0 ** -7
+    for got, want in ((res, resp), (a_tr, ap)):
+        if (got is None) != (want is None):
+            fail(f"{label}: residual set differs")
+        if got is None:
+            continue
+        g_, w_ = got[:, same].float(), want[:, same].float()
+        res_err = max(res_err, float((g_ - w_).abs().max()))
+        if not torch.allclose(g_, w_, atol=tol, rtol=tol):
+            fail(f"{label}: residuals differ by {res_err:.3g}")
+    del zp, resp, ap, z_inf, cur
+    g_z = rand_w(rng, (T, B, H), 1.0 / B, md)
+    bw = (g_z, z, res, a_tr, res_is_v, w, beta, alpha, thr, gamma, spike)
+    gerr = check_grads(f"{label} backward",
+                       lambda: rec_scan._bwd_cuda(*bw),
+                       lambda: rec_scan._bwd_reference(*bw),
+                       wide_bar(T, md, full))
+    return share, res_err, gerr
+
+
+def phase_wide_kernels() -> None:
+    """Phase 14: ``encode_matmul_fwd/bwd`` and ``rec_scan_fwd[_train]/bwd``
+    against their plain versions: small shapes at T = 24 and 100 (TTFS and
+    periodic; LIF/ALIF x FastSigmoid/Phi; f32 and bf16), full width
+    (B = 8192, 784 -> 512, T = 100) and H = 1024 on a small batch."""
+    rng = np.random.default_rng(14)
+    worst = {"enc": 0.0, "enc_g": 0.0, "rec_g": 0.0, "rows": 1.0}
+    n = 0
+    for md in (torch.float32, torch.bfloat16):
+        tag = "f32" if md == torch.float32 else "bf16"
+        for T in (24, 100):
+            for per in (False, True):
+                e, g = check_encode(f"wide-kernels encode {tag} T={T} "
+                                    f"per={per}", rng, 9, 30, 40, T, per, md,
+                                    False)
+                worst["enc"], worst["enc_g"] = (max(worst["enc"], e),
+                                                max(worst["enc_g"], g))
+                n += 1
+            for name, alif, rec, spike in DEEP_CASES:
+                if not rec:
+                    continue
+                for H in (20, 40):
+                    _, _, g = check_rec(f"wide-kernels rec {name} {tag} "
+                                        f"T={T} H={H}", rng, 37, H, T, alif,
+                                        spike, md, False)
+                    worst["rec_g"] = max(worst["rec_g"], g)
+                    n += 1
+    log(f"[wide-kernels] {n} small cases ok: encode currents <= "
+        f"{worst['enc']:.3g}, encode g_W <= {worst['enc_g']:.3g}, rec "
+        f"gradients <= {worst['rec_g']:.3g} of max|g|")
+    for md in (torch.float32, torch.bfloat16):
+        tag = "f32" if md == torch.float32 else "bf16"
+        for per in (False, True):
+            e, g = check_encode(f"wide-kernels encode full {tag} per={per}",
+                                rng, TRAIN_B, 784, WIDE_H, 100, per, md,
+                                True)
+            log(f"[wide-kernels] encode B={TRAIN_B} 784->{WIDE_H} T=100 "
+                f"{tag} periodic={per}: currents err {e:.3g}, g_W err "
+                f"{g:.3g} of max|g|")
+            torch.cuda.empty_cache()
+        for B, H in ((TRAIN_B, WIDE_H), (256, 1024)):
+            share, r, g = check_rec(f"wide-kernels rec B={B} H={H} {tag}",
+                                    rng, B, H, 100, True, FS, md, True)
+            log(f"[wide-kernels] rec ALIF FastSigmoid B={B} H={H} T=100 "
+                f"{tag}: spikes equal on {share:.4f} of rows, residuals err "
+                f"{r:.3g}, gradients err {g:.3g} of max|g|")
+            torch.cuda.empty_cache()
+        e, g = check_encode(f"wide-kernels encode H=1024 {tag}", rng, 256,
+                            784, 1024, 100, True, md, True)
+        log(f"[wide-kernels] encode B=256 784->1024 T=100 {tag}: currents "
+            f"err {e:.3g}, g_W err {g:.3g} of max|g|")
+
+
+def wide_cfg(matmul_dtype, use_kernels=True):
+    """784 -> ALIF-512 (recurrent, learn_beta) -> 10, T = 100: the widest
+    width of scripts/wide_hidden_check.py."""
+    return pt.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=WIDE_H,
+        hidden_layer_type=pt.LayerType.ALIF, use_recurrent_connection=True,
+        learn_beta=True, int_time_steps=100, matmul_dtype=matmul_dtype,
+        use_kernels=use_kernels)
+
+
+def wide_args(cfg, params):
+    """The layer's weights and scalars as the dispatch passes them."""
+    md = getattr(torch, cfg.matmul_dtype_eff)
+    (n0, c0), _ = cfg.layer_configs
+    p0 = params[n0]
+    return (p0["w_in"].detach().to(md).contiguous(),
+            masked_recurrent(c0, p0).detach().to(md).contiguous(),
+            p0["beta"].detach(), c0)
+
+
+def raster(lat, T, per, md):
+    """The (T B, F) spike raster, for the library call's time only."""
+    return torch.stack([spike_row(lat, t, T, per).to(md)
+                        for t in range(T)]).reshape(-1, lat.shape[1])
+
+
+def encode_work(lat, T, H, per, itemsize):
+    """(bytes, operations, input spikes) of either encoded-product kernel:
+    the latencies and W (forward) or the cotangent (backward) read once,
+    the currents or g_W written once; one add per input spike and unit."""
+    B, F = lat.shape
+    in_spikes = input_spike_count(lat, T, per)
+    return (B * F * 4 + F * H * itemsize + T * B * H * 4, in_spikes * H,
+            in_spikes)
+
+
+def rec_work(B, H, T, z, itemsize, n_res, backward):
+    """(bytes, operations) of the scan on these inputs.  Forward: the
+    currents and W_rec read, z (and ``n_res`` residual traces) written; one
+    add per set bit of z(t-1) and unit, ~10 operations a (row, step, unit).
+    Backward: g_z, z and the residuals read, g_i and g_W_rec written;
+    dcur @ W_rec^T dense (2 B T H^2), one add per set bit for g_W_rec, ~12
+    operations a (row, step, unit)."""
+    trace = T * B * H * itemsize
+    spikes = int(z[:-1].float().sum())
+    w = H * H * itemsize
+    if not backward:
+        return (T * B * H * 4 + w + 4 + trace * (1 + n_res),
+                spikes * H + 10 * B * T * H)
+    return (trace * (2 + n_res) + w + T * B * H * 4 + w,
+            2 * B * T * H * H + spikes * H + 12 * B * T * H)
+
+
+def phase_wide_serve(matmul_dtype: str) -> list:
+    """Phase 15: 784-ALIF512-10 served as in phase 4 at batch 4096: results
+    bitwise a direct forward, one ``encode_matmul_fwd`` and one
+    ``rec_scan_fwd`` launch a batch and no training kernel; on a served
+    batch the logits within 1e-4 of max|logit| on >= 99 % of rows of the
+    plain versions' composition; each kernel alone, timed, with its bound
+    and plain time (and cuBLAS on the raster for the encoded product)."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"wide-serve {tag}"
+    md = getattr(torch, matmul_dtype)
+    cfg = wide_cfg(matmul_dtype)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    paths = [r["path"] for r in model_lib.explain_dispatch(cfg, enc)]
+    if paths != [f"cuda:{fused.KERNEL_ENC}", f"cuda:{fused.KERNEL_REC}",
+                 "torch:loop"]:
+        fail(f"{label}: dispatch is {paths}")
+    reqs, launches = serve_requests(label, cfg, params, enc,
+                                    {fused.KERNEL_ENC: 1, fused.KERNEL_REC: 1})
+    batch = np.concatenate(reqs[:4096 // ROWS])
+    x = torch.from_numpy(batch).cuda().to(torch.float32) / 255.0
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    w0, wr, beta, c0 = wide_args(cfg, params)
+    T, B, H = 100, lat.shape[0], WIDE_H
+    sc = (beta, True, c0.alpha, c0.rho, c0.threshold)
+    cur = encode._fwd_cuda(lat, w0, T, False)
+    cur_p = encode._fwd_reference(lat, w0, T, False)
+    z = rec_scan._fwd_cuda(cur, wr, *sc, False, False, False)[0]
+    zp = rec_scan._fwd_reference(cur_p, wr, *sc, False, False, False)[0]
+    torch.cuda.synchronize()
+    enc_err = float((cur - cur_p).abs().max())
+    rows = float((z == zp).all(dim=2).all(dim=0).float().mean())
+    with torch.no_grad():
+        logits = model_lib.forward_logits_pixels(cfg, params, x, enc,
+                                                 device="cuda")
+        trace, _ = model_lib.apply(cfg, params, None, first_layer_output=zp,
+                                   device="cuda")
+        plain_logits = model_lib.prediction_logits(cfg, trace)
+    agree, close, lerr, scale = compare_flagship(logits, plain_logits)
+    rate = float(z.float().mean())
+    log(f"[{label}] served batch: currents vs plain {enc_err:.3g}; hidden "
+        f"spikes equal on {rows:.4f} of rows ({rate:.4f} of unit-steps "
+        f"fire); logits vs the plain versions' composition argmax_agree="
+        f"{agree:.4f} rows_within_1e-4max={close:.4f} max_abs_err={lerr:.3g}"
+        f" max|logit|={scale:.3g}")
+    if rows < 0.995 or close < 0.99 or agree < 0.995:
+        fail(f"{label}: the kernels disagree with their plain versions")
+    del cur_p, zp, trace
+    enc_ms = cuda_ms(lambda: encode._fwd_cuda(lat, w0, T, False), 25)
+    enc_plain = cuda_ms(lambda: encode._fwd_reference(lat, w0, T, False), 5,
+                        warmup=1)
+    spikes_in = raster(lat, T, False, md)
+    enc_lib = cuda_ms(lambda: spikes_in @ w0, 25)
+    del spikes_in
+    rec_ms = cuda_ms(lambda: rec_scan._fwd_cuda(cur, wr, *sc, False, False,
+                                                False), 10)
+    rec_plain = cuda_ms(lambda: rec_scan._fwd_reference(
+        cur, wr, *sc, False, False, False), 3, warmup=1)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model_lib.forward_logits_pixels(
+            cfg, params, x, enc, device="cuda"), 5)
+    eb, eo, in_spikes = encode_work(lat, T, H, False, md.itemsize)
+    rb, ro = rec_work(B, H, T, z, md.itemsize, 0, False)
+    log(f"[{label}] per 4096-row batch: forward_logits_pixels {fwd_ms:.4f} "
+        f"ms = {B / fwd_ms * 1e3:.1f} img/s, of it {fused.KERNEL_ENC} "
+        f"{enc_ms:.4f} + {fused.KERNEL_REC} {rec_ms:.4f} ms, the rest the "
+        f"readout's per-step loop; input spikes={in_spikes} [{card_line()}]")
+    rows_out = [
+        kernel_row(label, f"{fused.KERNEL_ENC}[{tag}]", ENC_SITE,
+                   launches[fused.KERNEL_ENC], enc_err, enc_ms, enc_plain,
+                   eb, eo, md, library_ms=enc_lib),
+        # Its error: the served logits' against the plain versions'
+        # composition on the same batch (the spikes are 0/1).
+        kernel_row(label, f"{fused.KERNEL_REC}[{tag}]", REC_SITE,
+                   launches[fused.KERNEL_REC], lerr, rec_ms, rec_plain, rb,
+                   ro, md)]
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def phase_wide_train(matmul_dtype: str) -> list:
+    """Phase 16: 784-ALIF512-10 through ``Trainer`` at batch 8192: 3
+    warm-up and WIDE_TIMED timed TTFS steps (finite falling loss, beta
+    bitwise, every trained leaf moves, one launch a step of each of
+    ``encode_matmul_fwd``, ``rec_scan_fwd_train``, ``rec_scan_bwd`` and
+    ``encode_matmul_bwd``); the first step's gradients against the per-step
+    loop's (``use_kernels=False``; gated 1e-4 of max|g| in f32); batch 0's
+    logits against the plain versions' composition (>= 99.5 % argmax, >= 99 %
+    of rows within 1e-4 of max|logit|); each kernel alone on batch 0 with
+    the trained weights against its plain version
+    (the backwards on the forward kernels' outputs), timed, with its bound,
+    plain time and, for the encoded product, cuBLAS on the raster; then 5
+    periodic steps (times and launches)."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"wide-train {tag}"
+    md = getattr(torch, matmul_dtype)
+    cfg = wide_cfg(matmul_dtype)
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
+    paths = [r["path"] for r in model_lib.explain_dispatch(
+        cfg, enc, device="cuda", training=True)]
+    if paths != [f"cuda:{fused.KERNEL_ENC}+{fused.KERNEL_ENC_BWD}",
+                 f"cuda:{fused.KERNEL_REC_TRAIN}+{fused.KERNEL_REC_BWD}",
+                 "torch:loop"]:
+        fail(f"{label}: dispatch is {paths}")
+    batches = synthetic_task(4)
+    x, y = batches[0]
+
+    # The first step's gradients against the per-step loop's, same init.
+    grads = {}
+    for name, c in (("kernels", cfg), ("loop", wide_cfg(matmul_dtype,
+                                                        False))):
+        t = Trainer(c, seed=0, encode_config=enc, device="cuda")
+        _, g = t.loss_and_grads(x, y)
+        grads[name] = [g[n][k] for n in g for k in g[n]]
+        del t, g
+    loop_err = grad_error(grads["kernels"], grads["loop"])
+    del grads
+    torch.cuda.empty_cache()
+    log(f"[{label}] first step's gradients vs the per-step loop: "
+        f"{loop_err:.3g} of max|g|")
+    if md == torch.float32 and loop_err > 1e-4:
+        fail(f"{label}: the first step's gradients differ from the loop's")
+
+    trainer = Trainer(cfg, seed=0, lr=1e-3, weight_decay=1e-5,
+                      encode_config=enc, device="cuda")
+    before = {n: {k: v.detach().clone() for k, v in g.items()}
+              for n, g in trainer.params.items()}
+    a_step = {fused.KERNEL_ENC: 1, fused.KERNEL_REC_TRAIN: 1,
+              fused.KERNEL_REC_BWD: 1, fused.KERNEL_ENC_BWD: 1}
+    warm, _ = timed_steps(trainer, batches, WARMUP)
+    fused.reset_launch_counts()
+    timed, seconds = timed_steps(trainer, batches, WIDE_TIMED, start=WARMUP)
+    launches = fused.launch_counts()
+    losses = [float(v) for v in warm + timed]
+    log(f"[{label}] ttfs losses={[round(v, 3) for v in losses]}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite loss {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
+    if launched(launches) != {k: n * WIDE_TIMED for k, n in a_step.items()}:
+        fail(f"{label}: launches {launches} in {WIDE_TIMED} steps")
+    for n, g in trainer.params.items():
+        for k, v in g.items():
+            same = torch.equal(v, before[n][k])
+            if k == "beta" and not same:
+                fail(f"{label}: beta moved")
+            if k != "beta" and same:
+                fail(f"{label}: {n}.{k} did not change")
+    step_ms = seconds / WIDE_TIMED * 1e3
+    log(f"[{label}] ttfs {WIDE_TIMED} steps of {TRAIN_B}: {step_ms:.3f} ms a "
+        f"step = {TRAIN_B * WIDE_TIMED / seconds:.1f} img/s; loss first5="
+        f"{first:.4f} last5={last:.4f}; launches="
+        f"{json.dumps(launched(launches))} [{card_line()}]")
+
+    # Each kernel alone on batch 0 with the trained weights.
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    w0, wr, beta, c0 = wide_args(cfg, trainer.params)
+    T, B, H, F = 100, TRAIN_B, WIDE_H, 784
+    sc = (beta, True, c0.alpha, c0.rho, c0.threshold)
+    res_is_v = fused._residual_is_v(True, c0.spike_func)
+    cur = encode._fwd_cuda(lat, w0, T, False)
+    enc_err = float((cur - encode._fwd_reference(lat, w0, T, False))
+                    .abs().max())
+    z, res, a_tr = rec_scan._fwd_cuda(cur, wr, *sc, True, False, res_is_v)
+    zp, resp, _ = rec_scan._fwd_reference(cur, wr, *sc, True, False,
+                                          res_is_v)
+    same = (z == zp).all(dim=2).all(dim=0)
+    rows = float(same.float().mean())
+    res_err = float((res[:, same].float() - resp[:, same].float())
+                    .abs().max())
+    del zp, resp
+    if rows < 0.995:
+        fail(f"{label}: spikes equal on {rows:.4f} of rows")
+    # The whole forward at B = 8192 against the plain versions' composition.
+    with torch.no_grad():
+        logits = model_lib.forward_logits_pixels(cfg, trainer.params, x, enc,
+                                                 device="cuda")
+        zq = rec_scan._fwd_reference(encode._fwd_reference(lat, w0, T, False),
+                                     wr, *sc, False, False, False)[0]
+        trace, _ = model_lib.apply(cfg, trainer.params, None,
+                                   first_layer_output=zq, device="cuda")
+        agree, close, lerr, _ = compare_flagship(
+            logits, model_lib.prediction_logits(cfg, trace))
+    del zq, trace, logits
+    if agree < 0.995 or close < 0.99:
+        fail(f"{label}: logits disagree with the plain versions' "
+             f"composition ({agree:.4f}, {close:.4f})")
+    g_z = rand_w(np.random.default_rng(16), (T, B, H), 1.0 / B, md)
+    bw = (g_z, z, res, a_tr, res_is_v, wr, beta, c0.alpha, c0.threshold,
+          c0.gamma, c0.spike_func)
+    rec_g_err = check_grads(f"{label} rec backward",
+                            lambda: rec_scan._bwd_cuda(*bw),
+                            lambda: rec_scan._bwd_reference(*bw),
+                            wide_bar(T, md, True))
+    g_cur = rec_scan._bwd_cuda(*bw)[0]
+    enc_g_err = check_grads(
+        f"{label} encode backward",
+        lambda: (encode._bwd_cuda(lat, g_cur, md, T, False),),
+        lambda: (encode._bwd_reference(lat, g_cur, md, T, False),),
+        wide_bar(T, md, True))
+    log(f"[{label}] kernels alone on batch 0: currents err {enc_err:.3g}; "
+        f"spikes equal on {rows:.4f} of rows, residual err {res_err:.3g}; "
+        f"logits vs the plain versions' composition argmax_agree={agree:.4f}"
+        f" rows_within_1e-4max={close:.4f} max_abs_err={lerr:.3g}; "
+        f"rec_scan_bwd {rec_g_err:.3g}, encode_matmul_bwd {enc_g_err:.3g} "
+        f"of max|g| ({float(z.float().mean()):.4f} of unit-steps fire)")
+    t_ef = cuda_ms(lambda: encode._fwd_cuda(lat, w0, T, False), 10)
+    t_ef_p = cuda_ms(lambda: encode._fwd_reference(lat, w0, T, False), 3, 1)
+    t_rf = cuda_ms(lambda: rec_scan._fwd_cuda(cur, wr, *sc, True, False,
+                                              res_is_v), 5)
+    t_rf_p = cuda_ms(lambda: rec_scan._fwd_reference(
+        cur, wr, *sc, True, False, res_is_v), 3, 1)
+    t_rb = cuda_ms(lambda: rec_scan._bwd_cuda(*bw), 5)
+    t_rb_p = cuda_ms(lambda: rec_scan._bwd_reference(*bw), 3, 1)
+    t_eb = cuda_ms(lambda: encode._bwd_cuda(lat, g_cur, md, T, False), 10)
+    t_eb_p = cuda_ms(lambda: encode._bwd_reference(lat, g_cur, md, T,
+                                                   False), 3, 1)
+    spikes_in = raster(lat, T, False, md)
+    lib_f = cuda_ms(lambda: spikes_in @ w0, 10)
+    g_flat = g_cur.reshape(T * B, H).to(md)
+    lib_b = cuda_ms(lambda: spikes_in.T @ g_flat, 10)
+    del spikes_in, g_flat
+    eb, eo, _ = encode_work(lat, T, H, False, md.itemsize)
+    rfb, rfo = rec_work(B, H, T, z, md.itemsize, 1, False)
+    rbb, rbo = rec_work(B, H, T, z, md.itemsize, 1, True)
+    out = [
+        kernel_row(label, f"{fused.KERNEL_ENC}[train-{tag}]", ENC_SITE,
+                   launches[fused.KERNEL_ENC], enc_err, t_ef, t_ef_p, eb, eo,
+                   md, library_ms=lib_f),
+        kernel_row(label, f"{fused.KERNEL_REC_TRAIN}[{tag}]", REC_SITE,
+                   launches[fused.KERNEL_REC_TRAIN], res_err, t_rf, t_rf_p,
+                   rfb, rfo, md),
+        kernel_row(label, f"{fused.KERNEL_REC_BWD}[{tag}]", REC_BWD_SITE,
+                   launches[fused.KERNEL_REC_BWD], rec_g_err, t_rb, t_rb_p,
+                   rbb, rbo, md),
+        kernel_row(label, f"{fused.KERNEL_ENC_BWD}[{tag}]", ENC_BWD_SITE,
+                   launches[fused.KERNEL_ENC_BWD], enc_g_err, t_eb, t_eb_p,
+                   eb, eo, md, library_ms=lib_b)]
+    del cur, z, res, a_tr, g_z, bw, g_cur, trainer
+    torch.cuda.empty_cache()
+
+    # Periodic encoding, for the times and the launches.
+    enc_p = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
+    periodic = Trainer(cfg, seed=0, encode_config=enc_p, device="cuda")
+    timed_steps(periodic, batches, 1)
+    fused.reset_launch_counts()
+    plosses, pseconds = timed_steps(periodic, batches, 5)
+    got = fused.launch_counts()
+    if launched(got) != {k: n * 5 for k, n in a_step.items()}:
+        fail(f"{label}: periodic launches {got}")
+    if not all(np.isfinite([float(v) for v in plosses])):
+        fail(f"{label}: non-finite loss with periodic encoding")
+    log(f"[{label}] periodic 5 steps of {TRAIN_B}: "
+        f"{pseconds / 5 * 1e3:.3f} ms a step = "
+        f"{TRAIN_B * 5 / pseconds:.1f} img/s [{card_line()}]")
+    del periodic
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -2511,6 +3012,11 @@ def main() -> int:
         run(f"12 two-layer serve {md}", phase_twolayer_serve, md)
     for md in both:
         run(f"13 two-layer train {md}", phase_twolayer_train, md)
+    run("14 wide kernels", phase_wide_kernels)
+    for md in both:
+        run(f"15 wide serve {md}", phase_wide_serve, md)
+    for md in both:
+        run(f"16 wide train {md}", phase_wide_train, md)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,12 @@ Three paths compute the logits:
   the max over time as one mid-head call (ops/fused_mid.py); an
   Izhikevich layer past the first scans its ``z_in @ W_in`` currents in one
   call (ops/izh.py ``izh_scan``); a layer no kernel covers (a shape past
-  the limits) takes the loop below in its place;
+  the limits) takes the unfused tier or the loop below in its place;
+* the unfused tier, for layers too wide for those kernels' shared memory:
+  a first layer's currents from the latencies in one call
+  (ops/encode.py ``encoded_input_matmul``), a later layer's in one
+  ``torch.matmul``, then a recurrent LIF/ALIF layer's scan in one call
+  (ops/rec_scan.py ``rec_{alif,lif}_scan``; Izhikevich: ``izh_scan``);
 * everything else: :func:`apply`, a per-layer time loop (the reference's
   layer-then-time order, snn.py:209-214), then
   :func:`prediction_logits`.  On the card a config that gates off a
@@ -50,6 +55,7 @@ from ..ops.cells import (
     STEP_FNS,
     masked_recurrent,
 )
+from ..ops.encode import encode_matmul_supported, encoded_input_matmul
 from ..ops.encoding import encode_spikes, pixels_to_firing_periods
 from ..ops.fused import (
     KERNEL,
@@ -57,6 +63,8 @@ from ..ops.fused import (
     KERNEL_2_BWD,
     KERNEL_2_TRAIN,
     KERNEL_BWD,
+    KERNEL_ENC,
+    KERNEL_ENC_BWD,
     KERNEL_IZH,
     KERNEL_IZH_BWD,
     KERNEL_IZH_L0,
@@ -68,6 +76,9 @@ from ..ops.fused import (
     KERNEL_L0_BWD,
     KERNEL_MID,
     KERNEL_MID_BWD,
+    KERNEL_REC,
+    KERNEL_REC_BWD,
+    KERNEL_REC_TRAIN,
     KERNEL_TRAIN,
     fused_encode_ff_scan,
     fused_encode_ff_scan_head,
@@ -102,6 +113,7 @@ from ..ops.fused_mid import (
     fused_mid_supported,
 )
 from ..ops.izh import izh_kernel_params, izh_scan, izh_scan_supported
+from ..ops.rec_scan import rec_alif_scan, rec_lif_scan, rec_scan_supported
 from ..ops.temporal import batchwise_temporal_filter, temporal_max
 from .config import ReadoutMth, SNNConfig
 
@@ -215,6 +227,7 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
           return_hidden: bool = False,
           initial_state: Optional[Tuple] = None,
           first_layer_output: Optional[torch.Tensor] = None,
+          first_layer_currents: Optional[torch.Tensor] = None,
           return_spike_counts: bool = False, _upto: Optional[int] = None,
           device="cuda"):
     """Simulate ``cfg.int_time_steps`` steps, one layer at a time.
@@ -222,11 +235,12 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
     A LIF/ALIF layer past the first runs as one mid call (input product
     and scan together, ops/fused_mid.py) unless hidden traces or an
     initial state are asked for; every other layer computes its input
-    currents for all steps in one matmul, then scans them in one
-    ``izh_scan`` call (an Izhikevich layer, on the same conditions) or
-    loops over time.
+    currents for all steps in one matmul, then scans them in one call
+    (:func:`_layer_scan`: a recurrent LIF/ALIF or an Izhikevich layer, on
+    the same conditions) or loops over time.
     ``first_layer_output`` is layer 0's time-major spike trace ``(T, B,
-    H0)`` computed upstream (``inputs`` is then ignored).  Returns
+    H0)`` computed upstream, ``first_layer_currents`` its time-major input
+    currents ``(T, B, H0)`` (``inputs`` is then ignored).  Returns
     ``(outputs_trace (B, T, O), hidden_states)``; ``hidden_states`` is
     ``{layer: tuple of (B, T, width)}`` when ``return_hidden``, else None.
     ``return_spike_counts`` appends ``{layer: (B, width) float32}``, the
@@ -243,6 +257,9 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
     if first_layer_output is not None:
         x = None
         batch = first_layer_output.shape[1]
+    elif first_layer_currents is not None:
+        x = None
+        batch = first_layer_currents.shape[1]
     else:
         x = format_inputs(cfg, torch.as_tensor(inputs, device=dev),
                           compute_dtype)
@@ -287,15 +304,17 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
                                     matmul_dtype)
             collect_counts(name, lcfg, x_tm)
             continue
-        currents = (mm(x, lparams["w_in"]).transpose(0, 1) if x_tm is None
-                    else mm(x_tm, lparams["w_in"]))
-        if initial_state is None and _izh_layer_fusible(
+        if x_tm is None and first_layer_currents is not None:
+            currents = first_layer_currents.to(compute_dtype)
+        elif x_tm is None:
+            currents = mm(x, lparams["w_in"]).transpose(0, 1)
+        else:
+            currents = mm(x_tm, lparams["w_in"])
+        if initial_state is None and _layer_scan_fusible(
                 cfg, lcfg, return_hidden, dev, training):
-            # (an initial state takes the loop: the kernel starts at rest)
-            x_tm = izh_scan(currents, None if w_rec_eff is None
-                            else w_rec_eff.contiguous(),
-                            izh_kernel_params(lcfg), lcfg.gamma,
-                            lcfg.spike_func)
+            # (an initial state takes the loop: the kernels start at rest)
+            x_tm = _layer_scan(cfg, lcfg, lparams, currents, w_rec_eff)
+            collect_counts(name, lcfg, x_tm)
             continue
         state = states[idx]
         outs, trace = [], []
@@ -391,6 +410,51 @@ def _izh_layer_fusible(cfg: SNNConfig, lcfg, return_hidden: bool,
     return ok
 
 
+def _layer_scan_fusible(cfg: SNNConfig, lcfg, return_hidden: bool,
+                        device: torch.device, training: bool = False) -> bool:
+    """Scan this layer's precomputed currents in one call (the JAX package's
+    ``_pallas_layer_eligible``)?  An Izhikevich layer as
+    :func:`_izh_layer_fusible`; a recurrent LIF/ALIF layer with no hidden
+    traces and a shape ``rec_scan_supported`` covers on ``device``.  A
+    feedforward LIF/ALIF layer keeps the loop: its scan kernel
+    (``pallas_scan``) is not ported yet."""
+    if type(lcfg) is IzhikevichConfig:
+        return _izh_layer_fusible(cfg, lcfg, return_hidden, device, training)
+    if (return_hidden or type(lcfg) not in (LIFConfig, ALIFConfig)
+            or not lcfg.use_recurrent_connection):
+        return False
+    if not _kernels_on(cfg, device, "recurrent scan"):
+        return False
+    ok = rec_scan_supported(
+        cfg.int_time_steps, lcfg.output_size,
+        itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
+        training=training)
+    if not ok and device.type == "cuda":
+        _log_fused_fallback(
+            "recurrent scan", "shape exceeds the kernel's limits",
+            n_steps=cfg.int_time_steps, hidden=lcfg.output_size,
+            matmul_dtype=cfg.matmul_dtype_eff, training=training)
+    return ok
+
+
+def _layer_scan(cfg: SNNConfig, lcfg, lparams, currents: torch.Tensor,
+                w_rec_eff) -> torch.Tensor:
+    """One layer's scan over its currents ``(T, B, H)`` (the JAX package's
+    ``_pallas_layer_scan``): ``izh_scan`` for Izhikevich,
+    ``rec_{alif,lif}_scan`` for a recurrent LIF/ALIF layer.  Spikes come
+    back in the matmul dtype (``W_rec``'s)."""
+    w_rec = None if w_rec_eff is None else w_rec_eff.contiguous()
+    if type(lcfg) is IzhikevichConfig:
+        return izh_scan(currents, w_rec, izh_kernel_params(lcfg), lcfg.gamma,
+                        lcfg.spike_func)
+    if type(lcfg) is ALIFConfig:
+        beta = lparams["beta"] if lcfg.learn_beta else lcfg.beta
+        return rec_alif_scan(currents, w_rec, beta, lcfg.alpha, lcfg.rho,
+                             lcfg.threshold, lcfg.gamma, lcfg.spike_func)
+    return rec_lif_scan(currents, w_rec, lcfg.alpha, lcfg.threshold,
+                        lcfg.gamma, lcfg.spike_func)
+
+
 def _fused_mid_layer(cfg: SNNConfig, lcfg, lparams, z_in, w_rec_eff,
                      matmul_dtype) -> torch.Tensor:
     """One LIF/ALIF layer past the first as a mid call: ``z_in (T, B,
@@ -434,6 +498,29 @@ def _layer0_fusible(cfg: SNNConfig, enc, return_hidden: bool,
     return ok
 
 
+def _encode_matmul_fusible(cfg: SNNConfig, enc, device: torch.device,
+                           training: bool = False) -> bool:
+    """Compute the first layer's currents from the latencies in one call
+    (the JAX package's ``encode_matmul_supported`` branch of
+    ``apply_pixels``)?  On-device encoding at ``int_time_steps`` and a
+    shape the kernel (with ``training`` its backward too) covers on
+    ``device``."""
+    if not (enc.as_timeseries and enc.n_steps == cfg.int_time_steps):
+        return False
+    if not _kernels_on(cfg, device, "encode matmul"):
+        return False
+    first_cfg = cfg.layer_configs[0][1]
+    ok = encode_matmul_supported(
+        cfg.int_time_steps, first_cfg.output_size, n_features=cfg.input_size,
+        device=device, training=training, use_periods=enc.use_periods)
+    if not ok and device.type == "cuda":
+        _log_fused_fallback(
+            "encode matmul", "shape exceeds the kernel's limits",
+            n_steps=cfg.int_time_steps, n_features=cfg.input_size,
+            hidden=first_cfg.output_size, training=training)
+    return ok
+
+
 def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
                  return_hidden: bool = False,
                  return_spike_counts: bool = False,
@@ -443,8 +530,10 @@ def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
 
     A LIF/ALIF/Izhikevich first layer runs as one encode + input product +
     scan call from the integer latencies (ops/fused.py, ops/fused_izh.py),
-    so the ``(B, T, F)`` spike tensor never exists; otherwise
-    ``encode_spikes`` feeds :func:`apply`."""
+    so the ``(B, T, F)`` spike tensor never exists; where that call does not
+    cover the layer, its currents come from the latencies in one call
+    (ops/encode.py) and feed :func:`apply`; otherwise ``encode_spikes``
+    does."""
     dev = resolve_device(device)
     pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
     rest = dict(return_hidden=return_hidden,
@@ -452,7 +541,8 @@ def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
                 device=dev)
     if not enc.as_timeseries:
         return apply(cfg, params, pixels, **rest)
-    if _layer0_fusible(cfg, enc, return_hidden, dev, _needs_grad(params)):
+    training = _needs_grad(params)
+    if _layer0_fusible(cfg, enc, return_hidden, dev, training):
         first_name, first_cfg = cfg.layer_configs[0]
         matmul_dtype = _dtype(cfg.matmul_dtype_eff)
         latencies = pixels_to_firing_periods(
@@ -480,6 +570,17 @@ def apply_pixels(cfg: SNNConfig, params: Params, pixels, enc, *,
         else:
             z0 = fused_encode_ff_scan(latencies, w0, beta, *common)
         return apply(cfg, params, None, first_layer_output=z0, **rest)
+    if _encode_matmul_fusible(cfg, enc, dev, training):
+        w0 = (params[cfg.layer_configs[0][0]]["w_in"].to(dev)
+              .to(_dtype(cfg.matmul_dtype_eff)).contiguous())
+        latencies = pixels_to_firing_periods(
+            pixels, t_max=float(cfg.int_time_steps), tau=enc.tau,
+            thr=enc.thr, epsilon=enc.epsilon,
+        ).contiguous()
+        currents0 = encoded_input_matmul(latencies, w0, cfg.int_time_steps,
+                                         enc.use_periods)
+        return apply(cfg, params, None, first_layer_currents=currents0,
+                     **rest)
     inputs = encode_spikes(
         pixels, n_steps=enc.n_steps, use_periods=enc.use_periods,
         tau=enc.tau, thr=enc.thr, epsilon=enc.epsilon)
@@ -815,8 +916,14 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     ``torch:fused_izh_layer0_reference``, ``torch:izh_scan_reference``.
     A two-hidden-layer network that takes the two-layer pair is one row:
     ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
-    ``torch:fused2_reference`` on the CPU.  ``torch:loop`` is the per-step
-    loop.  It fires the same fallback logs the real dispatch would."""
+    ``torch:fused2_reference`` on the CPU.  The unfused tier gives a layer
+    up to two rows: ``cuda:encode_matmul_fwd`` (a first layer's currents
+    from the latencies; ``+encode_matmul_bwd`` training) and
+    ``cuda:rec_scan_fwd`` (a recurrent LIF/ALIF layer's scan over its
+    currents; ``cuda:rec_scan_fwd_train+rec_scan_bwd`` training), on the
+    CPU ``torch:encode_matmul_reference`` and ``torch:rec_scan_reference``.
+    ``torch:loop`` is the per-step loop.  It fires the same fallback logs
+    the real dispatch would."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     layer_cfgs = cfg.layer_configs
@@ -883,15 +990,15 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                           + also + where,
             })
             continue
-        if _izh_layer_fusible(cfg, lcfg, False, dev, training):
+        if (idx == 0 and enc is not None
+                and _encode_matmul_fusible(cfg, enc, dev, training)):
             entries.append({
                 "layer": name,
-                "path": path(KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
-                             "izh_scan_reference"),
-                "reason": "currents of all steps in one product, then the "
-                          "scan in one call" + also + where,
+                "path": path(KERNEL_ENC, KERNEL_ENC_BWD,
+                             "encode_matmul_reference"),
+                "reason": "input currents of all steps from the latencies "
+                          "in one call (no spike raster)" + also + where,
             })
-            continue
         if idx > 0 and _mid_layer_fusible(cfg, lcfg, False, dev, training):
             entries.append({
                 "layer": name,
@@ -901,12 +1008,31 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                           "tensor)" + also + where,
             })
             continue
-        entries.append({
-            "layer": name, "path": "torch:loop",
-            "reason": "readout layer (consumed by prediction_logits)"
-            if type(lcfg) is ReadoutConfig and cfg.use_kernels
-            else loop_reason,
-        })
+        if _layer_scan_fusible(cfg, lcfg, False, dev, training):
+            if type(lcfg) is IzhikevichConfig:
+                kernels = (KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
+                           "izh_scan_reference")
+            else:
+                kernels = (KERNEL_REC_TRAIN if training else KERNEL_REC,
+                           KERNEL_REC_BWD, "rec_scan_reference")
+            entries.append({
+                "layer": name,
+                "path": path(*kernels),
+                "reason": "currents of all steps in one product, then the "
+                          "scan in one call" + also + where,
+            })
+            continue
+        if type(lcfg) is ReadoutConfig and cfg.use_kernels:
+            reason = "readout layer (consumed by prediction_logits)"
+        elif (type(lcfg) in (LIFConfig, ALIFConfig)
+              and not lcfg.use_recurrent_connection
+              and loop_reason.startswith("no CUDA")):
+            reason = ("feedforward LIF/ALIF scan: its kernel "
+                      "(pallas_scan.py) is not ported yet")
+        else:
+            reason = loop_reason
+        entries.append({"layer": name, "path": "torch:loop",
+                        "reason": reason})
     return entries
 
 

@@ -96,13 +96,22 @@ KERNEL_IZH_L0 = "fused_izh_layer0_fwd"
 KERNEL_IZH_L0_BWD = "fused_izh_layer0_bwd"
 KERNEL_IZH_SCAN = "izh_scan_fwd"
 KERNEL_IZH_SCAN_BWD = "izh_scan_bwd"
+# The unfused tier: encoded input product and recurrent scan over currents
+# (wrappers in ops/encode.py and ops/rec_scan.py).
+KERNEL_ENC = "encode_matmul_fwd"
+KERNEL_ENC_BWD = "encode_matmul_bwd"
+KERNEL_REC = "rec_scan_fwd"
+KERNEL_REC_TRAIN = "rec_scan_fwd_train"
+KERNEL_REC_BWD = "rec_scan_bwd"
 MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
 _counts_lock = threading.Lock()
 _launches = {k: 0 for k in (
     KERNEL, KERNEL_TRAIN, KERNEL_BWD, KERNEL_L0, KERNEL_L0_BWD, KERNEL_MID,
     KERNEL_MID_BWD, KERNEL_2, KERNEL_2_TRAIN, KERNEL_2_BWD, KERNEL_IZH,
     KERNEL_IZH_TRAIN, KERNEL_IZH_BWD,
-    KERNEL_IZH_L0, KERNEL_IZH_L0_BWD, KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD)}
+    KERNEL_IZH_L0, KERNEL_IZH_L0_BWD, KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
+    KERNEL_ENC, KERNEL_ENC_BWD, KERNEL_REC, KERNEL_REC_TRAIN,
+    KERNEL_REC_BWD)}
 
 Beta = Union[float, torch.Tensor]
 

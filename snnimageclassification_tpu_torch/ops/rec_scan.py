@@ -1,0 +1,346 @@
+"""Recurrent LIF/ALIF scan over precomputed input currents, forward and
+backward.
+
+Port of the JAX package's ops/pallas_rec.py: ``rec_alif_scan(currents (T,
+B, H) float32, masked W_rec, beta, ...)`` and ``rec_lif_scan`` -> spikes
+``(T, B, H)`` in W_rec's dtype, differentiable in the currents and
+``W_rec``.  A recurrent layer that no whole-layer kernel takes (too wide
+for their shared memory) runs it on the currents of all steps
+(models/snn.py:apply).
+
+Dynamics (``z(-1) = 0``, ``v = a = 0`` before step 0):
+
+    v    = (alpha v + i(t) + z(t-1) @ W_rec)(1 - z(t-1))
+    ALIF: a = rho a + z(t-1), thr = threshold + beta a
+    z(t) = [v - thr >= 0]
+
+Training keeps the residuals of the JAX kernel in W_rec's dtype: ``z`` and
+``delta = v - thr`` (ALIF with FastSigmoid), else ``z`` and ``v`` (and
+``a`` for ALIF with Phi).  The backward (``pallas_rec.py:17-24``):
+
+    dz   = g_z(t) + dcur(t+1) @ W_rec^T      (dcur rounded to W_rec's dtype)
+    dv   = dz surr(delta(t)) + alpha dcur(t+1)
+    dcur = dv (1 - z(t-1))                   -> g_i(t), float32
+    g_W_rec = sum_t z(t-1)^T dcur(t)         (dcur rounded, float32 sums)
+
+``beta`` gets a zero cotangent (quirk Q3); ``w_rec`` arrives eye-masked
+(``cells.masked_recurrent``) and the mask zeroes its gradient outside.
+
+Two hand-written CUDA kernels stand behind the wrappers
+(``csrc/rec_scan.cu``): ``rec_scan_fwd`` (inference: ``z`` only) /
+``rec_scan_fwd_train`` (the same arithmetic, plus the residuals), and
+``rec_scan_bwd`` (the chain, then ``g_W_rec`` as a sum over spike bits).
+On a CUDA tensor a wrapper launches them or raises; on the CPU it runs the
+plain PyTorch versions (``_fwd_reference``, ``_bwd_reference``), which the
+tests hold against the JAX kernels.  The ``*_reference`` entry points run
+the plain versions on any device.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import fused as _f
+from .fused import (
+    KERNEL_REC,
+    KERNEL_REC_BWD,
+    KERNEL_REC_TRAIN,
+    MAX_STEPS,
+    Beta,
+)
+from .surrogate import SpikeFuncType, surrogate_grad_from_delta
+
+__all__ = [
+    "rec_alif_scan",
+    "rec_lif_scan",
+    "rec_alif_scan_reference",
+    "rec_lif_scan_reference",
+    "rec_scan_supported",
+]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+def _fwd_reference(currents, w_rec, beta, alif, alpha, rho, threshold, train,
+                   store_a, res_is_v):
+    """Plain version of ``rec_scan_fwd[_train]``: ``(z, res | None, a |
+    None)`` in W_rec's dtype; ``res`` is ``v`` or ``delta``.  bf16 weights
+    are upcast (exact), so products with 0/1 spikes are exact and sums
+    float32; on a card run it with ``torch.backends.cuda.matmul.allow_tf32
+    = False``."""
+    f32, wd = torch.float32, w_rec.dtype
+    T, B, H = currents.shape
+    dev = currents.device
+    w32 = w_rec.to(f32)
+    beta_t = torch.as_tensor(beta, dtype=f32, device=dev) if alif else None
+    v = torch.zeros((B, H), dtype=f32, device=dev)
+    a = torch.zeros_like(v)
+    z = torch.zeros_like(v)
+    zs, res, a_tr = [], [], []
+    for t in range(T):
+        # The JAX kernel's order: (alpha v + i) + z @ W_rec.
+        v = (alpha * v + currents[t] + z @ w32) * (1.0 - z)
+        thr = threshold
+        if alif:
+            a = rho * a + z
+            thr = threshold + beta_t * a
+        delta = v - thr
+        z = (delta >= 0).to(f32)
+        zs.append(z.to(wd))
+        if train:
+            res.append((v if res_is_v else delta).to(wd))
+            if store_a:
+                a_tr.append(a.to(wd))
+    return (torch.stack(zs), torch.stack(res) if train else None,
+            torch.stack(a_tr) if train and store_a else None)
+
+
+def _bwd_reference(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
+                   threshold, gamma, spike_func):
+    """Plain version of ``rec_scan_bwd``: ``(g_i (T, B, H) float32, g_W_rec
+    in W_rec's dtype)``."""
+    f32, wd = torch.float32, w_rec.dtype
+    T, B, H = res.shape
+    dev = res.device
+
+    def r(x):
+        return x if wd == f32 else x.to(wd).to(f32)
+
+    w32 = w_rec.to(f32)
+    beta_t = (torch.as_tensor(beta, dtype=f32, device=dev)
+              if a_tr is not None else None)
+    dcur = torch.zeros((B, H), dtype=f32, device=dev)
+    g_w = torch.zeros((H, H), dtype=f32, device=dev)
+    g_i = [None] * T
+    for t in range(T - 1, -1, -1):
+        thr = (threshold + beta_t * a_tr[t].to(f32) if a_tr is not None
+               else threshold)
+        d_t = res[t].to(f32) - thr if res_is_v else res[t].to(f32)
+        surr = surrogate_grad_from_delta(spike_func, d_t, thr, gamma)
+        dz = g_z[t].to(f32) + r(dcur) @ w32.T
+        dv = dz * surr + alpha * dcur
+        z_prev = (z[t - 1].to(f32) if t > 0
+                  else torch.zeros((B, H), dtype=f32, device=dev))
+        dcur = dv * (1.0 - z_prev)
+        g_i[t] = dcur
+        g_w += z_prev.T @ r(dcur)
+    return torch.stack(g_i), g_w.to(wd)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(i)
+    lib.snn_rec_scan_plan.argtypes = [i] * 5 + [ip]
+    lib.snn_rec_scan_plan.restype = i
+    lib.snn_rec_scan_fwd.argtypes = [vp] * 6 + [i] * 6 + [f] * 3 + [i, vp]
+    lib.snn_rec_scan_fwd.restype = i
+    lib.snn_rec_scan_bwd.argtypes = [vp] * 9 + [i] * 7 + [f] * 3 + [i, vp]
+    lib.snn_rec_scan_bwd.restype = i
+    lib.snn_cuda_error_string.argtypes = [i]
+    lib.snn_cuda_error_string.restype = ctypes.c_char_p
+    lib._snn_declared = True
+
+
+def _lib() -> ctypes.CDLL:
+    from . import _build
+
+    lib = _build.load("rec_scan")
+    if not getattr(lib, "_snn_declared", False):
+        _declare(lib)
+    return lib
+
+
+def _plan(device: torch.device, B: int, H: int, T: int,
+          bf16: bool) -> Optional[int]:
+    """Blocks of ``g_W_rec`` slabs of the backward at batch ``B``, or None
+    when the shape does not fit the kernels."""
+    lib = _lib()
+    out = (ctypes.c_int * 1)()
+    rc = lib.snn_rec_scan_plan(B, H, T, int(bf16), _f._index(device), out)
+    if rc == 1:
+        return None
+    _f._raise_on(rc, lib, f"{KERNEL_REC} plan")
+    return out[0]
+
+
+def rec_scan_supported(n_steps: int, hidden: int, *, itemsize: int = 4,
+                       device="cuda", training: bool = False) -> bool:
+    """Whether the recurrent scan covers this shape on ``device``.  On the
+    CPU the plain versions cover every shape.  On a CUDA device the kernels
+    need ``W_rec`` in float32 or bfloat16, ``hidden <= 1024`` and
+    ``n_steps <= MAX_STEPS``; ``W_rec`` streams through shared memory in
+    chunks, so its size sets no limit, and the backward's ``g_W_rec``
+    stages one row's ``(n_steps, 32)`` table."""
+    del training  # one plan covers both kernels
+    device = torch.device(device)
+    if n_steps < 1 or hidden < 1:
+        return False
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda" or itemsize not in (2, 4) \
+            or n_steps > MAX_STEPS:
+        return False
+    return _plan(device, 1, hidden, n_steps, itemsize == 2) is not None
+
+
+def _check_w(k, w_rec, H, dev):
+    _f._check_weights(k, w_rec)
+    _f._check(k, "w_rec", w_rec, w_rec.dtype, (H, H), dev)
+
+
+def _fwd_cuda(currents, w_rec, beta, alif, alpha, rho, threshold, train,
+              store_a, res_is_v):
+    """Launch ``rec_scan_fwd`` (``rec_scan_fwd_train`` with ``train``);
+    returns as :func:`_fwd_reference`."""
+    k = KERNEL_REC_TRAIN if train else KERNEL_REC
+    dev = currents.device
+    T, B, H = currents.shape
+    _f._check(k, "currents", currents, torch.float32, (T, B, H), dev)
+    _check_w(k, w_rec, H, dev)
+    if not 1 <= T <= MAX_STEPS:
+        raise ValueError(f"{k}: n_steps must be in [1, {MAX_STEPS}], got {T}")
+    bf16 = w_rec.dtype == torch.bfloat16
+    if _plan(dev, B, H, T, bf16) is None:
+        raise ValueError(f"{k}: shape T={T} H={H} does not fit the kernel "
+                         "(gate on rec_scan_supported)")
+    trace = dict(dtype=w_rec.dtype, device=dev)
+    z = torch.empty((T, B, H), **trace)
+    res = torch.empty((T, B, H), **trace) if train else None
+    a_tr = torch.empty((T, B, H), **trace) if train and store_a else None
+    beta_t = _f._beta_tensor(beta, dev)  # held until the launch
+    lib = _lib()
+    rc = lib.snn_rec_scan_fwd(
+        currents.data_ptr(), w_rec.data_ptr(), beta_t.data_ptr(),
+        z.data_ptr(), _f._ptr(res), _f._ptr(a_tr), B, H, T, int(alif),
+        int(bf16), int(res_is_v), alpha, rho, threshold, _f._index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _f._raise_on(rc, lib, f"{k} launch")
+    _f._launched(k)
+    return z, res, a_tr
+
+
+def _bwd_cuda(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha, threshold,
+              gamma, spike_func):
+    """Launch ``rec_scan_bwd`` (the chain, then ``g_W_rec`` over spike
+    bits) and add the blocks' slabs in a fixed order."""
+    k = KERNEL_REC_BWD
+    dev = res.device
+    T, B, H = res.shape
+    wdt = w_rec.dtype
+    _check_w(k, w_rec, H, dev)
+    for name, t in (("g_z", g_z), ("z", z), ("res", res), ("a", a_tr)):
+        if t is not None:
+            _f._check(k, name, t, wdt, (T, B, H), dev)
+    bf16 = wdt == torch.bfloat16
+    groups = _plan(dev, B, H, T, bf16)
+    if groups is None:
+        raise ValueError(f"{k}: shape T={T} H={H} does not fit the kernel "
+                         "(gate on rec_scan_supported)")
+    w_t = w_rec.t().contiguous()  # the chain streams rows of W_rec^T
+    g_i = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    zmask = torch.empty((B, T, (H + 31) // 32), dtype=torch.int32,
+                        device=dev)
+    slab = torch.empty((groups, H * H), dtype=torch.float32, device=dev)
+    beta_t = _f._beta_tensor(beta, dev)
+    lib = _lib()
+    rc = lib.snn_rec_scan_bwd(
+        g_z.data_ptr(), z.data_ptr(), res.data_ptr(), _f._ptr(a_tr),
+        w_t.data_ptr(), beta_t.data_ptr(), g_i.data_ptr(), zmask.data_ptr(),
+        slab.data_ptr(), B, H, T, int(spike_func == SpikeFuncType.Phi),
+        int(bf16), int(res_is_v), groups, alpha, threshold, gamma,
+        _f._index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    _f._raise_on(rc, lib, f"{k} launch")
+    _f._launched(k)
+    return g_i, slab.sum(0).view(H, H).to(wdt)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch and autograd
+# ---------------------------------------------------------------------------
+class _RecFn(torch.autograd.Function):
+    """The scan with its backward: the training forward keeps ``z`` and
+    the residuals."""
+
+    @staticmethod
+    def forward(ctx, currents, w_rec, beta, statics, plain):
+        alif, alpha, rho, threshold, gamma, spike_func = statics
+        impl = _f._impl(currents, plain)
+        fwd = _fwd_cuda if impl == "cuda" else _fwd_reference
+        res_is_v = _f._residual_is_v(alif, spike_func)
+        z, res, a_tr = fwd(currents, w_rec, beta, alif, alpha, rho,
+                           threshold, True, _f._stores_a(alif, spike_func),
+                           res_is_v)
+        ctx.impl, ctx.statics, ctx.beta, ctx.res_is_v = (impl, statics, beta,
+                                                         res_is_v)
+        ctx.save_for_backward(w_rec, z, res, a_tr)
+        return z
+
+    @staticmethod
+    def backward(ctx, g_z):
+        w_rec, z, res, a_tr = ctx.saved_tensors
+        _, alpha, _, threshold, gamma, spike_func = ctx.statics
+        bwd = _bwd_cuda if ctx.impl == "cuda" else _bwd_reference
+        g_i, g_w = bwd(g_z.to(z.dtype).contiguous(), z, res, a_tr,
+                       ctx.res_is_v, w_rec, ctx.beta, alpha, threshold, gamma,
+                       spike_func)
+        return g_i, g_w, _f._zero_beta_grad(ctx.beta), None, None
+
+
+def _scan(currents, w_rec, beta, alif, alpha, rho, threshold, gamma,
+          spike_func, plain=False):
+    if isinstance(spike_func, str):
+        spike_func = SpikeFuncType[spike_func]
+    currents = currents.to(torch.float32).contiguous()
+    statics = (bool(alif), float(alpha), float(rho), float(threshold),
+               float(gamma), spike_func)
+    if _f._wants_grad(currents, w_rec, beta):
+        return _RecFn.apply(currents, w_rec, beta, statics, plain)
+    fwd = (_fwd_cuda if _f._impl(currents, plain) == "cuda"
+           else _fwd_reference)
+    # Inference: only the spike trace leaves.
+    return fwd(currents, w_rec, beta, *statics[:4], False, False, False)[0]
+
+
+def rec_alif_scan(currents: torch.Tensor, w_rec: torch.Tensor, beta: Beta,
+                  alpha: float, rho: float, threshold: float, gamma: float,
+                  spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid
+                  ) -> torch.Tensor:
+    """Recurrent ALIF: currents ``(T, B, H)`` float32, masked ``W_rec (H,
+    H)`` float32 or bfloat16 -> spikes ``(T, B, H)`` in W_rec's dtype,
+    differentiable in the currents and ``W_rec``.  ``beta`` may be a tensor
+    (``learn_beta``); its gradient is zero."""
+    return _scan(currents, w_rec, beta, True, alpha, rho, threshold, gamma,
+                 spike_func)
+
+
+def rec_lif_scan(currents: torch.Tensor, w_rec: torch.Tensor, alpha: float,
+                 threshold: float, gamma: float,
+                 spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid
+                 ) -> torch.Tensor:
+    """Recurrent LIF: as :func:`rec_alif_scan` without adaptation."""
+    return _scan(currents, w_rec, 0.0, False, alpha, 0.0, threshold, gamma,
+                 spike_func)
+
+
+def rec_alif_scan_reference(currents, w_rec, beta, alpha, rho, threshold,
+                            gamma,
+                            spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid
+                            ) -> torch.Tensor:
+    """:func:`rec_alif_scan` through the plain PyTorch versions, forward and
+    backward, on whatever device the tensors lie."""
+    return _scan(currents, w_rec, beta, True, alpha, rho, threshold, gamma,
+                 spike_func, plain=True)
+
+
+def rec_lif_scan_reference(currents, w_rec, alpha, threshold, gamma,
+                           spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rec_lif_scan`."""
+    return _scan(currents, w_rec, 0.0, False, alpha, 0.0, threshold, gamma,
+                 spike_func, plain=True)

@@ -207,7 +207,12 @@ class InferenceServer:
                 f"input_scale must be finite and > 0, got {input_scale}"
             )
         self.input_scale = input_scale
-        self.params = model_lib._to(params, self.device)
+        # A copy: JAX arrays are immutable, torch tensors are not, and a
+        # server built from ``Trainer.params`` must not follow its updates.
+        self.params = {
+            name: {k: v.detach().to(self.device).clone()
+                   for k, v in group.items()}
+            for name, group in params.items()}
         self._inner = forward_fn or (
             lambda p, x: model_lib.forward_logits_pixels(
                 cfg, p, x, self.enc, device=self.device)
@@ -364,6 +369,7 @@ class InferenceServer:
         out[off:] = 0
         return spans
 
+    @torch.inference_mode()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self._in_dtype == np.float32 and self.input_scale == 1.0):
             # The uint8 wire bytes become float32 pixels on the device.

@@ -2,8 +2,10 @@
 flagship (784 -> ALIF-128 recurrent, learn_beta, T=100) or, with ``--deep``,
 on the deep network 784 -> 128 -> 128 -> 96 -> 10 (same cell), with
 ``--twolayer`` on 784 -> 128 -> 128 -> 10 (``bench.py``'s twolayer leg, one
-kernel pair: ``fused2``), at batch 8192
-on the synthetic prototype task ``chip_smoke.py`` trains.  ``--izh`` takes
+kernel pair: ``fused2``), with ``--wide`` on 784 -> ALIF-512 -> 10 (the
+unfused tier: ``encode_matmul``, ``rec_scan`` and the readout's per-step
+loop), at batch 8192 on the synthetic prototype task ``chip_smoke.py``
+trains.  ``--izh`` takes
 the Izhikevich cell instead (784 -> Izhikevich-128 recurrent -> 10, with
 ``--deep`` 784 -> 128 -> 128 -> 10, dt = 30 where units fire), and
 ``--loop`` the per-step time loop (``use_kernels=False``) instead of the
@@ -12,7 +14,7 @@ kernels.
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.train_profile \
-        [--deep | --twolayer] [--izh] [--loop] \
+        [--deep | --twolayer | --wide] [--izh] [--loop] \
         [--matmul-dtype float32|bfloat16] \
         [--periodic] [--steps 10]
 
@@ -25,7 +27,9 @@ appear apart, each template instance under its own name: the chain of the
 head mode is ``bwd_chain_kernel<.., true, ..>``, of a z-emitting layer
 ``<.., false, ..>``; ``bwd_gbits_kernel`` sums its ``g_W_rec`` and ``g_W_in``
 launches), the device's busy and idle share of the window, and the card's
-name and power limit.
+name and power limit.  ``port_kernels_ms_per_step`` sums the kernels of
+``csrc/``; ``other_kernels_ms_per_step`` is PyTorch's own (with ``--wide``
+mostly the readout's per-step loop, forward and backward).
 """
 from __future__ import annotations
 
@@ -53,6 +57,8 @@ def main() -> None:
                          "(128, 128)")
     ap.add_argument("--twolayer", action="store_true",
                     help="two hidden layers (128, 128), the fused2 pair")
+    ap.add_argument("--wide", action="store_true",
+                    help="one hidden layer of 512 (the unfused tier)")
     ap.add_argument("--izh", action="store_true",
                     help="Izhikevich layers at dt=30")
     ap.add_argument("--loop", action="store_true",
@@ -61,14 +67,16 @@ def main() -> None:
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA card")
-    if ns.twolayer and (ns.deep or ns.izh):
-        raise SystemExit("--twolayer is an ALIF network of its own")
+    if (ns.twolayer or ns.wide) and (ns.deep or ns.izh or
+                                     (ns.twolayer and ns.wide)):
+        raise SystemExit("--twolayer and --wide are ALIF networks of their "
+                         "own")
     if ns.izh:
         cell = dict(hidden_layer_type=LayerType.Izhikevich, dt=30.0,
                     n_hidden_neurons=[128, 128] if ns.deep else 128)
     else:
         widths = ([128, 128, 96] if ns.deep else [128, 128] if ns.twolayer
-                  else 128)
+                  else 512 if ns.wide else 128)
         cell = dict(hidden_layer_type=LayerType.ALIF, learn_beta=True,
                     n_hidden_neurons=widths)
     cfg = SNNConfig(input_size=784, output_size=10, int_time_steps=100,
@@ -99,6 +107,11 @@ def main() -> None:
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
     busy_ms = sum(kernels.values()) / 1e3 / ns.steps
+    # The port's kernels live in anonymous namespaces of csrc/; PyTorch's
+    # (cuBLAS, elementwise, reductions, Adam) make up the rest.
+    port_ms = sum(v for k, v in kernels.items()
+                  if "(anonymous namespace)::" in k and "at::" not in k
+                  ) / 1e3 / ns.steps
     step_ms = wall / ns.steps * 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     card = subprocess.run(
@@ -106,12 +119,15 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "deep": ns.deep, "twolayer": ns.twolayer, "izh": ns.izh,
+        "deep": ns.deep, "twolayer": ns.twolayer, "wide": ns.wide,
+        "izh": ns.izh,
         "loop": ns.loop,
         "matmul_dtype": ns.matmul_dtype,
         "periodic": ns.periodic,
         "steps": ns.steps, "step_ms_wall_traced": step_ms,
         "device_busy_ms_per_step": busy_ms,
+        "port_kernels_ms_per_step": port_ms,
+        "other_kernels_ms_per_step": busy_ms - port_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "kernel_ms_per_step": {k[:90]: v / 1e3 / ns.steps for k, v in top},
         "card": card,

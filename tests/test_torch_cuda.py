@@ -945,3 +945,253 @@ def test_fused2_model_dispatch_and_gate(card):
         assert _launched() == {fused.KERNEL_2_TRAIN: 1,
                                fused.KERNEL_2_BWD: 1}
         assert np.isfinite(float(loss))
+
+
+# ---------------------------------------------------------------------------
+# The unfused tier: encoded input product and recurrent scan (wide layers)
+# ---------------------------------------------------------------------------
+ENC_SHAPES = [(9, 30, 40), (5, 784, 512), (3, 784, 1024)]  # B, F, H
+
+
+def _latencies(dev, rng, B, F, T):
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(dev)
+    return pixels_to_firing_periods(pixels, t_max=float(T),
+                                    tau=20.0).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+@pytest.mark.parametrize("shape", ENC_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_encode_kernels_match_plain_versions(card, shape, use_periods,
+                                             n_steps, wdtype):
+    """``encode_matmul_fwd``: currents within 1e-5 of max|current| (up to
+    F terms of either sign in another order: the error scales with their
+    absolute sum); ``encode_matmul_bwd``: g_W within 2e-6
+    of max|g| (5e-6 at T = 100; bf16 one rounding), equal bits twice; each
+    launched once through the public function under autograd."""
+    from snnimageclassification_tpu_torch.ops import encode
+
+    B, F, H = shape
+    rng = np.random.default_rng(7)
+    lat = _latencies(card, rng, B, F, n_steps)
+    w = torch.from_numpy((0.5 * rng.standard_normal((F, H)))
+                         .astype(np.float32)).to(card).to(wdtype)
+    fused.reset_launch_counts()
+    got = encode._fwd_cuda(lat, w, n_steps, use_periods)
+    want = encode._fwd_reference(lat, w, n_steps, use_periods)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    g = torch.from_numpy(rng.standard_normal((n_steps, B, H))
+                         .astype(np.float32)).to(card)
+    _grads_close(
+        [encode._bwd_cuda(lat, g, wdtype, n_steps, use_periods)],
+        [encode._bwd_cuda(lat, g, wdtype, n_steps, use_periods)],
+        [encode._bwd_reference(lat, g, wdtype, n_steps, use_periods)],
+        _izh_bar(n_steps, wdtype))
+    wl = w.clone().requires_grad_(True)
+    fused.reset_launch_counts()
+    out = encode.encoded_input_matmul(lat, wl, n_steps, use_periods)
+    (out * g).sum().backward()
+    assert _launched() == {fused.KERNEL_ENC: 1, fused.KERNEL_ENC_BWD: 1}
+    assert wl.grad.dtype == wdtype
+
+
+def _rec_inputs(dev, rng, B, H, T, wdtype):
+    """Currents 0.3 + 0.6 N(0, 1) and a masked W_rec of std 1.3 / sqrt(H):
+    10-20 % of unit-steps fire, a tenth of them pushed by the recurrence."""
+    cur = torch.from_numpy((0.3 + 0.6 * rng.standard_normal((T, B, H)))
+                           .astype(np.float32)).to(dev)
+    w = torch.from_numpy((1.3 / np.sqrt(H) * rng.standard_normal((H, H)))
+                         .astype(np.float32)).to(dev)
+    return cur, (w * (1 - torch.eye(H, device=dev))).to(wdtype)
+
+
+REC_CASES = [  # name, alif, surrogate
+    ("alif-fs", True, FAST), ("alif-phi", True, PHI),
+    ("lif-fs", False, FAST), ("lif-phi", False, PHI),
+]
+
+
+def _rec_scalars(alif):
+    cfg = (ALIFConfig if alif else LIFConfig)(input_size=1, output_size=1)
+    return cfg.alpha, (cfg.rho if alif else 0.0), cfg.threshold, cfg.gamma
+
+
+def _rec_check(dev, B, H, T, alif, spike, wdtype, min_rows):
+    """The forward kernels against the plain version fed the same currents
+    (share of rows with equal spikes at least ``min_rows``; residuals 1e-5,
+    bf16 one rounding, on those rows) and the backward on the training
+    kernel's residuals (2e-6 of max|g|, 5e-6 at T = 100, bf16 2**-7; equal
+    bits twice)."""
+    from snnimageclassification_tpu_torch.ops import rec_scan
+
+    rng = np.random.default_rng(13)
+    cur, w = _rec_inputs(dev, rng, B, H, T, wdtype)
+    alpha, rho, thr, gamma = _rec_scalars(alif)
+    beta = 1.6 if alif else 0.0
+    store_a = fused._stores_a(alif, spike)
+    res_is_v = fused._residual_is_v(alif, spike)
+    fwd = (cur, w, beta, alif, alpha, rho, thr)
+    z, res, a_tr = rec_scan._fwd_cuda(*fwd, True, store_a, res_is_v)
+    z_inf = rec_scan._fwd_cuda(*fwd, False, False, False)[0]
+    zp, resp, ap = rec_scan._fwd_reference(*fwd, True, store_a, res_is_v)
+    torch.cuda.synchronize()
+    assert torch.equal(z, z_inf), "inference and training spikes differ"
+    assert z.dtype == wdtype and res.dtype == wdtype
+    assert 0.02 < float(z.float().mean()) < 0.6
+    same = (z == zp).all(dim=2).all(dim=0)
+    assert float(same.float().mean()) >= min_rows
+    tol = 1e-5 if wdtype == torch.float32 else 2.0 ** -7
+    for got, want in ((res, resp), (a_tr, ap)):
+        assert (got is None) == (want is None)
+        if got is not None:
+            torch.testing.assert_close(got[:, same].float(),
+                                       want[:, same].float(), atol=tol,
+                                       rtol=tol)
+    g_z = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(dev).to(wdtype)
+    bw = (g_z, z, res, a_tr, res_is_v, w, beta, alpha, thr, gamma, spike)
+    _grads_close(rec_scan._bwd_cuda(*bw), rec_scan._bwd_cuda(*bw),
+                 rec_scan._bwd_reference(*bw), _izh_bar(T, wdtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("name,alif,spike", REC_CASES,
+                         ids=[c[0] for c in REC_CASES])
+def test_rec_scan_kernels_match_plain_versions(card, name, alif, spike,
+                                               n_steps, wdtype):
+    """Small shapes (B = 37, H = 20 and 40): spikes equal on every row."""
+    for H in (20, 40):
+        _rec_check(card, 37, H, n_steps, alif, spike, wdtype, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H", [(64, 512), (16, 1024), (40, 200)],
+                         ids=["512", "1024", "200"])
+def test_rec_scan_kernels_wide(card, B, H, wdtype):
+    """Widths past one block's shared memory (W_rec streamed in chunks;
+    H = 200 f32 stays resident), ALIF with FastSigmoid, T = 100: equal
+    spikes on at least 95 % of rows (a near-tie flip between two float32
+    summation orders takes its row's trace with it)."""
+    _rec_check(card, B, H, 100, True, FAST, wdtype, 0.95)
+
+
+@pytest.mark.cuda
+def test_rec_scan_autograd_launches_the_pair(card):
+    """Under autograd ``rec_alif_scan`` launches the training forward and
+    the backward once each (beta's gradient is zero); under ``no_grad`` the
+    inference kernel once."""
+    from snnimageclassification_tpu_torch.ops import rec_scan
+
+    rng = np.random.default_rng(2)
+    cur, w = _rec_inputs(card, rng, 8, 64, 24, torch.float32)
+    beta = torch.tensor(1.6, device=card, requires_grad=True)
+    cur.requires_grad_(True)
+    w.requires_grad_(True)
+    fused.reset_launch_counts()
+    z = rec_scan.rec_alif_scan(cur, w, beta, 0.9, 0.95, 1.0, 10.0)
+    z.float().sum().backward()
+    assert _launched() == {fused.KERNEL_REC_TRAIN: 1,
+                           fused.KERNEL_REC_BWD: 1}
+    assert float(beta.grad) == 0.0 and cur.grad.dtype == torch.float32
+    fused.reset_launch_counts()
+    with torch.no_grad():
+        rec_scan.rec_lif_scan(cur, w, 0.9, 1.0, 10.0)
+    assert _launched() == {fused.KERNEL_REC: 1}
+
+
+def _wide_cfg(T=24, matmul_dtype="float32", widths=512):
+    import snnimageclassification_tpu_torch as tst
+
+    return tst.SNNConfig(input_size=784, output_size=10,
+                         n_hidden_neurons=widths, hidden_layer_type="ALIF",
+                         learn_beta=True, int_time_steps=T,
+                         matmul_dtype=matmul_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_wide_model_dispatch_and_launches(card, matmul_dtype):
+    """784-ALIF512-10: no fused gate takes it; ``explain_dispatch`` names
+    the encode and scan kernels; inference launches each forward once, a
+    training step each of the four once, and the step's gradients agree
+    with the per-step loop's (``use_kernels=False``) within 1e-4 of
+    max|g| (bf16 2**-6)."""
+    import dataclasses
+
+    import snnimageclassification_tpu_torch as tst
+    from snnimageclassification_tpu_torch.models import snn as tsnn
+    from snnimageclassification_tpu_torch.train import Trainer
+
+    cfg = _wide_cfg(matmul_dtype=matmul_dtype)
+    enc = tst.EncodeConfig(n_steps=24)
+    assert [r["path"] for r in tsnn.explain_dispatch(cfg, enc)] == [
+        f"cuda:{fused.KERNEL_ENC}", f"cuda:{fused.KERNEL_REC}", "torch:loop"]
+    assert [r["path"] for r in tsnn.explain_dispatch(cfg, enc,
+                                                     training=True)] == [
+        f"cuda:{fused.KERNEL_ENC}+{fused.KERNEL_ENC_BWD}",
+        f"cuda:{fused.KERNEL_REC_TRAIN}+{fused.KERNEL_REC_BWD}", "torch:loop"]
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.random((32, 784), dtype=np.float32)).to(card)
+    y = torch.from_numpy(rng.integers(0, 10, 32)).to(card)
+    trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+    fused.reset_launch_counts()
+    with torch.no_grad():
+        logits = tsnn.forward_logits_pixels(cfg, trainer.params, x, enc)
+    assert _launched() == {fused.KERNEL_ENC: 1, fused.KERNEL_REC: 1}
+    assert bool(torch.isfinite(logits).all())
+    fused.reset_launch_counts()
+    _, grads = trainer.loss_and_grads(x, y)
+    assert _launched() == {fused.KERNEL_ENC: 1, fused.KERNEL_REC_TRAIN: 1,
+                           fused.KERNEL_REC_BWD: 1, fused.KERNEL_ENC_BWD: 1}
+    loop = Trainer(dataclasses.replace(cfg, use_kernels=False),
+                   params=trainer.params, encode_config=enc, device="cuda")
+    _, want = loop.loss_and_grads(x, y)
+    bar = 1e-4 if matmul_dtype == "float32" else 2.0 ** -6
+    for n in want:
+        for k, g in want[n].items():
+            scale = float(g.abs().max()) or 1.0
+            err = float((grads[n][k] - g).abs().max()) / scale
+            assert err <= bar, f"{n}.{k}: {err:.3g} of max|g|"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["flagship", "wide"])
+def test_server_launches_only_inference_kernels(card, wide):
+    """A server built from ``Trainer.params`` serves its own copy under
+    inference mode: each batch launches the inference kernels once
+    (``fused_head_fwd``; wide: ``encode_matmul_fwd`` + ``rec_scan_fwd``)
+    and no training kernel, and a later ``train_step`` does not move the
+    served logits."""
+    import snnimageclassification_tpu_torch as tst
+    from snnimageclassification_tpu_torch.train import Trainer
+
+    cfg = (_wide_cfg() if wide else tst.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=128,
+        hidden_layer_type="ALIF", learn_beta=True, int_time_steps=24))
+    enc = tst.EncodeConfig(n_steps=24)
+    trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+    rng = np.random.default_rng(5)
+    x = rng.random((64, 784), dtype=np.float32)
+    y = rng.integers(0, 10, 64)
+    with tst.InferenceServer(cfg, trainer.params, batch_size=64,
+                             encode_config=enc, device="cuda") as srv:
+        fused.reset_launch_counts()
+        before = srv.submit(x).result(timeout=120)
+        want = ({fused.KERNEL_ENC: 1, fused.KERNEL_REC: 1} if wide
+                else {fused.KERNEL: 1})
+        assert _launched() == want
+        trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        after = srv.submit(x).result(timeout=120)
+    assert np.array_equal(before, after)

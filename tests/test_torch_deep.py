@@ -243,13 +243,16 @@ def test_deep_explain_dispatch_rows():
     assert "encode + both hidden scans + readout + max in one call" in note
     assert "BPTT" in tsnn.explain_dispatch(three, enc, device="cpu",
                                            training=True)[1]["reason"]
-    # apply() without an encoding: the first layer loops, the rest are mid
-    # calls, the readout loops.
-    assert _rows(three) == [(n3[0], "torch:loop"), (n3[1], MID),
-                            (n3[2], MID), (n3[3], "torch:loop")]
-    # An encoding shorter than the simulation: layer 0 loops, the rest hold.
+    # apply() without an encoding: the first layer scans its currents (one
+    # product on the raster) in one call, the rest are mid calls, the
+    # readout loops.
+    rec = "torch:rec_scan_reference"
+    assert _rows(three) == [(n3[0], rec), (n3[1], MID), (n3[2], MID),
+                            (n3[3], "torch:loop")]
+    # An encoding shorter than the simulation: layer 0 scans its raster
+    # currents, the rest hold.
     short = tst.EncodeConfig(n_steps=T // 2)
-    assert _rows(three, short) == [(n3[0], "torch:loop"), (n3[1], MID),
+    assert _rows(three, short) == [(n3[0], rec), (n3[1], MID),
                                    ((n3[2], n3[3]), MID_HEAD)]
     # A temporal-filter readout has no head: every hidden layer is a call
     # of its own and the readout loops.

@@ -289,3 +289,41 @@ class TestForwardFnAndValidation:
         want = torch.softmax(torch.from_numpy(_oracle(cfg, params, x)),
                              dim=-1).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+class TestOwnParameters:
+    """The server keeps a copy of the parameters and serves without a
+    gradient, as the JAX server, whose arrays are immutable, does."""
+
+    def test_served_logits_do_not_follow_the_trainer(self, cfg):
+        from snnimageclassification_tpu_torch.train import Trainer
+
+        enc = tst.EncodeConfig(n_steps=cfg.int_time_steps)
+        trainer = Trainer(cfg, seed=0, encode_config=enc, device=CPU)
+        rng = np.random.default_rng(3)
+        x = _pixels(rng, 8)
+        y = rng.integers(0, N_O, 8)
+        seen = []
+
+        def forward(p, rows):
+            out = model_lib.forward_logits_pixels(cfg, p, rows, enc,
+                                                  device=CPU)
+            seen.append((torch.is_grad_enabled(), out.requires_grad))
+            return out
+
+        with _server(cfg, trainer.params, batch_size=8,
+                     forward_fn=forward) as srv:
+            assert all(
+                srv.params[n][k].data_ptr() != v.data_ptr()
+                and not srv.params[n][k].requires_grad
+                for n, g in trainer.params.items() for k, v in g.items())
+            before = srv.submit(x).result(timeout=60)
+            for _ in range(3):
+                trainer.train_step(x, y)
+            after = srv.submit(x).result(timeout=60)
+            with torch.no_grad():
+                moved = model_lib.forward_logits_pixels(
+                    cfg, trainer.params, x, enc, device=CPU).numpy()
+        np.testing.assert_array_equal(before, after)
+        assert not np.allclose(moved, before)  # the trainer did move
+        assert seen == [(False, False), (False, False)]
