@@ -125,6 +125,32 @@ Phases (any failure exits non-zero before the final line):
    versions' composition (the bars of 15), each kernel alone on the trained
    weights against its plain version, timed; 5 periodic steps (times,
    launches).
+17. scan kernels -- the feedforward scan's ``scan_fwd[_train]`` and
+   ``scan_bwd`` against their plain versions: LIF/ALIF x FastSigmoid/Phi,
+   T = 23, 24 and 100, B = 37, H = 19 and 45 (beta a float, then a device
+   tensor), f32 and bf16 (spikes equal, residuals 1e-5 / 2**-7, gradients
+   on the same residuals bit for bit for FastSigmoid and 2e-6 of max|g| for
+   Phi, equal bits twice), then B = 8192, T = 100 at H = 128, 256, 512 and
+   1024 (spikes equal on >= 99.5 % of rows, the same gradient bars); layer 0
+   of 784-ALIF256-10 through ``encode_matmul_fwd`` + ``scan_fwd`` against
+   ``fused_layer0_fwd`` on the same weights (>= 99.5 % of rows equal, TTFS
+   and periodic);
+18. ff serve -- 784-ALIF256-10 and 784-LIF128-10 (feedforward, T = 100,
+   ``scripts/run_baseline_configs.py`` configs #3 and #1) with
+   constant-pixel input (``as_timeseries=False``) served as in 4: results
+   bitwise a direct forward, one ``scan_fwd`` launch a batch and no other
+   kernel; on a served batch the spikes and logits against the plain
+   version's (the bars of 15); the kernel alone timed; for 784-LIF128-10
+   also ``forward_logits`` on a TTFS raster (4096, 100, 784), one
+   ``scan_fwd``;
+19. ff train -- both through ``Trainer`` at batch 8192, lr 1e-3: the first
+   step's gradients against the per-step loop's (1e-4 of max|g|, f32), 3
+   warm-up and 20 timed steps (finite falling loss, every trained leaf
+   moves, one ``scan_fwd_train`` and one ``scan_bwd`` launch a step), 3
+   steps through the per-step loop timed beside them, each kernel alone on
+   the trained weights against its plain version, timed; 784-ALIF256-10
+   also 5 steps with its own periodic encoding (the route
+   ``explain_dispatch`` names and its launches).
 
 Phase 3 also holds the deep-network kernels (``fused_layer0_fwd/bwd``,
 ``fused_mid_fwd/bwd``) against their plain versions: LIF/ALIF x ff/rec x
@@ -160,6 +186,7 @@ from snnimageclassification_tpu_torch.ops import (
     fused_mid,
     izh,
     rec_scan,
+    scan,
 )
 from snnimageclassification_tpu_torch.ops.cells import (
     ALIFConfig,
@@ -765,7 +792,8 @@ def serve_requests(label, cfg, params, enc, want_launches):
             for _ in range(N_THREADS * PER_THREAD)]
     results = [None] * len(reqs)
     with pt.InferenceServer(cfg, params, batch_size=4096, max_delay_s=0.05,
-                            input_dtype=np.uint8, device="cuda") as srv:
+                            encode_config=enc, input_dtype=np.uint8,
+                            device="cuda") as srv:
         srv.submit(reqs[0]).result(timeout=120)  # warm: allocator, streams
         warm_batches = srv.stats.batches
 
@@ -2970,6 +2998,460 @@ def phase_wide_train(matmul_dtype: str) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-19: feedforward layers on the feedforward scan (784-ALIF256-10,
+# 784-LIF128-10) with constant-pixel input
+# ---------------------------------------------------------------------------
+FF_TIMED = 20
+SCAN_SITE = ("scan.cu", "pallas_scan.py:280")
+SCAN_BWD_SITE = ("scan.cu", "pallas_scan.py:314")
+# scripts/run_baseline_configs.py: config #3's network (784 -> ALIF-256 ->
+# 10, :70-77) and config #1's (784 -> LIF-128 -> 10, :54-61), both
+# feedforward, T = 100, FastSigmoid, learn_beta=False.
+FF_NETS = {"ff-a": (pt.LayerType.ALIF, 256), "ff-l": (pt.LayerType.LIF, 128)}
+SCAN_CASES = [("alif-fs", True, FS), ("alif-phi", True, PHI),
+              ("lif-fs", False, FS), ("lif-phi", False, PHI)]
+
+
+def ff_cfg(net, matmul_dtype, use_kernels=True):
+    kind, hidden = FF_NETS[net]
+    return pt.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=hidden,
+        hidden_layer_type=kind, use_recurrent_connection=False,
+        learn_beta=False, int_time_steps=100, matmul_dtype=matmul_dtype,
+        use_kernels=use_kernels)
+
+
+def cuda_randn(shape, seed, mean=0.0, std=1.0, dtype=torch.float32):
+    """mean + std N(0, 1) drawn on the card (a (T, B, H) trace at B = 8192
+    takes seconds to draw with numpy)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (mean + std * torch.randn(shape, generator=g, device="cuda")
+            ).to(dtype)
+
+
+def ff_layer_args(cfg, params):
+    """(beta, alif, alpha, rho, threshold) of layer 0 as the dispatch
+    passes them (the scan wrappers' order), and its config."""
+    (n0, c0), _ = cfg.layer_configs
+    alif, beta, rho = model_lib._beta_rho(c0, params[n0])
+    return (beta, alif, c0.alpha, rho, c0.threshold), c0
+
+
+def ff_currents(cfg, params, x):
+    """Layer 0's currents (T, B, H) as ``apply`` computes them for
+    constant-pixel input: the pixels repeated over T (``format_inputs``),
+    one product in the matmul dtype with float32 sums."""
+    md = getattr(torch, cfg.matmul_dtype_eff)
+    xs = model_lib.format_inputs(cfg, x)
+    w = params[cfg.layer_configs[0][0]]["w_in"].detach()
+    if md == torch.float32:
+        cur = xs @ w
+    else:
+        cur = xs.to(md).to(torch.float32) @ w.to(md).to(torch.float32)
+    return cur.transpose(0, 1).contiguous()
+
+
+def scan_work(T, B, H, itemsize, n_res, backward):
+    """(bytes, operations) of a scan kernel: forward the currents read
+    (float32) and z and ``n_res`` residual traces written, ~10 operations
+    a (row, step, unit); backward g_z, z and the residuals read, g_i
+    (float32) written, ~12 operations a (row, step, unit)."""
+    n = T * B * H
+    if backward:
+        return n * (itemsize * (2 + n_res) + 4) + 4, 12 * n
+    return n * (4 + itemsize * (1 + n_res)) + 4, 10 * n
+
+
+def scan_bar(spike):
+    """``scan_bwd`` against its plain version on the same residuals, of
+    max|g|, at any shape and trace dtype (both read the same stored values
+    and compute in float32): FastSigmoid 0, bit for bit, since both round
+    the same operations in the same order; Phi 2e-6, the one-ulp
+    differences of the two ``exp``s (measured <= 1.9e-7 on the H100)."""
+    return 0.0 if spike == FS else 2e-6
+
+
+def check_scan(label, B, H, T, alif, spike, md, full, beta_tensor, seed):
+    """``scan_fwd[_train]`` against the plain version fed the same currents
+    (0.3 + 0.6 N(0, 1)): inference spikes the training kernel's bit for
+    bit, spikes equal on every row small (>= 99.5 % of rows at full
+    width), residuals 1e-5 (bf16 2**-7) on the equal rows; ``scan_bwd`` on
+    the training kernel's residuals (``scan_bar``, equal bits twice).
+    Returns (share of equal rows, residual error, gradient error, firing
+    share)."""
+    alpha, rho, thr, gamma = layer_scalars(alif)
+    beta = 1.6 if alif else 0.0
+    if beta_tensor:
+        beta = torch.tensor(beta, device="cuda")
+    store_a = fused._stores_a(alif, spike)
+    res_is_v = fused._residual_is_v(alif, spike)
+    cur = cuda_randn((T, B, H), seed, 0.3, 0.6)
+    fwd = (cur, beta, alif, alpha, rho, thr)
+    z, res, a_tr = scan._fwd_cuda(*fwd, True, store_a, res_is_v, md)
+    z_inf = scan._fwd_cuda(*fwd, False, False, False, md)[0]
+    zp, resp, ap = scan._fwd_reference(*fwd, True, store_a, res_is_v, md)
+    torch.cuda.synchronize()
+    if not torch.equal(z, z_inf):
+        fail(f"{label}: inference and training spikes differ")
+    same = (z == zp).all(dim=2).all(dim=0)
+    share = float(same.float().mean())
+    rate = float(z.float().mean())
+    if not 0.02 < rate < 0.6:
+        fail(f"{label}: firing rate {rate:.3f} out of range")
+    if share < (0.995 if full else 1.0):
+        fail(f"{label}: spikes equal on {share:.4f} of rows")
+    res_err = 0.0
+    tol = 1e-5 if md == torch.float32 else 2.0 ** -7
+    for got, want in ((res, resp), (a_tr, ap)):
+        if (got is None) != (want is None):
+            fail(f"{label}: residual set differs")
+        if got is None:
+            continue
+        g_, w_ = got[:, same].float(), want[:, same].float()
+        res_err = max(res_err, float((g_ - w_).abs().max()))
+        if not torch.allclose(g_, w_, atol=tol, rtol=tol):
+            fail(f"{label}: residuals differ by {res_err:.3g}")
+    del zp, resp, ap, z_inf, cur
+    g_z = cuda_randn((T, B, H), seed + 1, std=1.0 / B, dtype=md)
+    bw = (g_z, z, res, a_tr, res_is_v, beta, alpha, thr, gamma, spike)
+    gerr = check_grads(f"{label} backward",
+                       lambda: (scan._bwd_cuda(*bw),),
+                       lambda: (scan._bwd_reference(*bw),),
+                       scan_bar(spike))
+    return share, res_err, gerr, rate
+
+
+def ff_layer0_cross_check(md) -> None:
+    """Layer 0 of 784-ALIF256-10 (784-LIF128-10 where ``fused_supported``
+    refuses 784 -> 256) on the same latencies and weights through
+    ``encode_matmul_fwd`` + ``scan_fwd`` and through ``fused_layer0_fwd``:
+    both sum W_in's rows of the set inputs in ascending order and step
+    ``LifCell``, so their spikes agree; gated at >= 99.5 % of rows, TTFS
+    and periodic, B = 8192."""
+    tag = "f32" if md == torch.float32 else "bf16"
+    for net in FF_NETS:
+        if fused.fused_supported(100, 784, FF_NETS[net][1], recurrent=False,
+                                 itemsize=md.itemsize, device="cuda"):
+            break
+    else:
+        fail("scan-kernels: fused_layer0_fwd takes neither feedforward net")
+    cfg = ff_cfg(net, "float32" if md == torch.float32 else "bfloat16")
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    (beta, alif, alpha, rho, thr), _ = ff_layer_args(cfg, params)
+    w0 = params["input"]["w_in"].to(md).contiguous()
+    x = synthetic_task(1)[0][0]
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    for per in (False, True):
+        cur = encode._fwd_cuda(lat, w0, 100, per)
+        z = scan._fwd_cuda(cur, beta, alif, alpha, rho, thr, False, False,
+                           False, md)[0]
+        z0 = fused._layer0_cuda(lat, w0, None, beta, 100, per, alif, alpha,
+                                rho, thr, False, False, False)[0]
+        torch.cuda.synchronize()
+        share, rate = rows_equal(z, z0), float(z0.float().mean())
+        log(f"[scan-kernels] {net} layer 0 {tag} periodic={per}: "
+            f"encode_matmul_fwd + scan_fwd against fused_layer0_fwd, spikes "
+            f"equal on {share:.4f} of rows ({rate:.4f} of unit-steps fire)")
+        if share < 0.995:
+            fail(f"scan-kernels: {net} layer 0 {tag} periodic={per}: the "
+                 f"composed kernels disagree with fused_layer0_fwd")
+        del cur, z, z0
+    torch.cuda.empty_cache()
+
+
+def phase_scan_kernels() -> None:
+    """Phase 17: ``scan_fwd[_train]`` and ``scan_bwd`` against their plain
+    versions: LIF/ALIF x FastSigmoid/Phi, T = 23, 24 and 100, B = 37 with
+    H = 19 (beta a float) and 45 (beta a device tensor), f32 and bf16; at
+    B = 8192, T = 100: ALIF FastSigmoid H = 256, LIF H = 128, ALIF Phi
+    H = 512 (f32 and bf16) and ALIF H = 1024 (f32); then layer 0 of the
+    feedforward nets through ``encode_matmul_fwd`` + ``scan_fwd`` against
+    ``fused_layer0_fwd``."""
+    worst = {"res": 0.0, "g": 0.0}
+    n, seed = 0, 170
+    for md in (torch.float32, torch.bfloat16):
+        tag = "f32" if md == torch.float32 else "bf16"
+        for T in (23, 24, 100):
+            for name, alif, spike in SCAN_CASES:
+                for H, bt in ((19, False), (45, True)):
+                    seed += 2
+                    _, r, g, _ = check_scan(
+                        f"scan-kernels {name} {tag} T={T} H={H}", 37, H, T,
+                        alif, spike, md, False, bt, seed)
+                    worst["res"], worst["g"] = (max(worst["res"], r),
+                                                max(worst["g"], g))
+                    n += 1
+    log(f"[scan-kernels] {n} small cases ok: spikes equal, residuals <= "
+        f"{worst['res']:.3g}, gradients <= {worst['g']:.3g} of max|g|")
+    full = [(torch.float32, True, FS, 256, False),
+            (torch.float32, False, FS, 128, False),
+            (torch.float32, True, PHI, 512, True),
+            (torch.bfloat16, True, FS, 256, False),
+            (torch.bfloat16, False, FS, 128, False),
+            (torch.bfloat16, True, PHI, 512, True),
+            (torch.float32, True, FS, 1024, False)]
+    for md, alif, spike, H, bt in full:
+        tag = "f32" if md == torch.float32 else "bf16"
+        what = (f"{'ALIF' if alif else 'LIF'} "
+                f"{'FastSigmoid' if spike == FS else 'Phi'} B={TRAIN_B} "
+                f"H={H} T=100 {tag}")
+        seed += 2
+        share, r, g, rate = check_scan(f"scan-kernels {what}", TRAIN_B, H,
+                                       100, alif, spike, md, True, bt, seed)
+        log(f"[scan-kernels] {what}: spikes equal on {share:.4f} of rows, "
+            f"residuals err {r:.3g}, gradients err {g:.3g} of max|g| "
+            f"({rate:.4f} of unit-steps fire)")
+        torch.cuda.empty_cache()
+    for md in (torch.float32, torch.bfloat16):
+        ff_layer0_cross_check(md)
+
+
+def phase_ff_serve(net: str, matmul_dtype: str) -> list:
+    """Phase 18: a feedforward net with constant-pixel input
+    (``as_timeseries=False``) served as in phase 4 at batch 4096: results
+    bitwise a direct forward, one ``scan_fwd`` launch a batch and no other
+    kernel (the readout's per-step loop stays); on a served batch the
+    spikes equal the plain version's on >= 99.5 % of rows and the logits
+    of the plain version's composition within 1e-4 of max|logit| on >= 99
+    %; the kernel alone timed beside its plain version; for 784-LIF128-10
+    also ``forward_logits`` on a TTFS spike raster (4096, 100, 784), one
+    ``scan_fwd`` launch."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"ff-serve {net} {tag}"
+    md = getattr(torch, matmul_dtype)
+    cfg = ff_cfg(net, matmul_dtype)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps, as_timeseries=False)
+    paths = [r["path"] for r in model_lib.explain_dispatch(cfg, enc)]
+    if paths != [f"cuda:{fused.KERNEL_SCAN}", "torch:loop"]:
+        fail(f"{label}: dispatch is {paths}")
+    reqs, launches = serve_requests(label, cfg, params, enc,
+                                    {fused.KERNEL_SCAN: 1})
+    batch = np.concatenate(reqs[:4096 // ROWS])
+    x = torch.from_numpy(batch).cuda().to(torch.float32) / 255.0
+    sc, _ = ff_layer_args(cfg, params)
+    cur = ff_currents(cfg, params, x)
+    T, B, H = cur.shape
+    z = scan._fwd_cuda(cur, *sc, False, False, False, md)[0]
+    zp = scan._fwd_reference(cur, *sc, False, False, False, md)[0]
+    torch.cuda.synchronize()
+    rows = rows_equal(z, zp)
+    rate = float(z.float().mean())
+    with torch.no_grad():
+        logits = model_lib.forward_logits_pixels(cfg, params, x, enc,
+                                                 device="cuda")
+        trace, _ = model_lib.apply(cfg, params, None, first_layer_output=zp,
+                                   device="cuda")
+        plain_logits = model_lib.prediction_logits(cfg, trace)
+    agree, close, lerr, scale = compare_flagship(logits, plain_logits)
+    log(f"[{label}] served batch: hidden spikes equal the plain version's on "
+        f"{rows:.4f} of rows ({rate:.4f} of unit-steps fire); logits vs the "
+        f"plain version's composition argmax_agree={agree:.4f} "
+        f"rows_within_1e-4max={close:.4f} max_abs_err={lerr:.3g} "
+        f"max|logit|={scale:.3g}")
+    if rows < 0.995 or close < 0.99 or agree < 0.995:
+        fail(f"{label}: the kernel disagrees with its plain version")
+    del zp, trace
+    ms = cuda_ms(lambda: scan._fwd_cuda(cur, *sc, False, False, False, md),
+                 25)
+    plain_ms = cuda_ms(lambda: scan._fwd_reference(cur, *sc, False, False,
+                                                   False, md), 5, warmup=1)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model_lib.forward_logits_pixels(
+            cfg, params, x, enc, device="cuda"), 5)
+    log(f"[{label}] per 4096-row batch: forward_logits_pixels {fwd_ms:.4f} "
+        f"ms = {B / fwd_ms * 1e3:.1f} img/s, of it {fused.KERNEL_SCAN} "
+        f"{ms:.4f} ms, the rest the input product and the readout's "
+        f"per-step loop [{card_line()}]")
+    if net == "ff-l":
+        lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+        spikes = raster(lat, T, False, torch.float32).view(T, B, -1)
+        spikes = spikes.transpose(0, 1)
+        with torch.no_grad():
+            fused.reset_launch_counts()
+            r_logits = model_lib.forward_logits(cfg, params, spikes)
+            torch.cuda.synchronize()
+            got = launched(fused.launch_counts())
+            if got != {fused.KERNEL_SCAN: 1}:
+                fail(f"{label}: forward_logits on a raster launched {got}")
+            if not bool(torch.isfinite(r_logits).all()):
+                fail(f"{label}: non-finite logits on a raster")
+            r_ms = cuda_ms(lambda: model_lib.forward_logits(cfg, params,
+                                                            spikes), 5)
+        log(f"[{label}] forward_logits on a TTFS raster {tuple(spikes.shape)}"
+            f": {r_ms:.4f} ms = {B / r_ms * 1e3:.1f} img/s, one "
+            f"{fused.KERNEL_SCAN} launch [{card_line()}]")
+        del spikes
+    nb, no = scan_work(T, B, H, md.itemsize, 0, False)
+    row = kernel_row(label, f"{fused.KERNEL_SCAN}[{net}-{tag}]", SCAN_SITE,
+                     launches[fused.KERNEL_SCAN], lerr, ms, plain_ms, nb, no,
+                     md)
+    del cur, z
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def expected_launches(paths, n):
+    """{kernel: n} for every CUDA kernel that ``explain_dispatch``'s paths
+    name (``cuda:fwd+bwd[mode]``)."""
+    out = {}
+    for p in paths:
+        if p.startswith("cuda:"):
+            for k in p[5:].split("[")[0].split("+"):
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def phase_ff_train(net: str, matmul_dtype: str) -> list:
+    """Phase 19: a feedforward net with constant-pixel input through
+    ``Trainer`` at batch 8192, lr 1e-3: the first step's gradients against
+    the per-step loop's (``use_kernels=False``; gated 1e-4 of max|g| in
+    f32), 3 warm-up and FF_TIMED timed steps (finite falling loss, every
+    trained leaf moves, one ``scan_fwd_train`` and one ``scan_bwd`` launch
+    a step and no other kernel), three steps through the per-step loop
+    (the parent commit's route) timed beside them; each kernel alone on
+    batch 0 with the trained weights against its plain version (the
+    backward on the forward kernel's residuals), timed; for 784-ALIF256-10
+    also 5 steps with its own periodic encoding (the route
+    ``explain_dispatch`` names, its launches and times)."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    label = f"ff-train {net} {tag}"
+    md = getattr(torch, matmul_dtype)
+    cfg = ff_cfg(net, matmul_dtype)
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps, as_timeseries=False)
+    paths = [r["path"] for r in model_lib.explain_dispatch(
+        cfg, enc, device="cuda", training=True)]
+    if paths != [f"cuda:{fused.KERNEL_SCAN_TRAIN}+{fused.KERNEL_SCAN_BWD}",
+                 "torch:loop"]:
+        fail(f"{label}: dispatch is {paths}")
+    batches = synthetic_task(4)
+    x, y = batches[0]
+
+    # The first step's gradients against the per-step loop's, same init.
+    grads = {}
+    for name, c in (("kernels", cfg), ("loop", ff_cfg(net, matmul_dtype,
+                                                      False))):
+        t = Trainer(c, seed=0, encode_config=enc, device="cuda")
+        _, g = t.loss_and_grads(x, y)
+        grads[name] = [g[n][k] for n in g for k in g[n]]
+        del t, g
+    loop_err = grad_error(grads["kernels"], grads["loop"])
+    del grads
+    torch.cuda.empty_cache()
+    log(f"[{label}] first step's gradients vs the per-step loop: "
+        f"{loop_err:.3g} of max|g|")
+    if md == torch.float32 and loop_err > 1e-4:
+        fail(f"{label}: the first step's gradients differ from the loop's")
+
+    trainer = Trainer(cfg, seed=0, lr=1e-3, weight_decay=1e-5,
+                      encode_config=enc, device="cuda")
+    before = {n: {k: v.detach().clone() for k, v in g.items()}
+              for n, g in trainer.params.items()}
+    a_step = {fused.KERNEL_SCAN_TRAIN: 1, fused.KERNEL_SCAN_BWD: 1}
+    warm, _ = timed_steps(trainer, batches, WARMUP)
+    fused.reset_launch_counts()
+    timed, seconds = timed_steps(trainer, batches, FF_TIMED, start=WARMUP)
+    launches = fused.launch_counts()
+    losses = [float(v) for v in warm + timed]
+    log(f"[{label}] losses={[round(v, 3) for v in losses]}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite loss {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
+    if launched(launches) != {k: n * FF_TIMED for k, n in a_step.items()}:
+        fail(f"{label}: launches {launches} in {FF_TIMED} steps")
+    for n, g in trainer.params.items():
+        for k, v in g.items():
+            if torch.equal(v, before[n][k]):
+                fail(f"{label}: {n}.{k} did not change")
+    step_ms = seconds / FF_TIMED * 1e3
+    loop = Trainer(ff_cfg(net, matmul_dtype, False), seed=0, lr=1e-3,
+                   weight_decay=1e-5, encode_config=enc, device="cuda")
+    timed_steps(loop, batches, 1)
+    _, loop_s = timed_steps(loop, batches, 3, start=1)
+    del loop
+    log(f"[{label}] {FF_TIMED} steps of {TRAIN_B}: {step_ms:.3f} ms a step "
+        f"= {TRAIN_B * FF_TIMED / seconds:.1f} img/s (the per-step loop: "
+        f"{loop_s / 3 * 1e3:.3f} ms a step = {TRAIN_B * 3 / loop_s:.1f} "
+        f"img/s); loss first5={first:.4f} last5={last:.4f}; launches="
+        f"{json.dumps(launched(launches))} [{card_line()}]")
+
+    # Each kernel alone on batch 0 with the trained weights.
+    sc, c0 = ff_layer_args(cfg, trainer.params)
+    alif = sc[1]
+    store_a = fused._stores_a(alif, c0.spike_func)
+    res_is_v = fused._residual_is_v(alif, c0.spike_func)
+    cur = ff_currents(cfg, trainer.params, x)
+    T, B, H = cur.shape
+    z, res, a_tr = scan._fwd_cuda(cur, *sc, True, store_a, res_is_v, md)
+    zp, resp, _ = scan._fwd_reference(cur, *sc, True, store_a, res_is_v, md)
+    same = (z == zp).all(dim=2).all(dim=0)
+    rows = float(same.float().mean())
+    res_err = float((res[:, same].float() - resp[:, same].float())
+                    .abs().max())
+    rate = float(z.float().mean())
+    del zp, resp
+    if rows < 0.995:
+        fail(f"{label}: spikes equal on {rows:.4f} of rows")
+    g_z = cuda_randn((T, B, H), 19, std=1.0 / B, dtype=md)
+    bw = (g_z, z, res, a_tr, res_is_v, sc[0], c0.alpha, c0.threshold,
+          c0.gamma, c0.spike_func)
+    g_err = check_grads(f"{label} scan backward",
+                        lambda: (scan._bwd_cuda(*bw),),
+                        lambda: (scan._bwd_reference(*bw),),
+                        scan_bar(c0.spike_func))
+    log(f"[{label}] kernels alone on batch 0: spikes equal on {rows:.4f} of "
+        f"rows, residual err {res_err:.3g}, scan_bwd {g_err:.3g} of max|g| "
+        f"({rate:.4f} of unit-steps fire)")
+    t_f = cuda_ms(lambda: scan._fwd_cuda(cur, *sc, True, store_a, res_is_v,
+                                         md), 10)
+    t_f_p = cuda_ms(lambda: scan._fwd_reference(cur, *sc, True, store_a,
+                                                res_is_v, md), 3, 1)
+    t_b = cuda_ms(lambda: scan._bwd_cuda(*bw), 10)
+    t_b_p = cuda_ms(lambda: scan._bwd_reference(*bw), 3, 1)
+    n_res = 1 + int(a_tr is not None)
+    fb, fo = scan_work(T, B, H, md.itemsize, n_res, False)
+    bb, bo = scan_work(T, B, H, md.itemsize, n_res, True)
+    out = [
+        kernel_row(label, f"{fused.KERNEL_SCAN_TRAIN}[{net}-{tag}]",
+                   SCAN_SITE, launches[fused.KERNEL_SCAN_TRAIN], res_err,
+                   t_f, t_f_p, fb, fo, md),
+        kernel_row(label, f"{fused.KERNEL_SCAN_BWD}[{net}-{tag}]",
+                   SCAN_BWD_SITE, launches[fused.KERNEL_SCAN_BWD], g_err,
+                   t_b, t_b_p, bb, bo, md)]
+    del cur, z, res, a_tr, g_z, bw, trainer
+    torch.cuda.empty_cache()
+
+    if net == "ff-a":
+        # Its own periodic encoding: the route the dispatch names.
+        enc_p = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
+        rows_p = model_lib.explain_dispatch(cfg, enc_p, device="cuda",
+                                            training=True)
+        log(f"[{label}] periodic encoding, explain_dispatch(training=True): "
+            f"{json.dumps(rows_p)}")
+        periodic = Trainer(cfg, seed=0, encode_config=enc_p, device="cuda")
+        timed_steps(periodic, batches, 1)
+        fused.reset_launch_counts()
+        plosses, pseconds = timed_steps(periodic, batches, 5)
+        got = launched(fused.launch_counts())
+        want = expected_launches([r["path"] for r in rows_p], 5)
+        if got != want:
+            fail(f"{label}: periodic launches {got}, expected {want}")
+        if not all(np.isfinite([float(v) for v in plosses])):
+            fail(f"{label}: non-finite loss with periodic encoding")
+        log(f"[{label}] periodic 5 steps of {TRAIN_B}: "
+            f"{pseconds / 5 * 1e3:.3f} ms a step = "
+            f"{TRAIN_B * 5 / pseconds:.1f} img/s; launches={json.dumps(got)}"
+            f" [{card_line()}]")
+        del periodic
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3017,6 +3499,13 @@ def main() -> int:
         run(f"15 wide serve {md}", phase_wide_serve, md)
     for md in both:
         run(f"16 wide train {md}", phase_wide_train, md)
+    run("17 scan kernels", phase_scan_kernels)
+    for net in FF_NETS:
+        for md in both:
+            run(f"18 ff serve {net} {md}", phase_ff_serve, net, md)
+    for net in FF_NETS:
+        for md in both:
+            run(f"19 ff train {net} {md}", phase_ff_train, net, md)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

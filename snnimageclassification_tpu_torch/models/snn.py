@@ -24,15 +24,19 @@ Three paths compute the logits:
   Izhikevich layer past the first scans its ``z_in @ W_in`` currents in one
   call (ops/izh.py ``izh_scan``); a layer no kernel covers (a shape past
   the limits) takes the unfused tier or the loop below in its place;
-* the unfused tier, for layers too wide for those kernels' shared memory:
-  a first layer's currents from the latencies in one call
-  (ops/encode.py ``encoded_input_matmul``), a later layer's in one
-  ``torch.matmul``, then a recurrent LIF/ALIF layer's scan in one call
-  (ops/rec_scan.py ``rec_{alif,lif}_scan``; Izhikevich: ``izh_scan``);
+* the unfused tier, for layers too wide for those kernels' shared memory
+  and for currents that come from a product (spike rasters, constant-pixel
+  input, an encoding shorter than the simulation): a first layer's
+  currents from the latencies in one call (ops/encode.py
+  ``encoded_input_matmul``) or, from a raster, in one ``torch.matmul``, a
+  later layer's in one ``torch.matmul``, then the layer's scan over them in
+  one call (ops/rec_scan.py ``rec_{alif,lif}_scan`` for a recurrent
+  LIF/ALIF layer, ops/scan.py ``{alif,lif}_scan`` for a feedforward one;
+  Izhikevich: ``izh_scan``);
 * everything else: :func:`apply`, a per-layer time loop (the reference's
   layer-then-time order, snn.py:209-214), then
-  :func:`prediction_logits`.  On the card a config that gates off a
-  kernel says so in the log, once per config.
+  :func:`prediction_logits`; the readout always loops.  On the card a
+  config that gates off a kernel says so in the log, once per config.
 
 The entry points take ``device`` ("cuda" by default); without CUDA they
 raise unless ``device="cpu"`` is passed.
@@ -79,6 +83,9 @@ from ..ops.fused import (
     KERNEL_REC,
     KERNEL_REC_BWD,
     KERNEL_REC_TRAIN,
+    KERNEL_SCAN,
+    KERNEL_SCAN_BWD,
+    KERNEL_SCAN_TRAIN,
     KERNEL_TRAIN,
     fused_encode_ff_scan,
     fused_encode_ff_scan_head,
@@ -114,6 +121,7 @@ from ..ops.fused_mid import (
 )
 from ..ops.izh import izh_kernel_params, izh_scan, izh_scan_supported
 from ..ops.rec_scan import rec_alif_scan, rec_lif_scan, rec_scan_supported
+from ..ops.scan import alif_scan, lif_scan, scan_supported
 from ..ops.temporal import batchwise_temporal_filter, temporal_max
 from .config import ReadoutMth, SNNConfig
 
@@ -236,8 +244,8 @@ def apply(cfg: SNNConfig, params: Params, inputs, *,
     and scan together, ops/fused_mid.py) unless hidden traces or an
     initial state are asked for; every other layer computes its input
     currents for all steps in one matmul, then scans them in one call
-    (:func:`_layer_scan`: a recurrent LIF/ALIF or an Izhikevich layer, on
-    the same conditions) or loops over time.
+    (:func:`_layer_scan`: a LIF/ALIF or an Izhikevich layer, on the same
+    conditions) or loops over time (the readout always does).
     ``first_layer_output`` is layer 0's time-major spike trace ``(T, B,
     H0)`` computed upstream, ``first_layer_currents`` its time-major input
     currents ``(T, B, H0)`` (``inputs`` is then ignored).  Returns
@@ -414,24 +422,25 @@ def _layer_scan_fusible(cfg: SNNConfig, lcfg, return_hidden: bool,
                         device: torch.device, training: bool = False) -> bool:
     """Scan this layer's precomputed currents in one call (the JAX package's
     ``_pallas_layer_eligible``)?  An Izhikevich layer as
-    :func:`_izh_layer_fusible`; a recurrent LIF/ALIF layer with no hidden
-    traces and a shape ``rec_scan_supported`` covers on ``device``.  A
-    feedforward LIF/ALIF layer keeps the loop: its scan kernel
-    (``pallas_scan``) is not ported yet."""
+    :func:`_izh_layer_fusible`; a LIF/ALIF layer with no hidden traces and
+    a shape ``rec_scan_supported`` (recurrent) or ``scan_supported``
+    (feedforward) covers on ``device``."""
     if type(lcfg) is IzhikevichConfig:
         return _izh_layer_fusible(cfg, lcfg, return_hidden, device, training)
-    if (return_hidden or type(lcfg) not in (LIFConfig, ALIFConfig)
-            or not lcfg.use_recurrent_connection):
+    if return_hidden or type(lcfg) not in (LIFConfig, ALIFConfig):
         return False
-    if not _kernels_on(cfg, device, "recurrent scan"):
+    rec = lcfg.use_recurrent_connection
+    kind = "recurrent scan" if rec else "feedforward scan"
+    if not _kernels_on(cfg, device, kind):
         return False
-    ok = rec_scan_supported(
+    supported = rec_scan_supported if rec else scan_supported
+    ok = supported(
         cfg.int_time_steps, lcfg.output_size,
         itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=device,
         training=training)
     if not ok and device.type == "cuda":
         _log_fused_fallback(
-            "recurrent scan", "shape exceeds the kernel's limits",
+            kind, "shape exceeds the kernel's limits",
             n_steps=cfg.int_time_steps, hidden=lcfg.output_size,
             matmul_dtype=cfg.matmul_dtype_eff, training=training)
     return ok
@@ -441,16 +450,27 @@ def _layer_scan(cfg: SNNConfig, lcfg, lparams, currents: torch.Tensor,
                 w_rec_eff) -> torch.Tensor:
     """One layer's scan over its currents ``(T, B, H)`` (the JAX package's
     ``_pallas_layer_scan``): ``izh_scan`` for Izhikevich,
-    ``rec_{alif,lif}_scan`` for a recurrent LIF/ALIF layer.  Spikes come
-    back in the matmul dtype (``W_rec``'s)."""
+    ``rec_{alif,lif}_scan`` for a recurrent LIF/ALIF layer,
+    ``{alif,lif}_scan`` for a feedforward one.  LIF/ALIF spikes come back
+    in the matmul dtype (``W_rec``'s; the feedforward scan is given it)."""
     w_rec = None if w_rec_eff is None else w_rec_eff.contiguous()
     if type(lcfg) is IzhikevichConfig:
         return izh_scan(currents, w_rec, izh_kernel_params(lcfg), lcfg.gamma,
                         lcfg.spike_func)
+    # Under matmul_dtype=bfloat16 the traces are stored in bf16 (spikes
+    # exact); the feedforward scan has no W_rec to carry the type.
+    trace_dtype = cfg.matmul_dtype_eff
     if type(lcfg) is ALIFConfig:
         beta = lparams["beta"] if lcfg.learn_beta else lcfg.beta
+        if w_rec is None:
+            return alif_scan(currents, beta, lcfg.alpha, lcfg.rho,
+                             lcfg.threshold, lcfg.gamma, lcfg.spike_func,
+                             trace_dtype)
         return rec_alif_scan(currents, w_rec, beta, lcfg.alpha, lcfg.rho,
                              lcfg.threshold, lcfg.gamma, lcfg.spike_func)
+    if w_rec is None:
+        return lif_scan(currents, lcfg.alpha, lcfg.threshold, lcfg.gamma,
+                        lcfg.spike_func, trace_dtype)
     return rec_lif_scan(currents, w_rec, lcfg.alpha, lcfg.threshold,
                         lcfg.gamma, lcfg.spike_func)
 
@@ -920,8 +940,10 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     up to two rows: ``cuda:encode_matmul_fwd`` (a first layer's currents
     from the latencies; ``+encode_matmul_bwd`` training) and
     ``cuda:rec_scan_fwd`` (a recurrent LIF/ALIF layer's scan over its
-    currents; ``cuda:rec_scan_fwd_train+rec_scan_bwd`` training), on the
-    CPU ``torch:encode_matmul_reference`` and ``torch:rec_scan_reference``.
+    currents; ``cuda:rec_scan_fwd_train+rec_scan_bwd`` training) or
+    ``cuda:scan_fwd`` (a feedforward one's; ``cuda:scan_fwd_train+scan_bwd``
+    training), on the CPU ``torch:encode_matmul_reference``,
+    ``torch:rec_scan_reference`` and ``torch:scan_reference``.
     ``torch:loop`` is the per-step loop.  It fires the same fallback logs
     the real dispatch would."""
     dev = resolve_device(device)
@@ -1012,9 +1034,12 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             if type(lcfg) is IzhikevichConfig:
                 kernels = (KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
                            "izh_scan_reference")
-            else:
+            elif lcfg.use_recurrent_connection:
                 kernels = (KERNEL_REC_TRAIN if training else KERNEL_REC,
                            KERNEL_REC_BWD, "rec_scan_reference")
+            else:
+                kernels = (KERNEL_SCAN_TRAIN if training else KERNEL_SCAN,
+                           KERNEL_SCAN_BWD, "scan_reference")
             entries.append({
                 "layer": name,
                 "path": path(*kernels),
@@ -1024,11 +1049,6 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             continue
         if type(lcfg) is ReadoutConfig and cfg.use_kernels:
             reason = "readout layer (consumed by prediction_logits)"
-        elif (type(lcfg) in (LIFConfig, ALIFConfig)
-              and not lcfg.use_recurrent_connection
-              and loop_reason.startswith("no CUDA")):
-            reason = ("feedforward LIF/ALIF scan: its kernel "
-                      "(pallas_scan.py) is not ported yet")
         else:
             reason = loop_reason
         entries.append({"layer": name, "path": "torch:loop",

@@ -103,6 +103,10 @@ KERNEL_ENC_BWD = "encode_matmul_bwd"
 KERNEL_REC = "rec_scan_fwd"
 KERNEL_REC_TRAIN = "rec_scan_fwd_train"
 KERNEL_REC_BWD = "rec_scan_bwd"
+# The feedforward scan over currents (wrappers in ops/scan.py).
+KERNEL_SCAN = "scan_fwd"
+KERNEL_SCAN_TRAIN = "scan_fwd_train"
+KERNEL_SCAN_BWD = "scan_bwd"
 MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
 _counts_lock = threading.Lock()
 _launches = {k: 0 for k in (
@@ -111,7 +115,7 @@ _launches = {k: 0 for k in (
     KERNEL_IZH_TRAIN, KERNEL_IZH_BWD,
     KERNEL_IZH_L0, KERNEL_IZH_L0_BWD, KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
     KERNEL_ENC, KERNEL_ENC_BWD, KERNEL_REC, KERNEL_REC_TRAIN,
-    KERNEL_REC_BWD)}
+    KERNEL_REC_BWD, KERNEL_SCAN, KERNEL_SCAN_TRAIN, KERNEL_SCAN_BWD)}
 
 Beta = Union[float, torch.Tensor]
 

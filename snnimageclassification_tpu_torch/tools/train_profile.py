@@ -4,8 +4,11 @@ on the deep network 784 -> 128 -> 128 -> 96 -> 10 (same cell), with
 ``--twolayer`` on 784 -> 128 -> 128 -> 10 (``bench.py``'s twolayer leg, one
 kernel pair: ``fused2``), with ``--wide`` on 784 -> ALIF-512 -> 10 (the
 unfused tier: ``encode_matmul``, ``rec_scan`` and the readout's per-step
-loop), at batch 8192 on the synthetic prototype task ``chip_smoke.py``
-trains.  ``--izh`` takes
+loop), with ``--ff`` on 784 -> ALIF-256 -> 10 feedforward with
+constant-pixel input (``as_timeseries=False``: one product on the pixels
+repeated over T, the feedforward ``scan`` and the readout's per-step loop;
+with ``--periodic`` its own periodic encoding instead), at batch 8192 on
+the synthetic prototype task ``chip_smoke.py`` trains.  ``--izh`` takes
 the Izhikevich cell instead (784 -> Izhikevich-128 recurrent -> 10, with
 ``--deep`` 784 -> 128 -> 128 -> 10, dt = 30 where units fire), and
 ``--loop`` the per-step time loop (``use_kernels=False``) instead of the
@@ -14,7 +17,7 @@ kernels.
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.train_profile \
-        [--deep | --twolayer | --wide] [--izh] [--loop] \
+        [--deep | --twolayer | --wide | --ff] [--izh] [--loop] \
         [--matmul-dtype float32|bfloat16] \
         [--periodic] [--steps 10]
 
@@ -29,7 +32,8 @@ head mode is ``bwd_chain_kernel<.., true, ..>``, of a z-emitting layer
 launches), the device's busy and idle share of the window, and the card's
 name and power limit.  ``port_kernels_ms_per_step`` sums the kernels of
 ``csrc/``; ``other_kernels_ms_per_step`` is PyTorch's own (with ``--wide``
-mostly the readout's per-step loop, forward and backward).
+mostly the readout's per-step loop, forward and backward; with ``--ff``
+also the input product and its ``g_W``).
 """
 from __future__ import annotations
 
@@ -59,6 +63,9 @@ def main() -> None:
                     help="two hidden layers (128, 128), the fused2 pair")
     ap.add_argument("--wide", action="store_true",
                     help="one hidden layer of 512 (the unfused tier)")
+    ap.add_argument("--ff", action="store_true",
+                    help="one feedforward ALIF layer of 256 on constant-pixel "
+                         "input (the feedforward scan)")
     ap.add_argument("--izh", action="store_true",
                     help="Izhikevich layers at dt=30")
     ap.add_argument("--loop", action="store_true",
@@ -67,11 +74,13 @@ def main() -> None:
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA card")
-    if (ns.twolayer or ns.wide) and (ns.deep or ns.izh or
-                                     (ns.twolayer and ns.wide)):
-        raise SystemExit("--twolayer and --wide are ALIF networks of their "
-                         "own")
-    if ns.izh:
+    if sum((ns.twolayer, ns.wide, ns.ff, ns.deep or ns.izh)) > 1:
+        raise SystemExit("--twolayer, --wide and --ff are ALIF networks of "
+                         "their own")
+    if ns.ff:
+        cell = dict(hidden_layer_type=LayerType.ALIF, n_hidden_neurons=256,
+                    use_recurrent_connection=False)
+    elif ns.izh:
         cell = dict(hidden_layer_type=LayerType.Izhikevich, dt=30.0,
                     n_hidden_neurons=[128, 128] if ns.deep else 128)
     else:
@@ -82,7 +91,8 @@ def main() -> None:
     cfg = SNNConfig(input_size=784, output_size=10, int_time_steps=100,
                     matmul_dtype=ns.matmul_dtype, use_kernels=not ns.loop,
                     **cell)
-    enc = EncodeConfig(n_steps=100, use_periods=ns.periodic)
+    enc = EncodeConfig(n_steps=100, use_periods=ns.periodic,
+                       as_timeseries=not ns.ff or ns.periodic)
     trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
     rng = np.random.default_rng(3)
     protos = rng.random((10, 784), dtype=np.float32)
@@ -120,7 +130,7 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
         "deep": ns.deep, "twolayer": ns.twolayer, "wide": ns.wide,
-        "izh": ns.izh,
+        "ff": ns.ff, "izh": ns.izh,
         "loop": ns.loop,
         "matmul_dtype": ns.matmul_dtype,
         "periodic": ns.periodic,

@@ -44,6 +44,14 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   composed kernels (``fused_layer0_fwd`` + ``fused_mid_fwd[head]``); the
   public functions under autograd and the model's dispatch launch the pair
   once.
+* the feedforward scan (``scan_fwd[_train]``, ``scan_bwd``) at T = 23, 24
+  and 100, small and at B = 8192: spikes equal to the plain version's,
+  residuals 1e-5 (bf16 2**-7), the backward on the training kernel's
+  residuals within 2e-6 of max|g| (bf16 2**-7), equal
+  bits twice; 784-ALIF256-10 and 784-LIF128-10 on constant-pixel input
+  served (one ``scan_fwd`` a batch, bitwise a direct forward) and trained
+  (one ``scan_fwd_train`` and one ``scan_bwd`` a step, gradients against
+  the per-step loop's).
 """
 import numpy as np
 import pytest
@@ -1195,3 +1203,172 @@ def test_server_launches_only_inference_kernels(card, wide):
         torch.cuda.synchronize()
         after = srv.submit(x).result(timeout=120)
     assert np.array_equal(before, after)
+
+
+# ---------------------------------------------------------------------------
+# The feedforward scan (scan_fwd[_train], scan_bwd) and its models
+# ---------------------------------------------------------------------------
+def _scan_check(dev, B, H, T, alif, spike, wdtype, min_rows, beta_tensor):
+    """The forward kernels against the plain version fed the same currents
+    (0.3 + 0.6 N(0, 1); the share of rows with equal spikes at least
+    ``min_rows``; residuals 1e-5, bf16 one rounding) and the backward on
+    the training kernel's residuals (the same elementwise chain: 2e-6 of
+    max|g| at any T, bf16 2**-7; equal bits twice).  ``beta_tensor``: beta
+    as a device tensor."""
+    from snnimageclassification_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(17)
+    cur = torch.from_numpy((0.3 + 0.6 * rng.standard_normal((T, B, H)))
+                           .astype(np.float32)).to(dev)
+    alpha, rho, thr, gamma = _rec_scalars(alif)
+    beta = 1.6 if alif else 0.0
+    if beta_tensor:
+        beta = torch.tensor(beta, device=dev)
+    store_a = fused._stores_a(alif, spike)
+    res_is_v = fused._residual_is_v(alif, spike)
+    fwd = (cur, beta, alif, alpha, rho, thr)
+    z, res, a_tr = scan._fwd_cuda(*fwd, True, store_a, res_is_v, wdtype)
+    z_inf = scan._fwd_cuda(*fwd, False, False, False, wdtype)[0]
+    zp, resp, ap = scan._fwd_reference(*fwd, True, store_a, res_is_v, wdtype)
+    torch.cuda.synchronize()
+    assert torch.equal(z, z_inf), "inference and training spikes differ"
+    assert z.dtype == wdtype and res.dtype == wdtype
+    assert 0.02 < float(z.float().mean()) < 0.6
+    same = (z == zp).all(dim=2).all(dim=0)
+    assert float(same.float().mean()) >= min_rows
+    tol = 1e-5 if wdtype == torch.float32 else 2.0 ** -7
+    for got, want in ((res, resp), (a_tr, ap)):
+        assert (got is None) == (want is None)
+        if got is not None:
+            torch.testing.assert_close(got[:, same].float(),
+                                       want[:, same].float(), atol=tol,
+                                       rtol=tol)
+    g_z = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(dev).to(wdtype)
+    bw = (g_z, z, res, a_tr, res_is_v, beta, alpha, thr, gamma, spike)
+    _grads_close((scan._bwd_cuda(*bw),), (scan._bwd_cuda(*bw),),
+                 (scan._bwd_reference(*bw),),
+                 2e-6 if wdtype == torch.float32 else 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [23, 24, 100])
+@pytest.mark.parametrize("name,alif,spike", REC_CASES,
+                         ids=[c[0] for c in REC_CASES])
+def test_scan_kernels_match_plain_versions(card, name, alif, spike, n_steps,
+                                           wdtype):
+    """Small shapes (B = 37, H = 19 and 45; beta a float, then a device
+    tensor): spikes equal on every row."""
+    for H, beta_tensor in ((19, False), (45, True)):
+        _scan_check(card, 37, H, n_steps, alif, spike, wdtype, 1.0,
+                    beta_tensor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,alif,spike,H", [
+    ("alif-fs-256", True, FAST, 256), ("lif-fs-128", False, FAST, 128)],
+    ids=["ff-a", "ff-l"])
+def test_scan_kernels_at_full_batch(card, name, alif, spike, H, wdtype):
+    """B = 8192, T = 100 at the widths of 784-ALIF256-10 and 784-LIF128-10:
+    spikes equal on at least 99.5 % of rows."""
+    _scan_check(card, 8192, H, 100, alif, spike, wdtype, 0.995, False)
+
+
+@pytest.mark.cuda
+def test_scan_autograd_launches_the_pair(card):
+    """Under autograd ``alif_scan`` launches the training forward and the
+    backward once each (beta's gradient is zero); under ``no_grad`` the
+    inference kernel once."""
+    from snnimageclassification_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(3)
+    cur = torch.from_numpy((0.3 + 0.6 * rng.standard_normal((24, 8, 64)))
+                           .astype(np.float32)).to(card).requires_grad_(True)
+    beta = torch.tensor(1.6, device=card, requires_grad=True)
+    fused.reset_launch_counts()
+    z = scan.alif_scan(cur, beta, 0.9, 0.95, 1.0, 10.0,
+                       trace_dtype="bfloat16")
+    z.float().sum().backward()
+    assert _launched() == {fused.KERNEL_SCAN_TRAIN: 1,
+                           fused.KERNEL_SCAN_BWD: 1}
+    assert z.dtype == torch.bfloat16
+    assert float(beta.grad) == 0.0 and cur.grad.dtype == torch.float32
+    fused.reset_launch_counts()
+    with torch.no_grad():
+        scan.lif_scan(cur, 0.9, 1.0, 10.0)
+    assert _launched() == {fused.KERNEL_SCAN: 1}
+
+
+def _ff_cfg(net, matmul_dtype="float32", use_kernels=True):
+    """784-ALIF256-10 (``ff-a``) or 784-LIF128-10 (``ff-l``), feedforward,
+    T = 24."""
+    import snnimageclassification_tpu_torch as tst
+
+    return tst.SNNConfig(
+        input_size=784, output_size=10,
+        n_hidden_neurons=256 if net == "ff-a" else 128,
+        hidden_layer_type="ALIF" if net == "ff-a" else "LIF",
+        use_recurrent_connection=False, int_time_steps=24,
+        matmul_dtype=matmul_dtype, use_kernels=use_kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("net", ["ff-a", "ff-l"])
+def test_ff_model_serve_and_train_launch_the_scan(card, net, matmul_dtype):
+    """Constant-pixel input (``as_timeseries=False``): ``explain_dispatch``
+    names the scan kernels; a served batch launches ``scan_fwd`` once and
+    its results equal a direct forward bit for bit; a training step
+    launches ``scan_fwd_train`` and ``scan_bwd`` once each, with gradients
+    within 1e-4 of max|g| of the per-step loop's (bf16 2**-6); a raster
+    through ``forward_logits`` launches ``scan_fwd`` once."""
+    import snnimageclassification_tpu_torch as tst
+    from snnimageclassification_tpu_torch.models import snn as tsnn
+    from snnimageclassification_tpu_torch.train import Trainer
+
+    cfg = _ff_cfg(net, matmul_dtype)
+    enc = tst.EncodeConfig(n_steps=24, as_timeseries=False)
+    assert [r["path"] for r in tsnn.explain_dispatch(cfg, enc)] == [
+        f"cuda:{fused.KERNEL_SCAN}", "torch:loop"]
+    assert [r["path"] for r in tsnn.explain_dispatch(cfg, enc,
+                                                     training=True)] == [
+        f"cuda:{fused.KERNEL_SCAN_TRAIN}+{fused.KERNEL_SCAN_BWD}",
+        "torch:loop"]
+    rng = np.random.default_rng(6)
+    x = rng.random((64, 784), dtype=np.float32)
+    y = rng.integers(0, 10, 64)
+    trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+    with tst.InferenceServer(cfg, trainer.params, batch_size=64,
+                             encode_config=enc, device="cuda") as srv:
+        fused.reset_launch_counts()
+        served = srv.submit(x).result(timeout=120)
+        assert _launched() == {fused.KERNEL_SCAN: 1}
+    with torch.no_grad():
+        direct = tsnn.forward_logits_pixels(cfg, trainer.params,
+                                            torch.from_numpy(x).to(card),
+                                            enc).cpu().numpy()
+    assert np.array_equal(served, direct)
+    fused.reset_launch_counts()
+    _, grads = trainer.loss_and_grads(x, y)
+    assert _launched() == {fused.KERNEL_SCAN_TRAIN: 1,
+                           fused.KERNEL_SCAN_BWD: 1}
+    loop = Trainer(_ff_cfg(net, matmul_dtype, use_kernels=False),
+                   params=trainer.params, encode_config=enc, device="cuda")
+    _, want = loop.loss_and_grads(x, y)
+    bar = 1e-4 if matmul_dtype == "float32" else 2.0 ** -6
+    for n in want:
+        for k, g in want[n].items():
+            scale = float(g.abs().max()) or 1.0
+            err = float((grads[n][k] - g).abs().max()) / scale
+            assert err <= bar, f"{n}.{k}: {err:.3g} of max|g|"
+    raster = torch.from_numpy(
+        (rng.random((16, 24, 784)) < 0.05).astype(np.float32)).to(card)
+    fused.reset_launch_counts()
+    with torch.no_grad():
+        logits = tsnn.forward_logits(cfg, trainer.params, raster)
+    assert _launched() == {fused.KERNEL_SCAN: 1}
+    assert bool(torch.isfinite(logits).all())

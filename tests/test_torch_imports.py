@@ -31,12 +31,13 @@ def test_port_files_found():
     names = {str(p.relative_to(PORT)) for p in FILES[:-1]}
     assert {"train/__init__.py", "train/losses.py", "train/trainer.py",
             "ops/fused.py", "ops/fused_mid.py", "ops/fused2.py",
-            "ops/encode.py", "ops/rec_scan.py", "models/convert.py",
+            "ops/encode.py", "ops/rec_scan.py", "ops/scan.py",
+            "models/convert.py",
             "tools/train_profile.py"} <= names
     for src in ("fused_head.cu", "fused_head_bwd.cu", "fused_layer0_bwd.cu",
                 "fused_mid.cu", "fused_mid_bwd.cu", "fused2.cu",
                 "fused2_bwd.cu", "encode_matmul.cu", "rec_scan.cu",
-                "head_common.cuh", "lif_cell.cuh", "bwd_common.cuh"):
+                "scan.cu", "head_common.cuh", "lif_cell.cuh", "bwd_common.cuh"):
         assert (PORT / "csrc" / src).exists()
 
 

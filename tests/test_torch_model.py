@@ -97,6 +97,13 @@ LOOP = [  # name, config, encoding, layer 0's path
      dict(as_timeseries=False), "torch:rec_scan_reference"),
     ("short-encoding", dict(hidden_layer_type="LIF", threshold=0.05),
      dict(n_steps=8, tau=20.0, use_periods=True), "torch:rec_scan_reference"),
+    # The same for feedforward layers: the feedforward scan.
+    ("ff-not-timeseries", dict(hidden_layer_type="ALIF",
+                               use_recurrent_connection=False),
+     dict(as_timeseries=False), "torch:scan_reference"),
+    ("ff-short-encoding", dict(hidden_layer_type="LIF", threshold=0.05,
+                               use_recurrent_connection=False),
+     dict(n_steps=8, tau=20.0, use_periods=True), "torch:scan_reference"),
     # No hidden layer: the readout's currents come from the latencies.
     ("no-hidden", dict(hidden_layer_type="LIF", n_hidden_neurons=None),
      dict(tau=20.0), "torch:encode_matmul_reference"),
@@ -107,9 +114,9 @@ LOOP = [  # name, config, encoding, layer 0's path
                          ids=[s[0] for s in LOOP])
 def test_loop_path_matches_jax(name, ckw, ekw, path):
     """Configs off the LIF/ALIF whole-network head: the Izhikevich head,
-    the deep dispatch, the unfused tier (a recurrent layer's scan over its
-    currents, the first layer's currents from the latencies), or the loop
-    for every layer the kernels do not cover."""
+    the deep dispatch, the unfused tier (a recurrent or feedforward layer's
+    scan over its currents, the first layer's currents from the latencies),
+    or the loop for every layer the kernels do not cover."""
     jcfg, tcfg = _pair(int_time_steps=12, **ckw)
     jp, tp = _params(jcfg)
     x = np.random.default_rng(1).random((4, 30)).astype(np.float32)
