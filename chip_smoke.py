@@ -152,6 +152,35 @@ Phases (any failure exits non-zero before the final line):
    also 5 steps with its own periodic encoding (the route
    ``explain_dispatch`` names and its launches).
 
+20. stacked kernels -- the stacked replica mode (an ensemble's seeds in one
+   launch) of ``fused_head_fwd[_train]``, ``fused_head_bwd``,
+   ``fused_izh_fwd[_train]`` and ``fused_izh_bwd``: 16 small LIF/ALIF cases
+   (S = 3; recurrent / feedforward x TTFS / periodic x FastSigmoid / Phi,
+   T = 23, 24, 100, f32 / bf16, beta a float or an (S,) tensor), 4
+   Izhikevich ones at dt = 30, and the flagship at S = 6, B = 8192: every
+   output and gradient bitwise equal to S single launches, the plain bars of
+   the single kernels (``phase_stacked_kernels``);
+21. ensemble serve -- six seeds of the flagship (periodic,
+   ``scripts/ensemble_serve_bench.py``) through ``EnsembleTrainer.serve()``
+   as in 4: one ``fused_head_fwd_stacked`` launch a batch, results within
+   1e-6 of ``predict_proba``; the stacked kernel on a served batch within
+   the flagship bars of its plain version, timed against six single
+   launches;
+22. ensemble train -- the six seeds at batch 8192 on phase 5's task
+   (periodic), ``fused_replicas="stacked"`` against the default (unrolled): per-seed
+   losses bitwise equal for 3 steps, one stacked forward and backward a
+   step, losses fall, beta bitwise; ms a step and seed-img/s of both; each
+   stacked kernel on the trained weights against its plain version (the
+   backward within 1e-4 of max|g|, bf16 2**-7); then ``fit`` on
+   ``get_dataloaders(DatasetId.MNIST)`` with checkpoints: a resume from
+   LAST_EPOCH equals a continuous fit bitwise, ``load_best`` installs each
+   seed's best epoch, every seed's training and validation losses fall
+   over the 3 epochs, the ensemble beats chance;
+23. Izhikevich ensemble -- 784-Izh128-10 at dt = 30, six seeds, served and
+   trained as in 21 and 22 (3 steps stacked against unrolled bitwise);
+   every replica's forward, served and trained, bitwise the plain cell
+   summed in the kernel's order on 256 rows, the backward as in 22.
+
 Phase 3 also holds the deep-network kernels (``fused_layer0_fwd/bwd``,
 ``fused_mid_fwd/bwd``) against their plain versions: LIF/ALIF x ff/rec x
 FastSigmoid/Phi x {float32, bfloat16} at small shapes with T = 24 (TTFS and
@@ -168,6 +197,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -176,6 +206,7 @@ import numpy as np
 import torch
 
 import snnimageclassification_tpu_torch as pt
+from snnimageclassification_tpu_torch.data import DatasetId, get_dataloaders
 from snnimageclassification_tpu_torch.models import snn as model_lib
 from snnimageclassification_tpu_torch.ops import (
     _build,
@@ -200,8 +231,10 @@ from snnimageclassification_tpu_torch.ops.encoding import (
     spike_row,
 )
 from snnimageclassification_tpu_torch.ops.surrogate import SpikeFuncType
+from snnimageclassification_tpu_torch.parallel import EnsembleTrainer
 from snnimageclassification_tpu_torch.train import (
     L2SpikesPerNeuron,
+    LoadCheckpointMode,
     Trainer,
     nll_loss,
 )
@@ -781,19 +814,26 @@ def flagship_head_args(cfg, params, lat, use_periods=False):
         spike_func=lcfg.spike_func)
 
 
-def serve_requests(label, cfg, params, enc, want_launches):
+def serve_requests(label, cfg, params, enc, want_launches, server=None,
+                   direct=None, atol=0.0):
     """Serve 16 requests of 512 uint8 rows from 4 threads through
-    ``InferenceServer`` at batch 4096; every result must equal a direct
-    forward on the card bitwise (same kernels, same per-row arithmetic),
-    and each kernel of ``want_launches`` must have been launched that many
-    times a batch, no other kernel at all.  Returns (requests, launches)."""
+    ``InferenceServer`` at batch 4096 (or the server ``server(**kwargs)``
+    makes); every result must equal a direct forward on the card bitwise
+    (same kernels, same per-row arithmetic; ``direct(x)`` in place of
+    ``forward_logits_pixels``, within ``atol``), and each kernel of
+    ``want_launches`` must have been launched that many times a batch, no
+    other kernel at all.  Returns (requests, launches)."""
     rng = np.random.default_rng(1)
     reqs = [rng.integers(0, 256, size=(ROWS, 784), dtype=np.uint8)
             for _ in range(N_THREADS * PER_THREAD)]
     results = [None] * len(reqs)
-    with pt.InferenceServer(cfg, params, batch_size=4096, max_delay_s=0.05,
-                            encode_config=enc, input_dtype=np.uint8,
-                            device="cuda") as srv:
+    kwargs = dict(batch_size=4096, max_delay_s=0.05, encode_config=enc,
+                  input_dtype=np.uint8)
+    if server is None:
+        srv_cm = pt.InferenceServer(cfg, params, device="cuda", **kwargs)
+    else:
+        srv_cm = server(**kwargs)
+    with srv_cm as srv:
         srv.submit(reqs[0]).result(timeout=120)  # warm: allocator, streams
         warm_batches = srv.stats.batches
 
@@ -827,16 +867,21 @@ def serve_requests(label, cfg, params, enc, want_launches):
     if launched(launches) != want:
         fail(f"{label}: launches {launched(launches)} for {batches} "
              f"batches, expected {want}")
+    worst = 0.0
     for req, got in zip(reqs, results):
         x = torch.from_numpy(req).cuda().to(torch.float32) / 255.0
-        want_l = model_lib.forward_logits_pixels(cfg, params, x, enc,
-                                                 device="cuda").cpu().numpy()
+        want_l = (direct(x) if direct is not None
+                  else model_lib.forward_logits_pixels(
+                      cfg, params, x, enc, device="cuda")).cpu().numpy()
         if got.shape != (ROWS, 10) or not np.isfinite(got).all():
             fail(f"{label}: bad result {got.shape}")
-        if not np.array_equal(got, want_l):
+        err = float(np.abs(got - want_l).max())
+        worst = max(worst, err)
+        if err > atol:
             fail(f"{label}: result differs from the direct forward by "
-                 f"{np.abs(got - want_l).max():.3g}")
-    log(f"[{label}]: {len(reqs)} results equal the direct forward bitwise")
+                 f"{err:.3g} (bar {atol:.3g})")
+    log(f"[{label}]: {len(reqs)} results equal the direct forward "
+        + ("bitwise" if atol == 0.0 else f"within {worst:.3g} (bar {atol})"))
     return reqs, launches
 
 
@@ -3452,6 +3497,697 @@ def phase_ff_train(net: str, matmul_dtype: str) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-23: multi-seed ensembles (the stacked replica mode)
+# ---------------------------------------------------------------------------
+ENS_S = 6  # the seeds of scripts/ensemble_serve_bench.py, ensemble_throughput.py
+ENS_TIMED = 10
+# The flagship's random inits start far from chance (per-seed losses 10-130
+# on the prototype task).  Under TTFS two of the six seeds' losses climb
+# for tens of steps at phase 5's lr 1e-3 (seed 3: 10.5 -> 36 in 3 steps),
+# at 1e-4 too, and the JAX trainer started from the same params climbs
+# alike, step for step: the surrogate gradient's, not the port's.  At 1e-2
+# Adam's second moments overflow within an epoch and the hidden weights
+# turn NaN.  Phase 22 therefore trains at 1e-3 on the periodic encoding
+# (that of scripts/ensemble_serve_bench.py and bench.py's training leg),
+# where every seed's loss falls, and the fit on TTFS at batch 32.
+ENS_LR = 1e-3
+ENS_FIT_B = 32  # 109 steps an epoch on the 3481 training rows
+STACKED_SITES = {  # kernel -> (its source, the TPU kernel's pl.pallas_call site)
+    fused.KERNEL_STACKED: ("fused_head.cu", "pallas_fused.py:703"),
+    fused.KERNEL_TRAIN_STACKED: ("fused_head.cu", "pallas_fused.py:703"),
+    fused.KERNEL_BWD_STACKED: ("fused_head_bwd.cu", "pallas_fused.py:1092"),
+    fused.KERNEL_IZH_STACKED: ("fused_izh.cu", "pallas_fused_izh.py:464"),
+    fused.KERNEL_IZH_TRAIN_STACKED: ("fused_izh.cu",
+                                     "pallas_fused_izh.py:464"),
+    fused.KERNEL_IZH_BWD_STACKED: ("fused_izh_bwd.cu",
+                                   "pallas_fused_izh.py:631"),
+}
+
+
+class LifHead:
+    """The LIF/ALIF head's kernels and plain versions on one dict of
+    arguments (``head_args``' keys; stacked weights carry a leading S)."""
+
+    @staticmethod
+    def _in(a):
+        return (a["latencies"], a["w_in"], a["w_rec"], a["beta"], a["w_out"],
+                a["b_out"], a["n_steps"], a["use_periods"], a["alif"],
+                a["alpha"], a["rho"], a["threshold"], a["kappa"])
+
+    @staticmethod
+    def fwd(a, plain=False):
+        stacked = a["w_in"].dim() == 3
+        fn = (fused._head_cuda if not plain
+              else fused._head_stacked_reference if stacked
+              else fused._head_reference)
+        return fn(*LifHead._in(a))
+
+    @staticmethod
+    def train(a, plain=False):
+        stacked = a["w_in"].dim() == 3
+        fn = (fused._head_train_cuda if not plain
+              else fused._head_train_stacked_reference if stacked
+              else fused._head_train_reference)
+        return fn(*LifHead._in(a), True,
+                  a["alif"] and a["spike_func"] == PHI, False)
+
+    @staticmethod
+    def bwd(a, g_logits, res, plain=False):
+        stacked = a["w_in"].dim() == 3
+        fn = (fused._head_bwd_cuda if not plain
+              else fused._head_bwd_stacked_reference if stacked
+              else fused._head_bwd_reference)
+        _, delta, a_tr, tstar, _ = res
+        return fn(g_logits, None, tstar, delta, a_tr, a["latencies"],
+                  a["w_in"], a["w_rec"], a["beta"], a["w_out"], a["n_steps"],
+                  a["use_periods"], a["alpha"], a["threshold"], a["gamma"],
+                  a["kappa"], a["spike_func"])
+
+    @staticmethod
+    def at(a, s):
+        return dict(a, w_in=a["w_in"][s],
+                    w_rec=None if a["w_rec"] is None else a["w_rec"][s],
+                    beta=fused.replica_beta(a["beta"], s),
+                    w_out=a["w_out"][s], b_out=a["b_out"][s])
+
+
+class IzhHead:
+    """The Izhikevich head's kernels and plain versions on one dict of
+    arguments (``lat, w_in, w_rec, w_out, b_out, n_steps, use_periods, kp,
+    kappa, gamma, spike_func``)."""
+
+    @staticmethod
+    def _in(a):
+        return (a["lat"], a["w_in"], a["w_rec"], a["w_out"], a["b_out"],
+                a["n_steps"], a["use_periods"], a["kp"], a["kappa"])
+
+    @staticmethod
+    def _pick(a, plain):
+        if not plain:
+            return fused_izh._head_cuda
+        return (fused_izh._head_stacked_reference if a["w_in"].dim() == 3
+                else fused_izh._head_reference)
+
+    @staticmethod
+    def fwd(a, plain=False):
+        return IzhHead._pick(a, plain)(*IzhHead._in(a), False, False)[0]
+
+    @staticmethod
+    def train(a, plain=False):
+        return IzhHead._pick(a, plain)(*IzhHead._in(a), True, False)
+
+    @staticmethod
+    def bwd(a, g_logits, res, plain=False):
+        stacked = a["w_in"].dim() == 3
+        fn = (fused_izh._bwd_cuda if not plain
+              else fused_izh._bwd_stacked_reference if stacked
+              else fused_izh._bwd_reference)
+        _, v, tstar, _ = res
+        return fn(g_logits, None, tstar, None, None, v, a["lat"], a["w_in"],
+                  a["w_rec"], a["w_out"], a["n_steps"], a["use_periods"],
+                  a["kp"], a["gamma"], a["kappa"], a["spike_func"])
+
+    @staticmethod
+    def at(a, s):
+        return dict(a, w_in=a["w_in"][s],
+                    w_rec=None if a["w_rec"] is None else a["w_rec"][s],
+                    w_out=a["w_out"][s], b_out=a["b_out"][s])
+
+
+def stacked_lif_args(rng, S, B, F, H, O, T, alif, rec, per, spike, wdtype,
+                     flagship, beta_tensor):
+    """``head_args``' latencies and constants with S replicas' weights (the
+    flagship's init scale or the JAX tests'); beta a float or an (S,)
+    device tensor."""
+    a = head_args(rng, B, F, H, O, T, alif, rec, per, wdtype, flagship,
+                  spike)
+    s_in, s_rec = (a["threshold"], a["threshold"]) if flagship else (0.5, 0.3)
+    eye = 1 - torch.eye(H, device="cuda")
+    a.update(
+        w_in=rand_w(rng, (S, F, H), s_in, wdtype),
+        w_rec=(rand_w(rng, (S, H, H), s_rec) * eye).to(wdtype) if rec
+        else None,
+        w_out=rand_w(rng, (S, H, O), 1.0, wdtype),
+        b_out=rand_w(rng, (S, O), 0.1))
+    if alif and beta_tensor:
+        a["beta"] = rand_w(rng, (S,), 0.3) + (0.0 if flagship else 1.6)
+    return a
+
+
+def stacked_izh_args(rng, S, B, F, H, O, T, rec, wdtype):
+    """S Izhikevich replicas at dt = 30 with init-scale weights (N(0, 1),
+    where units fire), TTFS at the production tau."""
+    pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
+    eye = 1 - torch.eye(H, device="cuda")
+    return dict(
+        lat=pixels_to_firing_periods(pixels, t_max=float(T)).contiguous(),
+        w_in=rand_w(rng, (S, F, H), 1.0, wdtype),
+        w_rec=(rand_w(rng, (S, H, H), 1.0) * eye).to(wdtype) if rec else None,
+        w_out=rand_w(rng, (S, H, O), 1.0, wdtype),
+        b_out=rand_w(rng, (S, O), 0.1), n_steps=T, use_periods=False,
+        kp=IZH30_KP, kappa=ReadoutConfig(input_size=1, output_size=1).kappa,
+        gamma=IZH30.gamma, spike_func=IZH30.spike_func)
+
+
+def check_stacked(label, fam, a, g_logits, bar, plain_fwd):
+    """A stacked kernel triple against S single launches and its plain
+    version.  Bitwise equal to the single launches, replica by replica:
+    the inference logits, the training forward's logits, ``tstar`` and
+    residuals, the backward's gradients on those residuals; the training
+    logits equal the inference logits.  ``plain_fwd(a, logits)`` holds the
+    forward against a plain version; the backward is held against the
+    stacked plain version on the kernel's own residuals within ``bar`` of
+    max|g|.  Returns the gradient error."""
+    S = a["w_in"].shape[0]
+    out = fam.fwd(a)
+    res = fam.train(a)
+    grads = fam.bwd(a, g_logits, res)
+    torch.cuda.synchronize()
+    if not torch.equal(res[0], out):
+        fail(f"{label}: training logits differ from the inference logits")
+    for s in range(S):
+        a_s = fam.at(a, s)
+        one = fam.fwd(a_s)
+        one_res = fam.train(a_s)
+        one_g = fam.bwd(a_s, g_logits[s].contiguous(), one_res)
+        pairs = ([("logits", one, out[s])]
+                 + [(f"train[{k}]", x, y[s]) for k, (x, y)
+                    in enumerate(zip(one_res, res)) if x is not None]
+                 + [(f"grad[{k}]", x, y[s]) for k, (x, y)
+                    in enumerate(zip(one_g, grads)) if x is not None])
+        for what, x, y in pairs:
+            if not torch.equal(x, y):
+                fail(f"{label}: replica {s} {what} differs from a single "
+                     f"launch by {float((x.float() - y.float()).abs().max())}")
+    plain_fwd(a, out)
+    want = fam.bwd(a, g_logits, res, plain=True)
+    err = grad_error(grads, want)
+    if err > bar:
+        fail(f"{label}: gradients {err:.3g} of max|g| from the plain "
+             f"version, bar {bar:.3g}")
+    return err
+
+
+def close_small(label):
+    def check(a, out):
+        ref = LifHead.fwd(a, plain=True)
+        if not torch.allclose(out, ref, atol=1e-5, rtol=1e-5):
+            fail(f"{label}: logits {float((out - ref).abs().max()):.3g} from "
+                 "the plain version")
+    return check
+
+
+def close_flagship(label):
+    def check(a, out):
+        ref = LifHead.fwd(a, plain=True)
+        for s in range(out.shape[0]):
+            agree, close, _, _ = compare_flagship(out[s], ref[s])
+            if agree < 0.995 or close < 0.99:
+                fail(f"{label}: replica {s} argmax_agree={agree:.4f} "
+                     f"rows_within_1e-4max={close:.4f} against the plain "
+                     "version")
+    return check
+
+
+def izh_ordered(label, rows=None):
+    """At dt = 30 the cell amplifies last bits, so each replica's logits
+    are held bitwise against the plain cell that sums in the kernel's
+    order (``ordered_izh_head``), on the first ``rows`` rows (all where
+    None; TTFS)."""
+    def check(a, out):
+        n = out.shape[1] if rows is None else rows
+        for s in range(out.shape[0]):
+            b = IzhHead.at(a, s)
+            wit = ordered_izh_head(b["lat"][:n], b["w_in"], b["w_rec"],
+                                   b["w_out"], b["b_out"], b["n_steps"],
+                                   b["kp"], b["kappa"])
+            if not torch.equal(wit, out[s, :n]):
+                fail(f"{label}: replica {s} differs from the plain cell "
+                     f"summed in the kernel's order on "
+                     f"{int((wit != out[s, :n]).any(1).sum())} of {n} rows")
+    return check
+
+
+def phase_stacked_kernels() -> None:
+    """The stacked replica mode of both head kernel triples (phase 20).
+
+    Small, S = 3, B = 37, F = 50: 16 LIF/ALIF cases covering recurrent /
+    feedforward x TTFS / periodic x FastSigmoid / Phi, each at one of T =
+    23, 24, 100, float32 or bfloat16, beta a float or an (S,) tensor, H =
+    19 or 45; 4 Izhikevich cases (recurrent / feedforward x float32 /
+    bfloat16) at dt = 30, T = 24, H = 45.  Then the flagship at S = 6, B =
+    8192, T = 100 (784-ALIF128-10, recurrent, beta an (S,) tensor), f32 and
+    bf16, TTFS and periodic.  Everything of ``check_stacked``: bitwise
+    against single launches on every replica and row; the LIF/ALIF logits
+    within 1e-5 of the plain version (small) or the flagship bars (full);
+    Izhikevich logits bitwise the plain cell in the kernel's order;
+    gradients on the kernel's residuals within 2e-6 of max|g| (5e-6 at T =
+    100; 1e-4 full width and Izhikevich at dt = 30; 2**-7 bf16)."""
+    rng = np.random.default_rng(20)
+    i = 0
+    for alif in (True, False):
+        for rec in (True, False):
+            for per in (False, True):
+                for spike in (FS, PHI):
+                    T = (23, 24, 100)[i % 3]
+                    wd = (torch.float32, torch.bfloat16)[(i // 2) % 2]
+                    beta_t = bool((i + i // 4) % 2)
+                    H = (19, 45)[(i // 8) % 2]
+                    i += 1
+                    label = (f"stacked {'alif' if alif else 'lif'}-"
+                             f"{'rec' if rec else 'ff'}-"
+                             f"{'periodic' if per else 'ttfs'}-{spike.name} "
+                             f"T={T} H={H} {str(wd)[6:]} beta="
+                             f"{'tensor' if beta_t else 'float'}")
+                    a = stacked_lif_args(rng, 3, 37, 50, H, 10, T, alif,
+                                         rec, per, spike, wd, False, beta_t)
+                    g = rand_w(rng, (3, 37, 10), 1.0)
+                    bar = (2.0 ** -7 if wd == torch.bfloat16
+                           else 5e-6 if T == 100 else 2e-6)
+                    err = check_stacked(label, LifHead, a, g, bar,
+                                        close_small(label))
+                    log(f"[stacked] {label}: equal to 3 single launches "
+                        f"bitwise; grad_err={err:.3g} of max|g| ok")
+    for rec in (True, False):
+        for wd in (torch.float32, torch.bfloat16):
+            label = (f"stacked izh-{'rec' if rec else 'ff'} dt=30 T=24 "
+                     f"{str(wd)[6:]}")
+            a = stacked_izh_args(rng, 3, 37, 50, 45, 10, 24, rec, wd)
+            fire = float(IzhHead.train(a)[1].ge(IZH30.v_peak).float().mean())
+            if fire == 0:
+                fail(f"{label}: no unit fires")
+            g = rand_w(rng, (3, 37, 10), 1.0)
+            bar = IZH30_BAR if wd == torch.float32 else 2.0 ** -7
+            err = check_stacked(label, IzhHead, a, g, bar, izh_ordered(label))
+            log(f"[stacked] {label}: firing {fire:.3f}; equal to 3 single "
+                f"launches bitwise; the plain cell in the kernel's order "
+                f"bitwise; grad_err={err:.3g} of max|g| ok")
+    for wd in (torch.float32, torch.bfloat16):
+        for per in (False, True):
+            label = (f"stacked flagship S={ENS_S} B={TRAIN_B} "
+                     f"{'periodic' if per else 'ttfs'} {str(wd)[6:]}")
+            a = stacked_lif_args(rng, ENS_S, TRAIN_B, 784, 128, 10, 100,
+                                 True, True, per, FS, wd, True, True)
+            g = rand_w(rng, (ENS_S, TRAIN_B, 10), 1.0 / TRAIN_B)
+            bar = 1e-4 if wd == torch.float32 else 2.0 ** -7
+            err = check_stacked(label, LifHead, a, g, bar,
+                                close_flagship(label))
+            log(f"[stacked] {label}: every replica and row equal to "
+                f"{ENS_S} single launches bitwise; plain bars held; "
+                f"grad_err={err:.3g} of max|g|")
+            del a, g
+            torch.cuda.empty_cache()
+
+
+def stacked_row(label, kernel, tag, launches, err, ms, plain_ms, nbytes, ops,
+                md):
+    return kernel_row(label, f"{kernel}[{tag}]", STACKED_SITES[kernel],
+                      launches, err, ms, plain_ms, nbytes, ops, md)
+
+
+def ensemble_cfg(matmul_dtype, is_izh=False):
+    return izh_cfg(matmul_dtype) if is_izh else flagship_cfg(matmul_dtype)
+
+
+def ensemble_head_args(cfg, params, lat, use_periods, is_izh):
+    """(family, arguments) of the stacked head call as
+    ``forward_logits_pixels_stacked`` builds them from the params."""
+    md = getattr(torch, cfg.matmul_dtype_eff)
+    (_, lcfg), (_, rcfg) = cfg.layer_configs
+    p0, ro = params["input"], params["readout"]
+    w_in = p0["w_in"].detach().to(md).contiguous()
+    w_rec = masked_recurrent(lcfg, p0).detach().to(md).contiguous()
+    w_out = ro["w_in"].detach().to(md).contiguous()
+    b_out = ro["b"].detach().contiguous()
+    if is_izh:
+        return IzhHead, dict(
+            lat=lat, w_in=w_in, w_rec=w_rec, w_out=w_out, b_out=b_out,
+            n_steps=cfg.int_time_steps, use_periods=use_periods,
+            kp=izh.izh_kernel_params(lcfg), kappa=rcfg.kappa,
+            gamma=lcfg.gamma, spike_func=lcfg.spike_func)
+    return LifHead, dict(
+        latencies=lat, w_in=w_in, w_rec=w_rec, beta=p0["beta"].detach(),
+        w_out=w_out, b_out=b_out, n_steps=cfg.int_time_steps,
+        use_periods=use_periods, alif=True, alpha=lcfg.alpha, rho=lcfg.rho,
+        threshold=lcfg.threshold, gamma=lcfg.gamma, kappa=rcfg.kappa,
+        spike_func=lcfg.spike_func)
+
+
+def stacked_work(fam, a, is_izh, train):
+    """(bytes, operations, hidden spikes) of a stacked forward on these
+    inputs: S single calls' bytes less S - 1 reads of the shared latencies
+    (each input read once, each output written once); the 0/1 products
+    count this run's spikes."""
+    lat = a["lat"] if is_izh else a["latencies"]
+    S = a["w_in"].shape[0]
+    B, F = lat.shape
+    T, H, O = a["n_steps"], a["w_in"].shape[-1], a["w_out"].shape[-1]
+    md = a["w_in"].dtype
+    res = fam.train(a)
+    hidden = int((res[1] >= IZH30.v_peak).sum()) if is_izh else int(
+        (res[1] >= 0).sum())
+    del res
+    in_spikes = input_spike_count(lat, T, a["use_periods"])
+    weights = (F * H + H * H + H * O) * md.itemsize
+    trace = (4 if is_izh else md.itemsize) * T * B * H
+    per = weights + O * 4 + 4 + B * O * 4 + (B * O * 4 + trace if train
+                                             else 0)
+    nbytes = B * F * 4 + S * per
+    cell = IZH_CELL_OPS if is_izh else 10
+    ops = (S * in_spikes * H + hidden * (H + O) + S * cell * B * T * H
+           + S * 3 * B * T * O)
+    return nbytes, ops, hidden, in_spikes
+
+
+def phase_ensemble_serve(matmul_dtype: str, is_izh: bool = False) -> dict:
+    """Six seeds served through ``EnsembleTrainer.serve()`` at batch 4096,
+    16 requests of 512 uint8 rows (phase 21; with ``is_izh`` 784-Izh128-10
+    at dt = 30, phase 23): every result within 1e-6 of ``predict_proba``
+    (which takes the six unrolled single kernels), one stacked launch a
+    batch and no other kernel; the stacked kernel on a served batch against
+    its plain version (LIF/ALIF: the flagship bars on every replica;
+    Izhikevich: every replica bitwise the plain cell summed in the kernel's
+    order on WITNESS_ROWS rows), timed against six single launches and
+    against its plain version."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    md = getattr(torch, matmul_dtype)
+    label = f"ens-{'izh-' if is_izh else ''}serve {tag}"
+    cfg = ensemble_cfg(matmul_dtype, is_izh)
+    # scripts/ensemble_serve_bench.py's encoding: periodic (the Izhikevich
+    # net TTFS, as phase 9 serves it).
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=not is_izh)
+    ens = EnsembleTrainer(cfg, seeds=range(ENS_S), device="cuda")
+    kernel = fused.KERNEL_IZH_STACKED if is_izh else fused.KERNEL_STACKED
+    paths = [r["path"] for r in model_lib.explain_dispatch(
+        cfg, enc, device="cuda", stacked=True)]
+    if paths != [f"cuda:{kernel}"]:
+        fail(f"{label}: stacked dispatch is {paths}")
+    reqs, launches = serve_requests(
+        label, cfg, ens.params, enc, {kernel: 1},
+        server=lambda **kw: ens.serve(**kw),
+        direct=lambda x: ens.predict_proba(x, enc), atol=1e-6)
+    # The kernel alone on a served 4096-row batch.
+    batch = np.concatenate(reqs[:4096 // ROWS])
+    x = torch.from_numpy(batch).cuda().to(torch.float32) / 255.0
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    fam, a = ensemble_head_args(cfg, ens.params, lat, enc.use_periods,
+                                is_izh)
+    got, ref = fam.fwd(a), fam.fwd(a, plain=True)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    agree, close = (min(v) for v in zip(*(compare_flagship(got[s], ref[s])[:2]
+                                          for s in range(ENS_S))))
+    log(f"[{label}] stacked kernel vs plain on the served batch: lowest "
+        f"replica argmax_agree={agree:.4f} rows_within_1e-4max={close:.4f} "
+        f"max_abs_err={err:.3g}"
+        + (" (dt=30: not gated, the cell amplifies last bits)" if is_izh
+           else ""))
+    if is_izh:
+        izh_ordered(label, WITNESS_ROWS)(a, got)
+        log(f"[{label}] every replica == the plain cell with the kernel's "
+            f"summation order, bitwise, on {WITNESS_ROWS} rows")
+    elif agree < 0.995 or close < 0.99:
+        fail(f"{label}: the stacked kernel disagrees with its plain version")
+    parts = [fam.at(a, s) for s in range(ENS_S)]
+    ms = cuda_ms(lambda: fam.fwd(a), 25)
+    unrolled = cuda_ms(lambda: [fam.fwd(p) for p in parts], 25)
+    ms2 = cuda_ms(lambda: fam.fwd(a), 25)
+    plain_ms = cuda_ms(lambda: fam.fwd(a, plain=True), 3, warmup=1)
+    nbytes, ops, hidden, in_spikes = stacked_work(fam, a, is_izh, False)
+    log(f"[{label}] per 4096-row batch of {ENS_S} seeds: stacked {ms:.4f} / "
+        f"{ms2:.4f} ms, {ENS_S} single launches {unrolled:.4f} ms; the "
+        f"kernel serves {4096 / ms * 1e3:.1f} img/s "
+        f"({4096 * ENS_S / ms * 1e3:.1f} seed-img/s); input spikes "
+        f"{in_spikes}, hidden spikes {hidden} "
+        f"({hidden / (ENS_S * 4096 * 100 * 128):.4f}) [{card_line()}]")
+    return stacked_row(label, kernel, tag, launches[kernel], err, ms,
+                       plain_ms, nbytes, ops, md)
+
+
+def phase_ensemble_train(matmul_dtype: str, is_izh: bool = False) -> list:
+    """Six seeds trained by ``EnsembleTrainer`` at batch 8192 on phase 5's
+    prototype task, ``fused_replicas="stacked"`` against the default
+    (unrolled), periodic encoding (phase 22; with ``is_izh`` 784-Izh128-10
+    at dt = 30 on TTFS, phase 23).  The first 3 steps: per-seed losses and
+    every param bitwise equal between the two trainers, one stacked
+    forward and one stacked backward launch a step (S of each single
+    kernel unrolled).  Then ENS_TIMED more timed steps of each (stacked
+    twice, 23 steps in all); every seed's mean loss of the last five steps
+    must lie below that of the first five (LIF/ALIF; at dt = 30 the hidden
+    BPTT gradients overflow Adam, as in phase 10, so there the readout must
+    move) and beta stay bitwise; seed 0's 23 losses must equal those of
+    ``Trainer(seed=0)`` on the same batches bit for bit.  lr ENS_LR.  Each
+    stacked kernel alone on batch 0 with the trained weights: the forward
+    against its plain version (LIF/ALIF: the flagship bars on every
+    replica; Izhikevich: every replica bitwise the plain cell summed in the
+    kernel's order on WITNESS_ROWS rows), the backward on the forward's
+    residuals within 1e-4 of max|g| of its plain version (bf16 2**-7); both
+    timed against S single launches and their plain versions."""
+    tag = "f32" if matmul_dtype == "float32" else "bf16"
+    md = getattr(torch, matmul_dtype)
+    label = f"ens-{'izh-' if is_izh else ''}train {tag}"
+    cfg = ensemble_cfg(matmul_dtype, is_izh)
+    enc = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=not is_izh)
+    k_fwd, k_bwd = ((fused.KERNEL_IZH_TRAIN_STACKED,
+                     fused.KERNEL_IZH_BWD_STACKED) if is_izh
+                    else (fused.KERNEL_TRAIN_STACKED,
+                          fused.KERNEL_BWD_STACKED))
+    s_fwd, s_bwd = ((fused.KERNEL_IZH_TRAIN, fused.KERNEL_IZH_BWD) if is_izh
+                    else (fused.KERNEL_TRAIN, fused.KERNEL_BWD))
+    path = model_lib.explain_dispatch(cfg, enc, device="cuda", training=True,
+                                      stacked=True)[0]["path"]
+    if path != f"cuda:{k_fwd}+{k_bwd}":
+        fail(f"{label}: stacked dispatch is {path}")
+    stacked = EnsembleTrainer(cfg, seeds=range(ENS_S), lr=ENS_LR,
+                              fused_replicas="stacked", device="cuda")
+    unrolled = EnsembleTrainer(cfg, seeds=range(ENS_S), lr=ENS_LR,
+                               device="cuda")
+    start = {n: {k: v.detach().clone() for k, v in g.items()}
+             for n, g in stacked.params.items()}
+    batches = synthetic_task(4)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, tr, want in (("stacked", stacked, {k_fwd: 3, k_bwd: 3}),
+                           ("unrolled", unrolled, {s_fwd: 3 * ENS_S,
+                                                   s_bwd: 3 * ENS_S})):
+        torch.cuda.synchronize()
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [tr.train_step(*batches[i], encode_config=enc)
+                  for i in range(3)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = fused.launch_counts()
+        if launched(got) != want:
+            fail(f"{label}: {name} launches {launched(got)} in 3 steps, "
+                 f"expected {want}")
+        runs[name] = (torch.stack(losses), got)
+        log(f"[{label}] {name} 3 steps: launches={json.dumps(launched(got))} "
+            f"{seconds / 3 * 1e3:.3f} ms a step (first steps)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not torch.equal(runs["stacked"][0], runs["unrolled"][0]):
+        fail(f"{label}: stacked and unrolled per-seed losses differ: "
+             f"{runs['stacked'][0].tolist()} vs "
+             f"{runs['unrolled'][0].tolist()}")
+    for n, g in stacked.params.items():
+        for k, v in g.items():
+            if not torch.equal(v, unrolled.params[n][k]):
+                fail(f"{label}: {n}.{k} differs between the trainers")
+    times = {"stacked": [], "unrolled": []}
+    tails, order = [], [0, 1, 2]
+    for name, tr in (("stacked", stacked), ("unrolled", unrolled),
+                     ("stacked", stacked)):
+        start_i = 3 + ENS_TIMED * (len(tails) if name == "stacked" else 0)
+        picks = [(start_i + i) % 4 for i in range(ENS_TIMED)]
+        if name == "stacked":
+            order += picks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = [tr.train_step(*batches[i], encode_config=enc)
+                for i in picks]
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / ENS_TIMED)
+        if name == "stacked":
+            tails.append(torch.stack(more))
+    losses = torch.cat([runs["stacked"][0], *tails]).cpu().numpy()
+    if not np.isfinite(losses).all():
+        fail(f"{label}: non-finite losses {losses.tolist()}")
+    if not is_izh:  # phase 5's gate: the mean of the first and last five
+        fell = losses[-5:].mean(0) < losses[:5].mean(0)
+        if not fell.all():
+            fail(f"{label}: the loss did not fall for seeds "
+                 f"{np.nonzero(~fell)[0].tolist()}: {losses.tolist()}")
+    for n, g in stacked.params.items():
+        for k, v in g.items():
+            same = torch.equal(v, start[n][k])
+            if k == "beta" and not same:
+                fail(f"{label}: beta moved")
+            if n == "readout" and same:
+                fail(f"{label}: readout.{k} did not move")
+    # Replica 0 is a single model trained alone: Trainer at seed 0 on the
+    # same batches gives its losses bit for bit.
+    single = Trainer(cfg, seed=0, lr=ENS_LR, encode_config=enc,
+                     device="cuda")
+    alone = torch.stack([single.train_step(*batches[i])
+                         for i in order]).cpu().numpy()
+    if not np.array_equal(alone, losses[:, 0]):
+        fail(f"{label}: seed 0 of the ensemble differs from Trainer(seed=0): "
+             f"{losses[:, 0].tolist()} vs {alone.tolist()}")
+    st_ms = min(times["stacked"]) * 1e3
+    un_ms = times["unrolled"][0] * 1e3
+    log(f"[{label}] {ENS_S} seeds at B={TRAIN_B}: stacked {st_ms:.3f} ms a "
+        f"step ({[round(t * 1e3, 3) for t in times['stacked']]}) = "
+        f"{TRAIN_B * ENS_S / st_ms * 1e3:.1f} seed-img/s; unrolled "
+        f"{un_ms:.3f} ms = {TRAIN_B * ENS_S / un_ms * 1e3:.1f} seed-img/s; "
+        f"per-seed losses first={losses[0].round(3).tolist()} last="
+        f"{losses[-1].round(3).tolist()}; peak allocated {peak:.2f} GiB "
+        f"[{card_line()}]")
+    # Each stacked kernel alone on batch 0 with the trained weights.
+    x, _ = batches[0]
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    fam, a = ensemble_head_args(cfg, stacked.params, lat, enc.use_periods,
+                                is_izh)
+    res = fam.train(a)
+    g = torch.full((ENS_S, TRAIN_B, 10), 1.0 / TRAIN_B, device="cuda")
+    ref = fam.fwd(a, plain=True)
+    err_f = float((res[0] - ref).abs().max())
+    if is_izh:
+        izh_ordered(label, WITNESS_ROWS)(a, res[0])
+    else:
+        for s in range(ENS_S):
+            agree, close, _, _ = compare_flagship(res[0][s], ref[s])
+            if agree < 0.995 or close < 0.99:
+                fail(f"{label}: {k_fwd} replica {s} argmax_agree="
+                     f"{agree:.4f} rows_within_1e-4max={close:.4f} against "
+                     "the plain version")
+    del ref
+    err_b = grad_error(fam.bwd(a, g, res), fam.bwd(a, g, res, plain=True))
+    bar = 1e-4 if md == torch.float32 else 2.0 ** -7
+    if err_b > bar:
+        fail(f"{label}: {k_bwd} {err_b:.3g} of max|g| from the plain "
+             f"version on the forward's residuals, bar {bar:.3g}")
+    torch.cuda.synchronize()
+    log(f"[{label}] {k_fwd} on the trained weights: "
+        + (f"every replica bitwise the plain cell in the kernel's order on "
+           f"{WITNESS_ROWS} rows" if is_izh else "flagship bars held on "
+           "every replica")
+        + f" (max_abs_err {err_f:.3g}); {k_bwd}: {err_b:.3g} of max|g| "
+        f"(bar {bar:.3g}) ok")
+    f_ms = cuda_ms(lambda: fam.train(a), 10)
+    b_ms = cuda_ms(lambda: fam.bwd(a, g, res), 10)
+    f_plain = cuda_ms(lambda: fam.train(a, plain=True), 2, warmup=1)
+    b_plain = cuda_ms(lambda: fam.bwd(a, g, res, plain=True), 2, warmup=1)
+    parts = [fam.at(a, s) for s in range(ENS_S)]
+    part_res = [fam.train(p) for p in parts]
+    fu_ms = cuda_ms(lambda: [fam.train(p) for p in parts], 10)
+    bu_ms = cuda_ms(lambda: [fam.bwd(p, g[s], part_res[s])
+                             for s, p in enumerate(parts)], 10)
+    del part_res, parts
+    nbytes, ops, hidden, in_spikes = stacked_work(fam, a, is_izh, True)
+    B, F, T, H, O = TRAIN_B, 784, 100, 128, 10
+    weights = (F * H + H * H + H * O) * md.itemsize
+    trace = (4 if is_izh else md.itemsize) * T * B * H
+    b_bytes = B * F * 4 + ENS_S * (trace + 2 * B * O * 4 + 2 * weights
+                                   + O * 4)
+    chain = IZH_CHAIN_OPS if is_izh else 12
+    b_ops = (ENS_S * (2 * B * T * H * (H + O) + in_spikes * H
+                      + chain * B * T * H) + hidden * (H + O))
+    log(f"[{label}] {k_fwd}: {f_ms:.4f} ms, {ENS_S} single launches "
+        f"{fu_ms:.4f} ms; {k_bwd}: {b_ms:.4f} ms, {ENS_S} single launches "
+        f"{bu_ms:.4f} ms; hidden spikes {hidden} "
+        f"({hidden / (ENS_S * B * T * H):.4f}) [{card_line()}]")
+    launches = runs["stacked"][1]
+    return [
+        stacked_row(label, k_fwd, tag, launches[k_fwd], err_f, f_ms, f_plain,
+                    nbytes, ops, md),
+        stacked_row(label, k_bwd, tag, launches[k_bwd], err_b, b_ms, b_plain,
+                    b_bytes, b_ops, md),
+    ]
+
+
+def phase_ensemble_fit() -> None:
+    """``EnsembleTrainer.fit`` on ``get_dataloaders(DatasetId.MNIST)`` (the
+    synthetic set where no MNIST files exist; the source is printed), six
+    seeds of the flagship, stacked, TTFS, batch ENS_FIT_B, with a checkpoint
+    folder and ``checkpoint_every=1``: a fit of 2 epochs resumed from LAST_EPOCH
+    for a third (on the same loaders, whose shuffles have advanced) must
+    equal a continuous 3-epoch fit bitwise (histories and params);
+    ``load_best()`` must install each seed's best epoch (its checkpoint
+    file's slice); every seed's training and validation losses must be
+    finite and lower after the third epoch than after the first; the
+    ensemble must beat chance by three binomial standard errors on the
+    test set.  lr ENS_LR."""
+    cfg = flagship_cfg("float32")
+
+    def loaders():
+        return get_dataloaders(DatasetId.MNIST, batch_size=ENS_FIT_B, seed=0)
+
+    def trainer(folder):
+        return EnsembleTrainer(cfg, seeds=range(ENS_S), lr=ENS_LR,
+                               fused_replicas="stacked",
+                               checkpoint_folder=folder, device="cuda")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dl = loaders()
+        log(f"[ens-fit] data source={dl['train'].source} train="
+            f"{dl['train'].n_samples} val={dl['val'].n_samples} test="
+            f"{dl['test'].n_samples}")
+        t0 = time.perf_counter()
+        trainer(f"{tmp}/resumed").fit(dl["train"], dl["val"], 2,
+                                      verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        resumed = trainer(f"{tmp}/resumed")
+        hist_r = resumed.fit(dl["train"], dl["val"], 3, verbose=False,
+                             load_checkpoint_mode=LoadCheckpointMode.LAST_EPOCH)
+        dc = loaders()
+        whole = trainer(f"{tmp}/whole")
+        hist_w = whole.fit(dc["train"], dc["val"], 3, verbose=False)
+        if [h.to_dict() for h in hist_r] != [h.to_dict() for h in hist_w]:
+            fail(f"ens-fit: resumed histories differ from the continuous "
+                 f"fit: {[h.to_dict() for h in hist_r]} vs "
+                 f"{[h.to_dict() for h in hist_w]}")
+        for n, g in whole.params.items():
+            for k, v in g.items():
+                if not torch.equal(v, resumed.params[n][k]):
+                    fail(f"ens-fit: resumed {n}.{k} differs from the "
+                         "continuous fit")
+        whole.load_best()
+        for s, e in enumerate(whole.best_epoch):
+            saved = whole.ckpt.load_checkpoint_at(int(e))[
+                whole.ckpt.CHECKPOINT_STATE_DICT_KEY]
+            for n, g in whole.params.items():
+                for k, v in g.items():
+                    if not torch.equal(v[s].cpu(), saved[n][k][s]):
+                        fail(f"ens-fit: load_best seed {s} {n}.{k} is not "
+                             f"epoch {e}'s")
+        for s, h in enumerate(hist_w):
+            tr, va = np.asarray(h["train"]), np.asarray(h["val"])
+            if not (np.isfinite(tr).all() and np.isfinite(va).all()
+                    and tr[-1] < tr[0] and va[-1] < va[0]):
+                fail(f"ens-fit: seed {s}'s losses did not fall over 3 "
+                     f"epochs: {h.to_dict()}")
+        acc = whole.ensemble_accuracy(dc["test"])
+        per_seed = whole.accuracies(dc["test"])
+        # Chance plus three binomial standard errors of the test set's size.
+        n_test = dc["test"].n_samples
+        chance = 0.1 + 3.0 * (0.1 * 0.9 / n_test) ** 0.5
+        if not acc > chance:
+            fail(f"ens-fit: ensemble accuracy {acc} within chance ({chance:.4f});"
+                 f" per seed "
+                 f"{per_seed.tolist()}; histories "
+                 f"{[h.to_dict() for h in hist_w]}")
+        log(f"[ens-fit] 2 epochs {seconds:.2f} s; resume from LAST_EPOCH "
+            f"for a third equals the continuous 3-epoch fit bitwise "
+            f"(histories and params); best epochs {whole.best_epoch.tolist()}"
+            f" installed by load_best; test accuracy ensemble {acc:.4f}, "
+            f"per seed {np.round(per_seed, 4).tolist()}; every seed's losses "
+            f"fell; per-seed train losses by epoch "
+            f"{[np.round(h['train'], 4).tolist() for h in hist_w]}, val "
+            f"{[np.round(h['val'], 4).tolist() for h in hist_w]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3506,6 +4242,17 @@ def main() -> int:
     for net in FF_NETS:
         for md in both:
             run(f"19 ff train {net} {md}", phase_ff_train, net, md)
+    run("20 stacked kernels", phase_stacked_kernels)
+    for md in both:
+        run(f"21 ensemble serve {md}", phase_ensemble_serve, md)
+    for md in both:
+        run(f"22 ensemble train {md}", phase_ensemble_train, md)
+    run("22 ensemble fit", phase_ensemble_fit)
+    for md in both:
+        run(f"23 Izhikevich ensemble serve {md}", phase_ensemble_serve, md,
+            True)
+        run(f"23 Izhikevich ensemble train {md}", phase_ensemble_train, md,
+            True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

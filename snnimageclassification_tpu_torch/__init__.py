@@ -7,8 +7,10 @@ network in hand-written CUDA kernels (ops/fused.py, csrc/): one for
 inference behind the dynamic-batching :class:`InferenceServer`, a
 training forward and a reverse-time backward behind
 :class:`train.Trainer`.  Networks with more hidden layers run one kernel
-pair a layer through the same entry points (ops/fused_mid.py).  Other
-configs run a plain PyTorch time loop.
+pair a layer through the same entry points (ops/fused_mid.py).  An
+ensemble of seeds (:class:`parallel.EnsembleTrainer`) runs all of them in
+one stacked launch of the head kernels.  Other configs run a plain
+PyTorch time loop.
 Entry points take ``device`` ("cuda" by default) and raise without CUDA
 unless ``device="cpu"`` is passed.  Importing the package builds nothing;
 the kernels are compiled at first use.

@@ -46,6 +46,13 @@
 // gradients are the same bits on every run.
 // Built with --fmad=false (the elementwise chain rounds as the plain
 // PyTorch version does); the dot products use explicit fused multiply-adds.
+//
+// Stacked replicas (the head of an ensemble of S seeds, fused_head_bwd.cu
+// and fused_izh_bwd.cu): every function takes the replica from blockIdx.z
+// (gridDim.z = S), moves its per-replica pointers by the replica's stride
+// (at_replica) and writes its partial sums to the replica's own run of
+// slabs, (S, blocks, ...).  S = 1 is a single network: the same body, the
+// same bits.  The latencies are shared by the replicas.
 #pragma once
 
 #include "head_common.cuh"
@@ -75,6 +82,32 @@ struct Args {
   int B, F, H, O, T, periodic, phi, res_is_v;
   float alpha, threshold, gamma, kappa;
 };
+
+// The head's arguments for replica s of a stacked launch: each per-replica
+// input and scratch pointer moved by s of its replica's stride (the slabs
+// are moved by each function, whose grid sets their stride).  The z-layer
+// modes have no stacked launch.
+template <typename W>
+__device__ __forceinline__ Args at_replica(Args a, int s) {
+  if (s == 0) return a;
+  const size_t B = a.B, T = a.T, H = a.H, O = a.O, HW = (a.H + 31) / 32;
+  if (a.g_logits) a.g_logits += s * B * O;
+  if (a.tstar) a.tstar += s * B * O;
+  if (a.g_counts) a.g_counts += s * B * H;
+  if (a.delta) a.delta = static_cast<const W*>(a.delta) + s * T * B * H;
+  if (a.a_tr) a.a_tr = static_cast<const W*>(a.a_tr) + s * T * B * H;
+  if (a.w_rec) a.w_rec = static_cast<const W*>(a.w_rec) + s * H * H;
+  if (a.w_out) a.w_out = static_cast<const W*>(a.w_out) + s * H * O;
+  if (a.beta) a.beta += s;
+  if (a.dcur) a.dcur = static_cast<W*>(a.dcur) + s * B * T * H;
+  if (a.zmask) a.zmask += s * B * (T + 1) * HW;
+  return a;
+}
+
+// This block's slab among the (S, gridDim.x) slabs of `n` floats each.
+__device__ __forceinline__ float* block_slab(float* slabs, size_t n) {
+  return slabs + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * n;
+}
 
 // d spike / d v as a function of delta = v - thr (ops/surrogate.py).
 __device__ __forceinline__ float surrogate(int phi, float delta, float thr,
@@ -139,8 +172,9 @@ __device__ __forceinline__ float rec_product(const float* dp, const W* wt,
 // two-layer kernel (fused2_bwd.cu; !HEAD, ZD): dz(t) = g_z(t) + g_counts
 // with g_z read as GZ (float32 there), z(t) the sign of the residual delta.
 template <bool REC, bool HEAD, typename W, bool ZD = HEAD, typename GZ = W>
-__global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a, int rows) {
+__global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a0, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const Args a = at_replica<W>(a0, blockIdx.z);
   const int HP = blockDim.x;
   const int H = a.H, O = HEAD ? a.O : 0, T = a.T, B = a.B;
   const ChainLayout L = chain_layout(H, O, rows, HP, REC, sizeof(W));
@@ -305,8 +339,9 @@ __host__ __device__ inline InLayout in_layout(int T, int HP, int G,
 // grid (row groups, feature chunks of G * NACC); thread (h, g) owns the
 // features chunk0 + g + G i, i < NACC, of column h.
 template <typename W>
-__global__ void __launch_bounds__(1024) bwd_gwin_kernel(Args a, int G) {
+__global__ void __launch_bounds__(1024) bwd_gwin_kernel(Args a0, int G) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const Args a = at_replica<W>(a0, blockIdx.z);
   const int HP = blockDim.x;
   const int H = a.H, F = a.F, T = a.T, B = a.B;
   const InLayout L = in_layout(T, HP, G, a.periodic);
@@ -381,7 +416,7 @@ __global__ void __launch_bounds__(1024) bwd_gwin_kernel(Args a, int G) {
     __syncthreads();
   }
   if (h < H) {
-    float* slab = a.slab_in + (size_t)blockIdx.x * F * H;
+    float* slab = block_slab(a.slab_in, (size_t)F * H);
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
       const int f = f0 + g + G * i;
@@ -425,7 +460,9 @@ __global__ void __launch_bounds__(1024)
   const int h = threadIdx.x, g = threadIdx.y;
   const int tid = g * HP + h, nthreads = HP * G;
   const int word = blockIdx.y * G + g;  // the mask word of this thread's j
-  const W* dcur = static_cast<const W*>(dcur_);
+  // Replica blockIdx.z of a stacked launch.
+  const W* dcur = static_cast<const W*>(dcur_) + blockIdx.z * (size_t)B * T * H;
+  bits += blockIdx.z * (size_t)B * nrows * BW;
   float acc[NACC];
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
@@ -449,7 +486,7 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
   }
   if (word < BW && h < H) {
-    float* slab = slab_out + (size_t)blockIdx.x * J * H;
+    float* slab = block_slab(slab_out, (size_t)J * H);
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
       const int j = word * 32 + i;
@@ -553,8 +590,9 @@ __host__ __device__ inline OutLayout out_layout(int T, int HP, int O) {
 // grid (row groups); thread (h, g) owns g_W_out[h, o] for o = g + G i,
 // thread o < O the s chain of output o and g_b[o].
 template <typename W>
-__global__ void __launch_bounds__(1024) bwd_gout_kernel(Args a, int G) {
+__global__ void __launch_bounds__(1024) bwd_gout_kernel(Args a0, int G) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const Args a = at_replica<W>(a0, blockIdx.z);
   const int HP = blockDim.x, HW = HP >> 5;
   const int H = a.H, O = a.O, T = a.T, B = a.B;
   const OutLayout L = out_layout(T, HP, O);
@@ -598,7 +636,7 @@ __global__ void __launch_bounds__(1024) bwd_gout_kernel(Args a, int G) {
       for (int t = 0; t < T; ++t) acc_b += s_sf[t * O + tid];
     __syncthreads();
   }
-  float* slab = a.slab_out + (size_t)blockIdx.x * (H * O + O);
+  float* slab = block_slab(a.slab_out, (size_t)H * O + O);
   if (h < H) {
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {

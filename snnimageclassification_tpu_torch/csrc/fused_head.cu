@@ -17,6 +17,13 @@
 // inference primal of fused_encode_{rec,ff}_scan_head, store_traces=True
 // the training forward of those and of their _counts variants.
 //
+// Both head kernels also run S stacked replicas in one launch (an ensemble
+// of seeds on one batch, head_fwd.cuh): weights (S, ...), beta (S), logits
+// (S, B, O), traces (S, T, B, H); the latencies are shared.  That replaces
+// the stacked mode of the same TPU kernel (w_in.ndim == 3,
+// pallas_fused.py:596-702), the forward of the ensemble's
+// forward_logits_pixels_stacked.
+//
 // A third kernel from the same template, fused_layer0_fwd (HEAD = false):
 // the first layer of a deeper network, the same arithmetic with the readout
 // compiled out, so its spikes are bitwise the spikes inside the head.  It
@@ -37,10 +44,11 @@ namespace {
 
 template <bool TRAIN, bool HEAD>
 int run_lif(const FwdArgs<LifParams>& a, int alif, int bf16, int rows,
-            int device, void* stream) {
-  return alif ? run<LifCell<true>, TRAIN, HEAD>(a, bf16, rows, device, stream)
+            int device, void* stream, int S = 1) {
+  return alif ? run<LifCell<true>, TRAIN, HEAD>(a, bf16, rows, device, stream,
+                                                S)
               : run<LifCell<false>, TRAIN, HEAD>(a, bf16, rows, device,
-                                                 stream);
+                                                 stream, S);
 }
 
 }  // namespace
@@ -60,21 +68,22 @@ int snn_fused_layer0_plan(int F, int H, int rec, int bf16, int device,
   return plan(F, H, 0, rec, bf16, device, rows_out, smem_out);
 }
 
+// S replicas (S = 1: one network; beta holds S values).
 int snn_fused_head_fwd(const int* lat, const void* w_in, const void* w_rec,
                        const float* beta, const void* w_out,
                        const float* b_out, float* logits, int B, int F, int H,
                        int O, int T, int periodic, int alif, int bf16,
                        float alpha, float rho, float threshold, float kappa,
-                       int rows, int device, void* stream) {
+                       int rows, int S, int device, void* stream) {
   FwdArgs<LifParams> a{lat, w_in, w_rec, w_out, b_out, logits, nullptr,
                        nullptr, B, F, H, O, T, periodic, kappa,
                        {beta, alpha, rho, threshold, nullptr, nullptr,
                         nullptr, 0}};
-  return run_lif<false, true>(a, alif, bf16, rows, device, stream);
+  return run_lif<false, true>(a, alif, bf16, rows, device, stream, S);
 }
 
 // The training forward: also writes delta, a_tr, tstar and counts, each
-// where its pointer is not null.
+// where its pointer is not null; S replicas as above.
 int snn_fused_head_fwd_train(const int* lat, const void* w_in,
                              const void* w_rec, const float* beta,
                              const void* w_out, const float* b_out,
@@ -82,13 +91,13 @@ int snn_fused_head_fwd_train(const int* lat, const void* w_in,
                              int* tstar, float* counts, int B, int F, int H,
                              int O, int T, int periodic, int alif, int bf16,
                              float alpha, float rho, float threshold,
-                             float kappa, int rows, int device,
+                             float kappa, int rows, int S, int device,
                              void* stream) {
   FwdArgs<LifParams> a{lat, w_in, w_rec, w_out, b_out, logits, tstar,
                        counts, B, F, H, O, T, periodic, kappa,
                        {beta, alpha, rho, threshold, nullptr, delta, a_tr,
                         0}};
-  return run_lif<true, true>(a, alif, bf16, rows, device, stream);
+  return run_lif<true, true>(a, alif, bf16, rows, device, stream, S);
 }
 
 // The first layer of a deeper network: writes z (T, B, H) and, where `res`

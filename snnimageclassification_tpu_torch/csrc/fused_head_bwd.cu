@@ -5,7 +5,10 @@
 // Replaces the TPU kernel
 // snnimageclassification_tpu/ops/pallas_fused.py:_fused_bwd_kernel
 // (head=True; pl.pallas_call in _fused_bwd_call), the backward of
-// fused_encode_{rec,ff}_scan_head and of their _counts variants.
+// fused_encode_{rec,ff}_scan_head and of their _counts variants, and its
+// stacked-replica mode (w_in.ndim == 3, pallas_fused.py:958-1114): S seeds
+// of an ensemble in one launch, gridDim.z = S on every function, the slabs
+// (S, blocks, ...) summed per replica by the host (bwd_common.cuh).
 //
 // The recurrence, the split into __global__ functions (bwd_chain, bwd_gwin,
 // bwd_gbits for g_W_rec, bwd_gout) and what bounds them on an H100 are set
@@ -58,32 +61,33 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
 }
 
 template <bool REC, typename W>
-cudaError_t launch_all(const Args& a, const Plan& p, cudaStream_t s) {
+cudaError_t launch_all(const Args& a, const Plan& p, int S, cudaStream_t s) {
   const int HP = (a.H + 31) / 32 * 32;
   cudaError_t err = opt_in(bwd_chain_kernel<REC, true, W>, p.smem_chain);
   if (err != cudaSuccess) return err;
   bwd_chain_kernel<REC, true, W>
-      <<<dim3((a.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
-         s>>>(a, p.rows);
+      <<<dim3((a.B + p.rows - 1) / p.rows, 1, S), dim3(HP, p.rows),
+         p.smem_chain, s>>>(a, p.rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
     return err;
   bwd_gwin_kernel<W>
-      <<<dim3(p.n_in, p.n_f), dim3(HP, p.G), p.smem_in, s>>>(a, p.G);
+      <<<dim3(p.n_in, p.n_f, S), dim3(HP, p.G), p.smem_in, s>>>(a, p.G);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (REC) {
     if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
       return err;
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
     bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec, p.n_j), dim3(HP, p.G), p.smem_rec, s>>>(
+        <<<dim3(p.n_rec, p.n_j, S), dim3(HP, p.G), p.smem_rec, s>>>(
             a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H, a.H, a.T + 1, HP / 32,
             p.G);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if ((err = opt_in(bwd_gout_kernel<W>, p.smem_out)) != cudaSuccess)
     return err;
-  bwd_gout_kernel<W><<<dim3(p.n_out), dim3(HP, p.G), p.smem_out, s>>>(a, p.G);
+  bwd_gout_kernel<W>
+      <<<dim3(p.n_out, 1, S), dim3(HP, p.G), p.smem_out, s>>>(a, p.G);
   return cudaGetLastError();
 }
 
@@ -107,6 +111,9 @@ int snn_fused_head_bwd_plan(int B, int F, int H, int O, int T, int rec,
   return rc;
 }
 
+// S stacked replicas (S = 1: one network): every per-replica input, the
+// scratch and the slabs carry a leading S (beta holds S values); the
+// latencies are shared.
 int snn_fused_head_bwd(const float* g_logits, const int* tstar,
                        const float* g_counts, const void* delta,
                        const void* a_tr, const int* lat, const void* w_rec,
@@ -114,12 +121,13 @@ int snn_fused_head_bwd(const float* g_logits, const int* tstar,
                        void* zmask, float* slab_in, float* slab_rec,
                        float* slab_out, int B, int F, int H, int O, int T,
                        int periodic, int phi, int bf16, float alpha,
-                       float threshold, float gamma, float kappa, int device,
-                       void* stream) {
+                       float threshold, float gamma, float kappa, int S,
+                       int device, void* stream) {
   Plan p;
   const int rec = w_rec != nullptr;
   const int rc = make_plan(B, F, H, O, T, rec, bf16, periodic, device, &p);
   if (rc != 0) return rc == 1 ? (int)cudaErrorInvalidConfiguration : rc;
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidConfiguration;
   if (B == 0) return 0;
   Args a{g_logits, tstar, g_counts, nullptr, nullptr, delta, a_tr, lat, w_rec,
          w_out, beta, dcur, static_cast<unsigned*>(zmask), slab_in, slab_rec,
@@ -128,11 +136,11 @@ int snn_fused_head_bwd(const float* g_logits, const int* tstar,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16)
-    err = rec ? launch_all<true, __nv_bfloat16>(a, p, s)
-              : launch_all<false, __nv_bfloat16>(a, p, s);
+    err = rec ? launch_all<true, __nv_bfloat16>(a, p, S, s)
+              : launch_all<false, __nv_bfloat16>(a, p, S, s);
   else
-    err = rec ? launch_all<true, float>(a, p, s)
-              : launch_all<false, float>(a, p, s);
+    err = rec ? launch_all<true, float>(a, p, S, s)
+              : launch_all<false, float>(a, p, S, s);
   return (int)err;
 }
 

@@ -15,7 +15,9 @@
 // Replaces the TPU kernel
 // snnimageclassification_tpu/ops/pallas_fused_izh.py:_izh_fwd_kernel
 // (pl.pallas_call in _izh_fwd_call: head=True at :464, head=False at :484),
-// the forward of fused_encode_izh_scan[_head[_counts]].
+// the forward of fused_encode_izh_scan[_head[_counts]], and the head's
+// stacked-replica mode (:371-374, :450-463): S seeds of an ensemble in one
+// launch, one block per (row tile, replica), the latencies shared.
 //
 // The kernel, its shared-memory layout and its launch are head_fwd.cuh's
 // (shared with fused_head.cu, so bounds and design are those of the LIF/ALIF
@@ -31,6 +33,16 @@ struct IzhCellParams {
   IzhParams p;
   float* z;     // (T, B, H) float32, first-layer mode
   float* v_tr;  // (T, B, H) float32 or null: the membrane after each step
+
+  // Replica s of a stacked launch: its traces, n elements (T B H) a
+  // replica (float32 whatever the weights' type W).
+  template <typename W>
+  __device__ IzhCellParams at_replica(int s, size_t n) const {
+    IzhCellParams q = *this;
+    if (q.z) q.z += s * n;
+    if (q.v_tr) q.v_tr += s * n;
+    return q;
+  }
 };
 
 // v starts at v_rest and u at 0; z = [v >= v_peak] after the step.
@@ -65,22 +77,24 @@ int snn_fused_izh_plan(int F, int H, int O, int rec, int bf16, int device,
 }
 
 // The head: logits, and where any of v_tr, tstar, counts is not null (the
-// training kernel) each of those that is not.
+// training kernel) each of those that is not.  S stacked replicas (S = 1:
+// one network; head_fwd.cuh): weights (S, ...), outputs and v (S, ...).
 int snn_fused_izh_fwd(const int* lat, const void* w_in, const void* w_rec,
                       const void* w_out, const float* b_out, float* logits,
                       float* v_tr, int* tstar, float* counts, int B, int F,
                       int H, int O, int T, int periodic, int bf16, float dt,
                       float C, float v_rest, float v_th, float k, float a_,
                       float b_, float c, float d, float v_peak, float kappa,
-                      int rows, int device, void* stream) {
+                      int rows, int S, int device, void* stream) {
   FwdArgs<IzhCellParams> a{
       lat, w_in, w_rec, w_out, b_out, logits, tstar, counts, B, F, H, O, T,
       periodic, kappa,
       {IzhParams{dt, C, v_rest, v_th, k, a_, b_, c, d, v_peak}, nullptr,
        v_tr}};
   const bool train = v_tr || tstar || counts;
-  return train ? run<IzhCell, true, true>(a, bf16, rows, device, stream)
-               : run<IzhCell, false, true>(a, bf16, rows, device, stream);
+  return train
+             ? run<IzhCell, true, true>(a, bf16, rows, device, stream, S)
+             : run<IzhCell, false, true>(a, bf16, rows, device, stream, S);
 }
 
 // The first layer of a deeper network: z (T, B, H), and v (T, B, H) where

@@ -6,7 +6,10 @@
 // Replaces the TPU kernel
 // snnimageclassification_tpu/ops/pallas_fused_izh.py:_izh_bwd_kernel
 // (pl.pallas_call in _izh_bwd_call, :631), the backward of
-// fused_encode_izh_scan[_head[_counts]].
+// fused_encode_izh_scan[_head[_counts]], and the head's stacked-replica
+// mode (:506-507, :621, :641): S seeds of an ensemble in one launch,
+// gridDim.z = S on every function, slabs (S, blocks, ...) summed per
+// replica by the host.
 //
 // The two-carry chain is izh_chain (izh_common.cuh): the head reads only the
 // float32 v trace and recomputes z = v >= v_peak, a first layer reads v, z
@@ -61,27 +64,28 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
   return 0;
 }
 
+// S stacked replicas of the head (S = 1: one network) on gridDim.z.
 template <bool REC, bool HEAD, typename W>
 cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
-                       cudaStream_t s) {
+                       int S, cudaStream_t s) {
   const int HP = (c.H + 31) / 32 * 32;
   cudaError_t err = opt_in(izh_chain_kernel<REC, HEAD, W>, p.smem_chain);
   if (err != cudaSuccess) return err;
   izh_chain_kernel<REC, HEAD, W>
-      <<<dim3((c.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
-         s>>>(c, p.rows);
+      <<<dim3((c.B + p.rows - 1) / p.rows, 1, S), dim3(HP, p.rows),
+         p.smem_chain, s>>>(c, p.rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
     return err;
   bwd_gwin_kernel<W>
-      <<<dim3(p.n_in, p.n_f), dim3(HP, p.G), p.smem_in, s>>>(g, p.G);
+      <<<dim3(p.n_in, p.n_f, S), dim3(HP, p.G), p.smem_in, s>>>(g, p.G);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (REC) {
     if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
       return err;
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
     bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec, p.n_j), dim3(HP, p.G), p.smem_rec, s>>>(
+        <<<dim3(p.n_rec, p.n_j, S), dim3(HP, p.G), p.smem_rec, s>>>(
             g.dcur, g.zmask, g.slab_rec, g.B, g.T, g.H, g.H, g.T + 1,
             HP / 32, p.G);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -90,7 +94,7 @@ cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
     if ((err = opt_in(bwd_gout_kernel<W>, p.smem_out)) != cudaSuccess)
       return err;
     bwd_gout_kernel<W>
-        <<<dim3(p.n_out), dim3(HP, p.G), p.smem_out, s>>>(g, p.G);
+        <<<dim3(p.n_out, 1, S), dim3(HP, p.G), p.smem_out, s>>>(g, p.G);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -98,9 +102,9 @@ cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
 
 template <bool HEAD, typename W>
 cudaError_t launch_rec(const IzhChainArgs& c, const Args& g, const Plan& p,
-                       cudaStream_t s) {
-  return c.w_rec ? launch_all<true, HEAD, W>(c, g, p, s)
-                 : launch_all<false, HEAD, W>(c, g, p, s);
+                       int S, cudaStream_t s) {
+  return c.w_rec ? launch_all<true, HEAD, W>(c, g, p, S, s)
+                 : launch_all<false, HEAD, W>(c, g, p, S, s);
 }
 
 }  // namespace
@@ -126,7 +130,9 @@ int snn_fused_izh_bwd_plan(int B, int F, int H, int O, int T, int rec,
 
 // The head where w_out is not null (g_logits, tstar, optional g_counts;
 // z from v), else the first layer (g_z and z).  dcur (B, T, H) in the
-// weights' type and zmask (B, T + 1, HP / 32) are the call's scratch.
+// weights' type and zmask (B, T + 1, HP / 32) are the call's scratch.  The
+// head takes S stacked replicas (S = 1: one network), each per-replica
+// input, the scratch and the slabs with a leading S; a first layer S = 1.
 int snn_fused_izh_bwd(const float* g_logits, const int* tstar,
                       const float* g_counts, const float* g_z, const float* z,
                       const float* v, const int* lat, const void* w_rec,
@@ -135,13 +141,15 @@ int snn_fused_izh_bwd(const float* g_logits, const int* tstar,
                       int F, int H, int O, int T, int periodic, int phi,
                       int bf16, float dtC, float c1, float c2, float c3,
                       float v_rest, float v_th, float v_peak, float gamma,
-                      float kappa, int device, void* stream) {
+                      float kappa, int S, int device, void* stream) {
   const int head = w_out != nullptr;
   if (!head) O = 0;
   Plan p;
   const int rc = make_plan(B, F, H, O, T, w_rec != nullptr, bf16, periodic,
                            device, &p);
   if (rc != 0) return rc == 1 ? (int)cudaErrorInvalidConfiguration : rc;
+  if (S < 1 || S > 65535 || (!head && S != 1))
+    return (int)cudaErrorInvalidConfiguration;
   if (B == 0) return 0;
   unsigned* bits = static_cast<unsigned*>(zmask);
   IzhChainArgs c{g_logits, tstar, g_counts, g_z, z, v, w_rec, w_out,
@@ -154,11 +162,11 @@ int snn_fused_izh_bwd(const float* g_logits, const int* tstar,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16)
-    err = head ? launch_rec<true, __nv_bfloat16>(c, g, p, s)
-               : launch_rec<false, __nv_bfloat16>(c, g, p, s);
+    err = head ? launch_rec<true, __nv_bfloat16>(c, g, p, S, s)
+               : launch_rec<false, __nv_bfloat16>(c, g, p, S, s);
   else
-    err = head ? launch_rec<true, float>(c, g, p, s)
-               : launch_rec<false, float>(c, g, p, s);
+    err = head ? launch_rec<true, float>(c, g, p, S, s)
+               : launch_rec<false, float>(c, g, p, S, s);
   return (int)err;
 }
 

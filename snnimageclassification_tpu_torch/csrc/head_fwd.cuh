@@ -42,6 +42,18 @@
 // Layout: one block = `rows` batch rows x HP threads (HP = H rounded up to a
 // warp multiple); thread (h, r) owns hidden unit h of row r, and each warp
 // holds 32 consecutive units of one row.
+//
+// Stacked replicas (an ensemble of S seeds on one batch; JAX package
+// ops/pallas_fused.py, "stacked-replica grid lifting"): one launch runs S
+// networks, one block per (row tile, replica).  A block offsets its
+// weights, bias, outputs and traces by its replica's stride (at_replica)
+// and reads the replica's beta; every replica reads the same latencies,
+// which stay in the 50 MB L2 across replicas.  A single network is S = 1,
+// so both share this body and its arithmetic bit for bit.  The TPU kernel
+// puts the replica axis inside the tile axis so that a latency tile is
+// DMA'd once per tile; here the grid's x axis walks the row tiles and y the
+// replicas (row tiles fastest: tools/head_ablation.py --launch-order times
+// the other order).
 #pragma once
 
 #include "head_common.cuh"
@@ -95,6 +107,23 @@ struct FwdArgs {
   float kappa;
   P cell;
 };
+
+// The arguments of replica s of a stacked launch: each per-replica pointer
+// moved by s of its replica's stride (the latencies are shared).
+template <typename W, class P>
+__device__ __forceinline__ FwdArgs<P> at_replica(FwdArgs<P> a, int s) {
+  if (s == 0) return a;
+  const size_t F = a.F, H = a.H, O = a.O, B = a.B;
+  a.w_in = static_cast<const W*>(a.w_in) + s * F * H;
+  if (a.w_rec) a.w_rec = static_cast<const W*>(a.w_rec) + s * H * H;
+  if (a.w_out) a.w_out = static_cast<const W*>(a.w_out) + s * H * O;
+  if (a.b_out) a.b_out += s * O;
+  if (a.logits) a.logits += s * B * O;
+  if (a.tstar) a.tstar += s * B * O;
+  if (a.counts) a.counts += s * B * H;
+  a.cell = a.cell.template at_replica<W>(s, (size_t)a.T * B * H);
+  return a;
+}
 
 // One warp writes the features f of a row whose latency passes `pick` to
 // `lst`, in ascending f, and returns how many (the same on every lane).  A
@@ -166,8 +195,10 @@ __device__ __forceinline__ void list_step(const int16_t* s_lat,
 
 template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W>
 __global__ void __launch_bounds__(1024)
-    head_fwd_kernel(FwdArgs<typename Cell::Params> a, int rows) {
+    head_fwd_kernel(FwdArgs<typename Cell::Params> a0, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x;
+  const FwdArgs<typename Cell::Params> a = at_replica<W>(a0, blockIdx.y);
   const int HP = blockDim.x, HW = HP >> 5;
   const int H = a.H, O = HEAD ? a.O : 0, F = a.F, T = a.T;
   const Layout L = layout(F, H, O, rows, HP, REC, sizeof(W));
@@ -185,7 +216,7 @@ __global__ void __launch_bounds__(1024)
   const int h = threadIdx.x, r = threadIdx.y;
   const int tid = r * HP + h, nthreads = HP * rows;
   const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
-  const int row0 = blockIdx.x * rows;
+  const int row0 = tile * rows;
   const W* w_in = static_cast<const W*>(a.w_in);
 
   if (REC) {
@@ -276,23 +307,26 @@ __global__ void __launch_bounds__(1024)
 
 template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W>
 cudaError_t launch(const FwdArgs<typename Cell::Params>& a, int rows, int HP,
-                   size_t smem, cudaStream_t stream) {
+                   size_t smem, int S, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       head_fwd_kernel<Cell, REC, TRAIN, HEAD, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 block(HP, rows);
-  dim3 grid((a.B + rows - 1) / rows);
+  const int tiles = (a.B + rows - 1) / rows;
+  dim3 grid(tiles, S);
   head_fwd_kernel<Cell, REC, TRAIN, HEAD, W>
       <<<grid, block, smem, stream>>>(a, rows);
   return cudaGetLastError();
 }
 
-// One launch of the kernel of `Cell` in mode (TRAIN, HEAD); recurrence
-// where a.w_rec is not null, bfloat16 weights where `bf16`.
+// One launch of the kernel of `Cell` in mode (TRAIN, HEAD) for S stacked
+// replicas (S = 1: one network); recurrence where a.w_rec is not null,
+// bfloat16 weights where `bf16`.
 template <class Cell, bool TRAIN, bool HEAD>
 int run(const FwdArgs<typename Cell::Params>& a, int bf16, int rows,
-        int device, void* stream) {
+        int device, void* stream, int S = 1) {
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidConfiguration;
   if (a.B == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -303,11 +337,11 @@ int run(const FwdArgs<typename Cell::Params>& a, int bf16, int rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
   if (bf16)
-    err = rec ? launch<Cell, true, TRAIN, HEAD, BF>(a, rows, HP, smem, s)
-              : launch<Cell, false, TRAIN, HEAD, BF>(a, rows, HP, smem, s);
+    err = rec ? launch<Cell, true, TRAIN, HEAD, BF>(a, rows, HP, smem, S, s)
+              : launch<Cell, false, TRAIN, HEAD, BF>(a, rows, HP, smem, S, s);
   else
-    err = rec ? launch<Cell, true, TRAIN, HEAD, float>(a, rows, HP, smem, s)
-              : launch<Cell, false, TRAIN, HEAD, float>(a, rows, HP, smem, s);
+    err = rec ? launch<Cell, true, TRAIN, HEAD, float>(a, rows, HP, smem, S, s)
+              : launch<Cell, false, TRAIN, HEAD, float>(a, rows, HP, smem, S, s);
   return (int)err;
 }
 

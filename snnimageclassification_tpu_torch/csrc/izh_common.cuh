@@ -71,14 +71,33 @@ struct IzhChainArgs {
   float kappa;
 };
 
+// The head's arguments for replica s of a stacked launch (gridDim.z = S,
+// bwd_common.cuh): each per-replica pointer moved by s of its stride.
+template <typename W>
+__device__ __forceinline__ IzhChainArgs at_replica(IzhChainArgs a, int s) {
+  if (s == 0) return a;
+  const size_t B = a.B, T = a.T, H = a.H, O = a.O, HW = (a.H + 31) / 32;
+  if (a.g_logits) a.g_logits += s * B * O;
+  if (a.tstar) a.tstar += s * B * O;
+  if (a.g_counts) a.g_counts += s * B * H;
+  if (a.v) a.v += s * T * B * H;
+  if (a.w_rec) a.w_rec = static_cast<const W*>(a.w_rec) + s * H * H;
+  if (a.w_out) a.w_out = static_cast<const W*>(a.w_out) + s * H * O;
+  if (a.g_i) a.g_i += s * T * B * H;
+  if (a.dcur) a.dcur = static_cast<W*>(a.dcur) + s * B * T * H;
+  if (a.zmask) a.zmask += s * B * (T + 1) * HW;
+  return a;
+}
+
 // One block = `rows` batch rows x HP threads, thread (h, r) owns unit h of
 // row r and walks t down, as bwd_chain does: W_rec^T and W_out in shared
 // memory (chain_layout), the rounded gi of the step after in a double
-// buffer, one block barrier a step.
+// buffer, one block barrier a step.  Replica blockIdx.z of a stacked head.
 template <bool REC, bool HEAD, typename W>
 __global__ void __launch_bounds__(1024)
-    izh_chain_kernel(IzhChainArgs a, int rows) {
+    izh_chain_kernel(IzhChainArgs a0, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const IzhChainArgs a = at_replica<W>(a0, blockIdx.z);
   const int HP = blockDim.x, HW = HP >> 5;
   const int H = a.H, O = HEAD ? a.O : 0, T = a.T, B = a.B;
   const ChainLayout L = chain_layout(H, O, rows, HP, REC, sizeof(W));

@@ -14,6 +14,18 @@ struct LifParams {
   void* delta;  // (T, B, H) weights' type or null: v - thr (v where res_is_v)
   void* a_tr;   // (T, B, H) weights' type or null: ALIF's adaptation trace
   int res_is_v;
+
+  // Replica s of a stacked launch: its beta and its traces, n elements
+  // (T B H) a replica.
+  template <typename W>
+  __device__ LifParams at_replica(int s, size_t n) const {
+    LifParams p = *this;
+    if (p.beta) p.beta += s;
+    if (p.z) p.z = static_cast<W*>(p.z) + s * n;
+    if (p.delta) p.delta = static_cast<W*>(p.delta) + s * n;
+    if (p.a_tr) p.a_tr = static_cast<W*>(p.a_tr) + s * n;
+    return p;
+  }
 };
 
 // LIF (ALIF = false) or ALIF: v' = (alpha v + cur)(1 - z(t-1)), z' =

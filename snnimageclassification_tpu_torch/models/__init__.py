@@ -8,8 +8,10 @@ from .snn import (  # noqa: F401
     forward_logits,
     forward_logits_counts_pixels,
     forward_logits_pixels,
+    forward_logits_pixels_stacked,
     init,
     init_state,
     param_labels,
     prediction_logits,
+    stacked_head_fusible,
 )

@@ -1,7 +1,8 @@
 """Carry parameters and Adam state across to and from the JAX package.
 
 Both packages keep params as ``{layer: {leaf: array}}`` with ``w_in`` in
-``(in, out)`` order, so a conversion is a plain copy.  Everything crosses
+``(in, out)`` order, so a conversion is a plain copy; an ensemble's stacked
+params (a leading replica axis on every leaf) cross the same way.  Everything crosses
 as numpy: this module imports neither package's framework but torch.
 """
 from __future__ import annotations
@@ -49,12 +50,21 @@ def params_to_numpy(params) -> dict:
             for name, group in params.items()}
 
 
-def adam_state_from_optax(optimizer, count: int, mu, nu) -> None:
+def adam_state_from_optax(optimizer, count, mu, nu) -> None:
     """Start ``optimizer`` (a ``train.MaskedAdam``) from an optax Adam
     state: the step ``count`` and the moment trees ``mu`` and ``nu`` as
     ``{layer: {leaf: np.ndarray}}`` (``ScaleByAdamState`` fetched to the
     host).  Only the ``"weight"`` leaves are read; optax keeps no moments
-    for masked ones."""
+    for masked ones.
+
+    A vmapped state (``jax.vmap(tx.init)`` over an ensemble's stacked
+    params) has ``count`` of shape ``(S,)`` and moments with a leading S;
+    the replicas step together, so the counts are equal and one
+    ``torch.optim.Adam`` over the stacked leaves holds them."""
+    counts = np.asarray(count).reshape(-1)
+    if counts.size == 0 or (counts != counts[0]).any():
+        raise ValueError(f"replica step counts differ: {counts.tolist()}")
+    count = int(counts[0])
     for (name, leaf), p in zip(optimizer.keys, optimizer.tensors):
         optimizer.adam.state[p] = {
             "step": torch.tensor(float(count)),

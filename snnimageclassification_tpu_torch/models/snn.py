@@ -33,6 +33,9 @@ Three paths compute the logits:
   one call (ops/rec_scan.py ``rec_{alif,lif}_scan`` for a recurrent
   LIF/ALIF layer, ops/scan.py ``{alif,lif}_scan`` for a feedforward one;
   Izhikevich: ``izh_scan``);
+* stacked replicas (an ensemble of seeds, parallel/ensemble.py): a
+  head-fusible config runs every replica's whole network in one stacked
+  head call on one batch (:func:`forward_logits_pixels_stacked`);
 * everything else: :func:`apply`, a per-layer time loop (the reference's
   layer-then-time order, snn.py:209-214), then
   :func:`prediction_logits`; the readout always loops.  On the card a
@@ -67,15 +70,19 @@ from ..ops.fused import (
     KERNEL_2_BWD,
     KERNEL_2_TRAIN,
     KERNEL_BWD,
+    KERNEL_BWD_STACKED,
     KERNEL_ENC,
     KERNEL_ENC_BWD,
     KERNEL_IZH,
     KERNEL_IZH_BWD,
+    KERNEL_IZH_BWD_STACKED,
     KERNEL_IZH_L0,
     KERNEL_IZH_L0_BWD,
     KERNEL_IZH_SCAN,
     KERNEL_IZH_SCAN_BWD,
+    KERNEL_IZH_STACKED,
     KERNEL_IZH_TRAIN,
+    KERNEL_IZH_TRAIN_STACKED,
     KERNEL_L0,
     KERNEL_L0_BWD,
     KERNEL_MID,
@@ -86,7 +93,9 @@ from ..ops.fused import (
     KERNEL_SCAN,
     KERNEL_SCAN_BWD,
     KERNEL_SCAN_TRAIN,
+    KERNEL_STACKED,
     KERNEL_TRAIN,
+    KERNEL_TRAIN_STACKED,
     fused_encode_ff_scan,
     fused_encode_ff_scan_head,
     fused_encode_ff_scan_head_counts,
@@ -135,6 +144,8 @@ __all__ = [
     "forward_logits",
     "forward_logits_pixels",
     "forward_logits_counts_pixels",
+    "stacked_head_fusible",
+    "forward_logits_pixels_stacked",
     "explain_dispatch",
     "param_labels",
 ]
@@ -900,6 +911,47 @@ def forward_logits_counts_pixels(cfg: SNNConfig, params: Params, pixels, enc,
     return prediction_logits(cfg, trace), counts
 
 
+def stacked_head_fusible(cfg: SNNConfig, enc, device="cuda",
+                         training: bool = False) -> bool:
+    """Whether :func:`forward_logits_pixels_stacked` covers this config on
+    ``device``: the whole-network head's gate (one LIF/ALIF/Izhikevich
+    hidden layer, max-over-time readout, on-device encoding at
+    ``int_time_steps``, float32 compute, the shape within the kernels'
+    limits, with ``training`` the backward's too).  The stacked launches
+    take each replica with the single kernels' plan, so their gate is the
+    single gate."""
+    return _head_fusible(cfg, enc, resolve_device(device), training)
+
+
+def forward_logits_pixels_stacked(cfg: SNNConfig, stacked_params: Params,
+                                  pixels, enc, *,
+                                  device="cuda") -> torch.Tensor:
+    """All replicas of a multi-seed ensemble in one stacked head call.
+
+    ``stacked_params`` carries a leading replica axis S on every leaf (the
+    layout of parallel/ensemble.py); the pixels ``(B, F)`` and their
+    latencies, computed once, are shared by every replica.  Returns logits
+    ``(S, B, O)``, differentiable in the params: on the card one launch of
+    ``fused_head_fwd_stacked`` (``fused_izh_fwd_stacked``) for inference,
+    of the ``_train_stacked`` forward and the ``_bwd_stacked`` backward for
+    training; each replica's logits and gradients equal a single
+    :func:`forward_logits_pixels` bit for bit.  Raises on a config that is
+    not stacked-head-fusible: gate on :func:`stacked_head_fusible` and run
+    the replicas one by one instead."""
+    dev = resolve_device(device)
+    params = _to(stacked_params, dev)
+    if not stacked_head_fusible(cfg, enc, dev, _needs_grad(params)):
+        raise ValueError(
+            "forward_logits_pixels_stacked: config is not stacked-head-"
+            "fusible (more than one hidden layer, another readout or "
+            "encoding, compute_dtype != float32, or a shape past the "
+            "kernels' limits) -- gate on stacked_head_fusible(cfg, enc) and "
+            "use per-replica forward_logits_pixels instead."
+        )
+    pixels = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
+    return _head_forward(cfg, params, pixels, enc, counts=False)
+
+
 def prediction_logits(cfg: SNNConfig, outputs_trace: torch.Tensor):
     """Readout trace ``(B, T, O)`` -> logits: max over time (snn.py:228)
     or, with ``ReadoutMth.TEMPORAL_FILTER``, the decayed sum (snn.py:229)."""
@@ -917,7 +969,7 @@ def forward_logits(cfg: SNNConfig, params: Params, inputs, *,
 
 
 def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
-                     training: bool = False) -> list:
+                     training: bool = False, stacked: bool = False) -> list:
     """Which implementation :func:`forward_logits_pixels` (with ``enc``)
     or :func:`apply` runs for each layer, and why: a list of ``{"layer",
     "path", "reason"}`` dicts in execution order.  Paths on the card:
@@ -944,8 +996,15 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     ``cuda:scan_fwd`` (a feedforward one's; ``cuda:scan_fwd_train+scan_bwd``
     training), on the CPU ``torch:encode_matmul_reference``,
     ``torch:rec_scan_reference`` and ``torch:scan_reference``.
-    ``torch:loop`` is the per-step loop.  It fires the same fallback logs
-    the real dispatch would."""
+    ``torch:loop`` is the per-step loop.  With ``stacked`` it describes
+    :func:`forward_logits_pixels_stacked` (the replicas of an ensemble):
+    ``cuda:fused_head_fwd_stacked`` (``cuda:fused_head_fwd_train_stacked+
+    fused_head_bwd_stacked`` training; ``fused_izh_*_stacked`` for an
+    Izhikevich head), ``torch:fused_head_stacked_reference`` (or
+    ``torch:fused_izh_head_stacked_reference``) on the CPU; a config the
+    stacked call does not cover lists the per-replica dispatch, each reason
+    ending in "(per replica)".  It fires the same fallback logs the real
+    dispatch would."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     layer_cfgs = cfg.layer_configs
@@ -963,16 +1022,28 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
         if izh:
             kernels = (KERNEL_IZH_TRAIN if training else KERNEL_IZH,
                        KERNEL_IZH_BWD, "fused_izh_head_reference")
+            if stacked:
+                kernels = (KERNEL_IZH_TRAIN_STACKED if training
+                           else KERNEL_IZH_STACKED, KERNEL_IZH_BWD_STACKED,
+                           "fused_izh_head_stacked_reference")
+        elif stacked:
+            kernels = (KERNEL_TRAIN_STACKED if training else KERNEL_STACKED,
+                       KERNEL_BWD_STACKED, "fused_head_stacked_reference")
         else:
             kernels = (KERNEL_TRAIN if training else KERNEL, KERNEL_BWD,
                        "fused_head_reference")
+        what = ("every replica of the ensemble on one shared batch"
+                if stacked else "single-hidden-layer classifier with "
+                "max-over-time readout")
         return [{
             "layer": names,
             "path": path(*kernels),
-            "reason": "single-hidden-layer classifier with max-over-time "
-                      "readout: encode + scan + readout + max in one call"
+            "reason": what + ": encode + scan + readout + max in one call"
                       + also + where,
         }]
+    if stacked:
+        return [dict(e, reason=e["reason"] + " (per replica)")
+                for e in explain_dispatch(cfg, enc, device, training)]
     if enc is not None and _twolayer_head_fusible(cfg, enc, dev, training):
         return [{
             "layer": names,

@@ -36,6 +36,19 @@ product, and the gradients of the weights come back in the weights' dtype.
 The recurrent weights must already be eye-masked
 (``cells.masked_recurrent``).
 
+Stacked replicas (an ensemble of S seeds on one shared batch, the JAX
+package's stacked-replica mode, ``w_in.ndim == 3``): the head calls take
+``W_in (S, F, H)``, ``W_rec (S, H, H)``, ``W_out (S, H, O)``, ``b_out (S,
+O)`` and ``beta`` as a float or an ``(S,)`` tensor, and return logits ``(S,
+B, O)``; one launch of ``fused_head_fwd_stacked`` (inference),
+``fused_head_fwd_train_stacked`` and ``fused_head_bwd_stacked`` (training)
+runs every replica, one block per (row tile, replica), each replica with the
+single call's plan and arithmetic, so its results equal S single launches
+bit for bit.  Their plain versions (``_head_stacked_reference`` and its
+siblings) run the single plain version once per replica and stack.  No
+caller of the stacked head asks for spike counts, so the ``_counts``
+variants take single weights only.
+
 Layer 0 of a deeper network is the same computation without the readout:
 ``fused_encode_{rec,ff}_scan`` return the spike trace ``z (T, B, H)`` in
 the weights' dtype (JAX package: the ``head=False`` mode of the same two
@@ -107,7 +120,17 @@ KERNEL_REC_BWD = "rec_scan_bwd"
 KERNEL_SCAN = "scan_fwd"
 KERNEL_SCAN_TRAIN = "scan_fwd_train"
 KERNEL_SCAN_BWD = "scan_bwd"
+# Stacked replicas of the whole-network heads (this module and
+# ops/fused_izh.py): the same kernels with a replica grid axis.
+STACKED = "_stacked"
+KERNEL_STACKED = KERNEL + STACKED
+KERNEL_TRAIN_STACKED = KERNEL_TRAIN + STACKED
+KERNEL_BWD_STACKED = KERNEL_BWD + STACKED
+KERNEL_IZH_STACKED = KERNEL_IZH + STACKED
+KERNEL_IZH_TRAIN_STACKED = KERNEL_IZH_TRAIN + STACKED
+KERNEL_IZH_BWD_STACKED = KERNEL_IZH_BWD + STACKED
 MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
+MAX_REPLICAS = 65535  # the replica grid axis (y forward, z backward)
 _counts_lock = threading.Lock()
 _launches = {k: 0 for k in (
     KERNEL, KERNEL_TRAIN, KERNEL_BWD, KERNEL_L0, KERNEL_L0_BWD, KERNEL_MID,
@@ -115,7 +138,9 @@ _launches = {k: 0 for k in (
     KERNEL_IZH_TRAIN, KERNEL_IZH_BWD,
     KERNEL_IZH_L0, KERNEL_IZH_L0_BWD, KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
     KERNEL_ENC, KERNEL_ENC_BWD, KERNEL_REC, KERNEL_REC_TRAIN,
-    KERNEL_REC_BWD, KERNEL_SCAN, KERNEL_SCAN_TRAIN, KERNEL_SCAN_BWD)}
+    KERNEL_REC_BWD, KERNEL_SCAN, KERNEL_SCAN_TRAIN, KERNEL_SCAN_BWD,
+    KERNEL_STACKED, KERNEL_TRAIN_STACKED, KERNEL_BWD_STACKED,
+    KERNEL_IZH_STACKED, KERNEL_IZH_TRAIN_STACKED, KERNEL_IZH_BWD_STACKED)}
 
 Beta = Union[float, torch.Tensor]
 
@@ -395,6 +420,63 @@ def _head_bwd_reference(g_logits, g_counts, tstar, delta, a_tr, lat, w_in,
             g_w_out.to(w_out.dtype), g_b)
 
 
+def replica_beta(beta: "Beta", s: int) -> "Beta":
+    """Replica ``s``'s beta: a float is shared, a tensor holds one value a
+    replica (a single value broadcasts, as the JAX kernel's
+    ``broadcast_to(beta.reshape(-1, 1, 1), (S, 1, 1))``)."""
+    if not isinstance(beta, torch.Tensor):
+        return beta
+    flat = beta.reshape(-1)
+    return flat[s] if flat.numel() > 1 else flat[0]
+
+
+def _stack_outs(outs):
+    """Stack per-replica results: a tensor, or a tuple with Nones."""
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(None if o[0] is None else torch.stack(o)
+                 for o in zip(*outs))
+
+
+def _rec_at(w_rec, s):
+    return None if w_rec is None else w_rec[s]
+
+
+def _head_stacked_reference(lat, w_in, w_rec, beta, w_out, b_out, *rest):
+    """Plain version of ``fused_head_fwd_stacked``: the single plain version
+    once per replica, stacked -> logits ``(S, B, O)``."""
+    return _stack_outs([
+        _head_reference(lat, w_in[s], _rec_at(w_rec, s),
+                        replica_beta(beta, s), w_out[s], b_out[s], *rest)
+        for s in range(w_in.shape[0])])
+
+
+def _head_train_stacked_reference(lat, w_in, w_rec, beta, w_out, b_out,
+                                  *rest):
+    """Plain version of ``fused_head_fwd_train_stacked``: as
+    :func:`_head_train_reference` with a leading S on every output."""
+    return _stack_outs([
+        _head_train_reference(lat, w_in[s], _rec_at(w_rec, s),
+                              replica_beta(beta, s), w_out[s], b_out[s],
+                              *rest)
+        for s in range(w_in.shape[0])])
+
+
+def _head_bwd_stacked_reference(g_logits, g_counts, tstar, delta, a_tr, lat,
+                                w_in, w_rec, beta, w_out, *rest):
+    """Plain version of ``fused_head_bwd_stacked``: ``(g_w_in, g_w_rec |
+    None, g_w_out, g_b)`` with a leading S."""
+    if g_counts is not None:
+        raise ValueError(f"{KERNEL_BWD_STACKED}: the stacked head has no "
+                         "spike-count cotangent")
+    return _stack_outs([
+        _head_bwd_reference(g_logits[s], None, tstar[s], delta[s],
+                            None if a_tr is None else a_tr[s], lat, w_in[s],
+                            _rec_at(w_rec, s), replica_beta(beta, s),
+                            w_out[s], *rest)
+        for s in range(w_in.shape[0])])
+
+
 def _layer0_bwd_reference(g_z, z, res, a_tr, res_is_v, lat, w_in, w_rec,
                           beta, n_steps, use_periods, alpha, threshold,
                           gamma, spike_func):
@@ -419,10 +501,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.snn_fused_head_plan.argtypes = [i, i, i, i, i, i, ip, ip]
         lib.snn_fused_head_plan.restype = i
         lib.snn_fused_head_fwd.argtypes = (
-            [vp] * 7 + [i] * 8 + [f] * 4 + [i, i, vp])
+            [vp] * 7 + [i] * 8 + [f] * 4 + [i] * 3 + [vp])
         lib.snn_fused_head_fwd.restype = i
         lib.snn_fused_head_fwd_train.argtypes = (
-            [vp] * 11 + [i] * 8 + [f] * 4 + [i, i, vp])
+            [vp] * 11 + [i] * 8 + [f] * 4 + [i] * 3 + [vp])
         lib.snn_fused_head_fwd_train.restype = i
         lib.snn_fused_layer0_plan.argtypes = [i, i, i, i, i, ip, ip]
         lib.snn_fused_layer0_plan.restype = i
@@ -433,7 +515,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.snn_fused_head_bwd_plan.argtypes = [i] * 9 + [ip]
         lib.snn_fused_head_bwd_plan.restype = i
         lib.snn_fused_head_bwd.argtypes = (
-            [vp] * 14 + [i] * 8 + [f] * 4 + [i, vp])
+            [vp] * 14 + [i] * 8 + [f] * 4 + [i, i, vp])
         lib.snn_fused_head_bwd.restype = i
     elif name == "fused_layer0_bwd":
         lib.snn_fused_layer0_bwd_plan.argtypes = [i] * 8 + [ip]
@@ -540,31 +622,56 @@ def _check(kernel, name, t, dtype, shape, device):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _beta_tensor(beta: Beta, dev: torch.device) -> torch.Tensor:
+def _beta_tensor(beta: Beta, dev: torch.device,
+                 n: int = 1) -> torch.Tensor:
+    """``beta`` as ``n`` float32 values on ``dev`` (one a replica; a float
+    or a single value is broadcast).  The caller holds the result until the
+    launch is queued."""
     if isinstance(beta, torch.Tensor):
-        return beta.detach().to(dev, torch.float32).reshape(1).contiguous()
-    return torch.full((1,), float(beta), dtype=torch.float32, device=dev)
+        flat = beta.detach().to(dev, torch.float32).reshape(-1)
+        if flat.numel() not in (1, n):
+            raise ValueError(f"beta must hold 1 or {n} values, got "
+                             f"{flat.numel()}")
+        return flat.expand(n).contiguous()
+    return torch.full((n,), float(beta), dtype=torch.float32, device=dev)
+
+
+def _replicas(w_in: torch.Tensor, kernel: str) -> Optional[int]:
+    """S for stacked weights ``(S, F, H)``, None for a single network."""
+    if w_in.dim() == 2:
+        return None
+    if w_in.dim() != 3 or not 1 <= w_in.shape[0] <= MAX_REPLICAS:
+        raise ValueError(f"{kernel}: w_in must be (F, H) or (S, F, H) with "
+                         f"1 <= S <= {MAX_REPLICAS}, got {tuple(w_in.shape)}")
+    return w_in.shape[0]
+
+
+def _lead(S: Optional[int]) -> tuple:
+    return () if S is None else (S,)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_forward(kernel, lat, w_in, w_rec, w_out, b_out, n_steps):
-    """Validate the forward kernels' inputs; returns (B, F, H, O, rows)."""
+def _check_forward(kernel, lat, w_in, w_rec, w_out, b_out, n_steps,
+                   S=None):
+    """Validate the forward kernels' inputs (a leading S on the weights
+    of ``S`` stacked replicas); returns (B, F, H, O, rows)."""
     dev = lat.device
     B, F = lat.shape
-    H, O = w_in.shape[1], w_out.shape[1]
+    H, O = w_in.shape[-1], w_out.shape[-1]
     wdt = w_in.dtype
+    lead = _lead(S)
     if wdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{kernel}: weights must be float32 or bfloat16, "
                          f"got {wdt}")
     _check(kernel, "latencies", lat, torch.int32, (B, F), dev)
-    _check(kernel, "w_in", w_in, wdt, (F, H), dev)
+    _check(kernel, "w_in", w_in, wdt, (*lead, F, H), dev)
     if w_rec is not None:
-        _check(kernel, "w_rec", w_rec, wdt, (H, H), dev)
-    _check(kernel, "w_out", w_out, wdt, (H, O), dev)
-    _check(kernel, "b_out", b_out, torch.float32, (O,), dev)
+        _check(kernel, "w_rec", w_rec, wdt, (*lead, H, H), dev)
+    _check(kernel, "w_out", w_out, wdt, (*lead, H, O), dev)
+    _check(kernel, "b_out", b_out, torch.float32, (*lead, O), dev)
     if not 1 <= n_steps <= MAX_STEPS:
         raise ValueError(
             f"{kernel}: n_steps must be in [1, {MAX_STEPS}], got {n_steps}")
@@ -578,40 +685,50 @@ def _check_forward(kernel, lat, w_in, w_rec, w_out, b_out, n_steps):
 
 def _head_cuda(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods,
                alif, alpha, rho, threshold, kappa):
-    """Launch ``fused_head_fwd``."""
+    """Launch ``fused_head_fwd`` (``fused_head_fwd_stacked`` for stacked
+    weights)."""
     dev = lat.device
-    B, F, H, O, rows = _check_forward(KERNEL, lat, w_in, w_rec, w_out,
-                                      b_out, n_steps)
-    beta_t = _beta_tensor(beta, dev)
-    logits = torch.empty((B, O), dtype=torch.float32, device=dev)
+    S = _replicas(w_in, KERNEL)
+    k = KERNEL if S is None else KERNEL_STACKED
+    B, F, H, O, rows = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
+                                      n_steps, S)
+    beta_t = _beta_tensor(beta, dev, S or 1)
+    logits = torch.empty((*_lead(S), B, O), dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.snn_fused_head_fwd(
         lat.data_ptr(), w_in.data_ptr(), _ptr(w_rec), beta_t.data_ptr(),
         w_out.data_ptr(), b_out.data_ptr(), logits.data_ptr(), B, F, H, O,
         n_steps, int(use_periods), int(alif),
         int(w_in.dtype == torch.bfloat16), alpha, rho, threshold, kappa,
-        rows, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        rows, S or 1, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(rc, lib, f"{KERNEL} launch")
-    _launched(KERNEL)
+    _raise_on(rc, lib, f"{k} launch")
+    _launched(k)
     return logits
 
 
 def _head_train_cuda(lat, w_in, w_rec, beta, w_out, b_out, n_steps,
                      use_periods, alif, alpha, rho, threshold, kappa, store,
                      store_a, want_counts):
-    """Launch ``fused_head_fwd_train``; returns as
-    :func:`_head_train_reference`."""
+    """Launch ``fused_head_fwd_train`` (``fused_head_fwd_train_stacked``
+    for stacked weights); returns as :func:`_head_train_reference`, with a
+    leading S when stacked."""
     dev = lat.device
-    B, F, H, O, rows = _check_forward(KERNEL_TRAIN, lat, w_in, w_rec, w_out,
-                                      b_out, n_steps)
-    beta_t = _beta_tensor(beta, dev)
-    logits = torch.empty((B, O), dtype=torch.float32, device=dev)
-    tstar = torch.empty((B, O), dtype=torch.int32, device=dev)
+    S = _replicas(w_in, KERNEL_TRAIN)
+    k = KERNEL_TRAIN if S is None else KERNEL_TRAIN_STACKED
+    if S is not None and want_counts:
+        raise ValueError(f"{k}: the stacked head has no spike counts")
+    B, F, H, O, rows = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
+                                      n_steps, S)
+    lead = _lead(S)
+    beta_t = _beta_tensor(beta, dev, S or 1)
+    logits = torch.empty((*lead, B, O), dtype=torch.float32, device=dev)
+    tstar = torch.empty((*lead, B, O), dtype=torch.int32, device=dev)
     trace = dict(dtype=w_in.dtype, device=dev)
-    delta = torch.empty((n_steps, B, H), **trace) if store else None
-    a_tr = torch.empty((n_steps, B, H), **trace) if store and store_a \
-        else None
+    delta = torch.empty((*lead, n_steps, B, H), **trace) if store else None
+    a_tr = (torch.empty((*lead, n_steps, B, H), **trace)
+            if store and store_a else None)
     counts = torch.empty((B, H), dtype=torch.float32, device=dev) \
         if want_counts else None
     lib = _lib()
@@ -620,38 +737,54 @@ def _head_train_cuda(lat, w_in, w_rec, beta, w_out, b_out, n_steps,
         w_out.data_ptr(), b_out.data_ptr(), logits.data_ptr(), _ptr(delta),
         _ptr(a_tr), tstar.data_ptr(), _ptr(counts), B, F, H, O, n_steps,
         int(use_periods), int(alif), int(w_in.dtype == torch.bfloat16),
-        alpha, rho, threshold, kappa, rows, dev.index,
+        alpha, rho, threshold, kappa, rows, S or 1, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(rc, lib, f"{KERNEL_TRAIN} launch")
-    _launched(KERNEL_TRAIN)
+    _raise_on(rc, lib, f"{k} launch")
+    _launched(k)
     return logits, delta, a_tr, tstar, counts
+
+
+def slab_sums(slab: torch.Tensor, S: Optional[int]) -> torch.Tensor:
+    """The blocks' partial slabs ``([S,] blocks, n)`` added in a fixed
+    order -> ``([S,] n)``.  Each replica's slabs are summed as a fresh
+    ``(blocks, n)`` tensor, exactly as a single call's, so a stacked
+    launch's gradients equal S single launches' bit for bit."""
+    if S is None:
+        return slab.sum(0)
+    return torch.stack([slab[s].clone().sum(0) for s in range(S)])
 
 
 def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
                    beta, w_out, n_steps, use_periods, alpha, threshold,
                    gamma, kappa, spike_func):
-    """Launch ``fused_head_bwd`` (its four ``__global__`` functions in one
-    call) and add the blocks' partial slabs in a fixed order."""
+    """Launch ``fused_head_bwd`` (``fused_head_bwd_stacked`` for stacked
+    weights; its four ``__global__`` functions in one call) and add the
+    blocks' partial slabs in a fixed order."""
     dev = lat.device
     B, F = lat.shape
-    H, O = w_out.shape
+    H, O = w_out.shape[-2:]
     wdt = w_out.dtype
-    k = KERNEL_BWD
+    S = _replicas(w_in, KERNEL_BWD)
+    k = KERNEL_BWD if S is None else KERNEL_BWD_STACKED
+    lead = _lead(S)
     if wdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{k}: weights must be float32 or bfloat16, "
                          f"got {wdt}")
-    _check(k, "g_logits", g_logits, torch.float32, (B, O), dev)
-    _check(k, "tstar", tstar, torch.int32, (B, O), dev)
+    _check(k, "g_logits", g_logits, torch.float32, (*lead, B, O), dev)
+    _check(k, "tstar", tstar, torch.int32, (*lead, B, O), dev)
     if g_counts is not None:
+        if S is not None:
+            raise ValueError(f"{k}: the stacked head has no spike-count "
+                             "cotangent")
         _check(k, "g_counts", g_counts, torch.float32, (B, H), dev)
-    _check(k, "delta", delta, wdt, (n_steps, B, H), dev)
+    _check(k, "delta", delta, wdt, (*lead, n_steps, B, H), dev)
     if a_tr is not None:
-        _check(k, "a", a_tr, wdt, (n_steps, B, H), dev)
+        _check(k, "a", a_tr, wdt, (*lead, n_steps, B, H), dev)
     _check(k, "latencies", lat, torch.int32, (B, F), dev)
     if w_rec is not None:
-        _check(k, "w_rec", w_rec, wdt, (H, H), dev)
-    _check(k, "w_out", w_out, wdt, (H, O), dev)
+        _check(k, "w_rec", w_rec, wdt, (*lead, H, H), dev)
+    _check(k, "w_out", w_out, wdt, (*lead, H, O), dev)
     bf16 = wdt == torch.bfloat16
     plan = _plan_bwd(dev, B, F, H, O, n_steps, w_rec is not None, bf16,
                      use_periods)
@@ -662,32 +795,33 @@ def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
     n_in, n_rec, n_out = plan
     f32 = dict(dtype=torch.float32, device=dev)
     # Scratch of the call: dcur(t) per row and the bits of z per row.
-    dcur = torch.empty((B, n_steps, H), dtype=wdt, device=dev)
-    zmask = torch.empty((B, n_steps + 1, (H + 31) // 32), dtype=torch.int32,
-                        device=dev)
-    slab_in = torch.empty((n_in, F * H), **f32)
-    slab_rec = torch.empty((n_rec, H * H), **f32)
-    slab_out = torch.empty((n_out, H * O + O), **f32)
+    dcur = torch.empty((*lead, B, n_steps, H), dtype=wdt, device=dev)
+    zmask = torch.empty((*lead, B, n_steps + 1, (H + 31) // 32),
+                        dtype=torch.int32, device=dev)
+    slab_in = torch.empty((*lead, n_in, F * H), **f32)
+    slab_rec = torch.empty((*lead, n_rec, H * H), **f32)
+    slab_out = torch.empty((*lead, n_out, H * O + O), **f32)
+    beta_t = _beta_tensor(beta, dev, S or 1)
     lib = _lib("fused_head_bwd")
     rc = lib.snn_fused_head_bwd(
         g_logits.data_ptr(), tstar.data_ptr(), _ptr(g_counts),
         delta.data_ptr(), _ptr(a_tr), lat.data_ptr(), _ptr(w_rec),
-        w_out.data_ptr(), _beta_tensor(beta, dev).data_ptr(),
+        w_out.data_ptr(), beta_t.data_ptr(),
         dcur.data_ptr(), zmask.data_ptr(), slab_in.data_ptr(),
         slab_rec.data_ptr(), slab_out.data_ptr(), B, F, H, O, n_steps,
         int(use_periods), int(spike_func == SpikeFuncType.Phi), int(bf16),
-        alpha, threshold, gamma, kappa, dev.index,
+        alpha, threshold, gamma, kappa, S or 1, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, f"{k} launch")
     _launched(k)
     # The sum over the blocks' slabs lies outside the TPU kernel too.
-    g_w_in = slab_in.sum(0).view(F, H).to(w_in.dtype)
+    g_w_in = slab_sums(slab_in, S).view(*lead, F, H).to(w_in.dtype)
     g_w_rec = (None if w_rec is None
-               else slab_rec.sum(0).view(H, H).to(wdt))
-    out_sum = slab_out.sum(0)
-    g_w_out = out_sum[:H * O].view(H, O).to(wdt)
-    return g_w_in, g_w_rec, g_w_out, out_sum[H * O:].clone()
+               else slab_sums(slab_rec, S).view(*lead, H, H).to(wdt))
+    out_sum = slab_sums(slab_out, S)
+    g_w_out = out_sum[..., :H * O].reshape(*lead, H, O).to(wdt)
+    return g_w_in, g_w_rec, g_w_out, out_sum[..., H * O:].clone()
 
 
 def _check_weights(kernel, w_in):
@@ -858,7 +992,9 @@ class _HeadFn(torch.autograd.Function):
         (n_steps, use_periods, alif, alpha, rho, threshold, gamma, kappa,
          spike_func) = statics
         impl = _impl(lat, plain)
-        fwd = _head_train_cuda if impl == "cuda" else _head_train_reference
+        fwd = (_head_train_cuda if impl == "cuda"
+               else _head_train_stacked_reference if w_in.dim() == 3
+               else _head_train_reference)
         logits, delta, a_tr, tstar, counts = fwd(
             lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods, alif,
             alpha, rho, threshold, kappa, True, _stores_a(alif, spike_func),
@@ -882,7 +1018,9 @@ class _HeadFn(torch.autograd.Function):
         g_logits = g_logits.to(torch.float32).contiguous()
         if g_counts is not None:
             g_counts = g_counts.to(torch.float32).contiguous()
-        bwd = _head_bwd_cuda if ctx.impl == "cuda" else _head_bwd_reference
+        bwd = (_head_bwd_cuda if ctx.impl == "cuda"
+               else _head_bwd_stacked_reference if w_in.dim() == 3
+               else _head_bwd_reference)
         g_w_in, g_w_rec, g_w_out, g_b = bwd(
             g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
             ctx.beta, w_out, n_steps, use_periods, alpha, threshold, gamma,
@@ -899,6 +1037,10 @@ def _head(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods, alif,
     kappa = float(kappa)
     if isinstance(spike_func, str):
         spike_func = SpikeFuncType[spike_func]
+    stacked = _replicas(w_in, KERNEL) is not None
+    if stacked and want_counts:
+        raise ValueError("the stacked head has no _counts variant (no "
+                         "ensemble trains with a spike regularizer)")
     if _wants_grad(w_in, w_rec, beta, w_out, b_out):
         statics = (*scalars, float(gamma), kappa, spike_func)
         return _HeadFn.apply(lat, w_in, w_rec, beta, w_out, b_out, statics,
@@ -906,7 +1048,9 @@ def _head(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods, alif,
     cuda = _impl(lat, plain) == "cuda"
     args = (lat, w_in, w_rec, beta, w_out, b_out, *scalars, kappa)
     if not want_counts:  # inference: no residual leaves the kernel
-        return (_head_cuda if cuda else _head_reference)(*args)
+        return (_head_cuda if cuda
+                else _head_stacked_reference if stacked
+                else _head_reference)(*args)
     fwd = _head_train_cuda if cuda else _head_train_reference
     logits, _, _, _, counts = fwd(*args, False, False, True)
     return logits, counts
@@ -1052,7 +1196,10 @@ def fused_encode_rec_scan_head(
     differentiable in the weights and the bias.
 
     For LIF pass ``alif=False`` (``beta`` and ``rho`` are ignored).
-    ``gamma`` and ``spike_func`` shape the surrogate gradient only."""
+    ``gamma`` and ``spike_func`` shape the surrogate gradient only.
+    Stacked weights (``W_in (S, F, H)`` and a leading S on every weight and
+    on ``b_out``; ``beta`` a float or ``(S,)``) run S replicas on the same
+    latencies in one launch and return ``(S, B, O)``."""
     return _head(latencies, w_in, w_rec, beta, w_out, b_out, n_steps,
                  use_periods, alif, alpha, rho, threshold, gamma, kappa,
                  spike_func, False)
@@ -1074,7 +1221,8 @@ def fused_encode_ff_scan_head(
     kappa: float,
     spike_func: SpikeFuncType = SpikeFuncType.FastSigmoid,
 ) -> torch.Tensor:
-    """Feedforward variant: no recurrent weights."""
+    """Feedforward variant: no recurrent weights (stacked weights as
+    :func:`fused_encode_rec_scan_head`)."""
     return _head(latencies, w_in, None, beta, w_out, b_out, n_steps,
                  use_periods, alif, alpha, rho, threshold, gamma, kappa,
                  spike_func, False)

@@ -31,6 +31,14 @@ Three hand-written CUDA kernels stand behind the wrappers:
   one source, head and first-layer mode): the two-carry chain, then the
   LIF/ALIF weight-gradient functions of ``csrc/bwd_common.cuh``.
 
+The head also runs stacked replicas (an ensemble of S seeds on one batch,
+the JAX package's stacked-replica mode): ``W_in (S, F, H)`` and a leading S
+on every weight and on ``b_out`` give logits ``(S, B, O)`` from one launch
+of ``fused_izh_fwd_stacked`` (inference) or ``fused_izh_fwd_train_stacked``
+and ``fused_izh_bwd_stacked`` (training), each replica bitwise a single
+launch.  Stacked is the head only, as in the JAX package (a stacked first
+layer raises), and takes no spike counts.
+
 On a CUDA tensor a wrapper launches the kernels or raises; on the CPU it
 runs the plain PyTorch versions, which the tests hold against the JAX
 kernels.  The ``*_reference`` entry points run the plain versions on any
@@ -51,9 +59,12 @@ from .encoding import spike_row
 from .fused import (
     KERNEL_IZH,
     KERNEL_IZH_BWD,
+    KERNEL_IZH_BWD_STACKED,
     KERNEL_IZH_L0,
     KERNEL_IZH_L0_BWD,
+    KERNEL_IZH_STACKED,
     KERNEL_IZH_TRAIN,
+    KERNEL_IZH_TRAIN_STACKED,
     MAX_STEPS,
 )
 from .surrogate import SpikeFuncType
@@ -82,6 +93,28 @@ def _head_reference(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
         w_in.shape[1], lat.device, w_rec, n_steps, kernel_params, w_out,
         b_out, kappa, keep_v=train, train=train, want_counts=want_counts)
     return logits, v, tstar, counts
+
+
+def _head_stacked_reference(lat, w_in, w_rec, w_out, b_out, *rest):
+    """Plain version of ``fused_izh_fwd[_train]_stacked``: the single plain
+    version once per replica, stacked (a leading S on every output)."""
+    return _f._stack_outs([
+        _head_reference(lat, w_in[s], _f._rec_at(w_rec, s), w_out[s],
+                        b_out[s], *rest)
+        for s in range(w_in.shape[0])])
+
+
+def _bwd_stacked_reference(g_logits, g_counts, tstar, g_z, z, v, lat, w_in,
+                           w_rec, w_out, *rest):
+    """Plain version of ``fused_izh_bwd_stacked`` (the head): ``(g_w_in,
+    g_w_rec | None, g_w_out, g_b)`` with a leading S."""
+    if g_counts is not None or w_out is None:
+        raise ValueError(f"{KERNEL_IZH_BWD_STACKED}: the stacked mode is the "
+                         "head without spike counts")
+    return _f._stack_outs([
+        _bwd_reference(g_logits[s], None, tstar[s], None, None, v[s], lat,
+                       w_in[s], _f._rec_at(w_rec, s), w_out[s], *rest)
+        for s in range(w_in.shape[0])])
 
 
 def _layer0_reference(lat, w_in, w_rec, n_steps, use_periods, kernel_params,
@@ -121,7 +154,7 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.snn_fused_izh_plan.argtypes = [i] * 6 + [ip, ip]
         lib.snn_fused_izh_plan.restype = i
         lib.snn_fused_izh_fwd.argtypes = (
-            [vp] * 9 + [i] * 7 + [f] * 11 + [i, i, vp])
+            [vp] * 9 + [i] * 7 + [f] * 11 + [i, i, i, vp])
         lib.snn_fused_izh_fwd.restype = i
         lib.snn_fused_izh_layer0_fwd.argtypes = (
             [vp] * 5 + [i] * 6 + [f] * 10 + [i, i, vp])
@@ -130,7 +163,7 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.snn_fused_izh_bwd_plan.argtypes = [i] * 9 + [ip]
         lib.snn_fused_izh_bwd_plan.restype = i
         lib.snn_fused_izh_bwd.argtypes = (
-            [vp] * 14 + [i] * 8 + [f] * 9 + [i, vp])
+            [vp] * 14 + [i] * 8 + [f] * 9 + [i, i, vp])
         lib.snn_fused_izh_bwd.restype = i
     lib.snn_cuda_error_string.argtypes = [i]
     lib.snn_cuda_error_string.restype = ctypes.c_char_p
@@ -222,21 +255,23 @@ def fused_izh_head_supported(n_steps: int, n_features: int, hidden: int,
                       itemsize, device, training, use_periods)
 
 
-def _check_forward(k, lat, w_in, w_rec, w_out, b_out, n_steps):
-    """Validate the forward kernels' inputs; returns (B, F, H, O, rows)."""
+def _check_forward(k, lat, w_in, w_rec, w_out, b_out, n_steps, S=None):
+    """Validate the forward kernels' inputs (a leading S on the weights of
+    ``S`` stacked replicas); returns (B, F, H, O, rows)."""
     dev = lat.device
     _f._check_weights(k, w_in)
     wdt = w_in.dtype
     B, F = lat.shape
-    H = w_in.shape[1]
-    O = 0 if w_out is None else w_out.shape[1]
+    H = w_in.shape[-1]
+    O = 0 if w_out is None else w_out.shape[-1]
+    lead = _f._lead(S)
     _f._check(k, "latencies", lat, torch.int32, (B, F), dev)
-    _f._check(k, "w_in", w_in, wdt, (F, H), dev)
+    _f._check(k, "w_in", w_in, wdt, (*lead, F, H), dev)
     if w_rec is not None:
-        _f._check(k, "w_rec", w_rec, wdt, (H, H), dev)
+        _f._check(k, "w_rec", w_rec, wdt, (*lead, H, H), dev)
     if w_out is not None:
-        _f._check(k, "w_out", w_out, wdt, (H, O), dev)
-        _f._check(k, "b_out", b_out, torch.float32, (O,), dev)
+        _f._check(k, "w_out", w_out, wdt, (*lead, H, O), dev)
+        _f._check(k, "b_out", b_out, torch.float32, (*lead, O), dev)
     if not 1 <= n_steps <= MAX_STEPS:
         raise ValueError(
             f"{k}: n_steps must be in [1, {MAX_STEPS}], got {n_steps}")
@@ -250,16 +285,24 @@ def _check_forward(k, lat, w_in, w_rec, w_out, b_out, n_steps):
 def _head_cuda(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
                kernel_params, kappa, train, want_counts):
     """Launch ``fused_izh_fwd`` or, for ``train`` or ``want_counts``,
-    ``fused_izh_fwd_train``; returns as :func:`_head_reference`."""
+    ``fused_izh_fwd_train`` (their ``_stacked`` launches for stacked
+    weights); returns as :func:`_head_reference`, with a leading S when
+    stacked."""
+    S = _f._replicas(w_in, KERNEL_IZH)
     k = KERNEL_IZH_TRAIN if train or want_counts else KERNEL_IZH
+    if S is not None:
+        if want_counts:
+            raise ValueError(f"{k}: the stacked head has no spike counts")
+        k = KERNEL_IZH_TRAIN_STACKED if train else KERNEL_IZH_STACKED
     dev = lat.device
     B, F, H, O, rows = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
-                                      n_steps)
+                                      n_steps, S)
+    lead = _f._lead(S)
     f32 = dict(dtype=torch.float32, device=dev)
-    logits = torch.empty((B, O), **f32)
-    v = torch.empty((n_steps, B, H), **f32) if train else None
-    tstar = (torch.empty((B, O), dtype=torch.int32, device=dev) if train
-             else None)
+    logits = torch.empty((*lead, B, O), **f32)
+    v = torch.empty((*lead, n_steps, B, H), **f32) if train else None
+    tstar = (torch.empty((*lead, B, O), dtype=torch.int32, device=dev)
+             if train else None)
     counts = torch.empty((B, H), **f32) if want_counts else None
     lib = _lib()
     p = _f._ptr
@@ -267,7 +310,7 @@ def _head_cuda(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
         lat.data_ptr(), w_in.data_ptr(), p(w_rec), w_out.data_ptr(),
         b_out.data_ptr(), logits.data_ptr(), p(v), p(tstar), p(counts), B, F,
         H, O, n_steps, int(use_periods), int(w_in.dtype == torch.bfloat16),
-        *_izh._consts(kernel_params), float(kappa), rows, dev.index,
+        *_izh._consts(kernel_params), float(kappa), rows, S or 1, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
@@ -297,27 +340,34 @@ def _layer0_cuda(lat, w_in, w_rec, n_steps, use_periods, kernel_params,
 
 def _bwd_cuda(g_logits, g_counts, tstar, g_z, z, v, lat, w_in, w_rec, w_out,
               n_steps, use_periods, kernel_params, gamma, kappa, spike_func):
-    """Launch ``fused_izh_bwd`` (``w_out`` given) or
-    ``fused_izh_layer0_bwd`` (the chain and the weight-gradient functions in
-    one call) and add the blocks' slabs in a fixed order; returns as
-    :func:`_bwd_reference`."""
+    """Launch ``fused_izh_bwd`` (``w_out`` given; ``fused_izh_bwd_stacked``
+    for stacked weights) or ``fused_izh_layer0_bwd`` (the chain and the
+    weight-gradient functions in one call) and add the blocks' slabs in a
+    fixed order; returns as :func:`_bwd_reference`."""
     head = w_out is not None
+    S = _f._replicas(w_in, KERNEL_IZH_BWD)
     k = KERNEL_IZH_BWD if head else KERNEL_IZH_L0_BWD
+    if S is not None:
+        if not head or g_counts is not None:
+            raise ValueError(f"{k}: the stacked mode is the head without "
+                             "spike counts")
+        k = KERNEL_IZH_BWD_STACKED
+    lead = _f._lead(S)
     dev = lat.device
     B, F = lat.shape
-    H = w_in.shape[1]
-    O = w_out.shape[1] if head else 0
+    H = w_in.shape[-1]
+    O = w_out.shape[-1] if head else 0
     T = n_steps
     wdt = w_in.dtype
     _f._check_weights(k, w_in)
     _f._check(k, "latencies", lat, torch.int32, (B, F), dev)
-    _f._check(k, "v", v, torch.float32, (T, B, H), dev)
+    _f._check(k, "v", v, torch.float32, (*lead, T, B, H), dev)
     if w_rec is not None:
-        _f._check(k, "w_rec", w_rec, wdt, (H, H), dev)
+        _f._check(k, "w_rec", w_rec, wdt, (*lead, H, H), dev)
     if head:
-        _f._check(k, "w_out", w_out, wdt, (H, O), dev)
-        _f._check(k, "g_logits", g_logits, torch.float32, (B, O), dev)
-        _f._check(k, "tstar", tstar, torch.int32, (B, O), dev)
+        _f._check(k, "w_out", w_out, wdt, (*lead, H, O), dev)
+        _f._check(k, "g_logits", g_logits, torch.float32, (*lead, B, O), dev)
+        _f._check(k, "tstar", tstar, torch.int32, (*lead, B, O), dev)
         if g_counts is not None:
             _f._check(k, "g_counts", g_counts, torch.float32, (B, H), dev)
     else:
@@ -333,12 +383,12 @@ def _bwd_cuda(g_logits, g_counts, tstar, g_z, z, v, lat, w_in, w_rec, w_out,
     n_in, n_rec, n_out = plan
     f32 = dict(dtype=torch.float32, device=dev)
     # Scratch of the call: gi(t) per row, rounded, and the bits of z.
-    dcur = torch.empty((B, T, H), dtype=wdt, device=dev)
-    zmask = torch.empty((B, T + 1, (H + 31) // 32), dtype=torch.int32,
+    dcur = torch.empty((*lead, B, T, H), dtype=wdt, device=dev)
+    zmask = torch.empty((*lead, B, T + 1, (H + 31) // 32), dtype=torch.int32,
                         device=dev)
-    slab_in = torch.empty((n_in, F * H), **f32)
-    slab_rec = torch.empty((n_rec, H * H), **f32)
-    slab_out = torch.empty((n_out, H * O + O), **f32)
+    slab_in = torch.empty((*lead, n_in, F * H), **f32)
+    slab_rec = torch.empty((*lead, n_rec, H * H), **f32)
+    slab_out = torch.empty((*lead, n_out, H * O + O), **f32)
     lib = _lib("fused_izh_bwd")
     p = _f._ptr
     rc = lib.snn_fused_izh_bwd(
@@ -348,17 +398,18 @@ def _bwd_cuda(g_logits, g_counts, tstar, g_z, z, v, lat, w_in, w_rec, w_out,
         slab_out.data_ptr(), B, F, H, O, T, int(use_periods),
         int(spike_func == SpikeFuncType.Phi), int(bf16),
         *_izh._bwd_consts(kernel_params), float(gamma), float(kappa),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        S or 1, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
-    g_w_in = slab_in.sum(0).view(F, H).to(wdt)
+    g_w_in = _f.slab_sums(slab_in, S).view(*lead, F, H).to(wdt)
     g_w_rec = (None if w_rec is None
-               else slab_rec.sum(0).view(H, H).to(wdt))
+               else _f.slab_sums(slab_rec, S).view(*lead, H, H).to(wdt))
     if not head:
         return g_w_in, g_w_rec, None, None
-    out_sum = slab_out.sum(0)
-    return (g_w_in, g_w_rec, out_sum[:H * O].view(H, O).to(wdt),
-            out_sum[H * O:].clone())
+    out_sum = _f.slab_sums(slab_out, S)
+    return (g_w_in, g_w_rec,
+            out_sum[..., :H * O].reshape(*lead, H, O).to(wdt),
+            out_sum[..., H * O:].clone())
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +424,9 @@ class _HeadFn(torch.autograd.Function):
                 plain):
         n_steps, use_periods, kp, gamma, kappa, spike_func = statics
         impl = _f._impl(lat, plain)
-        fwd = _head_cuda if impl == "cuda" else _head_reference
+        fwd = (_head_cuda if impl == "cuda"
+               else _head_stacked_reference if w_in.dim() == 3
+               else _head_reference)
         logits, v, tstar, counts = fwd(lat, w_in, w_rec, w_out, b_out,
                                        n_steps, use_periods, kp, kappa, True,
                                        want_counts)
@@ -391,7 +444,9 @@ class _HeadFn(torch.autograd.Function):
                     else g_logits.to(torch.float32).contiguous())
         if g_counts is not None:
             g_counts = g_counts.to(torch.float32).contiguous()
-        bwd = _bwd_cuda if ctx.impl == "cuda" else _bwd_reference
+        bwd = (_bwd_cuda if ctx.impl == "cuda"
+               else _bwd_stacked_reference if w_in.dim() == 3
+               else _bwd_reference)
         g_w_in, g_w_rec, g_w_out, g_b = bwd(
             g_logits, g_counts, tstar, None, None, v, lat, w_in, w_rec, w_out,
             n_steps, use_periods, kp, gamma, kappa, spike_func)
@@ -436,11 +491,17 @@ def _head(lat, w_in, w_rec, w_out, b_out, kernel_params, n_steps,
     n_steps, use_periods, kp, gamma, spike_func = _statics(
         n_steps, use_periods, kernel_params, gamma, spike_func)
     kappa = float(kappa)
+    stacked = _f._replicas(w_in, KERNEL_IZH) is not None
+    if stacked and want_counts:
+        raise ValueError("the stacked Izhikevich head has no _counts "
+                         "variant (no ensemble trains with a spike "
+                         "regularizer)")
     if _f._wants_grad(w_in, w_rec, w_out, b_out):
         statics = (n_steps, use_periods, kp, gamma, kappa, spike_func)
         return _HeadFn.apply(lat, w_in, w_rec, w_out, b_out, statics,
                              want_counts, plain)
-    fwd = _head_cuda if _f._impl(lat, plain) == "cuda" else _head_reference
+    fwd = (_head_cuda if _f._impl(lat, plain) == "cuda"
+           else _head_stacked_reference if stacked else _head_reference)
     # Inference: no residual leaves the kernel.
     logits, _, _, counts = fwd(lat, w_in, w_rec, w_out, b_out, n_steps,
                                use_periods, kp, kappa, False, want_counts)
@@ -449,6 +510,10 @@ def _head(lat, w_in, w_rec, w_out, b_out, kernel_params, n_steps,
 
 def _layer0(lat, w_in, w_rec, kernel_params, n_steps, use_periods, gamma,
             spike_func, plain=False):
+    if w_in.dim() != 2:  # as the JAX kernel: stacked is the head only
+        raise ValueError("fused_encode_izh_scan: the stacked-replica mode "
+                         "is the head only; w_in must be (F, H), got "
+                         f"{tuple(w_in.shape)}")
     statics = _statics(n_steps, use_periods, kernel_params, gamma,
                        spike_func)
     if _f._wants_grad(w_in, w_rec):
@@ -502,7 +567,8 @@ def fused_encode_izh_scan_head(
 ) -> torch.Tensor:
     """The whole single-hidden-layer Izhikevich network: (latencies (B, F)
     int32, weights) -> logits ``(B, O)``, differentiable in the weights and
-    the bias."""
+    the bias.  Stacked weights (a leading S on each weight and on
+    ``b_out``) run S replicas in one launch and return ``(S, B, O)``."""
     return _head(latencies, w_in, w_rec, w_out, b_out, kernel_params,
                  n_steps, use_periods, gamma, kappa, spike_func, False)
 

@@ -12,13 +12,16 @@ the synthetic prototype task ``chip_smoke.py`` trains.  ``--izh`` takes
 the Izhikevich cell instead (784 -> Izhikevich-128 recurrent -> 10, with
 ``--deep`` 784 -> 128 -> 128 -> 10, dt = 30 where units fire), and
 ``--loop`` the per-step time loop (``use_kernels=False``) instead of the
-kernels.
+kernels.  ``--ensemble`` profiles ``EnsembleTrainer.train_step`` on six
+seeds of the single-hidden-layer network instead (the default unrolled
+single kernel pairs; ``--stacked`` one stacked pair a step;
+``--izh`` the Izhikevich net).
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.train_profile \
-        [--deep | --twolayer | --wide | --ff] [--izh] [--loop] \
-        [--matmul-dtype float32|bfloat16] \
+        [--deep | --twolayer | --wide | --ff | --ensemble [--stacked]] \
+        [--izh] [--loop] [--matmul-dtype float32|bfloat16] \
         [--periodic] [--steps 10]
 
 After 3 warm-up steps it traces ``--steps`` steps with ``torch.profiler``
@@ -46,9 +49,11 @@ import numpy as np
 import torch
 
 from .. import EncodeConfig, LayerType, SNNConfig
+from ..parallel import EnsembleTrainer
 from ..train import Trainer
 
 BATCH = 8192
+SEEDS = 6  # the ensemble scripts' seed count
 
 
 def main() -> None:
@@ -70,6 +75,10 @@ def main() -> None:
                     help="Izhikevich layers at dt=30")
     ap.add_argument("--loop", action="store_true",
                     help="use_kernels=False: the per-step time loop")
+    ap.add_argument("--ensemble", action="store_true",
+                    help=f"EnsembleTrainer on {SEEDS} seeds")
+    ap.add_argument("--stacked", action="store_true",
+                    help="with --ensemble: fused_replicas='stacked'")
     ap.add_argument("--steps", type=int, default=10)
     ns = ap.parse_args()
     if not torch.cuda.is_available():
@@ -77,6 +86,10 @@ def main() -> None:
     if sum((ns.twolayer, ns.wide, ns.ff, ns.deep or ns.izh)) > 1:
         raise SystemExit("--twolayer, --wide and --ff are ALIF networks of "
                          "their own")
+    if ns.ensemble and (ns.twolayer or ns.wide or ns.ff or ns.deep):
+        raise SystemExit("--ensemble takes the single-hidden-layer network")
+    if ns.stacked and not ns.ensemble:
+        raise SystemExit("--stacked needs --ensemble")
     if ns.ff:
         cell = dict(hidden_layer_type=LayerType.ALIF, n_hidden_neurons=256,
                     use_recurrent_connection=False)
@@ -93,7 +106,16 @@ def main() -> None:
                     **cell)
     enc = EncodeConfig(n_steps=100, use_periods=ns.periodic,
                        as_timeseries=not ns.ff or ns.periodic)
-    trainer = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+    if ns.ensemble:
+        ens = EnsembleTrainer(cfg, seeds=range(SEEDS), device="cuda",
+                              fused_replicas="stacked" if ns.stacked
+                              else None)
+
+        def step(x, y):
+            return ens.train_step(x, y, encode_config=enc)
+    else:
+        step = Trainer(cfg, seed=0, encode_config=enc,
+                       device="cuda").train_step
     rng = np.random.default_rng(3)
     protos = rng.random((10, 784), dtype=np.float32)
     y = rng.integers(0, 10, BATCH)
@@ -101,14 +123,14 @@ def main() -> None:
         (BATCH, 784), dtype=np.float32), 0.0, 1.0)
     x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
     for _ in range(3):
-        trainer.train_step(x, y)
+        step(x, y)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(ns.steps):
-            trainer.train_step(x, y)
+            step(x, y)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -131,6 +153,8 @@ def main() -> None:
     print(json.dumps({
         "deep": ns.deep, "twolayer": ns.twolayer, "wide": ns.wide,
         "ff": ns.ff, "izh": ns.izh,
+        "ensemble_seeds": SEEDS if ns.ensemble else None,
+        "stacked": ns.stacked,
         "loop": ns.loop,
         "matmul_dtype": ns.matmul_dtype,
         "periodic": ns.periodic,

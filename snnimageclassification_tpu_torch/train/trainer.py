@@ -18,9 +18,11 @@ of the decay and stays bitwise what it was.
 Loss parity: ``nn.NLLLoss`` on the log-softmax of the max-over-time
 logits (snn.py:296, 250-258, 228), mean reduction.
 
-Not here yet: checkpoints and resume, validation, early stopping, LR
-schedules, several epochs per dispatch, meshes and the parallel
-strategies.
+The helpers the ensemble trainer (parallel/ensemble.py) shares with the
+JAX trainer are here too: :data:`ES_TOL`, :func:`checkpoint_selected`,
+:func:`host_snapshot` and :func:`encode_on_device`.  ``Trainer.fit`` is
+still the bare epoch loop: its checkpoints and resume, validation, early
+stopping, LR schedules, meshes and parallel strategies are not here yet.
 """
 from __future__ import annotations
 
@@ -32,11 +34,46 @@ from .._device import resolve_device
 from ..data.datasets import EncodeConfig
 from ..models import snn as model_lib
 from ..models.config import SNNConfig
+from ..ops.encoding import encode_spikes
 
 __all__ = ["Trainer", "MaskedAdam", "make_optimizer", "nll_loss",
-           "default_criterion"]
+           "default_criterion", "ES_TOL", "checkpoint_selected",
+           "host_snapshot", "encode_on_device"]
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+# Plateau tolerance of early stopping (the reference's, snn.py:272-278).
+ES_TOL = 1e-2
+
+
+def checkpoint_selected(epoch: int, nb_epochs: int, every: int) -> bool:
+    """Which epochs get a checkpoint FILE under ``checkpoint_every=N``:
+    every Nth plus the final epoch (the best epoch is tracked in memory and
+    written once at fit end)."""
+    return epoch % every == 0 or epoch == nb_epochs - 1
+
+
+def host_snapshot(tree):
+    """A host copy of a tree of tensors (dicts, lists, tuples; other
+    leaves kept): every tensor copied to the CPU, so the snapshot never
+    follows later updates of the live tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: host_snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_snapshot(v) for v in tree)
+    return tree
+
+
+def encode_on_device(x: torch.Tensor, enc: EncodeConfig) -> torch.Tensor:
+    """Pixels -> model inputs on the pixels' device: the spike raster
+    ``(B, T, F)``, or the pixels themselves for ``as_timeseries=False`` (the
+    model repeats them over time, snn.py:159-171)."""
+    if not enc.as_timeseries:
+        return x
+    return encode_spikes(x, n_steps=enc.n_steps, use_periods=enc.use_periods,
+                         tau=enc.tau, thr=enc.thr, epsilon=enc.epsilon)
 
 
 def nll_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -66,13 +103,20 @@ class MaskedAdam:
     before the decay and the moments.  ``grad_accum=K`` averages the
     gradients of K consecutive ``step`` calls and applies one update on
     the K-th; with equal micro-batch sizes that is the K-times-larger
-    batch."""
+    batch.
+
+    ``stacked``: every leaf carries a leading replica axis S (an ensemble,
+    parallel/ensemble.py), and the replicas are independent models, as
+    the JAX trainer's ``jax.vmap(tx.update)``: the clipping norm is taken
+    per replica over every leaf's slice ``[s]``.  The decay and Adam's
+    moments are elementwise, so one Adam over the stacked leaves is S
+    Adams; the replicas step together."""
 
     def __init__(self, params: Params, param_labels, lr: float = 1e-3,
                  weight_decay: float = 1e-5, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  max_grad_norm: Optional[float] = None,
-                 grad_accum: Optional[int] = None):
+                 grad_accum: Optional[int] = None, stacked: bool = False):
         self.keys = [(name, leaf) for name, group in params.items()
                      for leaf in group
                      if param_labels[name][leaf] == "weight"]
@@ -84,8 +128,38 @@ class MaskedAdam:
         self.grad_accum = (int(grad_accum)
                            if grad_accum is not None and int(grad_accum) > 1
                            else 1)
+        self.stacked = bool(stacked)
         self._sum: Optional[List[torch.Tensor]] = None
         self._micro = 0
+
+    def _clip_scale(self, g: List[torch.Tensor]) -> torch.Tensor:
+        norm = torch.sqrt(sum((x.float() ** 2).sum() for x in g))
+        return self.max_grad_norm / torch.clamp(norm, min=self.max_grad_norm)
+
+    def _clip(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
+        if not self.stacked:
+            scale = self._clip_scale(g)
+            return [x * scale for x in g]
+        # One norm a replica, each from its slices exactly as a single
+        # replica's optimizer takes it.
+        scale = torch.stack([self._clip_scale([x[s] for x in g])
+                             for s in range(g[0].shape[0])])
+        return [x * scale.view((-1,) + (1,) * (x.dim() - 1)) for x in g]
+
+    def state_dict(self) -> dict:
+        """Adam's state and the gradient-accumulation state (references
+        to the live tensors; ``host_snapshot`` copies them)."""
+        return {"adam": self.adam.state_dict(), "accum": self._sum,
+                "micro": self._micro}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`; raises ValueError for the state of
+        another parameter list."""
+        self.adam.load_state_dict(state["adam"])
+        accum = state.get("accum")
+        self._sum = None if accum is None else [
+            a.to(p.device, p.dtype) for a, p in zip(accum, self.tensors)]
+        self._micro = int(state.get("micro", 0))
 
     def step(self, grads) -> bool:
         """Take one gradient; returns whether the parameters moved."""
@@ -100,10 +174,7 @@ class MaskedAdam:
             g = [a / self.grad_accum for a in self._sum]
             self._sum, self._micro = None, 0
         if self.max_grad_norm is not None:
-            norm = torch.sqrt(sum((x.float() ** 2).sum() for x in g))
-            scale = self.max_grad_norm / torch.clamp(
-                norm, min=self.max_grad_norm)
-            g = [x * scale for x in g]
+            g = self._clip(g)
         for p, x in zip(self.tensors, g):
             p.grad = x
         self.adam.step()
@@ -116,14 +187,16 @@ def make_optimizer(params: Params, param_labels, lr: float = 1e-3,
                    weight_decay: float = 1e-5, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-8,
                    max_grad_norm: Optional[float] = None,
-                   grad_accum: Optional[int] = None) -> MaskedAdam:
+                   grad_accum: Optional[int] = None,
+                   stacked: bool = False) -> MaskedAdam:
     """Adam + L2 as ``torch.optim.Adam(lr, weight_decay)`` (snn.py:299)
     over ``params``, with the dead-gradient leaves (label ``"beta"``)
     frozen.  ``max_grad_norm`` and ``grad_accum`` are stability and memory
-    knobs beyond the reference; their defaults reproduce it."""
+    knobs beyond the reference; their defaults reproduce it.  ``stacked``:
+    the leaves of an ensemble's replicas, clipped per replica."""
     return MaskedAdam(params, param_labels, lr=lr, weight_decay=weight_decay,
                       b1=b1, b2=b2, eps=eps, max_grad_norm=max_grad_norm,
-                      grad_accum=grad_accum)
+                      grad_accum=grad_accum, stacked=stacked)
 
 
 class Trainer:

@@ -1372,3 +1372,214 @@ def test_ff_model_serve_and_train_launch_the_scan(card, net, matmul_dtype):
         logits = tsnn.forward_logits(cfg, trainer.params, raster)
     assert _launched() == {fused.KERNEL_SCAN: 1}
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# The stacked replica mode (ensembles of seeds) of both head kernel triples
+# ---------------------------------------------------------------------------
+STACKED_CASES = [  # name, alif, recurrent, use_periods, n_steps, surrogate
+    ("alif-rec-ttfs", True, True, False, 23, FAST),
+    ("alif-ff-periodic", True, False, True, 24, FAST),
+    ("lif-rec-periodic-phi", False, True, True, 24, PHI),
+    ("alif-rec-phi", True, True, False, 100, PHI),
+]
+
+
+def _stack_replicas(dev, a, S, rng, beta_tensor):
+    """``_args``' latencies and constants with S replicas' weights."""
+    F, H = a["w_in"].shape
+    O = a["w_out"].shape[1]
+    wdtype = a["w_in"].dtype
+
+    def w(shape, std):
+        return torch.from_numpy(
+            (std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    a = dict(a, w_in=w((S, F, H), 0.5).to(wdtype),
+             w_out=w((S, H, O), 1.0).to(wdtype), b_out=w((S, O), 0.1))
+    if a["w_rec"] is not None:
+        a["w_rec"] = (w((S, H, H), 0.3)
+                      * (1 - torch.eye(H, device=dev))).to(wdtype)
+    if a["alif"] and beta_tensor:
+        a["beta"] = 1.6 + w((S,), 0.3)
+    return a
+
+
+def _replica(a, s):
+    return dict(a, w_in=a["w_in"][s],
+                w_rec=None if a["w_rec"] is None else a["w_rec"][s],
+                beta=fused.replica_beta(a["beta"], s), w_out=a["w_out"][s],
+                b_out=a["b_out"][s])
+
+
+def _lif_calls(a, g):
+    """Inference logits, the training forward and the backward on it."""
+    common = (a["latencies"], a["w_in"], a["w_rec"], a["beta"], a["w_out"],
+              a["b_out"], a["n_steps"], a["use_periods"], a["alif"],
+              a["alpha"], a["rho"], a["threshold"], a["kappa"])
+    out = fused._head_cuda(*common)
+    res = fused._head_train_cuda(*common, True, fused._stores_a(
+        a["alif"], a["spike_func"]), False)
+    _, delta, a_tr, tstar, _ = res
+    grads = fused._head_bwd_cuda(
+        g, None, tstar, delta, a_tr, a["latencies"], a["w_in"], a["w_rec"],
+        a["beta"], a["w_out"], a["n_steps"], a["use_periods"], a["alpha"],
+        a["threshold"], a["gamma"], a["kappa"], a["spike_func"])
+    return out, res, grads
+
+
+def _assert_stacked_equals_singles(stacked, singles):
+    """Every output of the stacked launches equals the single launches'
+    bit for bit, replica by replica."""
+    out, res, grads = stacked
+    for s, (o1, r1, g1) in enumerate(singles):
+        assert torch.equal(o1, out[s]), f"replica {s} logits"
+        for k, (x, y) in enumerate(zip(r1, res)):
+            if x is not None:
+                assert torch.equal(x, y[s]), f"replica {s} train output {k}"
+        for k, (x, y) in enumerate(zip(g1, grads)):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y[s]), f"replica {s} gradient {k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("beta_tensor", [False, True],
+                         ids=["beta-float", "beta-tensor"])
+@pytest.mark.parametrize("name,alif,rec,per,T,spike", STACKED_CASES,
+                         ids=[c[0] for c in STACKED_CASES])
+def test_stacked_head_equals_single_launches(card, name, alif, rec, per, T,
+                                             spike, beta_tensor, wdtype):
+    """``fused_head_fwd_stacked``, ``fused_head_fwd_train_stacked`` and
+    ``fused_head_bwd_stacked`` on S = 3 replicas equal three single
+    launches bit for bit (logits, ``tstar``, residuals, every gradient),
+    and each counts one launch under its own name."""
+    S = 3
+    rng = np.random.default_rng(41)
+    a = _stack_replicas(card, _args(card, 37, 30, 20, 10, T, alif, rec, per,
+                                    wdtype, spike), S, rng, beta_tensor)
+    g = torch.from_numpy(rng.standard_normal((S, 37, 10)).astype(
+        np.float32)).to(card)
+    fused.reset_launch_counts()
+    stacked = _lif_calls(a, g)
+    assert _launched() == {fused.KERNEL_STACKED: 1,
+                           fused.KERNEL_TRAIN_STACKED: 1,
+                           fused.KERNEL_BWD_STACKED: 1}
+    singles = [_lif_calls(_replica(a, s), g[s].contiguous())
+               for s in range(S)]
+    torch.cuda.synchronize()
+    _assert_stacked_equals_singles(stacked, singles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rec", [True, False], ids=["rec", "ff"])
+def test_stacked_izh_head_equals_single_launches(card, rec, wdtype):
+    """The Izhikevich head's stacked launches at dt = 30 (chaotic: last
+    bits grow ~3x a step, which the stacked-vs-single contract survives
+    only when the arithmetic is the same) equal three single launches bit
+    for bit; a stacked first layer raises."""
+    S, B, F, H, O, T = 3, 37, 30, 20, 10, 24
+    cfg = IzhikevichConfig(input_size=1, output_size=1, dt=30.0)
+    kp = izh.izh_kernel_params(cfg)
+    kappa = ReadoutConfig(input_size=H, output_size=O).kappa
+    rng = np.random.default_rng(43)
+
+    def w(shape, std=1.0):
+        return torch.from_numpy(
+            (std * rng.standard_normal(shape)).astype(np.float32)).to(card)
+
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(card)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T)).contiguous()
+    w_in = w((S, F, H)).to(wdtype)
+    w_rec = ((w((S, H, H)) * (1 - torch.eye(H, device=card))).to(wdtype)
+             if rec else None)
+    w_out, b_out = w((S, H, O)).to(wdtype), w((S, O), 0.1)
+    g = w((S, B, O))
+
+    def calls(wi, wr, wo, bo, gl):
+        out = fused_izh._head_cuda(lat, wi, wr, wo, bo, T, False, kp, kappa,
+                                   False, False)[0]
+        res = fused_izh._head_cuda(lat, wi, wr, wo, bo, T, False, kp, kappa,
+                                   True, False)
+        grads = fused_izh._bwd_cuda(gl, None, res[2], None, None, res[1],
+                                    lat, wi, wr, wo, T, False, kp, cfg.gamma,
+                                    kappa, cfg.spike_func)
+        return out, res, grads
+
+    fused.reset_launch_counts()
+    stacked = calls(w_in, w_rec, w_out, b_out, g)
+    assert _launched() == {fused.KERNEL_IZH_STACKED: 1,
+                           fused.KERNEL_IZH_TRAIN_STACKED: 1,
+                           fused.KERNEL_IZH_BWD_STACKED: 1}
+    assert float((stacked[1][1] >= cfg.v_peak).float().mean()) > 0
+    singles = [calls(w_in[s], None if w_rec is None else w_rec[s], w_out[s],
+                     b_out[s], g[s].contiguous()) for s in range(S)]
+    torch.cuda.synchronize()
+    _assert_stacked_equals_singles(stacked, singles)
+    with pytest.raises(ValueError, match="head only"):
+        fused_izh.fused_encode_izh_scan(lat, w_in, w_rec, kp, T, False,
+                                        cfg.gamma)
+
+
+def _ensemble_cfg():
+    import snnimageclassification_tpu_torch as tst
+
+    return tst.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=128,
+        hidden_layer_type="ALIF", use_recurrent_connection=True,
+        learn_beta=True, int_time_steps=24)
+
+
+@pytest.mark.cuda
+def test_ensemble_server_one_stacked_launch_a_batch(card):
+    """``EnsembleTrainer.serve()`` answers a batch with one
+    ``fused_head_fwd_stacked`` launch and no other kernel; its rows are the
+    seed-averaged probabilities of ``predict_proba`` (within 1e-6)."""
+    import snnimageclassification_tpu_torch as tst
+    from snnimageclassification_tpu_torch.parallel import EnsembleTrainer
+
+    cfg = _ensemble_cfg()
+    enc = tst.EncodeConfig(n_steps=24, use_periods=True)
+    ens = EnsembleTrainer(cfg, seeds=range(4), device="cuda")
+    x = np.random.default_rng(7).random((64, 784), dtype=np.float32)
+    with ens.serve(encode_config=enc, batch_size=64) as srv:
+        srv.submit(x[:1]).result(timeout=120)
+        fused.reset_launch_counts()
+        got = srv.submit(x).result(timeout=120)
+        assert _launched() == {fused.KERNEL_STACKED: 1}
+    want = ens.predict_proba(x, enc).cpu().numpy()
+    assert got.shape == (64, 10)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_stacked_and_unrolled_trainers_give_equal_losses(card):
+    """``fused_replicas="stacked"`` (one stacked kernel pair a step) and
+    the default (S unrolled single pairs) give bitwise equal per-seed
+    losses and params over three steps; beta stays bitwise."""
+    from snnimageclassification_tpu_torch.parallel import EnsembleTrainer
+
+    cfg = _ensemble_cfg()
+    rng = np.random.default_rng(9)
+    batches = [(rng.random((256, 784), dtype=np.float32),
+                rng.integers(0, 10, 256)) for _ in range(3)]
+    runs = []
+    for fr, want in (("stacked", {fused.KERNEL_TRAIN_STACKED: 3,
+                                  fused.KERNEL_BWD_STACKED: 3}),
+                     (None, {fused.KERNEL_TRAIN: 9, fused.KERNEL_BWD: 9})):
+        ens = EnsembleTrainer(cfg, seeds=(0, 1, 2), fused_replicas=fr,
+                              device="cuda")
+        beta = ens.params["input"]["beta"].clone()
+        fused.reset_launch_counts()
+        losses = torch.stack([ens.train_step(x, y) for x, y in batches])
+        assert _launched() == want
+        assert torch.equal(ens.params["input"]["beta"], beta)
+        runs.append((losses, ens.params))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for n, g in runs[0][1].items():
+        for k, v in g.items():
+            assert torch.equal(v, runs[1][1][n][k]), f"{n}.{k}"

@@ -32,8 +32,10 @@ def test_port_files_found():
     assert {"train/__init__.py", "train/losses.py", "train/trainer.py",
             "ops/fused.py", "ops/fused_mid.py", "ops/fused2.py",
             "ops/encode.py", "ops/rec_scan.py", "ops/scan.py",
-            "models/convert.py",
-            "tools/train_profile.py"} <= names
+            "models/convert.py", "tools/train_profile.py",
+            "parallel/ensemble.py", "train/checkpoint.py",
+            "data/datasets.py", "data/device_cache.py",
+            "utils/history.py", "utils/dict_utils.py"} <= names
     for src in ("fused_head.cu", "fused_head_bwd.cu", "fused_layer0_bwd.cu",
                 "fused_mid.cu", "fused_mid_bwd.cu", "fused2.cu",
                 "fused2_bwd.cu", "encode_matmul.cu", "rec_scan.cu",
