@@ -108,14 +108,19 @@ Phases (any failure exits non-zero before the final line):
    residuals 1e-5 / 2**-7, gradients on the same residuals 2e-6 of max|g|,
    5e-6 at T = 100, 2**-7 bf16, equal bits twice), then B = 8192 at 784 ->
    512 and B = 256 at H = 1024 (spikes equal on >= 99.5 % of rows,
-   gradients 1e-4 of max|g|);
+   gradients 1e-4 of max|g|); ``encode_matmul_fwd`` also bit for bit the
+   plain forward that adds in its order (``encode._fwd_ordered_reference``)
+   on the first 256 rows (all of a small batch), TTFS and periodic;
 15. wide serve -- 784-ALIF512-10 (recurrent, learn_beta, T = 100), whose
    W_rec no fused kernel holds, served as in 4: results bitwise a direct
    forward, one ``encode_matmul_fwd`` and one ``rec_scan_fwd`` launch a
    batch and no training kernel; on a served batch spikes equal the plain
    versions' on >= 99.5 % of rows and logits within 1e-4 of max|logit| on
-   >= 99 %; each kernel alone timed beside its plain version (and cuBLAS on
-   the materialised raster for the encoded product);
+   >= 99 %; each kernel alone timed beside its plain version, the encoded
+   product also beside the one PyTorch call of the same function on the
+   materialised raster (float32 currents: ``torch.mm(..., out_dtype=)``
+   for bf16 weights) and on the batch's periodic latencies, its currents
+   bit for bit the ordered plain forward on 256 rows, TTFS and periodic;
 16. wide train -- that network through ``Trainer`` at batch 8192: the
    first step's gradients against the per-step loop's (1e-4 of max|g|,
    f32), 3 warm-up and 20 timed TTFS steps (finite falling loss, beta
@@ -123,8 +128,12 @@ Phases (any failure exits non-zero before the final line):
    ``encode_matmul_fwd``, ``rec_scan_fwd_train``, ``rec_scan_bwd``,
    ``encode_matmul_bwd``), the logits of batch 0 against the plain
    versions' composition (the bars of 15), each kernel alone on the trained
-   weights against its plain version, timed; 5 periodic steps (times,
-   launches).
+   weights against its plain version, timed (the encoded pair also on the
+   batch's periodic latencies, the witness of 15 on both encodings, and
+   beside the same-function library calls: the forward's as in 15, the
+   backward's ``raster.T @ g`` with g in float32, and with g rounded to bf16
+   beside it for bf16 weights); 5 periodic steps (times, launches: the
+   periodic rows of the encoded pair).
 17. scan kernels -- the feedforward scan's ``scan_fwd[_train]`` and
    ``scan_bwd`` against their plain versions: LIF/ALIF x FastSigmoid/Phi,
    T = 23, 24 and 100, B = 37, H = 19 and 45 (beta a float, then a device
@@ -1179,14 +1188,20 @@ def deep_paths(training: bool):
             both(fused.KERNEL_MID, fused.KERNEL_MID_BWD) + "[head]"]
 
 
+def bound_parts(nbytes, ops, md):
+    """(ms to move ``nbytes`` at the memory rate, ms for ``ops`` at the peak
+    rate of ``md``'s type); the bound is the larger."""
+    peak = H100_F32_FLOPS if md == torch.float32 else H100_BF16_FLOPS
+    return nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+
 def kernel_row(label, name, site, launches, err, ms, plain_ms, nbytes, ops,
                md, library_ms=None):
     """One row of the kernels line, and its log line.  ``nbytes``: every
     input read once and every output written once; ``ops``: what this
     run's data needs (one add per selected weight of a 0/1 product, 2 FLOP
     a term of a dense one, ~10-12 a (row, step, unit) of the chain)."""
-    peak = H100_F32_FLOPS if md == torch.float32 else H100_BF16_FLOPS
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+    t_bytes, t_ops = bound_parts(nbytes, ops, md)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     log(f"[{label}] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; "
         f"bytes={nbytes} ops={ops} -> bound {max(t_bytes, t_ops):.5f} ms; "
@@ -2600,12 +2615,26 @@ def rec_inputs(rng, B, H, T, md):
     return cur, w.to(md)
 
 
+def encode_witness(label, lat, w, T, per, got):
+    """The bitwise witness of ``encode_matmul_fwd``: its currents on the
+    first WITNESS_ROWS rows equal the plain forward that adds in its order
+    (``encode._fwd_ordered_reference``) bit for bit."""
+    n = min(WITNESS_ROWS, lat.shape[0])
+    want = encode._fwd_ordered_reference(lat[:n], w, T, per)
+    if not torch.equal(got[:, :n], want):
+        bad = int((got[:, :n] != want).any(2).any(0).sum())
+        fail(f"{label}: encode_matmul_fwd differs from the plain forward in "
+             f"its order on {bad} of {n} rows")
+
+
 def check_encode(label, rng, B, F, H, T, per, md, full):
     """``encode_matmul_fwd`` against its plain version (currents within
     1e-5 of max|current|: up to F terms of either sign summed in another
     order, so the error scales with their absolute sum, not with the
-    current) and ``encode_matmul_bwd`` on a random cotangent (``wide_bar``;
-    equal bits twice).  Returns the two errors."""
+    current) and bit for bit against the plain forward in its order on
+    WITNESS_ROWS rows (``encode_witness``), and ``encode_matmul_bwd`` on a
+    random cotangent (``wide_bar``; equal bits twice).  Returns the two
+    errors."""
     pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
     lat = pixels_to_firing_periods(pixels, t_max=float(T),
                                    tau=20.0).contiguous()
@@ -2616,6 +2645,7 @@ def check_encode(label, rng, B, F, H, T, per, md, full):
     err = float((got - want).abs().max())
     if err > 1e-5 * float(want.abs().max()):
         fail(f"{label}: encoded currents differ by {err:.3g}")
+    encode_witness(label, lat, w, T, per, got)
     del got, want
     g = rand_w(rng, (T, B, H), 1.0)
     gerr = check_grads(f"{label} backward",
@@ -2754,13 +2784,66 @@ def raster(lat, T, per, md):
                         for t in range(T)]).reshape(-1, lat.shape[1])
 
 
+def same_function_product(spikes, w):
+    """The one PyTorch call that computes what ``encode_matmul_fwd`` does,
+    on a materialised raster: float32 currents from W's dtype (bf16 in,
+    float32 out through ``torch.mm(..., out_dtype=)`` where this PyTorch
+    has it, else ``@``, which writes bf16).  For the library time only.
+    Returns (the call, its label)."""
+    if w.dtype == torch.float32:
+        return (lambda: spikes @ w), "float32"
+    try:
+        torch.mm(spikes[:8], w, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return (lambda: spikes @ w), "bf16 out"
+    return (lambda: torch.mm(spikes, w, out_dtype=torch.float32)), \
+        "bf16 in, float32 out"
+
+
+def encode_library_ms(lat, w, T, per, n, g=None):
+    """Library times of the encoded product on this batch: the forward's
+    same-function call (``same_function_product``) and, given the
+    cotangent g (T, B, H), the backward's (``raster.T @ g`` in float32, g
+    as the kernel reads it) and, for bf16 weights, the call on g rounded to
+    bf16 beside it (None for float32).  Returns (forward ms, its label,
+    backward ms, bf16-g ms)."""
+    spikes = raster(lat, T, per, w.dtype)
+    fn, what = same_function_product(spikes, w)
+    fwd = cuda_ms(fn, n)
+    bwd = bwd16 = None
+    if g is not None:
+        g_flat = g.reshape(-1, g.shape[2])
+        if w.dtype != torch.float32:
+            g16 = g_flat.to(w.dtype)
+            bwd16 = cuda_ms(lambda: spikes.T @ g16, n)
+            del g16
+            spikes = spikes.float()
+        bwd = cuda_ms(lambda: spikes.T @ g_flat, n)
+    del spikes
+    torch.cuda.empty_cache()
+    return fwd, what, bwd, bwd16
+
+
 def encode_work(lat, T, H, per, itemsize):
     """(bytes, operations, input spikes) of either encoded-product kernel:
     the latencies and W (forward) or the cotangent (backward) read once,
-    the currents or g_W written once; one add per input spike and unit."""
+    the currents or g_W written once.  Operations, a unit each: one add per
+    feature that fires and, periodic, the period table's adds -- a row's
+    S_p over the multiples of each period it uses, floor((T - 1) / p) each
+    (the forward adds S_p at those steps, the backward sums g there)."""
     B, F = lat.shape
     in_spikes = input_spike_count(lat, T, per)
-    return (B * F * 4 + F * H * itemsize + T * B * H * 4, in_spikes * H,
+    if not per:
+        adds = int(((lat >= 0) & (lat < T)).sum())
+    elif T == 1:
+        adds = B * F
+    else:
+        p = torch.clamp(lat, 1, T - 1).long()
+        used = torch.zeros((B, T), dtype=torch.bool, device=lat.device)
+        used.scatter_(1, p, True)
+        multiples = (T - 1) // torch.arange(1, T, device=lat.device)
+        adds = B * F + int((used[:, 1:].long() * multiples).sum())
+    return (B * F * 4 + F * H * itemsize + T * B * H * 4, adds * H,
             in_spikes)
 
 
@@ -2787,7 +2870,9 @@ def phase_wide_serve(matmul_dtype: str) -> list:
     ``rec_scan_fwd`` launch a batch and no training kernel; on a served
     batch the logits within 1e-4 of max|logit| on >= 99 % of rows of the
     plain versions' composition; each kernel alone, timed, with its bound
-    and plain time (and cuBLAS on the raster for the encoded product)."""
+    and plain time (the encoded product also with the same-function library
+    call, ``encode_library_ms``, the ordered witness, and on the batch's
+    periodic latencies)."""
     tag = "f32" if matmul_dtype == "float32" else "bf16"
     label = f"wide-serve {tag}"
     md = getattr(torch, matmul_dtype)
@@ -2813,6 +2898,7 @@ def phase_wide_serve(matmul_dtype: str) -> list:
     zp = rec_scan._fwd_reference(cur_p, wr, *sc, False, False, False)[0]
     torch.cuda.synchronize()
     enc_err = float((cur - cur_p).abs().max())
+    encode_witness(label, lat, w0, T, False, cur)
     rows = float((z == zp).all(dim=2).all(dim=0).float().mean())
     with torch.no_grad():
         logits = model_lib.forward_logits_pixels(cfg, params, x, enc,
@@ -2833,9 +2919,19 @@ def phase_wide_serve(matmul_dtype: str) -> list:
     enc_ms = cuda_ms(lambda: encode._fwd_cuda(lat, w0, T, False), 25)
     enc_plain = cuda_ms(lambda: encode._fwd_reference(lat, w0, T, False), 5,
                         warmup=1)
-    spikes_in = raster(lat, T, False, md)
-    enc_lib = cuda_ms(lambda: spikes_in @ w0, 25)
-    del spikes_in
+    enc_lib, lib_what, _, _ = encode_library_ms(lat, w0, T, False, 25)
+    # The same batch's latencies under periodic encoding: the kernel alone,
+    # its witness, the library call and the bound.
+    encode_witness(f"{label} periodic", lat, w0, T, True,
+                   encode._fwd_cuda(lat, w0, T, True))
+    per_ms = cuda_ms(lambda: encode._fwd_cuda(lat, w0, T, True), 25)
+    per_lib = encode_library_ms(lat, w0, T, True, 25)[0]
+    pb, po, _ = encode_work(lat, T, H, True, md.itemsize)
+    log(f"[{label}] {fused.KERNEL_ENC} alone on the served batch: TTFS "
+        f"{enc_ms:.4f} ms, library ({lib_what}) {enc_lib:.4f} ms; periodic "
+        f"{per_ms:.4f} ms, library {per_lib:.4f} ms, bound "
+        f"{max(bound_parts(pb, po, md)):.5f} ms; both equal the plain "
+        f"forward in their order on {WITNESS_ROWS} rows [{card_line()}]")
     rec_ms = cuda_ms(lambda: rec_scan._fwd_cuda(cur, wr, *sc, False, False,
                                                 False), 10)
     rec_plain = cuda_ms(lambda: rec_scan._fwd_reference(
@@ -2873,8 +2969,10 @@ def phase_wide_train(matmul_dtype: str) -> list:
     of rows within 1e-4 of max|logit|); each kernel alone on batch 0 with
     the trained weights against its plain version
     (the backwards on the forward kernels' outputs), timed, with its bound,
-    plain time and, for the encoded product, cuBLAS on the raster; then 5
-    periodic steps (times and launches)."""
+    plain time and, for the encoded product, the same-function library
+    calls (``encode_library_ms``), the ordered witness and the same on the
+    batch's periodic latencies; then 5 periodic steps (times, and the
+    launches of the encoded pair's periodic rows)."""
     tag = "f32" if matmul_dtype == "float32" else "bf16"
     label = f"wide-train {tag}"
     md = getattr(torch, matmul_dtype)
@@ -2946,6 +3044,7 @@ def phase_wide_train(matmul_dtype: str) -> list:
     cur = encode._fwd_cuda(lat, w0, T, False)
     enc_err = float((cur - encode._fwd_reference(lat, w0, T, False))
                     .abs().max())
+    encode_witness(label, lat, w0, T, False, cur)
     z, res, a_tr = rec_scan._fwd_cuda(cur, wr, *sc, True, False, res_is_v)
     zp, resp, _ = rec_scan._fwd_reference(cur, wr, *sc, True, False,
                                           res_is_v)
@@ -3000,12 +3099,36 @@ def phase_wide_train(matmul_dtype: str) -> list:
     t_eb = cuda_ms(lambda: encode._bwd_cuda(lat, g_cur, md, T, False), 10)
     t_eb_p = cuda_ms(lambda: encode._bwd_reference(lat, g_cur, md, T,
                                                    False), 3, 1)
-    spikes_in = raster(lat, T, False, md)
-    lib_f = cuda_ms(lambda: spikes_in @ w0, 10)
-    g_flat = g_cur.reshape(T * B, H).to(md)
-    lib_b = cuda_ms(lambda: spikes_in.T @ g_flat, 10)
-    del spikes_in, g_flat
+    lib_f, lib_what, lib_b, lib_b16 = encode_library_ms(lat, w0, T, False,
+                                                        10, g_cur)
     eb, eo, _ = encode_work(lat, T, H, False, md.itemsize)
+    # Both encoded-product kernels alone on batch 0's latencies under
+    # periodic encoding (the cotangent as above): witness, errors, times,
+    # library calls; their rows take the periodic steps' launches below.
+    cur_p = encode._fwd_cuda(lat, w0, T, True)
+    encode_witness(f"{label} periodic", lat, w0, T, True, cur_p)
+    p_err = float((cur_p - encode._fwd_reference(lat, w0, T, True))
+                  .abs().max())
+    del cur_p
+    pg_err = check_grads(
+        f"{label} encode backward periodic",
+        lambda: (encode._bwd_cuda(lat, g_cur, md, T, True),),
+        lambda: (encode._bwd_reference(lat, g_cur, md, T, True),),
+        wide_bar(T, md, True))
+    t_pf = cuda_ms(lambda: encode._fwd_cuda(lat, w0, T, True), 10)
+    t_pf_p = cuda_ms(lambda: encode._fwd_reference(lat, w0, T, True), 3, 1)
+    t_pb = cuda_ms(lambda: encode._bwd_cuda(lat, g_cur, md, T, True), 10)
+    t_pb_p = cuda_ms(lambda: encode._bwd_reference(lat, g_cur, md, T, True),
+                     3, 1)
+    lib_pf, _, lib_pb, lib_pb16 = encode_library_ms(lat, w0, T, True, 10,
+                                                    g_cur)
+    pb, po, _ = encode_work(lat, T, H, True, md.itemsize)
+    g16 = "" if lib_b16 is None else (
+        f"; with g rounded to bf16 {lib_b16:.4f} / {lib_pb16:.4f} ms")
+    log(f"[{label}] library: forward ({lib_what}) {lib_f:.4f} ms TTFS, "
+        f"{lib_pf:.4f} periodic; backward (float32 g) {lib_b:.4f} / "
+        f"{lib_pb:.4f} ms{g16}; the encoded kernels equal the plain forward "
+        f"in their order on {WITNESS_ROWS} rows, TTFS and periodic")
     rfb, rfo = rec_work(B, H, T, z, md.itemsize, 1, False)
     rbb, rbo = rec_work(B, H, T, z, md.itemsize, 1, True)
     out = [
@@ -3040,6 +3163,13 @@ def phase_wide_train(matmul_dtype: str) -> list:
         f"{TRAIN_B * 5 / pseconds:.1f} img/s [{card_line()}]")
     del periodic
     torch.cuda.empty_cache()
+    out += [
+        kernel_row(label, f"{fused.KERNEL_ENC}[train-periodic-{tag}]",
+                   ENC_SITE, got[fused.KERNEL_ENC], p_err, t_pf, t_pf_p, pb,
+                   po, md, library_ms=lib_pf),
+        kernel_row(label, f"{fused.KERNEL_ENC_BWD}[periodic-{tag}]",
+                   ENC_BWD_SITE, got[fused.KERNEL_ENC_BWD], pg_err, t_pb,
+                   t_pb_p, pb, po, md, library_ms=lib_pb)]
     return out
 
 

@@ -26,6 +26,11 @@ raises; on the CPU it runs the plain PyTorch versions
 JAX kernel.  :func:`encoded_input_matmul_reference` runs the plain
 versions on any device.  W may be float32 or bfloat16; the products with
 0/1 spikes are exact and every sum is float32.
+
+The forward kernel adds W's rows by key (the TTFS step or the periodic
+period) and, periodic, each step's divisors' sums in ascending period;
+``_fwd_ordered_reference`` repeats that order in plain PyTorch, a bitwise
+witness for the card that nothing on the main path calls.
 """
 from __future__ import annotations
 
@@ -56,6 +61,38 @@ def _fwd_reference(lat, w, n_steps, use_periods):
         for t in range(n_steps)])
 
 
+def _fwd_ordered_reference(lat, w, n_steps, use_periods):
+    """The forward in ``encode_matmul_fwd``'s order: ``(T, B, H)`` float32,
+    equal to the kernel bit for bit.  Each feature's key is its TTFS step
+    (T, a slot no step reads, where it never fires) or its periodic
+    period ``clamp(L, 1, T - 1)`` (0 at T = 1).  W's rows are added in ascending f
+    into ``acc[row, key]``, one float32 rounding an add; TTFS currents(t) is
+    ``acc[:, t]``, periodic currents(t) the sum of ``acc[:, p]`` over the
+    periods p that divide t (t >= p), added in ascending p (at T = 1,
+    currents(0) = ``acc[:, 0]``)."""
+    T = n_steps
+    B, H = lat.shape[0], w.shape[1]
+    w32 = w.to(torch.float32)
+    if use_periods:
+        key = torch.clamp(lat, 1, T - 1)
+    else:
+        key = torch.where((lat >= 0) & (lat < T), lat, T)
+    key = key.long()
+    acc = torch.zeros((B, T + 1, H), dtype=torch.float32, device=lat.device)
+    rows = torch.arange(B, device=lat.device)
+    for f in range(lat.shape[1]):
+        acc[rows, key[:, f]] += w32[f]
+    if not use_periods:
+        return acc[:, :T].transpose(0, 1).contiguous()
+    out = torch.zeros((T, B, H), dtype=torch.float32, device=lat.device)
+    if T == 1:
+        out[0] += acc[:, 0]
+    for p in range(1, T):
+        for t in range(p, T, p):
+            out[t] += acc[:, p]
+    return out
+
+
 def _bwd_reference(lat, g, w_dtype, n_steps, use_periods):
     """Plain version of ``encode_matmul_bwd``: ``g_W (F, H)`` in W's
     dtype, summed over the steps in float32."""
@@ -75,9 +112,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(i)
     lib.snn_encode_plan.argtypes = [i] * 6 + [ip]
     lib.snn_encode_plan.restype = i
-    lib.snn_encode_fwd.argtypes = [vp] * 3 + [i] * 8 + [vp]
+    lib.snn_encode_fwd.argtypes = [vp] * 4 + [i] * 7 + [vp]
     lib.snn_encode_fwd.restype = i
-    lib.snn_encode_bwd.argtypes = [vp] * 3 + [i] * 7 + [vp]
+    lib.snn_encode_bwd.argtypes = [vp] * 4 + [i] * 7 + [vp]
     lib.snn_encode_bwd.restype = i
     lib.snn_cuda_error_string.argtypes = [i]
     lib.snn_cuda_error_string.restype = ctypes.c_char_p
@@ -94,17 +131,18 @@ def _lib() -> ctypes.CDLL:
 
 
 def _plan(device: torch.device, B: int, F: int, H: int, T: int,
-          periodic: bool) -> Optional[Tuple[int, int]]:
-    """(rows per block of the forward, blocks of g_W slabs of the
-    backward) on ``device``, or None when the shape does not fit."""
+          periodic: bool) -> Optional[Tuple[int, int, int]]:
+    """(16-bit words of the forward's scratch a batch row, blocks of g_W
+    slabs of the backward, 16-bit words of the backward's scratch a batch
+    row) on ``device``, or None when the shape does not fit."""
     lib = _lib()
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 3)()
     rc = lib.snn_encode_plan(B, F, H, T, int(periodic), _f._index(device),
                              out)
     if rc == 1:
         return None
     _f._raise_on(rc, lib, f"{KERNEL_ENC} plan")
-    return out[0], out[1]
+    return out[0], out[1], out[2]
 
 
 def encode_matmul_supported(n_steps: int, hidden: int, *, n_features: int,
@@ -112,11 +150,12 @@ def encode_matmul_supported(n_steps: int, hidden: int, *, n_features: int,
                             use_periods: bool = True) -> bool:
     """Whether :func:`encoded_input_matmul` covers this shape on ``device``.
     On the CPU the plain versions cover every shape.  On a CUDA device the
-    kernels need ``hidden <= 1024`` (one thread a unit of a row),
-    ``n_features <= 65535``, ``n_steps <= MAX_STEPS``, a row's latencies
-    and firing list within the block's shared memory, and for the backward
-    (``training``) one row's ``(n_steps, 32)`` float32 table (two with
-    ``use_periods``)."""
+    kernels take ``hidden <= 1024``, ``n_features <= 65535`` and
+    ``n_steps <= MAX_STEPS`` where one block's shared memory holds a row's
+    latencies and firing list as 16-bit words and, beside a feature chunk's
+    keys, one row's ``(n_steps, 32)`` float32 table (two with
+    ``use_periods``): a fixed rule (``covered`` in the source), which the
+    kernels' plans fit, so the answer does not move with them."""
     del training  # the plan covers both kernels
     device = torch.device(device)
     if n_steps < 1 or hidden < 1 or n_features < 1:
@@ -150,12 +189,13 @@ def _fwd_cuda(lat, w, n_steps, use_periods):
     """Launch ``encode_matmul_fwd``."""
     k = KERNEL_ENC
     dev = lat.device
-    B, F, H, (rows, _) = _check(k, lat, w, n_steps, use_periods)
+    B, F, H, (row_len, _, _) = _check(k, lat, w, n_steps, use_periods)
     out = torch.empty((n_steps, B, H), dtype=torch.float32, device=dev)
+    lists = torch.empty(B * row_len, dtype=torch.int16, device=dev)
     lib = _lib()
     rc = lib.snn_encode_fwd(
-        lat.data_ptr(), w.data_ptr(), out.data_ptr(), B, F, H, n_steps,
-        int(use_periods), int(w.dtype == torch.bfloat16), rows,
+        lat.data_ptr(), w.data_ptr(), out.data_ptr(), lists.data_ptr(), B, F,
+        H, n_steps, int(use_periods), int(w.dtype == torch.bfloat16),
         _f._index(dev), torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
@@ -175,11 +215,15 @@ def _bwd_cuda(lat, g, w_dtype, n_steps, use_periods):
     if plan is None:
         raise ValueError(f"{k}: shape T={n_steps} F={F} H={H} does not fit "
                          "the kernel (gate on encode_matmul_supported)")
-    slab = torch.empty((plan[1], F * H), dtype=torch.float32, device=dev)
+    if g.data_ptr() % 16:  # the kernel's TMA reads 16-byte aligned rows
+        g = g.clone()
+    _, groups, key_len = plan
+    slab = torch.empty((groups, F * H), dtype=torch.float32, device=dev)
+    keys = torch.empty(B * key_len, dtype=torch.int16, device=dev)
     lib = _lib()
     rc = lib.snn_encode_bwd(
-        lat.data_ptr(), g.data_ptr(), slab.data_ptr(), B, F, H, n_steps,
-        int(use_periods), plan[1], _f._index(dev),
+        lat.data_ptr(), g.data_ptr(), keys.data_ptr(), slab.data_ptr(), B, F,
+        H, n_steps, int(use_periods), groups, _f._index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)

@@ -958,7 +958,12 @@ def test_fused2_model_dispatch_and_gate(card):
 # ---------------------------------------------------------------------------
 # The unfused tier: encoded input product and recurrent scan (wide layers)
 # ---------------------------------------------------------------------------
-ENC_SHAPES = [(9, 30, 40), (5, 784, 512), (3, 784, 1024)]  # B, F, H
+# B, F, H: no B a multiple of the backward's row batch (4); H a multiple of
+# the 32-column chunk and not (40, 1000); H = 45, not a multiple of 4, takes
+# the backward's copy by the threads instead of TMA.
+ENC_SHAPES = [(9, 30, 40), (5, 784, 512), (3, 784, 1024), (13, 784, 1000),
+              (6, 30, 45)]
+ENC_STEPS = [1, 2, 23, 24, 100]
 
 
 def _latencies(dev, rng, B, F, T):
@@ -970,7 +975,7 @@ def _latencies(dev, rng, B, F, T):
 @pytest.mark.cuda
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("n_steps", ENC_STEPS)
 @pytest.mark.parametrize("use_periods", [False, True],
                          ids=["ttfs", "periodic"])
 @pytest.mark.parametrize("shape", ENC_SHAPES,
@@ -979,7 +984,8 @@ def test_encode_kernels_match_plain_versions(card, shape, use_periods,
                                              n_steps, wdtype):
     """``encode_matmul_fwd``: currents within 1e-5 of max|current| (up to
     F terms of either sign in another order: the error scales with their
-    absolute sum); ``encode_matmul_bwd``: g_W within 2e-6
+    absolute sum) and bit for bit the plain forward in the kernel's order
+    (``_fwd_ordered_reference``); ``encode_matmul_bwd``: g_W within 2e-6
     of max|g| (5e-6 at T = 100; bf16 one rounding), equal bits twice; each
     launched once through the public function under autograd."""
     from snnimageclassification_tpu_torch.ops import encode
@@ -994,6 +1000,8 @@ def test_encode_kernels_match_plain_versions(card, shape, use_periods,
     want = encode._fwd_reference(lat, w, n_steps, use_periods)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, encode._fwd_ordered_reference(lat, w, n_steps,
+                                                          use_periods))
     g = torch.from_numpy(rng.standard_normal((n_steps, B, H))
                          .astype(np.float32)).to(card)
     _grads_close(
@@ -1007,6 +1015,67 @@ def test_encode_kernels_match_plain_versions(card, shape, use_periods,
     (out * g).sum().backward()
     assert _launched() == {fused.KERNEL_ENC: 1, fused.KERNEL_ENC_BWD: 1}
     assert wl.grad.dtype == wdtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [1, 2, 23, 100])
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+def test_encode_kernels_edge_latencies(card, use_periods, n_steps, wdtype):
+    """Latencies drawn from [-2, T + 2) (below 0: periodic period 1, TTFS
+    never; T and above: TTFS never, periodic period T - 1), and the
+    production latencies of quirk Q2 (0 or t_max) with rows where every
+    pixel is below threshold: the forward bit for bit its ordered plain
+    version, both kernels within the bars of
+    ``test_encode_kernels_match_plain_versions``."""
+    from snnimageclassification_tpu_torch.ops import encode
+
+    B, F, H = 37, 784, 512
+    rng = np.random.default_rng(n_steps)
+    drawn = torch.from_numpy(rng.integers(-2, n_steps + 2, size=(B, F))
+                             .astype(np.int32)).to(card)
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32))
+    pixels[[3, 20, 36]] *= 0.19
+    q2 = pixels_to_firing_periods(pixels.to(card),
+                                  t_max=float(n_steps)).contiguous()
+    assert set(torch.unique(q2).tolist()) <= {0, n_steps}
+    w = torch.from_numpy((0.05 * rng.standard_normal((F, H)))
+                         .astype(np.float32)).to(card).to(wdtype)
+    g = torch.from_numpy(rng.standard_normal((n_steps, B, H))
+                         .astype(np.float32)).to(card)
+    for lat in (drawn, q2):
+        got = encode._fwd_cuda(lat, w, n_steps, use_periods)
+        want = encode._fwd_reference(lat, w, n_steps, use_periods)
+        assert torch.equal(got, encode._fwd_ordered_reference(
+            lat, w, n_steps, use_periods))
+        assert float((got - want).abs().max()) <= \
+            1e-5 * max(float(want.abs().max()), 1.0)
+        _grads_close(
+            [encode._bwd_cuda(lat, g, wdtype, n_steps, use_periods)],
+            [encode._bwd_cuda(lat, g, wdtype, n_steps, use_periods)],
+            [encode._bwd_reference(lat, g, wdtype, n_steps, use_periods)],
+            _izh_bar(n_steps, wdtype))
+    if not use_periods:
+        assert not bool(got[:, [3, 20, 36]].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+def test_encode_backward_of_an_empty_batch(card, use_periods):
+    """B = 0: g_W is zeros of W's shape and dtype, one launch."""
+    from snnimageclassification_tpu_torch.ops import encode
+
+    lat = torch.zeros((0, 784), dtype=torch.int32, device=card)
+    g = torch.zeros((100, 0, 512), device=card)
+    fused.reset_launch_counts()
+    for wdtype in (torch.float32, torch.bfloat16):
+        g_w = encode._bwd_cuda(lat, g, wdtype, 100, use_periods)
+        assert g_w.shape == (784, 512) and g_w.dtype == wdtype
+        assert not bool(g_w.any())
+    assert _launched() == {fused.KERNEL_ENC_BWD: 2}
 
 
 def _rec_inputs(dev, rng, B, H, T, wdtype):
