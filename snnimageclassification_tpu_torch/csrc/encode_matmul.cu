@@ -62,12 +62,6 @@ namespace {
 
 constexpr int RMAX = 4;  // rows of a backward batch, at most
 
-// The key of latency L (see the top), or -1: it never fires.
-__device__ __forceinline__ int enc_key(int L, int T, int periodic) {
-  if (periodic) return T >= 2 ? min(max(L, 1), T - 1) : 0;
-  return (L >= 0 && L < T) ? L : -1;
-}
-
 __host__ __device__ inline int align8(int x) { return (x + 7) & ~7; }
 
 // A scratch row of the sorted lists, in 16-bit words: the features ordered

@@ -1,6 +1,6 @@
 // Shared by every kernel source of the port: weight-type conversions, the
-// integer spike test of the two encodings, sums over the set bits of a spike
-// mask and the readout step of the head kernels.
+// integer spike test and spike key of the two encodings, sums over the set
+// bits of a spike mask and the readout step of the head kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,6 +39,15 @@ __device__ __forceinline__ bool fires(int L, int t, int T, int periodic) {
   int d = t - p;
   if (d < 0) return false;
   return p <= 0 ? true : (d % p) == 0;
+}
+
+// The key of a feature with latency L, or -1: it never fires.  TTFS the
+// latency (it fires at t = L iff 0 <= L < T); periodic the clamped period p
+// (it fires at t = p, 2p, ..; at T = 1 the period is 0 and the one step
+// fires).
+__device__ __forceinline__ int enc_key(int L, int T, int periodic) {
+  if (periodic) return T >= 2 ? min(max(L, 1), T - 1) : 0;
+  return (L >= 0 && L < T) ? L : -1;
 }
 
 __host__ __device__ inline size_t align16(size_t x) {

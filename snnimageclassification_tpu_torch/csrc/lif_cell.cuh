@@ -30,6 +30,21 @@ struct LifParams {
 
 // LIF (ALIF = false) or ALIF: v' = (alpha v + cur)(1 - z(t-1)), z' =
 // [v' - thr >= 0] with thr = threshold (+ beta a', a' = rho a + z(t-1)).
+// Returns v' - thr; the one copy of the cell's arithmetic (LifCell and the
+// tensor-core head body of fused_head.cu).
+template <bool ALIF>
+__device__ __forceinline__ float lif_update(const LifParams& p, float beta,
+                                            float cur, float zp, float& v,
+                                            float& ad) {
+  v = (p.alpha * v + cur) * (1.f - zp);
+  float thr = p.threshold;
+  if (ALIF) {
+    ad = p.rho * ad + zp;
+    thr = p.threshold + beta * ad;
+  }
+  return v - thr;
+}
+
 template <bool ALIF>
 struct LifCell {
   using Params = LifParams;
@@ -38,13 +53,7 @@ struct LifCell {
   __device__ explicit LifCell(const Params& p) : beta(ALIF ? *p.beta : 0.f) {}
 
   __device__ bool step(const Params& p, float cur, float zp) {
-    v = (p.alpha * v + cur) * (1.f - zp);
-    float thr = p.threshold;
-    if (ALIF) {
-      ad = p.rho * ad + zp;
-      thr = p.threshold + beta * ad;
-    }
-    delta = v - thr;
+    delta = lif_update<ALIF>(p, beta, cur, zp, v, ad);
     return delta >= 0.f;
   }
 

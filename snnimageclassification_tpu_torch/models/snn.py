@@ -104,6 +104,7 @@ from ..ops.fused import (
     fused_encode_rec_scan_head_counts,
     fused_head_supported,
     fused_supported,
+    head_bodies,
 )
 from ..ops.fused2 import (
     fused2_ff_head,
@@ -1035,11 +1036,29 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
         what = ("every replica of the ensemble on one shared batch"
                 if stacked else "single-hidden-layer classifier with "
                 "max-over-time readout")
+        body, mode = "", ""
+        if on_card and not izh:
+            # The LIF/ALIF head's kernels run a shape on their tensor-core
+            # body or, past its limits, on their per-unit body.
+            (_, first_cfg), (_, last_cfg) = layer_cfgs
+            bodies = head_bodies(
+                cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
+                last_cfg.output_size,
+                recurrent=first_cfg.use_recurrent_connection,
+                itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=dev,
+                training=training, use_periods=enc.use_periods)
+            if "per-unit" in bodies:
+                mode = "[per-unit]"
+                body = ("; the per-unit body (O > 16, H > 256, or the "
+                        "weights' bf16 pieces past a block's shared memory) "
+                        "in " + " and ".join(
+                            k for k, b in zip(("the forward", "the backward"),
+                                              bodies) if b == "per-unit"))
         return [{
             "layer": names,
-            "path": path(*kernels),
+            "path": path(*kernels, mode=mode),
             "reason": what + ": encode + scan + readout + max in one call"
-                      + also + where,
+                      + also + body + where,
         }]
     if stacked:
         return [dict(e, reason=e["reason"] + " (per replica)")

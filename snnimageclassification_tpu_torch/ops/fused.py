@@ -23,6 +23,14 @@ Three hand-written CUDA kernels stand behind the wrappers:
   ``g_W_in, g_W_rec, g_W_out, g_b``.  ``beta`` gets a zero cotangent (no
   gradient flows through the threshold, the reset or the adaptation).
 
+Both forwards and the backward's chain run a tensor-core body
+(``csrc/head_mma.cuh``: a warp owns 16 rows x 32 units, the recurrent and
+readout products on bf16 tensor cores, float32 weights as three bf16
+pieces) on every shape it takes, else a per-unit body (one thread a (row,
+unit)); :func:`head_bodies` names the body of a shape.  The tensor-core
+forward takes one more launch inside the same call, each row's features
+sorted by spike key into a scratch the wrapper allocates.
+
 Each wrapper picks its implementation from where the latencies lie: on a
 CUDA device it launches the kernels or raises; on the CPU it runs the
 plain PyTorch versions (``_head_reference``, ``_head_train_reference``,
@@ -69,6 +77,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .encoding import spike_row
+from .head_mma import list_row_words
 from .surrogate import SpikeFuncType, surrogate_grad_from_delta
 
 __all__ = [
@@ -498,13 +507,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(i)
     if name == "fused_head":
-        lib.snn_fused_head_plan.argtypes = [i, i, i, i, i, i, ip, ip]
+        lib.snn_fused_head_plan.argtypes = [i, i, i, i, i, i, ip]
         lib.snn_fused_head_plan.restype = i
+        lib.snn_fused_head_list_words.argtypes = [i]
+        lib.snn_fused_head_list_words.restype = i
+        lib.snn_fused_head_lists.argtypes = [vp, vp] + [i] * 5 + [vp]
+        lib.snn_fused_head_lists.restype = i
         lib.snn_fused_head_fwd.argtypes = (
-            [vp] * 7 + [i] * 8 + [f] * 4 + [i] * 3 + [vp])
+            [vp] * 8 + [i] * 8 + [f] * 4 + [i] * 2 + [vp])
         lib.snn_fused_head_fwd.restype = i
         lib.snn_fused_head_fwd_train.argtypes = (
-            [vp] * 11 + [i] * 8 + [f] * 4 + [i] * 3 + [vp])
+            [vp] * 12 + [i] * 8 + [f] * 4 + [i] * 2 + [vp])
         lib.snn_fused_head_fwd_train.restype = i
         lib.snn_fused_layer0_plan.argtypes = [i, i, i, i, i, ip, ip]
         lib.snn_fused_layer0_plan.restype = i
@@ -551,34 +564,35 @@ def _index(device: torch.device) -> int:
 
 
 def _plan(device: torch.device, F: int, H: int, O: int, recurrent: bool,
-          bf16: bool) -> Optional[Tuple[int, int]]:
-    """(rows per block, shared-memory bytes) of the forward kernels on
-    ``device``, or None when the shape does not fit them."""
+          bf16: bool) -> Optional[bool]:
+    """Whether the forward kernels run the shape on ``device`` on their
+    tensor-core body (True) or their per-unit body (False), or None when
+    the shape does not fit them."""
     lib = _lib()
-    rows, smem = ctypes.c_int(0), ctypes.c_int(0)
+    mma = ctypes.c_int(0)
     rc = lib.snn_fused_head_plan(F, H, O, int(recurrent), int(bf16),
-                                 _index(device), ctypes.byref(rows),
-                                 ctypes.byref(smem))
+                                 _index(device), ctypes.byref(mma))
     if rc == 1:
         return None
     _raise_on(rc, lib, f"{KERNEL} plan")
-    return rows.value, smem.value
+    return bool(mma.value)
 
 
 def _plan_bwd(device: torch.device, B: int, F: int, H: int, O: int, T: int,
               recurrent: bool, bf16: bool,
-              use_periods: bool) -> Optional[Tuple[int, int, int]]:
+              use_periods: bool) -> Optional[Tuple[int, int, int, bool]]:
     """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) partial slabs of the
-    backward kernel on ``device``, or None when the shape does not fit."""
+    backward kernel on ``device`` and whether its chain takes the
+    tensor-core body, or None when the shape does not fit."""
     lib = _lib("fused_head_bwd")
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     rc = lib.snn_fused_head_bwd_plan(B, F, H, O, T, int(recurrent),
                                      int(bf16), int(use_periods),
                                      _index(device), out)
     if rc == 1:
         return None
     _raise_on(rc, lib, f"{KERNEL_BWD} plan")
-    return out[0], out[1], out[2]
+    return out[0], out[1], out[2], bool(out[3])
 
 
 def fused_head_supported(
@@ -611,6 +625,28 @@ def fused_head_supported(
     return not training or _plan_bwd(
         device, 1, n_features, hidden, n_out, n_steps, recurrent,
         itemsize == 2, use_periods) is not None
+
+
+def head_bodies(n_steps: int, n_features: int, hidden: int, n_out: int,
+                recurrent: bool = True, itemsize: int = 4, device="cuda",
+                training: bool = False,
+                use_periods: bool = True) -> Tuple[str, ...]:
+    """The body each head kernel runs a shape on, for a shape
+    :func:`fused_head_supported` takes on a CUDA device: ``"mma"`` (the
+    tensor-core body: a warp owns 16 rows x 32 units, the recurrent and
+    readout products on bf16 tensor cores) or ``"per-unit"`` (one thread a
+    (row, unit), the sums as walks over spike bits; O > 16, H > 256, or the
+    weights' bf16 pieces past a block's shared memory).  One entry for the
+    forward, a second for the backward's chain with ``training``."""
+    device = torch.device(device)
+    bf16 = itemsize == 2
+    fwd = _plan(device, n_features, hidden, n_out, recurrent, bf16)
+    bodies = ["mma" if fwd else "per-unit"]
+    if training:
+        bwd = _plan_bwd(device, 1, n_features, hidden, n_out, n_steps,
+                        recurrent, bf16, use_periods)
+        bodies.append("mma" if bwd and bwd[3] else "per-unit")
+    return tuple(bodies)
 
 
 def _check(kernel, name, t, dtype, shape, device):
@@ -657,7 +693,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def _check_forward(kernel, lat, w_in, w_rec, w_out, b_out, n_steps,
                    S=None):
     """Validate the forward kernels' inputs (a leading S on the weights
-    of ``S`` stacked replicas); returns (B, F, H, O, rows)."""
+    of ``S`` stacked replicas); returns (B, F, H, O) and the list scratch
+    of the tensor-core body (None for the per-unit body)."""
     dev = lat.device
     B, F = lat.shape
     H, O = w_in.shape[-1], w_out.shape[-1]
@@ -675,12 +712,15 @@ def _check_forward(kernel, lat, w_in, w_rec, w_out, b_out, n_steps,
     if not 1 <= n_steps <= MAX_STEPS:
         raise ValueError(
             f"{kernel}: n_steps must be in [1, {MAX_STEPS}], got {n_steps}")
-    plan = _plan(dev, F, H, O, w_rec is not None, wdt == torch.bfloat16)
-    if plan is None:
+    mma = _plan(dev, F, H, O, w_rec is not None, wdt == torch.bfloat16)
+    if mma is None:
         raise ValueError(
             f"{kernel}: shape F={F} H={H} O={O} does not fit the kernel "
             "(gate on fused_head_supported)")
-    return B, F, H, O, plan[0]
+    # Each row's features ordered by spike key (head_mma.head_lists).
+    lists = (torch.empty((B, list_row_words(F)), dtype=torch.int16,
+                         device=dev) if mma else None)
+    return B, F, H, O, lists
 
 
 def _head_cuda(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods,
@@ -690,17 +730,17 @@ def _head_cuda(lat, w_in, w_rec, beta, w_out, b_out, n_steps, use_periods,
     dev = lat.device
     S = _replicas(w_in, KERNEL)
     k = KERNEL if S is None else KERNEL_STACKED
-    B, F, H, O, rows = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
-                                      n_steps, S)
+    B, F, H, O, lists = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
+                                       n_steps, S)
     beta_t = _beta_tensor(beta, dev, S or 1)
     logits = torch.empty((*_lead(S), B, O), dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.snn_fused_head_fwd(
         lat.data_ptr(), w_in.data_ptr(), _ptr(w_rec), beta_t.data_ptr(),
-        w_out.data_ptr(), b_out.data_ptr(), logits.data_ptr(), B, F, H, O,
-        n_steps, int(use_periods), int(alif),
+        w_out.data_ptr(), b_out.data_ptr(), logits.data_ptr(), _ptr(lists),
+        B, F, H, O, n_steps, int(use_periods), int(alif),
         int(w_in.dtype == torch.bfloat16), alpha, rho, threshold, kappa,
-        rows, S or 1, dev.index,
+        S or 1, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, f"{k} launch")
@@ -719,8 +759,8 @@ def _head_train_cuda(lat, w_in, w_rec, beta, w_out, b_out, n_steps,
     k = KERNEL_TRAIN if S is None else KERNEL_TRAIN_STACKED
     if S is not None and want_counts:
         raise ValueError(f"{k}: the stacked head has no spike counts")
-    B, F, H, O, rows = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
-                                      n_steps, S)
+    B, F, H, O, lists = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
+                                       n_steps, S)
     lead = _lead(S)
     beta_t = _beta_tensor(beta, dev, S or 1)
     logits = torch.empty((*lead, B, O), dtype=torch.float32, device=dev)
@@ -735,14 +775,37 @@ def _head_train_cuda(lat, w_in, w_rec, beta, w_out, b_out, n_steps,
     rc = lib.snn_fused_head_fwd_train(
         lat.data_ptr(), w_in.data_ptr(), _ptr(w_rec), beta_t.data_ptr(),
         w_out.data_ptr(), b_out.data_ptr(), logits.data_ptr(), _ptr(delta),
-        _ptr(a_tr), tstar.data_ptr(), _ptr(counts), B, F, H, O, n_steps,
-        int(use_periods), int(alif), int(w_in.dtype == torch.bfloat16),
-        alpha, rho, threshold, kappa, rows, S or 1, dev.index,
+        _ptr(a_tr), tstar.data_ptr(), _ptr(counts), _ptr(lists), B, F, H, O,
+        n_steps, int(use_periods), int(alif),
+        int(w_in.dtype == torch.bfloat16), alpha, rho, threshold, kappa,
+        S or 1, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, f"{k} launch")
     _launched(k)
     return logits, delta, a_tr, tstar, counts
+
+
+def _head_lists_cuda(lat, n_steps, use_periods):
+    """The tensor-core body's per-row feature lists as its first launch
+    writes them (``head_sort_kernel``), for tests: ``(B,
+    list_row_words(F))`` int32, the kernel's 16-bit words read unsigned,
+    the words it leaves unwritten 0 (``head_mma.head_lists`` is the CPU
+    twin)."""
+    dev = lat.device
+    B, F = lat.shape
+    _check(KERNEL, "latencies", lat, torch.int32, (B, F), dev)
+    lib = _lib()
+    if lib.snn_fused_head_list_words(F) != list_row_words(F):
+        raise RuntimeError("the list layouts of csrc/fused_head.cu and "
+                           "ops/head_mma.py differ")
+    lists = torch.zeros((B, list_row_words(F)), dtype=torch.int16,
+                        device=dev)
+    rc = lib.snn_fused_head_lists(
+        lat.data_ptr(), lists.data_ptr(), B, F, n_steps, int(use_periods),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "head lists")
+    return lists.to(torch.int32) & 0xFFFF
 
 
 def slab_sums(slab: torch.Tensor, S: Optional[int]) -> torch.Tensor:
@@ -792,7 +855,7 @@ def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
         raise ValueError(
             f"{k}: shape T={n_steps} F={F} H={H} O={O} does not fit the "
             "kernel (gate on fused_head_supported(training=True))")
-    n_in, n_rec, n_out = plan
+    n_in, n_rec, n_out, _ = plan
     f32 = dict(dtype=torch.float32, device=dev)
     # Scratch of the call: dcur(t) per row and the bits of z per row.
     dcur = torch.empty((*lead, B, n_steps, H), dtype=wdt, device=dev)

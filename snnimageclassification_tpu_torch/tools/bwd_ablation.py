@@ -1,8 +1,9 @@
 """Where the backward kernel's time goes: time the four ``__global__``
 functions of ``fused_head_bwd`` (``csrc/fused_head_bwd.cu`` over
 ``csrc/bwd_common.cuh``: the chain, ``g_W_in``, ``bwd_gbits`` for
-``g_W_rec``, the readout gradients) apart, as built and with one piece of
-work removed at a time.
+``g_W_rec``, the readout gradients; at the flagship the chain takes its
+tensor-core kernel) apart, as built and with one piece of work removed at a
+time.
 
 Run on a CUDA card from the repository root::
 
@@ -47,8 +48,13 @@ VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
     "no_period_table": ("int t = p;", "int t = T; sum = col[p * HP];"),
     "no_gather": ("if (k >= 0) acc[i] += s_S[k * HP + h];",
                   "if (k == i) acc[i] += s_S[h];"),
-    "no_chain_rec_product": ("dz = dz + rec_product(dp, s_wrec, H, h);",
-                             "dz = dz + dp[h & 3];"),
+    "no_chain_rec_product": (
+        "mma_split_a<P>(rec[n], da, s_wrec, kk * (HP / 8) + MMA_NT * wu + n,\n"
+        "                         lane);",
+        "rec[n][0] += 0.f;"),
+    "no_chain_out_product": (
+        "mma_split_a<P>(dz[n], sa, s_wout, MMA_NT * wu + n, lane);",
+        "dz[n][0] += 0.f;"),
 }
 FUNCTIONS = ("bwd_chain", "bwd_gwin", "bwd_gbits", "bwd_gout")
 
@@ -120,8 +126,9 @@ def main() -> None:
     source = _build.inlined_source("fused_head_bwd")
     libs = {"kernel": _build.load("fused_head_bwd")}
     for name, (old, new) in VARIANTS.items():
-        if old not in source:
-            raise SystemExit(f"{name}: statement not found in the source")
+        if source.count(old) != 1:
+            raise SystemExit(f"{name}: statement not found once in the "
+                             "source")
         libs[name] = _variant_lib(name, source.replace(old, new))
     try:
         for name, lib in libs.items():

@@ -1,20 +1,30 @@
 """Where the head kernel's time goes: time ``csrc/fused_head.cu`` with one
-phase removed at a time, on the served flagship batch.
+piece of work removed at a time, on the served flagship batch.
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation \
         --launch-order
+    python3 -m snnimageclassification_tpu_torch.tools.head_ablation --bodies
 
-Each variant is the kernel source with one statement replaced (the readout
-sum, the recurrent sum, or the per-step spike compaction); variants that
-remove work change the dynamics, so only their times mean anything.  The
+Each variant is the kernel source (headers inlined) with one statement of
+its tensor-core body replaced: the readout product, the recurrent product,
+or a step's input sum (the dense product of a dense step and the rows'
+gathers, the sort kept); variants that remove work change the dynamics, so
+only their times mean anything.  The
 batch is the one ``chip_smoke.py`` serves: 4096 random uint8 rows of the
 flagship (784 -> ALIF-128 recurrent, learn_beta, T=100, TTFS, production
 tau), float32 weights.  Prints one JSON line per variant and round
 (median of 20 launches by CUDA events) and the card's name and power
 limit.  Builds go to ``.torch_ext_build/ablation/``.
+
+``--bodies`` times the kernel's two bodies on that batch, the tensor-core
+body as built and the per-unit body (the source with the tensor-core
+body's shape test made false, ``tools/fit_check.py``), float32 and
+bfloat16, TTFS and periodic, at the production tau and at tau = 20 steps
+(latencies spread over the window, as ``chip_smoke.py`` phase 3 draws
+them).
 
 ``--launch-order`` times the stacked kernel (six replicas of that
 flagship, seeds 0-5, on the same batch) as it is built, row tiles on the
@@ -39,24 +49,42 @@ from ..ops.cells import masked_recurrent
 from ..ops.encoding import pixels_to_firing_periods
 
 VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
-    "no_readout": (
-        "const float r = masked_sum(zmask, nw, s_wout + o, O) + s_b[o];",
-        "const float r = s_b[o];"),
-    "no_recurrent_sum": (
-        "const float cur = REC ? cin + masked_sum(zr, HW, s_wrec + h, H) "
-        ": cin;",
-        "const float cur = cin;"),
-    "no_compaction": (
-        "return fires(L, t, T, periodic) && !(every_step && L <= 1);",
-        "return t == 0 && L == 0;"),
+    "no_readout_product": (
+        "mma_exact_a<P>(ro[jo], A, s_wout, kk * 2 + wu + jo * NWU, lane);",
+        "ro[jo][0] += 0.f;"),
+    "no_recurrent_product": (
+        "mma_exact_a<P>(rec[n], A, s_wrec,\n"
+        "                           kk * (HP / 8) + MMA_NT * wu + n, lane);",
+        "rec[n][0] += 0.f;"),
+    # A step's input sum, the dense product and the rows' gathers (the
+    # sort and the every-step sum kept).
+    "no_input": (
+        "    if (__any_sync(0xffffffffu, dense[0] || dense[1]))\n"
+        "      dense_input<P>(cur, a.lat, F, row0, dense, w_in, H, lane, wu,\n"
+        "                     [=](int L) { return L == t; });\n"
+        "#pragma unroll\n"
+        "    for (int hh = 0; hh < 2; ++hh)\n"
+        "      if (!dense[hh])\n"
+        "        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, "
+        "a.periodic,\n"
+        "                  [&](int k, int e) {\n"
+        "                    gather_rows(cur, hh, w_in, H, col0, lrow[hh], "
+        "k, e);\n"
+        "                  });\n",
+        ""),
 }
 
 # The stacked launch with its grid's axes swapped: replicas on x (fastest),
 # row tiles on y.
 LAUNCH_ORDER = (
-    ("const int tile = blockIdx.x;", "const int tile = blockIdx.y;"),
-    ("at_replica<W>(a0, blockIdx.y);", "at_replica<W>(a0, blockIdx.x);"),
-    ("dim3 grid(tiles, S);", "dim3 grid(S, tiles);"),
+    ("const int row0 = (blockIdx.x * tpb + tile) * 16;\n  if (row0 >= B) "
+     "return;  // a tile past the batch",
+     "const int row0 = (blockIdx.y * tpb + tile) * 16;\n  if (row0 >= B) "
+     "return;  // a tile past the batch"),
+    ("const FwdArgs<LifParams> a = at_replica<W>(a0, blockIdx.y);",
+     "const FwdArgs<LifParams> a = at_replica<W>(a0, blockIdx.x);"),
+    ("kernel<<<dim3((tiles + tpb - 1) / tpb, S),",
+     "kernel<<<dim3(S, (tiles + tpb - 1) / tpb),"),
 )
 
 
@@ -94,11 +122,52 @@ def _replace(name: str, source: str, pairs) -> str:
     return source
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _time_bodies(args: dict, x: torch.Tensor) -> None:
+    """One JSON line per (dtype, encoding, tau): both bodies' median ms,
+    the per-unit body's first, then the tensor-core body's, then again."""
+    from .fit_check import _per_unit_lib
+
+    libs = {"per-unit": _per_unit_lib("fused_head"),
+            "mma": _build.load("fused_head")}
+    tau = {"production": 20e-3, "spread": 20.0}
+    try:
+        for md in (torch.float32, torch.bfloat16):
+            for periodic in (False, True):
+                for tau_name, tau_v in tau.items():
+                    a = dict(args, use_periods=periodic,
+                             latencies=pixels_to_firing_periods(
+                                 x, t_max=100.0, tau=tau_v).contiguous(),
+                             **{k: args[k].to(md) for k in
+                                ("w_in", "w_rec", "w_out")})
+                    ms = {}
+                    for rnd in range(2):
+                        for name, lib in libs.items():
+                            _build._libs["fused_head"] = lib
+                            ms.setdefault(name, []).append(_median_ms(
+                                lambda: fused.fused_encode_rec_scan_head(**a)))
+                    print(json.dumps({"dtype": str(md)[6:],
+                                      "periodic": periodic, "tau": tau_name,
+                                      "ms": ms}), flush=True)
+    finally:
+        _build._libs["fused_head"] = libs["mma"]
+    print(_card())
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--launch-order", action="store_true",
                         help="time the stacked kernel's two grid orders")
-    launch_order = parser.parse_args().launch_order
+    parser.add_argument("--bodies", action="store_true",
+                        help="time the tensor-core and per-unit bodies")
+    ns = parser.parse_args()
+    launch_order = ns.launch_order
     if not torch.cuda.is_available():
         raise SystemExit("head_ablation needs a CUDA card")
     cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,
@@ -126,16 +195,16 @@ def main() -> None:
         n_steps=100, use_periods=False, alif=True, alpha=lcfg.alpha,
         rho=lcfg.rho, threshold=lcfg.threshold, gamma=lcfg.gamma,
         kappa=rcfg.kappa)
+    if ns.bodies:
+        _time_bodies(args, x)
+        return
     source = _build.inlined_source("fused_head")
     libs = {"kernel": _build.load("fused_head")}
     variants = ({"replica_fastest": LAUNCH_ORDER} if launch_order
                 else {k: (v,) for k, v in VARIANTS.items()})
     for name, pairs in variants.items():
         libs[name] = _variant_lib(name, _replace(name, source, pairs))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = _card()
     try:
         if launch_order:
             logits = {}

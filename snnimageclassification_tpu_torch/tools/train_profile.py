@@ -30,9 +30,11 @@ After 3 warm-up steps it traces ``--steps`` steps with ``torch.profiler``
 includes the profiler's own cost), the device time per step of every
 device kernel by name (the ``__global__`` functions of a backward kernel
 appear apart, each template instance under its own name: the chain of the
-head mode is ``bwd_chain_kernel<.., true, ..>``, of a z-emitting layer
-``<.., false, ..>``; ``bwd_gbits_kernel`` sums its ``g_W_rec`` and ``g_W_in``
-launches), the device's busy and idle share of the window, and the card's
+head mode is ``bwd_chain_mma_kernel`` (the per-unit
+``bwd_chain_kernel<.., true, ..>`` past the tensor-core body's limits), of a
+z-emitting layer ``bwd_chain_kernel<.., false, ..>``; the head's forward is
+``head_mma_kernel`` after ``head_sort_kernel``; ``bwd_gbits_kernel`` sums
+its ``g_W_rec`` and ``g_W_in`` launches), the device's busy and idle share of the window, and the card's
 name and power limit.  ``port_kernels_ms_per_step`` sums the kernels of
 ``csrc/``; ``other_kernels_ms_per_step`` is PyTorch's own (with ``--wide``
 mostly the readout's per-step loop, forward and backward; with ``--ff``

@@ -63,6 +63,7 @@ from snnimageclassification_tpu_torch.ops import (  # noqa: E402
     fused2,
     fused_izh,
     fused_mid,
+    head_mma,
     izh,
 )
 from snnimageclassification_tpu_torch.ops.cells import (  # noqa: E402
@@ -103,11 +104,11 @@ def card():
 
 
 def _args(dev, B, F, H, O, T, alif, rec, use_periods, wdtype,
-          spike_func=FAST, seed=11, w_scale=(0.5, 0.3)):
+          spike_func=FAST, seed=11, w_scale=(0.5, 0.3), tau=20.0):
     rng = np.random.default_rng(seed)
     cfg = (ALIFConfig if alif else LIFConfig)(input_size=F, output_size=H)
     pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(dev)
-    lat = pixels_to_firing_periods(pixels, t_max=float(T), tau=20.0)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T), tau=tau)
 
     def w(shape, std):
         return torch.from_numpy(
@@ -353,6 +354,250 @@ def test_kernel_pair_odd_shapes(card, shape, use_periods, wdtype):
         assert g.shape == p.shape and torch.equal(g, g2)
         scale = float(p.float().abs().max()) or 1.0
         assert float((g.float() - p.float()).abs().max()) / scale <= bar
+
+
+# The head pair's tensor-core body: H below, between and at multiples of
+# 32 (padded units), B not a multiple of 16 (padded rows), F = 30 (a
+# partial k16 slice), T = 1, 2, 24 and 100.  At the production tau
+# (20e-3) every supra-threshold pixel fires at t = 0, so TTFS rows take the
+# dense input product and the periodic ones a long every-step run; at
+# tau = 20 steps the spikes spread over the window and the rows gather.
+# Periodic at the production tau stops at T = 24: at T = 100 a period-1
+# run of ~24 features a step drives v far past the threshold, and the
+# plain float32 version with its features and units permuted (another
+# summation order, the same function) already misses the residual bar
+# (1.1e-5-1.4e-5 past 1e-5) and the backward's (up to 8.6e-5 of max|g|).
+PROD_TAU = 20e-3
+MMA_STEPS = [(1, PROD_TAU), (2, PROD_TAU), (24, 20.0), (24, PROD_TAU),
+             (100, 20.0), (100, PROD_TAU)]
+MMA_NETS = [  # name, alif, recurrent, use_periods, surrogate
+    (f"{'alif' if alif else 'lif'}-{'rec' if rec else 'ff'}-"
+     f"{'periodic' if per else 'ttfs'}", alif, rec, per,
+     PHI if alif and rec and not per else FAST)
+    for alif in (True, False) for rec in (True, False)
+    for per in (False, True)]
+MMA_CASES = [(*net, n, tau) for net in MMA_NETS for n, tau in MMA_STEPS
+             if not (net[3] and n == 100 and tau == PROD_TAU)]
+
+
+def _bwd_bar(wdtype, n_steps):
+    """The backward's bar at small shapes: 2e-6 of max|g| (5e-6 at
+    T = 100, a few hundred float32 terms in another order a weight), bf16
+    one rounding of the result."""
+    if wdtype != torch.float32:
+        return 2.0 ** -7
+    return 5e-6 if n_steps >= 100 else 2e-6
+
+
+def _grad_err(got, want):
+    worst = 0.0
+    for g, p in zip(got, want):
+        if p is None:
+            assert g is None
+            continue
+        assert g.dtype == p.dtype and g.shape == p.shape
+        scale = float(p.float().abs().max()) or 1.0
+        worst = max(worst, float((g.float() - p.float()).abs().max()) / scale)
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+@pytest.mark.parametrize("n_steps", [1, 2, 23, 24, 100])
+def test_head_lists_match_their_twin(card, n_steps, use_periods):
+    """head_sort_kernel's per-row lists equal head_mma.head_lists word for
+    word, latencies in and out of the window."""
+    rng = np.random.default_rng(n_steps)
+    lat = rng.integers(-2, n_steps + 3, (37, 300)).astype(np.int32)
+    lat[0] = 0
+    lat[1] = n_steps
+    lat = torch.from_numpy(lat).to(card)
+    got = fused._head_lists_cuda(lat, n_steps, use_periods)
+    want = head_mma.head_lists(lat.cpu(), n_steps, use_periods)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [20, 45, 128])
+@pytest.mark.parametrize(
+    "name,alif,rec,use_periods,spike,n_steps,tau", MMA_CASES,
+    ids=[f"{c[0]}-{c[5]}{'-prod' if c[6] == PROD_TAU else ''}"
+         for c in MMA_CASES])
+def test_mma_body_matches_plain_versions(card, name, alif, rec, use_periods,
+                                         spike, H, n_steps, tau, wdtype):
+    """The tensor-core body of the forward, the training forward (with
+    counts) and the backward against their plain versions: logits 1e-5,
+    spikes (``tstar``, counts) equal, residuals 1e-5 (bf16 2**-7), the
+    backward on the same residuals within the small-shape bars; training
+    logits bitwise the inference kernel's; equal bits on a second run."""
+    B = 37
+    args = _args(card, B, 30, H, 10, n_steps, alif, rec, use_periods,
+                 wdtype, spike, tau=tau)
+    assert fused.head_bodies(n_steps, 30, H, 10, rec, wdtype.itemsize,
+                             card, True, use_periods) == ("mma", "mma")
+    store_a = alif and spike == PHI
+    fused.reset_launch_counts()
+    infer = _call(args)
+    assert torch.equal(infer, _call(args))
+    got = fused._head_train_cuda(*_train_args(args), True, store_a, True)
+    want = fused._head_train_reference(*_train_args(args), True, store_a,
+                                       True)
+    torch.cuda.synchronize()
+    assert fused.launch_counts()[fused.KERNEL] == 2
+    logits, delta, a_tr, tstar, counts = got
+    assert torch.equal(logits, infer)
+    torch.testing.assert_close(logits, want[0], atol=1e-5, rtol=1e-5)
+    assert torch.equal(tstar, want[3]) and torch.equal(counts, want[4])
+    assert float(counts.sum()) > 0  # the units fire
+    tol = 1e-5 if wdtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(delta.float(), want[1].float(), atol=tol,
+                               rtol=tol)
+    assert (a_tr is None) == (not store_a)
+    if store_a:
+        torch.testing.assert_close(a_tr.float(), want[2].float(), atol=tol,
+                                   rtol=tol)
+    rng = np.random.default_rng(5)
+    g_logits = torch.from_numpy(
+        rng.standard_normal((B, 10)).astype(np.float32)).to(card)
+    g_counts = torch.from_numpy(
+        (0.01 * rng.standard_normal((B, H))).astype(np.float32)).to(card)
+    for gc in (None, g_counts):
+        bargs = _bwd_args(args, g_logits, gc, delta, a_tr, tstar)
+        grads = fused._head_bwd_cuda(*bargs)
+        again = fused._head_bwd_cuda(*bargs)
+        plain = fused._head_bwd_reference(*bargs)
+        torch.cuda.synchronize()
+        for g, g2 in zip(grads, again):
+            assert g is None or torch.equal(g, g2)
+        assert _grad_err(grads, plain) <= _bwd_bar(wdtype, n_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rec", [True, False], ids=["rec", "ff"])
+def test_mma_body_rows_do_not_depend_on_their_batch(card, rec, wdtype):
+    """A row's logits are the same bits whichever rows share its 16-row
+    tile: rows firing 0 to 7 of F = 48 features at t = 0 (the dense input
+    product takes a row from F / 16 = 3 on; a tile of the whole batch fires
+    56 in all) and the rest spread over the window, served whole and as a
+    shuffled subset; both against the plain version at 1e-5."""
+    B, F, H, T = 37, 48, 45, 24
+    rng = np.random.default_rng(9)
+    lat = rng.integers(1, T + 4, (B, F)).astype(np.int32)
+    for r in range(B):
+        lat[r, rng.choice(F, r % 8, replace=False)] = 0
+    args = _args(card, B, F, H, 10, T, True, rec, False, wdtype)
+    args["latencies"] = torch.from_numpy(lat).to(card)
+    whole = _call(args)
+    torch.testing.assert_close(whole, _call(args, plain=True), atol=1e-5,
+                               rtol=1e-5)
+    idx = torch.from_numpy(rng.permutation(B)[:23]).to(card)
+    sub = dict(args, latencies=args["latencies"][idx].contiguous())
+    part = _call(sub)
+    assert torch.equal(part, whole[idx])
+    torch.testing.assert_close(part, _call(sub, plain=True), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [20, 128])
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+def test_mma_body_stacked_is_three_single_launches(card, use_periods, H,
+                                                   wdtype):
+    """S = 3 replicas in one launch of each kernel equal three single
+    launches bit for bit: logits, residuals, tstar and gradients."""
+    S, B, T = 3, 37, 24
+    reps = [_args(card, B, 30, H, 10, T, True, True, use_periods, wdtype,
+                  seed=20 + s) for s in range(S)]
+    lat = reps[0]["latencies"]
+    for r in reps:
+        r["latencies"] = lat
+    stacked = dict(reps[0])
+    for k in ("w_in", "w_rec", "w_out", "b_out"):
+        stacked[k] = torch.stack([r[k] for r in reps]).contiguous()
+    stacked["beta"] = torch.tensor([1.6, 1.2, 2.0], device=card)
+    betas = [1.6, 1.2, 2.0]
+    fused.reset_launch_counts()
+    res = fused._head_train_cuda(*_train_args(stacked), True, False, False)
+    assert torch.equal(res[0], _call(stacked))
+    g_logits = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (S, B, 10)).astype(np.float32)).to(card)
+    grads = fused._head_bwd_cuda(*_bwd_args(stacked, g_logits, None, res[1],
+                                            None, res[3]))
+    counts = fused.launch_counts()
+    assert counts[fused.KERNEL_TRAIN_STACKED] == 1
+    assert counts[fused.KERNEL_BWD_STACKED] == 1
+    for s, r in enumerate(reps):
+        r["beta"] = betas[s]
+        one = fused._head_train_cuda(*_train_args(r), True, False, False)
+        assert torch.equal(res[0][s], one[0])
+        assert torch.equal(res[1][s], one[1])
+        assert torch.equal(res[3][s], one[3])
+        g1 = fused._head_bwd_cuda(*_bwd_args(r, g_logits[s], None, one[1],
+                                             None, one[3]))
+        for g, want in zip(grads, g1):
+            assert torch.equal(g[s], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+@pytest.mark.parametrize("H,O,wdtype", [(200, 10, torch.float32),
+                                        (33, 40, torch.bfloat16),
+                                        (288, 10, torch.bfloat16)],
+                         ids=["f32-H200", "bf16-O40", "bf16-H288"])
+def test_per_unit_body_takes_the_rest(card, H, O, wdtype, use_periods):
+    """Shapes past the tensor-core body's limits (float32 W_rec's pieces
+    past shared memory, O > 16, H > 256) run the per-unit body, which
+    explain_dispatch names, against the plain versions at the small bars."""
+    T, B = 24, 21
+    assert fused.fused_head_supported(T, 30, H, O, True, wdtype.itemsize,
+                                      card, True, use_periods)
+    assert "per-unit" in fused.head_bodies(T, 30, H, O, True,
+                                           wdtype.itemsize, card, True,
+                                           use_periods)
+    args = _args(card, B, 30, H, O, T, True, True, use_periods, wdtype,
+                 w_scale=(0.5, 0.05))
+    res = fused._head_train_cuda(*_train_args(args), True, False, True)
+    ref = fused._head_train_reference(*_train_args(args), True, False, True)
+    assert torch.equal(res[0], _call(args))
+    torch.testing.assert_close(res[0], ref[0], atol=1e-5, rtol=1e-5)
+    assert torch.equal(res[3], ref[3]) and torch.equal(res[4], ref[4])
+    g_logits = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (B, O)).astype(np.float32)).to(card)
+    bargs = _bwd_args(args, g_logits, None, res[1], res[2], res[3])
+    assert _grad_err(fused._head_bwd_cuda(*bargs),
+                     fused._head_bwd_reference(*bargs)) <= _bwd_bar(wdtype, T)
+
+
+@pytest.mark.cuda
+def test_explain_dispatch_names_the_per_unit_body(card):
+    import snnimageclassification_tpu_torch as pt
+    from snnimageclassification_tpu_torch.models import snn as model_lib
+
+    enc = pt.EncodeConfig(n_steps=100)
+    flagship = pt.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=128,
+        hidden_layer_type=pt.LayerType.ALIF, learn_beta=True,
+        int_time_steps=100)
+    wide_o = pt.SNNConfig(
+        input_size=784, output_size=40, n_hidden_neurons=128,
+        hidden_layer_type=pt.LayerType.ALIF, int_time_steps=100)
+    for training in (False, True):
+        path = model_lib.explain_dispatch(flagship, enc, device="cuda",
+                                          training=training)[0]["path"]
+        assert "per-unit" not in path
+        entry = model_lib.explain_dispatch(wide_o, enc, device="cuda",
+                                           training=training)[0]
+        assert entry["path"].endswith("[per-unit]")
+        assert "per-unit body" in entry["reason"]
 
 
 DEEP_CASES = [  # name, alif, recurrent, use_periods, surrogate
