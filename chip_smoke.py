@@ -18,7 +18,12 @@ Phases (any failure exits non-zero before the final line):
    >= 99.5 % of rows, logits within 1e-4 * max|logit| on >= 99 % of
    rows).  ``fused_head_fwd_train`` and ``fused_head_bwd``: those four, a
    Phi case (two residuals) and a ``_counts`` case, at small shapes and
-   at B=8192 of the flagship shape (``phase_train_kernels``);
+   at B=8192 of the flagship shape (``phase_train_kernels``), the backward's
+   ``bwd_gwin`` and ``bwd_gout`` bit for bit their plain versions in the
+   kernels' order; then the main path's own configuration
+   (``check_prod_tau_flagship``): the flagship net at B=8192 on periodic
+   latencies at the production tau, f32 and bf16, at the same full-width
+   bars (and against the plain forward in the tensor-core body's order);
 4. serve   -- the flagship (784 -> ALIF-128 recurrent, learn_beta, T=100)
    served by ``InferenceServer`` at batch 4096 with uint8 wire input, for
    float32 and for bfloat16 matmul weights: 4 threads submit 16 requests
@@ -33,8 +38,9 @@ Phases (any failure exits non-zero before the final line):
    leaf must move, each step must launch the training forward and the
    backward kernel once and the inference kernel never, and the first
    step's gradients must agree with the plain backward.  Then 10 steps
-   with periodic encoding for the times, and 3 with a count regularizer
-   for the launches;
+   with periodic encoding (``bench.py``'s), whose kernel pair is held
+   against its plain versions on the trained weights at the same bars, and
+   3 with a count regularizer for the launches;
 6. deep serve -- 784 -> 128 -> 128 -> 96 -> 10 (ALIF, recurrent,
    learn_beta, T=100) served as in 4: results bitwise equal to a direct
    forward, one ``fused_layer0_fwd`` and two ``fused_mid_fwd`` launches a
@@ -324,13 +330,14 @@ HEAD_CASES = [  # name, alif, recurrent, use_periods
 
 
 def head_args(rng, B, F, H, O, T, alif, rec, use_periods, wdtype, flagship,
-              spike_func=SpikeFuncType.FastSigmoid):
-    """Latencies (tau=20, so spike times spread over the window) and
-    weights at the init scale of the flagship, or the JAX tests' scale."""
+              spike_func=SpikeFuncType.FastSigmoid, tau=20.0):
+    """Latencies (by default tau=20, so spike times spread over the window;
+    PROD_TAU is the encoders' own) and weights at the init scale of the
+    flagship, or the JAX tests' scale."""
     cfg = (ALIFConfig if alif else LIFConfig)(input_size=F, output_size=H)
     kappa = ReadoutConfig(input_size=H, output_size=O).kappa
     pixels = torch.from_numpy(rng.random((B, F), dtype=np.float32)).cuda()
-    lat = pixels_to_firing_periods(pixels, t_max=float(T), tau=20.0)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T), tau=tau)
     s_in, s_rec = (cfg.threshold, cfg.threshold) if flagship else (0.5, 0.3)
 
     def w(shape, std):
@@ -405,6 +412,7 @@ def phase_kernels() -> None:
 
 
 PHI = SpikeFuncType.Phi
+PROD_TAU = 20e-3  # the encoders' own tau (ops/encoding.py)
 TRAIN_CASES = [(*c, SpikeFuncType.FastSigmoid, False) for c in HEAD_CASES] + [
     # name, alif, recurrent, use_periods, surrogate, counts
     ("alif-rec-phi", True, True, False, PHI, False),  # two residuals
@@ -424,7 +432,7 @@ def train_forward(args, counts: bool, plain: bool):
               k["alif"] and k["spike_func"] == PHI, counts)
 
 
-def backward(args, g_logits, g_counts, res, plain: bool):
+def backward(args, g_logits, g_counts, res, plain: bool, **kw):
     """The backward (kernel or plain) fed the residuals ``res`` of one
     training forward: (g_w_in, g_w_rec, g_w_out, g_b)."""
     k = args
@@ -433,7 +441,35 @@ def backward(args, g_logits, g_counts, res, plain: bool):
     return fn(g_logits, g_counts, tstar, delta, a_tr, k["latencies"],
               k["w_in"], k["w_rec"], k["beta"], k["w_out"], k["n_steps"],
               k["use_periods"], k["alpha"], k["threshold"], k["gamma"],
-              k["kappa"], k["spike_func"])
+              k["kappa"], k["spike_func"], **kw)
+
+
+def check_ordered_gradients(label, args, res, g_logits, g_counts=None):
+    """bwd_gwin's and bwd_gout's float32 sums bit for bit against their
+    plain versions in the kernels' order (ops/fused.py:
+    _gwin_ordered_reference, _gout_ordered_reference), fed the chain's
+    rounded dcur and the forward's residuals."""
+    k, keep = args, {}
+    got = backward(args, g_logits, g_counts, res, plain=False, keep=keep)
+    B, F = k["latencies"].shape
+    H, O = k["w_out"].shape
+    order = fused.gradient_plan(
+        "cuda", B, F, H, O, k["n_steps"], k["w_rec"] is not None,
+        k["w_out"].dtype == torch.bfloat16, k["use_periods"])
+    g_in = fused._gwin_ordered_reference(
+        keep["dcur"], k["latencies"], k["n_steps"], k["use_periods"],
+        order["groups_in"], order["rows_in"])
+    g_out, g_b = fused._gout_ordered_reference(
+        (res[1] >= 0).float(), g_logits, res[3], k["kappa"],
+        k["w_out"].dtype, order["groups_out"], order["rows_out"])
+    torch.cuda.synchronize()
+    for name, a, b in (("bwd_gwin g_W_in", keep["g_w_in"], g_in),
+                       ("bwd_gout g_W_out", keep["g_w_out"], g_out),
+                       ("bwd_gout g_b", got[3], g_b)):
+        if not torch.equal(a, b):
+            fail(f"{label}: {name} differs from its plain version in the "
+                 f"kernel's order by {float((a - b).abs().max()):.3g}")
+    return order
 
 
 def grad_error(got, want):
@@ -511,8 +547,11 @@ def phase_train_kernels() -> None:
                 err = check_backward(f"small {name} {wname} T={T}", args, res,
                                      g_logits, g_counts,
                                      2e-6 if f32 else 2.0 ** -7)
+                check_ordered_gradients(f"small {name} {wname} T={T}", args,
+                                        res, g_logits, g_counts)
                 log(f"[train-kernels] small {name} {wname} T={T}: K1 ok, "
-                    f"K2 grad_err={err:.3g} ok")
+                    f"K2 grad_err={err:.3g} ok, bwd_gwin and bwd_gout "
+                    "bitwise their ordered plain versions")
             B = 8192
             args = head_args(rng, B, 784, 128, 10, 100, alif, rec, per,
                              wdtype, True, spike)
@@ -542,6 +581,59 @@ def phase_train_kernels() -> None:
                 f"grad_err={gerr:.3g} of max|g|, reproducible")
             del res, args
             torch.cuda.empty_cache()
+    check_prod_tau_flagship(rng)
+
+
+def check_prod_tau_flagship(rng) -> None:
+    """The main path's own configuration against its plain versions: the
+    flagship net (ALIF, recurrent) at B = 8192, F = 784, H = 128, T = 100
+    on periodic latencies at the production tau, float32 and bfloat16.
+    K1 at the full-width bars above (argmax on >= 99.5 % of rows, logits
+    within 1e-4 max|logit| on >= 99 %, tstar on the rows that agree), also
+    against its plain version in the mma body's order (printed); K2 fed
+    K1's residuals at 1e-4 of max|g| (2**-7 bf16), reproducible, and
+    bwd_gwin / bwd_gout bit for bit their plain versions in the kernels'
+    order."""
+    B = 8192
+    for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        f32 = wdtype == torch.float32
+        label = f"flagship periodic prod-tau {wname}"
+        args = head_args(rng, B, 784, 128, 10, 100, True, True, True, wdtype,
+                         True, tau=PROD_TAU)
+        res = train_forward(args, False, plain=False)
+        if not torch.equal(res[0], run_head(args, False)):
+            fail(f"{label}: K1 logits differ from fused_head_fwd's")
+        k = args
+        ordered = fused._head_train_ordered_reference(
+            k["latencies"], k["w_in"], k["w_rec"], k["beta"], k["w_out"],
+            k["b_out"], 100, True, True, k["alpha"], k["rho"],
+            k["threshold"], k["kappa"], True, False, False)
+        o_agree, o_close, o_err, _ = compare_flagship(res[0], ordered[0])
+        del ordered
+        ref = train_forward(args, False, plain=True)
+        agree, close, err, scale = compare_flagship(res[0], ref[0])
+        same_row = (res[0] - ref[0]).abs().amax(1) <= 1e-4 * scale
+        if agree < 0.995 or close < 0.99:
+            fail(f"{label}: K1 agreement below the bar (argmax {agree:.4f}, "
+                 f"rows within 1e-4 max|logit| {close:.4f})")
+        if not torch.equal(res[3][same_row], ref[3][same_row]):
+            fail(f"{label}: tstar differs on rows whose logits agree")
+        del ref
+        g_logits = torch.from_numpy(rng.standard_normal(
+            (B, 10)).astype(np.float32)).cuda() / B
+        gerr = check_backward(label, args, res, g_logits, None,
+                              1e-4 if f32 else 2.0 ** -7)
+        order = check_ordered_gradients(label, args, res, g_logits)
+        log(f"[train-kernels] {label} B={B}: K1 argmax_agree="
+            f"{round(agree * B)}/{B} rows_within_1e-4max={round(close * B)}/"
+            f"{B} max_abs_err={err:.3g} max|logit|={scale:.3g}; against the "
+            f"ordered plain forward argmax_agree={round(o_agree * B)}/{B} "
+            f"rows_within_1e-4max={round(o_close * B)}/{B} max_abs_err="
+            f"{o_err:.3g}; K2 grad_err={gerr:.3g} of max|g|, reproducible; "
+            f"bwd_gwin and bwd_gout bitwise their ordered plain versions "
+            f"(plan {json.dumps(order)})")
+        del res, args
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1061,8 +1153,8 @@ def train_kernel_rows(tag, args, md, launches, k1_err, k2_err, label):
     k2_ops = (2 * B * T * H * (H + O) + in_spikes * H + hidden * (H + O)
               + 12 * B * T * H)
     # What K2 really moves besides: its dcur buffer, written once by the
-    # chain function and read by the g_W_in function (once per chunk of
-    # 128 features, the repeats mostly from L2) and by the g_W_rec function.
+    # chain function and read once each by the g_W_in and g_W_rec
+    # functions.
     k2_moved = k2_bytes + 3 * trace
     peak = H100_F32_FLOPS if md == torch.float32 else H100_BF16_FLOPS
     rows = []
@@ -1095,6 +1187,29 @@ def train_kernel_rows(tag, args, md, launches, k1_err, k2_err, label):
     return rows
 
 
+def first_step_errors(label, args, y, md):
+    """K1 and K2 on one flagship batch against their plain versions at
+    phase 3's full-width bars: K2 fed K1's residuals and the loss's
+    cotangent (1e-4 of max|g|, 2**-7 bf16, reproducible); K1's argmax on
+    >= 99.5 % of rows, logits within 1e-4 max|logit| on >= 99 %, tstar on
+    the rows that agree.  Returns (K1 max_abs_err, K2 grad_err, argmax
+    share, close share)."""
+    res = train_forward(args, False, plain=False)
+    logits = res[0].clone().requires_grad_(True)
+    (g_logits,) = torch.autograd.grad(nll_loss(logits, y), logits)
+    k2_err = check_backward(label, args, res, g_logits.contiguous(), None,
+                            1e-4 if md == torch.float32 else 2.0 ** -7)
+    ref = train_forward(args, False, plain=True)
+    agree, close, k1_err, scale = compare_flagship(res[0], ref[0])
+    if agree < 0.995 or close < 0.99:
+        fail(f"{label}: K1 disagrees with its plain version (argmax "
+             f"{agree:.4f}, rows within 1e-4 max|logit| {close:.4f})")
+    same_row = (res[0] - ref[0]).abs().amax(1) <= 1e-4 * scale
+    if not torch.equal(res[3][same_row], ref[3][same_row]):
+        fail(f"{label}: tstar differs on rows whose logits agree")
+    return k1_err, k2_err, agree, close
+
+
 def phase_train(matmul_dtype: str) -> list:
     tag = "f32" if matmul_dtype == "float32" else "bf16"
     md = getattr(torch, matmul_dtype)
@@ -1117,16 +1232,8 @@ def phase_train(matmul_dtype: str) -> list:
     x, y = batches[0]
     lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
     args = flagship_head_args(cfg, trainer.params, lat)
-    res = train_forward(args, False, plain=False)
-    logits = res[0].clone().requires_grad_(True)
-    (g_logits,) = torch.autograd.grad(nll_loss(logits, y), logits)
-    k2_err = check_backward(f"train {tag} first step", args, res,
-                            g_logits.contiguous(), None,
-                            1e-4 if md == torch.float32 else 2.0 ** -7)
-    ref = train_forward(args, False, plain=True)
-    agree, close, k1_err, _ = compare_flagship(res[0], ref[0])
-    if agree < 0.995 or close < 0.99:
-        fail(f"train {tag}: K1 disagrees with its plain version")
+    k1_err, k2_err, agree, close = first_step_errors(
+        f"train {tag} first step", args, y, md)
     _, grads = trainer.loss_and_grads(x, y)
     plain_leaves = {n: {k: v.detach().clone().requires_grad_(k != "beta")
                         for k, v in g.items()}
@@ -1147,7 +1254,7 @@ def phase_train(matmul_dtype: str) -> list:
         f"{k2_err:.3g} of max|g| ok; K1 vs plain argmax_agree={agree:.4f} "
         f"rows_within_1e-4max={close:.4f}; whole step vs whole plain step "
         f"grad_err={whole:.3g} of max|g|")
-    del ref, res, plain_leaves, pa, grads
+    del plain_leaves, pa, grads
 
     warm, _ = timed_steps(trainer, batches, WARMUP)
     fused.reset_launch_counts()
@@ -1179,19 +1286,25 @@ def phase_train(matmul_dtype: str) -> list:
     args = flagship_head_args(cfg, trainer.params, lat)
     rows = train_kernel_rows(tag, args, md, launches, k1_err, k2_err, "ttfs")
 
-    # The periodic encoding at the production tau: most features fire at
-    # every step.  For the times only.
+    # The periodic encoding at the production tau (bench.py's): most
+    # features fire at every step.  K1 and K2 on the trained weights
+    # against their plain versions, as the TTFS leg's first step.
     enc_p = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
     periodic = Trainer(cfg, seed=0, encode_config=enc_p, device="cuda")
     timed_steps(periodic, batches, 1)
     plosses, pseconds = timed_steps(periodic, batches, 10)
     if not all(np.isfinite([float(v) for v in plosses])):
         fail(f"train {tag}: non-finite loss with periodic encoding")
+    pargs = flagship_head_args(cfg, periodic.params, lat, use_periods=True)
+    pk1, pk2, pagree, pclose = first_step_errors(
+        f"train {tag} periodic", pargs, y, md)
     log(f"[train] {tag} periodic 10 steps of {TRAIN_B}: "
         f"{pseconds / 10 * 1e3:.3f} ms a step = "
-        f"{TRAIN_B * 10 / pseconds:.1f} img/s [{card_line()}]")
-    pargs = flagship_head_args(cfg, periodic.params, lat, use_periods=True)
-    train_kernel_rows(tag, pargs, md, launches, 0.0, 0.0, "periodic")
+        f"{TRAIN_B * 10 / pseconds:.1f} img/s; K1 vs plain argmax_agree="
+        f"{pagree:.4f} rows_within_1e-4max={pclose:.4f} max_abs_err="
+        f"{pk1:.3g}; K2 vs plain on K1's residuals grad_err={pk2:.3g} of "
+        f"max|g| [{card_line()}]")
+    train_kernel_rows(tag, pargs, md, launches, pk1, pk2, "periodic")
 
     # A count regularizer keeps the kernel pair (the _counts variants).
     reg = Trainer(cfg, seed=0, reg_fn=L2SpikesPerNeuron(scale=1e-9),

@@ -50,10 +50,6 @@
 //     stages fit, the threads copy one stage instead.
 // Built with --fmad=false; every sum is float32 in a fixed order.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <string.h>
-
 #include <type_traits>
 
 #include "bwd_common.cuh"
@@ -70,17 +66,6 @@ __host__ __device__ inline int align8(int x) { return (x + 7) & ~7; }
 // ascending.
 __host__ __device__ inline int list_row_len(int F, int T) {
   return align8(F) + 2 * align8(T + 2);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -315,9 +300,6 @@ struct FwdPlan {
 // Backward
 // ---------------------------------------------------------------------------
 __host__ __device__ inline int align32(int x) { return (x + 31) & ~31; }
-__host__ __device__ inline size_t align128(size_t x) {
-  return (x + 127) & ~(size_t)127;
-}
 
 // One warp a row: key + 1 of every feature, 0 where it never fires and past
 // F, in rows of align32(F) 16-bit words (a block's (R rows, G, 32) box of
@@ -388,30 +370,6 @@ __host__ __device__ inline BwdLayout bwd_layout(int R, int NS, int TS, int T,
   return L;
 }
 
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
 // Thread 0: TMA batch q (rows q R ..) into stage `st`, completing on `bar`:
 // g's (TS, R, 32) box from step -1 at columns h0 .. and the keys' (R, G, 32)
 // box of feature groups g0 ..  Rows past B, steps outside [0, T), columns
@@ -424,41 +382,18 @@ __device__ __forceinline__ void issue_batch(const CUtensorMap* gmap,
                                             const BwdArgs& a, int G, int q,
                                             int h0, int g0) {
   const uint32_t b = smem_u32(bar);
-  const uint32_t bytes =
-      (uint32_t)(a.TS * a.R * 128 + a.R * G * 64 +
-                 (a.periodic ? a.R * a.MW * 4 : 0));
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(b),
-               "r"(bytes)
-               : "memory");
+  mbar_expect(bar, (uint32_t)(a.TS * a.R * 128 + a.R * G * 64 +
+                              (a.periodic ? a.R * a.MW * 4 : 0)));
   for (int i = 0; i < a.nbx; ++i)
-    tma_3d(st + (size_t)i * a.TB * a.R * 128, gmap, b, h0, q * a.R,
+    tma_3d(st + (size_t)i * a.TB * a.R * 128, gmap, bar, h0, q * a.R,
            i * a.TB - 1);
-  tma_3d(st + L.key, kmap, b, 0, g0, q * a.R);
+  tma_3d(st + L.key, kmap, bar, 0, g0, q * a.R);
   if (a.periodic)
     asm volatile(
         "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
         "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(st + L.mask)),
         "l"(reinterpret_cast<uint64_t>(mmap)), "r"(b), "r"(0), "r"(q * a.R)
         : "memory");
-}
-
-// g(p) + g(2p) + .. < T of one column `col` (step stride `ts`), p >= 1:
-// eight running sums over the multiples j p, j = 1 .. 8 mod 8, added
-// pairwise at the end -- a fixed order with an eighth of the dependent adds.
-__device__ __forceinline__ float period_sum(const float* col, int ts, int p,
-                                            int T) {
-  float s8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int t = p;
-  for (; t + 7 * p < T; t += 8 * p) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s8[i] += col[(t + i * p) * ts];
-  }
-#pragma unroll
-  for (int i = 0; i < 7; ++i)
-    if (t + i * p < T) s8[i] += col[(t + i * p) * ts];
-  return ((s8[0] + s8[1]) + (s8[2] + s8[3])) +
-         ((s8[4] + s8[5]) + (s8[6] + s8[7]));
 }
 
 // S[p] = g(p) + g(2p) + .. of the R rows of a stage, into the table Sb (S[0]
@@ -518,11 +453,8 @@ __global__ void __launch_bounds__(1024)
     for (int i = tid; i < R * 32; i += nthreads)
       s_S[(i >> 5) * SR * 32 + (i & 31)] = 0.f;  // row 0 of each row
   if (TMA && tid == 0) {
-    for (int s = 0; s < NS; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_u32(s_full + s))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < NS; ++s) mbar_init(s_full + s);
+    mbar_fence_init();
   }
   __syncthreads();
   if (TMA && tid == 0)
@@ -685,25 +617,6 @@ int bwd_plan(int B, int F, int H, int T, int periodic, const Limits& lim,
   p->groups = row_groups(lim.sms, lim.sm_smem, p->smem, 32 * p->G,
                          p->n_f * p->n_h, (B + p->R - 1) / p->R);
   return 0;
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
 }
 
 template <typename W>

@@ -41,9 +41,10 @@
 namespace {
 
 struct Plan2 {
-  int rows0, smem_chain0, rows1, smem_chain1, G0, G1, smem_in, smem_rec0,
-      smem_w1, smem_rec1, smem_out, n_f, n_j0, n_jw1, n_j1, n_in, n_rec0, n_w1,
-      n_rec1, n_out;
+  int rows0, smem_chain0, rows1, smem_chain1, G0, G1, smem_rec0, smem_w1,
+      smem_rec1, n_j0, n_jw1, n_j1, n_rec0, n_w1, n_rec1;
+  GwinPlan gw;
+  GoutPlan go;
 };
 
 // 0 when the shape fits, 1 when it does not, else a CUDA error code.
@@ -59,9 +60,6 @@ int make_plan2(int B, int F, int H1, int H2, int O, int T, int rec, int bf16,
     return 1;
   const int G0 = 512 / HP0 > 0 ? 512 / HP0 : 1;
   const int G1 = 512 / HP1 > 0 ? 512 / HP1 : 1;
-  // The readout block keeps g_W_out[h, o] for NACC o per thread and walks
-  // the s chain on one thread per output.
-  if (O > G1 * NACC || O > G1 * HP1) return 1;
   const int wsize = bf16 ? 2 : 4;
   p->rows1 = chain_rows(H2, O, HP1, G1, rec, wsize, lim.max_smem,
                         &p->smem_chain1);
@@ -70,22 +68,19 @@ int make_plan2(int B, int F, int H1, int H2, int O, int T, int rec, int bf16,
   if (p->rows0 == 0 || p->rows1 == 0) return 1;
   p->G0 = G0;
   p->G1 = G1;
-  p->smem_in = (int)in_layout(T, HP0, G0, periodic).total;
   p->smem_rec0 = (int)bits_layout(T, HP0, T + 1, HW0).total;
   p->smem_w1 = (int)bits_layout(T, HP1, T + 1, HW0).total;
   p->smem_rec1 = (int)bits_layout(T, HP1, T + 1, HW1).total;
-  p->smem_out = (int)out_layout(T, HP1, O).total;
-  if (p->smem_in > lim.max_smem || p->smem_rec0 > lim.max_smem ||
-      p->smem_w1 > lim.max_smem || p->smem_rec1 > lim.max_smem ||
-      p->smem_out > lim.max_smem)
+  if (p->smem_rec0 > lim.max_smem || p->smem_w1 > lim.max_smem ||
+      p->smem_rec1 > lim.max_smem ||
+      gwin_plan(B, F, H1, T, periodic, wsize, lim, &p->gw) != 0 ||
+      gout_plan(B, H2, O, T, lim, &p->go) != 0)
     return 1;
-  p->n_f = (F + G0 * NACC - 1) / (G0 * NACC);
   p->n_j0 = rec ? (HW0 + G0 - 1) / G0 : 0;
   p->n_jw1 = (HW0 + G1 - 1) / G1;
   p->n_j1 = rec ? (HW1 + G1 - 1) / G1 : 0;
   // As many blocks as the card holds at once; each walks its share of the
   // rows in ascending order.
-  p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP0 * G0, p->n_f, B);
   p->n_rec0 = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec0, HP0 * G0,
                                p->n_j0, B)
                   : 0;
@@ -94,7 +89,6 @@ int make_plan2(int B, int F, int H1, int H2, int O, int T, int rec, int bf16,
   p->n_rec1 = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec1, HP1 * G1,
                                p->n_j1, B)
                   : 0;
-  p->n_out = row_groups(lim.sms, lim.sm_smem, p->smem_out, HP1 * G1, 1, B);
   return 0;
 }
 
@@ -130,11 +124,7 @@ cudaError_t launch_all2(const Args& a0, const Args& a1, const Extra2& x,
       <<<dim3((B + p.rows0 - 1) / p.rows0), dim3(HP0, p.rows0),
          p.smem_chain0, s>>>(a0, p.rows0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
-    return err;
-  bwd_gwin_kernel<W>
-      <<<dim3(p.n_in, p.n_f), dim3(HP0, p.G0), p.smem_in, s>>>(a0, p.G0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_gwin<W>(a0, p.gw, 1, s)) != cudaSuccess) return err;
   int smem_bits = p.smem_w1;
   if (REC) {
     smem_bits = smem_bits > p.smem_rec0 ? smem_bits : p.smem_rec0;
@@ -164,11 +154,7 @@ cudaError_t launch_all2(const Args& a0, const Args& a1, const Extra2& x,
             p.G1);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if ((err = opt_in(bwd_gout_kernel<W>, p.smem_out)) != cudaSuccess)
-    return err;
-  bwd_gout_kernel<W>
-      <<<dim3(p.n_out), dim3(HP1, p.G1), p.smem_out, s>>>(a1, p.G1);
-  return cudaGetLastError();
+  return launch_gout<W>(a1, p.go, 1, s);
 }
 
 }  // namespace
@@ -185,11 +171,11 @@ int snn_fused2_bwd_plan(int B, int F, int H1, int H2, int O, int T, int rec,
   const int rc =
       make_plan2(B, F, H1, H2, O, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
-    out[0] = p.n_in;
+    out[0] = p.gw.groups;
     out[1] = p.n_rec0;
     out[2] = p.n_w1;
     out[3] = p.n_rec1;
-    out[4] = p.n_out;
+    out[4] = p.go.groups;
   }
   return rc;
 }

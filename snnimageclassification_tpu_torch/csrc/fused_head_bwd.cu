@@ -33,6 +33,7 @@
 // functions keep their inputs.
 
 #include "bwd_common.cuh"
+#include "gout_mma.cuh"
 #include "head_mma.cuh"
 
 namespace {
@@ -266,8 +267,9 @@ cudaError_t launch_chain_mma(const Args& a, int S, int device,
 }
 
 struct Plan {
-  int rows, smem_chain, G, smem_in, smem_rec, smem_out, n_f, n_j, n_in, n_rec,
-      n_out, mma;
+  int rows, smem_chain, G, smem_rec, n_j, n_rec, mma;
+  GwinPlan gw;
+  GoutPlan go;
 };
 
 // 0 when the shape fits, 1 when it does not, else a CUDA error code.
@@ -279,29 +281,22 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
   const int HP = (H + 31) / 32 * 32;
   if (H < 1 || O < 1 || F < 1 || T < 1 || T > 32767 || HP > 1024) return 1;
   const int G = 512 / HP > 0 ? 512 / HP : 1;
-  // The readout block keeps g_W_out[h, o] for NACC o per thread and walks
-  // the s chain on one thread per output.
-  if (O > G * NACC || O > G * HP) return 1;
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
   p->mma = chain_mma_fits(H, O, rec, bf16, lim.max_smem);
   p->G = G;
-  p->smem_in = (int)in_layout(T, HP, G, periodic).total;
   p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  p->smem_out = (int)out_layout(T, HP, O).total;
-  if (p->smem_in > lim.max_smem || p->smem_rec > lim.max_smem ||
-      p->smem_out > lim.max_smem)
+  if (p->smem_rec > lim.max_smem ||
+      gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
+      gout_plan(B, H, O, T, lim, &p->go) != 0)
     return 1;
-  p->n_f = (F + G * NACC - 1) / (G * NACC);
   p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
   // As many blocks as the card holds at once (by shared memory and by
   // threads); each walks its share of the rows in ascending order.
-  p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP * G, p->n_f, B);
   p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
                               p->n_j, B)
                  : 0;
-  p->n_out = row_groups(lim.sms, lim.sm_smem, p->smem_out, HP * G, 1, B);
   return 0;
 }
 
@@ -321,11 +316,7 @@ cudaError_t launch_all(const Args& a, const Plan& p, int S, int device,
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
-    return err;
-  bwd_gwin_kernel<W>
-      <<<dim3(p.n_in, p.n_f, S), dim3(HP, p.G), p.smem_in, s>>>(a, p.G);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_gwin<W>(a, p.gw, S, s)) != cudaSuccess) return err;
   if (REC) {
     if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
       return err;
@@ -336,11 +327,7 @@ cudaError_t launch_all(const Args& a, const Plan& p, int S, int device,
             p.G);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if ((err = opt_in(bwd_gout_kernel<W>, p.smem_out)) != cudaSuccess)
-    return err;
-  bwd_gout_kernel<W>
-      <<<dim3(p.n_out, 1, S), dim3(HP, p.G), p.smem_out, s>>>(a, p.G);
-  return cudaGetLastError();
+  return launch_gout<W>(a, p.go, S, s);
 }
 
 }  // namespace
@@ -349,7 +336,10 @@ extern "C" {
 
 // Slab counts for a shape on `device`: out[0] = blocks of g_W_in slabs,
 // out[1] = of g_W_rec slabs (0 without recurrence), out[2] = of
-// g_W_out/g_b slabs; out[3] = 1 where the chain takes its mma body.
+// g_W_out/g_b slabs; out[3] = 1 where the chain takes its mma body; out[4]
+// and out[5] = rows a batch of bwd_gwin and of bwd_gout (each block walks
+// the batches blockIdx.x + k blocks, ascending); out[6] = 1 where bwd_gwin
+// streams dcur through its TMA ring, 0 where the threads copy its stage.
 // Returns 0 when the shape fits the kernels, 1 when it does not, or a CUDA
 // error code.
 int snn_fused_head_bwd_plan(int B, int F, int H, int O, int T, int rec,
@@ -357,12 +347,33 @@ int snn_fused_head_bwd_plan(int B, int F, int H, int O, int T, int rec,
   Plan p;
   const int rc = make_plan(B, F, H, O, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
-    out[0] = p.n_in;
+    out[0] = p.gw.groups;
     out[1] = p.n_rec;
-    out[2] = p.n_out;
+    out[2] = p.go.groups;
     out[3] = p.mma;
+    out[4] = p.gw.R;
+    out[5] = p.go.R;
+    out[6] = p.gw.tma;
   }
   return rc;
+}
+
+// How bwd_gwin (every backward with an encoded first layer launches it)
+// reads dcur at a shape on `device`: *stage = 0 through its TMA ring, 1 a
+// stage copied by the threads as H * itemsize is not a multiple of 16 bytes
+// (TMA's strides), 2 the same as no two stages of the ring fit in a block's
+// shared memory.  Returns 0, 1 when the shape does not fit bwd_gwin, or a
+// CUDA error code.
+int snn_gwin_stage(int F, int H, int T, int bf16, int periodic, int device,
+                   int* stage) {
+  Limits lim;
+  const cudaError_t err = limits(device, &lim);
+  if (err != cudaSuccess) return (int)err;
+  GwinPlan p;
+  const int wsize = bf16 ? 2 : 4;
+  if (gwin_plan(1, F, H, T, periodic, wsize, lim, &p) != 0) return 1;
+  *stage = p.tma ? 0 : ((size_t)H * wsize) % 16 ? 1 : 2;
+  return 0;
 }
 
 // S stacked replicas (S = 1: one network): every per-replica input, the

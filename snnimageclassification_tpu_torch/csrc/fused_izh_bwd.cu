@@ -27,8 +27,9 @@
 namespace {
 
 struct Plan {
-  int rows, smem_chain, G, smem_in, smem_rec, smem_out, n_f, n_j, n_in, n_rec,
-      n_out;
+  int rows, smem_chain, G, smem_rec, n_j, n_rec;
+  GwinPlan gw;
+  GoutPlan go;
 };
 
 // O == 0: the first-layer mode.  0 when the shape fits, 1 when it does not,
@@ -41,26 +42,20 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
   const int HP = (H + 31) / 32 * 32;
   if (H < 1 || O < 0 || F < 1 || T < 1 || T > 32767 || HP > 1024) return 1;
   const int G = 512 / HP > 0 ? 512 / HP : 1;
-  if (O > G * NACC || O > G * HP) return 1;
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
   p->G = G;
-  p->smem_in = (int)in_layout(T, HP, G, periodic).total;
   p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  p->smem_out = O > 0 ? (int)out_layout(T, HP, O).total : 0;
-  if (p->smem_in > lim.max_smem || p->smem_rec > lim.max_smem ||
-      p->smem_out > lim.max_smem)
+  if (p->smem_rec > lim.max_smem ||
+      gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0)
     return 1;
-  p->n_f = (F + G * NACC - 1) / (G * NACC);
+  p->go.groups = 0;
+  if (O > 0 && gout_plan(B, H, O, T, lim, &p->go) != 0) return 1;
   p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
-  p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP * G, p->n_f, B);
   p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
                               p->n_j, B)
                  : 0;
-  p->n_out = O > 0 ? row_groups(lim.sms, lim.sm_smem, p->smem_out, HP * G, 1,
-                                B)
-                   : 0;
   return 0;
 }
 
@@ -75,11 +70,7 @@ cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
       <<<dim3((c.B + p.rows - 1) / p.rows, 1, S), dim3(HP, p.rows),
          p.smem_chain, s>>>(c, p.rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
-    return err;
-  bwd_gwin_kernel<W>
-      <<<dim3(p.n_in, p.n_f, S), dim3(HP, p.G), p.smem_in, s>>>(g, p.G);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_gwin<W>(g, p.gw, S, s)) != cudaSuccess) return err;
   if (REC) {
     if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
       return err;
@@ -91,11 +82,7 @@ cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (HEAD) {
-    if ((err = opt_in(bwd_gout_kernel<W>, p.smem_out)) != cudaSuccess)
-      return err;
-    bwd_gout_kernel<W>
-        <<<dim3(p.n_out, 1, S), dim3(HP, p.G), p.smem_out, s>>>(g, p.G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_gout<W>(g, p.go, S, s)) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -121,9 +108,9 @@ int snn_fused_izh_bwd_plan(int B, int F, int H, int O, int T, int rec,
   Plan p;
   const int rc = make_plan(B, F, H, O, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
-    out[0] = p.n_in;
+    out[0] = p.gw.groups;
     out[1] = p.n_rec;
-    out[2] = p.n_out;
+    out[2] = p.go.groups;
   }
   return rc;
 }

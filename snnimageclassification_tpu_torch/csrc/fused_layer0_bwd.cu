@@ -21,7 +21,8 @@
 namespace {
 
 struct Plan {
-  int rows, smem_chain, G, smem_in, smem_rec, n_f, n_j, n_in, n_rec;
+  int rows, smem_chain, G, smem_rec, n_j, n_rec;
+  GwinPlan gw;
 };
 
 // 0 when the shape fits, 1 when it does not, else a CUDA error code.
@@ -37,12 +38,11 @@ int make_plan(int B, int F, int H, int T, int rec, int bf16, int periodic,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
   p->G = G;
-  p->smem_in = (int)in_layout(T, HP, G, periodic).total;
   p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  if (p->smem_in > lim.max_smem || p->smem_rec > lim.max_smem) return 1;
-  p->n_f = (F + G * NACC - 1) / (G * NACC);
+  if (p->smem_rec > lim.max_smem ||
+      gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0)
+    return 1;
   p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
-  p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP * G, p->n_f, B);
   p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
                               p->n_j, B)
                  : 0;
@@ -58,11 +58,7 @@ cudaError_t launch_all(const Args& a, const Plan& p, cudaStream_t s) {
       <<<dim3((a.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
          s>>>(a, p.rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in(bwd_gwin_kernel<W>, p.smem_in)) != cudaSuccess)
-    return err;
-  bwd_gwin_kernel<W>
-      <<<dim3(p.n_in, p.n_f), dim3(HP, p.G), p.smem_in, s>>>(a, p.G);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_gwin<W>(a, p.gw, 1, s)) != cudaSuccess) return err;
   if (REC) {
     if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
       return err;
@@ -87,7 +83,7 @@ int snn_fused_layer0_bwd_plan(int B, int F, int H, int T, int rec, int bf16,
   Plan p;
   const int rc = make_plan(B, F, H, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
-    out[0] = p.n_in;
+    out[0] = p.gw.groups;
     out[1] = p.n_rec;
   }
   return rc;

@@ -55,8 +55,8 @@ __global__ void pack_bits_kernel(const void* z_in_, unsigned* bits, int T,
 }
 
 struct Plan {
-  int rows, smem_chain, G, smem_in, smem_rec, smem_out, n_jin, n_j, n_in,
-      n_rec, n_out;
+  int rows, smem_chain, G, smem_in, smem_rec, n_jin, n_j, n_in, n_rec;
+  GoutPlan go;
 };
 
 // 0 when the shape fits, 1 when it does not, else a CUDA error code.
@@ -69,25 +69,21 @@ int make_plan(int B, int Hin, int H, int O, int T, int rec, int bf16,
   const int HP = (H + 31) / 32 * 32, HinW = (Hin + 31) / 32;
   if (H < 1 || O < 0 || Hin < 1 || T < 1 || T > 32767 || HP > 1024) return 1;
   const int G = 512 / HP > 0 ? 512 / HP : 1;
-  if (O > G * NACC || O > G * HP) return 1;
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
   p->G = G;
   p->smem_in = (int)bits_layout(T, HP, T, HinW).total;
   p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  p->smem_out = O > 0 ? (int)out_layout(T, HP, O).total : 0;
-  if (p->smem_in > lim.max_smem || p->smem_rec > lim.max_smem ||
-      p->smem_out > lim.max_smem)
-    return 1;
+  if (p->smem_in > lim.max_smem || p->smem_rec > lim.max_smem) return 1;
+  p->go.groups = 0;
+  if (O > 0 && gout_plan(B, H, O, T, lim, &p->go) != 0) return 1;
   p->n_jin = (HinW + G - 1) / G;
   p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
   p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP * G, p->n_jin, B);
   p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
                               p->n_j, B)
                  : 0;
-  p->n_out =
-      O > 0 ? row_groups(lim.sms, lim.sm_smem, p->smem_out, HP * G, 1, B) : 0;
   return 0;
 }
 
@@ -137,11 +133,7 @@ cudaError_t launch_all(const Args& a, const MidArgs& m, const Plan& p,
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (HEAD) {
-    if ((err = opt_in(bwd_gout_kernel<W>, p.smem_out)) != cudaSuccess)
-      return err;
-    bwd_gout_kernel<W>
-        <<<dim3(p.n_out), dim3(HP, p.G), p.smem_out, s>>>(a, p.G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_gout<W>(a, p.go, 1, s)) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -171,7 +163,7 @@ int snn_fused_mid_bwd_plan(int B, int Hin, int H, int O, int T, int rec,
   if (rc == 0) {
     out[0] = p.n_in;
     out[1] = p.n_rec;
-    out[2] = p.n_out;
+    out[2] = p.go.groups;
   }
   return rc;
 }

@@ -104,6 +104,7 @@ from ..ops.fused import (
     fused_encode_rec_scan_head_counts,
     fused_head_supported,
     fused_supported,
+    gwin_copied_stage,
     head_bodies,
 )
 from ..ops.fused2 import (
@@ -1017,6 +1018,19 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
         return f"cuda:{fwd}{'+' + bwd if training else ''}{mode}"
 
     also = ", reverse-time BPTT in another" if training else ""
+
+    def gwin_note() -> str:
+        """bwd_gwin's copied stage, where a training call launches it (every
+        backward of an encoded first layer) and takes it."""
+        if not (on_card and training):
+            return ""
+        why = gwin_copied_stage(
+            dev, cfg.input_size, layer_cfgs[0][1].output_size,
+            cfg.int_time_steps, _dtype(cfg.matmul_dtype_eff).itemsize,
+            enc.use_periods)
+        return ("" if why is None else "; g_W_in's rows copied into shared "
+                f"memory by the threads ({why}, no TMA ring)")
+
     where = "" if on_card else " (plain version on the CPU)"
     izh = type(layer_cfgs[0][1]) is IzhikevichConfig
     if enc is not None and _head_fusible(cfg, enc, dev, training):
@@ -1041,12 +1055,13 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             # The LIF/ALIF head's kernels run a shape on their tensor-core
             # body or, past its limits, on their per-unit body.
             (_, first_cfg), (_, last_cfg) = layer_cfgs
+            itemsize = _dtype(cfg.matmul_dtype_eff).itemsize
             bodies = head_bodies(
                 cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
                 last_cfg.output_size,
                 recurrent=first_cfg.use_recurrent_connection,
-                itemsize=_dtype(cfg.matmul_dtype_eff).itemsize, device=dev,
-                training=training, use_periods=enc.use_periods)
+                itemsize=itemsize, device=dev, training=training,
+                use_periods=enc.use_periods)
             if "per-unit" in bodies:
                 mode = "[per-unit]"
                 body = ("; the per-unit body (O > 16, H > 256, or the "
@@ -1058,7 +1073,7 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             "layer": names,
             "path": path(*kernels, mode=mode),
             "reason": what + ": encode + scan + readout + max in one call"
-                      + also + body + where,
+                      + also + body + gwin_note() + where,
         }]
     if stacked:
         return [dict(e, reason=e["reason"] + " (per replica)")
@@ -1070,7 +1085,7 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                          KERNEL_2_BWD, "fused2_reference"),
             "reason": "two-hidden-layer classifier with max-over-time "
                       "readout: encode + both hidden scans + readout + max "
-                      "in one call" + also + where,
+                      "in one call" + also + gwin_note() + where,
         }]
     if not cfg.use_kernels:
         loop_reason = "use_kernels=False"
@@ -1099,7 +1114,7 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                          else path(KERNEL_L0, KERNEL_L0_BWD,
                                    "fused_layer0_reference")),
                 "reason": "encoding + input product + scan in one call"
-                          + also + where,
+                          + also + gwin_note() + where,
             })
             continue
         if (idx == 0 and enc is not None

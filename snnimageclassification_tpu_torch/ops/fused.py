@@ -77,7 +77,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .encoding import spike_row
-from .head_mma import list_row_words
+from .head_mma import PRODUCT_TERMS, list_row_words, spike_keys, split_pieces
 from .surrogate import SpikeFuncType, surrogate_grad_from_delta
 
 __all__ = [
@@ -337,7 +337,7 @@ def _layer0_reference(lat, w_in, w_rec, beta, n_steps, use_periods, alif,
 
 def _bwd_loop(spikes_in, w_in_t, g_logits, g_counts, tstar, g_z, res, a_tr,
               z, res_is_v, w_rec, beta, w_out, n_steps, alpha, threshold,
-              gamma, kappa, spike_func, wd):
+              gamma, kappa, spike_func, wd, dcur_out=None, matmul=None):
     """Plain version of the reverse-time kernels: an explicit loop from the
     residuals, rounding ``s`` and ``dcur`` through the weights' dtype
     ``wd`` before each product.
@@ -349,7 +349,11 @@ def _bwd_loop(spikes_in, w_in_t, g_logits, g_counts, tstar, g_z, res, a_tr,
     ``(B, F_in)`` of step ``t``; with ``w_in_t`` (``W_in^T`` as float32)
     the input's cotangent ``g_z_in (T, B, F_in)`` float32 is returned too.
     Returns ``(g_z_in | None, g_w_in, g_w_rec | None, g_w_out | None, g_b
-    | None)``, all float32."""
+    | None)``, all float32.  A ``dcur_out (B, T, H)`` float32 tensor, where
+    given, receives ``dcur(t)`` rounded through ``wd``, as the kernels'
+    chain writes it for their gradient functions.  ``matmul(a, w)``, where
+    given, forms the two dense products ``s @ W_out^T`` and ``dcur @
+    W_rec^T`` in place of ``@``."""
     f32 = torch.float32
     head = w_out is not None
     dev = res.device
@@ -357,6 +361,8 @@ def _bwd_loop(spikes_in, w_in_t, g_logits, g_counts, tstar, g_z, res, a_tr,
 
     def r(x):
         return x if wd == f32 else x.to(wd).to(f32)
+
+    mm = matmul or torch.matmul
 
     w_rec32 = None if w_rec is None else w_rec.to(f32)
     beta_t = (torch.as_tensor(beta, dtype=f32, device=dev)
@@ -379,13 +385,13 @@ def _bwd_loop(spikes_in, w_in_t, g_logits, g_counts, tstar, g_z, res, a_tr,
         if head:
             s = kappa * s + g * (tstar == t).to(f32)
             s_r = r(s)
-            dz = s_r @ w_out32.T
+            dz = mm(s_r, w_out32.T)
             if g_counts is not None:
                 dz = dz + g_counts
         else:
             dz = g_z[t].to(f32)
         if w_rec32 is not None:
-            dz = dz + r(dcur) @ w_rec32.T
+            dz = dz + mm(r(dcur), w_rec32.T)
         thr = (threshold + beta_t * a_tr[t].to(f32) if a_tr is not None
                else threshold)
         d_t = res[t].to(f32) - thr if res_is_v else res[t].to(f32)
@@ -399,6 +405,8 @@ def _bwd_loop(spikes_in, w_in_t, g_logits, g_counts, tstar, g_z, res, a_tr,
             z_prev = z[t - 1].to(f32)
         dcur = dv * (1.0 - z_prev)
         dcr = r(dcur)
+        if dcur_out is not None:
+            dcur_out[:, t] = dcr
         # Input spikes at the forward step index of the dcur row they meet.
         part = spikes_in(t).T @ dcr
         g_w_in = part if g_w_in is None else g_w_in + part
@@ -427,6 +435,320 @@ def _head_bwd_reference(g_logits, g_counts, tstar, delta, a_tr, lat, w_in,
     return (g_w_in.to(w_in.dtype),
             None if g_w_rec is None else g_w_rec.to(w_rec.dtype),
             g_w_out.to(w_out.dtype), g_b)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions in the kernels' own summation order
+# ---------------------------------------------------------------------------
+# The kernels sum in orders of their own (per-block slabs, the periodic
+# table's eight running sums, tensor-core k16 slices).  At a configuration
+# where the function is ill-conditioned (periodic encoding at the
+# production tau, T = 100) another order of the same float32 sums lands
+# past the bars, so these plain versions follow the kernels' orders: the
+# gradient functions bit for bit, the tensor-core forward up to the
+# rounding inside one k16 slice.
+
+def _block_rows(n_rows: int, groups: int, rows: int):
+    """The batch rows that the ``groups`` blocks of a gradient function
+    take at each turn, in their order: block ``j`` walks the batches ``j,
+    j + groups, ..`` of ``rows`` rows, each in ascending order.  Yields a
+    ``(groups,)`` int64 tensor of rows (clamped) and its mask of rows
+    inside the batch."""
+    nb = -(-n_rows // rows)
+    j = torch.arange(groups, dtype=torch.int64)
+    for turn in range(-(-nb // groups)):
+        for r in range(rows):
+            b = (turn * groups + j) * rows + r
+            yield b.clamp(max=n_rows - 1), b < n_rows
+
+
+def _period_table(d: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``bwd_gwin``'s periodic table of each row: ``(B, T + 1, H)`` float32
+    with row ``p + 1`` the sum of ``d(j p)`` over the multiples ``j p < T``
+    (row 1 is ``d(0)`` at T = 1), for the periods ``keys - 1`` in use; row 0
+    zeros.  Summed as ``bwd_common.cuh:period_sum``: eight running sums over
+    ``j = 1 .. 8 mod 8``, then added pairwise."""
+    B, T, H = d.shape
+    table = torch.zeros((B, T + 1, H), dtype=torch.float32, device=d.device)
+    if T == 1:
+        table[:, 1] = d[:, 0]
+        return table
+    for p in torch.unique(keys[keys > 1] - 1).tolist():
+        terms = d[:, p::p]
+        n = terms.shape[1]
+        pad = -(-n // 8) * 8 - n
+        terms = torch.cat([terms, torch.zeros((B, pad, H), dtype=d.dtype,
+                                              device=d.device)], 1)
+        s8 = torch.zeros((B, 8, H), dtype=torch.float32, device=d.device)
+        for k in range(terms.shape[1] // 8):
+            s8 = s8 + terms[:, 8 * k:8 * k + 8]
+        s = [s8[:, i] for i in range(8)]
+        table[:, p + 1] = ((s[0] + s[1]) + (s[2] + s[3])) + \
+            ((s[4] + s[5]) + (s[6] + s[7]))
+    return table
+
+
+def _gwin_ordered_reference(dcur: torch.Tensor, lat: torch.Tensor,
+                            n_steps: int, use_periods: bool, groups: int,
+                            rows: int) -> torch.Tensor:
+    """Plain version of ``bwd_gwin`` (``csrc/bwd_common.cuh``) in its
+    summation order: ``g_W_in (F, H)`` float32 from the rounded ``dcur (B,
+    T, H)`` and the latencies.  Each row's table (``dcur`` itself under
+    TTFS, :func:`_period_table` under periodic encoding) gives one gathered
+    row a feature; block ``j`` of ``groups`` adds its rows' in the order of
+    :func:`_block_rows` (``rows`` a batch) into a slab of its own, and the
+    slabs are added as the wrapper adds the kernel's (:func:`slab_sums`).
+    ``groups`` and ``rows`` are the kernel's plan (:func:`gradient_plan`);
+    run on the kernel's device, the result is its bits."""
+    f32 = torch.float32
+    d = dcur.to(f32)
+    B, T, H = d.shape
+    F = lat.shape[1]
+    key = spike_keys(lat, n_steps, use_periods).to(torch.int64) + 1
+    table = (_period_table(d, key) if use_periods else
+             torch.cat([torch.zeros((B, 1, H), dtype=f32, device=d.device),
+                        d], 1))
+    slab = torch.zeros((groups, F, H), dtype=f32, device=d.device)
+    for b, live in _block_rows(B, groups, rows):
+        b, live = b.to(d.device), live.to(d.device)
+        part = torch.gather(table[b], 1,
+                            key[b][:, :, None].expand(groups, F, H))
+        slab = slab + torch.where(live[:, None, None], part,
+                                  torch.zeros_like(part))
+    return slab_sums(slab.view(groups, F * H), None).view(F, H)
+
+
+def _s_chains(g_logits: torch.Tensor, tstar: torch.Tensor, kappa: float,
+              wd: torch.dtype, n_steps: int):
+    """The readout cotangent's chains of ``bwd_gout`` (``bwd_common.cuh:
+    gout_stage``): each (row, output) runs ``s = kappa s + g [t == tstar]``
+    down from ``T - 1``.  Returns ``s`` rounded to ``wd`` as float32 ``(T,
+    B, O)`` and each row's sum of the unrounded ``s`` in that order."""
+    f32 = torch.float32
+    g = g_logits.to(f32)
+    s = torch.zeros_like(g)
+    row_sum = torch.zeros_like(s)
+    s_r = torch.empty((n_steps,) + tuple(g.shape), dtype=f32,
+                      device=g.device)
+    for t in range(n_steps - 1, -1, -1):
+        s = kappa * s + g * (tstar == t).to(f32)
+        s_r[t] = s.to(wd).to(f32)
+        row_sum = row_sum + s
+    return s_r, row_sum
+
+
+def _gout_ordered_reference(z: torch.Tensor, g_logits: torch.Tensor,
+                            tstar: torch.Tensor, kappa: float,
+                            wd: torch.dtype, groups: int,
+                            rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``bwd_gout`` (``csrc/bwd_common.cuh``) in its
+    summation order: ``(g_W_out (H, O), g_b (O,))`` float32 from the spikes
+    ``z (T, B, H)`` (0/1) and the logits' cotangent.  The (row, output)
+    chains of :func:`_s_chains`; block ``j`` adds ``z(t)[h] round(s(t))
+    [o]`` over its rows (:func:`_block_rows`), ascending ``t``, and the
+    rows' sums, into a slab of its own; the slabs are added as the wrapper
+    adds the kernel's."""
+    f32 = torch.float32
+    T, B, H = z.shape
+    O = g_logits.shape[1]
+    dev = z.device
+    s_r, row_sum = _s_chains(g_logits, tstar, kappa, wd, T)
+    zf = z.to(f32)
+    slab_w = torch.zeros((groups, H, O), dtype=f32, device=dev)
+    slab_b = torch.zeros((groups, O), dtype=f32, device=dev)
+    for b, live in _block_rows(B, groups, rows):
+        b, live = b.to(dev), live.to(dev)
+        slab_b = slab_b + torch.where(live[:, None], row_sum[b],
+                                      torch.zeros_like(slab_b))
+        for t in range(T):
+            part = zf[t, b][:, :, None] * s_r[t, b][:, None, :]
+            slab_w = slab_w + torch.where(live[:, None, None], part,
+                                          torch.zeros_like(part))
+    out = slab_sums(torch.cat([slab_w.view(groups, H * O), slab_b], 1), None)
+    return out[:H * O].view(H, O), out[H * O:].clone()
+
+
+def _slice_product(a: torch.Tensor, pieces) -> torch.Tensor:
+    """``a @ w`` for a 0/1 left operand ``a (B, K)`` as the tensor-core body
+    forms it (``head_mma.cuh:mma_exact``): per k16 slice, the product with
+    the hi piece and, for float32 weights, the lo then the mid piece's
+    products into a second accumulator, the slice's ``small + big`` added
+    in float32 in ascending k.  Each slice's sums are taken exactly
+    (float64) and rounded once: the tensor cores' rounding inside a slice
+    is the one part of the body's arithmetic this does not follow."""
+    f64 = torch.float64
+    B, K = a.shape
+    acc = torch.zeros((B, pieces[0].shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, K, 16):
+        a64 = a[:, k0:k0 + 16].to(f64)
+        big = (a64 @ pieces[0][k0:k0 + 16].to(f64)).float()
+        if len(pieces) == 1:
+            acc = acc + big
+            continue
+        small = (a64 @ pieces[2][k0:k0 + 16].to(f64)).float()
+        small = (small.to(f64) + a64 @ pieces[1][k0:k0 + 16].to(f64)).float()
+        acc = acc + (small + big)
+    return acc
+
+
+def _split_slice_product(a: torch.Tensor, w: torch.Tensor,
+                         wd: torch.dtype) -> torch.Tensor:
+    """``a @ w`` for a float32 left operand already rounded to ``wd`` (the
+    backward chain's ``s`` and ``dcur``), as ``head_mma.cuh:mma_split_a``
+    forms it: per k16 slice, bf16 weights one product; float32 weights the
+    hi x hi product apart and the five smaller piece products of
+    ``PRODUCT_TERMS`` chained into a second accumulator, the slice's
+    ``small + big`` added in float32 in ascending k.  Each tensor-core
+    product is taken exactly (float64) and rounded once to nearest: the
+    tensor cores' rounding inside a slice is the one part of the body's
+    arithmetic this does not follow (ROADMAP Queue 3)."""
+    f64 = torch.float64
+    ap = split_pieces(a) if wd == torch.float32 else [a]
+    wp = split_pieces(w) if wd == torch.float32 else [w]
+    B, K = a.shape
+    acc = torch.zeros((B, w.shape[1]), dtype=torch.float32, device=a.device)
+    for k0 in range(0, K, 16):
+        A = [p[:, k0:k0 + 16].to(f64) for p in ap]
+        Wp = [p[k0:k0 + 16].to(f64) for p in wp]
+        big = (A[0] @ Wp[0]).float()
+        if len(ap) == 1:
+            acc = acc + big
+            continue
+        small = torch.zeros_like(big)
+        for i, j in PRODUCT_TERMS[:5]:
+            small = (small.to(f64) + A[i] @ Wp[j]).float()
+        acc = acc + (small + big)
+    return acc
+
+
+def _ordered_rows(acc: torch.Tensor, mask: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``acc`` plus the rows ``w[f]`` of the features set in ``mask (B,
+    F)``, one at a time in ascending ``f`` (``fused_head.cu:gather_rows``
+    over a run of a row's sorted list)."""
+    for f in torch.nonzero(mask.any(0)).flatten().tolist():
+        acc = acc + mask[:, f, None].to(torch.float32) * w[f]
+    return acc
+
+
+def _head_train_ordered_reference(lat, w_in, w_rec, beta, w_out, b_out,
+                                  n_steps, use_periods, alif, alpha, rho,
+                                  threshold, kappa, store, store_a,
+                                  want_counts):
+    """Plain version of the tensor-core body of ``fused_head_fwd_train``
+    (``csrc/fused_head.cu:head_mma_kernel``) in its summation order;
+    returns as :func:`_head_train_reference`.
+
+    The input current of step ``t``: periodic, the run of period 1 summed
+    once (ascending ``f``) and taken at every ``t >= 1``, then each other
+    period dividing ``t``, ascending, its features added one at a time;
+    TTFS, a row that fires at least ``F / 16`` features at ``t`` takes
+    them as a k16-sliced product (:func:`_slice_product`), the others add
+    them one at a time.  The recurrent current and the readout are
+    k16-sliced products of ``z(t - 1)``, the recurrent one added to the
+    input current, ``b`` to the readout product.  The cell and the readout
+    steps are the plain loop's arithmetic."""
+    f32 = torch.float32
+    dev = lat.device
+    B, F = lat.shape
+    H, O = w_in.shape[1], w_out.shape[1]
+    wd = w_in.dtype
+    T = n_steps
+
+    def pieces(w):
+        w = w.to(f32)
+        return split_pieces(w) if wd == f32 else [w]
+
+    w_in32 = w_in.to(f32)
+    in_p = pieces(w_in)
+    rec_p = None if w_rec is None else pieces(w_rec)
+    out_p = pieces(w_out)
+    b = b_out.to(f32)
+    beta_t = torch.as_tensor(beta, dtype=f32, device=dev)
+    key = spike_keys(lat, T, use_periods)
+    periods = torch.unique(key[key >= 0]).tolist() if use_periods else []
+    every_step = use_periods and T >= 2
+    zeros = torch.zeros((B, H), dtype=f32, device=dev)
+    every = (_ordered_rows(zeros, key == 1, w_in32) if every_step
+             else zeros)
+    v, ad, z = zeros, zeros, zeros
+    vr = torch.zeros((B, O), dtype=f32, device=dev)
+    m = torch.full_like(vr, float("-inf"))
+    tstar = torch.zeros((B, O), dtype=torch.int32, device=dev)
+    counts = zeros
+    deltas, a_trace = [], []
+    for t in range(T + 1):
+        if t > 0:
+            r = _slice_product(z, out_p) + b
+            vr = kappa * vr + r
+            better = vr > m
+            m = torch.where(better, vr, m)
+            tstar = torch.where(better, torch.full_like(tstar, t - 1), tstar)
+        if t == T:
+            break
+        cur = every if every_step and t >= 1 else zeros
+        if use_periods:
+            for p in periods:
+                if p > t:
+                    break
+                if (p == 1 and every_step) or (p > 0 and t % p):
+                    continue
+                cur = _ordered_rows(cur, key == p, w_in32)
+        else:
+            fire = key == t
+            dense = 16 * fire.sum(1) >= F
+            cur = _ordered_rows(cur, fire & ~dense[:, None], w_in32)
+            if bool(dense.any()):
+                cur = torch.where(dense[:, None],
+                                  _slice_product(fire.to(f32), in_p), cur)
+        if rec_p is not None and t > 0:
+            cur = cur + _slice_product(z, rec_p)
+        v = (alpha * v + cur) * (1.0 - z)
+        thr = threshold
+        if alif:
+            ad = rho * ad + z
+            thr = threshold + beta_t * ad
+        delta = v - thr
+        z = (delta >= 0).to(f32)
+        counts = counts + z
+        if store:
+            deltas.append(delta.to(wd))
+            if store_a:
+                a_trace.append(ad.to(wd))
+    return (m, _stack(deltas), _stack(a_trace), tstar,
+            counts if want_counts else None)
+
+
+def _head_bwd_ordered_reference(g_logits, g_counts, tstar, delta, a_tr, lat,
+                                w_in, w_rec, beta, w_out, n_steps,
+                                use_periods, alpha, threshold, gamma, kappa,
+                                spike_func, order):
+    """Plain version of ``fused_head_bwd`` in its order: the chain with the
+    tensor-core body's products (:func:`_split_slice_product`), ``g_W_rec``
+    as :func:`_head_bwd_reference`, ``g_W_in`` from the chain's rounded
+    ``dcur`` through
+    :func:`_gwin_ordered_reference`, ``g_W_out`` and ``g_b`` through
+    :func:`_gout_ordered_reference`.  ``order`` is the kernel's plan
+    (:func:`gradient_plan`)."""
+    f32 = torch.float32
+    wd = w_out.dtype
+    B, H = delta.shape[1:]
+    dcur = torch.zeros((B, n_steps, H), dtype=f32, device=delta.device)
+    _, _, g_w_rec, _, _ = _bwd_loop(
+        lambda t: spike_row(lat, t, n_steps, use_periods).to(f32), None,
+        g_logits, g_counts, tstar, None, delta, a_tr, None, False, w_rec,
+        beta, w_out, n_steps, alpha, threshold, gamma, kappa, spike_func, wd,
+        dcur_out=dcur,
+        matmul=lambda a, w: _split_slice_product(a, w.contiguous(), wd))
+    g_w_in = _gwin_ordered_reference(dcur, lat, n_steps, use_periods,
+                                     order["groups_in"], order["rows_in"])
+    g_w_out, g_b = _gout_ordered_reference(
+        (delta >= 0).to(f32), g_logits, tstar, kappa, wd,
+        order["groups_out"], order["rows_out"])
+    return (g_w_in.to(w_in.dtype),
+            None if g_w_rec is None else g_w_rec.to(w_rec.dtype),
+            g_w_out.to(wd), g_b)
 
 
 def replica_beta(beta: "Beta", s: int) -> "Beta":
@@ -527,6 +849,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "fused_head_bwd":
         lib.snn_fused_head_bwd_plan.argtypes = [i] * 9 + [ip]
         lib.snn_fused_head_bwd_plan.restype = i
+        lib.snn_gwin_stage.argtypes = [i] * 6 + [ip]
+        lib.snn_gwin_stage.restype = i
         lib.snn_fused_head_bwd.argtypes = (
             [vp] * 14 + [i] * 8 + [f] * 4 + [i, i, vp])
         lib.snn_fused_head_bwd.restype = i
@@ -584,15 +908,61 @@ def _plan_bwd(device: torch.device, B: int, F: int, H: int, O: int, T: int,
     """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) partial slabs of the
     backward kernel on ``device`` and whether its chain takes the
     tensor-core body, or None when the shape does not fit."""
+    out = _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16,
+                          use_periods)
+    return None if out is None else (out[0], out[1], out[2], bool(out[3]))
+
+
+def _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16, use_periods):
     lib = _lib("fused_head_bwd")
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 7)()
     rc = lib.snn_fused_head_bwd_plan(B, F, H, O, T, int(recurrent),
                                      int(bf16), int(use_periods),
                                      _index(device), out)
     if rc == 1:
         return None
     _raise_on(rc, lib, f"{KERNEL_BWD} plan")
-    return out[0], out[1], out[2], bool(out[3])
+    return list(out)
+
+
+def gradient_plan(device, B: int, F: int, H: int, O: int, T: int,
+                  recurrent: bool, bf16: bool, use_periods: bool) -> dict:
+    """The order of ``fused_head_bwd``'s gradient functions on ``device``
+    for a shape: ``groups_in`` / ``groups_out`` blocks (slabs) of
+    ``bwd_gwin`` / ``bwd_gout``, ``rows_in`` / ``rows_out`` rows a batch,
+    and ``gwin_ring``, whether ``bwd_gwin`` streams ``dcur`` through its TMA
+    ring (False: its threads copy the stage; ``H * itemsize`` not a
+    multiple of 16 bytes, or no two stages fit).  The ordered plain
+    versions (:func:`_head_bwd_ordered_reference`) take it."""
+    out = _plan_bwd_words(torch.device(device), B, F, H, O, T, recurrent,
+                          bf16, use_periods)
+    if out is None:
+        raise ValueError(f"{KERNEL_BWD}: shape T={T} F={F} H={H} O={O} does "
+                         "not fit the kernel")
+    return {"groups_in": out[0], "groups_out": out[2], "rows_in": out[4],
+            "rows_out": out[5], "gwin_ring": bool(out[6])}
+
+
+GWIN_COPIED_STAGE = (None, "H * itemsize not a multiple of 16 bytes",
+                     "no two stages of the ring fit in shared memory")
+
+
+def gwin_copied_stage(device, F: int, H: int, T: int, itemsize: int,
+                      use_periods: bool) -> Optional[str]:
+    """Why ``bwd_gwin`` (``csrc/bwd_common.cuh``, g_W_in of every backward
+    with an encoded first layer) copies its ``dcur`` rows into shared
+    memory with its threads at this shape on ``device`` instead of
+    streaming them through its TMA ring, or None where the ring runs (or
+    the shape does not fit ``bwd_gwin``)."""
+    lib = _lib("fused_head_bwd")
+    stage = ctypes.c_int(0)
+    rc = lib.snn_gwin_stage(F, H, T, int(itemsize == 2), int(use_periods),
+                            _index(torch.device(device)),
+                            ctypes.byref(stage))
+    if rc == 1:
+        return None
+    _raise_on(rc, lib, "bwd_gwin plan")
+    return GWIN_COPIED_STAGE[stage.value]
 
 
 def fused_head_supported(
@@ -607,10 +977,11 @@ def fused_head_supported(
     thread per hidden unit), ``n_features <= 65535``,
     ``n_steps <= MAX_STEPS`` and the block's shared memory (``W_rec``,
     ``W_out`` and per-row state) within the device's opt-in limit.  With
-    ``training`` the backward kernel must fit too: it stages one row's
-    ``(n_steps, hidden)`` float32 table in shared memory (two with
-    ``use_periods``).  Building the kernels to ask is part of their first
-    use."""
+    ``training`` the backward kernel must fit too: its ``g_W_rec`` function
+    stages one row's ``(n_steps, hidden)`` float32 ``dcur`` in shared
+    memory, its ``g_W_in`` function a batch row's ``(n_steps + 1, 32)``
+    slice (and the periodic table beside it).  Building the kernels to ask
+    is part of their first use."""
     device = torch.device(device)
     if n_steps < 1 or n_out < 1 or hidden < 1 or n_features < 1:
         return False
@@ -820,10 +1191,12 @@ def slab_sums(slab: torch.Tensor, S: Optional[int]) -> torch.Tensor:
 
 def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
                    beta, w_out, n_steps, use_periods, alpha, threshold,
-                   gamma, kappa, spike_func):
+                   gamma, kappa, spike_func, keep=None):
     """Launch ``fused_head_bwd`` (``fused_head_bwd_stacked`` for stacked
     weights; its four ``__global__`` functions in one call) and add the
-    blocks' partial slabs in a fixed order."""
+    blocks' partial slabs in a fixed order.  A dict ``keep`` receives the
+    chain's rounded ``dcur`` and the float32 sums of ``g_W_in`` and
+    ``g_W_out`` before their cast to the weights' dtype (for tests)."""
     dev = lat.device
     B, F = lat.shape
     H, O = w_out.shape[-2:]
@@ -879,12 +1252,15 @@ def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
     _raise_on(rc, lib, f"{k} launch")
     _launched(k)
     # The sum over the blocks' slabs lies outside the TPU kernel too.
-    g_w_in = slab_sums(slab_in, S).view(*lead, F, H).to(w_in.dtype)
+    in_sum = slab_sums(slab_in, S).view(*lead, F, H)
     g_w_rec = (None if w_rec is None
                else slab_sums(slab_rec, S).view(*lead, H, H).to(wdt))
     out_sum = slab_sums(slab_out, S)
-    g_w_out = out_sum[..., :H * O].reshape(*lead, H, O).to(wdt)
-    return g_w_in, g_w_rec, g_w_out, out_sum[..., H * O:].clone()
+    w_out_sum = out_sum[..., :H * O].reshape(*lead, H, O)
+    if keep is not None:
+        keep.update(dcur=dcur, g_w_in=in_sum, g_w_out=w_out_sum)
+    return (in_sum.to(w_in.dtype), g_w_rec, w_out_sum.to(wdt),
+            out_sum[..., H * O:].clone())
 
 
 def _check_weights(kernel, w_in):

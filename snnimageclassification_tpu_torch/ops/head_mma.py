@@ -26,6 +26,7 @@ __all__ = [
     "PRODUCT_TERMS",
     "split_pieces",
     "split_matmul",
+    "spike_keys",
     "list_row_words",
     "head_lists",
     "step_runs",
@@ -73,8 +74,8 @@ def list_row_words(n_features: int) -> int:
     return 3 * _align8(n_features) + 8
 
 
-def _keys(lat: torch.Tensor, n_steps: int, use_periods: bool
-          ) -> torch.Tensor:
+def spike_keys(lat: torch.Tensor, n_steps: int, use_periods: bool
+               ) -> torch.Tensor:
     """``head_common.cuh:enc_key``: the spike key of each latency, -1 for
     a feature that never fires."""
     if use_periods:
@@ -95,7 +96,7 @@ def head_lists(lat: torch.Tensor, n_steps: int,
     leaves unwritten are 0 here."""
     B, F = lat.shape
     FA = _align8(F)
-    keys = _keys(lat.to(torch.int64).cpu(), n_steps, use_periods)
+    keys = spike_keys(lat.to(torch.int64).cpu(), n_steps, use_periods)
     out = torch.zeros((B, list_row_words(F)), dtype=torch.int32)
     for b in range(B):
         k = keys[b]

@@ -362,11 +362,18 @@ def test_kernel_pair_odd_shapes(card, shape, use_periods, wdtype):
 # (20e-3) every supra-threshold pixel fires at t = 0, so TTFS rows take the
 # dense input product and the periodic ones a long every-step run; at
 # tau = 20 steps the spikes spread over the window and the rows gather.
-# Periodic at the production tau stops at T = 24: at T = 100 a period-1
-# run of ~24 features a step drives v far past the threshold, and the
-# plain float32 version with its features and units permuted (another
-# summation order, the same function) already misses the residual bar
-# (1.1e-5-1.4e-5 past 1e-5) and the backward's (up to 8.6e-5 of max|g|).
+# Every case is held against the plain versions in the body's own
+# summation order (fused._head_train_ordered_reference,
+# fused._head_bwd_ordered_reference) at the bars below.  Periodic at the
+# production tau and T = 100 (the main path's configuration) is
+# ill-conditioned at these weights: a period-1 run of ~24 features a step
+# drives v far past the threshold, and the order-free plain float32
+# version, or one with its features and units permuted, misses the
+# residual bar (by 1.1e-5-1.4e-5 past 1e-5) and the backward's (up to
+# 8.6e-5 of max|g|); those cases are held against the ordered versions
+# only, the others against the order-free plain versions too.  The ordered
+# backward's chain takes each tensor-core k16 slice's exact sum rounded to
+# nearest; the card truncates inside a slice, which stays within these bars.
 PROD_TAU = 20e-3
 MMA_STEPS = [(1, PROD_TAU), (2, PROD_TAU), (24, 20.0), (24, PROD_TAU),
              (100, 20.0), (100, PROD_TAU)]
@@ -376,8 +383,11 @@ MMA_NETS = [  # name, alif, recurrent, use_periods, surrogate
      PHI if alif and rec and not per else FAST)
     for alif in (True, False) for rec in (True, False)
     for per in (False, True)]
-MMA_CASES = [(*net, n, tau) for net in MMA_NETS for n, tau in MMA_STEPS
-             if not (net[3] and n == 100 and tau == PROD_TAU)]
+MMA_CASES = [(*net, n, tau) for net in MMA_NETS for n, tau in MMA_STEPS]
+
+
+def _ill_conditioned(use_periods, n_steps, tau):
+    return use_periods and n_steps == 100 and tau == PROD_TAU
 
 
 def _bwd_bar(wdtype, n_steps):
@@ -429,50 +439,115 @@ def test_head_lists_match_their_twin(card, n_steps, use_periods):
 def test_mma_body_matches_plain_versions(card, name, alif, rec, use_periods,
                                          spike, H, n_steps, tau, wdtype):
     """The tensor-core body of the forward, the training forward (with
-    counts) and the backward against their plain versions: logits 1e-5,
-    spikes (``tstar``, counts) equal, residuals 1e-5 (bf16 2**-7), the
-    backward on the same residuals within the small-shape bars; training
-    logits bitwise the inference kernel's; equal bits on a second run."""
+    counts) and the backward against their plain versions in the body's
+    order (and, where the function is not ill-conditioned, the order-free
+    ones): logits 1e-5, spikes (``tstar``, counts) equal, residuals 1e-5
+    (bf16 2**-7), the backward on the same residuals within the small-shape
+    bars; training logits bitwise the inference kernel's; equal bits on a
+    second run."""
     B = 37
     args = _args(card, B, 30, H, 10, n_steps, alif, rec, use_periods,
                  wdtype, spike, tau=tau)
     assert fused.head_bodies(n_steps, 30, H, 10, rec, wdtype.itemsize,
                              card, True, use_periods) == ("mma", "mma")
+    ill = _ill_conditioned(use_periods, n_steps, tau)
     store_a = alif and spike == PHI
     fused.reset_launch_counts()
     infer = _call(args)
     assert torch.equal(infer, _call(args))
     got = fused._head_train_cuda(*_train_args(args), True, store_a, True)
-    want = fused._head_train_reference(*_train_args(args), True, store_a,
-                                       True)
+    wants = [fused._head_train_ordered_reference(*_train_args(args), True,
+                                                 store_a, True)]
+    if not ill:
+        wants.append(fused._head_train_reference(*_train_args(args), True,
+                                                 store_a, True))
     torch.cuda.synchronize()
     assert fused.launch_counts()[fused.KERNEL] == 2
     logits, delta, a_tr, tstar, counts = got
     assert torch.equal(logits, infer)
-    torch.testing.assert_close(logits, want[0], atol=1e-5, rtol=1e-5)
-    assert torch.equal(tstar, want[3]) and torch.equal(counts, want[4])
     assert float(counts.sum()) > 0  # the units fire
     tol = 1e-5 if wdtype == torch.float32 else 2.0 ** -7
-    torch.testing.assert_close(delta.float(), want[1].float(), atol=tol,
-                               rtol=tol)
     assert (a_tr is None) == (not store_a)
-    if store_a:
-        torch.testing.assert_close(a_tr.float(), want[2].float(), atol=tol,
+    for want in wants:
+        torch.testing.assert_close(logits, want[0], atol=1e-5, rtol=1e-5)
+        assert torch.equal(tstar, want[3]) and torch.equal(counts, want[4])
+        torch.testing.assert_close(delta.float(), want[1].float(), atol=tol,
                                    rtol=tol)
+        if store_a:
+            torch.testing.assert_close(a_tr.float(), want[2].float(),
+                                       atol=tol, rtol=tol)
     rng = np.random.default_rng(5)
     g_logits = torch.from_numpy(
         rng.standard_normal((B, 10)).astype(np.float32)).to(card)
     g_counts = torch.from_numpy(
         (0.01 * rng.standard_normal((B, H))).astype(np.float32)).to(card)
+    order = fused.gradient_plan(card, B, 30, H, 10, n_steps, rec,
+                                wdtype == torch.bfloat16, use_periods)
     for gc in (None, g_counts):
         bargs = _bwd_args(args, g_logits, gc, delta, a_tr, tstar)
         grads = fused._head_bwd_cuda(*bargs)
         again = fused._head_bwd_cuda(*bargs)
-        plain = fused._head_bwd_reference(*bargs)
+        plain = [fused._head_bwd_ordered_reference(*bargs, order)]
+        if not ill:
+            plain.append(fused._head_bwd_reference(*bargs))
         torch.cuda.synchronize()
         for g, g2 in zip(grads, again):
             assert g is None or torch.equal(g, g2)
-        assert _grad_err(grads, plain) <= _bwd_bar(wdtype, n_steps)
+        for p in plain:
+            assert _grad_err(grads, p) <= _bwd_bar(wdtype, n_steps)
+
+
+GRAD_SHAPES = [  # B, F, H: one batch a block; the ring's turns; two
+    (37, 30, 20),  # feature chunks (F past 1024); H off the TMA strides
+    (37, 30, 45),
+    (37, 30, 128),
+    (3000, 784, 128),
+    (300, 1100, 40),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps,tau", [(24, 20.0), (24, PROD_TAU),
+                                         (100, 20.0), (100, PROD_TAU)],
+                         ids=["24", "24-prod", "100", "100-prod"])
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=lambda s: "x".join(
+    str(v) for v in s))
+def test_gradient_functions_match_their_ordered_versions(
+        card, shape, use_periods, n_steps, tau, wdtype):
+    """bwd_gwin's g_W_in and bwd_gout's g_W_out and g_b (their float32
+    sums) equal their plain versions in the kernels' order bit for bit,
+    fed the chain's rounded dcur and the forward's residuals (ALIF,
+    recurrent; Phi under TTFS, whose surrogate keeps the chain finite at
+    T = 100, as in MMA_NETS)."""
+    B, F, H = shape
+    args = _args(card, B, F, H, 10, n_steps, True, True, use_periods,
+                 wdtype, FAST if use_periods else PHI, tau=tau)
+    _, delta, _, tstar, _ = fused._head_train_cuda(
+        *_train_args(args), True, False, False)
+    g_logits = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (B, 10)).astype(np.float32)).to(card)
+    keep = {}
+    grads = fused._head_bwd_cuda(
+        *_bwd_args(args, g_logits, None, delta, None, tstar), keep=keep)
+    order = fused.gradient_plan(card, B, F, H, 10, n_steps, True,
+                                wdtype == torch.bfloat16, use_periods)
+    assert order["gwin_ring"] == (H * wdtype.itemsize % 16 == 0)
+    g_in = fused._gwin_ordered_reference(
+        keep["dcur"], args["latencies"], n_steps, use_periods,
+        order["groups_in"], order["rows_in"])
+    g_out, g_b = fused._gout_ordered_reference(
+        (delta >= 0).float(), g_logits, tstar, args["kappa"], wdtype,
+        order["groups_out"], order["rows_out"])
+    for g in grads:
+        assert bool(torch.isfinite(g.float()).all())
+    assert float(keep["g_w_in"].abs().max()) > 0
+    assert torch.equal(keep["g_w_in"], g_in)
+    assert torch.equal(keep["g_w_out"], g_out)
+    assert torch.equal(grads[3], g_b)
 
 
 @pytest.mark.cuda
@@ -598,6 +673,30 @@ def test_explain_dispatch_names_the_per_unit_body(card):
                                            training=training)[0]
         assert entry["path"].endswith("[per-unit]")
         assert "per-unit body" in entry["reason"]
+    # bwd_gwin's rows cross by TMA where H * itemsize is a multiple of 16
+    # bytes; H = 45 float32 (180 bytes) takes the stage the threads copy.
+    odd_h = pt.SNNConfig(
+        input_size=784, output_size=10, n_hidden_neurons=45,
+        hidden_layer_type=pt.LayerType.ALIF, int_time_steps=100)
+    for cfg, copied in ((flagship, False), (odd_h, True)):
+        reason = model_lib.explain_dispatch(cfg, enc, device="cuda",
+                                            training=True)[0]["reason"]
+        assert ("no TMA ring" in reason) == copied
+    # Every backward of an encoded first layer launches bwd_gwin and says so:
+    # the two-layer pair, a deep network's layer 0, the Izhikevich head.
+    for hidden, kind in (([45, 64], "ALIF"), ([45, 64, 64], "ALIF"),
+                         (45, "Izhikevich")):
+        extra = {"dt": 30.0} if kind == "Izhikevich" else {}
+        cfg = pt.SNNConfig(input_size=784, output_size=10,
+                           n_hidden_neurons=hidden, hidden_layer_type=kind,
+                           int_time_steps=100, **extra)
+        entries = model_lib.explain_dispatch(cfg, enc, device="cuda",
+                                             training=True)
+        assert ("(H * itemsize not a multiple of 16 bytes, no TMA ring)"
+                in entries[0]["reason"]), entries
+        assert not any("no TMA ring" in e["reason"] for e in
+                       model_lib.explain_dispatch(cfg, enc, device="cuda",
+                                                  training=False)), entries
 
 
 DEEP_CASES = [  # name, alif, recurrent, use_periods, surrogate

@@ -179,49 +179,6 @@ def _mid_inputs(T, rec, seed=12):
     return rng, z_in, _weights(rng, HIN, rec)
 
 
-@pytest.mark.parametrize("case,T,wd", GRID, ids=IDS)
-def test_mid_forward_matches_the_jax_kernel(case, T, wd):
-    """Spikes and residuals of the z-emitting mode, and logits, ``tstar``,
-    counts and residuals of the head mode, against the JAX forward call."""
-    name, alif, rec, spike_name = case
-    _, z_in, w = _mid_inputs(T, rec)
-    alif, alpha, rho, thr, gamma = _scalars(alif, spike_name)
-    beta = 1.6 if alif else 0.0
-    store_delta = alif and spike_name == "FastSigmoid"
-    store_a = alif and spike_name == "Phi"
-    jkw = dict(T=T, alif=alif, alpha=alpha, rho=rho, threshold=thr,
-               store_delta=store_delta, interpret=True)
-    jargs = (_j(z_in, wd), _j(w["w_in"], wd), _j(w["w_rec"], wd), beta)
-    targs = (_t(z_in, wd), _t(w["w_in"], wd), _t(w["w_rec"], wd), beta)
-
-    jtraces, _ = jmid._mid_fwd_call(*jargs, **jkw)
-    _, tz, tres, ta, _, _ = tmid._mid_reference(
-        *targs, None, None, T, alif, alpha, rho, thr, 0.0, True, store_a,
-        False, not store_delta)
-    np.testing.assert_array_equal(_np(tz), _np(jtraces[0]))
-    _close_trace(tres, jtraces[1], wd, f"{name} residual")
-    assert (ta is not None) == (len(jtraces) == 3)
-    if ta is not None:
-        _close_trace(ta, jtraces[2], wd, f"{name} a")
-
-    jtraces, _, jlogits, jtstar, jcounts = jmid._mid_fwd_call(
-        *jargs, **jkw, w_out=_j(w["w_out"], wd),
-        b_out=jnp.asarray(w["b_out"]), kappa=KAPPA, store_counts=True)
-    tlogits, _, tres, ta, ttstar, tcounts = tmid._mid_reference(
-        *targs, _t(w["w_out"], wd), _t(w["b_out"], "float32"), T, alif,
-        alpha, rho, thr, KAPPA, True, store_a, True, False)
-    np.testing.assert_allclose(_np(tlogits), _np(jlogits), atol=1e-5,
-                               rtol=1e-5)
-    np.testing.assert_array_equal(_np(tlogits).argmax(1),
-                                  _np(jlogits).argmax(1))
-    np.testing.assert_array_equal(ttstar.numpy(), np.asarray(jtstar))
-    np.testing.assert_array_equal(_np(tcounts), _np(jcounts))
-    _close_trace(tres, jtraces[0], wd, f"{name} head delta")
-    assert (ta is not None) == (len(jtraces) == 2)
-    if ta is not None:
-        _close_trace(ta, jtraces[1], wd, f"{name} head a")
-
-
 def _mid_grads(kind, case, T, wd):
     """Outputs and gradients of one mid call, (jax, torch), as numpy."""
     name, alif, rec, spike_name = case
@@ -282,11 +239,12 @@ def _mid_grads(kind, case, T, wd):
             tout, {k: _np(v.grad) for k, v in tleaves.items()})
 
 
-@pytest.mark.parametrize("kind", ["mid", "head", "counts"])
-@pytest.mark.parametrize("case,T,wd", GRID, ids=IDS)
-def test_mid_gradients_match_the_jax_kernel(case, T, wd, kind):
-    """``g_z_in`` and the weights' gradients through the port's
-    ``autograd.Function`` against ``jax.grad`` through the kernel pair."""
+
+def check_mid_gradients(case, T, wd, kind):
+    """The body of the split files' ``test_mid_gradients_match_the_jax_kernel``
+    (tests/test_torch_mid_grads.py, tests/test_torch_mid_head_grads.py):
+    the outputs (z bit for bit; logits within 1e-5, counts equal) and the
+    gradients at the bars of :func:`_close_grads`."""
     name, alif, _, spike_name = case
     jout, jg, tout, tg = _mid_grads(kind, case, T, wd)
     if kind == "mid":
@@ -297,7 +255,6 @@ def test_mid_gradients_match_the_jax_kernel(case, T, wd, kind):
         if kind == "counts":
             np.testing.assert_array_equal(_np(tout[1]), _np(jout[1]))
     _close_grads(tg, jg, spike_name, alif, wd, f"{name} {kind}", T)
-
 
 def test_mid_inference_takes_no_autograd_path():
     """Without a gradient to compute the wrappers call the plain forward
