@@ -20,7 +20,10 @@ Phases (any failure exits non-zero before the final line):
    Phi case (two residuals) and a ``_counts`` case, at small shapes and
    at B=8192 of the flagship shape (``phase_train_kernels``), the backward's
    ``bwd_gwin`` and ``bwd_gout`` bit for bit their plain versions in the
-   kernels' order; then the main path's own configuration
+   kernels' order, ``gbits_mma`` (g_W_rec) too below 300 rows and, above,
+   within twice the error of the bit walk it replaced against the float64
+   sum of the same operands (``check_gbits``); then the main path's own
+   configuration
    (``check_prod_tau_flagship``): the flagship net at B=8192 on periodic
    latencies at the production tau, f32 and bf16, at the same full-width
    bars (and against the plain forward in the tensor-core body's order);
@@ -36,8 +39,11 @@ Phases (any failure exits non-zero before the final line):
    prototypes plus noise, numpy seed): 3 warm-up and 30 timed steps.  The
    losses must be finite and fall, beta must stay bitwise, every trained
    leaf must move, each step must launch the training forward and the
-   backward kernel once and the inference kernel never, and the first
-   step's gradients must agree with the plain backward.  Then 10 steps
+   backward kernel once and the inference kernel never (and ``gbits_mma``
+   inside the backward once), and the first step's gradients must agree
+   with the plain backward; ``gbits_mma`` alone on a training batch's dcur
+   and z bits is checked and timed beside its plain version and ``z_prev^T
+   @ dcur`` (its row of the kernels line).  Then 10 steps
    with periodic encoding (``bench.py``'s), whose kernel pair is held
    against its plain versions on the trained weights at the same bars, and
    3 with a count regularizer for the launches;
@@ -110,7 +116,8 @@ Phases (any failure exits non-zero before the final line):
    against the per-step loop's (1e-4 of max|g|) and both paths' losses; 5
    periodic steps (times), 3 with ``L2SpikesPerNeuron`` (launches);
 14. wide kernels -- the unfused tier's ``encode_matmul_fwd/bwd`` and
-   ``rec_scan_fwd[_train]/bwd`` against their plain versions: TTFS and
+   ``rec_scan_fwd[_train]/bwd`` (its ``gbits_mma`` g_W_rec by
+   ``check_gbits``) against their plain versions: TTFS and
    periodic, LIF/ALIF x FastSigmoid/Phi (recurrent), T = 24 and 100, f32
    and bf16 at small shapes (spikes equal, currents 1e-5 of max|current|,
    residuals 1e-5 / 2**-7, gradients on the same residuals 2e-6 of max|g|,
@@ -140,8 +147,10 @@ Phases (any failure exits non-zero before the final line):
    batch's periodic latencies, the witness of 15 on both encodings, and
    beside the same-function library calls: the forward's as in 15, the
    backward's ``raster.T @ g`` with g in float32, and with g rounded to bf16
-   beside it for bf16 weights); 5 periodic steps (times, launches: the
-   periodic rows of the encoded pair).
+   beside it for bf16 weights), ``gbits_mma`` (``rec_scan_bwd``'s g_W_rec,
+   launched once a timed step) alone on the chain's g_i and z bits as in 5;
+   5 periodic steps (times, launches: the periodic rows of the encoded
+   pair).
 17. scan kernels -- the feedforward scan's ``scan_fwd[_train]`` and
    ``scan_bwd`` against their plain versions: LIF/ALIF x FastSigmoid/Phi,
    T = 23, 24 and 100, B = 37, H = 19 and 45 (beta a float, then a device
@@ -240,6 +249,7 @@ from snnimageclassification_tpu_torch.ops import (
     fused2,
     fused_izh,
     fused_mid,
+    gbits,
     head_mma,
     izh,
     rec_scan,
@@ -444,11 +454,123 @@ def backward(args, g_logits, g_counts, res, plain: bool, **kw):
               k["kappa"], k["spike_func"], **kw)
 
 
+GBITS_SRC = "gbits_mma.cuh"
+
+
+def check_gbits(label, got, d, left, B, T, groups, md, step_major=False):
+    """``gbits_mma``'s float32 sum ``got`` (g_W_rec, or a mid layer's
+    g_W_in) against its plain version in its order
+    (``ops/gbits.py:_gbits_ordered_reference``, the kernel's ``groups``):
+    bit for bit below 300 rows of a batch; from 300 rows, where a k16 slice
+    whose exact sum does not fit float32 is truncated on the card and
+    rounded in the plain version, its error against the float64 exact sum
+    of the same operands at most twice that of the CUDA-core bit walk it
+    replaced (``_gbits_walk_reference`` with that walk's plan) on the same
+    operands (``(B T, ·)`` views, rows ``b T + t`` or, ``step_major``, ``t B
+    + b``).  Returns (bitwise share, error, walk error) of max|g|."""
+    want = gbits._gbits_ordered_reference(d, left, B, T, groups, md,
+                                          step_major)
+    torch.cuda.synchronize()
+    share = float((got == want).float().mean())
+    del want
+    if not bool(torch.isfinite(got).all()) or float(got.abs().max()) == 0:
+        fail(f"{label}: gbits_mma's sum is not finite or all zero")
+    if B < 300:
+        if share < 1.0:
+            fail(f"{label}: gbits_mma equals its ordered plain version on "
+                 f"{share:.4f} of elements, not all")
+        return share, 0.0, 0.0
+    exact = gbits.exact_sum(d, left, md)
+    scale = float(exact.abs().max())
+    err = float((got.double() - exact).abs().max()) / scale
+    J, H = got.shape
+    walk = gbits._gbits_walk_reference(
+        d, left, B, T, gbits.walk_groups(B, T, J, H, step_major, "cuda"), md,
+        step_major)
+    walk_err = float((walk.double() - exact).abs().max()) / scale
+    del exact, walk
+    if err > 2 * walk_err:
+        fail(f"{label}: gbits_mma's error {err:.3g} of max|g| against the "
+             f"exact sum is above twice the bit walk's {walk_err:.3g}")
+    return share, err, walk_err
+
+
+def gbits_row(label, name, site, launches, d, words, left, J, B, T, nrows,
+              md, groups, step_major=False):
+    """``gbits_mma`` alone (one launch into its slabs, ``gbits._launch``) on
+    a backward's own operands: checked (``check_gbits``), timed (median of
+    10 by CUDA events) beside its plain version (``_gbits_reference``) and
+    the one PyTorch call of the same function on materialised operands
+    (``left^T @ round(d)`` in the weights' dtype), and bound by the larger
+    of its bytes (d, its mask rows and one (J, H) float32 result) and its
+    tensor-core work (2 K J H a bf16 piece, three pieces for float32
+    weights) at 989 TFLOP/s.  Returns its row of the kernels line."""
+    K, H = d.shape
+    got = gbits.gbits(d, words, J, B, T, nrows, md, step_major)
+    share, err, walk_err = check_gbits(label, got, d, left, B, T, groups, md,
+                                       step_major)
+    exact = gbits.exact_sum(d, left, md)
+    abs_err = float((got.double() - exact).abs().max())
+    del exact
+    slab = torch.empty((1, groups, J * H), dtype=torch.float32,
+                       device="cuda")
+    ms = cuda_ms(lambda: gbits._launch(d, words, slab, J, B, T, nrows, md,
+                                       groups, None, step_major), 10)
+    plain_ms = cuda_ms(lambda: gbits._gbits_reference(d, left, md), 3, 1)
+    lm, dm = left.to(md), d.to(md)
+    library_ms = cuda_ms(lambda: lm.T @ dm, 10)
+    del lm, dm
+    pieces = 3 if md == torch.float32 else 1
+    nbytes = K * H * d.element_size() + K * words.shape[-1] * 4 + J * H * 4
+    ops = 2 * K * J * H * pieces
+    log(f"[{label}] gbits_mma: equal to its ordered plain version on "
+        f"{share:.4f} of elements; error {err:.3g} of max|g| against the "
+        f"exact sum (the bit walk it replaced: {walk_err:.3g})")
+    return kernel_row(label, name, site, launches, abs_err, ms, plain_ms,
+                      nbytes, ops, md, library_ms=library_ms,
+                      ops_ms=lambda t: ops / H100_BF16_FLOPS * 1e3)
+
+
+def flagship_gbits_row(tag, args, md, launches):
+    """The flagship's g_W_rec: ``gbits_mma`` alone on one training
+    batch's dcur and z bits (K1's residuals, the trained weights), as
+    ``gbits_row``."""
+    res = train_forward(args, False, plain=False)
+    B = args["latencies"].shape[0]
+    T, H = args["n_steps"], args["w_out"].shape[0]
+    keep = {}
+    backward(args, torch.full((B, args["w_out"].shape[1]), 1.0 / B,
+                              device="cuda"), None, res, False, keep=keep)
+    order = fused.gradient_plan("cuda", B, args["latencies"].shape[1], H,
+                                args["w_out"].shape[1], T, True,
+                                md == torch.bfloat16, args["use_periods"])
+    d = keep["dcur"].reshape(B * T, H)
+    left = fused.z_prev_rows(res[1])
+    words = keep["zmask"].reshape(B * (T + 1), -1)
+    del res
+    return gbits_row(f"train {tag}", f"{fused.KERNEL_GBITS}[flagship-{tag}]",
+                     (GBITS_SRC, "pallas_fused.py:1092"), launches, d, words,
+                     left, H, B, T, T + 1, md, order["groups_rec"])
+
+
+def check_head_gbits(label, args, res, keep, order):
+    """The head's g_W_rec (``check_gbits``) from ``_head_bwd_cuda``'s
+    ``keep``."""
+    B = args["latencies"].shape[0]
+    T, H = args["n_steps"], args["w_out"].shape[0]
+    d = keep["dcur"].reshape(B * T, H)
+    left = fused.z_prev_rows(res[1])
+    return check_gbits(label, keep["g_w_rec"], d, left, B, T,
+                       order["groups_rec"], args["w_out"].dtype)
+
+
 def check_ordered_gradients(label, args, res, g_logits, g_counts=None):
     """bwd_gwin's and bwd_gout's float32 sums bit for bit against their
     plain versions in the kernels' order (ops/fused.py:
     _gwin_ordered_reference, _gout_ordered_reference), fed the chain's
-    rounded dcur and the forward's residuals."""
+    rounded dcur and the forward's residuals; gbits_mma's g_W_rec by
+    ``check_gbits`` (bit for bit below 300 rows, else the float64 rule).
+    Returns (the plan, gbits's (share, error, walk error) or None)."""
     k, keep = args, {}
     got = backward(args, g_logits, g_counts, res, plain=False, keep=keep)
     B, F = k["latencies"].shape
@@ -469,7 +591,9 @@ def check_ordered_gradients(label, args, res, g_logits, g_counts=None):
         if not torch.equal(a, b):
             fail(f"{label}: {name} differs from its plain version in the "
                  f"kernel's order by {float((a - b).abs().max()):.3g}")
-    return order
+    gb = (None if k["w_rec"] is None
+          else check_head_gbits(label, args, res, keep, order))
+    return order, gb
 
 
 def grad_error(got, want):
@@ -547,11 +671,13 @@ def phase_train_kernels() -> None:
                 err = check_backward(f"small {name} {wname} T={T}", args, res,
                                      g_logits, g_counts,
                                      2e-6 if f32 else 2.0 ** -7)
-                check_ordered_gradients(f"small {name} {wname} T={T}", args,
-                                        res, g_logits, g_counts)
+                _, gb = check_ordered_gradients(
+                    f"small {name} {wname} T={T}", args, res, g_logits,
+                    g_counts)
                 log(f"[train-kernels] small {name} {wname} T={T}: K1 ok, "
                     f"K2 grad_err={err:.3g} ok, bwd_gwin and bwd_gout "
-                    "bitwise their ordered plain versions")
+                    "bitwise their ordered plain versions"
+                    + ("" if gb is None else ", gbits_mma too"))
             B = 8192
             args = head_args(rng, B, 784, 128, 10, 100, alif, rec, per,
                              wdtype, True, spike)
@@ -623,7 +749,7 @@ def check_prod_tau_flagship(rng) -> None:
             (B, 10)).astype(np.float32)).cuda() / B
         gerr = check_backward(label, args, res, g_logits, None,
                               1e-4 if f32 else 2.0 ** -7)
-        order = check_ordered_gradients(label, args, res, g_logits)
+        order, gb = check_ordered_gradients(label, args, res, g_logits)
         log(f"[train-kernels] {label} B={B}: K1 argmax_agree="
             f"{round(agree * B)}/{B} rows_within_1e-4max={round(close * B)}/"
             f"{B} max_abs_err={err:.3g} max|logit|={scale:.3g}; against the "
@@ -631,7 +757,10 @@ def check_prod_tau_flagship(rng) -> None:
             f"rows_within_1e-4max={round(o_close * B)}/{B} max_abs_err="
             f"{o_err:.3g}; K2 grad_err={gerr:.3g} of max|g|, reproducible; "
             f"bwd_gwin and bwd_gout bitwise their ordered plain versions "
-            f"(plan {json.dumps(order)})")
+            f"(plan {json.dumps(order)}); gbits_mma's g_W_rec equals its "
+            f"ordered plain version on {gb[0]:.4f} of elements, error "
+            f"{gb[1]:.3g} of max|g| against the exact sum (the bit walk it "
+            f"replaced: {gb[2]:.3g})")
         del res, args
         torch.cuda.empty_cache()
 
@@ -1266,9 +1395,13 @@ def phase_train(matmul_dtype: str) -> list:
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if not last < first:
         fail(f"train {tag}: loss did not fall ({first:.4f} -> {last:.4f})")
+    functions = fused.function_launch_counts()
     if launched(launches) != {fused.KERNEL_TRAIN: TIMED,
                               fused.KERNEL_BWD: TIMED}:
         fail(f"train {tag}: launches {launches} in {TIMED} steps")
+    if functions != {fused.KERNEL_GBITS: TIMED}:
+        fail(f"train {tag}: gbits_mma launched {functions} in {TIMED} "
+             "steps, not once a step")
     for n, g in trainer.params.items():
         for k, v in g.items():
             same = torch.equal(v, before[n][k])
@@ -1285,6 +1418,8 @@ def phase_train(matmul_dtype: str) -> list:
     log(f"[train] {tag} ttfs losses={[round(v, 3) for v in losses]}")
     args = flagship_head_args(cfg, trainer.params, lat)
     rows = train_kernel_rows(tag, args, md, launches, k1_err, k2_err, "ttfs")
+    rows.append(flagship_gbits_row(tag, args, md,
+                                   functions[fused.KERNEL_GBITS]))
 
     # The periodic encoding at the production tau (bench.py's): most
     # features fire at every step.  K1 and K2 on the trained weights
@@ -2865,6 +3000,13 @@ def check_rec(label, rng, B, H, T, alif, spike, md, full):
                        lambda: rec_scan._bwd_cuda(*bw),
                        lambda: rec_scan._bwd_reference(*bw),
                        wide_bar(T, md, full))
+    keep = {}
+    g_i = rec_scan._bwd_cuda(*bw, keep=keep)[0]
+    z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).float()
+    check_gbits(f"{label} g_W_rec", keep["g_w_rec"], g_i.view(T * B, H),
+                z_prev.view(T * B, H), B, T,
+                rec_scan._plan(torch.device("cuda"), B, H, T,
+                               md == torch.bfloat16), md, step_major=True)
     return share, res_err, gerr
 
 
@@ -3183,8 +3325,12 @@ def phase_wide_train(matmul_dtype: str) -> list:
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if not last < first:
         fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
+    functions = fused.function_launch_counts()
     if launched(launches) != {k: n * WIDE_TIMED for k, n in a_step.items()}:
         fail(f"{label}: launches {launches} in {WIDE_TIMED} steps")
+    if functions != {fused.KERNEL_GBITS: WIDE_TIMED}:
+        fail(f"{label}: gbits_mma launched {functions} in {WIDE_TIMED} "
+             "steps, not once a step")
     for n, g in trainer.params.items():
         for k, v in g.items():
             same = torch.equal(v, before[n][k])
@@ -3239,7 +3385,18 @@ def phase_wide_train(matmul_dtype: str) -> list:
                             lambda: rec_scan._bwd_cuda(*bw),
                             lambda: rec_scan._bwd_reference(*bw),
                             wide_bar(T, md, True))
-    g_cur = rec_scan._bwd_cuda(*bw)[0]
+    keep = {}
+    g_cur = rec_scan._bwd_cuda(*bw, keep=keep)[0]
+    z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).float()
+    gb_row = gbits_row(
+        label, f"{fused.KERNEL_GBITS}[wide-{tag}]",
+        (GBITS_SRC, REC_BWD_SITE[1]), functions[fused.KERNEL_GBITS],
+        g_cur.view(T * B, H), keep["zmask"].view(T * B, -1),
+        z_prev.view(T * B, H), H, B, T, 1, md,
+        rec_scan._plan(torch.device("cuda"), B, H, T, md == torch.bfloat16),
+        step_major=True)
+    del z_prev, keep
+    torch.cuda.empty_cache()
     enc_g_err = check_grads(
         f"{label} encode backward",
         lambda: (encode._bwd_cuda(lat, g_cur, md, T, False),),
@@ -3306,7 +3463,7 @@ def phase_wide_train(matmul_dtype: str) -> list:
                    rbb, rbo, md),
         kernel_row(label, f"{fused.KERNEL_ENC_BWD}[{tag}]", ENC_BWD_SITE,
                    launches[fused.KERNEL_ENC_BWD], enc_g_err, t_eb, t_eb_p,
-                   eb, eo, md, library_ms=lib_b)]
+                   eb, eo, md, library_ms=lib_b), gb_row]
     del cur, z, res, a_tr, g_z, bw, g_cur, trainer
     torch.cuda.empty_cache()
 

@@ -35,10 +35,9 @@
 //     features (up to 800; more take feature chunks), so each row's dcur is
 //     read from device memory once: row batches stream through a TMA ring,
 //     the periodic table is built once a row by all warps.
-//   bwd_gbits: sum_t bits(t)^T dcur(t) for a 0/1 left operand given as bit
-//     masks: g_W_rec (bits of z(t-1)) and a mid layer's g_W_in (bits of
-//     z_in(t)).  The row's dcur and its bits are staged in shared memory,
-//     each thread adds dcur(t)[h] where bit j is set, for its 32 j.
+//   gbits_mma (gbits_mma.cuh): sum_t bits(t)^T dcur(t) for a 0/1 left
+//     operand given as bit masks, g_W_rec (bits of z(t-1)) and a mid
+//     layer's g_W_in (bits of z_in(t)), as a tensor-core product.
 //   bwd_gout: g_W_out and g_b from the rows' z bits and their s chains: a
 //     batch of rows a block, the (row, output) chains in parallel, then
 //     z(t)^T s_r(t) as fused multiply-adds of the 0/1 z in ascending t.
@@ -295,99 +294,6 @@ __global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a0, int rows) {
     if (zrow && (h & 31) == 0) zrow[(size_t)(t + 1) * HW] = zbits;
     d_t = d_prev;
     z_t = z_prev;
-  }
-}
-
-// Batch row b's contiguous (T, H) slab of the (B, T, H) dcur buffer ->
-// (T, HP) floats: 16-byte loads where H needs no padding, else by element
-// (the pad columns are zeroed once by the caller and never written).
-template <typename W>
-__device__ __forceinline__ void stage_row(const W* src, float* dst, int T,
-                                          int H, int HP, int b, int tid,
-                                          int nthreads) {
-  constexpr int V = 16 / sizeof(W);
-  const W* slab = src + (size_t)b * T * H;
-  if (H == HP && (T * H) % V == 0) {
-    const uint4* q = reinterpret_cast<const uint4*>(slab);
-    for (int i = tid; i < T * H / V; i += nthreads) {
-      const uint4 v = q[i];
-      const W* e = reinterpret_cast<const W*>(&v);
-#pragma unroll
-      for (int k = 0; k < V; ++k) dst[i * V + k] = to_f32(e[k]);
-    }
-  } else {
-    for (int i = tid; i < T * H; i += nthreads)
-      dst[(i / H) * HP + i % H] = to_f32(slab[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// sum_t bits(t)^T dcur(t): g_W_rec, and g_W_in of a mid layer
-// ---------------------------------------------------------------------------
-struct BitsLayout {
-  size_t raw, bm, total;
-};
-
-__host__ __device__ inline BitsLayout bits_layout(int T, int HP, int nrows,
-                                                  int BW) {
-  BitsLayout L;
-  size_t off = 0;
-  L.raw = off;  // the row's dcur, (T, HP) float
-  off = align16(off + (size_t)T * HP * 4);
-  L.bm = off;  // the row's bit masks, (nrows, BW) words
-  off = align16(off + (size_t)nrows * BW * 4);
-  L.total = off;
-  return L;
-}
-
-// `bits` holds, per batch row, `nrows` >= T mask rows of BW words; mask row t
-// meets dcur(t).  grid (row groups, chunks of G mask words); thread (h, g)
-// owns slab[j, h] for the 32 j of mask word y * G + g, j < J.
-template <typename W>
-__global__ void __launch_bounds__(1024)
-    bwd_gbits_kernel(const void* dcur_, const unsigned* bits, float* slab_out,
-                     int B, int T, int H, int J, int nrows, int BW, int G) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int HP = blockDim.x;
-  const BitsLayout L = bits_layout(T, HP, nrows, BW);
-  float* s_raw = reinterpret_cast<float*>(smem + L.raw);
-  unsigned* s_bm = reinterpret_cast<unsigned*>(smem + L.bm);
-
-  const int h = threadIdx.x, g = threadIdx.y;
-  const int tid = g * HP + h, nthreads = HP * G;
-  const int word = blockIdx.y * G + g;  // the mask word of this thread's j
-  // Replica blockIdx.z of a stacked launch.
-  const W* dcur = static_cast<const W*>(dcur_) + blockIdx.z * (size_t)B * T * H;
-  bits += blockIdx.z * (size_t)B * nrows * BW;
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-  for (int i = tid; i < T * HP; i += nthreads) s_raw[i] = 0.f;
-  __syncthreads();
-
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    stage_row(dcur, s_raw, T, H, HP, b, tid, nthreads);
-    const unsigned* brow = bits + (size_t)b * nrows * BW;
-    for (int i = tid; i < nrows * BW; i += nthreads) s_bm[i] = brow[i];
-    __syncthreads();
-    if (word < BW) {
-      for (int t = 0; t < T; ++t) {
-        const float d = s_raw[t * HP + h];
-        const unsigned m = s_bm[t * BW + word];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i)
-          if ((m >> i) & 1u) acc[i] += d;
-      }
-    }
-    __syncthreads();
-  }
-  if (word < BW && h < H) {
-    float* slab = block_slab(slab_out, (size_t)J * H);
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int j = word * 32 + i;
-      if (j < J) slab[(size_t)j * H + h] = acc[i];
-    }
   }
 }
 

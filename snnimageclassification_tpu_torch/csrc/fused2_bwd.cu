@@ -23,7 +23,8 @@
 //      dcur0 (B, T, H1) and the bits of z0, mask row k = z0(k - 1).
 //   4. bwd_gwin: g_W0 from the latencies and dcur0 (the per-row period
 //      table under periodic encoding).
-//   5. bwd_gbits three times: g_W0r = sum_t z0(t-1)^T dcur0(t) (z0's mask
+//   5. gbits_mma (gbits_mma.cuh, tensor cores) three times: g_W0r = sum_t
+//      z0(t-1)^T dcur0(t) (z0's mask
 //      rows as stored), g_W1 = sum_t z0(t)^T dcur1(t) (the same masks one
 //      row on: z0 at the same step t as dcur1(t), the layer's input at step
 //      t; the TPU kernel's one-block offset between its two stages is
@@ -37,13 +38,14 @@
 // the traces: two residuals, dcur0, dcur1 and the float32 dz0_in scratch.
 
 #include "bwd_common.cuh"
+#include "gbits_mma.cuh"
 
 namespace {
 
 struct Plan2 {
-  int rows0, smem_chain0, rows1, smem_chain1, G0, G1, smem_rec0, smem_w1,
-      smem_rec1, n_j0, n_jw1, n_j1, n_rec0, n_w1, n_rec1;
+  int rows0, smem_chain0, rows1, smem_chain1;
   GwinPlan gw;
+  GbitsPlan grec0, gw1, grec1;
   GoutPlan go;
 };
 
@@ -54,7 +56,6 @@ int make_plan2(int B, int F, int H1, int H2, int O, int T, int rec, int bf16,
   cudaError_t err = limits(device, &lim);
   if (err != cudaSuccess) return (int)err;
   const int HP0 = (H1 + 31) / 32 * 32, HP1 = (H2 + 31) / 32 * 32;
-  const int HW0 = HP0 / 32, HW1 = HP1 / 32;
   if (H1 < 1 || H2 < 1 || O < 1 || F < 1 || T < 1 || T > 32767 ||
       HP0 > 1024 || HP1 > 1024)
     return 1;
@@ -66,29 +67,16 @@ int make_plan2(int B, int F, int H1, int H2, int O, int T, int rec, int bf16,
   p->rows0 = chain_rows(H1, 0, HP0, G0, rec, wsize, lim.max_smem,
                         &p->smem_chain0);
   if (p->rows0 == 0 || p->rows1 == 0) return 1;
-  p->G0 = G0;
-  p->G1 = G1;
-  p->smem_rec0 = (int)bits_layout(T, HP0, T + 1, HW0).total;
-  p->smem_w1 = (int)bits_layout(T, HP1, T + 1, HW0).total;
-  p->smem_rec1 = (int)bits_layout(T, HP1, T + 1, HW1).total;
-  if (p->smem_rec0 > lim.max_smem || p->smem_w1 > lim.max_smem ||
-      p->smem_rec1 > lim.max_smem ||
-      gwin_plan(B, F, H1, T, periodic, wsize, lim, &p->gw) != 0 ||
-      gout_plan(B, H2, O, T, lim, &p->go) != 0)
+  auto plan = [&](int J, int H, GbitsPlan* g) {
+    return bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, J, H, lim, g)
+                : gbits_plan_rows<float>(B, T, J, H, lim, g);
+  };
+  p->grec0.groups = p->grec1.groups = 0;
+  if (gwin_plan(B, F, H1, T, periodic, wsize, lim, &p->gw) != 0 ||
+      gout_plan(B, H2, O, T, lim, &p->go) != 0 ||
+      plan(H1, H2, &p->gw1) != 0 ||
+      (rec && (plan(H1, H1, &p->grec0) != 0 || plan(H2, H2, &p->grec1) != 0)))
     return 1;
-  p->n_j0 = rec ? (HW0 + G0 - 1) / G0 : 0;
-  p->n_jw1 = (HW0 + G1 - 1) / G1;
-  p->n_j1 = rec ? (HW1 + G1 - 1) / G1 : 0;
-  // As many blocks as the card holds at once; each walks its share of the
-  // rows in ascending order.
-  p->n_rec0 = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec0, HP0 * G0,
-                               p->n_j0, B)
-                  : 0;
-  p->n_w1 =
-      row_groups(lim.sms, lim.sm_smem, p->smem_w1, HP1 * G1, p->n_jw1, B);
-  p->n_rec1 = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec1, HP1 * G1,
-                               p->n_j1, B)
-                  : 0;
   return 0;
 }
 
@@ -125,34 +113,21 @@ cudaError_t launch_all2(const Args& a0, const Args& a1, const Extra2& x,
          p.smem_chain0, s>>>(a0, p.rows0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_gwin<W>(a0, p.gw, 1, s)) != cudaSuccess) return err;
-  int smem_bits = p.smem_w1;
-  if (REC) {
-    smem_bits = smem_bits > p.smem_rec0 ? smem_bits : p.smem_rec0;
-    smem_bits = smem_bits > p.smem_rec1 ? smem_bits : p.smem_rec1;
-  }
-  if ((err = opt_in(bwd_gbits_kernel<W>, smem_bits)) != cudaSuccess)
-    return err;
   if (REC) {
     // Mask row t of z0's masks holds z0(t - 1), the left operand of g_W0r.
-    bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec0, p.n_j0), dim3(HP0, p.G0), p.smem_rec0, s>>>(
-            a0.dcur, a0.zmask, a0.slab_rec, B, T, a0.H, a0.H, T + 1, HW0,
-            p.G0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_gbits_rows<W>(a0.dcur, a0.zmask, a0.slab_rec, B, T, a0.H,
+                               a0.H, T + 1, HW0, 0, p.grec0, 1, s);
+    if (err != cudaSuccess) return err;
   }
   // The same masks one row on: row t holds z0(t), the left operand of g_W1
   // (the buffer has one mask row of padding past its last batch row).
-  bwd_gbits_kernel<W>
-      <<<dim3(p.n_w1, p.n_jw1), dim3(HP1, p.G1), p.smem_w1, s>>>(
-          a1.dcur, a0.zmask + HW0, x.slab_w1, B, T, a1.H, a0.H, T + 1, HW0,
-          p.G1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_gbits_rows<W>(a1.dcur, a0.zmask + HW0, x.slab_w1, B, T,
+                             a0.H, a1.H, T + 1, HW0, 0, p.gw1, 1, s);
+  if (err != cudaSuccess) return err;
   if (REC) {
-    bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec1, p.n_j1), dim3(HP1, p.G1), p.smem_rec1, s>>>(
-            a1.dcur, a1.zmask, a1.slab_rec, B, T, a1.H, a1.H, T + 1, HW1,
-            p.G1);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_gbits_rows<W>(a1.dcur, a1.zmask, a1.slab_rec, B, T, a1.H,
+                               a1.H, T + 1, HW1, 0, p.grec1, 1, s);
+    if (err != cudaSuccess) return err;
   }
   return launch_gout<W>(a1, p.go, 1, s);
 }
@@ -172,9 +147,9 @@ int snn_fused2_bwd_plan(int B, int F, int H1, int H2, int O, int T, int rec,
       make_plan2(B, F, H1, H2, O, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
     out[0] = p.gw.groups;
-    out[1] = p.n_rec0;
-    out[2] = p.n_w1;
-    out[3] = p.n_rec1;
+    out[1] = p.grec0.groups;
+    out[2] = p.gw1.groups;
+    out[3] = p.grec1.groups;
     out[4] = p.go.groups;
   }
   return rc;

@@ -11,8 +11,9 @@
 // (S, blocks, ...) summed per replica by the host (bwd_common.cuh).
 //
 // The recurrence, the split into __global__ functions (the chain, bwd_gwin,
-// bwd_gbits for g_W_rec, bwd_gout) and what bounds them on an H100 are set
-// out in bwd_common.cuh, which this source instantiates for the head: the
+// gbits_mma for g_W_rec (gbits_mma.cuh), bwd_gout) and what bounds them on
+// an H100 are set out in bwd_common.cuh, which this source instantiates for
+// the head: the
 // dense count is 2 B T (F H + 2 H H + 2 H O) FLOP, but spikes are 0/1, so
 // only dcur @ W_rec^T and s @ W_out^T are real products; the rest are sums
 // of selected rows.
@@ -33,6 +34,7 @@
 // functions keep their inputs.
 
 #include "bwd_common.cuh"
+#include "gbits_mma.cuh"
 #include "gout_mma.cuh"
 #include "head_mma.cuh"
 
@@ -267,8 +269,9 @@ cudaError_t launch_chain_mma(const Args& a, int S, int device,
 }
 
 struct Plan {
-  int rows, smem_chain, G, smem_rec, n_j, n_rec, mma;
+  int rows, smem_chain, mma;
   GwinPlan gw;
+  GbitsPlan gb;
   GoutPlan go;
 };
 
@@ -285,18 +288,12 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
   p->mma = chain_mma_fits(H, O, rec, bf16, lim.max_smem);
-  p->G = G;
-  p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  if (p->smem_rec > lim.max_smem ||
-      gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
-      gout_plan(B, H, O, T, lim, &p->go) != 0)
+  p->gb.groups = 0;
+  if (gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
+      gout_plan(B, H, O, T, lim, &p->go) != 0 ||
+      (rec && (bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, H, H, lim, &p->gb)
+                    : gbits_plan_rows<float>(B, T, H, H, lim, &p->gb)) != 0))
     return 1;
-  p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
-  // As many blocks as the card holds at once (by shared memory and by
-  // threads); each walks its share of the rows in ascending order.
-  p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
-                              p->n_j, B)
-                 : 0;
   return 0;
 }
 
@@ -318,14 +315,12 @@ cudaError_t launch_all(const Args& a, const Plan& p, int S, int device,
   if (err != cudaSuccess) return err;
   if ((err = launch_gwin<W>(a, p.gw, S, s)) != cudaSuccess) return err;
   if (REC) {
-    if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
-      return err;
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
-    bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec, p.n_j, S), dim3(HP, p.G), p.smem_rec, s>>>(
-            a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H, a.H, a.T + 1, HP / 32,
-            p.G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int HW = HP / 32;
+    err = launch_gbits_rows<W>(a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H,
+                               a.H, a.T + 1, HW,
+                               (long long)a.B * (a.T + 1) * HW, p.gb, S, s);
+    if (err != cudaSuccess) return err;
   }
   return launch_gout<W>(a, p.go, S, s);
 }
@@ -339,7 +334,9 @@ extern "C" {
 // g_W_out/g_b slabs; out[3] = 1 where the chain takes its mma body; out[4]
 // and out[5] = rows a batch of bwd_gwin and of bwd_gout (each block walks
 // the batches blockIdx.x + k blocks, ascending); out[6] = 1 where bwd_gwin
-// streams dcur through its TMA ring, 0 where the threads copy its stage.
+// streams dcur through its TMA ring, 0 where the threads copy its stage;
+// out[7] the same for gbits_mma (g_W_rec; its block y takes batch rows
+// [y B / out[1], (y + 1) B / out[1])).
 // Returns 0 when the shape fits the kernels, 1 when it does not, or a CUDA
 // error code.
 int snn_fused_head_bwd_plan(int B, int F, int H, int O, int T, int rec,
@@ -348,12 +345,13 @@ int snn_fused_head_bwd_plan(int B, int F, int H, int O, int T, int rec,
   const int rc = make_plan(B, F, H, O, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
     out[0] = p.gw.groups;
-    out[1] = p.n_rec;
+    out[1] = p.gb.groups;
     out[2] = p.go.groups;
     out[3] = p.mma;
     out[4] = p.gw.R;
     out[5] = p.go.R;
     out[6] = p.gw.tma;
+    out[7] = p.gb.tma;
   }
   return rc;
 }

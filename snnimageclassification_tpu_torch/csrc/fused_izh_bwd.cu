@@ -16,19 +16,21 @@
 // and g_z.  It writes gi, the input current's cotangent, rounded to the
 // weights' type into a (B, T, H) buffer, and the bits of z; from there the
 // LIF/ALIF functions of bwd_common.cuh take over unchanged: bwd_gwin (g_W_in
-// through the per-row period table), bwd_gbits (g_W_rec), bwd_gout (g_W_out,
+// through the per-row period table), gbits_mma (g_W_rec), bwd_gout (g_W_out,
 // g_b).  Partial sums go to per-block slabs that the host adds in a fixed
 // order: no atomics, equal bits on every run.  What bounds it on an H100:
 // as fused_head_bwd.cu, the serial chain with its dense gi @ W_rec^T and
 // s @ W_out^T per step; the rest are sums of selected rows.
 
 #include "izh_common.cuh"
+#include "gbits_mma.cuh"
 
 namespace {
 
 struct Plan {
-  int rows, smem_chain, G, smem_rec, n_j, n_rec;
+  int rows, smem_chain;
   GwinPlan gw;
+  GbitsPlan gb;
   GoutPlan go;
 };
 
@@ -45,17 +47,13 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
-  p->G = G;
-  p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  if (p->smem_rec > lim.max_smem ||
-      gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0)
+  p->gb.groups = 0;
+  if (gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
+      (rec && (bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, H, H, lim, &p->gb)
+                    : gbits_plan_rows<float>(B, T, H, H, lim, &p->gb)) != 0))
     return 1;
   p->go.groups = 0;
   if (O > 0 && gout_plan(B, H, O, T, lim, &p->go) != 0) return 1;
-  p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
-  p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
-                              p->n_j, B)
-                 : 0;
   return 0;
 }
 
@@ -72,14 +70,12 @@ cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_gwin<W>(g, p.gw, S, s)) != cudaSuccess) return err;
   if (REC) {
-    if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
-      return err;
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
-    bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec, p.n_j, S), dim3(HP, p.G), p.smem_rec, s>>>(
-            g.dcur, g.zmask, g.slab_rec, g.B, g.T, g.H, g.H, g.T + 1,
-            HP / 32, p.G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int HW = HP / 32;
+    err = launch_gbits_rows<W>(g.dcur, g.zmask, g.slab_rec, g.B, g.T, g.H,
+                               g.H, g.T + 1, HW,
+                               (long long)g.B * (g.T + 1) * HW, p.gb, S, s);
+    if (err != cudaSuccess) return err;
   }
   if (HEAD) {
     if ((err = launch_gout<W>(g, p.go, S, s)) != cudaSuccess) return err;
@@ -109,7 +105,7 @@ int snn_fused_izh_bwd_plan(int B, int F, int H, int O, int T, int rec,
   const int rc = make_plan(B, F, H, O, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
     out[0] = p.gw.groups;
-    out[1] = p.n_rec;
+    out[1] = p.gb.groups;
     out[2] = p.go.groups;
   }
   return rc;

@@ -11,18 +11,21 @@
 // device memory, z(t-1) read from the stored spike trace, the surrogate from
 // the residual the forward kept (delta for ALIF with FastSigmoid, the
 // membrane v otherwise, with a for ALIF with Phi).  Then g_W_in through the
-// per-row table of bwd_gwin and g_W_rec through bwd_gbits; slabs, no atomics.
+// per-row table of bwd_gwin and g_W_rec through gbits_mma (tensor cores,
+// gbits_mma.cuh); slabs, no atomics.
 // What bounds it on an H100: as the head's backward, the serial chain and
 // dcur @ W_rec^T in shared memory; the traces it reads are 4 (T, B, H)
 // tensors against the head's one.
 
 #include "bwd_common.cuh"
+#include "gbits_mma.cuh"
 
 namespace {
 
 struct Plan {
-  int rows, smem_chain, G, smem_rec, n_j, n_rec;
+  int rows, smem_chain;
   GwinPlan gw;
+  GbitsPlan gb;
 };
 
 // 0 when the shape fits, 1 when it does not, else a CUDA error code.
@@ -37,15 +40,11 @@ int make_plan(int B, int F, int H, int T, int rec, int bf16, int periodic,
   p->rows = chain_rows(H, 0, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
-  p->G = G;
-  p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  if (p->smem_rec > lim.max_smem ||
-      gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0)
+  p->gb.groups = 0;
+  if (gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
+      (rec && (bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, H, H, lim, &p->gb)
+                    : gbits_plan_rows<float>(B, T, H, H, lim, &p->gb)) != 0))
     return 1;
-  p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
-  p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
-                              p->n_j, B)
-                 : 0;
   return 0;
 }
 
@@ -60,13 +59,11 @@ cudaError_t launch_all(const Args& a, const Plan& p, cudaStream_t s) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_gwin<W>(a, p.gw, 1, s)) != cudaSuccess) return err;
   if (REC) {
-    if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
-      return err;
-    bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec, p.n_j), dim3(HP, p.G), p.smem_rec, s>>>(
-            a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H, a.H, a.T + 1, HP / 32,
-            p.G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
+    const int HW = HP / 32;
+    err = launch_gbits_rows<W>(a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H,
+                               a.H, a.T + 1, HW, 0, p.gb, 1, s);
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -84,7 +81,7 @@ int snn_fused_layer0_bwd_plan(int B, int F, int H, int T, int rec, int bf16,
   const int rc = make_plan(B, F, H, T, rec, bf16, periodic, device, &p);
   if (rc == 0) {
     out[0] = p.gw.groups;
-    out[1] = p.n_rec;
+    out[1] = p.gb.groups;
   }
   return rc;
 }

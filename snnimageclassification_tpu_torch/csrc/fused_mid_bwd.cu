@@ -18,8 +18,9 @@
 //      product on the CUDA cores: 128 x 64 tiles in shared memory, 8 x 4
 //      outputs a thread, float32 accumulation, the result rounded once to
 //      the weights' type (the type of z_in) and written (T, B, Hin).
-//   4. bwd_gbits twice: g_W_in = sum_t z_in(t)^T dcur(t) from the packed bits
-//      and g_W_rec = sum_t z(t-1)^T dcur(t) from the bits of z.
+//   4. gbits_mma (gbits_mma.cuh, tensor cores) twice: g_W_in = sum_t
+//      z_in(t)^T dcur(t) from the packed bits and g_W_rec = sum_t z(t-1)^T
+//      dcur(t) from the bits of z.
 //   5. bwd_gout (head): g_W_out and g_b.
 // What bounds it on an H100: the chain as in the head's backward (serial,
 // dcur @ W_rec^T from shared memory); bwd_gzin is the one dense product, 2 B
@@ -29,6 +30,7 @@
 // memory rate in f32.
 
 #include "bwd_common.cuh"
+#include "gbits_mma.cuh"
 
 namespace {
 
@@ -55,7 +57,8 @@ __global__ void pack_bits_kernel(const void* z_in_, unsigned* bits, int T,
 }
 
 struct Plan {
-  int rows, smem_chain, G, smem_in, smem_rec, n_jin, n_j, n_in, n_rec;
+  int rows, smem_chain;
+  GbitsPlan gin, grec;
   GoutPlan go;
 };
 
@@ -72,18 +75,14 @@ int make_plan(int B, int Hin, int H, int O, int T, int rec, int bf16,
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
-  p->G = G;
-  p->smem_in = (int)bits_layout(T, HP, T, HinW).total;
-  p->smem_rec = (int)bits_layout(T, HP, T + 1, HP / 32).total;
-  if (p->smem_in > lim.max_smem || p->smem_rec > lim.max_smem) return 1;
+  auto plan = [&](int J, GbitsPlan* g) {
+    return bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, J, H, lim, g)
+                : gbits_plan_rows<float>(B, T, J, H, lim, g);
+  };
+  p->grec.groups = 0;
+  if (plan(Hin, &p->gin) != 0 || (rec && plan(H, &p->grec) != 0)) return 1;
   p->go.groups = 0;
   if (O > 0 && gout_plan(B, H, O, T, lim, &p->go) != 0) return 1;
-  p->n_jin = (HinW + G - 1) / G;
-  p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
-  p->n_in = row_groups(lim.sms, lim.sm_smem, p->smem_in, HP * G, p->n_jin, B);
-  p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
-                              p->n_j, B)
-                 : 0;
   return 0;
 }
 
@@ -116,21 +115,15 @@ cudaError_t launch_all(const Args& a, const MidArgs& m, const Plan& p,
       <<<dim3((unsigned)((M + GM - 1) / GM), (m.Hin + GN - 1) / GN), 256, 0,
          s>>>(a.dcur, m.w_in, m.g_z_in, a.B, a.T, a.H, m.Hin);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int smem_bits = p.smem_in > p.smem_rec ? p.smem_in : p.smem_rec;
-  if ((err = opt_in(bwd_gbits_kernel<W>, smem_bits)) != cudaSuccess)
-    return err;
   // Mask row t of zinmask holds z_in(t), the left operand of g_W_in.
-  bwd_gbits_kernel<W>
-      <<<dim3(p.n_in, p.n_jin), dim3(HP, p.G), p.smem_in, s>>>(
-          a.dcur, m.zinmask, a.slab_in, a.B, a.T, a.H, m.Hin, a.T, HinW, p.G);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_gbits_rows<W>(a.dcur, m.zinmask, a.slab_in, a.B, a.T, m.Hin,
+                             a.H, a.T, HinW, 0, p.gin, 1, s);
+  if (err != cudaSuccess) return err;
   if (REC) {
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
-    bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec, p.n_j), dim3(HP, p.G), p.smem_rec, s>>>(
-            a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H, a.H, a.T + 1, HP / 32,
-            p.G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_gbits_rows<W>(a.dcur, a.zmask, a.slab_rec, a.B, a.T, a.H,
+                               a.H, a.T + 1, HP / 32, 0, p.grec, 1, s);
+    if (err != cudaSuccess) return err;
   }
   if (HEAD) {
     if ((err = launch_gout<W>(a, p.go, 1, s)) != cudaSuccess) return err;
@@ -161,8 +154,8 @@ int snn_fused_mid_bwd_plan(int B, int Hin, int H, int O, int T, int rec,
   Plan p;
   const int rc = make_plan(B, Hin, H, O, T, rec, bf16, device, &p);
   if (rc == 0) {
-    out[0] = p.n_in;
-    out[1] = p.n_rec;
+    out[0] = p.gin.groups;
+    out[1] = p.grec.groups;
     out[2] = p.go.groups;
   }
   return rc;

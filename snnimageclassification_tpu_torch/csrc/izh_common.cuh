@@ -24,7 +24,7 @@
 //   gi(t)  = dv(t) (dt/C) (1 - z(t-1))
 // gi takes the place of dcur in the LIF/ALIF chain (bwd_common.cuh): it is
 // the cotangent of the input current, so g_W_in, g_W_rec and the readout's
-// gradients come from bwd_gwin, bwd_gbits and bwd_gout unchanged.  The four
+// gradients come from bwd_gwin, gbits_mma and bwd_gout unchanged.  The four
 // constants dt/C, dt k/C, dt a b and 1 - dt a are rounded to float once, on
 // the host, from double expressions, as the JAX kernel's Python constants.
 #pragma once

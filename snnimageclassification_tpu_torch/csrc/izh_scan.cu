@@ -16,11 +16,12 @@
 // loads its current of step t+1 while it computes step t, and takes the
 // recurrent current as the sum of W_rec's rows (shared memory) over the set
 // bits of z(t-1), a bitmask in shared memory; one block barrier a step.
-// The backward is izh_chain (izh_common.cuh) writing g_i, then bwd_gbits
-// (bwd_common.cuh) for g_W_rec; slabs, no atomics.  Built with
+// The backward is izh_chain (izh_common.cuh) writing g_i, then gbits_mma
+// (gbits_mma.cuh) for g_W_rec; slabs, no atomics.  Built with
 // --fmad=false: the cell rounds as the plain PyTorch version.
 
 #include "izh_common.cuh"
+#include "gbits_mma.cuh"
 
 namespace {
 
@@ -108,7 +109,8 @@ cudaError_t launch_fwd(const ScanArgs& a, int rows, int HP, size_t smem,
 }
 
 struct BwdPlan {
-  int rows, smem_chain, G, smem_rec, n_j, n_rec;
+  int rows, smem_chain;
+  GbitsPlan gb;
 };
 
 int make_bwd_plan(int B, int H, int T, int rec, int bf16, int device,
@@ -122,13 +124,10 @@ int make_bwd_plan(int B, int H, int T, int rec, int bf16, int device,
   p->rows = chain_rows(H, 0, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
-  p->G = G;
-  p->smem_rec = rec ? (int)bits_layout(T, HP, T + 1, HP / 32).total : 0;
-  if (p->smem_rec > lim.max_smem) return 1;
-  p->n_j = rec ? (HP / 32 + G - 1) / G : 0;
-  p->n_rec = rec ? row_groups(lim.sms, lim.sm_smem, p->smem_rec, HP * G,
-                              p->n_j, B)
-                 : 0;
+  p->gb.groups = 0;
+  if (rec && (bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, H, H, lim, &p->gb)
+                   : gbits_plan_rows<float>(B, T, H, H, lim, &p->gb)) != 0)
+    return 1;
   return 0;
 }
 
@@ -143,14 +142,11 @@ cudaError_t launch_bwd(const IzhChainArgs& c, float* slab_rec,
          s>>>(c, p.rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (REC) {
-    if ((err = opt_in(bwd_gbits_kernel<W>, p.smem_rec)) != cudaSuccess)
-      return err;
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
-    bwd_gbits_kernel<W>
-        <<<dim3(p.n_rec, p.n_j), dim3(HP, p.G), p.smem_rec, s>>>(
-            c.dcur, c.zmask, slab_rec, c.B, c.T, c.H, c.H, c.T + 1, HP / 32,
-            p.G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int HW = HP / 32;
+    err = launch_gbits_rows<W>(c.dcur, c.zmask, slab_rec, c.B, c.T, c.H, c.H,
+                               c.T + 1, HW, 0, p.gb, 1, s);
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -210,7 +206,7 @@ int snn_izh_scan_bwd_plan(int B, int H, int T, int rec, int bf16, int device,
                           int* out) {
   BwdPlan p;
   const int rc = make_bwd_plan(B, H, T, rec, bf16, device, &p);
-  if (rc == 0) out[0] = p.n_rec;
+  if (rc == 0) out[0] = p.gb.groups;
   return rc;
 }
 

@@ -37,15 +37,18 @@
 //     over a warp: a warp holds 32 columns of one row); the backward takes
 //     the dense product with fused multiply-adds in ascending j.  One block
 //     barrier a chunk and one a step.
-//   rec_gw: g_W_rec = sum over (row, t) of dcur(t) where bit j of z(t-1) is
-//     set: bwd_gbits' design (bwd_common.cuh) tiled over H in chunks of 32
-//     columns, so a row's table is (T, 32) floats at any H.  It reads the
-//     chain's g_i (rounded to W's type as it loads) and z bits; each block
-//     walks its rows in ascending order into a slab of its own, the host adds
-//     the slabs in a fixed order: no atomics, the same bits on every run.
+//   g_W_rec = sum over (row, t) of z(t-1)^T round(g_i(t)): gbits_mma
+//     (gbits_mma.cuh), the tensor-core product of every bit-masked weight
+//     gradient of the port, on the chain's g_i (T, B, H) float32, each
+//     value rounded to W's type as it loads (a slice: 16 consecutive rows of
+//     one step), and the z bits, which rec_chain writes (T, B, HW) in the
+//     same order.  Each block sums a range of batch rows into a slab of its
+//     own, the host adds the slabs in a fixed order: no atomics, the same
+//     bits on every run.
 // Built with --fmad=false: the cell rounds as the plain PyTorch version.
 
 #include "bwd_common.cuh"
+#include "gbits_mma.cuh"
 
 namespace {
 
@@ -77,7 +80,7 @@ struct RecArgs {
   void* a_tr;         // (T, B, H) W's type or null: ALIF + Phi's a
   const void* g_z;    // (T, B, H) W's type, backward
   float* g_i;         // (T, B, H) float32, backward
-  unsigned* zmask;    // (B, T, HW), backward: row t = bits of z(t-1)
+  unsigned* zmask;    // (T, B, HW), backward: row (t, b) = bits of z(t-1)
   int B, H, T, JC, alif, res_is_v, phi;
   float alpha, rho, threshold, gamma;
 };
@@ -321,67 +324,17 @@ __global__ void __launch_bounds__(REC_THREADS)
         s_dcr[(y * RB + rb) * HS + h] = dcr;
         const unsigned word = __ballot_sync(0xffffffffu, zp);
         if ((x & 31) == 0 && row < B && (h >> 5) < HW)
-          a.zmask[((size_t)row * T + t) * HW + (h >> 5)] = word;
+          a.zmask[((size_t)t * B + row) * HW + (h >> 5)] = word;
       }
     }
     __syncthreads();
-  }
-}
-
-// grid (row groups, chunks of G mask words, chunks of 32 columns); thread
-// (x, g) owns slab[j, h0 + x] for the 32 j of mask word y G + g.
-template <typename W>
-__global__ void __launch_bounds__(REC_THREADS)
-    rec_gw_kernel(const float* g_i, const unsigned* zmask, float* slab,
-                  int B, int T, int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G = blockDim.y, HW = (H + 31) / 32;
-  float* s_d = reinterpret_cast<float*>(smem);  // (T, 32)
-  unsigned* s_m =
-      reinterpret_cast<unsigned*>(smem + align16((size_t)T * 32 * 4));
-  const int x = threadIdx.x, gy = threadIdx.y;
-  const int tid = gy * 32 + x, nthreads = 32 * G;
-  const int w0 = blockIdx.y * G, word = w0 + gy;
-  const int h0 = blockIdx.z * 32, h = h0 + x;
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    for (int i = tid; i < T * 32; i += nthreads) {
-      const int t = i >> 5, hh = h0 + (i & 31);
-      s_d[i] = hh < H ? round_w<W>(g_i[((size_t)t * B + b) * H + hh]) : 0.f;
-    }
-    const unsigned* mrow = zmask + (size_t)b * T * HW;
-    for (int i = tid; i < T * G; i += nthreads) {
-      const int t = i / G, wd = w0 + i % G;
-      s_m[i] = wd < HW ? mrow[(size_t)t * HW + wd] : 0u;
-    }
-    __syncthreads();
-    if (word < HW) {
-      for (int t = 0; t < T; ++t) {
-        const float d = s_d[t * 32 + x];
-        const unsigned m = s_m[t * G + gy];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i)
-          if ((m >> i) & 1u) acc[i] += d;
-      }
-    }
-    __syncthreads();
-  }
-  if (word < HW && h < H) {
-    float* out = slab + (size_t)blockIdx.x * H * H;
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int j = word * 32 + i;
-      if (j < H) out[(size_t)j * H + h] = acc[i];
-    }
   }
 }
 
 struct RecPlan {
   Tile tile;
-  int R, JC, smem_fwd, smem_chain, G, n_w, n_h, smem_gw, groups;
+  int R, JC, smem_fwd, smem_chain;
+  GbitsPlan gb;
 };
 
 int make_plan(int B, int H, int T, int bf16, int device, RecPlan* p) {
@@ -407,15 +360,8 @@ int make_plan(int B, int H, int T, int bf16, int device, RecPlan* p) {
   p->smem_fwd = (int)(rec_w_bytes(p->JC, H, wsize) + zm);
   p->smem_chain = (int)(rec_w_bytes(p->JC, H, wsize) + dcr);
   if (p->smem_fwd > lim.max_smem || p->smem_chain > lim.max_smem) return 1;
-  const int HW = (H + 31) / 32;
-  p->G = HW < 16 ? HW : 16;
-  p->n_w = (HW + p->G - 1) / p->G;
-  p->n_h = (H + 31) / 32;
-  p->smem_gw = (int)(align16((size_t)T * 32 * 4) + (size_t)T * p->G * 4);
-  if (p->smem_gw > lim.max_smem) return 1;
-  p->groups = row_groups(lim.sms, lim.sm_smem, p->smem_gw, 32 * p->G,
-                         p->n_w * p->n_h, B);
-  return 0;
+  // g_W_rec on the float32 g_i (one slab at B = 0).
+  return gbits_plan(B > 0 ? B : 1, T, H, H, 4, bf16 ? 1 : 3, lim, &p->gb);
 }
 
 template <int RB, int HB, typename W>
@@ -438,10 +384,11 @@ cudaError_t launch_bwd_t(const RecArgs& a, float* slab, const RecPlan& p,
       <<<dim3((a.B + p.R - 1) / p.R), dim3(p.tile.HX, p.tile.RY),
          p.smem_chain, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in(rec_gw_kernel<W>, p.smem_gw)) != cudaSuccess) return err;
-  rec_gw_kernel<W><<<dim3(p.groups, p.n_w, p.n_h), dim3(32, p.G), p.smem_gw,
-                     s>>>(a.g_i, a.zmask, slab, a.B, a.T, a.H);
-  return cudaGetLastError();
+  const int HW = (a.H + 31) / 32;
+  // g_i (T, B, H) and the bits (T, B, HW): row (b, t) at t B + b.
+  const GbitsArgs g{a.g_i, a.zmask, slab, a.B, a.T, 1, a.B, 1, a.B, 0, HW,
+                    a.H, a.H};
+  return launch_gbits<float, W>(g, p.gb, 1, s);
 }
 
 // The template instance of a width's tile.
@@ -468,12 +415,13 @@ cudaError_t dispatch(const RecArgs& a, float* slab, const RecPlan& p,
 
 extern "C" {
 
-// out[0] = blocks of g_W_rec slabs of the backward at batch B.  Returns 0
-// when the shape fits, 1 when it does not, or a CUDA error code.
+// out[0] = blocks of g_W_rec slabs of the backward at batch B (block y of
+// gbits_mma sums the batch rows [y B / out[0], (y + 1) B / out[0])).
+// Returns 0 when the shape fits, 1 when it does not, or a CUDA error code.
 int snn_rec_scan_plan(int B, int H, int T, int bf16, int device, int* out) {
   RecPlan p;
   const int rc = make_plan(B, H, T, bf16, device, &p);
-  if (rc == 0) out[0] = p.groups;
+  if (rc == 0) out[0] = p.gb.groups;
   return rc;
 }
 
@@ -497,7 +445,7 @@ int snn_rec_scan_fwd(const float* cur, const void* w_rec, const float* beta,
 }
 
 // g_i (T, B, H) float32 and g_W_rec's slabs (groups, H * H) float32 from
-// g_z, z and the residuals (W's type) and W_rec^T; zmask (B, T, HW) int32 is
+// g_z, z and the residuals (W's type) and W_rec^T; zmask (T, B, HW) int32 is
 // the call's scratch.  `groups` as snn_rec_scan_plan gave it.
 int snn_rec_scan_bwd(const void* g_z, const void* z, const void* res,
                      const void* a_tr, const void* w_rec_t,
@@ -508,7 +456,7 @@ int snn_rec_scan_bwd(const void* g_z, const void* z, const void* res,
   RecPlan p;
   const int rc = make_plan(B, H, T, bf16, device, &p);
   if (rc != 0) return rc == 1 ? (int)cudaErrorInvalidConfiguration : rc;
-  if (groups != p.groups) return (int)cudaErrorInvalidValue;
+  if (groups != p.gb.groups) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0)
     return (int)cudaMemsetAsync(slab, 0, (size_t)groups * H * H * 4, s);

@@ -1031,6 +1031,24 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
         return ("" if why is None else "; g_W_in's rows copied into shared "
                 f"memory by the threads ({why}, no TMA ring)")
 
+    def gbits_note(what: str, h: int, itemsize: int) -> str:
+        """gbits_mma (ops/gbits.py), where a training call launches it for
+        the gradients ``what`` over a d of ``h`` columns in ``itemsize``
+        bytes: a tensor-core product, its d streamed through a TMA ring,
+        or copied by its threads where TMA cannot take the rows."""
+        if not (on_card and training):
+            return ""
+        row = h * itemsize
+        how = ("" if row % 16 == 0 and row >= 128 else ", d copied by its "
+               "threads (H * itemsize not a multiple of 16 bytes, or below "
+               "128)")
+        return f"; {what} by gbits_mma on tensor cores{how}"
+
+    md_size = _dtype(cfg.matmul_dtype_eff).itemsize
+
+    def rec_of(lcfg) -> bool:
+        return bool(getattr(lcfg, "use_recurrent_connection", False))
+
     where = "" if on_card else " (plain version on the CPU)"
     izh = type(layer_cfgs[0][1]) is IzhikevichConfig
     if enc is not None and _head_fusible(cfg, enc, dev, training):
@@ -1069,11 +1087,14 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                         "in " + " and ".join(
                             k for k, b in zip(("the forward", "the backward"),
                                               bodies) if b == "per-unit"))
+        first = layer_cfgs[0][1]
+        gb = (gbits_note("g_W_rec", first.output_size, md_size)
+              if rec_of(first) else "")
         return [{
             "layer": names,
             "path": path(*kernels, mode=mode),
             "reason": what + ": encode + scan + readout + max in one call"
-                      + also + body + gwin_note() + where,
+                      + also + body + gwin_note() + gb + where,
         }]
     if stacked:
         return [dict(e, reason=e["reason"] + " (per replica)")
@@ -1085,7 +1106,10 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                          KERNEL_2_BWD, "fused2_reference"),
             "reason": "two-hidden-layer classifier with max-over-time "
                       "readout: encode + both hidden scans + readout + max "
-                      "in one call" + also + gwin_note() + where,
+                      "in one call" + also + gwin_note() + gbits_note(
+                          "g_W1 and both g_W_rec" if rec_of(layer_cfgs[0][1])
+                          else "g_W1", layer_cfgs[1][1].output_size,
+                          md_size) + where,
         }]
     if not cfg.use_kernels:
         loop_reason = "use_kernels=False"
@@ -1102,7 +1126,10 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                 "path": path(KERNEL_MID, KERNEL_MID_BWD,
                              "fused_mid_reference", "[head]"),
                 "reason": "deep network's last hidden layer + readout + "
-                          "max over time in one call" + also + where,
+                          "max over time in one call" + also + gbits_note(
+                              "g_W_in and g_W_rec" if rec_of(lcfg)
+                              else "g_W_in", lcfg.output_size, md_size)
+                          + where,
             })
             break
         if (idx == 0 and enc is not None
@@ -1114,7 +1141,9 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                          else path(KERNEL_L0, KERNEL_L0_BWD,
                                    "fused_layer0_reference")),
                 "reason": "encoding + input product + scan in one call"
-                          + also + gwin_note() + where,
+                          + also + gwin_note() + (gbits_note(
+                              "g_W_rec", lcfg.output_size, md_size)
+                              if rec_of(lcfg) else "") + where,
             })
             continue
         if (idx == 0 and enc is not None
@@ -1132,16 +1161,24 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                 "path": path(KERNEL_MID, KERNEL_MID_BWD,
                              "fused_mid_reference"),
                 "reason": "input product inside the scan call (no currents "
-                          "tensor)" + also + where,
+                          "tensor)" + also + gbits_note(
+                              "g_W_in and g_W_rec" if rec_of(lcfg)
+                              else "g_W_in", lcfg.output_size, md_size)
+                          + where,
             })
             continue
         if _layer_scan_fusible(cfg, lcfg, False, dev, training):
+            gb = ""
             if type(lcfg) is IzhikevichConfig:
                 kernels = (KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
                            "izh_scan_reference")
+                if rec_of(lcfg):
+                    gb = gbits_note("g_W_rec", lcfg.output_size, md_size)
             elif lcfg.use_recurrent_connection:
                 kernels = (KERNEL_REC_TRAIN if training else KERNEL_REC,
                            KERNEL_REC_BWD, "rec_scan_reference")
+                # rec_scan_bwd's g_W_rec reads the chain's float32 g_i.
+                gb = gbits_note("g_W_rec", lcfg.output_size, 4)
             else:
                 kernels = (KERNEL_SCAN_TRAIN if training else KERNEL_SCAN,
                            KERNEL_SCAN_BWD, "scan_reference")
@@ -1149,7 +1186,7 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                 "layer": name,
                 "path": path(*kernels),
                 "reason": "currents of all steps in one product, then the "
-                          "scan in one call" + also + where,
+                          "scan in one call" + also + gb + where,
             })
             continue
         if type(lcfg) is ReadoutConfig and cfg.use_kernels:

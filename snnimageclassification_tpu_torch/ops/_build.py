@@ -28,7 +28,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 # Every kernel source of the port, one shared library each.
 SOURCES = ("fused_head", "fused_head_bwd", "fused_layer0_bwd", "fused_mid",
            "fused_mid_bwd", "fused2", "fused2_bwd", "fused_izh",
-           "fused_izh_bwd", "izh_scan", "encode_matmul", "rec_scan", "scan")
+           "fused_izh_bwd", "izh_scan", "encode_matmul", "rec_scan", "scan",
+           "gbits")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
 # --fmad=false: the kernels round a*b+c twice, as PyTorch's separate
 # elementwise ops do, so they agree with their plain versions.

@@ -138,6 +138,10 @@ KERNEL_BWD_STACKED = KERNEL_BWD + STACKED
 KERNEL_IZH_STACKED = KERNEL_IZH + STACKED
 KERNEL_IZH_TRAIN_STACKED = KERNEL_IZH_TRAIN + STACKED
 KERNEL_IZH_BWD_STACKED = KERNEL_IZH_BWD + STACKED
+# The bit-masked weight gradient (ops/gbits.py, csrc/gbits_mma.cuh): a
+# __global__ function that every backward's call launches inside it, counted
+# apart from the calls (function_launch_counts).
+KERNEL_GBITS = "gbits_mma"
 MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
 MAX_REPLICAS = 65535  # the replica grid axis (y forward, z backward)
 _counts_lock = threading.Lock()
@@ -160,15 +164,34 @@ def launch_counts() -> dict:
         return dict(_launches)
 
 
+_functions = {KERNEL_GBITS: 0}
+
+
+def function_launch_counts() -> dict:
+    """Launches of the ``__global__`` functions counted inside the calls
+    (``gbits_mma``: every backward's ``g_W_rec`` and a mid layer's
+    ``g_W_in``) since the last reset."""
+    with _counts_lock:
+        return dict(_functions)
+
+
 def reset_launch_counts() -> None:
     with _counts_lock:
         for k in _launches:
             _launches[k] = 0
+        for k in _functions:
+            _functions[k] = 0
 
 
 def _launched(kernel: str) -> None:
     with _counts_lock:
         _launches[kernel] += 1
+
+
+def _launched_function(name: str, n: int = 1) -> None:
+    """A call that succeeded launched ``name`` ``n`` times."""
+    with _counts_lock:
+        _functions[name] += n
 
 
 def _stores_a(alif: bool, spike_func: SpikeFuncType) -> bool:
@@ -720,27 +743,41 @@ def _head_train_ordered_reference(lat, w_in, w_rec, beta, w_out, b_out,
             counts if want_counts else None)
 
 
+def z_prev_rows(delta: torch.Tensor) -> torch.Tensor:
+    """The left operand of a head's ``g_W_rec`` in ``gbits_mma``'s k order:
+    ``(B T, H)`` float32 with row ``b T + t`` holding ``z(t - 1)`` of row
+    ``b`` (``z = delta >= 0``; ``z(-1) = 0``), from ``delta (T, B, H)``."""
+    z = (delta >= 0).to(torch.float32)
+    prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]])
+    return prev.transpose(0, 1).reshape(-1, z.shape[2])
+
+
 def _head_bwd_ordered_reference(g_logits, g_counts, tstar, delta, a_tr, lat,
                                 w_in, w_rec, beta, w_out, n_steps,
                                 use_periods, alpha, threshold, gamma, kappa,
                                 spike_func, order):
     """Plain version of ``fused_head_bwd`` in its order: the chain with the
-    tensor-core body's products (:func:`_split_slice_product`), ``g_W_rec``
-    as :func:`_head_bwd_reference`, ``g_W_in`` from the chain's rounded
-    ``dcur`` through
-    :func:`_gwin_ordered_reference`, ``g_W_out`` and ``g_b`` through
+    tensor-core body's products (:func:`_split_slice_product`), and from
+    the chain's rounded ``dcur`` ``g_W_in`` through
+    :func:`_gwin_ordered_reference`, ``g_W_rec`` through
+    ``gbits._gbits_ordered_reference``, ``g_W_out`` and ``g_b`` through
     :func:`_gout_ordered_reference`.  ``order`` is the kernel's plan
     (:func:`gradient_plan`)."""
+    from .gbits import _gbits_ordered_reference
+
     f32 = torch.float32
     wd = w_out.dtype
     B, H = delta.shape[1:]
     dcur = torch.zeros((B, n_steps, H), dtype=f32, device=delta.device)
-    _, _, g_w_rec, _, _ = _bwd_loop(
+    _bwd_loop(
         lambda t: spike_row(lat, t, n_steps, use_periods).to(f32), None,
         g_logits, g_counts, tstar, None, delta, a_tr, None, False, w_rec,
         beta, w_out, n_steps, alpha, threshold, gamma, kappa, spike_func, wd,
         dcur_out=dcur,
         matmul=lambda a, w: _split_slice_product(a, w.contiguous(), wd))
+    g_w_rec = None if w_rec is None else _gbits_ordered_reference(
+        dcur.view(B * n_steps, H), z_prev_rows(delta), B, n_steps,
+        order["groups_rec"], wd)
     g_w_in = _gwin_ordered_reference(dcur, lat, n_steps, use_periods,
                                      order["groups_in"], order["rows_in"])
     g_w_out, g_b = _gout_ordered_reference(
@@ -915,7 +952,7 @@ def _plan_bwd(device: torch.device, B: int, F: int, H: int, O: int, T: int,
 
 def _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16, use_periods):
     lib = _lib("fused_head_bwd")
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 8)()
     rc = lib.snn_fused_head_bwd_plan(B, F, H, O, T, int(recurrent),
                                      int(bf16), int(use_periods),
                                      _index(device), out)
@@ -928,19 +965,23 @@ def _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16, use_periods):
 def gradient_plan(device, B: int, F: int, H: int, O: int, T: int,
                   recurrent: bool, bf16: bool, use_periods: bool) -> dict:
     """The order of ``fused_head_bwd``'s gradient functions on ``device``
-    for a shape: ``groups_in`` / ``groups_out`` blocks (slabs) of
-    ``bwd_gwin`` / ``bwd_gout``, ``rows_in`` / ``rows_out`` rows a batch,
-    and ``gwin_ring``, whether ``bwd_gwin`` streams ``dcur`` through its TMA
-    ring (False: its threads copy the stage; ``H * itemsize`` not a
-    multiple of 16 bytes, or no two stages fit).  The ordered plain
-    versions (:func:`_head_bwd_ordered_reference`) take it."""
+    for a shape: ``groups_in`` / ``groups_rec`` / ``groups_out`` blocks
+    (slabs) of ``bwd_gwin`` / ``gbits_mma`` (``g_W_rec``, 0 without
+    recurrence; block ``y`` takes the batch rows ``[y B / groups_rec, (y +
+    1) B / groups_rec)``) / ``bwd_gout``, ``rows_in`` / ``rows_out`` rows a
+    batch, and ``gwin_ring`` / ``gbits_ring``, whether ``bwd_gwin`` /
+    ``gbits_mma`` stream ``dcur`` through a TMA ring (False: the threads
+    read it; ``H * itemsize`` not a multiple of 16 bytes, or the ring does
+    not fit).  The ordered plain versions
+    (:func:`_head_bwd_ordered_reference`) take it."""
     out = _plan_bwd_words(torch.device(device), B, F, H, O, T, recurrent,
                           bf16, use_periods)
     if out is None:
         raise ValueError(f"{KERNEL_BWD}: shape T={T} F={F} H={H} O={O} does "
                          "not fit the kernel")
-    return {"groups_in": out[0], "groups_out": out[2], "rows_in": out[4],
-            "rows_out": out[5], "gwin_ring": bool(out[6])}
+    return {"groups_in": out[0], "groups_rec": out[1], "groups_out": out[2],
+            "rows_in": out[4], "rows_out": out[5], "gwin_ring": bool(out[6]),
+            "gbits_ring": bool(out[7])}
 
 
 GWIN_COPIED_STAGE = (None, "H * itemsize not a multiple of 16 bytes",
@@ -1189,14 +1230,26 @@ def slab_sums(slab: torch.Tensor, S: Optional[int]) -> torch.Tensor:
     return torch.stack([slab[s].clone().sum(0) for s in range(S)])
 
 
+def gbits_sums(slab: torch.Tensor, S: Optional[int]) -> torch.Tensor:
+    """``gbits_mma``'s partial slabs ``([S,] groups, n)`` added in float64
+    and rounded once to float32 -> ``([S,] n)``: one rounding of the sum
+    of a block's float32 partial sums.  Each replica's slabs are summed as
+    a fresh ``(groups, n)`` tensor, as a single call's."""
+    if S is None:
+        return slab.double().sum(0).float()
+    return torch.stack([slab[s].clone().double().sum(0).float()
+                        for s in range(S)])
+
+
 def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
                    beta, w_out, n_steps, use_periods, alpha, threshold,
                    gamma, kappa, spike_func, keep=None):
     """Launch ``fused_head_bwd`` (``fused_head_bwd_stacked`` for stacked
     weights; its four ``__global__`` functions in one call) and add the
     blocks' partial slabs in a fixed order.  A dict ``keep`` receives the
-    chain's rounded ``dcur`` and the float32 sums of ``g_W_in`` and
-    ``g_W_out`` before their cast to the weights' dtype (for tests)."""
+    chain's rounded ``dcur`` and z bits (``zmask``) and the float32 sums of
+    ``g_W_in``, ``g_W_rec`` and ``g_W_out`` before their cast to the
+    weights' dtype (for tests)."""
     dev = lat.device
     B, F = lat.shape
     H, O = w_out.shape[-2:]
@@ -1251,15 +1304,18 @@ def _head_bwd_cuda(g_logits, g_counts, tstar, delta, a_tr, lat, w_in, w_rec,
     )
     _raise_on(rc, lib, f"{k} launch")
     _launched(k)
+    _launched_function(KERNEL_GBITS, int(w_rec is not None))
     # The sum over the blocks' slabs lies outside the TPU kernel too.
     in_sum = slab_sums(slab_in, S).view(*lead, F, H)
-    g_w_rec = (None if w_rec is None
-               else slab_sums(slab_rec, S).view(*lead, H, H).to(wdt))
+    rec_sum = (None if w_rec is None
+               else gbits_sums(slab_rec, S).view(*lead, H, H))
     out_sum = slab_sums(slab_out, S)
     w_out_sum = out_sum[..., :H * O].reshape(*lead, H, O)
     if keep is not None:
-        keep.update(dcur=dcur, g_w_in=in_sum, g_w_out=w_out_sum)
-    return (in_sum.to(w_in.dtype), g_w_rec, w_out_sum.to(wdt),
+        keep.update(dcur=dcur, zmask=zmask, g_w_in=in_sum, g_w_rec=rec_sum,
+                    g_w_out=w_out_sum)
+    return (in_sum.to(w_in.dtype), None if rec_sum is None
+            else rec_sum.to(wdt), w_out_sum.to(wdt),
             out_sum[..., H * O:].clone())
 
 
@@ -1362,9 +1418,11 @@ def _layer0_cuda(lat, w_in, w_rec, beta, n_steps, use_periods, alif, alpha,
 
 def _layer0_bwd_cuda(g_z, z, res, a_tr, res_is_v, lat, w_in, w_rec, beta,
                      n_steps, use_periods, alpha, threshold, gamma,
-                     spike_func):
+                     spike_func, keep=None):
     """Launch ``fused_layer0_bwd`` (chain, ``g_W_in`` and ``g_W_rec``
-    functions in one call) and add the blocks' slabs in a fixed order."""
+    functions in one call) and add the blocks' slabs in a fixed order.  A
+    dict ``keep`` receives the chain's rounded ``dcur``, the z bits
+    (``zmask``) and the float32 sum of ``g_W_rec`` (for tests)."""
     k = KERNEL_L0_BWD
     dev = lat.device
     B, F = lat.shape
@@ -1403,10 +1461,13 @@ def _layer0_bwd_cuda(g_z, z, res, a_tr, res_is_v, lat, w_in, w_rec, beta,
     )
     _raise_on(rc, lib, f"{k} launch")
     _launched(k)
+    _launched_function(KERNEL_GBITS, int(w_rec is not None))
     g_w_in = slab_in.sum(0).view(F, H).to(wdt)
-    g_w_rec = (None if w_rec is None
-               else slab_rec.sum(0).view(H, H).to(wdt))
-    return g_w_in, g_w_rec
+    rec_sum = None if w_rec is None else gbits_sums(slab_rec,
+                                                    None).view(H, H)
+    if keep is not None:
+        keep.update(dcur=dcur, zmask=zmask, g_w_rec=rec_sum)
+    return g_w_in, None if rec_sum is None else rec_sum.to(wdt)
 
 
 # ---------------------------------------------------------------------------

@@ -289,10 +289,14 @@ def _fused2_cuda(lat, w0, w0r, beta0, w1, w1r, beta1, w_out, b_out, n_steps,
 
 def _fused2_bwd_cuda(g_logits, g_cnt0, g_cnt1, tstar, d0, a0, d1, a1, lat,
                      w0, w0r, beta0, w1, w1r, beta1, w_out, n_steps,
-                     use_periods, alpha, threshold, gamma, kappa, spike_func):
+                     use_periods, alpha, threshold, gamma, kappa, spike_func,
+                     keep=None):
     """Launch ``fused2_bwd`` (its ``__global__`` functions in one call) and
     add the blocks' partial slabs in a fixed order; returns as
-    :func:`_fused2_bwd_reference`."""
+    :func:`_fused2_bwd_reference`.  A dict ``keep`` receives both chains'
+    rounded ``dcur0``, ``dcur1``, their z bits (``zmask0`` with its padding
+    row, ``zmask1``) and the float32 sums of ``gbits_mma``'s ``g_W0r``,
+    ``g_W1``, ``g_W1r`` before their cast (for tests)."""
     k = KERNEL_2_BWD
     dev = lat.device
     _f._check_weights(k, w0)
@@ -360,11 +364,17 @@ def _fused2_bwd_cuda(g_logits, g_cnt0, g_cnt1, tstar, d0, a0, d1, a1, lat,
     )
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
+    _f._launched_function(_f.KERNEL_GBITS, 1 + 2 * int(rec))
+    gs = _f.gbits_sums
+    sums = (gs(slab_w0r, None).view(H1, H1) if rec else None,
+            gs(slab_w1, None).view(H1, H2),
+            gs(slab_w1r, None).view(H2, H2) if rec else None)
+    if keep is not None:
+        keep.update(dcur0=dcur0, dcur1=dcur1, zmask0=zmask0, zmask1=zmask1,
+                    g_w0r=sums[0], g_w1=sums[1], g_w1r=sums[2])
+    w0r_g, w1_g, w1r_g = (None if x is None else x.to(wdt) for x in sums)
     out_sum = slab_out.sum(0)
-    return (slab_w0.sum(0).view(F, H1).to(wdt),
-            slab_w0r.sum(0).view(H1, H1).to(wdt) if rec else None,
-            slab_w1.sum(0).view(H1, H2).to(wdt),
-            slab_w1r.sum(0).view(H2, H2).to(wdt) if rec else None,
+    return (slab_w0.sum(0).view(F, H1).to(wdt), w0r_g, w1_g, w1r_g,
             out_sum[:H2 * O].view(H2, O).to(wdt), out_sum[H2 * O:].clone())
 
 

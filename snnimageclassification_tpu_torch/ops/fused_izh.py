@@ -339,11 +339,14 @@ def _layer0_cuda(lat, w_in, w_rec, n_steps, use_periods, kernel_params,
 
 
 def _bwd_cuda(g_logits, g_counts, tstar, g_z, z, v, lat, w_in, w_rec, w_out,
-              n_steps, use_periods, kernel_params, gamma, kappa, spike_func):
+              n_steps, use_periods, kernel_params, gamma, kappa, spike_func,
+              keep=None):
     """Launch ``fused_izh_bwd`` (``w_out`` given; ``fused_izh_bwd_stacked``
     for stacked weights) or ``fused_izh_layer0_bwd`` (the chain and the
     weight-gradient functions in one call) and add the blocks' slabs in a
-    fixed order; returns as :func:`_bwd_reference`."""
+    fixed order; returns as :func:`_bwd_reference`.  A dict ``keep``
+    receives the chain's rounded ``gi`` (``dcur``), the z bits (``zmask``)
+    and the float32 sum of ``g_W_rec`` before its cast (for tests)."""
     head = w_out is not None
     S = _f._replicas(w_in, KERNEL_IZH_BWD)
     k = KERNEL_IZH_BWD if head else KERNEL_IZH_L0_BWD
@@ -401,9 +404,13 @@ def _bwd_cuda(g_logits, g_counts, tstar, g_z, z, v, lat, w_in, w_rec, w_out,
         S or 1, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
+    _f._launched_function(_f.KERNEL_GBITS, int(w_rec is not None))
     g_w_in = _f.slab_sums(slab_in, S).view(*lead, F, H).to(wdt)
-    g_w_rec = (None if w_rec is None
-               else _f.slab_sums(slab_rec, S).view(*lead, H, H).to(wdt))
+    rec_sum = (None if w_rec is None
+               else _f.gbits_sums(slab_rec, S).view(*lead, H, H))
+    if keep is not None:
+        keep.update(dcur=dcur, zmask=zmask, g_w_rec=rec_sum)
+    g_w_rec = None if rec_sum is None else rec_sum.to(wdt)
     if not head:
         return g_w_in, g_w_rec, None, None
     out_sum = _f.slab_sums(slab_out, S)

@@ -276,9 +276,12 @@ def _mid_cuda(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha,
 
 def _mid_bwd_cuda(g_logits, g_counts, tstar, g_z, z, res, a_tr, res_is_v,
                   z_in, w_in, w_rec, beta, w_out, n_steps, alpha, threshold,
-                  gamma, kappa, spike_func):
+                  gamma, kappa, spike_func, keep=None):
     """Launch ``fused_mid_bwd`` (its ``__global__`` functions in one call)
-    and add the blocks' partial slabs in a fixed order."""
+    and add the blocks' partial slabs in a fixed order.  A dict ``keep``
+    receives the chain's rounded ``dcur``, the bits of ``z`` and ``z_in``
+    (``zmask``, ``zinmask``) and the float32 sums of ``g_W_in`` and
+    ``g_W_rec`` (``gbits_mma``'s) before their cast (for tests)."""
     k = KERNEL_MID_BWD
     dev = z_in.device
     T, B, Hin = z_in.shape
@@ -334,9 +337,15 @@ def _mid_bwd_cuda(g_logits, g_counts, tstar, g_z, z, res, a_tr, res_is_v,
     )
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
-    g_w_in = slab_in.sum(0).view(Hin, H).to(wdt)
-    g_w_rec = (None if w_rec is None
-               else slab_rec.sum(0).view(H, H).to(wdt))
+    _f._launched_function(_f.KERNEL_GBITS, 1 + int(w_rec is not None))
+    in_sum = _f.gbits_sums(slab_in, None).view(Hin, H)
+    rec_sum = (None if w_rec is None
+               else _f.gbits_sums(slab_rec, None).view(H, H))
+    if keep is not None:
+        keep.update(dcur=dcur, zmask=zmask, zinmask=zinmask, g_w_in=in_sum,
+                    g_w_rec=rec_sum)
+    g_w_in = in_sum.to(wdt)
+    g_w_rec = None if rec_sum is None else rec_sum.to(wdt)
     if not head:
         return g_z_in, g_w_in, g_w_rec, None, None
     out_sum = slab_out.sum(0)

@@ -347,9 +347,12 @@ def _scan_cuda(currents, w_rec, kernel_params, train):
     return z, v
 
 
-def _scan_bwd_cuda(g_z, z, v, w_rec, kernel_params, gamma, spike_func):
+def _scan_bwd_cuda(g_z, z, v, w_rec, kernel_params, gamma, spike_func,
+                   keep=None):
     """Launch ``izh_scan_bwd`` (the chain and, with ``W_rec``, its gradient
-    over spike bits) and add the blocks' slabs in a fixed order."""
+    over spike bits) and add the blocks' slabs in a fixed order.  A dict
+    ``keep`` receives the chain's rounded ``gi`` (``dcur``), the z bits
+    (``zmask``) and the float32 sum of ``g_W_rec`` (for tests)."""
     k = KERNEL_IZH_SCAN_BWD
     dev = v.device
     T, B, H = v.shape
@@ -381,7 +384,11 @@ def _scan_bwd_cuda(g_z, z, v, w_rec, kernel_params, gamma, spike_func):
         torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
-    return g_i, None if not rec else slab.sum(0).view(H, H).to(w_rec.dtype)
+    _f._launched_function(_f.KERNEL_GBITS, int(rec))
+    rec_sum = _f.gbits_sums(slab, None).view(H, H) if rec else None
+    if keep is not None:
+        keep.update(dcur=dcur, zmask=zmask, g_w_rec=rec_sum)
+    return g_i, None if not rec else rec_sum.to(w_rec.dtype)
 
 
 # ---------------------------------------------------------------------------

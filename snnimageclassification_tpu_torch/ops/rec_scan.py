@@ -176,7 +176,7 @@ def rec_scan_supported(n_steps: int, hidden: int, *, itemsize: int = 4,
     need ``W_rec`` in float32 or bfloat16, ``hidden <= 1024`` and
     ``n_steps <= MAX_STEPS``; ``W_rec`` streams through shared memory in
     chunks, so its size sets no limit, and the backward's ``g_W_rec``
-    stages one row's ``(n_steps, 32)`` table."""
+    (``gbits_mma``) streams ``g_i`` through a ring of 64-row stages."""
     del training  # one plan covers both kernels
     device = torch.device(device)
     if n_steps < 1 or hidden < 1:
@@ -226,9 +226,12 @@ def _fwd_cuda(currents, w_rec, beta, alif, alpha, rho, threshold, train,
 
 
 def _bwd_cuda(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha, threshold,
-              gamma, spike_func):
-    """Launch ``rec_scan_bwd`` (the chain, then ``g_W_rec`` over spike
-    bits) and add the blocks' slabs in a fixed order."""
+              gamma, spike_func, keep=None):
+    """Launch ``rec_scan_bwd`` (the chain, then ``g_W_rec`` as
+    ``gbits_mma``'s tensor-core product over the spike bits) and add the
+    blocks' slabs in a fixed order.  A dict ``keep`` receives the z bits
+    (``zmask``, ``(T, B, HW)``: row ``(t, b)`` holds ``z(t - 1)``) and the
+    float32 sum of ``g_W_rec`` before its cast (for tests)."""
     k = KERNEL_REC_BWD
     dev = res.device
     T, B, H = res.shape
@@ -244,7 +247,7 @@ def _bwd_cuda(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha, threshold,
                          "(gate on rec_scan_supported)")
     w_t = w_rec.t().contiguous()  # the chain streams rows of W_rec^T
     g_i = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    zmask = torch.empty((B, T, (H + 31) // 32), dtype=torch.int32,
+    zmask = torch.empty((T, B, (H + 31) // 32), dtype=torch.int32,
                         device=dev)
     slab = torch.empty((groups, H * H), dtype=torch.float32, device=dev)
     beta_t = _f._beta_tensor(beta, dev)
@@ -257,7 +260,11 @@ def _bwd_cuda(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha, threshold,
         _f._index(dev), torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
-    return g_i, slab.sum(0).view(H, H).to(wdt)
+    _f._launched_function(_f.KERNEL_GBITS)
+    rec_sum = _f.gbits_sums(slab, None).view(H, H)
+    if keep is not None:
+        keep.update(zmask=zmask, g_w_rec=rec_sum)
+    return g_i, rec_sum.to(wdt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,21 @@
 """Where the backward kernel's time goes: time the four ``__global__``
 functions of ``fused_head_bwd`` (``csrc/fused_head_bwd.cu`` over
 ``csrc/bwd_common.cuh``: the chain, ``bwd_gwin`` for ``g_W_in``,
-``bwd_gbits`` for ``g_W_rec``, ``bwd_gout`` for ``g_W_out`` and ``g_b``;
-at the flagship the chain takes its tensor-core kernel) apart, as built
-and with one piece of work removed at a time; and, with ``--library``,
-the one PyTorch call of each gradient function's product on materialised
-operands, and each function's bound.
+``gbits_mma`` (``csrc/gbits_mma.cuh``) for ``g_W_rec``, ``bwd_gout`` for
+``g_W_out`` and ``g_b``; at the flagship the chain takes its tensor-core
+kernel) apart, as built and with one piece of work removed at a time; and,
+with ``--library``, the one PyTorch call of each gradient function's product
+on materialised operands, and each function's bound.  ``--replicas S``
+also times those calls as ``torch.bmm`` over S stacked copies (the
+ensemble's stacked backward).  ``--wide`` times ``rec_scan_bwd``'s two
+functions instead (784 -> ALIF-512 -> 10, B = 8192, T = 100: ``rec_chain``
+and ``g_W_rec``), with ``--library`` its ``z_prev^T @ round(g_i)``.
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.bwd_ablation \
-        [--matmul-dtype float32|bfloat16] [--periodic] [--library]
+        [--matmul-dtype float32|bfloat16] [--periodic] [--library] \
+        [--replicas 6] [--wide]
 
 The inputs are one training batch of the flagship (784 -> ALIF-128
 recurrent, learn_beta, T=100, batch 8192, init weights from seed 0, random
@@ -25,22 +30,31 @@ times mean anything):
 * ``bwd_gout``: ``no_s_chains`` (no kappa recurrence), ``no_out_sums``
   (no z(t) s_r(t) adds past t = 0), and ``gout_mma``, which adds nothing
   but launches the tensor-core form (``csrc/gout_mma.cuh``) in its place;
-* ``bwd_gbits``: ``no_rec_sums``, ``no_mask_reads``, ``no_gbits_dcur_reads``;
+* ``gbits_mma``: ``no_rec_sums`` (no tensor-core products; the A and B
+  fragments still built), ``no_mask_reads`` (no A fragments built from
+  the mask words: constant ones), ``no_gbits_dcur_reads`` (every slice's
+  TMA box from the replica's first rows, L2-resident),
+  ``no_gbits_compute`` (no slice computed: the stages, mask words, A
+  fragments and barriers alone), ``no_gbits_stage_barrier`` (no block
+  barrier a stage), and ``gbits_slices_unrolled``, which removes no work
+  but unrolls the loop over a stage's four slices;
 * the chain: ``no_chain_rec_product``, ``no_chain_out_product``.
 
 Prints one JSON line per variant: device milliseconds per launch of each
-function (median of 5 launches, ``torch.profiler``); with ``--library`` one
-line of each function's library call (median of 10 by CUDA events: ``raster^T
-@ dcur``, ``z_prev^T @ dcur``, ``z^T @ s_r`` and ``s.sum``) and bound
-(bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the larger);
-then the card's name and power limit.  Builds go to
-``.torch_ext_build/ablation/``.
+``__global__`` function of the port's sources (median of 5 launches,
+``torch.profiler``); with ``--library`` one line of each function's library
+call (median of 10 by CUDA events: ``raster^T @ dcur``, ``z_prev^T @
+dcur``, ``z^T @ s_r`` and ``s.sum``) and bound (bytes over 3.35 TB/s, or
+operations: float32 adds at 67 TFLOP/s, ``gbits_mma``'s tensor-core work,
+one product a bf16 piece, at 989 TFLOP/s; the larger); then the card's
+name and power limit.  Builds go to ``.torch_ext_build/ablation/``.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -50,7 +64,7 @@ import torch
 
 from .. import LayerType, SNNConfig
 from ..models import snn as model_lib
-from ..ops import _build, fused
+from ..ops import _build, fused, rec_scan
 from ..ops.cells import masked_recurrent
 from ..ops.encoding import pixels_to_firing_periods, spike_row
 
@@ -68,12 +82,28 @@ VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
                     "for (int t = 0; t < min(te, 1); ++t) {"),
     "gout_mma": ("return launch_gout<W>(a, p.go, S, s);",
                  "return launch_gout_mma<W>(a, p.go, S, s);"),
-    "no_rec_sums": ("if ((m >> i) & 1u) acc[i] += d;",
-                    "if (i == 0) acc[0] += d;"),
-    "no_mask_reads": ("s_bm[i] = brow[i];",
-                      "s_bm[i] = 0x55555555u << (i & 1);"),
-    "no_gbits_dcur_reads": ("const uint4 v = q[i];",
-                            "const uint4 v = make_uint4(i, i, i, i);"),
+    "no_rec_sums": (
+        "mma_exact<P>(acc[mt][2 * n2 + nn], af[mt], b[nn]);",
+        "acc[mt][2 * n2 + nn][0] += __uint_as_float((af[mt][0] ^ af[mt][1] ^ "
+        "af[mt][2] ^ af[mt][3] ^ b[nn][0].x ^ b[nn][P - 1].y) & "
+        "0x007fffffu);"),
+    "no_mask_reads": (
+        "fa[item * 32 + lane] = (mt & 1) ? build_a<1>(y) : build_a<0>(y);",
+        "fa[item * 32 + lane] = make_uint4(0x3F803F80u, 0x3F803F80u, "
+        "0x3F803F80u, 0x3F803F80u);"),
+    "gbits_slices_unrolled": (
+        "#pragma unroll 1\n    for (int kk = 0; kk < GB_KS / 16; ++kk) {",
+        "#pragma unroll\n    for (int kk = 0; kk < GB_KS / 16; ++kk) {"),
+    "no_gbits_compute": (
+        "#pragma unroll 1\n    for (int kk = 0; kk < GB_KS / 16; ++kk) {",
+        "#pragma unroll 1\n    for (int kk = 0; kk < 0; ++kk) {"),
+    "no_gbits_stage_barrier": (
+        "    // A in; every warp done with stage s - 1, its ring slot free.\n"
+        "    __syncthreads();",
+        "    // A in; every warp done with stage s - 1, its ring slot free.\n"),
+    "no_gbits_dcur_reads": (
+        "const int b = z * a.B + sh.b0 + 16 * (sq % sh.C);",
+        "const int b = z * a.B + 16 * (sq % sh.C) * 0;"),
     "no_chain_rec_product": (
         "mma_split_a<P>(rec[n], da, s_wrec, kk * (HP / 8) + MMA_NT * wu + n,\n"
         "                         lane);",
@@ -82,8 +112,22 @@ VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
         "mma_split_a<P>(dz[n], sa, s_wout, MMA_NT * wu + n, lane);",
         "dz[n][0] += 0.f;"),
 }
-FUNCTIONS = ("bwd_chain", "bwd_gwin", "bwd_gbits", "bwd_gout")
-BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12  # H100 SXM, 700 W
+BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12  # H100 SXM
+
+
+def _port_functions() -> set:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    names = set()
+    for src in _build._CSRC.glob("*.cu*"):
+        names.update(re.findall(r"(\w+_kernel)\s*\(", src.read_text()))
+    return names
+
+
+def _function_name(key: str) -> str:
+    """A profiler kernel name without return type, namespace, template
+    arguments and parameters."""
+    key = re.sub(r"^void\s+", "", key).replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", key, maxsplit=1)[0]
 
 
 def _variant_so(name: str, source: str):
@@ -102,20 +146,25 @@ def _variant_so(name: str, source: str):
 
 
 def _function_ms(fn, n: int = 5) -> dict:
-    """Median device ms of each bwd_* function over ``n`` calls."""
+    """Median device ms of each of the port's ``__global__`` functions
+    that ``fn`` launches, over ``n`` calls."""
     fn()
     torch.cuda.synchronize()
+    ours = _port_functions()
     times: dict = {}
     for _ in range(n):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        per: dict = {}
         for ev in prof.key_averages():
-            for part in FUNCTIONS:
-                if part in ev.key:
-                    times.setdefault(part, []).append(
-                        ev.self_device_time_total / 1e3)
+            name = _function_name(ev.key)
+            if name in ours:
+                per[name] = per.get(name, 0.0) + \
+                    ev.self_device_time_total / 1e3
+        for k, v in per.items():
+            times.setdefault(k, []).append(v)
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -134,9 +183,27 @@ def _events_ms(fn, n: int = 10) -> float:
     return statistics.median(times)
 
 
-def _library(lat, delta, tstar, g_logits, dcur, kappa, periodic, md):
+def _stacked_ms(a, b, S):
+    """``a^T @ b`` as one ``torch.bmm`` over ``S`` stacked copies."""
+    sa = a.T.unsqueeze(0).expand(S, -1, -1).contiguous()
+    sb = b.unsqueeze(0).expand(S, -1, -1).contiguous()
+    ms = _events_ms(lambda: torch.bmm(sa, sb))
+    del sa, sb
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _bound(nbytes, ops, flops):
+    tb, to = nbytes / BYTES_PER_S * 1e3, ops / flops * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def _library(lat, delta, tstar, g_logits, dcur, kappa, periodic, md,
+             replicas):
     """Each gradient function's one PyTorch call on materialised operands
-    (rows (b, t) of the batch) and its bound."""
+    (rows (b, t) of the batch; with ``replicas`` also as one ``bmm`` over
+    that many stacked copies) and its bound."""
     B, F = lat.shape
     T, _, H = delta.shape
     O = g_logits.shape[1]
@@ -156,10 +223,15 @@ def _library(lat, delta, tstar, g_logits, dcur, kappa, periodic, md):
     zf, zpf = z.reshape(B * T, H).to(md), z_prev.reshape(B * T, H).to(md)
     out = {
         "bwd_gwin": _events_ms(lambda: raster.T @ d),
-        "bwd_gbits": _events_ms(lambda: zpf.T @ d),
+        "gbits_mma": _events_ms(lambda: zpf.T @ d),
         "bwd_gout": {"z^T @ s_r": _events_ms(lambda: zf.T @ s_r),
                      "s.sum": _events_ms(lambda: s_flat.sum(0))},
     }
+    if replicas:
+        out[f"bmm x{replicas}"] = {
+            "bwd_gwin": _stacked_ms(raster, d, replicas),
+            "gbits_mma": _stacked_ms(zpf, d, replicas),
+            "bwd_gout z^T @ s_r": _stacked_ms(zf, s_r, replicas)}
     # Bounds: each input read once, each output written once; float32
     # adds of the selected rows (and the periodic table) at 67 TFLOP/s.
     key = fused.spike_keys(lat, T, periodic)
@@ -176,19 +248,69 @@ def _library(lat, delta, tstar, g_logits, dcur, kappa, periodic, md):
     else:
         gwin_ops = int((key >= 0).sum()) * H
     hidden = int(z.sum())
-    bounds = {
-        "bwd_gwin": (B * T * H * es + B * F * 4 + F * H * 4, gwin_ops),
-        "bwd_gbits": (B * T * H * es + B * (T + 1) * ((H + 31) // 32) * 4
-                      + H * H * 4, int(z_prev.sum()) * H),
-        "bwd_gout": (B * (T + 1) * ((H + 31) // 32) * 4 + 2 * B * O * 4
-                     + (H * O + O) * 4, hidden * O + B * T * O),
+    pieces = 3 if md == torch.float32 else 1
+    bound = {
+        "bwd_gwin": _bound(B * T * H * es + B * F * 4 + F * H * 4, gwin_ops,
+                           F32_FLOPS),
+        "gbits_mma": _bound(B * T * H * es + B * (T + 1) * ((H + 31) // 32)
+                            * 4 + H * H * 4, 2 * B * T * H * H * pieces,
+                            BF16_FLOPS),
+        "bwd_gout": _bound(B * (T + 1) * ((H + 31) // 32) * 4 + 2 * B * O * 4
+                           + (H * O + O) * 4, hidden * O + B * T * O,
+                           F32_FLOPS),
     }
-    bound = {}
-    for k, (nbytes, ops) in bounds.items():
-        tb, to = nbytes / BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-        bound[k] = {"bytes": nbytes, "ops": ops, "bound_ms": max(tb, to),
-                    "bound_by": "bytes" if tb >= to else "operations"}
     return out, bound
+
+
+def wide(md, library: bool) -> None:
+    """``rec_scan_bwd``'s functions at 784 -> ALIF-512 -> 10, B = 8192, T =
+    100 (currents 0.3 + 0.6 N(0, 1) and a masked W_rec of std 1.3 /
+    sqrt(H), numpy seed 1, as ``chip_smoke.py``'s wide phase: 10-20 % of
+    unit-steps fire), and with ``library`` its ``g_W_rec``'s one PyTorch
+    call ``z_prev^T @ round(g_i)`` on materialised ``(T B, 512)`` operands
+    and its bound."""
+    B, H, T = 8192, 512, 100
+    cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=H,
+                    hidden_layer_type=LayerType.ALIF, learn_beta=True,
+                    int_time_steps=T)
+    (_, lcfg), _ = cfg.layer_configs
+    rng = np.random.default_rng(1)
+
+    def normal(shape, std, mean=0.0):
+        return torch.from_numpy((mean + std * rng.standard_normal(shape))
+                                .astype(np.float32)).cuda()
+
+    cur = normal((T, B, H), 0.6, 0.3)
+    w_rec = (normal((H, H), 1.3 / np.sqrt(H))
+             * (1 - torch.eye(H, device="cuda"))).to(md).contiguous()
+    beta = 1.6
+    z, res, a_tr = rec_scan._fwd_cuda(cur, w_rec, beta, True, lcfg.alpha,
+                                      lcfg.rho, lcfg.threshold, True, False,
+                                      False)
+    del cur
+    g_z = (normal((T, B, H), 1.0) / B).to(md)
+    out: dict = {}
+
+    def run():
+        out["g_i"] = rec_scan._bwd_cuda(
+            g_z, z, res, a_tr, False, w_rec, beta, lcfg.alpha,
+            lcfg.threshold, lcfg.gamma, lcfg.spike_func)[0]
+
+    tag = {"wide": True, "matmul_dtype": str(md).split(".")[1],
+           "firing": float(z.float().mean())}
+    print(json.dumps({"variant": "kernel", **tag, "ms": _function_ms(run)}),
+          flush=True)
+    if not library:
+        return
+    print(json.dumps({"whole_call_ms": _events_ms(run), **tag}), flush=True)
+    zp = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).reshape(T * B, H)
+    gi = out.pop("g_i").to(md).reshape(T * B, H)
+    pieces = 3 if md == torch.float32 else 1
+    lib = {"g_W_rec z_prev^T @ round(g_i)": _events_ms(lambda: zp.T @ gi)}
+    bound = {"g_W_rec": _bound(T * B * H * 4 + T * B * ((H + 31) // 32) * 4
+                               + H * H * 4, 2 * T * B * H * H * pieces,
+                               BF16_FLOPS)}
+    print(json.dumps({"library_ms": lib, "bound": bound, **tag}), flush=True)
 
 
 def main() -> None:
@@ -197,10 +319,20 @@ def main() -> None:
                     choices=("float32", "bfloat16"))
     ap.add_argument("--periodic", action="store_true")
     ap.add_argument("--library", action="store_true")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="with --library, also time each call as one bmm "
+                         "over this many stacked copies")
+    ap.add_argument("--wide", action="store_true",
+                    help="rec_scan_bwd at 784 -> ALIF-512 -> 10 instead")
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bwd_ablation needs a CUDA card")
     md = getattr(torch, ns.matmul_dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if ns.wide:
+        wide(md, ns.library)
+        _print_card()
+        return
     cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,
                     hidden_layer_type=LayerType.ALIF, learn_beta=True,
                     int_time_steps=100, matmul_dtype=ns.matmul_dtype)
@@ -254,9 +386,13 @@ def main() -> None:
         print(json.dumps({"whole_call_ms": _events_ms(run), **tag}),
               flush=True)
         lib_ms, bound = _library(lat, delta, tstar, g_logits, keep["dcur"],
-                                 rcfg.kappa, ns.periodic, md)
+                                 rcfg.kappa, ns.periodic, md, ns.replicas)
         print(json.dumps({"library_ms": lib_ms, "bound": bound, **tag}),
               flush=True)
+    _print_card()
+
+
+def _print_card() -> None:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

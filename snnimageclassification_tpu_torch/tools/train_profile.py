@@ -33,8 +33,10 @@ appear apart, each template instance under its own name: the chain of the
 head mode is ``bwd_chain_mma_kernel`` (the per-unit
 ``bwd_chain_kernel<.., true, ..>`` past the tensor-core body's limits), of a
 z-emitting layer ``bwd_chain_kernel<.., false, ..>``; the head's forward is
-``head_mma_kernel`` after ``head_sort_kernel``; ``bwd_gbits_kernel`` sums
-its ``g_W_rec`` and ``g_W_in`` launches), the device's busy and idle share of the window, and the card's
+``head_mma_kernel`` after ``head_sort_kernel``; ``gbits_mma_kernel`` sums
+every backward's ``g_W_rec`` and a mid layer's ``g_W_in`` launches, the wide
+net's ``rec_scan_bwd`` being ``rec_chain_kernel`` + ``gbits_mma_kernel``),
+the device's busy and idle share of the window, and the card's
 name and power limit.  ``port_kernels_ms_per_step`` sums the kernels of
 ``csrc/``; ``other_kernels_ms_per_step`` is PyTorch's own (with ``--wide``
 mostly the readout's per-step loop, forward and backward; with ``--ff``

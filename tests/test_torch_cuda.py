@@ -52,6 +52,13 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   served (one ``scan_fwd`` a batch, bitwise a direct forward) and trained
   (one ``scan_fwd_train`` and one ``scan_bwd`` a step, gradients against
   the per-step loop's).
+* ``gbits_mma`` (every g_W_rec and a mid layer's g_W_in) in each caller
+  (the head over ``GRAD_SHAPES``, layer 0 and the mid layers, the two-layer
+  pair, the Izhikevich head, first layer and scan, the stacked head at S =
+  6, the wide net's ``rec_scan_bwd``) and alone: bit for bit its ordered
+  plain version below 300 rows of a batch, from 300 rows within twice the
+  error of the bit walk it replaced against the float64 sum of the same
+  operands (``_gbits_check``; the bitwise share recorded).
 """
 import numpy as np
 import pytest
@@ -63,6 +70,7 @@ from snnimageclassification_tpu_torch.ops import (  # noqa: E402
     fused2,
     fused_izh,
     fused_mid,
+    gbits,
     head_mma,
     izh,
 )
@@ -708,10 +716,10 @@ DEEP_CASES = [  # name, alif, recurrent, use_periods, surrogate
 
 
 def _deep_chain(dev, T, alif, rec, use_periods, spike, wdtype, plain, seed=5,
-                backward=True):
+                backward=True, B=9):
     """Layer 0 -> mid -> mid head with counts on fresh leaves; returns
     (z0, z1, logits, counts, gradients of every weight)."""
-    B, F, H0, H1, H2, O = 9, 30, 20, 24, 18, 10
+    F, H0, H1, H2, O = 30, 20, 24, 18, 10
     rng = np.random.default_rng(seed)
     cfg = (ALIFConfig if alif else LIFConfig)(input_size=F, output_size=H0)
     kappa = ReadoutConfig(input_size=H2, output_size=O).kappa
@@ -1996,3 +2004,331 @@ def test_stacked_and_unrolled_trainers_give_equal_losses(card):
     for n, g in runs[0][1].items():
         for k, v in g.items():
             assert torch.equal(v, runs[1][1][n][k]), f"{n}.{k}"
+
+
+# ---------------------------------------------------------------------------
+# gbits_mma: every g_W_rec and a mid layer's g_W_in on tensor cores
+# ---------------------------------------------------------------------------
+def _gbits_check(record, label, got, d, left, B, T, groups, wd,
+                 step_major=False):
+    """``gbits_mma``'s float32 sum ``got`` against its plain version in its
+    order (``gbits._gbits_ordered_reference`` on the kernel's plan) on the
+    operands ``d`` and ``left`` (``(B T, ·)`` in their memory order): bit
+    for bit below 300 rows of a batch; from 300 rows, where a slice whose
+    exact sum does not fit float32 is truncated on the card and rounded in
+    the plain version, its error against the float64 exact sum of the same
+    operands at most twice the error of the CUDA-core bit walk it replaced
+    (``gbits._gbits_walk_reference`` with that walk's plan) on the same
+    operands.  Records the share of elements equal to the ordered
+    version."""
+    want = gbits._gbits_ordered_reference(d, left, B, T, groups, wd,
+                                          step_major)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float(got.abs().max()) > 0
+    share = float((got == want).float().mean())
+    record(f"{label} bitwise share", share)
+    if B < 300:
+        assert torch.equal(got, want), f"{label}: bitwise share {share:.4f}"
+        return
+    exact = gbits.exact_sum(d, left, wd)
+    scale = float(exact.abs().max())
+    err = float((got.double() - exact).abs().max()) / scale
+    J, H = got.shape
+    walk = gbits._gbits_walk_reference(
+        d, left, B, T, gbits.walk_groups(B, T, J, H, step_major, d.device),
+        wd, step_major)
+    walk_err = float((walk.double() - exact).abs().max()) / scale
+    record(f"{label} error", err)
+    record(f"{label} walk error", walk_err)
+    assert err <= 2 * walk_err, (label, err, walk_err, share)
+
+
+def _mask_rows(words, B, T, nrows, J):
+    return gbits.unpack_bits(gbits._rows_of(words, B, T, nrows), J)
+
+
+def _kept(monkeypatch, module, name):
+    """Every call of ``module.name`` (a CUDA backward wrapper) from here on
+    hands its ``keep`` dict to the returned list."""
+    calls, orig = [], getattr(module, name)
+
+    def wrapped(*a, **k):
+        k["keep"] = {}
+        out = orig(*a, **k)
+        calls.append(k["keep"])
+        return out
+
+    monkeypatch.setattr(module, name, wrapped)
+    return calls
+
+
+GBITS_B = [37, 300]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=lambda s: "x".join(
+    str(v) for v in s))
+def test_gbits_matches_its_ordered_version(card, record_property, shape,
+                                           use_periods, n_steps, wdtype):
+    """The head's g_W_rec (``gbits_mma`` inside ``fused_head_bwd``) against
+    its ordered plain version on the chain's rounded dcur and z bits
+    (``_gbits_check``); ALIF, recurrent, Phi under TTFS as in
+    ``test_gradient_functions_match_their_ordered_versions``."""
+    B, F, H = shape
+    args = _args(card, B, F, H, 10, n_steps, True, True, use_periods,
+                 wdtype, FAST if use_periods else PHI)
+    _, delta, _, tstar, _ = fused._head_train_cuda(
+        *_train_args(args), True, False, False)
+    g_logits = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (B, 10)).astype(np.float32)).to(card)
+    keep = {}
+    fused._head_bwd_cuda(
+        *_bwd_args(args, g_logits, None, delta, None, tstar), keep=keep)
+    order = fused.gradient_plan(card, B, F, H, 10, n_steps, True,
+                                wdtype == torch.bfloat16, use_periods)
+    row = H * wdtype.itemsize
+    assert order["gbits_ring"] == (row % 16 == 0 and row >= 128)
+    left = fused.z_prev_rows(delta)
+    assert torch.equal(left, _mask_rows(keep["zmask"], B, n_steps,
+                                        n_steps + 1, H))
+    d = keep["dcur"].reshape(B * n_steps, H)
+    _gbits_check(record_property, "head g_W_rec", keep["g_w_rec"], d, left,
+                 B, n_steps, order["groups_rec"], wdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", GBITS_B)
+@pytest.mark.parametrize("n_steps", [24, 100])
+def test_gbits_of_the_deep_layers(card, monkeypatch, record_property,
+                                  n_steps, B, wdtype):
+    """Layer 0's g_W_rec and both mid layers' g_W_in (J = Hin) and g_W_rec
+    (z-emitting and head mode) of 784... -> 20 -> 24 -> 18 -> 10 under
+    autograd, each against its ordered plain version."""
+    l0 = _kept(monkeypatch, fused, "_layer0_bwd_cuda")
+    mids = _kept(monkeypatch, fused_mid, "_mid_bwd_cuda")
+    fused.reset_launch_counts()
+    _deep_chain(card, n_steps, True, True, False, FAST, wdtype, plain=False,
+                B=B)
+    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 5}
+    T = n_steps
+    for label, k in [("layer0", l0[0])] + [(f"mid{i}", m)
+                                             for i, m in enumerate(mids)]:
+        H = k["dcur"].shape[2]
+        d = k["dcur"].reshape(B * T, H)
+        if label == "layer0":
+            F = 30
+            groups = fused._plan_layer0_bwd(card, B, F, H, T, True,
+                                            wdtype == torch.bfloat16,
+                                            False)[1]
+            pairs = [("g_w_rec", k["zmask"], T + 1, H, groups)]
+        else:
+            Hin = k["g_w_in"].shape[0]
+            n_in, n_rec, _ = fused_mid._plan_bwd(
+                card, B, Hin, H, 0, T, True, wdtype == torch.bfloat16)
+            pairs = [("g_w_in", k["zinmask"], T, Hin, n_in),
+                     ("g_w_rec", k["zmask"], T + 1, H, n_rec)]
+        for name, words, nrows, J, groups in pairs:
+            left = _mask_rows(words, B, T, nrows, J)
+            _gbits_check(record_property, f"{label} {name}", k[name], d,
+                         left, B, T, groups, wdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", GBITS_B)
+@pytest.mark.parametrize("n_steps", [24, 100])
+def test_gbits_of_the_two_layer_pair(card, monkeypatch, record_property,
+                                     n_steps, B, wdtype):
+    """``fused2_bwd``'s three: g_W0r, g_W1 (z0's masks one row on, J =
+    H1) and g_W1r, each against its ordered plain version."""
+    args, gamma = _f2_args(card, n_steps, True, True, False, wdtype, B=B)
+    kept = _kept(monkeypatch, fused2, "_fused2_bwd_cuda")
+    a = list(args)
+    for i in (1, 2, 4, 5, 7):
+        a[i] = a[i].clone().requires_grad_(True)
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B, 10)).astype(np.float32)).to(card)
+    fused.reset_launch_counts()
+    (fused2.fused2_rec_head(*a[:15], gamma, a[15]) * r).sum().backward()
+    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 3}
+    k, T = kept[0], n_steps
+    H1, H2 = k["dcur0"].shape[2], k["dcur1"].shape[2]
+    F = args[0].shape[1]
+    _, n_w0r, n_w1, n_w1r, _ = fused2._plan_bwd(
+        card, B, F, H1, H2, 10, T, True, wdtype == torch.bfloat16, False)
+    hw0 = (H1 + 31) // 32
+    z0 = k["zmask0"][:B * (T + 1) * hw0].view(B * (T + 1), hw0)
+    z0_next = k["zmask0"][hw0:].view(-1, hw0)
+    zm1 = k["zmask1"].view(B * (T + 1), -1)
+    for name, dn, words, J, groups in (
+            ("g_w0r", "dcur0", z0, H1, n_w0r),
+            ("g_w1", "dcur1", z0_next, H1, n_w1),
+            ("g_w1r", "dcur1", zm1, H2, n_w1r)):
+        d = k[dn].reshape(B * T, -1)
+        left = _mask_rows(words, B, T, T + 1, J)
+        _gbits_check(record_property, name, k[name], d, left, B, T, groups,
+                     wdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", GBITS_B)
+def test_gbits_of_the_izhikevich_kernels(card, monkeypatch, record_property,
+                                         B, wdtype):
+    """The Izhikevich head's, its first layer's and ``izh_scan``'s g_W_rec
+    (T = 24, the JAX suite's weight scale) against their ordered plain
+    versions."""
+    F, H, O, T = 30, 20, 10, 24
+    rng = np.random.default_rng(6)
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(card)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+    w_in, w_rec, w_out, b_out = (
+        t.requires_grad_(True) for t in _izh_weights(card, rng, F, H, O,
+                                                     True, wdtype))
+    w1 = torch.from_numpy((0.1 * rng.standard_normal((H, H))).astype(
+        np.float32)).to(card)
+    kappa = ReadoutConfig(input_size=H, output_size=O).kappa
+    heads = _kept(monkeypatch, fused_izh, "_bwd_cuda")
+    scans = _kept(monkeypatch, izh, "_scan_bwd_cuda")
+    fused.reset_launch_counts()
+    logits = fused_izh.fused_encode_izh_scan_head(
+        lat, w_in, w_rec, w_out, b_out, IZH_KP, T, False, IZH.gamma, kappa)
+    z0 = fused_izh.fused_encode_izh_scan(lat, w_in, w_rec, IZH_KP, T, True,
+                                         IZH.gamma)
+    z1 = izh.izh_scan(3e6 + 1e7 * (z0.float() @ w1), w_rec.float(), IZH_KP,
+                      IZH.gamma)
+    (logits.sum() + 1e-3 * z1.sum(0).pow(2).sum()).backward()
+    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 3}
+    bf16 = wdtype == torch.bfloat16
+    groups = fused_izh._plan_bwd(card, B, F, H, O, T, True, bf16, False)[1]
+    scan_groups = izh._plan_bwd(card, B, H, T, True, False)
+    for label, k, g, wd in [(f"izh {i}", h, groups, wdtype)
+                            for i, h in enumerate(heads)] + [
+            ("izh_scan", scans[0], scan_groups, torch.float32)]:
+        d = k["dcur"].reshape(B * T, H)
+        left = _mask_rows(k["zmask"], B, T, T + 1, H)
+        assert float(left.sum()) > 0, label
+        _gbits_check(record_property, label, k["g_w_rec"], d, left, B, T,
+                     g, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", GBITS_B)
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+def test_gbits_of_the_stacked_head(card, record_property, use_periods, B,
+                                   wdtype):
+    """``fused_head_bwd_stacked`` at S = 6 (an ensemble's seeds): every
+    replica's g_W_rec against its ordered plain version, on one launch of
+    gbits_mma."""
+    S, T = 6, 24
+    rng = np.random.default_rng(43)
+    a = _stack_replicas(card, _args(card, B, 30, 20, 10, T, True, True,
+                                    use_periods, wdtype), S, rng, False)
+    _, delta, _, tstar, _ = fused._head_train_cuda(*_train_args(a), True,
+                                                   False, False)
+    g = torch.from_numpy(rng.standard_normal((S, B, 10)).astype(
+        np.float32)).to(card)
+    keep = {}
+    fused.reset_launch_counts()
+    fused._head_bwd_cuda(*_bwd_args(a, g, None, delta, None, tstar),
+                         keep=keep)
+    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 1}
+    order = fused.gradient_plan(card, B, 30, 20, 10, T, True,
+                                wdtype == torch.bfloat16, use_periods)
+    for s in range(S):
+        d = keep["dcur"][s].reshape(B * T, 20)
+        left = fused.z_prev_rows(delta[s])
+        _gbits_check(record_property, f"replica {s}", keep["g_w_rec"][s], d,
+                     left, B, T, order["groups_rec"], wdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H", [(37, 45), (37, 512), (300, 45), (300, 512)],
+                         ids=["37x45", "37x512", "300x45", "300x512"])
+def test_gbits_of_the_recurrent_scan(card, record_property, B, H, wdtype):
+    """``rec_scan_bwd``'s g_W_rec (T = 100): the chain's float32 g_i (T, B,
+    H), rounded to W's dtype as it loads, and the z bits rec_chain writes
+    (T, B, HW), k = t B + b; H = 45 is off the TMA strides (180 bytes), H =
+    512 is the wide net's 16 output tiles."""
+    from snnimageclassification_tpu_torch.ops import rec_scan
+
+    T = 100
+    rng = np.random.default_rng(13)
+    cur, w = _rec_inputs(card, rng, B, H, T, wdtype)
+    alpha, rho, thr, gamma = _rec_scalars(True)
+    z, res, a_tr = rec_scan._fwd_cuda(cur, w, 1.6, True, alpha, rho, thr,
+                                      True, False, False)
+    g_z = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(card).to(wdtype)
+    keep = {}
+    fused.reset_launch_counts()
+    g_i, _ = rec_scan._bwd_cuda(g_z, z, res, a_tr, False, w, 1.6, alpha, thr,
+                                gamma, FAST, keep=keep)
+    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 1}
+    d = g_i.reshape(T * B, H)
+    left = gbits.unpack_bits(keep["zmask"].view(T * B, -1), H)
+    z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).float()
+    assert torch.equal(left, z_prev.reshape(T * B, H))
+    groups = rec_scan._plan(card, B, H, T, wdtype == torch.bfloat16)
+    _gbits_check(record_property, "rec g_W_rec", keep["g_w_rec"], d, left, B,
+                 T, groups, wdtype, step_major=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd,d_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "f32-to-bf16"])
+@pytest.mark.parametrize("B,T,J,H,step_major", [
+    (37, 24, 20, 20, False), (37, 100, 45, 45, False),
+    (9, 24, 130, 200, False), (300, 7, 96, 128, True)],
+    ids=["20", "45", "tiles", "step-major"])
+def test_gbits_call_on_its_own(card, B, T, J, H, step_major, wd, d_dtype):
+    """``gbits.gbits`` (the kernel alone, for its time and plan) on random
+    masks and d spanning ten binades, against its ordered plain version bit
+    for bit (below 300 rows; above, ``_gbits_check``'s rule) and the CPU
+    plain version within float32 rounding; J and H past one 128 x 128
+    tile, a batch below one 16-row chunk (the threads read d), the wide
+    net's step-major layout."""
+    rng = np.random.default_rng(3)
+    K = B * T
+    d = torch.from_numpy((rng.standard_normal((K, H)) * np.exp2(
+        rng.integers(-5, 5, (K, 1)))).astype(np.float32)).to(card)
+    d = d.to(d_dtype)
+    left = torch.from_numpy((rng.random((K, J)) < 0.3).astype(
+        np.float32)).to(card)
+    if step_major:
+        nrows, words = 1, gbits.pack_bits(left)
+    else:
+        nrows = T + 1
+        words = torch.zeros((B, nrows, (J + 31) // 32), dtype=torch.int32,
+                            device=card)
+        words[:, :T] = gbits.pack_bits(left.view(B, T, J))
+        words = words.view(B * nrows, -1)
+    fused.reset_launch_counts()
+    got = gbits.gbits(d, words, J, B, T, nrows, wd, step_major)
+    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 1}
+    p = gbits.plan(card, B, T, J, H, d_dtype, wd)
+    row = H * d_dtype.itemsize
+    assert p["ring"] == (row % 16 == 0 and row >= 128 and B >= 16)
+    _gbits_check(lambda *a: None, "gbits", got, d, left, B, T, p["groups"],
+                 wd, step_major)
+    cpu = gbits.gbits(d.cpu(), words.cpu(), J, B, T, nrows, wd, step_major)
+    exact = gbits.exact_sum(d.cpu(), left.cpu(), wd)
+    scale = float(exact.abs().max())
+    assert float((cpu.double() - exact).abs().max()) <= 1e-5 * scale

@@ -48,9 +48,12 @@ from snnimageclassification_tpu_torch.ops.surrogate import (  # noqa: E402
 PROD_TAU = 20e-3
 FAST = SpikeFuncType.FastSigmoid
 # Two plans of the gradient functions: (groups, rows a batch) of bwd_gwin
-# and of bwd_gout -- several batches a block, and one row a batch.
-ORDERS = [dict(groups_in=3, rows_in=4, groups_out=5, rows_out=4),
-          dict(groups_in=7, rows_in=1, groups_out=2, rows_out=2)]
+# and of bwd_gout -- several batches a block, and one row a batch -- and the
+# row groups of gbits_mma (g_W_rec).
+ORDERS = [dict(groups_in=3, rows_in=4, groups_out=5, rows_out=4,
+               groups_rec=3),
+          dict(groups_in=7, rows_in=1, groups_out=2, rows_out=2,
+               groups_rec=2)]
 
 
 def _args(B, F, H, O, T, alif, rec, use_periods, wdtype, tau, seed=11):
