@@ -66,14 +66,19 @@ Phases (any failure exits non-zero before the final line):
    FastSigmoid/Phi x TTFS/periodic x T = 24 and 100 x {float32, bfloat16}
    at small shapes (spikes, ``tstar`` and counts equal, logits 1e-5, ``v``
    1e-6 relative and 1e-3 mV, gradients on the same residuals 2e-6 of
-   max|g|, 5e-6 at T = 100, 2**-7 bf16, equal bits on a repeated call),
-   then 784-128-10 and
+   max|g|, 5e-6 at T = 100, 2**-7 bf16, equal bits on a repeated call;
+   the head's tensor-core body also bit for bit its plain version in its
+   order, ``fused_izh._izh_head_train_ordered_reference``: logits, ``v``,
+   ``tstar``, counts, and its backward against
+   ``_izh_bwd_ordered_reference`` at the same bars; layer 0, the per-unit
+   body, within the ``v`` bars of the head), then 784-128-10 and
    784-128-128-10 at B = 8192, T = 100 (the share of rows with equal spikes,
    the head's row bars, gradients 1e-4 / 2**-7).  There dt a b = -6e-5,
    and the chain's u carry moves a gradient by less than those bars, so
    the three backward kernels are also held at dt = 30 (dt a b = -1.8),
    with init-scale weights, ff/rec, on their forward kernels' residuals:
-   1e-4 of max|g| float32, 2**-7 bf16;
+   1e-4 of max|g| float32, 2**-7 bf16 (the head's also against its ordered
+   plain version);
 9. Izhikevich serve -- 784 -> Izhikevich-128 recurrent -> 10, T = 100,
    dt = 30 (at the default dt = 1e-3 no unit fires at the init scale)
    served as in 4, f32 and bf16: results bitwise equal to a direct forward,
@@ -81,7 +86,8 @@ Phases (any failure exits non-zero before the final line):
    30 the cell is unstable between spikes, so the kernel and its plain
    version (torch.matmul sums) part on some rows; a second plain version
    with every sum in the kernel's order must equal the kernel bitwise on
-   256 rows (``ordered_izh_head``);
+   256 rows (``izh_witness``: the tensor-core body's order,
+   ``fused_izh._izh_head_train_ordered_reference``);
 10. Izhikevich train -- that network through ``Trainer`` at batch 8192,
    TTFS (3 warm-up, 20 timed steps: finite falling loss and gradients, the
    readout moves, one ``fused_izh_fwd_train`` and one ``fused_izh_bwd``
@@ -213,8 +219,8 @@ FastSigmoid/Phi x {float32, bfloat16} at small shapes with T = 24 (TTFS and
 periodic) and T = 100, and ALIF recurrent at the deep network's full width
 with B = 8192 (``phase_deep_kernels``).
 
-Beside each LIF/ALIF head row's bound the log states the dense
-tensor-core work its mma body issues (2 B T H (H + O) FLOP a product,
+Beside each head row's bound (LIF/ALIF and Izhikevich) the log states the
+dense tensor-core work its mma body issues (2 B T H (H + O) FLOP a product,
 three products forward and six backward for float32 weights) and that
 work's time at 989 TFLOP/s.  Where the mma body runs the row, the bound's
 operations time is the smaller of the two: the one-add-per-weight count
@@ -1006,21 +1012,22 @@ N_THREADS, PER_THREAD, ROWS = 4, 4, 512
 
 def tensor_core_work(B, T, H, O, md, backward=False, S=1):
     """(FLOP, ms at the bf16 dense rate) of the dense tensor-core work the
-    LIF/ALIF head pair's mma body issues: 2 B T H (H + O) a product (z @
-    W_rec and z @ W_out forward, dcur @ W_rec^T and s @ W_out^T backward),
-    times the products float32 weights take (three forward, six backward;
-    one for bf16), for S replicas."""
+    head pairs' mma body issues (LIF/ALIF and Izhikevich alike): 2 B T H (H
+    + O) a product (z @ W_rec and z @ W_out forward, dcur (or gi) @ W_rec^T
+    and s @ W_out^T backward), times the products float32 weights take
+    (three forward, six backward; one for bf16), for S replicas."""
     n = (6 if backward else 3) if md == torch.float32 else 1
     flop = S * 2 * B * T * H * (H + O) * n
     return flop, flop / H100_BF16_FLOPS * 1e3
 
 
-def head_ops_ms(t_ops, B, T, H, O, md, backward=False, S=1):
-    """A LIF/ALIF head row's operations time: ``t_ops`` (one add per
-    selected weight at the type's rate), or the mma body's tensor-core work
-    at 989 TFLOP/s where that body runs the shape and is less."""
-    bodies = fused.head_bodies(T, 784, H, O, True,
-                               torch.finfo(md).bits // 8, "cuda", True)
+def head_ops_ms(t_ops, B, T, H, O, md, backward=False, S=1, izh=False):
+    """A head row's operations time (the LIF/ALIF head, or with ``izh`` the
+    Izhikevich one): ``t_ops`` (one add per selected weight at the type's
+    rate), or the mma body's tensor-core work at 989 TFLOP/s where that
+    body runs the shape and is less."""
+    bodies = (fused_izh if izh else fused).head_bodies(
+        T, 784, H, O, True, torch.finfo(md).bits // 8, "cuda", True)
     if bodies[1 if backward else 0] != "mma":
         return t_ops
     return min(t_ops, tensor_core_work(B, T, H, O, md, backward, S)[1])
@@ -1854,6 +1861,16 @@ def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
     agree, close, err, scale = compare_flagship(logits, ref[0])
     errs[fused.KERNEL_IZH] = errs[fused.KERNEL_IZH_TRAIN] = err
     shares["head"] = float((counts == ref[3]).all(1).float().mean())
+    mma = izh_bodies(head, True) == ("mma", "mma")
+    if mma and not full:
+        # The tensor-core body equals its plain version in its order.
+        ordered = fused_izh._izh_head_train_ordered_reference(*head, True,
+                                                              True)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (logits, v, tstar, counts), ordered)):
+            fail(f"{label}: the forward differs from its plain version in "
+                 "the tensor-core body's order")
+        del ordered
     if full:
         if agree < 0.995 or close < 0.99:
             fail(f"{label}: head agreement below the bar ({agree:.4f}, "
@@ -1875,15 +1892,27 @@ def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
     errs[fused.KERNEL_IZH_BWD] = check_grads(
         f"{label} head backward", lambda: fused_izh._bwd_cuda(*hb),
         lambda: fused_izh._bwd_reference(*hb), bar)
+    if mma and not full:
+        errs[fused.KERNEL_IZH_BWD] = max(
+            errs[fused.KERNEL_IZH_BWD], check_grads(
+                f"{label} head backward (ordered)",
+                lambda: fused_izh._bwd_cuda(*hb),
+                lambda: izh_bwd_ordered(hb), bar))
 
-    # Layer 0: the head's template without the readout, so its v and z
-    # are the head's bits.
+    # Layer 0: the per-unit body without the readout.  Where the head runs
+    # that body too, its v and z are the head's bits; where the head runs
+    # the tensor-core body (another summation order), its v is within
+    # v_close of the head's.
     z0, v0 = fused_izh._layer0_cuda(lat, w_in, w_rec, T, per, IZH_KP, True)
     z0_inf = fused_izh._layer0_cuda(lat, w_in, w_rec, T, per, IZH_KP,
                                     False)[0]
-    if not (torch.equal(z0, z0_inf) and torch.equal(v0, v)
-            and torch.equal(z0, (v >= IZH.v_peak).float())):
-        fail(f"{label}: layer 0 differs from the head's scan")
+    if not (torch.equal(z0, z0_inf)
+            and torch.equal(z0, (v0 >= IZH.v_peak).float())):
+        fail(f"{label}: layer 0's inference and training spikes differ")
+    if not mma and not torch.equal(v0, v):
+        fail(f"{label}: layer 0 differs from the head's per-unit scan")
+    if mma and not full:
+        v_close(f"{label} layer 0 against the head", v0, v)
     del hb, v
     z0p, v0p = fused_izh._layer0_reference(lat, w_in, w_rec, T, per, IZH_KP,
                                            True)
@@ -1952,6 +1981,15 @@ def izh30_bwd_checks(label, fwd, kp, gamma, spike, f32, rng):
         errs[fused.KERNEL_IZH_BWD] = check_grads(
             f"{label} head backward dt=30", lambda: fused_izh._bwd_cuda(*hb),
             lambda: fused_izh._bwd_reference(*hb), bar)
+        # The ordered plain version walks the gradient functions' blocks
+        # row batch by row batch: the small shapes only.
+        if B < 300 and izh_bodies(hb[6:10] + (None, T, per),
+                                  True)[1] == "mma":
+            errs[fused.KERNEL_IZH_BWD] = max(
+                errs[fused.KERNEL_IZH_BWD], check_grads(
+                    f"{label} head backward dt=30 (ordered)",
+                    lambda: fused_izh._bwd_cuda(*hb),
+                    lambda: izh_bwd_ordered(hb), bar))
     if "layer 0" in fwd:
         lat, w_in, w_rec, T, per, z0, v0 = fwd["layer 0"]
         g_z = rand_w(rng, tuple(z0.shape), 1.0 / z0.shape[1])
@@ -2082,48 +2120,49 @@ def izh_head_args(cfg, params, lat, use_periods):
 
 
 def izh_row(label, tag, kernel, launches, err, ms, plain_ms, nbytes, ops,
-            md):
+            md, ops_ms=None):
     """A row of the kernels line; ``err`` is measured on the row's own
     inputs against the plain version."""
     return kernel_row(label, f"{kernel}[{tag}]", IZH_SITES[kernel], launches,
-                      err, ms, plain_ms, nbytes, ops, md)
+                      err, ms, plain_ms, nbytes, ops, md, ops_ms=ops_ms)
 
 
-def ordered_sum(s, w):
-    """``s @ w`` for a 0/1 ``s`` (B, K) in the kernels' order: ascending k,
-    one rounding an add (masked_sum in head_common.cuh).  A column of s
-    that is zero in every row adds +-0 and is skipped."""
-    acc = torch.zeros((s.shape[0], w.shape[1]), device=s.device)
-    for k in torch.nonzero(s.any(0)).flatten().tolist():
-        acc = acc + s[:, k:k + 1] * w[k]
-    return acc
+def izh_tc_note(B, T, H, O, md, backward=False, S=1):
+    """The log's note of the Izhikevich head's tensor-core work."""
+    flop, ms = tensor_core_work(B, T, H, O, md, backward, S)
+    return f"tensor-core work {flop} FLOP = {ms:.4f} ms at 989 TFLOP/s"
 
 
-def ordered_izh_head(lat, w_in, w_rec, w_out, b_out, T, kp, kappa):
-    """A second plain version of the Izhikevich head (TTFS): izh._izh_loop's
-    cell in the same expressions, but every sum -- input, recurrent,
-    readout -- in the kernel's order instead of torch.matmul's."""
-    p = dict(kp)
-    C = torch.full((), p["C"], device="cuda")  # a true division, as the loop
-    w_in, w_out = w_in.float(), w_out.float()
-    B, H = lat.shape[0], w_in.shape[1]
-    v = torch.full((B, H), p["v_rest"], device="cuda")
-    u, z = torch.zeros_like(v), torch.zeros_like(v)
-    v_r = torch.zeros((B, w_out.shape[1]), device="cuda")
-    m = torch.full_like(v_r, float("-inf"))
-    for t in range(T):
-        cur = ordered_sum((lat == t).float(), w_in)
-        if w_rec is not None:
-            cur = cur + ordered_sum(z, w_rec.float())
-        dvdt = p["k"] * (v - p["v_rest"]) * (v - p["v_th"]) - u + cur
-        v_new = (v + p["dt"] * dvdt / C) * (1.0 - z) + p["c"] * z
-        dudt = p["a"] * (p["b"] * (v - p["v_rest"]) - u)
-        u = (u + p["dt"] * dudt) + p["d"] * z
-        v = v_new
-        z = (v >= p["v_peak"]).float()
-        v_r = kappa * v_r + (ordered_sum(z, w_out) + b_out)
-        m = torch.where(v_r > m, v_r, m)
-    return m
+def izh_bodies(head, training=False):
+    """``fused_izh.head_bodies`` of a head call's arguments ``(lat, w_in,
+    w_rec, w_out, b_out, T, per, kp, kappa)`` (a leading S on the
+    weights)."""
+    lat, w_in, w_rec, w_out, _, T, per = head[:7]
+    return fused_izh.head_bodies(T, lat.shape[1], w_in.shape[-1],
+                                 w_out.shape[-1], w_rec is not None,
+                                 w_in.dtype.itemsize, "cuda", training, per)
+
+
+def izh_bwd_ordered(hb):
+    """The head backward's plain version in the kernels' order on the
+    arguments ``hb`` of ``fused_izh._bwd_cuda``, with the kernel's plan."""
+    lat, w_in, w_rec, w_out = hb[6:10]
+    order = fused_izh.gradient_plan(
+        "cuda", lat.shape[0], lat.shape[1], w_in.shape[1], w_out.shape[1],
+        hb[10], w_rec is not None, w_in.dtype == torch.bfloat16, hb[11])
+    return fused_izh._izh_bwd_ordered_reference(*hb, order)
+
+
+def izh_witness(label, lat, w_in, w_rec, w_out, b_out, T, per, kp, kappa):
+    """The Izhikevich head's logits from its plain version in the kernel's
+    summation order: the tensor-core body's
+    (``fused_izh._izh_head_train_ordered_reference``), which every shape
+    this script holds at dt = 30 runs on."""
+    head = (lat, w_in, w_rec, w_out, b_out, T, per, kp, kappa)
+    if izh_bodies(head)[0] != "mma":
+        fail(f"{label}: the head does not run its tensor-core body")
+    return fused_izh._izh_head_train_ordered_reference(*head, False,
+                                                       False)[0]
 
 
 def phase_izh_serve(matmul_dtype: str) -> dict:
@@ -2150,7 +2189,7 @@ def phase_izh_serve(matmul_dtype: str) -> dict:
     # The second witness: on the first WITNESS_ROWS rows, the plain cell
     # with every sum in the kernel's order equals the kernel bitwise.
     n = WITNESS_ROWS
-    wit = ordered_izh_head(lat[:n], *args[1:6], args[7], args[8])
+    wit = izh_witness(label, lat[:n], *args[1:])
     if not torch.equal(wit, got[:n]):
         fail(f"{label}: the kernel differs from the plain cell summed in its "
              f"order on {int((wit != got[:n]).any(1).sum())} of {n} rows")
@@ -2171,13 +2210,15 @@ def phase_izh_serve(matmul_dtype: str) -> dict:
         f"spikes of the plain version {int(ref[3].sum())}")
     log(f"[{label}] input spikes={in_spikes} ({in_spikes / lat.numel():.4f} "
         f"of features), hidden spikes={hidden} "
-        f"({hidden / (B * T * H):.4f} of unit-steps)")
+        f"({hidden / (B * T * H):.4f} of unit-steps); "
+        f"{izh_tc_note(B, T, H, O, md)}")
     weights = (F * H + H * H + H * O) * md.itemsize
     nbytes = B * F * 4 + weights + O * 4 + B * O * 4
     ops = (in_spikes * H + hidden * (H + O) + IZH_CELL_OPS * B * T * H
            + 3 * B * T * O)
     return izh_row(label, tag, fused.KERNEL_IZH, launches[fused.KERNEL_IZH],
-                   err, ms, plain_ms, nbytes, ops, md)
+                   err, ms, plain_ms, nbytes, ops, md,
+                   lambda t: head_ops_ms(t, B, T, H, O, md, izh=True))
 
 
 def izh_train_run(label, cfg, enc, a_step, n_timed, batches):
@@ -2293,14 +2334,19 @@ def phase_izh_train(matmul_dtype: str) -> list:
                + 3 * B * T * O)
     bwd_ops = (2 * B * T * H * (H + O) + in_spikes * H + hidden * (H + O)
                + IZH_CHAIN_OPS * B * T * H)
+    log(f"[{label}] {fused.KERNEL_IZH_TRAIN} {izh_tc_note(B, T, H, O, md)}; "
+        f"{fused.KERNEL_IZH_BWD} {izh_tc_note(B, T, H, O, md, True)}")
     rows.append(izh_row(label, tag, fused.KERNEL_IZH_TRAIN,
                         launches[fused.KERNEL_IZH_TRAIN], k1_err, ms1, plain1,
                         B * F * 4 + weights + O * 4 + trace + 2 * B * O * 4,
-                        fwd_ops, md))
+                        fwd_ops, md,
+                        lambda t: head_ops_ms(t, B, T, H, O, md, izh=True)))
     rows.append(izh_row(label, tag, fused.KERNEL_IZH_BWD,
                         launches[fused.KERNEL_IZH_BWD], k2_err, ms2, plain2,
                         trace + B * F * 4 + 2 * B * O * 4 + 2 * weights
-                        + O * 4, bwd_ops, md))
+                        + O * 4, bwd_ops, md,
+                        lambda t: head_ops_ms(t, B, T, H, O, md, True,
+                                              izh=True)))
     del res, bwd, trainer
     izh_periodic_times(label, cfg, batches)
 
@@ -4163,15 +4209,15 @@ def close_flagship(label):
 def izh_ordered(label, rows=None):
     """At dt = 30 the cell amplifies last bits, so each replica's logits
     are held bitwise against the plain cell that sums in the kernel's
-    order (``ordered_izh_head``), on the first ``rows`` rows (all where
-    None; TTFS)."""
+    order (``izh_witness``), on the first ``rows`` rows (all where
+    None)."""
     def check(a, out):
         n = out.shape[1] if rows is None else rows
         for s in range(out.shape[0]):
             b = IzhHead.at(a, s)
-            wit = ordered_izh_head(b["lat"][:n], b["w_in"], b["w_rec"],
-                                   b["w_out"], b["b_out"], b["n_steps"],
-                                   b["kp"], b["kappa"])
+            wit = izh_witness(label, b["lat"][:n], b["w_in"], b["w_rec"],
+                              b["w_out"], b["b_out"], b["n_steps"],
+                              b["use_periods"], b["kp"], b["kappa"])
             if not torch.equal(wit, out[s, :n]):
                 fail(f"{label}: replica {s} differs from the plain cell "
                      f"summed in the kernel's order on "
@@ -4186,7 +4232,9 @@ def phase_stacked_kernels() -> None:
     feedforward x TTFS / periodic x FastSigmoid / Phi, each at one of T =
     23, 24, 100, float32 or bfloat16, beta a float or an (S,) tensor, H =
     19 or 45; 4 Izhikevich cases (recurrent / feedforward x float32 /
-    bfloat16) at dt = 30, T = 24, H = 45.  Then the flagship at S = 6, B =
+    bfloat16) at dt = 30, H = 45, T = 24 for float32 and 25 for bfloat16
+    (T B H odd: every odd replica's v trace starts 4 bytes past an 8-byte
+    boundary).  Then the flagship at S = 6, B =
     8192, T = 100 (784-ALIF128-10, recurrent, beta an (S,) tensor), f32 and
     bf16, TTFS and periodic.  Everything of ``check_stacked``: bitwise
     against single launches on every replica and row; the LIF/ALIF logits
@@ -4221,9 +4269,10 @@ def phase_stacked_kernels() -> None:
                         f"bitwise; grad_err={err:.3g} of max|g| ok")
     for rec in (True, False):
         for wd in (torch.float32, torch.bfloat16):
-            label = (f"stacked izh-{'rec' if rec else 'ff'} dt=30 T=24 "
+            T = 24 if wd == torch.float32 else 25
+            label = (f"stacked izh-{'rec' if rec else 'ff'} dt=30 T={T} "
                      f"{str(wd)[6:]}")
-            a = stacked_izh_args(rng, 3, 37, 50, 45, 10, 24, rec, wd)
+            a = stacked_izh_args(rng, 3, 37, 50, 45, 10, T, rec, wd)
             fire = float(IzhHead.train(a)[1].ge(IZH30.v_peak).float().mean())
             if fire == 0:
                 fail(f"{label}: no unit fires")
@@ -4366,19 +4415,17 @@ def phase_ensemble_serve(matmul_dtype: str, is_izh: bool = False) -> dict:
     ms2 = cuda_ms(lambda: fam.fwd(a), 25)
     plain_ms = cuda_ms(lambda: fam.fwd(a, plain=True), 3, warmup=1)
     nbytes, ops, hidden, in_spikes = stacked_work(fam, a, is_izh, False)
-    tc = ""
-    if not is_izh:
-        tc_flop, tc_ms = tensor_core_work(4096, 100, 128, 10, md, S=ENS_S)
-        tc = (f"; tensor-core work {tc_flop} FLOP = {tc_ms:.4f} ms at 989 "
-              "TFLOP/s")
+    tc_flop, tc_ms = tensor_core_work(4096, 100, 128, 10, md, S=ENS_S)
+    tc = (f"; tensor-core work {tc_flop} FLOP = {tc_ms:.4f} ms at 989 "
+          "TFLOP/s")
     log(f"[{label}] per 4096-row batch of {ENS_S} seeds: stacked {ms:.4f} / "
         f"{ms2:.4f} ms, {ENS_S} single launches {unrolled:.4f} ms; the "
         f"kernel serves {4096 / ms * 1e3:.1f} img/s "
         f"({4096 * ENS_S / ms * 1e3:.1f} seed-img/s); input spikes "
         f"{in_spikes}, hidden spikes {hidden} "
         f"({hidden / (ENS_S * 4096 * 100 * 128):.4f}){tc} [{card_line()}]")
-    ops_ms = None if is_izh else (
-        lambda t: head_ops_ms(t, 4096, 100, 128, 10, md, S=ENS_S))
+    ops_ms = (lambda t: head_ops_ms(t, 4096, 100, 128, 10, md, S=ENS_S,
+                                    izh=is_izh))
     return stacked_row(label, kernel, tag, launches[kernel], err, ms,
                        plain_ms, nbytes, ops, md, ops_ms)
 
@@ -4551,13 +4598,10 @@ def phase_ensemble_train(matmul_dtype: str, is_izh: bool = False) -> list:
     chain = IZH_CHAIN_OPS if is_izh else 12
     b_ops = (ENS_S * (2 * B * T * H * (H + O) + in_spikes * H
                       + chain * B * T * H) + hidden * (H + O))
-    tc = ""
-    if not is_izh:
-        (f_tc, f_tc_ms), (b_tc, b_tc_ms) = (
-            tensor_core_work(B, T, H, O, md, bwd, ENS_S)
-            for bwd in (False, True))
-        tc = (f"; tensor-core work {f_tc} / {b_tc} FLOP = {f_tc_ms:.4f} / "
-              f"{b_tc_ms:.4f} ms at 989 TFLOP/s")
+    (f_tc, f_tc_ms), (b_tc, b_tc_ms) = (
+        tensor_core_work(B, T, H, O, md, bwd, ENS_S) for bwd in (False, True))
+    tc = (f"; tensor-core work {f_tc} / {b_tc} FLOP = {f_tc_ms:.4f} / "
+          f"{b_tc_ms:.4f} ms at 989 TFLOP/s")
     log(f"[{label}] {k_fwd}: {f_ms:.4f} ms, {ENS_S} single launches "
         f"{fu_ms:.4f} ms; {k_bwd}: {b_ms:.4f} ms, {ENS_S} single launches "
         f"{bu_ms:.4f} ms; hidden spikes {hidden} "
@@ -4565,12 +4609,13 @@ def phase_ensemble_train(matmul_dtype: str, is_izh: bool = False) -> list:
     launches = runs["stacked"][1]
     return [
         stacked_row(label, k_fwd, tag, launches[k_fwd], err_f, f_ms, f_plain,
-                    nbytes, ops, md, None if is_izh else (
-                        lambda t: head_ops_ms(t, B, T, H, O, md, S=ENS_S))),
+                    nbytes, ops, md,
+                    lambda t: head_ops_ms(t, B, T, H, O, md, S=ENS_S,
+                                          izh=is_izh)),
         stacked_row(label, k_bwd, tag, launches[k_bwd], err_b, b_ms, b_plain,
-                    b_bytes, b_ops, md, None if is_izh else (
-                        lambda t: head_ops_ms(t, B, T, H, O, md, True,
-                                              ENS_S))),
+                    b_bytes, b_ops, md,
+                    lambda t: head_ops_ms(t, B, T, H, O, md, True, ENS_S,
+                                          is_izh)),
     ]
 
 

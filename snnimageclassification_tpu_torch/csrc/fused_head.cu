@@ -25,35 +25,13 @@
 // offsets its weights, beta, outputs and traces by the replica's stride, so
 // a replica's arithmetic is a single launch's, bit for bit.
 //
-// The mma body (head_mma_kernel; every shape with O <= 16, H <= 256 and
-// W_rec's bf16 pieces within a block's shared memory):
-//   * What bounds it on an H100: the serial T-chain.  One add per selected
-//     weight (spikes are 0/1) is ~10 G operations a flagship training batch,
-//     0.15 ms at the float32 rate; each step depends on the one before, so
-//     the kernel is bound by the latency of a step, which it keeps on tensor
-//     cores and in registers.
-//   * A warp owns 16 rows x 32 units in registers (head_mma.cuh).  The
-//     recurrent current is one (16, H) @ (H, 32) product a step and warp,
-//     z(t-1) as the A operand read by ldmatrix from the tile's exchange
-//     buffer, W_rec's B fragments from shared memory, filled once a block
-//     in the order the lanes read them.  The readout is (16, H) @ (H, 16)
-//     on the same A fragments, its two n8 tiles on the tile's first warps;
-//     its integrator, running max and argmax step stay in their registers.
-//     Float32 weights take three products (hi, mid, lo bf16 pieces), bf16
-//     weights one.  One named barrier a step among the tile's warps.
-//   * The input current: head_sort_kernel orders each row's features by
-//     spike key once (a stable counting sort, one warp a row, shared by the
-//     replicas), so step t's features are a contiguous run (TTFS: the run
-//     of key t; periodic: the runs of the periods dividing t), summed in
-//     ascending f from W_in in L2.  Under periodic encoding the run of
-//     period 1 fires at every t >= 1 and is summed once.  A row that fires
-//     at least F / 16 features at a TTFS step (at the production tau every
-//     supra-threshold pixel fires at t = 0) takes them through a dense
-//     product instead: X @ W_in on tensor cores, W_in's slice read once for
-//     the tile, not once a row, the other rows' spikes zero.  The choice is
-//     each row's own, so a row's bits do not depend on its batch.
-//   * The cell step is lif_cell.cuh's arithmetic; built with --fmad=false,
-//     so a*b+c rounds twice, as in the plain PyTorch versions.
+// The mma body (head_mma_fwd.cuh: head_sort_kernel + head_mma_kernel, the
+// LIF/ALIF cell lif_cell.cuh:LifMmaCell; every shape with O <= 16, H <= 256
+// and W_rec's bf16 pieces within a block's shared memory): a warp owns 16
+// rows x 32 units in registers, the recurrent and readout products of z
+// on tensor cores, the input current from each row's features sorted by
+// spike key once.  What bounds it on an H100 is the serial T-chain; the
+// design keeps each step on tensor cores and in registers.
 // The per-unit body (head_fwd.cuh, one thread a (row, unit), the recurrent
 // and readout sums as walks over spike bits on CUDA cores) takes the other
 // shapes the plan accepts: O > 16, H > 256, float32 W_rec past H ~ 160.
@@ -66,8 +44,7 @@
 // for ALIF with Phi).  It replaces that mode of the same TPU kernel
 // (fused_encode_{rec,ff}_scan).
 
-#include "head_fwd.cuh"
-#include "head_mma.cuh"
+#include "head_mma_fwd.cuh"
 #include "lif_cell.cuh"
 
 namespace {
@@ -81,544 +58,30 @@ int run_lif(const FwdArgs<LifParams>& a, int alif, int bf16, int rows,
                                                  stream, S);
 }
 
-// ---------------------------------------------------------------------------
-// The rows' feature lists
-// ---------------------------------------------------------------------------
-__host__ __device__ inline int align8(int x) { return (x + 7) & ~7; }
-
-// A row of the lists, in 16-bit words: the features that fire at some step,
-// ordered by key (head_common.cuh:enc_key), ascending f within a key; at
-// FA = align8(F) the number nk of nonempty keys; at FA + 8 those keys,
-// ascending; at 2 FA + 8 the end of each key's run (run c is [end[c - 1],
-// end[c]), end[-1] = 0).  ops/head_mma.py:head_lists is its CPU twin.
-__host__ __device__ inline int list_row_words(int F) {
-  return 3 * align8(F) + 8;
-}
-
-// One warp a row: a stable counting sort of the row's features by key.
-__global__ void __launch_bounds__(256)
-    head_sort_kernel(const int* lat, uint16_t* lists, int B, int F, int T,
-                     int periodic) {
-  extern __shared__ __align__(16) int sort_cnt[];
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps + warp;
-  if (b >= B) return;  // no block barrier below
-  int* cnt = sort_cnt + (size_t)warp * T;
-  const int* lrow = lat + (size_t)b * F;
-  const int FA = align8(F);
-  uint16_t* list = lists + (size_t)b * list_row_words(F);
-  uint16_t* keys = list + FA + 8;
-  uint16_t* ends = keys + FA;
-  for (int k = lane; k < T; k += 32) cnt[k] = 0;
-  __syncwarp();
-  for (int f = lane; f < F; f += 32) {
-    const int k = enc_key(lrow[f], T, periodic);
-    if (k >= 0) atomicAdd(&cnt[k], 1);
-  }
-  __syncwarp();
-  // Run starts (the exclusive prefix sum of the counts), the nonempty keys
-  // and their runs' ends.
-  int carry = 0, n = 0;
-  for (int k0 = 0; k0 < T; k0 += 32) {
-    const int k = k0 + lane;
-    const int c = k < T ? cnt[k] : 0;
-    int x = c;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
-    }
-    if (k < T) cnt[k] = carry + x - c;
-    const unsigned used = __ballot_sync(0xffffffffu, c > 0);
-    if (c > 0) {
-      const int i = n + __popc(used & ((1u << lane) - 1u));
-      keys[i] = (uint16_t)k;
-      ends[i] = (uint16_t)(carry + x);
-    }
-    n += __popc(used);
-    carry += __shfl_sync(0xffffffffu, x, 31);
-  }
-  if (lane == 0) list[FA] = (uint16_t)n;
-  __syncwarp();
-  // Features in ascending f, each after the earlier ones of its key.
-  for (int f0 = 0; f0 < F; f0 += 32) {
-    const int f = f0 + lane;
-    const int k = f < F ? enc_key(lrow[f], T, periodic) : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, k);
-    if (k >= 0)
-      list[cnt[k] + __popc(peers & ((1u << lane) - 1u))] = (uint16_t)f;
-    __syncwarp();
-    if (k >= 0 && lane == __ffs(peers) - 1) cnt[k] += __popc(peers);
-    __syncwarp();
-  }
-}
-
-cudaError_t launch_sort(const int* lat, uint16_t* lists, int B, int F, int T,
-                        int periodic, int device, cudaStream_t stream) {
-  int max_smem = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  const size_t per_warp = (size_t)T * 4;
-  size_t warps = (size_t)max_smem / per_warp;
-  if (warps > 8) warps = 8;
-  if (warps < 1) return cudaErrorInvalidConfiguration;
-  const int smem = (int)(warps * per_warp);
-  err = cudaFuncSetAttribute(head_sort_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  head_sort_kernel<<<(B + (int)warps - 1) / (int)warps, (int)warps * 32, smem,
-                     stream>>>(lat, lists, B, F, T, periodic);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The mma body
-// ---------------------------------------------------------------------------
-struct MmaFwdLayout {
-  size_t wrec, wout, b, z, total;
-};
-
-__host__ __device__ inline MmaFwdLayout mma_fwd_layout(int H, int rec, int P,
-                                                       int tpb) {
-  const size_t HP = mma_hp(H);
-  MmaFwdLayout L;
-  size_t off = 0;
-  L.wrec = off;  // W_rec's B fragments, (HP, HP), P pieces
-  off = align16(off + (rec ? 2 * P * HP * HP : 0));
-  L.wout = off;  // W_out's, (HP, 16)
-  off = align16(off + 2 * P * HP * MMA_OMAX);
-  L.b = off;
-  off = align16(off + MMA_OMAX * 4);
-  L.z = off;  // each tile's two (16, HP) bf16 buffers of z
-  off = align16(off + (size_t)tpb * 2 * 16 * mma_zs(HP) * 2);
-  L.total = off;
-  return L;
-}
-
-// Whether the mma body takes the shape on a card with `max_smem` bytes of
-// shared memory a block.
-inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) {
-  return O >= 1 && O <= MMA_OMAX && H >= 1 && mma_hp(H) <= MMA_HMAX &&
-         mma_fwd_layout(H, rec, bf16 ? 1 : 3, 1).total <= (size_t)max_smem;
-}
-
-__device__ __forceinline__ void load_pair(const float* p, float& x0,
-                                          float& x1) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  x0 = v.x;
-  x1 = v.y;
-}
-__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& x0,
-                                          float& x1) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  x0 = __low2float(v);
-  x1 = __high2float(v);
-}
-
-// acc[n][2 hh + c] += w[f, col0 + 8 n + c] for the features f = lst[k..e),
-// one at a time in list order; columns past H add nothing.
-template <typename W>
-__device__ __forceinline__ void gather_rows(float (&acc)[MMA_NT][4], int hh,
-                                            const W* w, int H, int col0,
-                                            const uint16_t* lst, int k,
-                                            int e) {
-  if ((H & 1) == 0) {  // pairs of columns, 4- or 8-byte aligned
-#pragma unroll 4
-    for (; k < e; ++k) {
-      const W* wr = w + (size_t)lst[k] * H + col0;
-#pragma unroll
-      for (int n = 0; n < MMA_NT; ++n) {
-        if (col0 + 8 * n < H) {
-          float x0, x1;
-          load_pair(wr + 8 * n, x0, x1);
-          acc[n][2 * hh] += x0;
-          acc[n][2 * hh + 1] += x1;
-        }
-      }
-    }
-  } else {
-    for (; k < e; ++k) {
-      const W* wr = w + (size_t)lst[k] * H;
-#pragma unroll
-      for (int n = 0; n < MMA_NT; ++n) {
-        const int c = col0 + 8 * n;
-        if (c < H) acc[n][2 * hh] += to_f32(wr[c]);
-        if (c + 1 < H) acc[n][2 * hh + 1] += to_f32(wr[c + 1]);
-      }
-    }
-  }
-}
-
-constexpr int NO_KEY = 1 << 30;
-
-// The runs of list row `lrow` that fire at step t, the run of every step
-// aside, each as fn(start, end), in the order they are summed.  TTFS: the
-// run of key t (keys ascending; `cursor` the next run, `next` its key, kept
-// in a register so that a step without input waits on no load); periodic:
-// the runs of the periods p <= t dividing t, ascending p (p = 0 at T = 1:
-// every step), from run `cursor` (past the every-step run) whose key is
-// `next`.
-template <typename Fn>
-__device__ __forceinline__ void step_runs(const uint16_t* lrow, int FA, int nk,
-                                          int cursor, int next, int t,
-                                          int periodic, Fn fn) {
-  if (next > t) return;
-  const uint16_t* keys = lrow + FA + 8;
-  const uint16_t* ends = keys + FA;
-  if (!periodic) {
-    fn(cursor ? ends[cursor - 1] : 0, ends[cursor]);
-    return;
-  }
-  for (int c = cursor; c < nk; ++c) {
-    const int p = keys[c];
-    if (p > t) break;
-    if (p == 0 || t % p == 0) fn(c ? ends[c - 1] : 0, ends[c]);
-  }
-}
-
-// After step t under TTFS: the cursor past the run of key t.
-__device__ __forceinline__ void advance(const uint16_t* lrow, int FA, int nk,
-                                        int& cursor, int& next, int t,
-                                        int periodic) {
-  if (periodic || next != t) return;
-  ++cursor;
-  next = cursor < nk ? lrow[FA + 8 + cursor] : NO_KEY;
-}
-
-// Two spikes of one row as a bf16x2 word: features f and f + 1 of latency
-// row l (null: a row past the batch) where `pick` takes their latency.
-template <typename Pick>
-__device__ __forceinline__ uint32_t spike_pair(const int* l, int f, int F,
-                                               Pick pick) {
-  if (!l) return 0u;
-  const bool a = f < F && pick(l[f]);
-  const bool b = f + 1 < F && pick(l[f + 1]);
-  return (a ? 0x3f80u : 0u) | (b ? 0x3f800000u : 0u);
-}
-
-// acc += X @ W_in[:, this warp's 32 units] on tensor cores, X[r, f] =
-// pick(L[r, f]) for the tile's rows r that take it (use[hh]: this lane's
-// rows g and g + 8), zero for the others: a row where most features fire
-// at a step (TTFS at the production tau fires every supra-threshold pixel
-// at t = 0) reads W_in's slice once for the tile instead of once a row.  A
-// row's sums depend on its own spikes only.  The spikes come from the
-// latencies, W_in's B fragments from L2, split into P pieces in registers,
-// one k16 slice at a time.
-template <int P, typename W, typename Pick>
-__device__ void dense_input(float (&acc)[MMA_NT][4], const int* lat, int F,
-                            int row0, const bool (&use)[2], const W* w, int H,
-                            int lane, int wu, Pick pick) {
-  const int g = lane >> 2, q = lane & 3;
-  const int* l0 = use[0] ? lat + (size_t)(row0 + g) * F : nullptr;
-  const int* l1 = use[1] ? lat + (size_t)(row0 + g + 8) * F : nullptr;
-  const int col = MMA_NU * wu + g;  // B's column of n8 tile 0
-  for (int k0 = 0; k0 < F; k0 += 16) {
-    const int f = k0 + 2 * q;
-    const uint32_t a[4] = {spike_pair(l0, f, F, pick),
-                           spike_pair(l1, f, F, pick),
-                           spike_pair(l0, f + 8, F, pick),
-                           spike_pair(l1, f + 8, F, pick)};
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n) {
-      const int c = col + 8 * n;
-      float x[4][P];
-      const int fk[4] = {f, f + 1, f + 8, f + 9};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        split<P>(fk[i] < F && c < H ? to_f32(w[(size_t)fk[i] * H + c]) : 0.f,
-                 x[i]);
-      uint2 b[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-        b[p] = make_uint2(pack_bf16(x[0][p], x[1][p]),
-                          pack_bf16(x[2][p], x[3][p]));
-      mma_exact<P>(acc[n], a, b);
-    }
-  }
-}
-
-template <bool ALIF, bool REC, bool TRAIN, typename W>
-__global__ void __launch_bounds__(MMA_THREADS)
-    head_mma_kernel(FwdArgs<LifParams> a0, const uint16_t* lists, int tpb) {
-  constexpr int P = pieces<W>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const FwdArgs<LifParams> a = at_replica<W>(a0, blockIdx.y);
-  const int H = a.H, O = a.O, F = a.F, T = a.T, B = a.B;
-  const int HP = mma_hp(H), NWU = HP / 32, KT = HP / 16, ZS = mma_zs(HP);
-  const MmaFwdLayout L = mma_fwd_layout(H, REC, P, tpb);
-  uint2* s_wrec = reinterpret_cast<uint2*>(smem + L.wrec);
-  uint2* s_wout = reinterpret_cast<uint2*>(smem + L.wout);
-  float* s_b = reinterpret_cast<float*>(smem + L.b);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2;
-  const int tile = warp / NWU, wu = warp % NWU;
-  uint16_t* s_z =
-      reinterpret_cast<uint16_t*>(smem + L.z) + (size_t)tile * 2 * 16 * ZS;
-
-  if (REC) {
-    const W* w = static_cast<const W*>(a.w_rec);
-    fill_b<P>(s_wrec, HP, HP, [&](int k, int n) {
-      return k < H && n < H ? to_f32(w[(size_t)k * H + n]) : 0.f;
-    }, tid, nthreads);
-  }
-  {
-    const W* w = static_cast<const W*>(a.w_out);
-    fill_b<P>(s_wout, HP, MMA_OMAX, [&](int k, int n) {
-      return k < H && n < O ? to_f32(w[(size_t)k * O + n]) : 0.f;
-    }, tid, nthreads);
-  }
-  if (tid < MMA_OMAX) s_b[tid] = tid < O ? a.b_out[tid] : 0.f;
-  __syncthreads();
-  const int row0 = (blockIdx.x * tpb + tile) * 16;
-  if (row0 >= B) return;  // a tile past the batch; no block barrier below
-
-  const W* w_in = static_cast<const W*>(a.w_in);
-  const int col0 = MMA_NU * wu + 2 * (lane & 3);  // entry 0 of n8 tile 0
-  const int FA = align8(F);
-  const bool every_step = a.periodic && T >= 2;
-  const uint16_t* lrow[2];
-  int nk[2], cursor[2], next[2];
-  bool live[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + g + 8 * hh;
-    live[hh] = row < B;
-    lrow[hh] = lists + (size_t)(live[hh] ? row : 0) * list_row_words(F);
-    nk[hh] = live[hh] ? lrow[hh][FA] : 0;
-    const uint16_t* keys = lrow[hh] + FA + 8;
-    cursor[hh] = every_step && nk[hh] > 0 && keys[0] == 1 ? 1 : 0;
-    next[hh] = cursor[hh] < nk[hh] ? keys[cursor[hh]] : NO_KEY;
-  }
-  // Periodic encoding: the weight rows of the features of period 1 (every
-  // step t >= 1; the first run where present) are summed once and added
-  // first at each step.
-  float every[MMA_NT][4] = {};
-  if (every_step) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      if (cursor[hh])
-        gather_rows(every, hh, w_in, H, col0, lrow[hh], 0,
-                    lrow[hh][2 * FA + 8]);
-  }
-  // The readout's n8 tiles j = wu, wu + NWU below ceil(O / 8).
-  const int NTO = (O + 7) / 8;
-  bool owns[2];
-  float vr[2][4], m[2][4];
-  int ts[2][4];
-#pragma unroll
-  for (int jo = 0; jo < 2; ++jo) {
-    owns[jo] = wu + jo * NWU < NTO;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      vr[jo][e] = 0.f;
-      m[jo][e] = -INFINITY;
-      ts[jo][e] = 0;
-    }
-  }
-  float v[MMA_NT][4] = {}, ad[MMA_NT][4] = {};
-  uint32_t cnt[MMA_NT][2] = {};  // spike counts, 16 bits an entry
-  uint32_t zb = 0;               // z(t-1), bit 4 n + e
-  const float beta = ALIF ? *a.cell.beta : 0.f;
-
-  for (int t = 0; t <= T; ++t) {
-    float rec[MMA_NT][4] = {};
-    if (t > 0) {
-      // z(t-1) as A: the readout of step t-1 and the recurrent current.
-      const uint16_t* zp = s_z + ((t - 1) & 1) * 16 * ZS;
-      float ro[2][4] = {};
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t A[4];
-        load_a(A, zp, ZS, kk, lane);
-        if (REC && t < T) {
-#pragma unroll
-          for (int n = 0; n < MMA_NT; ++n)
-            mma_exact_a<P>(rec[n], A, s_wrec,
-                           kk * (HP / 8) + MMA_NT * wu + n, lane);
-        }
-#pragma unroll
-        for (int jo = 0; jo < 2; ++jo)
-          if (owns[jo])
-            mma_exact_a<P>(ro[jo], A, s_wout, kk * 2 + wu + jo * NWU, lane);
-      }
-      // r = z @ W_out + b, v_r = kappa v_r + r, running max with strict >
-      // (the first maximal step wins, as torch.max).
-#pragma unroll
-      for (int jo = 0; jo < 2; ++jo) {
-        if (!owns[jo]) continue;
-        const int o0 = 8 * (wu + jo * NWU) + 2 * (lane & 3);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float r = ro[jo][e] + s_b[o0 + (e & 1)];
-          const float vv = a.kappa * vr[jo][e] + r;
-          vr[jo][e] = vv;
-          if (vv > m[jo][e]) {
-            m[jo][e] = vv;
-            if (TRAIN) ts[jo][e] = t - 1;
-          }
-        }
-      }
-    }
-    if (t == T) break;
-    // The input current of step t, then the recurrent one added.
-    float cur[MMA_NT][4];
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cur[n][e] = t >= 1 ? every[n][e] : 0.f;
-    // TTFS: a row that fires at least F / 16 features at step t takes the
-    // dense product, the others gather; the choice is the row's own.
-    // (Periodic steps past the every-step run, a few periods each, gather:
-    // their spike test, a division a feature, costs the dense product more
-    // than it saves.)
-    bool dense[2] = {false, false};
-    if (!a.periodic) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        int n = 0;
-        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, 0,
-                  [&](int k, int e) { n += e - k; });
-        dense[hh] = 16 * n >= F;
-      }
-    }
-    if (__any_sync(0xffffffffu, dense[0] || dense[1]))
-      dense_input<P>(cur, a.lat, F, row0, dense, w_in, H, lane, wu,
-                     [=](int L) { return L == t; });
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      if (!dense[hh])
-        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, a.periodic,
-                  [&](int k, int e) {
-                    gather_rows(cur, hh, w_in, H, col0, lrow[hh], k, e);
-                  });
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      advance(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, a.periodic);
-    if (REC && t > 0) {
-#pragma unroll
-      for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) cur[n][e] = cur[n][e] + rec[n][e];
-    }
-    // The cell step of the warp's 16 x 32 (row, unit) pairs.
-    uint32_t zn = 0;
-    float zf[MMA_NT][4];
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + 8 * n + (e & 1);
-        const bool ok = live[e >> 1] && col < H;
-        const float zp = (zb >> (4 * n + e)) & 1u ? 1.f : 0.f;
-        const float d =
-            lif_update<ALIF>(a.cell, beta, cur[n][e], zp, v[n][e], ad[n][e]);
-        const bool z = ok && d >= 0.f;  // padding never fires
-        zn |= (uint32_t)z << (4 * n + e);
-        zf[n][e] = z ? 1.f : 0.f;
-        if (TRAIN && ok) {
-          const size_t at =
-              ((size_t)t * B + row0 + g + 8 * (e >> 1)) * H + col;
-          if (a.cell.delta) from_f32(d, static_cast<W*>(a.cell.delta) + at);
-          if (ALIF && a.cell.a_tr)
-            from_f32(ad[n][e], static_cast<W*>(a.cell.a_tr) + at);
-        }
-        if (TRAIN) cnt[n][e >> 1] += (uint32_t)z << (16 * (e & 1));
-      }
-    }
-    zb = zn;
-    put_slice(s_z + (t & 1) * 16 * ZS, ZS, wu, lane, zf);
-    tile_sync(1 + tile, NWU * 32);
-  }
-#pragma unroll
-  for (int jo = 0; jo < 2; ++jo) {
-    if (!owns[jo]) continue;
-    const int o0 = 8 * (wu + jo * NWU) + 2 * (lane & 3);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + 8 * (e >> 1), o = o0 + (e & 1);
-      if (row >= B || o >= O) continue;
-      a.logits[(size_t)row * O + o] = m[jo][e];
-      if (TRAIN && a.tstar) a.tstar[(size_t)row * O + o] = ts[jo][e];
-    }
-  }
-  if (TRAIN && a.counts) {
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + g + 8 * (e >> 1), col = col0 + 8 * n + (e & 1);
-        if (row < B && col < H)
-          a.counts[(size_t)row * H + col] =
-              (float)((cnt[n][e >> 1] >> (16 * (e & 1))) & 0xffffu);
-      }
-  }
-}
-
-template <bool ALIF, bool REC, bool TRAIN, typename W>
-cudaError_t launch_mma(const FwdArgs<LifParams>& a, const uint16_t* lists,
-                       int S, int device, cudaStream_t stream) {
-  auto kernel = head_mma_kernel<ALIF, REC, TRAIN, W>;
-  const int NWU = mma_hp(a.H) / 32, tiles = (a.B + 15) / 16;
-  int tpb = 1;
-  auto smem = [&](int t) {
-    return mma_fwd_layout(a.H, REC, pieces<W>(), t).total;
-  };
-  cudaError_t err = mma_tiling(kernel, tiles, S, NWU, device, smem, &tpb);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((tiles + tpb - 1) / tpb, S), tpb * NWU * 32, smem(tpb),
-           stream>>>(a, lists, tpb);
-  return cudaGetLastError();
-}
-
 template <bool TRAIN, typename W>
-cudaError_t run_mma(const FwdArgs<LifParams>& a, int alif,
-                    const uint16_t* lists, int S, int device,
-                    cudaStream_t s) {
-  const bool rec = a.w_rec != nullptr;
-  if (alif)
-    return rec ? launch_mma<true, true, TRAIN, W>(a, lists, S, device, s)
-               : launch_mma<true, false, TRAIN, W>(a, lists, S, device, s);
-  return rec ? launch_mma<false, true, TRAIN, W>(a, lists, S, device, s)
-             : launch_mma<false, false, TRAIN, W>(a, lists, S, device, s);
+cudaError_t run_mma(const FwdArgs<LifParams>& a, int alif, uint16_t* lists,
+                    int S, int device, cudaStream_t s) {
+  return alif ? run_mma_body<LifMmaCell<true>, TRAIN, W>(a, lists, S, device,
+                                                         s)
+              : run_mma_body<LifMmaCell<false>, TRAIN, W>(a, lists, S,
+                                                          device, s);
 }
 
-int max_smem_of(int device, int* max_smem) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return (int)err;
-}
-
-// One launch of a head kernel (TRAIN: the training forward) for S replicas:
-// the mma body where `lists` (the wrapper's scratch of list_row_words(F)
-// 16-bit words a row) is given, which the plan must have said, else the
-// per-unit body.
+// One launch of a head kernel (TRAIN: the training forward) for S
+// replicas, on the body the plan gives the shape (run_head_body).
 template <bool TRAIN>
 int run_head(const FwdArgs<LifParams>& a, int alif, int bf16, void* lists,
              int S, int device, void* stream) {
-  if (S < 1 || S > 65535) return (int)cudaErrorInvalidConfiguration;
-  int max_smem = 0;
-  int err = max_smem_of(device, &max_smem);
-  if (err != 0) return err;
-  const bool mma = mma_fits(a.H, a.O, a.w_rec != nullptr, bf16, max_smem);
-  if (mma != (lists != nullptr)) return (int)cudaErrorInvalidValue;
-  if (a.B == 0) return 0;
-  if (!mma) {
-    int rows = 0, smem = 0;
-    err = plan(a.F, a.H, a.O, a.w_rec != nullptr, bf16, device, &rows, &smem);
-    if (err != 0) return err == 1 ? (int)cudaErrorInvalidConfiguration : err;
-    return run_lif<TRAIN, true>(a, alif, bf16, rows, device, stream, S);
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint16_t* l = static_cast<uint16_t*>(lists);
-  cudaError_t e =
-      launch_sort(a.lat, l, a.B, a.F, a.T, a.periodic, device, s);
-  if (e == cudaSuccess)
-    e = bf16 ? run_mma<TRAIN, __nv_bfloat16>(a, alif, l, S, device, s)
-             : run_mma<TRAIN, float>(a, alif, l, S, device, s);
-  return (int)e;
+  return run_head_body(
+      a, bf16, lists, S, device,
+      [&](uint16_t* l) {
+        return bf16 ? run_mma<TRAIN, __nv_bfloat16>(a, alif, l, S, device, s)
+                    : run_mma<TRAIN, float>(a, alif, l, S, device, s);
+      },
+      [&](int rows) {
+        return run_lif<TRAIN, true>(a, alif, bf16, rows, device, stream, S);
+      });
 }
 
 }  // namespace
@@ -631,13 +94,8 @@ extern "C" {
 int snn_fused_head_plan(int F, int H, int O, int rec, int bf16, int device,
                         int* mma_out) {
   if (O < 1) return 1;
-  int rows = 0, smem = 0, max_smem = 0;
-  const int rc = plan(F, H, O, rec, bf16, device, &rows, &smem);
-  if (rc != 0) return rc;
-  const int err = max_smem_of(device, &max_smem);
-  if (err != 0) return err;
-  *mma_out = mma_fits(H, O, rec, bf16, max_smem) ? 1 : 0;
-  return 0;
+  int rows = 0, smem = 0;
+  return head_plan(F, H, O, rec, bf16, device, &rows, &smem, mma_out);
 }
 
 // 16-bit words a batch row of the mma body's list scratch takes.

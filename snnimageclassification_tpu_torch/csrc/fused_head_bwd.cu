@@ -18,255 +18,62 @@
 // only dcur @ W_rec^T and s @ W_out^T are real products; the rest are sums
 // of selected rows.
 //
-// The chain's mma body (bwd_chain_mma_kernel; O <= 16, H <= 256 and the
-// weights' bf16 pieces within a block's shared memory; other shapes take
-// bwd_common.cuh's per-unit chain): a warp owns 16 rows x 32 units in
-// registers in mma.m16n8k16's accumulator layout (head_mma.cuh) and walks t
-// down.  s(t) is kept by every warp of the tile in the A layout (K = the
-// outputs, padded to 16), dcur(t+1) comes from the tile's exchange buffer
-// by ldmatrix; dz = s @ W_out^T (+ g_counts) + dcur(t+1) @ W_rec^T on
-// tensor cores, W_out^T and W_rec^T as B fragments in shared memory.  Both
-// left operands are rounded to the weights' type first (bwd_common.cuh), so
-// bf16 weights take one product each; float32 ones split both operands
-// into three bf16 pieces and take the six products of head_mma.cuh.  The
-// element-wise chain is the per-unit chain's arithmetic.  dcur (B, T, H) and
-// the z bits (B, T + 1, HP / 32) leave as before, so the three gradient
-// functions keep their inputs.
+// The chain's mma body (chain_mma.cuh: bwd_chain_mma_kernel with the
+// LifChain policy below; O <= 16, H <= 256 and the weights' bf16 pieces
+// within a block's shared memory; other shapes take bwd_common.cuh's
+// per-unit chain): a warp owns 16 rows x 32 units in registers and walks t
+// down, dz = s @ W_out^T (+ g_counts) + dcur(t+1) @ W_rec^T on tensor
+// cores, the element-wise chain the per-unit chain's arithmetic.  dcur
+// (B, T, H) and the z bits (B, T + 1, HP / 32) leave as before, so the
+// three gradient functions keep their inputs.
 
-#include "bwd_common.cuh"
+#include "chain_mma.cuh"
 #include "gbits_mma.cuh"
 #include "gout_mma.cuh"
-#include "head_mma.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// The chain's mma body
-// ---------------------------------------------------------------------------
-struct MmaChainLayout {
-  size_t wrec, wout, d, total;
-};
-
-__host__ __device__ inline MmaChainLayout mma_chain_layout(int H, int rec,
-                                                           int P, int tpb) {
-  const size_t HP = mma_hp(H);
-  MmaChainLayout L;
-  size_t off = 0;
-  L.wrec = off;  // W_rec^T's B fragments, (HP, HP), P pieces
-  off = align16(off + (rec ? 2 * P * HP * HP : 0));
-  L.wout = off;  // W_out^T's, (16, HP)
-  off = align16(off + 2 * P * HP * MMA_OMAX);
-  L.d = off;  // each tile's two buffers of P (16, HP) bf16 dcur pieces
-  off = align16(off + (size_t)tpb * 2 * P * 16 * mma_zs(HP) * 2);
-  L.total = off;
-  return L;
-}
-
-inline bool chain_mma_fits(int H, int O, int rec, int bf16, int max_smem) {
-  return O >= 1 && O <= MMA_OMAX && H >= 1 && mma_hp(H) <= MMA_HMAX &&
-         mma_chain_layout(H, rec, bf16 ? 1 : 3, 1).total <= (size_t)max_smem;
-}
-
-// Rounds x to the weights' type and packs its P bf16 pieces, entries (lo,
-// hi) of a fragment register.
-template <typename W, int P>
-__device__ __forceinline__ void pack_pieces(uint32_t (&out)[P], float lo,
-                                            float hi) {
-  float a[P], b[P];
-  split<P>(round_w<W>(lo), a);
-  split<P>(round_w<W>(hi), b);
-#pragma unroll
-  for (int p = 0; p < P; ++p) out[p] = pack_bf16(a[p], b[p]);
-}
-
-template <bool REC, typename W>
-__global__ void __launch_bounds__(MMA_THREADS)
-    bwd_chain_mma_kernel(Args a0, int tpb) {
-  constexpr int P = pieces<W>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Args a = at_replica<W>(a0, blockIdx.z);
-  const int H = a.H, O = a.O, T = a.T, B = a.B;
-  const int HP = mma_hp(H), NWU = HP / 32, KT = HP / 16, ZS = mma_zs(HP);
-  const MmaChainLayout L = mma_chain_layout(H, REC, P, tpb);
-  uint2* s_wrec = reinterpret_cast<uint2*>(smem + L.wrec);
-  uint2* s_wout = reinterpret_cast<uint2*>(smem + L.wout);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
-  const int tile = warp / NWU, wu = warp % NWU;
-  uint16_t* s_d =
-      reinterpret_cast<uint16_t*>(smem + L.d) + (size_t)tile * 2 * P * 16 * ZS;
-
-  if (REC) {  // B[j][h] = W_rec[h, j]
-    const W* w = static_cast<const W*>(a.w_rec);
-    fill_b<P>(s_wrec, HP, HP, [&](int k, int n) {
-      return k < H && n < H ? to_f32(w[(size_t)n * H + k]) : 0.f;
-    }, tid, nthreads);
-  }
-  {  // B[o][h] = W_out[h, o]
-    const W* w = static_cast<const W*>(a.w_out);
-    fill_b<P>(s_wout, MMA_OMAX, HP, [&](int k, int n) {
-      return k < O && n < H ? to_f32(w[(size_t)n * O + k]) : 0.f;
-    }, tid, nthreads);
-  }
-  __syncthreads();
-  const int row0 = (blockIdx.x * tpb + tile) * 16;
-  if (row0 >= B) return;  // a tile past the batch; no block barrier below
-
-  const int col0 = MMA_NU * wu + 2 * q;  // entry 0 of n8 tile 0
-  const W* delta = static_cast<const W*>(a.delta);
-  const W* a_tr = static_cast<const W*>(a.a_tr);
-  W* dcur_out = static_cast<W*>(a.dcur);
-  const float beta = a_tr ? *a.beta : 0.f;
-  const size_t step_stride = (size_t)B * H;
-  bool live[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) live[hh] = row0 + g + 8 * hh < B;
-
-  // s in the A layout: entry i = 2 r + c of register r is (row g + 8 (r &
-  // 1), output 2 q + c + 8 (r >> 1)).
-  float s[8], gl[8];
-  int tsr[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + g + 8 * ((i >> 1) & 1);
-    const int o = 2 * q + (i & 1) + 8 * (i >> 2);
-    const bool ok = row < B && o < O;
-    s[i] = 0.f;
-    gl[i] = ok ? a.g_logits[(size_t)row * O + o] : 0.f;
-    tsr[i] = ok ? a.tstar[(size_t)row * O + o] : -1;
-  }
-  // Per entry (n8 tile n, fragment entry e): the element's index in a
-  // (., B, H) trace, the residual of step t, g_counts, dcur(t+1).
-  float d_t[MMA_NT][4], gcnt[MMA_NT][4], dcur[MMA_NT][4];
-#pragma unroll
-  for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + 8 * (e >> 1), col = col0 + 8 * n + (e & 1);
-      const bool ok = live[e >> 1] && col < H;
-      const size_t at = (size_t)row * H + col;
-      d_t[n][e] = ok ? to_f32(delta[(size_t)(T - 1) * step_stride + at]) : 0.f;
-      gcnt[n][e] = ok && a.g_counts ? a.g_counts[at] : 0.f;
-      dcur[n][e] = 0.f;
-    }
-  // This warp's word of each row's z bits (32 units of one row).
-  const int HW = NWU;
-  unsigned* zrow[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    zrow[hh] = live[hh]
-                   ? a.zmask + (size_t)(row0 + g + 8 * hh) * (T + 1) * HW + wu
-                   : nullptr;
-    if (zrow[hh] && q == 0) zrow[hh][0] = 0u;  // z(-1)
-  }
-
-  for (int t = T - 1; t >= 0; --t) {
-    // s(t), rounded to the weights' type, as P pieces of A.
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      s[i] = a.kappa * s[i] + gl[i] * (tsr[i] == t ? 1.f : 0.f);
-    uint32_t sa[P][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      uint32_t w[P];
-      pack_pieces<W, P>(w, s[2 * r], s[2 * r + 1]);
-#pragma unroll
-      for (int p = 0; p < P; ++p) sa[p][r] = w[p];
-    }
-    float dz[MMA_NT][4] = {};
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n)
-      mma_split_a<P>(dz[n], sa, s_wout, MMA_NT * wu + n, lane);
-    if (a.g_counts) {
-#pragma unroll
-      for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dz[n][e] = dz[n][e] + gcnt[n][e];
-    }
-    if (REC && t < T - 1) {
-      // dcur(t+1) @ W_rec^T from the tile's buffer of step t+1.
-      const uint16_t* dp = s_d + (size_t)((t + 1) & 1) * P * 16 * ZS;
-      float rec[MMA_NT][4] = {};
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t da[P][4];
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-          load_a(da[p], dp + p * 16 * ZS, ZS, kk, lane);
-#pragma unroll
-        for (int n = 0; n < MMA_NT; ++n)
-          mma_split_a<P>(rec[n], da, s_wrec, kk * (HP / 8) + MMA_NT * wu + n,
-                         lane);
-      }
-#pragma unroll
-      for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dz[n][e] = dz[n][e] + rec[n][e];
-    }
-    // The element-wise chain of bwd_chain_kernel, per (row, unit).
-    float piece[P][MMA_NT][4];
-    uint32_t zw[2] = {0u, 0u};
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + g + 8 * (e >> 1), col = col0 + 8 * n + (e & 1);
-        const bool ok = live[e >> 1] && col < H;
-        const size_t at = (size_t)row * H + col;
-        const float d_prev =
-            ok && t > 0 ? to_f32(delta[(size_t)(t - 1) * step_stride + at])
-                        : -1.f;
-        float thr = a.threshold;
-        if (a_tr)
-          thr = a.threshold +
-                beta * (ok ? to_f32(a_tr[(size_t)t * step_stride + at]) : 0.f);
-        const float surr = surrogate(a.phi, d_t[n][e], thr, a.gamma);
-        const float dv = dz[n][e] * surr + a.alpha * dcur[n][e];
-        const float zp = d_prev >= 0.f ? 1.f : 0.f;
-        dcur[n][e] = ok ? dv * (1.f - zp) : 0.f;
-        if (ok)
-          from_f32(dcur[n][e], dcur_out + ((size_t)row * T + t) * H + col);
-        float pc[P];
-        split<P>(round_w<W>(dcur[n][e]), pc);
-#pragma unroll
-        for (int p = 0; p < P; ++p) piece[p][n][e] = pc[p];
-        if (ok && d_t[n][e] >= 0.f)
-          zw[e >> 1] |= 1u << (8 * n + 2 * q + (e & 1));
-        d_t[n][e] = d_prev;
-      }
-    }
-    // z(t)'s word of rows g and g + 8: the four lanes of a row group hold
-    // its 32 bits between them.
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      zw[hh] |= __shfl_xor_sync(0xffffffffu, zw[hh], 1);
-      zw[hh] |= __shfl_xor_sync(0xffffffffu, zw[hh], 2);
-      if (zrow[hh] && q == 0) zrow[hh][(size_t)(t + 1) * HW] = zw[hh];
-    }
-    if (REC) {
-      uint16_t* dn = s_d + (size_t)(t & 1) * P * 16 * ZS;
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-        put_slice(dn + p * 16 * ZS, ZS, wu, lane, piece[p]);
-      tile_sync(1 + tile, NWU * 32);
-    }
-  }
-}
-
-template <bool REC, typename W>
-cudaError_t launch_chain_mma(const Args& a, int S, int device,
-                             cudaStream_t stream) {
-  auto kernel = bwd_chain_mma_kernel<REC, W>;
-  const int NWU = mma_hp(a.H) / 32, tiles = (a.B + 15) / 16;
-  int tpb = 1;
-  auto smem = [&](int t) {
-    return mma_chain_layout(a.H, REC, pieces<W>(), t).total;
+// The LIF/ALIF chain as a policy of the tensor-core body (chain_mma.cuh):
+// per entry the residual delta of step t and dcur(t+1), the arithmetic of
+// bwd_common.cuh:bwd_chain_kernel.
+template <typename W>
+struct LifChain {
+  using Args = ::Args;
+  struct State {
+    float d_t, dcur;
   };
-  cudaError_t err = mma_tiling(kernel, tiles, S, NWU, device, smem, &tpb);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((tiles + tpb - 1) / tpb, 1, S), tpb * NWU * 32, smem(tpb),
-           stream>>>(a, tpb);
-  return cudaGetLastError();
-}
+  const W* delta;
+  const W* a_tr;
+  float beta;
+
+  __device__ explicit LifChain(const Args& a)
+      : delta(static_cast<const W*>(a.delta)),
+        a_tr(static_cast<const W*>(a.a_tr)),
+        beta(a.a_tr ? *a.beta : 0.f) {}
+
+  __device__ State start(const Args& a, size_t at, bool ok) const {
+    return State{
+        ok ? to_f32(delta[(size_t)(a.T - 1) * a.B * a.H + at]) : 0.f, 0.f};
+  }
+
+  __device__ float step(const Args& a, State& s, float dz, int t, size_t at,
+                        bool ok, bool& z) const {
+    const size_t step_stride = (size_t)a.B * a.H;
+    const float d_prev =
+        ok && t > 0 ? to_f32(delta[(size_t)(t - 1) * step_stride + at]) : -1.f;
+    float thr = a.threshold;
+    if (a_tr)
+      thr = a.threshold +
+            beta * (ok ? to_f32(a_tr[(size_t)t * step_stride + at]) : 0.f);
+    const float surr = surrogate(a.phi, s.d_t, thr, a.gamma);
+    const float dv = dz * surr + a.alpha * s.dcur;
+    const float zp = d_prev >= 0.f ? 1.f : 0.f;
+    s.dcur = ok ? dv * (1.f - zp) : 0.f;
+    z = ok && s.d_t >= 0.f;
+    s.d_t = d_prev;
+    return s.dcur;
+  }
+};
 
 struct Plan {
   int rows, smem_chain, mma;
@@ -303,7 +110,7 @@ cudaError_t launch_all(const Args& a, const Plan& p, int S, int device,
   const int HP = (a.H + 31) / 32 * 32;
   cudaError_t err;
   if (p.mma) {
-    err = launch_chain_mma<REC, W>(a, S, device, s);
+    err = launch_chain_mma<LifChain<W>, REC, W>(a, S, device, s);
   } else {
     err = opt_in(bwd_chain_kernel<REC, true, W>, p.smem_chain);
     if (err != cudaSuccess) return err;

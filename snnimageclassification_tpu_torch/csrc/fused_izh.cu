@@ -19,13 +19,22 @@
 // stacked-replica mode (:371-374, :450-463): S seeds of an ensemble in one
 // launch, one block per (row tile, replica), the latencies shared.
 //
-// The kernel, its shared-memory layout and its launch are head_fwd.cuh's
-// (shared with fused_head.cu, so bounds and design are those of the LIF/ALIF
-// kernels: the latency of the serial T-chain); the Izhikevich cell is the
-// IzhCell policy below, its step izh_common.cuh's izh_step.
+// Two bodies, as the LIF/ALIF head's (fused_head.cu).  The head's modes
+// take the tensor-core body of head_mma_fwd.cuh (head_sort_kernel +
+// head_mma_kernel) with the IzhMmaCell policy below wherever it fits (O <=
+// 16, H <= 256, W_rec's bf16 pieces within a block's shared memory): a
+// warp owns 16 rows x 32 units, each entry's v and u in registers in the
+// accumulator layout, z(t-1) @ W_rec and z(t-1) @ W_out on tensor cores,
+// the input current from each row's features sorted by spike key once.
+// What bounds it on an H100 is the serial T-chain, whose step the body
+// keeps on tensor cores and in registers; the Izhikevich step has about
+// twice the LIF step's element-wise work.  Other shapes and the first
+// layer take the per-unit body, head_fwd.cuh's kernel with the IzhCell
+// policy (one thread a (row, unit), the sums as walks over spike bits).
+// Both step the cell with izh_common.cuh's izh_step.
 
 #include "izh_common.cuh"
-#include "head_fwd.cuh"
+#include "head_mma_fwd.cuh"
 
 namespace {
 
@@ -64,37 +73,96 @@ struct IzhCell {
   }
 };
 
+// The cell policy of the tensor-core body (head_mma_fwd.cuh): IzhCell's
+// step on one (v, u) State a (row, unit) entry; training stores v in
+// float32, each lane its two adjacent units of a row as one 8-byte store
+// where their address is 8-byte aligned.
+struct IzhMmaCell {
+  using Params = IzhCellParams;
+  struct State {
+    float v, u;
+  };
+
+  __device__ explicit IzhMmaCell(const Params&) {}
+
+  __device__ State start(const Params& q) const {
+    return State{q.p.v_rest, 0.f};
+  }
+
+  __device__ bool step(const Params& q, State& s, float cur, float zp) const {
+    izh_step(q.p, cur, zp, s.v, s.u);
+    return s.v >= q.p.v_peak;
+  }
+
+  template <typename W>
+  __device__ void store(const Params& q, const State& s0, const State& s1,
+                        size_t at, bool two) const {
+    if (!q.v_tr) return;
+    float* out = q.v_tr + at;
+    // A pair starts 8-byte aligned only where its address is: a stacked
+    // replica's trace starts at s T B H floats, odd when T B H is.
+    if (two && (reinterpret_cast<uintptr_t>(out) & 7) == 0) {
+      *reinterpret_cast<float2*>(out) = make_float2(s0.v, s1.v);
+    } else {
+      out[0] = s0.v;
+      if (two) out[1] = s1.v;
+    }
+  }
+};
+
+template <bool TRAIN>
+int run_head(const FwdArgs<IzhCellParams>& a, int bf16, void* lists, int S,
+             int device, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_head_body(
+      a, bf16, lists, S, device,
+      [&](uint16_t* l) {
+        return bf16
+                   ? run_mma_body<IzhMmaCell, TRAIN, __nv_bfloat16>(
+                         a, l, S, device, s)
+                   : run_mma_body<IzhMmaCell, TRAIN, float>(a, l, S, device,
+                                                            s);
+      },
+      [&](int rows) {
+        return run<IzhCell, TRAIN, true>(a, bf16, rows, device, stream, S);
+      });
+}
+
 }  // namespace
 
 extern "C" {
 
-// Rows per block and shared-memory bytes for a shape on `device` (O == 0:
-// the first-layer mode).  Returns 0 when the shape fits, 1 when it does
-// not, or a CUDA error code.
+// Whether the Izhikevich kernels take a shape on `device`, and with which
+// body (O == 0: the first-layer mode, always the per-unit body): 0 when
+// they do (*mma_out = 1: the head's mma body, which needs the list
+// scratch; 0: the per-unit body, *rows_out rows and *smem_out bytes a
+// block), 1 when they do not, or a CUDA error code.
 int snn_fused_izh_plan(int F, int H, int O, int rec, int bf16, int device,
-                       int* rows_out, int* smem_out) {
-  return plan(F, H, O, rec, bf16, device, rows_out, smem_out);
+                       int* rows_out, int* smem_out, int* mma_out) {
+  return head_plan(F, H, O, rec, bf16, device, rows_out, smem_out, mma_out);
 }
 
 // The head: logits, and where any of v_tr, tstar, counts is not null (the
 // training kernel) each of those that is not.  S stacked replicas (S = 1:
-// one network; head_fwd.cuh): weights (S, ...), outputs and v (S, ...).
+// one network): weights (S, ...), outputs and v (S, ...).  `lists`: the mma
+// body's scratch (snn_fused_izh_plan), null for the per-unit body.
 int snn_fused_izh_fwd(const int* lat, const void* w_in, const void* w_rec,
                       const void* w_out, const float* b_out, float* logits,
-                      float* v_tr, int* tstar, float* counts, int B, int F,
-                      int H, int O, int T, int periodic, int bf16, float dt,
-                      float C, float v_rest, float v_th, float k, float a_,
-                      float b_, float c, float d, float v_peak, float kappa,
-                      int rows, int S, int device, void* stream) {
+                      float* v_tr, int* tstar, float* counts, void* lists,
+                      int B, int F, int H, int O, int T, int periodic,
+                      int bf16, float dt, float C, float v_rest, float v_th,
+                      float k, float a_, float b_, float c, float d,
+                      float v_peak, float kappa, int S, int device,
+                      void* stream) {
+  if (O < 1) return (int)cudaErrorInvalidValue;
   FwdArgs<IzhCellParams> a{
       lat, w_in, w_rec, w_out, b_out, logits, tstar, counts, B, F, H, O, T,
       periodic, kappa,
       {IzhParams{dt, C, v_rest, v_th, k, a_, b_, c, d, v_peak}, nullptr,
        v_tr}};
   const bool train = v_tr || tstar || counts;
-  return train
-             ? run<IzhCell, true, true>(a, bf16, rows, device, stream, S)
-             : run<IzhCell, false, true>(a, bf16, rows, device, stream, S);
+  return train ? run_head<true>(a, bf16, lists, S, device, stream)
+               : run_head<false>(a, bf16, lists, S, device, stream);
 }
 
 // The first layer of a deeper network: z (T, B, H), and v (T, B, H) where

@@ -11,24 +11,67 @@
 // gridDim.z = S on every function, slabs (S, blocks, ...) summed per
 // replica by the host.
 //
-// The two-carry chain is izh_chain (izh_common.cuh): the head reads only the
-// float32 v trace and recomputes z = v >= v_peak, a first layer reads v, z
-// and g_z.  It writes gi, the input current's cotangent, rounded to the
-// weights' type into a (B, T, H) buffer, and the bits of z; from there the
-// LIF/ALIF functions of bwd_common.cuh take over unchanged: bwd_gwin (g_W_in
-// through the per-row period table), gbits_mma (g_W_rec), bwd_gout (g_W_out,
-// g_b).  Partial sums go to per-block slabs that the host adds in a fixed
-// order: no atomics, equal bits on every run.  What bounds it on an H100:
-// as fused_head_bwd.cu, the serial chain with its dense gi @ W_rec^T and
-// s @ W_out^T per step; the rest are sums of selected rows.
+// The two-carry chain: the head reads only the float32 v trace and
+// recomputes z = v >= v_peak, a first layer reads v, z and g_z.  It writes
+// gi, the input current's cotangent, rounded to the weights' type into a
+// (B, T, H) buffer, and the bits of z; from there the LIF/ALIF functions of
+// bwd_common.cuh take over unchanged: bwd_gwin (g_W_in through the per-row
+// period table), gbits_mma (g_W_rec), bwd_gout (g_W_out, g_b).  Partial
+// sums go to per-block slabs that the host adds in a fixed order: no
+// atomics, equal bits on every run.  What bounds it on an H100: as
+// fused_head_bwd.cu, the serial chain with its dense gi @ W_rec^T and s @
+// W_out^T per step; the rest are sums of selected rows.
+//
+// The head's chain takes the tensor-core body (chain_mma.cuh:
+// bwd_chain_mma_kernel with the IzhChain policy below) wherever it fits
+// (O <= 16, H <= 256, the weights' bf16 pieces within a block's shared
+// memory): dv(t+1) and du(t+1) in registers in the accumulator layout, dz
+// = s @ W_out^T (+ g_counts) + round(gi(t+1)) @ W_rec^T on tensor cores
+// (float32 weights: the six split products), the rest izh_chain_kernel's
+// arithmetic (both step with izh_common.cuh:izh_chain_step).  A first layer and the other shapes take izh_chain_kernel
+// (izh_common.cuh), one thread a (row, unit).
 
 #include "izh_common.cuh"
+#include "chain_mma.cuh"
 #include "gbits_mma.cuh"
 
 namespace {
 
+// The head's Izhikevich chain as a policy of the tensor-core body
+// (chain_mma.cuh): per entry v(t) and the carries dv(t+1), du(t+1), stepped
+// by izh_chain_step as izh_chain_kernel does, with z(t) = v(t) >= v_peak.
+struct IzhChain {
+  using Args = IzhChainArgs;
+  struct State {
+    float v, dv, du;
+  };
+
+  __device__ explicit IzhChain(const Args&) {}
+
+  __device__ State start(const Args& a, size_t at, bool ok) const {
+    return State{ok ? a.v[(size_t)(a.T - 1) * a.B * a.H + at] : 0.f, 0.f,
+                 0.f};
+  }
+
+  __device__ float step(const Args& a, State& s, float dz, int t, size_t at,
+                        bool ok, bool& z) const {
+    const IzhBwd& p = a.p;
+    const bool prev = ok && t > 0;
+    const float v_prev =
+        prev ? a.v[(size_t)(t - 1) * a.B * a.H + at] : 0.f;
+    const bool z_prev = prev && v_prev >= p.v_peak;
+    z = ok && s.v >= p.v_peak;
+    float dv = s.dv, du = s.du;
+    const float gi = izh_chain_step(p, s.v, z, z_prev, dz, dv, du);
+    s.dv = ok ? dv : 0.f;
+    s.du = ok ? du : 0.f;
+    s.v = v_prev;
+    return ok ? gi : 0.f;
+  }
+};
+
 struct Plan {
-  int rows, smem_chain;
+  int rows, smem_chain, mma;
   GwinPlan gw;
   GbitsPlan gb;
   GoutPlan go;
@@ -47,6 +90,7 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
+  p->mma = O > 0 && chain_mma_fits(H, O, rec, bf16, lim.max_smem);
   p->gb.groups = 0;
   if (gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
       (rec && (bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, H, H, lim, &p->gb)
@@ -60,14 +104,20 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
 // S stacked replicas of the head (S = 1: one network) on gridDim.z.
 template <bool REC, bool HEAD, typename W>
 cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
-                       int S, cudaStream_t s) {
+                       int S, int device, cudaStream_t s) {
   const int HP = (c.H + 31) / 32 * 32;
-  cudaError_t err = opt_in(izh_chain_kernel<REC, HEAD, W>, p.smem_chain);
+  cudaError_t err;
+  if (HEAD && p.mma) {
+    err = launch_chain_mma<IzhChain, REC, W>(c, S, device, s);
+  } else {
+    err = opt_in(izh_chain_kernel<REC, HEAD, W>, p.smem_chain);
+    if (err != cudaSuccess) return err;
+    izh_chain_kernel<REC, HEAD, W>
+        <<<dim3((c.B + p.rows - 1) / p.rows, 1, S), dim3(HP, p.rows),
+           p.smem_chain, s>>>(c, p.rows);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  izh_chain_kernel<REC, HEAD, W>
-      <<<dim3((c.B + p.rows - 1) / p.rows, 1, S), dim3(HP, p.rows),
-         p.smem_chain, s>>>(c, p.rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_gwin<W>(g, p.gw, S, s)) != cudaSuccess) return err;
   if (REC) {
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
@@ -85,20 +135,23 @@ cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
 
 template <bool HEAD, typename W>
 cudaError_t launch_rec(const IzhChainArgs& c, const Args& g, const Plan& p,
-                       int S, cudaStream_t s) {
-  return c.w_rec ? launch_all<true, HEAD, W>(c, g, p, S, s)
-                 : launch_all<false, HEAD, W>(c, g, p, S, s);
+                       int S, int device, cudaStream_t s) {
+  return c.w_rec ? launch_all<true, HEAD, W>(c, g, p, S, device, s)
+                 : launch_all<false, HEAD, W>(c, g, p, S, device, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Slab counts for a shape on `device` (O == 0: the first-layer mode):
-// out[0] = blocks of g_W_in slabs, out[1] = of g_W_rec slabs (0 without
-// recurrence), out[2] = of g_W_out/g_b slabs (0 for a first layer).
-// Returns 0 when the shape fits the kernels, 1 when it does not, or a CUDA
-// error code.
+// The plan for a shape on `device` (O == 0: the first-layer mode), as
+// snn_fused_head_bwd_plan gives the LIF/ALIF head's: out[0] = blocks of
+// g_W_in slabs, out[1] = of g_W_rec slabs (0 without recurrence), out[2] =
+// of g_W_out/g_b slabs (0 for a first layer); out[3] = 1 where the chain
+// takes its mma body; out[4] and out[5] = rows a batch of bwd_gwin and of
+// bwd_gout; out[6] and out[7] = 1 where bwd_gwin and gbits_mma stream
+// their d through a TMA ring.  Returns 0 when the shape fits the kernels,
+// 1 when it does not, or a CUDA error code.
 int snn_fused_izh_bwd_plan(int B, int F, int H, int O, int T, int rec,
                            int bf16, int periodic, int device, int* out) {
   Plan p;
@@ -107,6 +160,11 @@ int snn_fused_izh_bwd_plan(int B, int F, int H, int O, int T, int rec,
     out[0] = p.gw.groups;
     out[1] = p.gb.groups;
     out[2] = p.go.groups;
+    out[3] = p.mma;
+    out[4] = p.gw.R;
+    out[5] = O > 0 ? p.go.R : 0;
+    out[6] = p.gw.tma;
+    out[7] = p.gb.tma;
   }
   return rc;
 }
@@ -145,11 +203,11 @@ int snn_fused_izh_bwd(const float* g_logits, const int* tstar,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16)
-    err = head ? launch_rec<true, __nv_bfloat16>(c, g, p, S, s)
-               : launch_rec<false, __nv_bfloat16>(c, g, p, S, s);
+    err = head ? launch_rec<true, __nv_bfloat16>(c, g, p, S, device, s)
+               : launch_rec<false, __nv_bfloat16>(c, g, p, S, device, s);
   else
-    err = head ? launch_rec<true, float>(c, g, p, S, s)
-               : launch_rec<false, float>(c, g, p, S, s);
+    err = head ? launch_rec<true, float>(c, g, p, S, device, s)
+               : launch_rec<false, float>(c, g, p, S, device, s);
   return (int)err;
 }
 

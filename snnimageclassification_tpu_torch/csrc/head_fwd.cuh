@@ -1,6 +1,9 @@
 // The whole-network forward template shared by fused_head.cu (LIF/ALIF) and
 // fused_izh.cu (Izhikevich): latencies -> spike rows -> W_in -> (recurrent)
 // scan of one cell -> readout kappa-integrator -> first-argmax max over time.
+// It is the per-unit body: the heads run the tensor-core body of
+// head_mma_fwd.cuh wherever that fits, this one past its limits and as the
+// first layer of a deeper network.
 //
 // The cell is a policy class: its state, its step and the traces it stores
 // are all that differs between the neuron families.  A Cell has

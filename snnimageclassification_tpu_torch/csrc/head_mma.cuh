@@ -1,7 +1,9 @@
-// The tensor-core pieces of the LIF/ALIF head kernel pair's mma body
-// (fused_head.cu, fused_head_bwd.cu): bf16 operands split from float32,
-// m16n8k16 products (bf16 in, float32 accumulate) and their fragment
-// layouts, the per-tile barrier, the shape limits and the launch's tiling.
+// The tensor-core pieces of the head kernel pairs' mma body
+// (head_mma_fwd.cuh and chain_mma.cuh, for the LIF/ALIF and the
+// Izhikevich heads; gbits_mma.cuh and gout_mma.cuh take them too): bf16
+// operands split from float32, m16n8k16 products (bf16 in, float32
+// accumulate) and their fragment layouts, the per-tile barrier, the shape
+// limits and the launch's tiling.
 //
 // Layout.  A warp owns a tile of 16 batch rows and 32 hidden units (four n8
 // tiles), kept in registers in the accumulator layout of mma.m16n8k16: lane

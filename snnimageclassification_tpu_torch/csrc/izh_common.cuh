@@ -54,6 +54,26 @@ struct IzhBwd {
   int phi;
 };
 
+// One entry's reverse step t of the chain above: from v(t), z(t), z(t-1),
+// dz(t) and the carries dv(t+1), du(t+1), which it replaces by dv(t), du(t);
+// returns gi(t).  The per-unit chain (izh_chain_kernel) and the tensor-core
+// body's (fused_izh_bwd.cu:IzhChain) both step with it.
+__device__ __forceinline__ float izh_chain_step(const IzhBwd& p, float v_t,
+                                                bool z_t, bool z_prev,
+                                                float dz, float& dv_next,
+                                                float& du_next) {
+  const float nr = 1.f - (z_t ? 1.f : 0.f);  // the reset gate of step t+1
+  const float dcn = dv_next * p.dtC * nr;    // gi(t+1), bitwise
+  const float surr = surrogate(p.phi, v_t - p.v_peak, p.v_peak, p.gamma);
+  const float dv =
+      dz * surr +
+      dv_next * (1.f + p.c1 * (2.f * v_t - p.v_rest - p.v_th)) * nr +
+      du_next * p.c2;
+  du_next = -dcn + du_next * p.c3;
+  dv_next = dv;
+  return dv * p.dtC * (1.f - (z_prev ? 1.f : 0.f));
+}
+
 struct IzhChainArgs {
   const float* g_logits;  // (B, O)            head
   const int* tstar;       // (B, O)            head
@@ -170,8 +190,6 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
     float gr = 0.f;
     if (mine) {
-      const float nr = 1.f - (z_t ? 1.f : 0.f);  // the reset gate of step t+1
-      const float dcn = dv_next * p.dtC * nr;    // gi(t+1), bitwise
       float dz = gz_t;
       if (HEAD) {
         const float* sr = s_sr + buf * rows * O + r * O;
@@ -183,18 +201,11 @@ __global__ void __launch_bounds__(1024)
         const float* dp = s_dcr + (buf ^ 1) * rows * HP + r * HP;
         dz = dz + rec_product(dp, s_wrec, H, h);
       }
-      const float surr = surrogate(p.phi, v_t - p.v_peak, p.v_peak, p.gamma);
-      const float dv =
-          dz * surr +
-          dv_next * (1.f + p.c1 * (2.f * v_t - p.v_rest - p.v_th)) * nr +
-          du_next * p.c2;
-      const float du = -dcn + du_next * p.c3;
-      const float gi = dv * p.dtC * (1.f - (z_prev ? 1.f : 0.f));
+      const float gi =
+          izh_chain_step(p, v_t, z_t, z_prev, dz, dv_next, du_next);
       if (a.g_i) a.g_i[(size_t)t * step_stride + at0] = gi;
       if (dcur_out) from_f32(gi, dcur_out + ((size_t)row * T + t) * H + h);
       gr = round_w<W>(gi);
-      dv_next = dv;
-      du_next = du;
     }
     s_dcr[buf * rows * HP + r * HP + h] = gr;
     const unsigned zbits = __ballot_sync(0xffffffffu, mine && z_t);

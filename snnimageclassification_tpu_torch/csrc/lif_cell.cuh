@@ -1,6 +1,7 @@
 // The LIF/ALIF cell of the forward kernels: its constants, its state and
-// the traces it stores, as a cell policy of head_fwd.cuh's kernel
-// (fused_head.cu) and as the two layers of fused2.cu.
+// the traces it stores, as a cell policy of head_fwd.cuh's per-unit kernel
+// (fused_head.cu) and as the two layers of fused2.cu (LifCell), and of the
+// tensor-core body head_mma_fwd.cuh (LifMmaCell).
 #pragma once
 
 #include "head_common.cuh"
@@ -31,7 +32,7 @@ struct LifParams {
 // LIF (ALIF = false) or ALIF: v' = (alpha v + cur)(1 - z(t-1)), z' =
 // [v' - thr >= 0] with thr = threshold (+ beta a', a' = rho a + z(t-1)).
 // Returns v' - thr; the one copy of the cell's arithmetic (LifCell and the
-// tensor-core head body of fused_head.cu).
+// tensor-core head body, LifMmaCell).
 template <bool ALIF>
 __device__ __forceinline__ float lif_update(const LifParams& p, float beta,
                                             float cur, float zp, float& v,
@@ -67,6 +68,41 @@ struct LifCell {
       const float keep = (!HEAD && p.res_is_v) ? v : delta;
       if (p.delta) from_f32(keep, static_cast<W*>(p.delta) + at);
       if (ALIF && p.a_tr) from_f32(ad, static_cast<W*>(p.a_tr) + at);
+    }
+  }
+};
+
+// The cell policy of the tensor-core body (head_mma_fwd.cuh): the same
+// step, one State a (row, unit) entry in the accumulator layout; training
+// stores delta (and a for ALIF with Phi) in the weights' type.
+template <bool ALIF>
+struct LifMmaCell {
+  using Params = LifParams;
+  struct State {
+    float v, ad, delta;
+  };
+  float beta;
+
+  __device__ explicit LifMmaCell(const Params& p)
+      : beta(ALIF ? *p.beta : 0.f) {}
+
+  __device__ State start(const Params&) const { return State{0.f, 0.f, 0.f}; }
+
+  __device__ bool step(const Params& p, State& s, float cur, float zp) const {
+    s.delta = lif_update<ALIF>(p, beta, cur, zp, s.v, s.ad);
+    return s.delta >= 0.f;
+  }
+
+  template <typename W>
+  __device__ void store(const Params& p, const State& s0, const State& s1,
+                        size_t at, bool two) const {
+    if (p.delta) {
+      from_f32(s0.delta, static_cast<W*>(p.delta) + at);
+      if (two) from_f32(s1.delta, static_cast<W*>(p.delta) + at + 1);
+    }
+    if (ALIF && p.a_tr) {
+      from_f32(s0.ad, static_cast<W*>(p.a_tr) + at);
+      if (two) from_f32(s1.ad, static_cast<W*>(p.a_tr) + at + 1);
     }
   }
 };

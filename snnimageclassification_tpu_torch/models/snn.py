@@ -120,6 +120,7 @@ from ..ops.fused_izh import (
     fused_izh_head_supported,
     fused_izh_supported,
 )
+from ..ops.fused_izh import head_bodies as izh_head_bodies
 from ..ops.fused_mid import (
     fused_mid_ff_scan,
     fused_mid_ff_scan_head,
@@ -988,6 +989,10 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     ``torch:fused_layer0_reference``, ``torch:fused_mid_reference``,
     ``torch:fused_mid_reference[head]``, ``torch:fused_izh_head_reference``,
     ``torch:fused_izh_layer0_reference``, ``torch:izh_scan_reference``.
+    The head kernels (LIF/ALIF and Izhikevich, single and stacked) name
+    their body on the card: the tensor-core body, "the tensor-core body
+    (mma)" in the reason; the per-unit body past its limits, a path
+    ending in ``[per-unit]``.
     A two-hidden-layer network that takes the two-layer pair is one row:
     ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
     ``torch:fused2_reference`` on the CPU.  The unfused tier gives a layer
@@ -1069,24 +1074,28 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                 if stacked else "single-hidden-layer classifier with "
                 "max-over-time readout")
         body, mode = "", ""
-        if on_card and not izh:
-            # The LIF/ALIF head's kernels run a shape on their tensor-core
-            # body or, past its limits, on their per-unit body.
+        if on_card:
+            # The head's kernels run a shape on their tensor-core body or,
+            # past its limits, on their per-unit body.
             (_, first_cfg), (_, last_cfg) = layer_cfgs
             itemsize = _dtype(cfg.matmul_dtype_eff).itemsize
-            bodies = head_bodies(
+            bodies = (izh_head_bodies if izh else head_bodies)(
                 cfg.int_time_steps, cfg.input_size, first_cfg.output_size,
                 last_cfg.output_size,
                 recurrent=first_cfg.use_recurrent_connection,
                 itemsize=itemsize, device=dev, training=training,
                 use_periods=enc.use_periods)
+            parts = ("the forward", "the backward's chain")
+            if "mma" in bodies:
+                body = "; the tensor-core body (mma) in " + " and ".join(
+                    k for k, b in zip(parts, bodies) if b == "mma")
             if "per-unit" in bodies:
                 mode = "[per-unit]"
-                body = ("; the per-unit body (O > 16, H > 256, or the "
-                        "weights' bf16 pieces past a block's shared memory) "
-                        "in " + " and ".join(
-                            k for k, b in zip(("the forward", "the backward"),
-                                              bodies) if b == "per-unit"))
+                body += ("; the per-unit body (O > 16, H > 256, or the "
+                         "weights' bf16 pieces past a block's shared memory) "
+                         "in " + " and ".join(
+                             k for k, b in zip(parts, bodies)
+                             if b == "per-unit"))
         first = layer_cfgs[0][1]
         gb = (gbits_note("g_W_rec", first.output_size, md_size)
               if rec_of(first) else "")

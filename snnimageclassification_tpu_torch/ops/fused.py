@@ -591,27 +591,63 @@ def _gout_ordered_reference(z: torch.Tensor, g_logits: torch.Tensor,
     return out[:H * O].view(H, O), out[H * O:].clone()
 
 
+def _truncated(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float64) as float32, truncated toward zero where float32
+    does not hold it."""
+    y = x.float()
+    away = y.to(torch.float64).abs() > x.abs()
+    return torch.where(away, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_slice(a: torch.Tensor, w: torch.Tensor,
+               c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """k16 slices' m16n8k16 products as the card forms them: ``a (..., k)
+    @ w (..., k, N)`` of bf16 values (given as float64, so each product is
+    exact), plus the float32 accumulator ``c (..., N)`` where given.  Each
+    term is truncated toward zero to a multiple of ``2^(e - 25)``, ``e`` the
+    largest term's exponent (the float32 significand and two bits more),
+    the terms are summed exactly and the sum truncated toward zero to
+    float32.  Probed on the card with crafted slices
+    (``tests/test_torch_cuda.py::test_tensor_core_slice_sums_truncate``)."""
+    terms = a[..., :, None] * w
+    if c is not None:
+        terms = torch.cat([terms, c.to(torch.float64)[..., None, :]], -2)
+    mag = terms.abs()
+    top = mag.amax(-2, keepdim=True)
+    m, _ = torch.frexp(top)  # top = m 2^e, 1/2 <= m < 1: 2^e = top / m
+    grid = torch.where(top > 0, top / torch.where(top > 0, m, 1.0),
+                       1.0) * 2.0 ** -26
+    return _truncated((torch.sign(terms) * torch.floor(mag / grid)
+                       * grid).sum(-2))
+
+
 def _slice_product(a: torch.Tensor, pieces) -> torch.Tensor:
     """``a @ w`` for a 0/1 left operand ``a (B, K)`` as the tensor-core body
     forms it (``head_mma.cuh:mma_exact``): per k16 slice, the product with
     the hi piece and, for float32 weights, the lo then the mid piece's
     products into a second accumulator, the slice's ``small + big`` added
-    in float32 in ascending k.  Each slice's sums are taken exactly
-    (float64) and rounded once: the tensor cores' rounding inside a slice
-    is the one part of the body's arithmetic this does not follow."""
+    in float32 in ascending k.  Each product is the card's
+    (:func:`_mma_slice`, several slices at once): the Izhikevich head at dt
+    = 30, whose cell amplifies a last bit each step, shows the card's
+    truncation row by row."""
     f64 = torch.float64
     B, K = a.shape
-    acc = torch.zeros((B, pieces[0].shape[1]), dtype=torch.float32,
-                      device=a.device)
-    for k0 in range(0, K, 16):
-        a64 = a[:, k0:k0 + 16].to(f64)
-        big = (a64 @ pieces[0][k0:k0 + 16].to(f64)).float()
-        if len(pieces) == 1:
-            acc = acc + big
-            continue
-        small = (a64 @ pieces[2][k0:k0 + 16].to(f64)).float()
-        small = (small.to(f64) + a64 @ pieces[1][k0:k0 + 16].to(f64)).float()
-        acc = acc + (small + big)
+    N = pieces[0].shape[1]
+    S = -(-K // 16)
+    pad = 16 * S - K  # zero terms, as the body's padded units
+    a64 = torch.nn.functional.pad(a.to(f64), (0, pad)).view(B, S, 16)
+    wp = [torch.nn.functional.pad(p.to(f64), (0, 0, 0, pad)).view(S, 16, N)
+          for p in pieces]
+    acc = torch.zeros((B, N), dtype=torch.float32, device=a.device)
+    group = max(1, (1 << 24) // (B * 16 * N))  # slices a pass
+    for s0 in range(0, S, group):
+        x, ws = a64[:, s0:s0 + group], [p[s0:s0 + group] for p in wp]
+        part = _mma_slice(x, ws[0])
+        if len(ws) == 3:
+            small = _mma_slice(x, ws[1], _mma_slice(x, ws[2]))
+            part = small + part
+        for j in range(part.shape[1]):
+            acc = acc + part[:, j]
     return acc
 
 
@@ -648,68 +684,33 @@ def _split_slice_product(a: torch.Tensor, w: torch.Tensor,
 def _ordered_rows(acc: torch.Tensor, mask: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """``acc`` plus the rows ``w[f]`` of the features set in ``mask (B,
-    F)``, one at a time in ascending ``f`` (``fused_head.cu:gather_rows``
+    F)``, one at a time in ascending ``f`` (``head_mma_fwd.cuh:gather_rows``
     over a run of a row's sorted list)."""
     for f in torch.nonzero(mask.any(0)).flatten().tolist():
         acc = acc + mask[:, f, None].to(torch.float32) * w[f]
     return acc
 
 
-def _head_train_ordered_reference(lat, w_in, w_rec, beta, w_out, b_out,
-                                  n_steps, use_periods, alif, alpha, rho,
-                                  threshold, kappa, store, store_a,
-                                  want_counts):
-    """Plain version of the tensor-core body of ``fused_head_fwd_train``
-    (``csrc/fused_head.cu:head_mma_kernel``) in its summation order;
-    returns as :func:`_head_train_reference`.
-
-    The input current of step ``t``: periodic, the run of period 1 summed
-    once (ascending ``f``) and taken at every ``t >= 1``, then each other
-    period dividing ``t``, ascending, its features added one at a time;
-    TTFS, a row that fires at least ``F / 16`` features at ``t`` takes
-    them as a k16-sliced product (:func:`_slice_product`), the others add
-    them one at a time.  The recurrent current and the readout are
-    k16-sliced products of ``z(t - 1)``, the recurrent one added to the
-    input current, ``b`` to the readout product.  The cell and the readout
-    steps are the plain loop's arithmetic."""
+def _ordered_currents(lat, w_in, n_steps, use_periods):
+    """``cur_in(t)``: the input current ``(B, H)`` float32 of step ``t`` as
+    the tensor-core body sums it (``csrc/head_mma_fwd.cuh``).  Periodic,
+    the run of period 1 summed once (ascending ``f``) and taken at every
+    ``t >= 1``, then each other period dividing ``t``, ascending, its
+    features added one at a time; TTFS, a row that fires at least ``F /
+    16`` features at ``t`` takes them as a k16-sliced product
+    (:func:`_slice_product`), the others add them one at a time."""
     f32 = torch.float32
-    dev = lat.device
     B, F = lat.shape
-    H, O = w_in.shape[1], w_out.shape[1]
-    wd = w_in.dtype
-    T = n_steps
-
-    def pieces(w):
-        w = w.to(f32)
-        return split_pieces(w) if wd == f32 else [w]
-
     w_in32 = w_in.to(f32)
-    in_p = pieces(w_in)
-    rec_p = None if w_rec is None else pieces(w_rec)
-    out_p = pieces(w_out)
-    b = b_out.to(f32)
-    beta_t = torch.as_tensor(beta, dtype=f32, device=dev)
-    key = spike_keys(lat, T, use_periods)
+    in_p = split_pieces(w_in32) if w_in.dtype == f32 else [w_in32]
+    key = spike_keys(lat, n_steps, use_periods)
     periods = torch.unique(key[key >= 0]).tolist() if use_periods else []
-    every_step = use_periods and T >= 2
-    zeros = torch.zeros((B, H), dtype=f32, device=dev)
+    every_step = use_periods and n_steps >= 2
+    zeros = torch.zeros((B, w_in.shape[1]), dtype=f32, device=lat.device)
     every = (_ordered_rows(zeros, key == 1, w_in32) if every_step
              else zeros)
-    v, ad, z = zeros, zeros, zeros
-    vr = torch.zeros((B, O), dtype=f32, device=dev)
-    m = torch.full_like(vr, float("-inf"))
-    tstar = torch.zeros((B, O), dtype=torch.int32, device=dev)
-    counts = zeros
-    deltas, a_trace = [], []
-    for t in range(T + 1):
-        if t > 0:
-            r = _slice_product(z, out_p) + b
-            vr = kappa * vr + r
-            better = vr > m
-            m = torch.where(better, vr, m)
-            tstar = torch.where(better, torch.full_like(tstar, t - 1), tstar)
-        if t == T:
-            break
+
+    def cur_in(t):
         cur = every if every_step and t >= 1 else zeros
         if use_periods:
             for p in periods:
@@ -725,22 +726,90 @@ def _head_train_ordered_reference(lat, w_in, w_rec, beta, w_out, b_out,
             if bool(dense.any()):
                 cur = torch.where(dense[:, None],
                                   _slice_product(fire.to(f32), in_p), cur)
+        return cur
+
+    return cur_in
+
+
+def _ordered_head(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
+                  kappa, cell):
+    """The tensor-core body's head loop in its summation order: at each
+    step the input current (:func:`_ordered_currents`) plus, past step 0,
+    the recurrent current as a k16-sliced product of ``z(t - 1)``
+    (:func:`_slice_product`), then ``cell(cur)``, which steps the cell and
+    returns ``z(t)`` float32; the readout ``v_r = kappa v_r + (z @ W_out +
+    b)`` with its product k16-sliced, the running max with strict ``>``
+    and its step.  Returns ``(logits, tstar)``."""
+    f32 = torch.float32
+    B = lat.shape[0]
+    wd = w_in.dtype
+
+    def pieces(w):
+        w = w.to(f32)
+        return split_pieces(w) if wd == f32 else [w]
+
+    cur_in = _ordered_currents(lat, w_in, n_steps, use_periods)
+    rec_p = None if w_rec is None else pieces(w_rec)
+    out_p = pieces(w_out)
+    b = b_out.to(f32)
+    z = torch.zeros((B, w_in.shape[1]), dtype=f32, device=lat.device)
+    vr = torch.zeros((B, w_out.shape[1]), dtype=f32, device=lat.device)
+    m = torch.full_like(vr, float("-inf"))
+    tstar = torch.zeros((B, w_out.shape[1]), dtype=torch.int32,
+                        device=lat.device)
+    for t in range(n_steps + 1):
+        if t > 0:
+            r = _slice_product(z, out_p) + b
+            vr = kappa * vr + r
+            better = vr > m
+            m = torch.where(better, vr, m)
+            tstar = torch.where(better, torch.full_like(tstar, t - 1), tstar)
+        if t == n_steps:
+            break
+        cur = cur_in(t)
         if rec_p is not None and t > 0:
             cur = cur + _slice_product(z, rec_p)
-        v = (alpha * v + cur) * (1.0 - z)
+        z = cell(cur)
+    return m, tstar
+
+
+def _head_train_ordered_reference(lat, w_in, w_rec, beta, w_out, b_out,
+                                  n_steps, use_periods, alif, alpha, rho,
+                                  threshold, kappa, store, store_a,
+                                  want_counts):
+    """Plain version of the tensor-core body of ``fused_head_fwd_train``
+    (``csrc/head_mma_fwd.cuh:head_mma_kernel`` with the LIF/ALIF cell) in
+    its summation order (:func:`_ordered_head`); returns as
+    :func:`_head_train_reference`.  The cell step is the plain loop's
+    arithmetic."""
+    f32 = torch.float32
+    wd = w_in.dtype
+    zeros = torch.zeros((lat.shape[0], w_in.shape[1]), dtype=f32,
+                        device=lat.device)
+    beta_t = torch.as_tensor(beta, dtype=f32, device=lat.device)
+    st = dict(v=zeros, ad=zeros, z=zeros, counts=zeros)
+    deltas, a_trace = [], []
+
+    def cell(cur):
+        z = st["z"]
+        st["v"] = (alpha * st["v"] + cur) * (1.0 - z)
         thr = threshold
         if alif:
-            ad = rho * ad + z
-            thr = threshold + beta_t * ad
-        delta = v - thr
-        z = (delta >= 0).to(f32)
-        counts = counts + z
+            st["ad"] = rho * st["ad"] + z
+            thr = threshold + beta_t * st["ad"]
+        delta = st["v"] - thr
+        st["z"] = (delta >= 0).to(f32)
+        st["counts"] = st["counts"] + st["z"]
         if store:
             deltas.append(delta.to(wd))
             if store_a:
-                a_trace.append(ad.to(wd))
+                a_trace.append(st["ad"].to(wd))
+        return st["z"]
+
+    m, tstar = _ordered_head(lat, w_in, w_rec, w_out, b_out, n_steps,
+                             use_periods, kappa, cell)
     return (m, _stack(deltas), _stack(a_trace), tstar,
-            counts if want_counts else None)
+            st["counts"] if want_counts else None)
 
 
 def z_prev_rows(delta: torch.Tensor) -> torch.Tensor:
@@ -979,6 +1048,12 @@ def gradient_plan(device, B: int, F: int, H: int, O: int, T: int,
     if out is None:
         raise ValueError(f"{KERNEL_BWD}: shape T={T} F={F} H={H} O={O} does "
                          "not fit the kernel")
+    return plan_order(out)
+
+
+def plan_order(out) -> dict:
+    """:func:`gradient_plan`'s dict from a backward plan's eight words
+    (``snn_fused_head_bwd_plan``, ``snn_fused_izh_bwd_plan``)."""
     return {"groups_in": out[0], "groups_rec": out[1], "groups_out": out[2],
             "rows_in": out[4], "rows_out": out[5], "gwin_ring": bool(out[6]),
             "gbits_ring": bool(out[7])}

@@ -31,6 +31,16 @@ Three hand-written CUDA kernels stand behind the wrappers:
   one source, head and first-layer mode): the two-carry chain, then the
   LIF/ALIF weight-gradient functions of ``csrc/bwd_common.cuh``.
 
+The head's forward and its backward's chain run the LIF/ALIF head's
+tensor-core body (``csrc/head_mma_fwd.cuh``, ``csrc/chain_mma.cuh``) with
+the Izhikevich cell and chain as its policies wherever it fits (O <= 16,
+H <= 256, the weights' bf16 pieces within a block's shared memory);
+other shapes and the first layer run the per-unit body (one thread a (row,
+unit)).  :func:`head_bodies` names the body of a shape;
+:func:`_izh_head_train_ordered_reference` and
+:func:`_izh_bwd_ordered_reference` are the plain versions in the
+tensor-core body's summation order, the forward's bit for bit on the card.
+
 The head also runs stacked replicas (an ensemble of S seeds on one batch,
 the JAX package's stacked-replica mode): ``W_in (S, F, H)`` and a leading S
 on every weight and on ``b_out`` give logits ``(S, B, O)`` from one launch
@@ -56,6 +66,7 @@ import torch
 from . import fused as _f
 from . import izh as _izh
 from .encoding import spike_row
+from .head_mma import list_row_words
 from .fused import (
     KERNEL_IZH,
     KERNEL_IZH_BWD,
@@ -144,6 +155,74 @@ def _bwd_reference(g_logits, g_counts, tstar, g_z, z, v, lat, w_in, w_rec,
             None if g_w_out is None else g_w_out.to(w_out.dtype), g_b)
 
 
+def _izh_head_train_ordered_reference(lat, w_in, w_rec, w_out, b_out,
+                                      n_steps, use_periods, kernel_params,
+                                      kappa, train, want_counts):
+    """Plain version of the tensor-core body of ``fused_izh_fwd[_train]``
+    (``csrc/head_mma_fwd.cuh:head_mma_kernel`` with the Izhikevich cell) in
+    its summation order (``ops/fused.py:_ordered_head``: the input current
+    from each row's features in key order, TTFS rows at >= F / 16 spikes
+    as a k16-sliced product, the recurrent and readout products per k16
+    slice); the cell step is the plain loop's (``ops/izh.py:_cell_step``).
+    Returns as :func:`_head_reference`."""
+    f32 = torch.float32
+    v_rest = dict(kernel_params)["v_rest"]
+    shape = (lat.shape[0], w_in.shape[1])
+    step = _izh._cell_step(kernel_params, lat.device)
+    zeros = torch.zeros(shape, dtype=f32, device=lat.device)
+    st = dict(v=torch.full(shape, v_rest, dtype=f32, device=lat.device),
+              u=zeros, z=zeros, counts=zeros)
+    vs = []
+
+    def cell(cur):
+        st["v"], st["u"], st["z"] = step(st["v"], st["u"], st["z"], cur)
+        st["counts"] = st["counts"] + st["z"]
+        if train:
+            vs.append(st["v"])
+        return st["z"]
+
+    logits, tstar = _f._ordered_head(lat, w_in, w_rec, w_out, b_out, n_steps,
+                                     use_periods, kappa, cell)
+    return (logits, torch.stack(vs) if train else None,
+            tstar if train else None, st["counts"] if want_counts else None)
+
+
+def _izh_bwd_ordered_reference(g_logits, g_counts, tstar, g_z, z, v, lat,
+                               w_in, w_rec, w_out, n_steps, use_periods,
+                               kernel_params, gamma, kappa, spike_func,
+                               order):
+    """Plain version of ``fused_izh_bwd`` (the head) in its order: the
+    two-carry chain with the tensor-core body's products
+    (``ops/fused.py:_split_slice_product``), and from the chain's rounded
+    ``gi`` ``g_W_in`` through ``_gwin_ordered_reference``, ``g_W_rec``
+    through ``gbits._gbits_ordered_reference``, ``g_W_out`` and ``g_b``
+    through ``_gout_ordered_reference``.  ``order`` is the kernel's plan
+    (:func:`gradient_plan`).  Returns as :func:`_bwd_reference`."""
+    from .gbits import _gbits_ordered_reference
+
+    f32 = torch.float32
+    wd = w_in.dtype
+    T, B, H = v.shape
+    gi = torch.zeros((B, T, H), dtype=f32, device=v.device)
+    _izh._izh_bwd_loop(
+        None, g_logits, g_counts, tstar, None, v, None, w_rec, w_out,
+        kernel_params, gamma, kappa, spike_func, wd, gi_out=gi,
+        matmul=lambda a, w: _f._split_slice_product(a, w.contiguous(), wd))
+    zv = (v >= dict(kernel_params)["v_peak"]).to(f32)
+    g_w_rec = None
+    if w_rec is not None:
+        z_prev = torch.cat([torch.zeros_like(zv[:1]), zv[:-1]])
+        g_w_rec = _gbits_ordered_reference(
+            gi.view(B * T, H), z_prev.transpose(0, 1).reshape(B * T, H), B,
+            T, order["groups_rec"], wd).to(w_rec.dtype)
+    g_w_in = _f._gwin_ordered_reference(gi, lat, n_steps, use_periods,
+                                        order["groups_in"], order["rows_in"])
+    g_w_out, g_b = _f._gout_ordered_reference(
+        zv, g_logits, tstar, kappa, wd, order["groups_out"],
+        order["rows_out"])
+    return g_w_in.to(wd), g_w_rec, g_w_out.to(w_out.dtype), g_b
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -151,10 +230,10 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(i)
     if name == "fused_izh":
-        lib.snn_fused_izh_plan.argtypes = [i] * 6 + [ip, ip]
+        lib.snn_fused_izh_plan.argtypes = [i] * 6 + [ip, ip, ip]
         lib.snn_fused_izh_plan.restype = i
         lib.snn_fused_izh_fwd.argtypes = (
-            [vp] * 9 + [i] * 7 + [f] * 11 + [i, i, i, vp])
+            [vp] * 10 + [i] * 7 + [f] * 11 + [i, i, vp])
         lib.snn_fused_izh_fwd.restype = i
         lib.snn_fused_izh_layer0_fwd.argtypes = (
             [vp] * 5 + [i] * 6 + [f] * 10 + [i, i, vp])
@@ -180,34 +259,61 @@ def _lib(name: str = "fused_izh") -> ctypes.CDLL:
 
 
 def _plan(device: torch.device, F: int, H: int, O: int, recurrent: bool,
-          bf16: bool) -> Optional[Tuple[int, int]]:
-    """(rows per block, shared-memory bytes) of the forward kernels (``O ==
-    0``: the first-layer mode), or None when the shape does not fit."""
+          bf16: bool) -> Optional[Tuple[int, int, bool]]:
+    """(rows per block, shared-memory bytes) of the forward kernels'
+    per-unit body and whether the head runs the shape on its tensor-core
+    body instead (``O == 0``: the first-layer mode, always the per-unit
+    body), or None when the shape does not fit."""
     lib = _lib()
-    rows, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rows, smem, mma = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     rc = lib.snn_fused_izh_plan(F, H, O, int(recurrent), int(bf16),
                                 _f._index(device), ctypes.byref(rows),
-                                ctypes.byref(smem))
+                                ctypes.byref(smem), ctypes.byref(mma))
     if rc == 1:
         return None
     _f._raise_on(rc, lib, f"{KERNEL_IZH} plan")
-    return rows.value, smem.value
+    return rows.value, smem.value, bool(mma.value)
 
 
-def _plan_bwd(device: torch.device, B: int, F: int, H: int, O: int, T: int,
-              recurrent: bool, bf16: bool,
-              use_periods: bool) -> Optional[Tuple[int, int, int]]:
-    """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) slabs of the backward
-    kernel (``O == 0``: the first-layer mode), or None when the shape does
-    not fit."""
+def _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16, use_periods):
+    """``snn_fused_izh_bwd_plan``'s eight words, or None when the shape
+    does not fit the backward (``O == 0``: the first-layer mode)."""
     lib = _lib("fused_izh_bwd")
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 8)()
     rc = lib.snn_fused_izh_bwd_plan(B, F, H, O, T, int(recurrent), int(bf16),
                                     int(use_periods), _f._index(device), out)
     if rc == 1:
         return None
     _f._raise_on(rc, lib, f"{KERNEL_IZH_BWD} plan")
-    return out[0], out[1], out[2]
+    return list(out)
+
+
+def _plan_bwd(device: torch.device, B: int, F: int, H: int, O: int, T: int,
+              recurrent: bool, bf16: bool,
+              use_periods: bool) -> Optional[Tuple[int, int, int, bool]]:
+    """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) slabs of the backward
+    kernel and whether its chain takes the tensor-core body (``O == 0``:
+    the first-layer mode, the per-unit chain), or None when the shape does
+    not fit."""
+    out = _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16,
+                          use_periods)
+    return None if out is None else (out[0], out[1], out[2], bool(out[3]))
+
+
+def gradient_plan(device, B: int, F: int, H: int, O: int, T: int,
+                  recurrent: bool, bf16: bool, use_periods: bool) -> dict:
+    """The order of ``fused_izh_bwd``'s gradient functions on ``device``
+    for a head's shape, as ``ops.fused.gradient_plan`` gives the LIF/ALIF
+    head's (the same functions): ``groups_in`` / ``groups_rec`` /
+    ``groups_out`` blocks of ``bwd_gwin`` / ``gbits_mma`` / ``bwd_gout``,
+    ``rows_in`` / ``rows_out`` rows a batch, ``gwin_ring`` /
+    ``gbits_ring``.  :func:`_izh_bwd_ordered_reference` takes it."""
+    out = _plan_bwd_words(torch.device(device), B, F, H, O, T, recurrent,
+                          bf16, use_periods)
+    if out is None:
+        raise ValueError(f"{KERNEL_IZH_BWD}: shape T={T} F={F} H={H} O={O} "
+                         "does not fit the kernel")
+    return _f.plan_order(out)
 
 
 def _supported(n_steps, n_features, hidden, n_out, recurrent, itemsize,
@@ -242,6 +348,28 @@ def fused_izh_supported(n_steps: int, n_features: int, hidden: int,
                       device, training, use_periods)
 
 
+def head_bodies(n_steps: int, n_features: int, hidden: int, n_out: int,
+                recurrent: bool = True, itemsize: int = 4, device="cuda",
+                training: bool = False,
+                use_periods: bool = True) -> Tuple[str, ...]:
+    """The body each Izhikevich head kernel runs a shape on, for a shape
+    :func:`fused_izh_head_supported` takes on a CUDA device, as
+    ``ops.fused.head_bodies`` names the LIF/ALIF head's: ``"mma"`` (the
+    tensor-core body, ``csrc/head_mma_fwd.cuh`` and ``chain_mma.cuh``) or
+    ``"per-unit"`` (O > 16, H > 256, or the weights' bf16 pieces past a
+    block's shared memory).  One entry for the forward, a second for the
+    backward's chain with ``training``."""
+    device = torch.device(device)
+    bf16 = itemsize == 2
+    fwd = _plan(device, n_features, hidden, n_out, recurrent, bf16)
+    bodies = ["mma" if fwd and fwd[2] else "per-unit"]
+    if training:
+        bwd = _plan_bwd(device, 1, n_features, hidden, n_out, n_steps,
+                        recurrent, bf16, use_periods)
+        bodies.append("mma" if bwd and bwd[3] else "per-unit")
+    return tuple(bodies)
+
+
 def fused_izh_head_supported(n_steps: int, n_features: int, hidden: int,
                              n_out: int, recurrent: bool = True,
                              itemsize: int = 4, device="cuda",
@@ -257,7 +385,9 @@ def fused_izh_head_supported(n_steps: int, n_features: int, hidden: int,
 
 def _check_forward(k, lat, w_in, w_rec, w_out, b_out, n_steps, S=None):
     """Validate the forward kernels' inputs (a leading S on the weights of
-    ``S`` stacked replicas); returns (B, F, H, O, rows)."""
+    ``S`` stacked replicas); returns (B, F, H, O, rows a block of the
+    per-unit body, the list scratch of the head's tensor-core body or
+    None)."""
     dev = lat.device
     _f._check_weights(k, w_in)
     wdt = w_in.dtype
@@ -279,7 +409,10 @@ def _check_forward(k, lat, w_in, w_rec, w_out, b_out, n_steps, S=None):
     if plan is None:
         raise ValueError(f"{k}: shape F={F} H={H} O={O} does not fit the "
                          "kernel (gate on fused_izh[_head]_supported)")
-    return B, F, H, O, plan[0]
+    # Each row's features ordered by spike key (head_mma.head_lists).
+    lists = (torch.empty((B, list_row_words(F)), dtype=torch.int16,
+                         device=dev) if plan[2] else None)
+    return B, F, H, O, plan[0], lists
 
 
 def _head_cuda(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
@@ -295,8 +428,8 @@ def _head_cuda(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
             raise ValueError(f"{k}: the stacked head has no spike counts")
         k = KERNEL_IZH_TRAIN_STACKED if train else KERNEL_IZH_STACKED
     dev = lat.device
-    B, F, H, O, rows = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
-                                      n_steps, S)
+    B, F, H, O, _, lists = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
+                                          n_steps, S)
     lead = _f._lead(S)
     f32 = dict(dtype=torch.float32, device=dev)
     logits = torch.empty((*lead, B, O), **f32)
@@ -308,9 +441,10 @@ def _head_cuda(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
     p = _f._ptr
     rc = lib.snn_fused_izh_fwd(
         lat.data_ptr(), w_in.data_ptr(), p(w_rec), w_out.data_ptr(),
-        b_out.data_ptr(), logits.data_ptr(), p(v), p(tstar), p(counts), B, F,
-        H, O, n_steps, int(use_periods), int(w_in.dtype == torch.bfloat16),
-        *_izh._consts(kernel_params), float(kappa), rows, S or 1, dev.index,
+        b_out.data_ptr(), logits.data_ptr(), p(v), p(tstar), p(counts),
+        p(lists), B, F, H, O, n_steps, int(use_periods),
+        int(w_in.dtype == torch.bfloat16), *_izh._consts(kernel_params),
+        float(kappa), S or 1, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
@@ -323,8 +457,8 @@ def _layer0_cuda(lat, w_in, w_rec, n_steps, use_periods, kernel_params,
     :func:`_layer0_reference`."""
     k = KERNEL_IZH_L0
     dev = lat.device
-    B, F, H, _, rows = _check_forward(k, lat, w_in, w_rec, None, None,
-                                      n_steps)
+    B, F, H, _, rows, _ = _check_forward(k, lat, w_in, w_rec, None, None,
+                                         n_steps)
     z = torch.empty((n_steps, B, H), dtype=torch.float32, device=dev)
     v = torch.empty_like(z) if train else None
     lib = _lib()
@@ -383,7 +517,7 @@ def _bwd_cuda(g_logits, g_counts, tstar, g_z, z, v, lat, w_in, w_rec, w_out,
         raise ValueError(
             f"{k}: shape T={T} F={F} H={H} O={O} does not fit the kernel "
             "(gate on fused_izh[_head]_supported(training=True))")
-    n_in, n_rec, n_out = plan
+    n_in, n_rec, n_out, _ = plan
     f32 = dict(dtype=torch.float32, device=dev)
     # Scratch of the call: gi(t) per row, rounded, and the bits of z.
     dcur = torch.empty((*lead, B, T, H), dtype=wdt, device=dev)

@@ -137,7 +137,7 @@ def every_step_run(row: torch.Tensor, n_features: int, n_steps: int,
 def step_runs(row: torch.Tensor, n_features: int, t: int, n_steps: int,
               use_periods: bool) -> List[Tuple[int, int]]:
     """The runs ``[start, end)`` of a list row that the kernel sums at step
-    ``t``, in its order (``fused_head.cu:step_input``): TTFS the run of key
+    ``t``, in its order (``head_mma_fwd.cuh:step_runs``): TTFS the run of key
     ``t``; periodic the runs of the periods ``p <= t`` dividing ``t``,
     ascending, the run of period 1 aside (:func:`every_step_run`)."""
     keys, starts, ends = _row_runs(row, n_features)

@@ -79,6 +79,24 @@ def _bwd_consts(kernel_params) -> list:
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
+def _cell_step(kernel_params, dev):
+    """``step(v, u, z, cur) -> (v, u, z)``: one step of the cell from the
+    float32 input current ``cur`` and ``z = z(t-1)``, the kernels'
+    arithmetic in their order (``csrc/izh_common.cuh:izh_step``)."""
+    p = dict(kernel_params)
+    # A tensor divisor: a true division on every device.
+    C = torch.full((), p["C"], dtype=torch.float32, device=dev)
+
+    def step(v, u, z, cur):
+        dvdt = p["k"] * (v - p["v_rest"]) * (v - p["v_th"]) - u + cur
+        v_new = (v + p["dt"] * dvdt / C) * (1.0 - z) + p["c"] * z
+        dudt = p["a"] * (p["b"] * (v - p["v_rest"]) - u)
+        u = (u + p["dt"] * dudt) + p["d"] * z
+        return v_new, u, (v_new >= p["v_peak"]).to(torch.float32)
+
+    return step
+
+
 def _izh_loop(cur_in, n_rows, hidden, dev, w_rec, n_steps, kernel_params,
               w_out=None, b_out=None, kappa=0.0, keep_z=False, keep_v=False,
               train=False, want_counts=False):
@@ -94,7 +112,7 @@ def _izh_loop(cur_in, n_rows, hidden, dev, w_rec, n_steps, kernel_params,
     False``."""
     f32 = torch.float32
     p = dict(kernel_params)
-    C = torch.full((), p["C"], dtype=f32, device=dev)  # true division
+    step = _cell_step(kernel_params, dev)
     w_rec32 = None if w_rec is None else w_rec.to(f32)
     v = torch.full((n_rows, hidden), p["v_rest"], dtype=f32, device=dev)
     u = torch.zeros_like(v)
@@ -112,12 +130,7 @@ def _izh_loop(cur_in, n_rows, hidden, dev, w_rec, n_steps, kernel_params,
         cur = cur_in(t)
         if w_rec32 is not None:
             cur = cur + z @ w_rec32
-        dvdt = p["k"] * (v - p["v_rest"]) * (v - p["v_th"]) - u + cur
-        v_new = (v + p["dt"] * dvdt / C) * (1.0 - z) + p["c"] * z
-        dudt = p["a"] * (p["b"] * (v - p["v_rest"]) - u)
-        u = (u + p["dt"] * dudt) + p["d"] * z
-        v = v_new
-        z = (v >= p["v_peak"]).to(f32)
+        v, u, z = step(v, u, z, cur)
         if w_out is not None:
             v_r = kappa * v_r + (z @ w_out32 + b)
             better = v_r > m
@@ -137,7 +150,7 @@ def _izh_loop(cur_in, n_rows, hidden, dev, w_rec, n_steps, kernel_params,
 
 def _izh_bwd_loop(spikes_in, g_logits, g_counts, tstar, g_z, v, z, w_rec,
                   w_out, kernel_params, gamma, kappa, spike_func, wd,
-                  want_gi=False):
+                  want_gi=False, gi_out=None, matmul=None):
     """Plain version of the reverse-time Izhikevich kernels from the float32
     ``v`` (and, for a z-emitting layer, ``z``) traces.
 
@@ -147,7 +160,11 @@ def _izh_bwd_loop(spikes_in, g_logits, g_counts, tstar, g_z, v, z, w_rec,
     step ``t`` for ``g_W_in``.  ``gi`` (the input current's cotangent) is
     rounded through ``wd`` before every product.  Returns ``(g_i (T, B, H)
     float32 | None, g_w_in | None, g_w_rec | None, g_w_out | None, g_b |
-    None)``, all float32."""
+    None)``, all float32.  A ``gi_out (B, T, H)`` float32 tensor, where
+    given, receives ``gi`` rounded through ``wd``, as the kernels' chain
+    writes it for their gradient functions; ``matmul(a, w)``, where given,
+    forms the two dense products ``s @ W_out^T`` and ``gi(t+1) @ W_rec^T``
+    in place of ``@``."""
     f32 = torch.float32
     dtC, c1, c2, c3, v_rest, v_th, v_peak = _bwd_consts(kernel_params)
     head = w_out is not None
@@ -156,6 +173,8 @@ def _izh_bwd_loop(spikes_in, g_logits, g_counts, tstar, g_z, v, z, w_rec,
 
     def r(x):
         return x if wd == f32 else x.to(wd).to(f32)
+
+    mm = matmul or torch.matmul
 
     def z_at(t):
         if t < 0:
@@ -183,13 +202,13 @@ def _izh_bwd_loop(spikes_in, g_logits, g_counts, tstar, g_z, v, z, w_rec,
         if head:
             s = kappa * s + g * (tstar == t).to(f32)
             s_r = r(s)
-            dz = s_r @ w_out32.T
+            dz = mm(s_r, w_out32.T)
             if g_counts is not None:
                 dz = dz + g_counts
         else:
             dz = g_z[t].to(f32)
         if w_rec32 is not None:
-            dz = dz + r(dcur_next) @ w_rec32.T
+            dz = dz + mm(r(dcur_next), w_rec32.T)
         surr = surrogate_grad_from_delta(spike_func, v_t - v_peak, v_peak,
                                          gamma)
         dv = (dz * surr
@@ -201,6 +220,8 @@ def _izh_bwd_loop(spikes_in, g_logits, g_counts, tstar, g_z, v, z, w_rec,
         if gis is not None:
             gis[t] = gi
         gr = r(gi)
+        if gi_out is not None:
+            gi_out[:, t] = gr
         if spikes_in is not None:
             part = spikes_in(t).T @ gr
             g_w_in = part if g_w_in is None else g_w_in + part

@@ -10,12 +10,17 @@ also times those calls as ``torch.bmm`` over S stacked copies (the
 ensemble's stacked backward).  ``--wide`` times ``rec_scan_bwd``'s two
 functions instead (784 -> ALIF-512 -> 10, B = 8192, T = 100: ``rec_chain``
 and ``g_W_rec``), with ``--library`` its ``z_prev^T @ round(g_i)``.
+``--izh`` times ``fused_izh_bwd``'s four functions instead (784 ->
+Izhikevich-128 recurrent -> 10 at dt = 30, B = 8192, T = 100, seed 0: the
+chain on tensor cores, ``bwd_gwin``, ``gbits_mma``, ``bwd_gout``), as built,
+with the chain's two products removed, and with its per-unit chain
+(``izh_chain_kernel``, the chain before the tensor-core body).
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.bwd_ablation \
         [--matmul-dtype float32|bfloat16] [--periodic] [--library] \
-        [--replicas 6] [--wide]
+        [--replicas 6] [--wide | --izh]
 
 The inputs are one training batch of the flagship (784 -> ALIF-128
 recurrent, learn_beta, T=100, batch 8192, init weights from seed 0, random
@@ -64,7 +69,7 @@ import torch
 
 from .. import LayerType, SNNConfig
 from ..models import snn as model_lib
-from ..ops import _build, fused, rec_scan
+from ..ops import _build, fused, fused_izh, izh, rec_scan
 from ..ops.cells import masked_recurrent
 from ..ops.encoding import pixels_to_firing_periods, spike_row
 
@@ -313,6 +318,77 @@ def wide(md, library: bool) -> None:
     print(json.dumps({"library_ms": lib, "bound": bound, **tag}), flush=True)
 
 
+def izh_bwd(md, periodic: bool) -> None:
+    """``--izh``: ``fused_izh_bwd``'s functions on one training batch of the
+    Izhikevich network (residuals of ``fused_izh_fwd_train``), as built,
+    without each of the chain's two products, and with the per-unit
+    chain."""
+    from .fit_check import SHAPE_TESTS
+
+    cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,
+                    hidden_layer_type=LayerType.Izhikevich,
+                    use_recurrent_connection=True, int_time_steps=100,
+                    dt=30.0)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    B = 8192
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (B, 784), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    (_, lcfg), (_, rcfg) = cfg.layer_configs
+    p0, ro = params["input"], params["readout"]
+    kp = izh.izh_kernel_params(lcfg)
+    w_in = p0["w_in"].to(md).contiguous()
+    w_rec = masked_recurrent(lcfg, p0).to(md).contiguous()
+    w_out = ro["w_in"].to(md).contiguous()
+    _, v, tstar, _ = fused_izh._head_cuda(
+        lat, w_in, w_rec, w_out, ro["b"].contiguous(), 100, periodic, kp,
+        rcfg.kappa, True, False)
+    g_logits = torch.full((B, 10), 1.0 / B, device="cuda")
+
+    def run():
+        fused_izh._bwd_cuda(g_logits, None, tstar, None, None, v, lat, w_in,
+                            w_rec, w_out, 100, periodic, kp, lcfg.gamma,
+                            rcfg.kappa, lcfg.spike_func)
+
+    source = _build.inlined_source("fused_izh_bwd")
+    variants = {"per_unit_chain": SHAPE_TESTS["fused_izh_bwd"]}
+    for name in ("no_chain_rec_product", "no_chain_out_product"):
+        variants[name] = VARIANTS[name]
+    for name, (old, new) in variants.items():
+        if source.count(old) != 1:
+            raise SystemExit(f"{name}: statement not found once in the "
+                             "source")
+        variants[name] = source.replace(old, new)
+    with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc a variant
+        paths = dict(zip(variants, pool.map(
+            _variant_so, [f"izh_{n}" for n in variants], variants.values())))
+    libs = {"kernel": _build.load("fused_izh_bwd")}
+    libs.update({n: ctypes.CDLL(str(p)) for n, p in paths.items()})
+    tag = {"izh": True, "matmul_dtype": str(md).split(".")[1],
+           "encoding": "periodic" if periodic else "ttfs",
+           "firing": float((v >= lcfg.v_peak).float().mean())}
+    try:
+        for name, lib in libs.items():
+            _build._libs["fused_izh_bwd"] = lib  # what fused_izh loads
+            print(json.dumps({"variant": name, **tag,
+                              "ms": _function_ms(run),
+                              "whole_call_ms": _events_ms(run)}), flush=True)
+    finally:
+        _build._libs["fused_izh_bwd"] = libs["kernel"]
+    # The chain's bound: v read and the rounded gi written once, the z bits,
+    # g_logits, tstar and the weights; its two dense products per step on
+    # tensor cores (six bf16 piece products for float32 weights), and ~24
+    # float32 operations per (row, step, unit) at 67 TFLOP/s beside them.
+    T, H, O, es = 100, 128, 10, md.itemsize
+    nbytes = (B * T * H * (4 + es) + B * (T + 1) * ((H + 31) // 32) * 4
+              + 2 * B * O * 4 + (H * H + H * O) * es)
+    products = 2 * B * T * H * (H + O) * (6 if md == torch.float32 else 1)
+    print(json.dumps({"chain_bound": _bound(nbytes, products, BF16_FLOPS),
+                      "chain_elementwise_ms": 24 * B * T * H / F32_FLOPS
+                      * 1e3, **tag}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--matmul-dtype", default="float32",
@@ -324,6 +400,8 @@ def main() -> None:
                          "over this many stacked copies")
     ap.add_argument("--wide", action="store_true",
                     help="rec_scan_bwd at 784 -> ALIF-512 -> 10 instead")
+    ap.add_argument("--izh", action="store_true",
+                    help="fused_izh_bwd at 784 -> Izhikevich-128 -> 10")
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bwd_ablation needs a CUDA card")
@@ -331,6 +409,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     if ns.wide:
         wide(md, ns.library)
+        _print_card()
+        return
+    if ns.izh:
+        izh_bwd(md, ns.periodic)
         _print_card()
         return
     cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,

@@ -43,23 +43,28 @@ from ..data import DatasetId, get_dataloaders
 from ..ops import _build
 from ..parallel import EnsembleTrainer
 
-# source -> (the tensor-core body's shape test, the same made false)
-PER_UNIT = {
-    "fused_head": (
-        "inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) "
-        "{\n  return O >= 1",
-        "inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) "
-        "{\n  return false && O >= 1"),
-    "fused_head_bwd": (
-        "inline bool chain_mma_fits(int H, int O, int rec, int bf16, "
-        "int max_smem) {\n  return O >= 1",
-        "inline bool chain_mma_fits(int H, int O, int rec, int bf16, "
-        "int max_smem) {\n  return false && O >= 1"),
-}
+# The tensor-core bodies' shape tests (csrc/head_mma_fwd.cuh,
+# csrc/chain_mma.cuh), and the same made false.
+_FWD_TEST = (
+    "inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) "
+    "{\n  return O >= 1",
+    "inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) "
+    "{\n  return false && O >= 1")
+_CHAIN_TEST = (
+    "inline bool chain_mma_fits(int H, int O, int rec, int bf16, "
+    "int max_smem) {\n  return O >= 1",
+    "inline bool chain_mma_fits(int H, int O, int rec, int bf16, "
+    "int max_smem) {\n  return false && O >= 1")
+# source -> its shape test: the LIF/ALIF head pair and the Izhikevich one.
+SHAPE_TESTS = {"fused_head": _FWD_TEST, "fused_head_bwd": _CHAIN_TEST,
+               "fused_izh": _FWD_TEST, "fused_izh_bwd": _CHAIN_TEST}
+PER_UNIT = ("fused_head", "fused_head_bwd")  # the pair the fits train
 
 
 def _per_unit_lib(name: str) -> ctypes.CDLL:
-    old, new = PER_UNIT[name]
+    """``csrc/<name>.cu`` built with its tensor-core body's shape test made
+    false: every shape runs the per-unit body."""
+    old, new = SHAPE_TESTS[name]
     source = _build.inlined_source(name)
     if source.count(old) != 1:
         raise SystemExit(f"{name}: the shape test is not found once")

@@ -7,6 +7,8 @@ Run on a CUDA card from the repository root::
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation \
         --launch-order
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation --bodies
+    python3 -m snnimageclassification_tpu_torch.tools.head_ablation --izh \
+        [--bodies]
 
 Each variant is the kernel source (headers inlined) with one statement of
 its tensor-core body replaced: the readout product, the recurrent product,
@@ -26,6 +28,11 @@ bfloat16, TTFS and periodic, at the production tau and at tau = 20 steps
 (latencies spread over the window, as ``chip_smoke.py`` phase 3 draws
 them).
 
+``--izh`` does the same for the Izhikevich head (``csrc/fused_izh.cu``,
+the same tensor-core body with the Izhikevich cell): 784 -> Izhikevich-128
+recurrent -> 10 at dt = 30 (the served network of ``chip_smoke.py`` phase
+9, seed 0) on the same batch; ``--izh --bodies`` its two bodies.
+
 ``--launch-order`` times the stacked kernel (six replicas of that
 flagship, seeds 0-5, on the same batch) as it is built, row tiles on the
 grid's fastest axis, against a variant with the replicas there; the two
@@ -44,7 +51,7 @@ import torch
 
 from .. import LayerType, SNNConfig
 from ..models import snn as model_lib
-from ..ops import _build, fused
+from ..ops import _build, fused, fused_izh, izh
 from ..ops.cells import masked_recurrent
 from ..ops.encoding import pixels_to_firing_periods
 
@@ -81,8 +88,10 @@ LAUNCH_ORDER = (
      "return;  // a tile past the batch",
      "const int row0 = (blockIdx.y * tpb + tile) * 16;\n  if (row0 >= B) "
      "return;  // a tile past the batch"),
-    ("const FwdArgs<LifParams> a = at_replica<W>(a0, blockIdx.y);",
-     "const FwdArgs<LifParams> a = at_replica<W>(a0, blockIdx.x);"),
+    ("unsigned char smem[];\n  const FwdArgs<typename Cell::Params> a = "
+     "at_replica<W>(a0, blockIdx.y);",
+     "unsigned char smem[];\n  const FwdArgs<typename Cell::Params> a = "
+     "at_replica<W>(a0, blockIdx.x);"),
     ("kernel<<<dim3((tiles + tpb - 1) / tpb, S),",
      "kernel<<<dim3(S, (tiles + tpb - 1) / tpb),"),
 )
@@ -117,7 +126,7 @@ def _replace(name: str, source: str, pairs) -> str:
     for old, new in pairs:
         if source.count(old) != 1:
             raise SystemExit(f"{name}: statement {old!r} not found once in "
-                             "fused_head.cu")
+                             "the source")
         source = source.replace(old, new)
     return source
 
@@ -129,13 +138,13 @@ def _card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def _time_bodies(args: dict, x: torch.Tensor) -> None:
-    """One JSON line per (dtype, encoding, tau): both bodies' median ms,
-    the per-unit body's first, then the tensor-core body's, then again."""
+def _time_bodies(args: dict, x: torch.Tensor, src: str, call) -> None:
+    """One JSON line per (dtype, encoding, tau): both bodies' median ms of
+    ``call(args)`` (the kernel of ``csrc/<src>.cu``), the per-unit body's
+    first, then the tensor-core body's, then again."""
     from .fit_check import _per_unit_lib
 
-    libs = {"per-unit": _per_unit_lib("fused_head"),
-            "mma": _build.load("fused_head")}
+    libs = {"per-unit": _per_unit_lib(src), "mma": _build.load(src)}
     tau = {"production": 20e-3, "spread": 20.0}
     try:
         for md in (torch.float32, torch.bfloat16):
@@ -149,15 +158,42 @@ def _time_bodies(args: dict, x: torch.Tensor) -> None:
                     ms = {}
                     for rnd in range(2):
                         for name, lib in libs.items():
-                            _build._libs["fused_head"] = lib
+                            _build._libs[src] = lib
                             ms.setdefault(name, []).append(_median_ms(
-                                lambda: fused.fused_encode_rec_scan_head(**a)))
+                                lambda: call(a)))
                     print(json.dumps({"dtype": str(md)[6:],
                                       "periodic": periodic, "tau": tau_name,
                                       "ms": ms}), flush=True)
     finally:
-        _build._libs["fused_head"] = libs["mma"]
+        _build._libs[src] = libs["mma"]
     print(_card())
+
+
+def _izh_args(x: torch.Tensor) -> dict:
+    """The Izhikevich network's head arguments on the batch ``x``:
+    784 -> Izhikevich-128 recurrent -> 10, T = 100, dt = 30, seed 0, TTFS
+    at the production tau, float32."""
+    cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,
+                    hidden_layer_type=LayerType.Izhikevich,
+                    use_recurrent_connection=True, int_time_steps=100,
+                    dt=30.0)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    (_, lcfg), (_, rcfg) = cfg.layer_configs
+    p0, ro = params["input"], params["readout"]
+    return dict(latencies=pixels_to_firing_periods(x, t_max=100.0)
+                .contiguous(), w_in=p0["w_in"].contiguous(),
+                w_rec=masked_recurrent(lcfg, p0).contiguous(),
+                w_out=ro["w_in"].contiguous(), b_out=ro["b"].contiguous(),
+                kernel_params=izh.izh_kernel_params(lcfg), n_steps=100,
+                use_periods=False, gamma=lcfg.gamma, kappa=rcfg.kappa)
+
+
+def _izh_call(a: dict) -> torch.Tensor:
+    return fused_izh.fused_encode_izh_scan_head(
+        a["latencies"], a["w_in"], a["w_rec"], a["w_out"], a["b_out"],
+        a["kernel_params"], a["n_steps"], a["use_periods"], a["gamma"],
+        a["kappa"])
 
 
 def main() -> None:
@@ -166,10 +202,15 @@ def main() -> None:
                         help="time the stacked kernel's two grid orders")
     parser.add_argument("--bodies", action="store_true",
                         help="time the tensor-core and per-unit bodies")
+    parser.add_argument("--izh", action="store_true",
+                        help="the Izhikevich head (csrc/fused_izh.cu)")
     ns = parser.parse_args()
     launch_order = ns.launch_order
     if not torch.cuda.is_available():
         raise SystemExit("head_ablation needs a CUDA card")
+    if ns.izh:
+        _izh_main(ns.bodies)
+        return
     cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,
                     hidden_layer_type=LayerType.ALIF, learn_beta=True,
                     int_time_steps=100)
@@ -196,7 +237,8 @@ def main() -> None:
         rho=lcfg.rho, threshold=lcfg.threshold, gamma=lcfg.gamma,
         kappa=rcfg.kappa)
     if ns.bodies:
-        _time_bodies(args, x)
+        _time_bodies(args, x, "fused_head",
+                     lambda a: fused.fused_encode_rec_scan_head(**a))
         return
     source = _build.inlined_source("fused_head")
     libs = {"kernel": _build.load("fused_head")}
@@ -225,6 +267,34 @@ def main() -> None:
                       flush=True)
     finally:
         _build._libs["fused_head"] = libs["kernel"]
+    print(card)
+
+
+def _izh_main(bodies: bool) -> None:
+    """``--izh``: the Izhikevich head's variants (or, with ``bodies``, its
+    two bodies) on the served batch."""
+    raw = np.random.default_rng(1).integers(0, 256, (4096, 784),
+                                            dtype=np.uint8)
+    x = torch.from_numpy(raw).cuda().to(torch.float32) / 255.0
+    args = _izh_args(x)
+    if bodies:
+        _time_bodies(args, x, "fused_izh", _izh_call)
+        return
+    source = _build.inlined_source("fused_izh")
+    libs = {"kernel": _build.load("fused_izh")}
+    for name, pair in VARIANTS.items():
+        libs[name] = _variant_lib(f"izh_{name}",
+                                  _replace(name, source, (pair,)))
+    card = _card()
+    try:
+        for rnd in range(2):
+            for name, lib in libs.items():
+                _build._libs["fused_izh"] = lib  # what fused_izh._lib() loads
+                ms = _median_ms(lambda: _izh_call(args))
+                print(json.dumps({"variant": name, "izh": True, "round": rnd,
+                                  "ms": ms}), flush=True)
+    finally:
+        _build._libs["fused_izh"] = libs["kernel"]
     print(card)
 
 

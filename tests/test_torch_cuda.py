@@ -34,7 +34,14 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   bits on a second run; the three backward kernels again at dt = 30 with
   init-scale weights, where the chain's u carry matters (1e-4 of max|g|,
   bf16 2**-7); the models' dispatch names the kernels and launches each
-  once.
+  once.  The head's tensor-core body (``test_izh_mma_body_*``, ff/rec x
+  TTFS/periodic x FastSigmoid/Phi x T = 1, 2, 24, 100 x f32/bf16 at dt =
+  1e-3 and dt = 30): logits, ``v``, ``tstar`` and counts bit for bit the
+  plain version in its order (``fused_izh._izh_head_train_ordered_reference``),
+  a row's bits independent of its batch, the backward against both plain
+  versions at the bars above, the stacked mode bitwise S single launches;
+  shapes past its limits run the per-unit body (``head_bodies``); layer 0
+  keeps the per-unit body, within the ``v`` bars of the head.
 * the two-layer pair (``fused2_fwd[_train]``, ``fused2_bwd``) at T = 24 and
   100: logits 1e-5, ``tstar``, counts and spikes equal to the plain
   version's, residuals 1e-5 (bf16 2**-7), training logits bitwise the
@@ -505,6 +512,68 @@ def test_mma_body_matches_plain_versions(card, name, alif, rec, use_periods,
             assert _grad_err(grads, p) <= _bwd_bar(wdtype, n_steps)
 
 
+# Weight columns of one k16 slice (every unit firing) whose sums the card's
+# m16n8k16 accumulation keeps in part: terms below the largest term's
+# exponent less 25 dropped, the sum truncated toward zero; the last six
+# are float32 weights whose lo pieces reach the chained accumulator of the
+# mid pieces' product.
+_E = [2.0 ** -k for k in range(64)]
+SLICE_COLUMNS = [
+    [1, -_E[30]], [1, 3 * _E[25]], [-1, -3 * _E[25]], [1, _E[30]],
+    [2] + [_E[25]] * 15, [1, _E[24], _E[24]], [1] + [_E[25]] * 4,
+    [1] + [_E[24]] * 3, [1] + [_E[25]] * 3, [-1] + [-_E[24]] * 3,
+    [1.5, 1.5] + [_E[23]] * 3, [1, _E[23], _E[24]], [1, -_E[24]],
+    [1, -_E[25]], [1, -_E[26]], [_E[10]] * 16, [1] + [_E[24]] * 15,
+    [1] + [_E[26]] * 15, [1, -_E[24], -_E[24]], [1, 1, 1, -_E[23]],
+    [1, 1, _E[23]], [1, 1, 1, _E[23], _E[23]], [-1, _E[24]],
+    [_E[3]] * 4 + [1, _E[24], _E[24]]]
+_LO = _E[17] + _E[26] - _E[35]  # hi 2^-17, mid 2^-26, lo -2^-35
+SPLIT_COLUMNS = [
+    [1 + _E[9], -1, _LO], [1 + _E[9], -1, _LO, _LO],
+    [1 + _E[9], -1, _E[17] + _E[26] + _E[35]], [1 + _E[9], -1, -_LO],
+    [1 + _E[9] + _E[18], -1, _LO], [-(1 + _E[9]), 1, -_LO]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tensor_core_slice_sums_truncate(card, wdtype):
+    """The plain versions' model of a tensor-core product
+    (``ops/fused.py:_mma_slice``) is the card's: at T = 1 the head's
+    logits are one k16 slice of z(0) @ W_out with every unit firing, on
+    weight columns whose exact sums float32 does not hold (bits below the
+    largest term's exponent less 25 dropped term by term, the sum
+    truncated toward zero, the chained accumulator a term); rounding the
+    exact sum to nearest gives other bits."""
+    B, F, H = 16, 2, 16
+    cols = SLICE_COLUMNS + (SPLIT_COLUMNS if wdtype == torch.float32
+                            else [])
+    lat = torch.tensor([[0, 5]] * B, dtype=torch.int32, device=card)
+    w_in = torch.zeros((F, H))
+    w_in[0] = 10.0  # every unit fires at t = 0
+    got, nearest = [], []
+    for c0 in range(0, len(cols), 16):
+        chunk = cols[c0:c0 + 16]
+        w = torch.zeros((H, len(chunk)), dtype=torch.float64)
+        for o, col in enumerate(chunk):
+            w[:len(col), o] = torch.tensor(col, dtype=torch.float64)
+        assert torch.equal(w.to(wdtype).double(), w)
+        args = dict(_args(card, B, F, H, len(chunk), 1, False, False, False,
+                          wdtype), latencies=lat,
+                    w_in=w_in.to(card, wdtype), w_out=w.to(card, wdtype),
+                    b_out=torch.zeros(len(chunk), device=card))
+        logits = _call(args)[0].cpu()
+        w32 = w.float()
+        pieces = ([w32] if wdtype == torch.bfloat16
+                  else head_mma.split_pieces(w32))
+        want = fused._slice_product(torch.ones((1, H)), pieces)[0]
+        assert torch.equal(logits, want), (c0, logits.tolist(),
+                                           want.tolist())
+        got.append(logits)
+        nearest.append(w.sum(0).float())
+    assert not torch.equal(torch.cat(got), torch.cat(nearest))
+
+
 GRAD_SHAPES = [  # B, F, H: one batch a block; the ring's turns; two
     (37, 30, 20),  # feature chunks (F past 1024); H off the TMA strides
     (37, 30, 45),
@@ -931,8 +1000,13 @@ def test_fused_izh_kernels_match_plain_versions(card, name, rec, use_periods,
     assert float(counts.sum()) > 0
     assert v.dtype == torch.float32  # whatever the weights' type
     torch.testing.assert_close(v, want[1], rtol=1e-6, atol=1e-3)
-    # The first layer is the head's template without the readout.
-    assert torch.equal(v0, v) and torch.equal(z0, (v >= IZH.v_peak).float())
+    # The first layer runs the per-unit body; the head its tensor-core body
+    # (another summation order), so their v agree within the v bars.
+    assert fused_izh.head_bodies(n_steps, F, H, O, rec, wdtype.itemsize,
+                                 card, True, use_periods) == ("mma", "mma")
+    torch.testing.assert_close(v0, v, rtol=1e-6, atol=1e-3)
+    assert torch.equal(z0, (v0 >= IZH.v_peak).float())
+    assert torch.equal(z0, (v >= IZH.v_peak).float())
     assert torch.equal(z0, z0p)
     torch.testing.assert_close(v0, v0p, rtol=1e-6, atol=1e-3)
     bar = _izh_bar(n_steps, wdtype)
@@ -1094,6 +1168,208 @@ def test_izh_models_dispatch_to_the_kernels(card):
         fused.reset_launch_counts()
         loss = trainer.train_step(x, y)
         assert _launched() == step and np.isfinite(float(loss))
+
+
+# The Izhikevich head's tensor-core body (csrc/head_mma_fwd.cuh with the
+# Izhikevich cell, csrc/chain_mma.cuh with its chain): every mode against
+# the plain versions in the body's order, the forward bit for bit.
+IZH_MMA_CASES = [
+    (dt, rec, per, spike, T)
+    for dt in (1e-3, 30.0) for rec in (True, False) for per in (False, True)
+    for spike in (FAST, PHI) for T in (1, 2, 24, 100)]
+
+
+def _izh_head(dev, dt, rec, use_periods, T, wdtype, B=37, F=30, H=20, O=10,
+              seed=31):
+    """(lat, w_in, w_rec, w_out, b_out, T, use_periods, kp, kappa): the JAX
+    suite's scale at dt = 1e-3, init-scale N(0, 1) weights at dt = 30."""
+    rng = np.random.default_rng(seed)
+    pixels = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(dev)
+    lat = pixels_to_firing_periods(pixels, t_max=float(T),
+                                   tau=20.0).contiguous()
+    if dt < 1:
+        w_in, w_rec, w_out, b_out = _izh_weights(dev, rng, F, H, O, rec,
+                                                 wdtype)
+    else:
+        def w(shape, std=1.0):
+            return torch.from_numpy(
+                (std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        w_in, w_out, b_out = w((F, H)).to(wdtype), w((H, O)).to(wdtype), \
+            w((O,), 0.1)
+        w_rec = ((w((H, H)) * (1 - torch.eye(H, device=dev))).to(wdtype)
+                 if rec else None)
+    kp = izh.izh_kernel_params(IzhikevichConfig(input_size=1, output_size=1,
+                                                dt=dt))
+    return (lat, w_in, w_rec, w_out, b_out, T, use_periods, kp,
+            ReadoutConfig(input_size=H, output_size=O).kappa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "dt,rec,use_periods,spike,n_steps", IZH_MMA_CASES,
+    ids=[f"dt{c[0]:g}-{'rec' if c[1] else 'ff'}-"
+         f"{'periodic' if c[2] else 'ttfs'}-{c[3].name}-{c[4]}"
+         for c in IZH_MMA_CASES])
+def test_izh_mma_body_matches_plain_versions(card, dt, rec, use_periods,
+                                             spike, n_steps, wdtype):
+    """The Izhikevich head on its tensor-core body: the forward, the
+    training forward (with counts) bit for bit their plain version in the
+    body's order (logits, ``v``, ``tstar``, counts), training logits the
+    inference kernel's; at dt = 1e-3 also the order-free plain version's
+    bars (logits 1e-5, spikes equal, ``v`` 1e-6 relative and 1e-3 mV; at dt
+    = 30 the cell triples a last-bit difference each step between spikes).
+    The backward on the training forward's residuals, with and without the
+    counts' cotangent, against both plain versions: 2e-6 of max|g| (5e-6
+    at T = 100) at dt = 1e-3, 1e-4 at dt = 30, bf16 2**-7; equal bits on a
+    second run."""
+    head = _izh_head(card, dt, rec, use_periods, n_steps, wdtype)
+    lat, w_in, w_rec, w_out = head[:4]
+    B, F = lat.shape
+    H, O = w_out.shape
+    assert fused_izh.head_bodies(n_steps, F, H, O, rec, wdtype.itemsize,
+                                 card, True, use_periods) == ("mma", "mma")
+    fused.reset_launch_counts()
+    infer = fused_izh._head_cuda(*head, False, False)[0]
+    got = fused_izh._head_cuda(*head, True, True)
+    ordered = fused_izh._izh_head_train_ordered_reference(*head, True, True)
+    torch.cuda.synchronize()
+    assert _launched() == {fused.KERNEL_IZH: 1, fused.KERNEL_IZH_TRAIN: 1}
+    assert torch.equal(got[0], infer)
+    for k, (a, b) in enumerate(zip(got, ordered)):
+        assert torch.equal(a, b), f"output {k} differs from the ordered one"
+    if n_steps > 2:
+        assert float(got[3].sum()) > 0  # the units fire
+    if dt < 1:
+        want = fused_izh._head_reference(*head, True, True)
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-3)
+        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    bar = _izh_bar(n_steps, wdtype) if dt < 1 else (
+        1e-4 if wdtype == torch.float32 else 2.0 ** -7)
+    rng = np.random.default_rng(7)
+    g_logits = torch.from_numpy(
+        rng.standard_normal((B, O)).astype(np.float32)).to(card) / B
+    g_counts = torch.from_numpy(
+        (1e-3 * rng.standard_normal((B, H))).astype(np.float32)).to(card) / B
+    gamma = IzhikevichConfig(input_size=1, output_size=1).gamma
+    order = fused_izh.gradient_plan(card, B, F, H, O, n_steps, rec,
+                                    wdtype == torch.bfloat16, use_periods)
+    for gc in (None, g_counts):
+        bargs = (g_logits, gc, got[2], None, None, got[1], lat, w_in, w_rec,
+                 w_out, n_steps, use_periods, head[7], gamma, head[8], spike)
+        grads = fused_izh._bwd_cuda(*bargs)
+        again = fused_izh._bwd_cuda(*bargs)
+        for plain in (fused_izh._izh_bwd_ordered_reference(*bargs, order),
+                      fused_izh._bwd_reference(*bargs)):
+            _grads_close(grads, again, plain, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rec", [True, False], ids=["rec", "ff"])
+def test_izh_mma_body_rows_do_not_depend_on_their_batch(card, rec, wdtype):
+    """At dt = 30 (where a last-bit difference grows each step), a row's
+    logits and ``v`` are the same bits whichever rows share its 16-row
+    tile: rows firing 0 to 7 of F = 48 features at t = 0 (the dense input
+    product takes a row from F / 16 = 3 on) and the rest spread over the
+    window, run whole and as a shuffled subset; both bit for bit the
+    ordered plain version."""
+    B, F, H, T = 37, 48, 45, 24
+    rng = np.random.default_rng(9)
+    lat = rng.integers(1, T + 4, (B, F)).astype(np.int32)
+    for r in range(B):
+        lat[r, rng.choice(F, r % 8, replace=False)] = 0
+    head = list(_izh_head(card, 30.0, rec, False, T, wdtype, B=B, F=F, H=H))
+    head[0] = torch.from_numpy(lat).to(card)
+    whole = fused_izh._head_cuda(*head, True, False)
+    want = fused_izh._izh_head_train_ordered_reference(*head, True, False)
+    assert torch.equal(whole[0], want[0]) and torch.equal(whole[1], want[1])
+    idx = torch.from_numpy(rng.permutation(B)[:23]).to(card)
+    sub = list(head)
+    sub[0] = head[0][idx].contiguous()
+    part = fused_izh._head_cuda(*sub, True, False)
+    assert torch.equal(part[0], whole[0][idx])
+    assert torch.equal(part[1], whole[1][:, idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+@pytest.mark.parametrize("H,O,wdtype", [(200, 10, torch.float32),
+                                        (33, 40, torch.bfloat16),
+                                        (288, 10, torch.bfloat16)],
+                         ids=["f32-H200", "bf16-O40", "bf16-H288"])
+def test_izh_per_unit_body_takes_the_rest(card, H, O, wdtype, use_periods):
+    """Shapes past the tensor-core body's limits (float32 W_rec's pieces
+    past shared memory, O > 16, H > 256) run the Izhikevich head's per-unit
+    body, which ``head_bodies`` names, at the JAX suite's scale against the
+    plain versions: spikes, ``tstar`` and counts equal, logits 1e-5, ``v``
+    1e-6 relative; the backward at the small bars."""
+    T = 24
+    head = _izh_head(card, 1e-3, True, use_periods, T, wdtype, B=21, H=H,
+                     O=O)
+    assert fused_izh.fused_izh_head_supported(T, 30, H, O, True,
+                                              wdtype.itemsize, card, True,
+                                              use_periods)
+    assert fused_izh.head_bodies(T, 30, H, O, True, wdtype.itemsize, card,
+                                 True, use_periods) == ("per-unit",
+                                                        "per-unit")
+    got = fused_izh._head_cuda(*head, True, True)
+    want = fused_izh._head_reference(*head, True, True)
+    assert torch.equal(got[0], fused_izh._head_cuda(*head, False, False)[0])
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-3)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (21, O)).astype(np.float32)).to(card)
+    bargs = (g, None, got[2], None, None, got[1], *head[:4], T, use_periods,
+             head[7], IZH.gamma, head[8], FAST)
+    _grads_close(fused_izh._bwd_cuda(*bargs), fused_izh._bwd_cuda(*bargs),
+                 fused_izh._bwd_reference(*bargs), _izh_bar(T, wdtype))
+
+
+@pytest.mark.cuda
+def test_explain_dispatch_names_the_izh_bodies(card):
+    """The Izhikevich head names its body: the tensor-core body ("mma") in
+    the forward and the backward's chain at 784-Izh128-10, f32 and bf16,
+    single and stacked; the per-unit body at O = 40; layer 0 keeps the
+    per-unit body (``fused_izh_layer0_fwd``, no body named)."""
+    import snnimageclassification_tpu_torch as pt
+    from snnimageclassification_tpu_torch.models import snn as model_lib
+
+    enc = pt.EncodeConfig(n_steps=100)
+
+    def cfg(hidden=128, O=10, md="float32"):
+        return pt.SNNConfig(input_size=784, output_size=O,
+                            n_hidden_neurons=hidden,
+                            hidden_layer_type="Izhikevich",
+                            int_time_steps=100, dt=30.0, matmul_dtype=md)
+
+    for md in ("float32", "bfloat16"):
+        for training in (False, True):
+            for stacked in (False, True):
+                entry = model_lib.explain_dispatch(
+                    cfg(md=md), enc, device="cuda", training=training,
+                    stacked=stacked)[0]
+                assert "[per-unit]" not in entry["path"], entry
+                assert "the tensor-core body (mma)" in entry["reason"], entry
+                assert ("backward's chain" in entry["reason"]) == training
+            assert fused_izh.head_bodies(
+                100, 784, 128, 10, True, 4 if md == "float32" else 2, card,
+                True, False) == ("mma", "mma")
+    wide_o = model_lib.explain_dispatch(cfg(O=40), enc, device="cuda",
+                                        training=True)[0]
+    assert wide_o["path"].endswith("[per-unit]")
+    assert "per-unit body" in wide_o["reason"]
+    assert "(mma)" not in wide_o["reason"]
+    deep = model_lib.explain_dispatch(cfg([128, 128]), enc, device="cuda",
+                                      training=True)
+    assert deep[0]["path"] == (f"cuda:{fused.KERNEL_IZH_L0}+"
+                               f"{fused.KERNEL_IZH_L0_BWD}")
+    assert "(mma)" not in deep[0]["reason"]
 
 
 # ---------------------------------------------------------------------------
@@ -1898,12 +2174,20 @@ def test_stacked_head_equals_single_launches(card, name, alif, rec, per, T,
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("rec", [True, False], ids=["rec", "ff"])
-def test_stacked_izh_head_equals_single_launches(card, rec, wdtype):
+@pytest.mark.parametrize("per,T,H", [(False, 24, 20), (True, 24, 20),
+                                     (False, 100, 20), (False, 25, 45),
+                                     (True, 25, 45)],
+                         ids=["ttfs", "periodic", "ttfs-100", "ttfs-odd",
+                              "periodic-odd"])
+def test_stacked_izh_head_equals_single_launches(card, per, T, H, rec,
+                                                 wdtype):
     """The Izhikevich head's stacked launches at dt = 30 (chaotic: last
     bits grow ~3x a step, which the stacked-vs-single contract survives
     only when the arithmetic is the same) equal three single launches bit
-    for bit; a stacked first layer raises."""
-    S, B, F, H, O, T = 3, 37, 30, 20, 10, 24
+    for bit, on the tensor-core body; a stacked first layer raises.  The
+    ``-odd`` cases make T B H odd, so every odd replica's v trace starts 4
+    bytes past an 8-byte boundary."""
+    S, B, F, O = 3, 37, 30, 10
     cfg = IzhikevichConfig(input_size=1, output_size=1, dt=30.0)
     kp = izh.izh_kernel_params(cfg)
     kappa = ReadoutConfig(input_size=H, output_size=O).kappa
@@ -1922,14 +2206,17 @@ def test_stacked_izh_head_equals_single_launches(card, rec, wdtype):
     g = w((S, B, O))
 
     def calls(wi, wr, wo, bo, gl):
-        out = fused_izh._head_cuda(lat, wi, wr, wo, bo, T, False, kp, kappa,
+        out = fused_izh._head_cuda(lat, wi, wr, wo, bo, T, per, kp, kappa,
                                    False, False)[0]
-        res = fused_izh._head_cuda(lat, wi, wr, wo, bo, T, False, kp, kappa,
+        res = fused_izh._head_cuda(lat, wi, wr, wo, bo, T, per, kp, kappa,
                                    True, False)
         grads = fused_izh._bwd_cuda(gl, None, res[2], None, None, res[1],
-                                    lat, wi, wr, wo, T, False, kp, cfg.gamma,
+                                    lat, wi, wr, wo, T, per, kp, cfg.gamma,
                                     kappa, cfg.spike_func)
         return out, res, grads
+
+    assert fused_izh.head_bodies(T, F, H, O, rec, wdtype.itemsize, card,
+                                 True, per) == ("mma", "mma")
 
     fused.reset_launch_counts()
     stacked = calls(w_in, w_rec, w_out, b_out, g)

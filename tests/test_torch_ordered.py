@@ -3,7 +3,7 @@
 ``_gout_ordered_reference`` (``bwd_gwin``, ``bwd_gout`` of
 ``csrc/bwd_common.cuh``), the backward built on them
 (``_head_bwd_ordered_reference``) and the tensor-core forward's
-(``_head_train_ordered_reference``, ``csrc/fused_head.cu:head_mma_kernel``).
+(``_head_train_ordered_reference``, ``csrc/head_mma_fwd.cuh:head_mma_kernel``).
 
 On the card they are the kernels' witnesses (``tests/test_torch_cuda.py``:
 the gradient functions bit for bit, the forward at the small-shape bars).
@@ -54,6 +54,16 @@ ORDERS = [dict(groups_in=3, rows_in=4, groups_out=5, rows_out=4,
                groups_rec=3),
           dict(groups_in=7, rows_in=1, groups_out=2, rows_out=2,
                groups_rec=2)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The ordered plain versions run many small tensor ops: faster on one
+    thread than on a thread pool that the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _args(B, F, H, O, T, alif, rec, use_periods, wdtype, tau, seed=11):
