@@ -131,20 +131,34 @@ Phases (any failure exits non-zero before the final line):
    512 and B = 256 at H = 1024 (spikes equal on >= 99.5 % of rows,
    gradients 1e-4 of max|g|); ``encode_matmul_fwd`` also bit for bit the
    plain forward that adds in its order (``encode._fwd_ordered_reference``)
-   on the first 256 rows (all of a small batch), TTFS and periodic;
+   on the first 256 rows (all of a small batch), TTFS and periodic.  The
+   scan's tensor-core cluster body (``csrc/rec_mma.cuh``; float32 H = 1024
+   and every float32 chain keep the CUDA-core body, held above): spikes, residuals and a bit for
+   bit ``rec_scan._fwd_ordered_reference`` (its summation order) on every
+   row of the small cases and at B = 37 for H = 20, 40, 200, 300, 512 (and
+   1024 in bf16), and on 256 rows (the first and the last) at B = 8191, H =
+   512; the bf16 chain's g_i against ``_chain_ordered_reference`` at the
+   bars above (the float32 chain keeps the CUDA-core body, held above);
 15. wide serve -- 784-ALIF512-10 (recurrent, learn_beta, T = 100), whose
    W_rec no fused kernel holds, served as in 4: results bitwise a direct
    forward, one ``encode_matmul_fwd`` and one ``rec_scan_fwd`` launch a
    batch and no training kernel; on a served batch spikes equal the plain
    versions' on >= 99.5 % of rows and logits within 1e-4 of max|logit| on
-   >= 99 %; each kernel alone timed beside its plain version, the encoded
+   >= 99 %; ``rec_scan_fwd`` names the cluster body (``explain_dispatch``)
+   and its spikes equal the ordered plain forward on 256 rows bit for bit;
+   each kernel alone timed beside its plain version, the encoded
    product also beside the one PyTorch call of the same function on the
    materialised raster (float32 currents: ``torch.mm(..., out_dtype=)``
    for bf16 weights) and on the batch's periodic latencies, its currents
    bit for bit the ordered plain forward on 256 rows, TTFS and periodic;
 16. wide train -- that network through ``Trainer`` at batch 8192: the
    first step's gradients against the per-step loop's (1e-4 of max|g|,
-   f32), 3 warm-up and 20 timed TTFS steps (finite falling loss, beta
+   f32) on the rows whose hidden spikes the scan kernel and its plain
+   version share (>= 99.5 %: the cluster body's k16-sliced sums flip a
+   near-tie spike of a few rows; those rows' forward bit for bit its
+   ordered plain version), and on the whole batch against the plain
+   backwards fed the forward kernels' own spikes (1e-4, bf16 2**-7),
+   3 warm-up and 20 timed TTFS steps (finite falling loss, beta
    bitwise, every trained leaf moves, one launch a step of each of
    ``encode_matmul_fwd``, ``rec_scan_fwd_train``, ``rec_scan_bwd``,
    ``encode_matmul_bwd``), the logits of batch 0 against the plain
@@ -153,7 +167,11 @@ Phases (any failure exits non-zero before the final line):
    batch's periodic latencies, the witness of 15 on both encodings, and
    beside the same-function library calls: the forward's as in 15, the
    backward's ``raster.T @ g`` with g in float32, and with g rounded to bf16
-   beside it for bf16 weights), ``gbits_mma`` (``rec_scan_bwd``'s g_W_rec,
+   beside it for bf16 weights), the cluster body's witnesses of 14 on the
+   trained weights (256 rows), the scan rows' bounds with the tensor-core
+   work (three bf16 products a float32 forward product; the bf16 chain's
+   and gbits_mma's; the float32 chain's on CUDA cores),
+   ``gbits_mma`` (``rec_scan_bwd``'s g_W_rec,
    launched once a timed step) alone on the chain's g_i and z bits as in 5;
    5 periodic steps (times, launches: the periodic rows of the encoded
    pair).
@@ -233,6 +251,7 @@ power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2999,6 +3018,63 @@ def check_encode(label, rng, B, F, H, T, per, md, full):
     return err, gerr
 
 
+def rec_rows(B):
+    """The witness rows of a batch: all of a small one, else the first and
+    the last WITNESS_ROWS // 2 (the last cluster's ragged rows)."""
+    if B <= WITNESS_ROWS:
+        return torch.arange(B, device="cuda")
+    h = WITNESS_ROWS // 2
+    return torch.cat([torch.arange(h), torch.arange(B - h, B)]).cuda()
+
+
+def rec_tc_ms(B, T, H, md, backward):
+    """The cluster body's tensor-core work at 989 TFLOP/s: 2 B T H^2 FLOP a
+    product, three for float32 weights in the forward; the backward (bf16
+    only: the float32 chain runs on CUDA cores) one for the chain and one
+    for gbits_mma."""
+    if backward and md == torch.float32:
+        raise ValueError("the float32 chain runs on CUDA cores")
+    per = 2 if backward else (3 if md == torch.float32 else 1)
+    return 2 * B * T * H * H * per / H100_BF16_FLOPS * 1e3
+
+
+def rec_witness(label, md, fwd, outs, bw, g_i, full):
+    """The cluster body's witnesses on ``rec_rows``: the training forward's
+    spikes, residual and a (``outs``) bit for bit
+    ``rec_scan._fwd_ordered_reference`` fed the same currents; the chain's
+    g_i (of ``bw``) within ``wide_bar`` of ``_chain_ordered_reference``.
+    Either only where its kernel runs the cluster body.  Returns the
+    chain's error (None on the CUDA-core body)."""
+    cur, w, beta, alif, alpha, rho, thr = fwd
+    T, B, H = cur.shape
+    bodies = rec_scan.rec_bodies(T, H, itemsize=md.itemsize)
+    rows = rec_rows(B)
+
+    def sub(x):
+        return None if x is None else x[:, rows].contiguous()
+
+    res_is_v = bw[4]
+    if bodies[0] == "mma":
+        want = rec_scan._fwd_ordered_reference(
+            sub(cur), w, beta, alif, alpha, rho, thr, True,
+            outs[2] is not None, res_is_v)
+        for name, got, ref in zip(("spikes", "residuals", "a"), outs, want):
+            if (got is None) != (ref is None):
+                fail(f"{label}: the ordered forward's {name} set differs")
+            if got is not None and not torch.equal(sub(got), ref):
+                bad = int((sub(got) != ref).any(2).any(0).sum())
+                fail(f"{label}: {name} differ from the ordered plain forward "
+                     f"on {bad} of {rows.numel()} rows")
+    if bodies[1] != "mma":
+        return None
+    bws = tuple(sub(x) if i in (0, 1, 2, 3) else x for i, x in enumerate(bw))
+    err = grad_error([g_i[:, rows]], [rec_scan._chain_ordered_reference(*bws)])
+    if err > wide_bar(T, md, full):
+        fail(f"{label}: the chain's g_i is {err:.3g} of max|g| from its "
+             "ordered plain version")
+    return err
+
+
 def check_rec(label, rng, B, H, T, alif, spike, md, full):
     """``rec_scan_fwd[_train]`` against the plain version fed the same
     currents: inference spikes the training kernel's bit for bit, spikes
@@ -3053,7 +3129,35 @@ def check_rec(label, rng, B, H, T, alif, spike, md, full):
                 z_prev.view(T * B, H), B, T,
                 rec_scan._plan(torch.device("cuda"), B, H, T,
                                md == torch.bfloat16), md, step_major=True)
+    rec_witness(label, md, fwd, (z, res, a_tr), bw, g_i, full)
     return share, res_err, gerr
+
+
+def check_rec_mma(label, rng, B, H, T, md):
+    """The cluster body alone at a shape (ALIF, FastSigmoid): the forward
+    on it and the chain too in bf16 (``rec_bodies``; the float32 chain on
+    the CUDA-core body), inference spikes the training kernel's bit for
+    bit, and ``rec_witness``.  Returns the chain's error (None in
+    float32)."""
+    want = ("mma", "mma" if md == torch.bfloat16 else "cuda-core")
+    if rec_scan.rec_bodies(T, H, itemsize=md.itemsize) != want:
+        fail(f"{label}: H={H} does not run the bodies {want}")
+    alpha, rho, thr, gamma = layer_scalars(True)
+    # rec_inputs' distributions, drawn on the card (a full batch's numpy
+    # draws take seconds).
+    seed = int(rng.integers(1 << 30))
+    cur = cuda_randn((T, B, H), seed, 0.3, 0.6)
+    w = (rand_w(rng, (H, H), 1.3 / np.sqrt(H))
+         * (1 - torch.eye(H, device="cuda"))).to(md)
+    fwd = (cur, w, 1.6, True, alpha, rho, thr)
+    outs = rec_scan._fwd_cuda(*fwd, True, False, False)
+    if not torch.equal(outs[0], rec_scan._fwd_cuda(*fwd, False, False,
+                                                   False)[0]):
+        fail(f"{label}: inference and training spikes differ")
+    g_z = cuda_randn((T, B, H), seed + 1, 0.0, 1.0 / B).to(md)
+    bw = (g_z, outs[0], outs[1], None, False, w, 1.6, alpha, thr, gamma, FS)
+    g_i = rec_scan._bwd_cuda(*bw)[0]
+    return rec_witness(label, md, fwd, outs, bw, g_i, B > WITNESS_ROWS)
 
 
 def phase_wide_kernels() -> None:
@@ -3062,6 +3166,7 @@ def phase_wide_kernels() -> None:
     periodic; LIF/ALIF x FastSigmoid/Phi; f32 and bf16), full width
     (B = 8192, 784 -> 512, T = 100) and H = 1024 on a small batch."""
     rng = np.random.default_rng(14)
+    t0 = time.perf_counter()
     worst = {"enc": 0.0, "enc_g": 0.0, "rec_g": 0.0, "rows": 1.0}
     n = 0
     for md in (torch.float32, torch.bfloat16):
@@ -3085,28 +3190,61 @@ def phase_wide_kernels() -> None:
                     n += 1
     log(f"[wide-kernels] {n} small cases ok: encode currents <= "
         f"{worst['enc']:.3g}, encode g_W <= {worst['enc_g']:.3g}, rec "
-        f"gradients <= {worst['rec_g']:.3g} of max|g|")
+        f"gradients <= {worst['rec_g']:.3g} of max|g| "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     for md in (torch.float32, torch.bfloat16):
         tag = "f32" if md == torch.float32 else "bf16"
         for per in (False, True):
+            t1 = time.perf_counter()
             e, g = check_encode(f"wide-kernels encode full {tag} per={per}",
                                 rng, TRAIN_B, 784, WIDE_H, 100, per, md,
                                 True)
             log(f"[wide-kernels] encode B={TRAIN_B} 784->{WIDE_H} T=100 "
                 f"{tag} periodic={per}: currents err {e:.3g}, g_W err "
-                f"{g:.3g} of max|g|")
+                f"{g:.3g} of max|g| ({time.perf_counter() - t1:.1f} s)")
             torch.cuda.empty_cache()
         for B, H in ((TRAIN_B, WIDE_H), (256, 1024)):
+            t1 = time.perf_counter()
             share, r, g = check_rec(f"wide-kernels rec B={B} H={H} {tag}",
                                     rng, B, H, 100, True, FS, md, True)
             log(f"[wide-kernels] rec ALIF FastSigmoid B={B} H={H} T=100 "
                 f"{tag}: spikes equal on {share:.4f} of rows, residuals err "
-                f"{r:.3g}, gradients err {g:.3g} of max|g|")
+                f"{r:.3g}, gradients err {g:.3g} of max|g| "
+                f"({time.perf_counter() - t1:.1f} s)")
             torch.cuda.empty_cache()
         e, g = check_encode(f"wide-kernels encode H=1024 {tag}", rng, 256,
                             784, 1024, 100, True, md, True)
         log(f"[wide-kernels] encode B=256 784->1024 T=100 {tag}: currents "
-            f"err {e:.3g}, g_W err {g:.3g} of max|g|")
+            f"err {e:.3g}, g_W err {g:.3g} of max|g| "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+    # The cluster body at widths that are not a multiple of its slices and
+    # batches that are not a multiple of its rows; float32 H = 1024 keeps
+    # the CUDA-core body (held above at B = 256), as does every float32
+    # chain (held above at B = 37 and 8192).
+    if rec_scan.rec_bodies(100, 1024) != ("cuda-core", "cuda-core"):
+        fail("wide-kernels: float32 H = 1024 left the CUDA-core body")
+    for md in (torch.float32, torch.bfloat16):
+        tag = "f32" if md == torch.float32 else "bf16"
+        widths = (20, 40, 200, 300, 512) + (() if md == torch.float32
+                                             else (1024,))
+        errs = {H: check_rec_mma(f"wide-kernels rec-mma {tag} H={H}", rng,
+                                 37, H, 100, md) for H in widths}
+        B = TRAIN_B - 1
+        err = check_rec_mma(f"wide-kernels rec-mma {tag} B={B}", rng, B,
+                            WIDE_H, 100, md)
+        plans = rec_scan.cluster_plans(100, WIDE_H, TRAIN_B,
+                                       itemsize=md.itemsize)
+        log(f"[wide-kernels] rec cluster body {tag}: forward and inference "
+            f"spikes, residuals bit for bit the ordered plain forward at "
+            f"B=37 H={widths} (all rows) and B={B} H={WIDE_H} "
+            f"({WITNESS_ROWS} rows, the first and the last); chain g_i vs "
+            f"its ordered plain version (None: the CUDA-core chain) "
+            f"{json.dumps(errs)} of max|g|, {err} at B={B}; plans at "
+            f"B={TRAIN_B}: {json.dumps(plans)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
 
 
 def wide_cfg(matmul_dtype, use_kernels=True):
@@ -3231,10 +3369,13 @@ def phase_wide_serve(matmul_dtype: str) -> list:
     params = model_lib.init(cfg, torch.Generator().manual_seed(0),
                             device="cuda")
     enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
-    paths = [r["path"] for r in model_lib.explain_dispatch(cfg, enc)]
+    rows = model_lib.explain_dispatch(cfg, enc)
+    paths = [r["path"] for r in rows]
     if paths != [f"cuda:{fused.KERNEL_ENC}", f"cuda:{fused.KERNEL_REC}",
                  "torch:loop"]:
         fail(f"{label}: dispatch is {paths}")
+    if "tensor-core cluster body (mma" not in rows[1]["reason"]:
+        fail(f"{label}: the scan does not name the cluster body")
     reqs, launches = serve_requests(label, cfg, params, enc,
                                     {fused.KERNEL_ENC: 1, fused.KERNEL_REC: 1})
     batch = np.concatenate(reqs[:4096 // ROWS])
@@ -3251,6 +3392,12 @@ def phase_wide_serve(matmul_dtype: str) -> list:
     enc_err = float((cur - cur_p).abs().max())
     encode_witness(label, lat, w0, T, False, cur)
     rows = float((z == zp).all(dim=2).all(dim=0).float().mean())
+    # The cluster body's witness: its spikes bit for bit the ordered plain
+    # forward on WITNESS_ROWS rows.
+    n = WITNESS_ROWS
+    if not torch.equal(z[:, :n], rec_scan._fwd_ordered_reference(
+            cur[:, :n].contiguous(), wr, *sc, False, False, False)[0]):
+        fail(f"{label}: rec_scan_fwd differs from the ordered plain forward")
     with torch.no_grad():
         logits = model_lib.forward_logits_pixels(cfg, params, x, enc,
                                                  device="cuda")
@@ -3304,9 +3451,57 @@ def phase_wide_serve(matmul_dtype: str) -> list:
         # composition on the same batch (the spikes are 0/1).
         kernel_row(label, f"{fused.KERNEL_REC}[{tag}]", REC_SITE,
                    launches[fused.KERNEL_REC], lerr, rec_ms, rec_plain, rb,
-                   ro, md)]
+                   ro, md, ops_ms=lambda t: min(t, rec_tc_ms(
+                       B, T, H, md, False)))]
+    log(f"[{label}] {fused.KERNEL_REC}: the tensor-core cluster body, plan "
+        f"{json.dumps(rec_scan.cluster_plans(T, H, B, itemsize=md.itemsize))}"
+        f", spikes bit for bit its ordered plain forward on {n} rows; "
+        f"tensor-core work {rec_tc_ms(B, T, H, md, False):.4f} ms at 989 "
+        f"TFLOP/s")
     torch.cuda.empty_cache()
     return rows_out
+
+
+def shared_spike_rows(label, cfg, x):
+    """The rows of the batch x whose hidden spikes ``rec_scan_fwd_train``
+    and its plain version give alike, on the first layer's currents of a
+    ``Trainer(cfg, seed=0)``; on every other row the kernel's spikes and
+    residuals must equal its plain version in its order
+    (``_fwd_ordered_reference``) bit for bit."""
+    params = Trainer(cfg, seed=0, device="cuda").params
+    w0, wr, beta, c0 = wide_args(cfg, params)
+    T = cfg.int_time_steps
+    lat = pixels_to_firing_periods(x, t_max=float(T)).contiguous()
+    cur = encode._fwd_cuda(lat, w0, T, False)
+    sc = (beta, True, c0.alpha, c0.rho, c0.threshold, True, False,
+          fused._residual_is_v(True, c0.spike_func))
+    z, res, _ = rec_scan._fwd_cuda(cur, wr, *sc)
+    same = (z == rec_scan._fwd_reference(cur, wr, *sc)[0]).all(2).all(0)
+    rest = torch.nonzero(~same).flatten()
+    if rest.numel():
+        want = rec_scan._fwd_ordered_reference(
+            cur[:, rest].contiguous(), wr, *sc)
+        if not (torch.equal(z[:, rest], want[0])
+                and torch.equal(res[:, rest], want[1])):
+            fail(f"{label}: on the {rest.numel()} rows whose spikes the "
+                 "plain version parts from, the forward differs from its "
+                 "ordered plain version")
+    return torch.nonzero(same).flatten()
+
+
+@contextlib.contextmanager
+def plain_backwards():
+    """``rec_scan_bwd`` and ``encode_matmul_bwd`` replaced by their plain
+    versions while the block runs: a training step's forward kernels stay,
+    so its gradients are the plain backwards' on the kernels' own spikes
+    and residuals."""
+    saved = rec_scan._bwd_cuda, encode._bwd_cuda
+    rec_scan._bwd_cuda = rec_scan._bwd_reference
+    encode._bwd_cuda = encode._bwd_reference
+    try:
+        yield
+    finally:
+        rec_scan._bwd_cuda, encode._bwd_cuda = saved
 
 
 def phase_wide_train(matmul_dtype: str) -> list:
@@ -3315,7 +3510,13 @@ def phase_wide_train(matmul_dtype: str) -> list:
     bitwise, every trained leaf moves, one launch a step of each of
     ``encode_matmul_fwd``, ``rec_scan_fwd_train``, ``rec_scan_bwd`` and
     ``encode_matmul_bwd``); the first step's gradients against the per-step
-    loop's (``use_kernels=False``; gated 1e-4 of max|g| in f32); batch 0's
+    loop's (``use_kernels=False``; gated 1e-4 of max|g| in f32) on the rows
+    whose hidden spikes the scan kernel and its plain version share (>=
+    99.5 % of the batch, ``shared_spike_rows``; the other rows' forward bit
+    for bit its ordered plain version), and on the whole batch against the
+    plain backwards fed the forward kernels' own spikes
+    (``plain_backwards``; 1e-4, bf16 2**-7); the cluster body's witness
+    (``rec_witness``) on batch 0's trained weights; batch 0's
     logits against the plain versions' composition (>= 99.5 % argmax, >= 99 %
     of rows within 1e-4 of max|logit|); each kernel alone on batch 0 with
     the trained weights against its plain version
@@ -3329,30 +3530,62 @@ def phase_wide_train(matmul_dtype: str) -> list:
     md = getattr(torch, matmul_dtype)
     cfg = wide_cfg(matmul_dtype)
     enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
-    paths = [r["path"] for r in model_lib.explain_dispatch(
-        cfg, enc, device="cuda", training=True)]
+    rows = model_lib.explain_dispatch(cfg, enc, device="cuda", training=True)
+    paths = [r["path"] for r in rows]
     if paths != [f"cuda:{fused.KERNEL_ENC}+{fused.KERNEL_ENC_BWD}",
                  f"cuda:{fused.KERNEL_REC_TRAIN}+{fused.KERNEL_REC_BWD}",
                  "torch:loop"]:
         fail(f"{label}: dispatch is {paths}")
+    named = ("tensor-core cluster body (mma: W_rec split across a "
+             "thread-block cluster) in the forward" + (
+                 "; the CUDA-core body" if md == torch.float32
+                 else " and") + " ")
+    if named not in rows[1]["reason"]:
+        fail(f"{label}: the scan does not name its bodies")
     batches = synthetic_task(4)
     x, y = batches[0]
 
-    # The first step's gradients against the per-step loop's, same init.
+    # The first step's gradients against the per-step loop's, same init, on
+    # the rows whose hidden spikes the scan kernel and its plain version
+    # share: the cluster body sums in k16 slices, the loop (cuBLAS) and the
+    # plain version in ascending k, and a near-tie spike that the order
+    # flips changes its row's whole trace and the gradients through it.
+    # The other rows' forward is held bit for bit in its order, and every
+    # row's gradients against the plain backwards below.
+    keep = shared_spike_rows(label, cfg, x)
+    if keep.numel() < 0.995 * x.shape[0]:
+        fail(f"{label}: hidden spikes equal on {keep.numel()} of "
+             f"{x.shape[0]} rows")
     grads = {}
     for name, c in (("kernels", cfg), ("loop", wide_cfg(matmul_dtype,
                                                         False))):
         t = Trainer(c, seed=0, encode_config=enc, device="cuda")
-        _, g = t.loss_and_grads(x, y)
+        _, g = t.loss_and_grads(x[keep], y[keep])
         grads[name] = [g[n][k] for n in g for k in g[n]]
         del t, g
     loop_err = grad_error(grads["kernels"], grads["loop"])
     del grads
     torch.cuda.empty_cache()
-    log(f"[{label}] first step's gradients vs the per-step loop: "
-        f"{loop_err:.3g} of max|g|")
+    # The whole batch: the backward kernels against their plain versions,
+    # both fed the forward kernels' spikes and residuals.
+    t = Trainer(cfg, seed=0, encode_config=enc, device="cuda")
+    _, g = t.loss_and_grads(x, y)
+    got = [g[n][k] for n in g for k in g[n]]
+    with plain_backwards():
+        _, g = t.loss_and_grads(x, y)
+    whole_err = grad_error(got, [g[n][k] for n in g for k in g[n]])
+    del t, g, got
+    torch.cuda.empty_cache()
+    log(f"[{label}] first step's gradients vs the per-step loop on the "
+        f"{keep.numel()} of {x.shape[0]} rows whose hidden spikes the kernel "
+        f"and its plain version share: {loop_err:.3g} of max|g|; on all "
+        f"{x.shape[0]} rows vs the plain backwards fed the kernels' spikes: "
+        f"{whole_err:.3g}")
     if md == torch.float32 and loop_err > 1e-4:
         fail(f"{label}: the first step's gradients differ from the loop's")
+    if whole_err > (1e-4 if md == torch.float32 else 2.0 ** -7):
+        fail(f"{label}: the first step's gradients differ from the plain "
+             "backwards'")
 
     trainer = Trainer(cfg, seed=0, lr=1e-3, weight_decay=1e-5,
                       encode_config=enc, device="cuda")
@@ -3433,6 +3666,13 @@ def phase_wide_train(matmul_dtype: str) -> list:
                             wide_bar(T, md, True))
     keep = {}
     g_cur = rec_scan._bwd_cuda(*bw, keep=keep)[0]
+    chain_err = rec_witness(label, md, (cur, wr) + sc, (z, res, a_tr), bw,
+                            g_cur, True)
+    log(f"[{label}] the cluster body on batch 0: the training forward bit "
+        f"for bit its ordered plain version on {WITNESS_ROWS} rows, the "
+        f"chain's g_i {chain_err} of max|g| from its ordered plain version "
+        f"(None: the CUDA-core chain); plans "
+        f"{json.dumps(rec_scan.cluster_plans(T, H, B, itemsize=md.itemsize))}")
     z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).float()
     gb_row = gbits_row(
         label, f"{fused.KERNEL_GBITS}[wide-{tag}]",
@@ -3503,10 +3743,13 @@ def phase_wide_train(matmul_dtype: str) -> list:
                    md, library_ms=lib_f),
         kernel_row(label, f"{fused.KERNEL_REC_TRAIN}[{tag}]", REC_SITE,
                    launches[fused.KERNEL_REC_TRAIN], res_err, t_rf, t_rf_p,
-                   rfb, rfo, md),
+                   rfb, rfo, md, ops_ms=lambda t: min(t, rec_tc_ms(
+                       B, T, H, md, False))),
+        # The float32 chain on CUDA cores: bound by their operations.
         kernel_row(label, f"{fused.KERNEL_REC_BWD}[{tag}]", REC_BWD_SITE,
                    launches[fused.KERNEL_REC_BWD], rec_g_err, t_rb, t_rb_p,
-                   rbb, rbo, md),
+                   rbb, rbo, md, ops_ms=None if chain_err is None
+                   else lambda t: min(t, rec_tc_ms(B, T, H, md, True))),
         kernel_row(label, f"{fused.KERNEL_ENC_BWD}[{tag}]", ENC_BWD_SITE,
                    launches[fused.KERNEL_ENC_BWD], enc_g_err, t_eb, t_eb_p,
                    eb, eo, md, library_ms=lib_b), gb_row]

@@ -20,14 +20,23 @@
 //   g_W_rec = sum_t z(t-1)^T dcur(t)           (dcur rounded to W's type)
 // beta, the reset and the adaptation carry no gradient (quirk Q3).
 //
-// What bounds it on an H100: operations.  The recurrent product is a
-// (B, H) x (H, H) product a step inside the serial chain: B T H^2 adds over
-// the set bits in the forward (~100 G at B = 8192, T = 100, H = 512 and
-// 47 % firing) and 2 B T H^2 FLOP dense in the backward (430 GFLOP: 6.4 ms on
-// the float32 CUDA cores).  W_rec is 1 MB in float32 at H = 512 (4 MB at
-// 1024), past the 227 KB a block may hold, and rows are independent, so:
-//   rec_fwd / rec_chain: a block owns R batch rows over the whole T chain
-//     and all H units; thread (x, y) holds an RB x HB register tile (rows
+// What bounds it on an H100: operations, in a serial chain.  The recurrent
+// product is a (B, H) x (H, H) product a step inside the serial chain: 2 B T
+// H^2 FLOP each way (430 GFLOP at B = 8192, T = 100, H = 512).  W_rec is 1
+// MB in float32 at H = 512 (4 MB at 1024), past the 227 KB a block may
+// hold, and rows are independent, so:
+//   rec_mma_fwd / rec_mma_chain (rec_mma.cuh, the tensor-core cluster
+//     body): a cluster of blocks owns a tile of batch rows, each block a
+//     slice of the units with its slice of W_rec's bf16 pieces resident in
+//     shared memory; the products on tensor cores, the next step's left
+//     operand sent to the peer blocks by bulk copies counted on their
+//     mbarriers.  It takes every shape whose slice and
+//     exchange buffers fit a block (the forward: float32 up to H = 512,
+//     bf16 up to 1024; the chain: bf16 up to 1024); the plan (rec_mma_plan)
+//     says which.
+//   rec_fwd / rec_chain (the CUDA-core body, the other shapes: float32
+//     past H = 512, every float32 chain): a block owns R batch rows over the whole T chain and
+//     all H units; thread (x, y) holds an RB x HB register tile (rows
 //     y RB + rb, columns x + hb HX).  Each step the block streams W_rec (the
 //     backward: W_rec^T) through shared memory in chunks of JC rows; each
 //     chunk serves every row of the tile, a register tile of sums takes it,
@@ -41,7 +50,7 @@
 //     (gbits_mma.cuh), the tensor-core product of every bit-masked weight
 //     gradient of the port, on the chain's g_i (T, B, H) float32, each
 //     value rounded to W's type as it loads (a slice: 16 consecutive rows of
-//     one step), and the z bits, which rec_chain writes (T, B, HW) in the
+//     one step), and the z bits, which either chain writes (T, B, HW) in the
 //     same order.  Each block sums a range of batch rows into a slab of its
 //     own, the host adds the slabs in a fixed order: no atomics, the same
 //     bits on every run.
@@ -49,6 +58,7 @@
 
 #include "bwd_common.cuh"
 #include "gbits_mma.cuh"
+#include "rec_mma.cuh"
 
 namespace {
 
@@ -70,20 +80,6 @@ __host__ __device__ inline Tile tile_for(int H) {
   t.RY = REC_THREADS / t.HX;
   return t;
 }
-
-struct RecArgs {
-  const float* cur;   // (T, B, H) float32, forward
-  const void* w;      // (H, H): W_rec (forward) or W_rec^T (backward)
-  const float* beta;  // (1)
-  void* z;            // (T, B, H) W's type: forward output, backward input
-  void* res;          // (T, B, H) W's type or null: delta, or v (res_is_v)
-  void* a_tr;         // (T, B, H) W's type or null: ALIF + Phi's a
-  const void* g_z;    // (T, B, H) W's type, backward
-  float* g_i;         // (T, B, H) float32, backward
-  unsigned* zmask;    // (T, B, HW), backward: row (t, b) = bits of z(t-1)
-  int B, H, T, JC, alif, res_is_v, phi;
-  float alpha, rho, threshold, gamma;
-};
 
 // Rows j0 .. j0 + n of the row-major (H, H) matrix g into s (row stride H),
 // 16 bytes a copy where both ends are aligned.
@@ -335,6 +331,9 @@ struct RecPlan {
   Tile tile;
   int R, JC, smem_fwd, smem_chain;
   GbitsPlan gb;
+  // The tensor-core cluster body's plans (rec_mma.cuh), where they fit.
+  bool fwd_mma, chain_mma;
+  RecMmaPlan mfwd, mchain;
 };
 
 int make_plan(int B, int H, int T, int bf16, int device, RecPlan* p) {
@@ -360,6 +359,20 @@ int make_plan(int B, int H, int T, int bf16, int device, RecPlan* p) {
   p->smem_fwd = (int)(rec_w_bytes(p->JC, H, wsize) + zm);
   p->smem_chain = (int)(rec_w_bytes(p->JC, H, wsize) + dcr);
   if (p->smem_fwd > lim.max_smem || p->smem_chain > lim.max_smem) return 1;
+  // Each kernel on the cluster body where its plan fits a block, else on
+  // the CUDA-core body; a plan that fits but that the card schedules no
+  // cluster of raises.  The float32 chain keeps the CUDA-core body: at
+  // H = 512 its cluster plan (16 blocks, one buffer, two warps an SM) ran
+  // 1.35x slower than rec_chain (tools/bwd_ablation.py --wide).
+  for (int chain = 0; chain < 2; ++chain) {
+    RecMmaPlan& m = chain ? p->mchain : p->mfwd;
+    const bool cluster = !chain || bf16;
+    const int rc = cluster ? rec_mma_plan(B, H, bf16, chain != 0, device,
+                                          lim.max_smem, &m)
+                           : 1;
+    if (rc != 0 && rc != 1) return rc;
+    (chain ? p->chain_mma : p->fwd_mma) = rc == 0;
+  }
   // g_W_rec on the float32 g_i (one slab at B = 0).
   return gbits_plan(B > 0 ? B : 1, T, H, H, 4, bf16 ? 1 : 3, lim, &p->gb);
 }
@@ -376,14 +389,61 @@ cudaError_t launch_fwd_t(const RecArgs& a, const RecPlan& p,
 }
 
 template <int RB, int HB, typename W>
-cudaError_t launch_bwd_t(const RecArgs& a, float* slab, const RecPlan& p,
-                         cudaStream_t s) {
+cudaError_t launch_chain_t(const RecArgs& a, const RecPlan& p,
+                           cudaStream_t s) {
   cudaError_t err = opt_in(rec_chain_kernel<RB, HB, W>, p.smem_chain);
   if (err != cudaSuccess) return err;
   rec_chain_kernel<RB, HB, W>
       <<<dim3((a.B + p.R - 1) / p.R), dim3(p.tile.HX, p.tile.RY),
          p.smem_chain, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The CUDA-core body's template instance of a width's tile.
+template <typename W>
+cudaError_t dispatch_cuda_core(const RecArgs& a, const RecPlan& p,
+                               cudaStream_t s, bool chain) {
+  switch (p.tile.HB) {
+    case 1:
+      return chain ? launch_chain_t<8, 1, W>(a, p, s)
+                   : launch_fwd_t<8, 1, W>(a, p, s);
+    case 2:
+      return chain ? launch_chain_t<8, 2, W>(a, p, s)
+                   : launch_fwd_t<8, 2, W>(a, p, s);
+    case 4:
+      return chain ? launch_chain_t<8, 4, W>(a, p, s)
+                   : launch_fwd_t<8, 4, W>(a, p, s);
+    default:
+      return chain ? launch_chain_t<4, 8, W>(a, p, s)
+                   : launch_fwd_t<4, 8, W>(a, p, s);
+  }
+}
+
+// The forward, or the backward's chain, on the body the plan gives the
+// shape.
+template <typename W>
+cudaError_t run_body(const RecArgs& a, const RecPlan& p, cudaStream_t s,
+                     bool chain, bool train) {
+  if (chain) {
+    if (!p.chain_mma) return dispatch_cuda_core<W>(a, p, s, true);
+    const RecMmaPlan& m = p.mchain;
+    if (m.NT == 2)
+      return m.NB == 2 ? rm_launch(rec_mma_chain_kernel<W, 2, 2>, m, a, s)
+                       : rm_launch(rec_mma_chain_kernel<W, 1, 2>, m, a, s);
+    return m.NB == 2 ? rm_launch(rec_mma_chain_kernel<W, 2, 4>, m, a, s)
+                     : rm_launch(rec_mma_chain_kernel<W, 1, 4>, m, a, s);
+  }
+  if (!p.fwd_mma) return dispatch_cuda_core<W>(a, p, s, false);
+  return train ? rm_launch(rec_mma_fwd_kernel<W, true>, p.mfwd, a, s)
+               : rm_launch(rec_mma_fwd_kernel<W, false>, p.mfwd, a, s);
+}
+
+// The backward: the chain, then g_W_rec's slabs by gbits_mma.
+template <typename W>
+cudaError_t run_bwd(const RecArgs& a, float* slab, const RecPlan& p,
+                    cudaStream_t s) {
+  cudaError_t err = run_body<W>(a, p, s, true, true);
+  if (err != cudaSuccess) return err;
   const int HW = (a.H + 31) / 32;
   // g_i (T, B, H) and the bits (T, B, HW): row (b, t) at t B + b.
   const GbitsArgs g{a.g_i, a.zmask, slab, a.B, a.T, 1, a.B, 1, a.B, 0, HW,
@@ -391,38 +451,34 @@ cudaError_t launch_bwd_t(const RecArgs& a, float* slab, const RecPlan& p,
   return launch_gbits<float, W>(g, p.gb, 1, s);
 }
 
-// The template instance of a width's tile.
-template <typename W>
-cudaError_t dispatch(const RecArgs& a, float* slab, const RecPlan& p,
-                     cudaStream_t s, bool bwd) {
-  switch (p.tile.HB) {
-    case 1:
-      return bwd ? launch_bwd_t<8, 1, W>(a, slab, p, s)
-                 : launch_fwd_t<8, 1, W>(a, p, s);
-    case 2:
-      return bwd ? launch_bwd_t<8, 2, W>(a, slab, p, s)
-                 : launch_fwd_t<8, 2, W>(a, p, s);
-    case 4:
-      return bwd ? launch_bwd_t<8, 4, W>(a, slab, p, s)
-                 : launch_fwd_t<8, 4, W>(a, p, s);
-    default:
-      return bwd ? launch_bwd_t<4, 8, W>(a, slab, p, s)
-                 : launch_fwd_t<4, 8, W>(a, p, s);
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
 // out[0] = blocks of g_W_rec slabs of the backward at batch B (block y of
-// gbits_mma sums the batch rows [y B / out[0], (y + 1) B / out[0])).
+// gbits_mma sums the batch rows [y B / out[0], (y + 1) B / out[0])); then
+// for the forward (out[1 .. 6]) and the chain (out[7 .. 12]) the body
+// (1: the tensor-core cluster body, 0: the CUDA-core body) and, on the
+// cluster body, its plan: blocks a cluster, units a block, rows a cluster,
+// exchange buffers, clusters active at once.
 // Returns 0 when the shape fits, 1 when it does not, or a CUDA error code.
 int snn_rec_scan_plan(int B, int H, int T, int bf16, int device, int* out) {
   RecPlan p;
   const int rc = make_plan(B, H, T, bf16, device, &p);
-  if (rc == 0) out[0] = p.gb.groups;
-  return rc;
+  if (rc != 0) return rc;
+  out[0] = p.gb.groups;
+  for (int chain = 0; chain < 2; ++chain) {
+    const RecMmaPlan& m = chain ? p.mchain : p.mfwd;
+    const bool mma = chain ? p.chain_mma : p.fwd_mma;
+    int* o = out + 1 + 6 * chain;
+    o[0] = mma ? 1 : 0;
+    o[1] = mma ? m.C : 0;
+    o[2] = mma ? m.U : 0;
+    o[3] = mma ? m.R : 0;
+    o[4] = mma ? m.NB : 0;
+    o[5] = mma ? m.active : 0;
+  }
+  return 0;
 }
 
 // z (T, B, H) in W's type and, where res is not null (training), the
@@ -438,9 +494,10 @@ int snn_rec_scan_fwd(const float* cur, const void* w_rec, const float* beta,
   RecArgs a{cur, w_rec, beta, z, res, a_tr, nullptr, nullptr, nullptr,
             B, H, T, p.JC, alif, res_is_v, 0, alpha, rho, threshold, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool train = res != nullptr;
   const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(a, nullptr, p, s, false)
-           : dispatch<float>(a, nullptr, p, s, false);
+      bf16 ? run_body<__nv_bfloat16>(a, p, s, false, train)
+           : run_body<float>(a, p, s, false, train);
   return (int)err;
 }
 
@@ -464,9 +521,8 @@ int snn_rec_scan_bwd(const void* g_z, const void* z, const void* res,
             const_cast<void*>(res), const_cast<void*>(a_tr), g_z, g_i,
             static_cast<unsigned*>(zmask), B, H, T, p.JC, 0, res_is_v, phi,
             alpha, 0.f, threshold, gamma};
-  const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(a, slab, p, s, true)
-           : dispatch<float>(a, slab, p, s, true);
+  const cudaError_t err = bf16 ? run_bwd<__nv_bfloat16>(a, slab, p, s)
+                               : run_bwd<float>(a, slab, p, s);
   return (int)err;
 }
 

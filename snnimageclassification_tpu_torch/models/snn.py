@@ -132,7 +132,12 @@ from ..ops.fused_mid import (
     fused_mid_supported,
 )
 from ..ops.izh import izh_kernel_params, izh_scan, izh_scan_supported
-from ..ops.rec_scan import rec_alif_scan, rec_lif_scan, rec_scan_supported
+from ..ops.rec_scan import (
+    rec_alif_scan,
+    rec_bodies,
+    rec_lif_scan,
+    rec_scan_supported,
+)
 from ..ops.scan import alif_scan, lif_scan, scan_supported
 from ..ops.temporal import batchwise_temporal_filter, temporal_max
 from .config import ReadoutMth, SNNConfig
@@ -971,6 +976,31 @@ def forward_logits(cfg: SNNConfig, params: Params, inputs, *,
     return prediction_logits(cfg, trace)
 
 
+def rec_scan_body_note(n_steps: int, hidden: int, itemsize: int, dev,
+                       training: bool) -> tuple:
+    """(reason suffix, path mode) of the recurrent scan's bodies on the
+    card, each named in the reason: "the tensor-core cluster body (mma)",
+    or the CUDA-core body (every float32 chain); a shape past the cluster
+    body's limits, whose forward takes the CUDA-core body too, gives a path
+    ending in ``[cuda-core]``."""
+    parts = ("the forward", "the backward's chain")
+    bodies = rec_bodies(n_steps, hidden, itemsize=itemsize, device=dev)
+    if not training:
+        parts, bodies = parts[:1], bodies[:1]
+    note, mode = "", ""
+    if "mma" in bodies:
+        note = ("; the tensor-core cluster body (mma: W_rec split across a "
+                "thread-block cluster) in " + " and ".join(
+                    k for k, b in zip(parts, bodies) if b == "mma"))
+    if bodies[0] == "cuda-core":
+        mode = "[cuda-core]"
+    if "cuda-core" in bodies:
+        note += ("; the CUDA-core body (a float32 chain, or W_rec's pieces "
+                 "past a cluster's shared memory) in " + " and ".join(
+                     k for k, b in zip(parts, bodies) if b == "cuda-core"))
+    return note, mode
+
+
 def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                      training: bool = False, stacked: bool = False) -> list:
     """Which implementation :func:`forward_logits_pixels` (with ``enc``)
@@ -999,7 +1029,9 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     up to two rows: ``cuda:encode_matmul_fwd`` (a first layer's currents
     from the latencies; ``+encode_matmul_bwd`` training) and
     ``cuda:rec_scan_fwd`` (a recurrent LIF/ALIF layer's scan over its
-    currents; ``cuda:rec_scan_fwd_train+rec_scan_bwd`` training) or
+    currents; ``cuda:rec_scan_fwd_train+rec_scan_bwd`` training; "the
+    tensor-core cluster body (mma)" or the CUDA-core body in the reason,
+    and past the cluster body's limits a path ending in ``[cuda-core]``) or
     ``cuda:scan_fwd`` (a feedforward one's; ``cuda:scan_fwd_train+scan_bwd``
     training), on the CPU ``torch:encode_matmul_reference``,
     ``torch:rec_scan_reference`` and ``torch:scan_reference``.
@@ -1177,7 +1209,7 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             })
             continue
         if _layer_scan_fusible(cfg, lcfg, False, dev, training):
-            gb = ""
+            gb, mode = "", ""
             if type(lcfg) is IzhikevichConfig:
                 kernels = (KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
                            "izh_scan_reference")
@@ -1188,12 +1220,17 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                            KERNEL_REC_BWD, "rec_scan_reference")
                 # rec_scan_bwd's g_W_rec reads the chain's float32 g_i.
                 gb = gbits_note("g_W_rec", lcfg.output_size, 4)
+                if on_card:
+                    body, mode = rec_scan_body_note(
+                        cfg.int_time_steps, lcfg.output_size, md_size, dev,
+                        training)
+                    gb = body + gb
             else:
                 kernels = (KERNEL_SCAN_TRAIN if training else KERNEL_SCAN,
                            KERNEL_SCAN_BWD, "scan_reference")
             entries.append({
                 "layer": name,
-                "path": path(*kernels),
+                "path": path(*kernels, mode=mode),
                 "reason": "currents of all steps in one product, then the "
                           "scan in one call" + also + gb + where,
             })

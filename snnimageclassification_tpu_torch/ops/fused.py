@@ -652,32 +652,50 @@ def _slice_product(a: torch.Tensor, pieces) -> torch.Tensor:
 
 
 def _split_slice_product(a: torch.Tensor, w: torch.Tensor,
-                         wd: torch.dtype) -> torch.Tensor:
+                         wd: torch.dtype, card: bool = False) -> torch.Tensor:
     """``a @ w`` for a float32 left operand already rounded to ``wd`` (the
     backward chain's ``s`` and ``dcur``), as ``head_mma.cuh:mma_split_a``
     forms it: per k16 slice, bf16 weights one product; float32 weights the
     hi x hi product apart and the five smaller piece products of
     ``PRODUCT_TERMS`` chained into a second accumulator, the slice's
     ``small + big`` added in float32 in ascending k.  Each tensor-core
-    product is taken exactly (float64) and rounded once to nearest: the
-    tensor cores' rounding inside a slice is the one part of the body's
-    arithmetic this does not follow (ROADMAP Queue 3)."""
+    product is taken exactly (float64) and rounded once to nearest; with
+    ``card``, as :func:`_mma_slice` models the card's accumulation (terms
+    and sum truncated toward zero), the chained accumulator a term."""
     f64 = torch.float64
     ap = split_pieces(a) if wd == torch.float32 else [a]
     wp = split_pieces(w) if wd == torch.float32 else [w]
     B, K = a.shape
-    acc = torch.zeros((B, w.shape[1]), dtype=torch.float32, device=a.device)
-    for k0 in range(0, K, 16):
-        A = [p[:, k0:k0 + 16].to(f64) for p in ap]
-        Wp = [p[k0:k0 + 16].to(f64) for p in wp]
-        big = (A[0] @ Wp[0]).float()
-        if len(ap) == 1:
-            acc = acc + big
-            continue
-        small = torch.zeros_like(big)
-        for i, j in PRODUCT_TERMS[:5]:
-            small = (small.to(f64) + A[i] @ Wp[j]).float()
-        acc = acc + (small + big)
+    N = w.shape[1]
+    S = -(-K // 16)
+    pad = 16 * S - K  # zero terms, as the body's padded units
+    # Slices on a leading axis: A (S, B, 16), W (S, 1, 16, N).
+    A = [torch.nn.functional.pad(p.to(f64), (0, pad)).view(B, S, 16)
+         .transpose(0, 1) for p in ap]
+    Wp = [torch.nn.functional.pad(p.to(f64), (0, 0, 0, pad))
+          .view(S, 1, 16, N) for p in wp]
+
+    def mma(x, y, c):
+        if card:
+            return _mma_slice(x, y, c)
+        return (c.to(f64) + x @ y.squeeze(-3)).float()
+
+    acc = torch.zeros((B, N), dtype=torch.float32, device=a.device)
+    group = max(1, (1 << 24) // (B * 16 * N))  # slices a pass
+    for s0 in range(0, S, group):
+        x = [p[s0:s0 + group] for p in A]
+        y = [p[s0:s0 + group] for p in Wp]
+        zero = torch.zeros((x[0].shape[0], B, N), dtype=torch.float32,
+                           device=a.device)
+        big = mma(x[0], y[0], zero)
+        part = big
+        if len(ap) > 1:
+            small = zero
+            for i, j in PRODUCT_TERMS[:5]:
+                small = mma(x[i], y[j], small)
+            part = small + big
+        for j in range(part.shape[0]):
+            acc = acc + part[j]
     return acc
 
 

@@ -34,6 +34,15 @@ On a CUDA tensor a wrapper launches them or raises; on the CPU it runs the
 plain PyTorch versions (``_fwd_reference``, ``_bwd_reference``), which the
 tests hold against the JAX kernels.  The ``*_reference`` entry points run
 the plain versions on any device.
+
+Each kernel runs one of two bodies, chosen by shape (:func:`rec_bodies`):
+the tensor-core cluster body (``csrc/rec_mma.cuh``: W_rec's bf16 pieces
+split across a thread-block cluster, the recurrent products on tensor
+cores; the forward float32 up to H = 512 and bf16 up to 1024, the chain
+bf16 up to 1024) or, elsewhere, the CUDA-core body (every float32 chain:
+at H = 512 the cluster body's six piece products a slice ran slower).  ``_fwd_ordered_reference`` and ``_chain_ordered_reference`` are the
+plain versions in the cluster body's summation order: the forward's bits
+equal them on the card.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from .fused import (
     MAX_STEPS,
     Beta,
 )
+from .head_mma import split_pieces
 from .surrogate import SpikeFuncType, surrogate_grad_from_delta
 
 __all__ = [
@@ -58,23 +68,22 @@ __all__ = [
     "rec_alif_scan_reference",
     "rec_lif_scan_reference",
     "rec_scan_supported",
+    "rec_bodies",
+    "cluster_plans",
 ]
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
-def _fwd_reference(currents, w_rec, beta, alif, alpha, rho, threshold, train,
-                   store_a, res_is_v):
-    """Plain version of ``rec_scan_fwd[_train]``: ``(z, res | None, a |
-    None)`` in W_rec's dtype; ``res`` is ``v`` or ``delta``.  bf16 weights
-    are upcast (exact), so products with 0/1 spikes are exact and sums
-    float32; on a card run it with ``torch.backends.cuda.matmul.allow_tf32
-    = False``."""
+def _fwd_loop(currents, w_rec, beta, alif, alpha, rho, threshold, train,
+              store_a, res_is_v, product):
+    """The forward's cell over the steps, ``product(z)`` the recurrent
+    current of ``z(t-1)`` (float32 0/1): ``(z, res | None, a | None)`` in
+    W_rec's dtype."""
     f32, wd = torch.float32, w_rec.dtype
     T, B, H = currents.shape
     dev = currents.device
-    w32 = w_rec.to(f32)
     beta_t = torch.as_tensor(beta, dtype=f32, device=dev) if alif else None
     v = torch.zeros((B, H), dtype=f32, device=dev)
     a = torch.zeros_like(v)
@@ -82,7 +91,7 @@ def _fwd_reference(currents, w_rec, beta, alif, alpha, rho, threshold, train,
     zs, res, a_tr = [], [], []
     for t in range(T):
         # The JAX kernel's order: (alpha v + i) + z @ W_rec.
-        v = (alpha * v + currents[t] + z @ w32) * (1.0 - z)
+        v = (alpha * v + currents[t] + product(z)) * (1.0 - z)
         thr = threshold
         if alif:
             a = rho * a + z
@@ -98,10 +107,40 @@ def _fwd_reference(currents, w_rec, beta, alif, alpha, rho, threshold, train,
             torch.stack(a_tr) if train and store_a else None)
 
 
-def _bwd_reference(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
-                   threshold, gamma, spike_func):
-    """Plain version of ``rec_scan_bwd``: ``(g_i (T, B, H) float32, g_W_rec
-    in W_rec's dtype)``."""
+def _fwd_reference(currents, w_rec, beta, alif, alpha, rho, threshold, train,
+                   store_a, res_is_v):
+    """Plain version of ``rec_scan_fwd[_train]``: ``(z, res | None, a |
+    None)`` in W_rec's dtype; ``res`` is ``v`` or ``delta``.  bf16 weights
+    are upcast (exact), so products with 0/1 spikes are exact and sums
+    float32; on a card run it with ``torch.backends.cuda.matmul.allow_tf32
+    = False``."""
+    w32 = w_rec.to(torch.float32)
+    return _fwd_loop(currents, w_rec, beta, alif, alpha, rho, threshold,
+                     train, store_a, res_is_v, lambda z: z @ w32)
+
+
+def _fwd_ordered_reference(currents, w_rec, beta, alif, alpha, rho,
+                           threshold, train, store_a, res_is_v):
+    """Plain version of the cluster body's forward (``csrc/rec_mma.cuh:
+    rec_mma_fwd_kernel``) in its summation order: the cell of
+    :func:`_fwd_reference`, the recurrent current ``z(t-1) @ W_rec`` taken
+    per k16 slice as the tensor cores form it (``ops/fused.py:
+    _slice_product``: float32 weights as three bf16 pieces, hi apart from
+    lo and mid, each slice's sum added in float32 in ascending k).  The
+    body's plan does not enter: every unit sums all H inputs in that order.
+    Returns as :func:`_fwd_reference`; the card's bits equal it."""
+    w32 = w_rec.to(torch.float32)
+    pieces = split_pieces(w32) if w_rec.dtype == torch.float32 else [w32]
+    return _fwd_loop(currents, w_rec, beta, alif, alpha, rho, threshold,
+                     train, store_a, res_is_v,
+                     lambda z: _f._slice_product(z, pieces))
+
+
+def _bwd_loop(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha, threshold,
+              gamma, spike_func, product, want_gw):
+    """The backward's chain over the steps, ``product(d)`` the recurrent
+    cotangent ``d @ W_rec^T`` of the rounded ``dcur(t+1)``: ``(g_i (T, B,
+    H) float32, g_W_rec float32 | None)``."""
     f32, wd = torch.float32, w_rec.dtype
     T, B, H = res.shape
     dev = res.device
@@ -109,25 +148,53 @@ def _bwd_reference(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
     def r(x):
         return x if wd == f32 else x.to(wd).to(f32)
 
-    w32 = w_rec.to(f32)
     beta_t = (torch.as_tensor(beta, dtype=f32, device=dev)
               if a_tr is not None else None)
     dcur = torch.zeros((B, H), dtype=f32, device=dev)
-    g_w = torch.zeros((H, H), dtype=f32, device=dev)
+    g_w = torch.zeros((H, H), dtype=f32, device=dev) if want_gw else None
     g_i = [None] * T
     for t in range(T - 1, -1, -1):
         thr = (threshold + beta_t * a_tr[t].to(f32) if a_tr is not None
                else threshold)
         d_t = res[t].to(f32) - thr if res_is_v else res[t].to(f32)
         surr = surrogate_grad_from_delta(spike_func, d_t, thr, gamma)
-        dz = g_z[t].to(f32) + r(dcur) @ w32.T
+        dz = g_z[t].to(f32) + product(r(dcur))
         dv = dz * surr + alpha * dcur
         z_prev = (z[t - 1].to(f32) if t > 0
                   else torch.zeros((B, H), dtype=f32, device=dev))
         dcur = dv * (1.0 - z_prev)
         g_i[t] = dcur
-        g_w += z_prev.T @ r(dcur)
-    return torch.stack(g_i), g_w.to(wd)
+        if want_gw:
+            g_w += z_prev.T @ r(dcur)
+    return torch.stack(g_i), g_w
+
+
+def _bwd_reference(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
+                   threshold, gamma, spike_func):
+    """Plain version of ``rec_scan_bwd``: ``(g_i (T, B, H) float32, g_W_rec
+    in W_rec's dtype)``."""
+    w32 = w_rec.to(torch.float32)
+    g_i, g_w = _bwd_loop(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
+                         threshold, gamma, spike_func, lambda d: d @ w32.T,
+                         True)
+    return g_i, g_w.to(w_rec.dtype)
+
+
+def _chain_ordered_reference(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
+                             threshold, gamma, spike_func, card=False):
+    """Plain version of the cluster body's chain (``csrc/rec_mma.cuh:
+    rec_mma_chain_kernel``) in its summation order: ``g_i (T, B, H)``
+    float32, with ``round(dcur(t+1)) @ W_rec^T`` per k16 slice as
+    ``head_mma.cuh:mma_split_a`` forms it (``ops/fused.py:
+    _split_slice_product``; ``card`` takes each tensor-core product as
+    ``_mma_slice`` models the card's accumulation instead of rounding its
+    exact sum to nearest)."""
+    wd = w_rec.dtype
+    w_t = w_rec.to(torch.float32).T.contiguous()
+    return _bwd_loop(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
+                     threshold, gamma, spike_func,
+                     lambda d: _f._split_slice_product(d, w_t, wd, card=card),
+                     False)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -156,17 +223,68 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _plan(device: torch.device, B: int, H: int, T: int,
-          bf16: bool) -> Optional[int]:
-    """Blocks of ``g_W_rec`` slabs of the backward at batch ``B``, or None
-    when the shape does not fit the kernels."""
+PLAN_KEYS = ("body", "cluster", "units", "rows", "buffers", "active")
+
+
+def _plan_all(device: torch.device, B: int, H: int, T: int,
+              bf16: bool) -> Optional[dict]:
+    """The kernels' plan at batch ``B``: ``groups`` (blocks of ``g_W_rec``
+    slabs of the backward) and, for ``fwd`` and ``chain``, a dict of
+    ``PLAN_KEYS``: the body ("mma", the tensor-core cluster body, or
+    "cuda-core") and, on the cluster body, blocks a cluster, units a block,
+    rows a cluster, exchange buffers and the clusters the card keeps active
+    at once (zeros on the CUDA-core body).  None when the shape does not
+    fit the kernels."""
     lib = _lib()
-    out = (ctypes.c_int * 1)()
+    out = (ctypes.c_int * 13)()
     rc = lib.snn_rec_scan_plan(B, H, T, int(bf16), _f._index(device), out)
     if rc == 1:
         return None
     _f._raise_on(rc, lib, f"{KERNEL_REC} plan")
-    return out[0]
+    plan = {"groups": out[0]}
+    for i, kind in enumerate(("fwd", "chain")):
+        vals = list(out[1 + 6 * i:7 + 6 * i])
+        vals[0] = "mma" if vals[0] else "cuda-core"
+        plan[kind] = dict(zip(PLAN_KEYS, vals))
+    return plan
+
+
+def _plan(device: torch.device, B: int, H: int, T: int,
+          bf16: bool) -> Optional[int]:
+    """Blocks of ``g_W_rec`` slabs of the backward at batch ``B``, or None
+    when the shape does not fit the kernels."""
+    plan = _plan_all(device, B, H, T, bf16)
+    return None if plan is None else plan["groups"]
+
+
+def cluster_plans(n_steps: int, hidden: int, batch: int, *,
+                  itemsize: int = 4, device="cuda") -> Optional[dict]:
+    """The forward's and the chain's plans at ``batch`` rows on the card
+    (``_plan_all``'s ``fwd`` and ``chain``), or None where the kernels do
+    not take the shape."""
+    plan = _plan_all(torch.device(device), batch, hidden, n_steps,
+                     itemsize == 2)
+    return None if plan is None else {k: plan[k] for k in ("fwd", "chain")}
+
+
+def rec_bodies(n_steps: int, hidden: int, *, itemsize: int = 4,
+               device="cuda") -> tuple:
+    """The bodies the forward and the backward's chain run a shape on:
+    ("mma" | "cuda-core", "mma" | "cuda-core").  By shape only: the cluster
+    body where W_rec's pieces and the exchange buffers fit a block when
+    split across at most 16 blocks (the forward float32 up to H = 512, bf16
+    up to 1024; the chain bf16 up to 1024), the CUDA-core body elsewhere
+    (every float32 chain).  On the CPU the plain versions
+    ("plain", "plain"); raises where the kernels do not take the shape."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ("plain", "plain")
+    plans = cluster_plans(n_steps, hidden, 1, itemsize=itemsize,
+                          device=device)
+    if plans is None:
+        raise ValueError(f"{KERNEL_REC}: T={n_steps} H={hidden} does not fit "
+                         "the kernels (gate on rec_scan_supported)")
+    return plans["fwd"]["body"], plans["chain"]["body"]
 
 
 def rec_scan_supported(n_steps: int, hidden: int, *, itemsize: int = 4,
@@ -174,9 +292,11 @@ def rec_scan_supported(n_steps: int, hidden: int, *, itemsize: int = 4,
     """Whether the recurrent scan covers this shape on ``device``.  On the
     CPU the plain versions cover every shape.  On a CUDA device the kernels
     need ``W_rec`` in float32 or bfloat16, ``hidden <= 1024`` and
-    ``n_steps <= MAX_STEPS``; ``W_rec`` streams through shared memory in
-    chunks, so its size sets no limit, and the backward's ``g_W_rec``
-    (``gbits_mma``) streams ``g_i`` through a ring of 64-row stages."""
+    ``n_steps <= MAX_STEPS``: the cluster body splits W_rec across blocks,
+    and past it the CUDA-core body streams W_rec through shared memory in
+    chunks, so its size sets no limit (:func:`rec_bodies` names the body);
+    the backward's ``g_W_rec`` (``gbits_mma``) streams ``g_i`` through a
+    ring of 64-row stages."""
     del training  # one plan covers both kernels
     device = torch.device(device)
     if n_steps < 1 or hidden < 1:

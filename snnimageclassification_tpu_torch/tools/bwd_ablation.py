@@ -8,8 +8,17 @@ with ``--library``, the one PyTorch call of each gradient function's product
 on materialised operands, and each function's bound.  ``--replicas S``
 also times those calls as ``torch.bmm`` over S stacked copies (the
 ensemble's stacked backward).  ``--wide`` times ``rec_scan_bwd``'s two
-functions instead (784 -> ALIF-512 -> 10, B = 8192, T = 100: ``rec_chain``
-and ``g_W_rec``), with ``--library`` its ``z_prev^T @ round(g_i)``.
+functions instead (784 -> ALIF-512 -> 10, B = 8192, T = 100: the chain and
+``g_W_rec``) as built.  Where the chain runs its tensor-core cluster body
+(bf16), also without its recurrent product (``no_chain_rec_product``),
+without the exchange of the rounded dcur (``no_chain_exchange``: no copies
+into the peers and no wait on them), without its element-wise loads
+(``no_chain_loads``: constants), with two exchange buffers where the plan
+takes one (``chain_two_buffers``: fewer rows a cluster), and on the
+CUDA-core body (``cuda_core_chain``), then the plans and the whole call on
+one cluster's rows alone (the step's latency); where it runs the CUDA-core
+body (float32), also on the cluster body (``cluster_chain``).  With
+``--library`` its ``z_prev^T @ round(g_i)``.
 ``--izh`` times ``fused_izh_bwd``'s four functions instead (784 ->
 Izhikevich-128 recurrent -> 10 at dt = 30, B = 8192, T = 100, seed 0: the
 chain on tensor cores, ``bwd_gwin``, ``gbits_mma``, ``bwd_gout``), as built,
@@ -116,6 +125,39 @@ VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
     "no_chain_out_product": (
         "mma_split_a<P>(dz[n], sa, s_wout, MMA_NT * wu + n, lane);",
         "dz[n][0] += 0.f;"),
+}
+# The wide chain's variants where it runs the cluster body
+# (csrc/rec_mma.cuh:rec_mma_chain_kernel), and where it does not.
+WIDE_VARIANTS = {  # name -> ((statement, its replacement), ...)
+    "no_chain_rec_product": ((
+        "mma_split_a<P>(rec[n], da, s_w, kk * NU + NT * wu + n, lane);",
+        "rec[n][0] += 0.f;"),),
+    "no_chain_exchange": (
+        ("    if (s > 0)\n      mbar_wait_cluster(s_full + rb, (NB == 2 ? "
+         "(s - 1) >> 1 : s - 1) & 1);\n", ""),
+        ("if (NB == 2 && tid == 0 && t > 0) mbar_expect(s_full + wb, "
+         "step_bytes);", ""),
+        ("if (tid == 0 && t > 0) mbar_expect(s_full, step_bytes);", ""),
+        ("copy_to_peer(peer_addr(src + p * plane, peer), src + p * plane,\n"
+         "                       1024, peer_addr(bar, peer));", ";")),
+    "no_chain_loads": (
+        ("gz[n][hh] = load_raw(g_z + at, vec, two);",
+         "gz[n][hh] = raw_pair<W>{};"),
+        ("rv[n][hh] = load_raw(res + at, vec, two);",
+         "rv[n][hh] = raw_pair<W>{};"),
+        ("zv[n][hh] = load_raw(z_tr + (t > 0 && ok ? at - stride : 0), vec, "
+         "two);", "zv[n][hh] = raw_pair<W>{};")),
+    "chain_two_buffers": ((
+        "waves * (c.R > 64 ? c.R : 64) * (c.NB == 1 ? 5 : 4);",
+        "waves * (c.R > 64 ? c.R : 64) * (c.NB == 1 ? 500 : 4);"),),
+    "cuda_core_chain": ((
+        "const bool cluster = !chain || bf16;",
+        "const bool cluster = !chain;"),),
+}
+CUDA_CORE_VARIANTS = {
+    "cluster_chain": ((
+        "const bool cluster = !chain || bf16;",
+        "const bool cluster = true;"),),
 }
 BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12  # H100 SXM
 
@@ -305,6 +347,43 @@ def wide(md, library: bool) -> None:
            "firing": float(z.float().mean())}
     print(json.dumps({"variant": "kernel", **tag, "ms": _function_ms(run)}),
           flush=True)
+    source = _build.inlined_source("rec_scan")
+    if "rec_mma_chain_kernel" in source:  # a tree with the cluster body
+        on_cluster = rec_scan.rec_bodies(
+            T, H, itemsize=md.itemsize)[1] == "mma"
+        variants = {}
+        for name, pairs in (WIDE_VARIANTS if on_cluster
+                            else CUDA_CORE_VARIANTS).items():
+            variant = source
+            for old, new in pairs:
+                if variant.count(old) != 1:
+                    raise SystemExit(f"{name}: statement not found once in "
+                                     "the source")
+                variant = variant.replace(old, new)
+            variants[name] = variant
+        with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc a variant
+            paths = dict(zip(variants, pool.map(
+                _variant_so, [f"rec_{n}" for n in variants],
+                variants.values())))
+        kernel = _build.load("rec_scan")
+        try:
+            for name, path in paths.items():
+                _build._libs["rec_scan"] = ctypes.CDLL(str(path))
+                print(json.dumps({"variant": name, **tag,
+                                  "ms": _function_ms(run)}), flush=True)
+        finally:
+            _build._libs["rec_scan"] = kernel
+        plans = rec_scan.cluster_plans(T, H, B, itemsize=md.itemsize)
+        print(json.dumps({"plans": plans, **tag}), flush=True)
+    if "rec_mma_chain_kernel" in source and on_cluster:
+        # One cluster's rows alone: the chain's step latency, T steps.
+        R = plans["chain"]["rows"]
+        one = [x[:, :R].contiguous() for x in (g_z, z, res)]
+        print(json.dumps({"one_cluster_ms": _events_ms(
+            lambda: rec_scan._bwd_cuda(
+                one[0], one[1], one[2], None, False, w_rec, beta,
+                lcfg.alpha, lcfg.threshold, lcfg.gamma, lcfg.spike_func)),
+            "rows": R, **tag}), flush=True)
     if not library:
         return
     print(json.dumps({"whole_call_ms": _events_ms(run), **tag}), flush=True)

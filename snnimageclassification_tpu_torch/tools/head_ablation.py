@@ -9,6 +9,7 @@ Run on a CUDA card from the repository root::
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation --bodies
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation --izh \
         [--bodies]
+    python3 -m snnimageclassification_tpu_torch.tools.head_ablation --wide
 
 Each variant is the kernel source (headers inlined) with one statement of
 its tensor-core body replaced: the readout product, the recurrent product,
@@ -33,6 +34,20 @@ the same tensor-core body with the Izhikevich cell): 784 -> Izhikevich-128
 recurrent -> 10 at dt = 30 (the served network of ``chip_smoke.py`` phase
 9, seed 0) on the same batch; ``--izh --bodies`` its two bodies.
 
+``--wide`` times the wide net's recurrent scan forward instead
+(``csrc/rec_scan.cu``, 784 -> ALIF-512 -> 10: ``rec_scan_fwd_train`` at B
+= 8192 and ``rec_scan_fwd`` at 4096, T = 100, currents 0.3 + 0.6 N(0, 1)
+and a masked W_rec of std 1.3 / sqrt(H), numpy seed 1, as
+``chip_smoke.py``'s wide phase), float32 and bfloat16, on its tensor-core
+cluster body as built and without its recurrent product
+(``no_recurrent_product``), without the exchange of the spike words
+(``no_exchange``: no copies into the peers and no wait on them), without
+the currents' loads (``no_cur_loads``: a constant), without the traces'
+global stores (``no_trace_stores``), and on the CUDA-core body
+(``cuda_core_body``: the cluster plans made not to fit); then the plans
+(clusters of C blocks, clusters active at once) and each body's time on
+one cluster's rows alone (``one_cluster``: the step's latency, T steps).
+
 ``--launch-order`` times the stacked kernel (six replicas of that
 flagship, seeds 0-5, on the same batch) as it is built, row tiles on the
 grid's fastest axis, against a variant with the replicas there; the two
@@ -45,6 +60,7 @@ import ctypes
 import json
 import statistics
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -79,6 +95,29 @@ VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
         "k, e);\n"
         "                  });\n",
         ""),
+}
+
+# The wide forward's variants (csrc/rec_mma.cuh:rec_mma_fwd_kernel).
+WIDE_VARIANTS = {
+    "no_recurrent_product": (
+        ("mma_exact_a<P>(rec[n], A, s_w, kk * NU + MMA_NT * wu + n, lane);",
+         "rec[n][0] += 0.f;"),),
+    "no_exchange": (
+        ("if (t > 0) mbar_wait_cluster(s_full + ((t - 1) & 1), ((t - 1) >> 1) "
+         "& 1);", ""),
+        ("if (tid == 0 && t < T - 1) mbar_expect(s_full + (t & 1), "
+         "step_bytes);", ""),
+        ("copy_to_peer(peer_addr(src, p), src, 64, peer_addr(bar, p));",
+         ";")),
+    "no_cur_loads": (
+        ("cur[n][hh] = load_raw(a.cur + (ok ? at : 0), vec, col + 1 < H);",
+         "cur[n][hh] = make_float2(0.3f, 0.3f);"),),
+    "no_trace_stores": (
+        ("if (!live[hh] || col >= H) continue;",
+         "if (!live[hh] || col >= H || t >= 0) continue;"),),
+    "cuda_core_body": (
+        ("(chain ? p->chain_mma : p->fwd_mma) = rc == 0;",
+         "(chain ? p->chain_mma : p->fwd_mma) = false;"),),
 }
 
 # The stacked launch with its grid's axes swapped: replicas on x (fastest),
@@ -204,10 +243,16 @@ def main() -> None:
                         help="time the tensor-core and per-unit bodies")
     parser.add_argument("--izh", action="store_true",
                         help="the Izhikevich head (csrc/fused_izh.cu)")
+    parser.add_argument("--wide", action="store_true",
+                        help="the wide net's recurrent scan forward "
+                             "(csrc/rec_scan.cu)")
     ns = parser.parse_args()
     launch_order = ns.launch_order
     if not torch.cuda.is_available():
         raise SystemExit("head_ablation needs a CUDA card")
+    if ns.wide:
+        _wide_main()
+        return
     if ns.izh:
         _izh_main(ns.bodies)
         return
@@ -296,6 +341,61 @@ def _izh_main(bodies: bool) -> None:
     finally:
         _build._libs["fused_izh"] = libs["kernel"]
     print(card)
+
+
+def _wide_main() -> None:
+    """``--wide``: the recurrent scan forward's variants at the wide net's
+    shapes, float32 and bfloat16, training (B = 8192) and served (4096)."""
+    from ..ops import rec_scan
+
+    B, H, T = 8192, 512, 100
+    cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=H,
+                    hidden_layer_type=LayerType.ALIF, learn_beta=True,
+                    int_time_steps=T)
+    (_, lcfg), _ = cfg.layer_configs
+    rng = np.random.default_rng(1)
+    cur = torch.from_numpy((0.3 + 0.6 * rng.standard_normal((T, B, H)))
+                           .astype(np.float32)).cuda()
+    w32 = torch.from_numpy((1.3 / np.sqrt(H) * rng.standard_normal((H, H)))
+                           .astype(np.float32)).cuda()
+    w32 = w32 * (1 - torch.eye(H, device="cuda"))
+    source = _build.inlined_source("rec_scan")
+    libs = {"kernel": _build.load("rec_scan")}
+    with ThreadPoolExecutor(len(WIDE_VARIANTS)) as pool:  # one nvcc each
+        built = pool.map(lambda kv: _variant_lib(
+            f"rec_{kv[0]}", _replace(kv[0], source, kv[1])),
+            WIDE_VARIANTS.items())
+        libs.update(zip(WIDE_VARIANTS, built))
+    sc = (1.6, True, lcfg.alpha, lcfg.rho, lcfg.threshold)
+    served = cur[:, :4096].contiguous()
+    try:
+        for md in (torch.float32, torch.bfloat16):
+            w = w32.to(md).contiguous()
+            R = rec_scan.cluster_plans(T, H, B, itemsize=md.itemsize)[
+                "fwd"]["rows"]
+            one = cur[:, :R].contiguous()
+            calls = {
+                "train": lambda: rec_scan._fwd_cuda(cur, w, *sc, True, False,
+                                                    False),
+                "serve": lambda: rec_scan._fwd_cuda(served, w, *sc, False,
+                                                    False, False),
+                "one_cluster": lambda: rec_scan._fwd_cuda(
+                    one, w, *sc, True, False, False)}
+            for rnd in range(2):
+                for name, lib in libs.items():
+                    _build._libs["rec_scan"] = lib  # what rec_scan loads
+                    ms = {k: _median_ms(f, 5) for k, f in calls.items()}
+                    print(json.dumps({"variant": name, "wide": True,
+                                      "dtype": str(md)[6:], "round": rnd,
+                                      "ms": ms}), flush=True)
+            _build._libs["rec_scan"] = libs["kernel"]
+            plans = {f"B={b}": rec_scan.cluster_plans(
+                T, H, b, itemsize=md.itemsize) for b in (B, 4096)}
+            print(json.dumps({"plans": plans, "dtype": str(md)[6:]}),
+                  flush=True)
+    finally:
+        _build._libs["rec_scan"] = libs["kernel"]
+    print(_card())
 
 
 if __name__ == "__main__":

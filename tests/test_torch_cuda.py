@@ -59,6 +59,15 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   served (one ``scan_fwd`` a batch, bitwise a direct forward) and trained
   (one ``scan_fwd_train`` and one ``scan_bwd`` a step, gradients against
   the per-step loop's).
+* the recurrent scan's tensor-core cluster body (``csrc/rec_mma.cuh``) at
+  H = 20, 40, 200, 300, 512, 1024, B = 37, T = 100, LIF/ALIF x
+  FastSigmoid/Phi: spikes and residuals bit for bit
+  ``rec_scan._fwd_ordered_reference``, the bf16 chain's g_i within 2**-7
+  of max|g| of ``_chain_ordered_reference``, a row's bits independent of
+  its batch; float32 chains and float32 H = 1024 keep the CUDA-core
+  body.  Where the chain runs the cluster body, the unfused
+  tier's backward is held against its plain version in that order as well
+  as the order-free one (``_rec_check``).
 * ``gbits_mma`` (every g_W_rec and a mid layer's g_W_in) in each caller
   (the head over ``GRAD_SHAPES``, layer 0 and the mid layers, the two-layer
   pair, the Izhikevich head, first layer and scan, the stacked head at S =
@@ -1727,12 +1736,28 @@ def _rec_scalars(alif):
     return cfg.alpha, (cfg.rho if alif else 0.0), cfg.threshold, cfg.gamma
 
 
+def _rec_bwd_ordered(bw):
+    """The backward's plain version in the cluster body's order: g_i from
+    ``_chain_ordered_reference`` and g_W_rec = sum_t z(t-1)^T round(g_i(t))
+    (float32, cast to W's type), as ``_bwd_reference`` forms it."""
+    from snnimageclassification_tpu_torch.ops import rec_scan
+
+    g_z, z, _, _, _, w_rec = bw[:6]
+    g_i = rec_scan._chain_ordered_reference(*bw)
+    z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).float()
+    d = g_i.to(w_rec.dtype).float()
+    g_w = torch.einsum("tbj,tbh->jh", z_prev, d)
+    return g_i, g_w.to(w_rec.dtype)
+
+
 def _rec_check(dev, B, H, T, alif, spike, wdtype, min_rows):
     """The forward kernels against the plain version fed the same currents
     (share of rows with equal spikes at least ``min_rows``; residuals 1e-5,
     bf16 one rounding, on those rows) and the backward on the training
     kernel's residuals (2e-6 of max|g|, 5e-6 at T = 100, bf16 2**-7; equal
-    bits twice)."""
+    bits twice).  Where the chain runs the cluster body (bf16: k16-sliced
+    sums on tensor cores) the backward is also held at the same bar against
+    the plain version in that order (``_rec_bwd_ordered``)."""
     from snnimageclassification_tpu_torch.ops import rec_scan
 
     rng = np.random.default_rng(13)
@@ -1761,8 +1786,11 @@ def _rec_check(dev, B, H, T, alif, spike, wdtype, min_rows):
     g_z = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
         np.float32)).to(dev).to(wdtype)
     bw = (g_z, z, res, a_tr, res_is_v, w, beta, alpha, thr, gamma, spike)
-    _grads_close(rec_scan._bwd_cuda(*bw), rec_scan._bwd_cuda(*bw),
-                 rec_scan._bwd_reference(*bw), _izh_bar(T, wdtype))
+    got, again = rec_scan._bwd_cuda(*bw), rec_scan._bwd_cuda(*bw)
+    bar = _izh_bar(T, wdtype)
+    _grads_close(got, again, rec_scan._bwd_reference(*bw), bar)
+    if rec_scan.rec_bodies(T, H, itemsize=wdtype.itemsize)[1] == "mma":
+        _grads_close(got, again, _rec_bwd_ordered(bw), bar)
 
 
 @pytest.mark.cuda
@@ -1789,6 +1817,91 @@ def test_rec_scan_kernels_wide(card, B, H, wdtype):
     spikes on at least 95 % of rows (a near-tie flip between two float32
     summation orders takes its row's trace with it)."""
     _rec_check(card, B, H, 100, True, FAST, wdtype, 0.95)
+
+
+REC_MMA_WIDTHS = [20, 40, 200, 300, 512, 1024]
+
+
+def _rec_mma_run(dev, B, H, T, alif, spike, wdtype, seed=13, rows=None):
+    """Both kernels on one input set: (forward arguments, the training
+    forward's outputs, the inference spikes, the backward's arguments, its
+    g_i); ``rows`` takes those batch rows of the inputs."""
+    from snnimageclassification_tpu_torch.ops import rec_scan
+
+    rng = np.random.default_rng(seed)
+    cur, w = _rec_inputs(dev, rng, B, H, T, wdtype)
+    g_z = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(dev).to(wdtype)
+    if rows is not None:
+        cur, g_z = cur[:, rows].contiguous(), g_z[:, rows].contiguous()
+    alpha, rho, thr, gamma = _rec_scalars(alif)
+    beta = 1.6 if alif else 0.0
+    store_a = fused._stores_a(alif, spike)
+    res_is_v = fused._residual_is_v(alif, spike)
+    fwd = (cur, w, beta, alif, alpha, rho, thr)
+    outs = rec_scan._fwd_cuda(*fwd, True, store_a, res_is_v)
+    z_inf = rec_scan._fwd_cuda(*fwd, False, False, False)[0]
+    bw = (g_z, outs[0], outs[1], outs[2], res_is_v, w, beta, alpha, thr,
+          gamma, spike)
+    return fwd, outs, z_inf, bw, rec_scan._bwd_cuda(*bw)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", REC_MMA_WIDTHS)
+@pytest.mark.parametrize("name,alif,spike", REC_CASES,
+                         ids=[c[0] for c in REC_CASES])
+def test_rec_mma_body_matches_ordered_versions(card, name, alif, spike, H,
+                                               wdtype):
+    """The recurrent scan's tensor-core cluster body (``csrc/rec_mma.cuh``)
+    at widths that are no multiple of its slices, B = 37 (no multiple of its
+    rows), T = 100: the training forward's spikes and residuals bit for bit
+    ``_fwd_ordered_reference`` (its summation order), inference spikes the
+    training kernel's; the bf16 chain's g_i within 2**-7 of max|g| of
+    ``_chain_ordered_reference`` on the same residuals, equal bits twice.
+    The float32 chain runs the CUDA-core body (held by ``_rec_check``);
+    float32 at H = 1024 (the pieces past a cluster's shared memory) runs
+    the CUDA-core body both ways."""
+    from snnimageclassification_tpu_torch.ops import rec_scan
+
+    bodies = rec_scan.rec_bodies(100, H, itemsize=wdtype.itemsize)
+    if H == 1024 and wdtype == torch.float32:
+        assert bodies == ("cuda-core", "cuda-core")
+        return
+    f32 = wdtype == torch.float32
+    assert bodies == ("mma", "cuda-core" if f32 else "mma")
+    fwd, outs, z_inf, bw, g_i = _rec_mma_run(card, 37, H, 100, alif, spike,
+                                             wdtype)
+    want = rec_scan._fwd_ordered_reference(
+        *fwd, True, outs[2] is not None, bw[4])
+    for got, ref in zip(outs, want):
+        assert (got is None) == (ref is None)
+        if got is not None:
+            assert torch.equal(got, ref)
+    assert torch.equal(z_inf, outs[0])
+    assert 0.02 < float(outs[0].float().mean()) < 0.6
+    if not f32:
+        _grads_close((g_i,), (rec_scan._bwd_cuda(*bw)[0],),
+                     (rec_scan._chain_ordered_reference(*bw),),
+                     _izh_bar(100, wdtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [40, 512])
+def test_rec_mma_rows_do_not_depend_on_their_batch(card, H, wdtype):
+    """Rows 5 .. 20 of a 37-row batch give the same spikes, residuals and
+    g_i bit for bit when run as a batch of their own (other clusters,
+    another plan): every unit sums its H inputs in one order."""
+    rows = torch.arange(5, 21, device=card)
+    _, outs, _, _, g_i = _rec_mma_run(card, 37, H, 100, True, FAST, wdtype)
+    _, sub, _, _, g_sub = _rec_mma_run(card, 37, H, 100, True, FAST, wdtype,
+                                       rows=rows)
+    assert torch.equal(outs[0][:, rows], sub[0])
+    assert torch.equal(outs[1][:, rows], sub[1])
+    assert torch.equal(g_i[:, rows], g_sub)
 
 
 @pytest.mark.cuda
