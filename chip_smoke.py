@@ -832,6 +832,44 @@ def trace_close(label, got, want, f32):
              f"{float((got.float() - want.float()).abs().max()):.3g}")
 
 
+def ordered_witness(label, got, ordered, rows, spikes):
+    """A tensor-core forward's outputs ``got`` (the kernel's tuple: (T, B,
+    H) traces, (B, ...) rows, None) against its plain version in its
+    summation order, ``ordered(r)`` run on the first ``r`` = ``rows`` rows
+    of the same inputs (a row's bits depend on its own inputs only): bit
+    for bit on every row, or (PR 14's row-share form) on the rows whose
+    spikes agree, those at least 99.5 %.  ``spikes`` names the outputs that
+    carry a row's spikes: ``(index, "z")`` a 0/1 trace, ``(index,
+    "delta")`` a residual whose sign is the spike, ``(index, "counts")``
+    spike counts.  Returns the share of rows equal in every output."""
+    want = ordered(rows)
+
+    def cut(x):
+        return x[:, :rows] if x.dim() == 3 else x[:rows]
+
+    def per_row(x):  # (T, B, ...) or (B, ...) -> (B,)
+        return (x.all(2).all(0) if x.dim() == 3
+                else x.reshape(rows, -1).all(1))
+
+    equal = torch.ones(rows, dtype=torch.bool, device="cuda")
+    for g, w in zip(got, want):
+        if g is not None and w is not None:
+            equal &= per_row(cut(g) == w.to(g.device).to(g.dtype))
+    agree = torch.ones_like(equal)
+    for i, kind in spikes:
+        g, w = cut(got[i]).float(), want[i].to(got[i].device).float()
+        agree &= per_row((g >= 0) == (w >= 0) if kind == "delta" else g == w)
+    share, agree_share = (float(equal.float().mean()),
+                          float(agree.float().mean()))
+    if not bool((equal | ~agree).all()):
+        fail(f"{label}: rows whose spikes agree differ from the plain "
+             "version in the kernel's order")
+    if agree_share < 0.995:
+        fail(f"{label}: spikes agree with the plain version in the kernel's "
+             f"order on {agree_share:.5f} of rows")
+    return share
+
+
 def check_grads(label, fn, plain_fn, bar):
     """A backward kernel against its plain version on the same residuals
     and cotangents, and twice for equal bits; returns the largest error of
@@ -876,6 +914,9 @@ def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
     sc0 = (T, per, alif, alpha, rho, thr)
     worst_rows, worst_grad = 1.0, 0.0
     gbar = 2.0 ** -7 if not f32 else (1e-4 if flagship else bar_small)
+    # The mid kernels' rows held against their plain version in the
+    # tensor-core body's order: every row small, 1024 at full width.
+    ordered_rows, witness_rows = 1.0, min(B, ORDERED_ROWS)
 
     # Layer 0.
     z, res, a_tr = fused._layer0_cuda(lat, w0, wr0, beta, *sc0, True,
@@ -921,6 +962,11 @@ def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
                                        True, store_a, False, res_is_v)
         if not torch.equal(out[1], inf[1]):
             fail(f"{label}: mid inference and training spikes differ")
+        ordered_rows = min(ordered_rows, ordered_witness(
+            f"{label} mid", out, lambda r, z_in=z_in, w1=w1, wr1=wr1:
+            fused_mid._mid_fwd_ordered_reference(
+                z_in[:, :r].contiguous(), w1, wr1, beta, None, None, *sc,
+                True, store_a, False, res_is_v), witness_rows, ((1, "z"),)))
         share = rows_equal(out[1], ref[1])
         worst_rows = min(worst_rows, share)
         if not flagship:
@@ -955,6 +1001,12 @@ def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
     torch.cuda.synchronize()
     if not torch.equal(out[0], inf[0]):
         fail(f"{label}: mid-head inference and training logits differ")
+    ordered_rows = min(ordered_rows, ordered_witness(
+        f"{label} mid head", out, lambda r: (
+            fused_mid._mid_fwd_ordered_reference(
+                z_in[:, :r].contiguous(), wh, wrh, beta, w_out, b_out, *sc,
+                True, store_a, True, False)), witness_rows,
+        ((2, "delta"), (5, "counts"))))
     agree, close, err, scale = compare_flagship(out[0], ref[0])
     if flagship:
         if agree < 0.995 or close < 0.99:
@@ -982,10 +1034,11 @@ def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
         lambda: fused_mid._mid_bwd_reference(g_logits, g_counts, out[4],
                                              None, None, out[2], out[3],
                                              *bw), gbar))
-    return worst_rows, agree, close, err, worst_grad
+    return worst_rows, agree, close, err, worst_grad, ordered_rows
 
 
 DEEP_WIDTHS = (128, 128, 96)
+ORDERED_ROWS = 1024  # rows of a full-width batch held in the body's order
 
 
 def phase_deep_kernels() -> None:
@@ -996,28 +1049,37 @@ def phase_deep_kernels() -> None:
     times the terms: 5e-6) or 2**-7 (bfloat16).  Full width
     (784-128-128-96-10, B = 8192, T = 100): per layer the share of rows with
     equal spikes is printed, the mid head holds the head kernel's row bars,
-    gradients 1e-4 / 2**-7."""
+    gradients 1e-4 / 2**-7.  The mid kernels' tensor-core body against its
+    plain version in its order (``_mid_fwd_ordered_reference``): bit for
+    bit on every row small, on the first 1024 rows at full width (or the
+    row-share form, ``ordered_witness``)."""
     rng = np.random.default_rng(4)
     for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for name, alif, rec, spike in DEEP_CASES:
             for T, per in ((24, False), (24, True), (100, False)):
                 label = (f"deep small {name} {wname} T={T} "
                          f"{'periodic' if per else 'ttfs'}")
-                rows, _, _, err, gerr = check_deep_stack(
+                rows, _, _, err, gerr, orows = check_deep_stack(
                     label, rng, 37, 30, (20, 24, 18), 10, T, alif, rec,
                     spike, per, wdtype, False, 2e-6 if T < 100 else 5e-6)
+                if orows < 1.0:
+                    fail(f"{label}: the mid kernels differ from their plain "
+                         "version in their order")
                 log(f"[deep-kernels] {label}: spikes equal, logits err="
-                    f"{err:.3g}, grad_err={gerr:.3g} ok")
+                    f"{err:.3g}, grad_err={gerr:.3g}; the mid kernels "
+                    "bitwise their plain version in the body's order ok")
         for per in (False, True):
             label = (f"deep full alif-rec-fs {wname} "
                      f"{'periodic' if per else 'ttfs'}")
-            rows, agree, close, err, gerr = check_deep_stack(
+            rows, agree, close, err, gerr, orows = check_deep_stack(
                 label, rng, TRAIN_B, 784, DEEP_WIDTHS, 10, 100, True, True,
                 FS, per, wdtype, True, 0.0)
             log(f"[deep-kernels] {label} B={TRAIN_B}: lowest share of rows "
                 f"with equal spikes={rows:.5f}; mid head argmax_agree="
                 f"{agree:.5f} rows_within_1e-4max={close:.5f} max_abs_err="
-                f"{err:.3g}; grad_err={gerr:.3g} of max|g|, reproducible")
+                f"{err:.3g}; grad_err={gerr:.3g} of max|g|, reproducible; "
+                f"the mid kernels bitwise their plain version in the body's "
+                f"order on {orows:.5f} of {ORDERED_ROWS} rows")
             if rows < 0.995:
                 fail(f"{label}: spikes equal on {rows:.5f} of rows only")
             torch.cuda.empty_cache()
@@ -1540,6 +1602,54 @@ def kernel_row(label, name, site, launches, err, ms, plain_ms, nbytes, ops,
         "library_ms": library_ms}
 
 
+def tc_ops_ms(flop, md):
+    """A row's operations time where a tensor-core body runs it: ``t_ops``
+    -> the smaller of that and ``flop`` (its products' dense work, times
+    three for float32 weights' bf16 pieces) at 989 TFLOP/s."""
+    n = 3 if md == torch.float32 else 1
+    return lambda t_ops: min(t_ops, flop * n / H100_BF16_FLOPS * 1e3)
+
+
+def mid_ops_ms(B, T, n_in, H, O, rec, md):
+    """:func:`tc_ops_ms` of a mid forward on its tensor-core body
+    (``z_in @ W_in``, ``z @ W_rec``, ``z @ W_out``: 2 B T H (n_in + H + O)),
+    or None where the per-unit body runs the shape."""
+    if fused_mid.mid_bodies(T, n_in, H, O, rec, md.itemsize, "cuda")[0] \
+            != "mma":
+        return None
+    return tc_ops_ms(2 * B * T * H * (n_in + (H if rec else 0) + O), md)
+
+
+def dense_row_steps(lat, T, use_periods):
+    """The (row, step) pairs whose input layer 0 of the tensor-core bodies
+    takes as a dense product (TTFS, at least F / 16 features firing)."""
+    if use_periods:
+        return 0
+    B, F = lat.shape
+    ok = (lat >= 0) & (lat < T)
+    n = torch.zeros((B, T + 1), dtype=torch.int32, device=lat.device)
+    n.scatter_add_(1, torch.where(ok, lat, T).long(),
+                   torch.ones_like(lat, dtype=torch.int32))
+    return int((16 * n[:, :T] >= F).sum())
+
+
+def twolayer_ops_ms(args, md):
+    """:func:`tc_ops_ms` of the two-layer forward on its tensor-core body
+    (W0r, W1, W1r and W_out products, 2 B T (H1 H1 + H1 H2 + H2 H2 + H2 O),
+    and layer 0's dense input product of the (row, step) pairs that take
+    it, 2 F H1 each), or None where the per-unit body runs the shape."""
+    lat, T, per = args[0], args[9], args[10]
+    B, F = lat.shape
+    H1, H2, O = args[1].shape[1], args[4].shape[1], args[7].shape[1]
+    rec = args[2] is not None
+    if fused2.fused2_bodies(T, F, H1, H2, O, rec, md.itemsize,
+                            device="cuda")[0] != "mma":
+        return None
+    flop = (2 * B * T * ((H1 * H1 + H2 * H2 if rec else 0) + H1 * H2
+                         + H2 * O) + 2 * dense_row_steps(lat, T, per) * F * H1)
+    return tc_ops_ms(flop, md)
+
+
 def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
                      launches):
     """Each kernel of the deep path alone on one batch, at the arguments
@@ -1633,8 +1743,10 @@ def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
             f"({hidden / (B * T * H):.4f} of unit-steps); rows agreeing "
             f"with the plain version={share:.5f}")
         n_launch = launches[kname] if idx == 0 else launches[kname] // 2
-        rows.append(kernel_row(label, full, site, n_launch, err, ms, plain_ms,
-                               nbytes, ops, md))
+        rows.append(kernel_row(
+            label, full, site, n_launch, err, ms, plain_ms, nbytes, ops, md,
+            ops_ms=mid_ops_ms(B, T, n_in, H, O if head else 0, True, md)
+            if idx else None))
         if train:
             if head:
                 tstar = out[4]
@@ -2523,9 +2635,11 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
                  wdtype, flagship, bar_small):
     """``fused2_fwd[_train]`` and ``fused2_bwd`` at one shape: the forward
     against its plain version (small: logits 1e-5, tstar, counts and spikes
-    equal, residuals 1e-5 / 2**-7; full width: the head's row bars) and
-    against the composed kernels (logits, tstar, both counts and both
-    residuals bit for bit), twice for equal bits; the backward against its
+    equal, residuals 1e-5 / 2**-7; full width: the head's row bars),
+    against its plain version in the tensor-core body's order (bit for bit;
+    full width the first 1024 rows, ``ordered_witness``) and against the
+    composed kernels (``composed_gate``), twice for equal bits; the
+    backward against its
     plain version on the same residuals and twice for equal bits, and at
     full width against ``fused_mid_bwd`` + ``fused_layer0_bwd`` (1e-4 of
     max|g| float32; bfloat16 2**-6: the composed pair rounds layer 0's
@@ -2571,16 +2685,15 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
         trace_close(f"{label} a0", a0, ref[2], f32)
         trace_close(f"{label} a1", a1, ref[4], f32)
     del ref
+    orows = ordered_witness(label, out, lambda r: (
+        fused2._fused2_fwd_ordered_reference(
+            args[0][:r].contiguous(), *args[1:], True, store_a, True)),
+        min(B, ORDERED_ROWS), ((1, "delta"), (3, "delta")))
+    if not flagship and orows < 1.0:
+        fail(f"{label}: differs from its plain version in its order")
     z0, r0, ra0, m = composed_forward(args, True, store_a)
     torch.cuda.synchronize()
-    if not (torch.equal(logits, m[0]) and torch.equal(tstar, m[4])
-            and torch.equal(c1, m[5]) and torch.equal(c0, z0.float().sum(0))):
-        fail(f"{label}: logits, tstar or counts differ from the composed "
-             "kernels'")
-    if not (torch.equal(d0, r0) and torch.equal(d1, m[2])
-            and (a0 is None or (torch.equal(a0, ra0)
-                                and torch.equal(a1, m[3])))):
-        fail(f"{label}: residuals differ from the composed kernels'")
+    composed_gate(label, logits, c0, c1, z0, m)
     g_logits = rand_w(rng, (B, O), 1.0 / B)
     g_c0 = rand_w(rng, (B, H1), 1e-3 / B)
     g_c1 = rand_w(rng, (B, H2), 1e-3 / B)
@@ -2598,7 +2711,24 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
         if cerr > (1e-4 if f32 else 2.0 ** -6):
             fail(f"{label}: gradients differ from the composed kernels' by "
                  f"{cerr:.3g} of max|g|")
-    return agree, close, err, gerr, cerr, fire
+    return agree, close, err, gerr, cerr, fire, orows
+
+
+def composed_gate(label, logits, c0, c1, z0, m):
+    """The pair against the composed kernels (``fused_layer0_fwd`` +
+    ``fused_mid_fwd[head]``, whose outputs are ``z0`` and ``m``) at the
+    full-width bars: argmax equal on 99.5 % of rows, logits within 1e-4 of
+    max|logit| on 99 %, both layers' spikes (counts) equal on 99.5 %.
+    (Bit for bit while the three kernels summed in one order; the pair's
+    layer 0 now sums in the head body's order, ``fused_layer0_fwd`` in the
+    per-unit order.)  Returns the three shares."""
+    agree, close, _, _ = compare_flagship(logits, m[0])
+    spikes = float(((c0 == z0.float().sum(0)).all(1)
+                    & (c1 == m[5]).all(1)).float().mean())
+    if agree < 0.995 or close < 0.99 or spikes < 0.995:
+        fail(f"{label}: the pair against the composed kernels below the bars "
+             f"(argmax {agree:.5f}, logits {close:.5f}, spikes {spikes:.5f})")
+    return agree, close, spikes
 
 
 def phase_fused2_kernels() -> None:
@@ -2606,10 +2736,13 @@ def phase_fused2_kernels() -> None:
     plain versions on phase 3b's grid (LIF/ALIF x ff/rec x
     FastSigmoid/Phi, T = 24 TTFS and periodic, T = 100, f32 and bf16,
     B = 37, 30-20-24-10: forward 1e-5, backward 2e-6 of max|g| (5e-6 at T =
-    100), 2**-7 bf16) and against the composed kernels bit for bit; then
-    784-128-128-10 at B = 8192, T = 100, ALIF recurrent, TTFS and periodic,
-    f32 and bf16: the composed kernels' logits, tstar and counts bit for
-    bit, their gradients within 1e-4 (2**-6 bf16) of max|g|."""
+    100), 2**-7 bf16), the forward bit for bit its plain version in the
+    tensor-core body's order (``_fused2_fwd_ordered_reference``), and
+    against the composed kernels at the full-width bars
+    (``composed_gate``); then 784-128-128-10 at B = 8192, T = 100, ALIF
+    recurrent, TTFS and periodic, f32 and bf16: the ordered version on the
+    first 1024 rows (``ordered_witness``), the composed kernels at the
+    same bars, their gradients within 1e-4 (2**-6 bf16) of max|g|."""
     rng = np.random.default_rng(12)
     for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         worst, worst_g = 0.0, 0.0
@@ -2617,24 +2750,25 @@ def phase_fused2_kernels() -> None:
             for T, per in ((24, False), (24, True), (100, False)):
                 label = (f"fused2 small {name} {wname} T={T} "
                          f"{'periodic' if per else 'ttfs'}")
-                _, _, err, gerr, _, _ = check_fused2(
+                _, _, err, gerr, _, _, _ = check_fused2(
                     label, rng, 37, 30, 20, 24, 10, T, alif, rec, spike, per,
                     wdtype, False, 2e-6 if T < 100 else 5e-6)
                 worst, worst_g = max(worst, err), max(worst_g, gerr)
-        log(f"[fused2-kernels] 24 small cases {wname}: logits err <= "
-            f"{worst:.3g}, tstar, counts and spikes equal the plain "
-            f"version's; logits, tstar, counts and residuals equal the "
-            f"composed kernels' bitwise; grad_err <= {worst_g:.3g} of max|g|,"
-            f" reproducible")
+        log(f"[fused2-kernels] 24 small cases {wname}: bitwise the plain "
+            f"version in the body's order; logits err <= {worst:.3g}, tstar, "
+            f"counts and spikes equal the plain version's; the composed "
+            f"kernels within the full-width bars; grad_err <= {worst_g:.3g} "
+            f"of max|g|, reproducible")
         for per in (False, True):
             label = (f"fused2 full alif-rec-fs {wname} "
                      f"{'periodic' if per else 'ttfs'}")
-            agree, close, err, gerr, cerr, fire = check_fused2(
+            agree, close, err, gerr, cerr, fire, orows = check_fused2(
                 label, rng, TRAIN_B, 784, *TWO_WIDTHS, 10, 100, True, True, FS,
                 per, wdtype, True, 0.0)
             log(f"[fused2-kernels] {label} B={TRAIN_B}: firing shares "
-                f"{fire[0]:.4f} / {fire[1]:.4f}; logits, tstar, both counts "
-                f"and residuals bitwise the composed kernels'; vs plain "
+                f"{fire[0]:.4f} / {fire[1]:.4f}; bitwise the plain version "
+                f"in the body's order on {orows:.5f} of {ORDERED_ROWS} rows; "
+                f"the composed kernels within the full-width bars; vs plain "
                 f"argmax_agree={agree:.5f} rows_within_1e-4max={close:.5f} "
                 f"max_abs_err={err:.3g}; grad_err vs plain={gerr:.3g}, vs "
                 f"composed kernels={cerr:.3g} of max|g|, reproducible")
@@ -2695,8 +2829,9 @@ def twolayer_spikes(args):
 def phase_twolayer_serve(matmul_dtype: str) -> dict:
     """Phase 12: 784-ALIF128-ALIF128-10 served as in phase 4; one
     ``fused2_fwd`` launch a batch and no layer-0 or mid kernel; the kernel
-    alone on a 4096-row batch against its plain version and against the
-    composed kernels (bitwise), each timed."""
+    alone on a 4096-row batch against its plain version, against its plain
+    version in its order (the first 1024 rows) and against the composed
+    kernels (the full-width bars), each timed."""
     tag = "f32" if matmul_dtype == "float32" else "bf16"
     label = f"twolayer-serve {tag}"
     md = getattr(torch, matmul_dtype)
@@ -2713,12 +2848,19 @@ def phase_twolayer_serve(matmul_dtype: str) -> dict:
     x = torch.from_numpy(batch).cuda().to(torch.float32) / 255.0
     lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
     args, _ = twolayer_args(cfg, params, lat)
+    out = fused2._fused2_cuda(*args, False, False, True)
     got = fused2._fused2_cuda(*args, False, False, False)[0]
     ref = fused2._fused2_reference(*args, False, False, False)[0]
-    comp = composed_forward(args, False, False)[3][0]
+    z0, _, _, m = composed_forward(args, True, False)
     torch.cuda.synchronize()
-    if not torch.equal(got, comp):
-        fail(f"{label}: the pair's logits differ from the composed kernels'")
+    if not torch.equal(out[0], got):
+        fail(f"{label}: the counts variant's logits differ")
+    orows = ordered_witness(label, out, lambda r: (
+        fused2._fused2_fwd_ordered_reference(
+            lat[:r].contiguous(), *args[1:], False, False, True)),
+        ORDERED_ROWS, ((6, "counts"), (7, "counts")))
+    c_agree, c_close, c_spikes = composed_gate(label, got, out[6], out[7],
+                                               z0, m)
     agree, close, err, _ = compare_flagship(got, ref)
     if agree < 0.995 or close < 0.99:
         fail(f"{label}: kernel disagrees with its plain version")
@@ -2733,8 +2875,11 @@ def phase_twolayer_serve(matmul_dtype: str) -> dict:
     nbytes, ops, in_spikes = twolayer_work(args, spikes0, spikes1, False,
                                            md.itemsize)
     B = lat.shape[0]
-    log(f"[{label}] the pair == the composed kernels bitwise on the served "
-        f"batch; vs plain argmax_agree={agree:.4f} rows_within_1e-4max="
+    log(f"[{label}] the pair bitwise its plain version in its order on "
+        f"{orows:.5f} of {ORDERED_ROWS} rows; against the composed kernels "
+        f"argmax_agree={c_agree:.5f} rows_within_1e-4max={c_close:.5f} "
+        f"spikes_equal={c_spikes:.5f}; vs plain argmax_agree={agree:.4f} "
+        f"rows_within_1e-4max="
         f"{close:.4f} max_abs_err={err:.3g}; input spikes={in_spikes}, "
         f"spikes layer 0={spikes0} ({spikes0 / (B * 100 * 128):.4f}), layer "
         f"1={spikes1} ({spikes1 / (B * 100 * 128):.4f}) of unit-steps")
@@ -2744,7 +2889,34 @@ def phase_twolayer_serve(matmul_dtype: str) -> dict:
         f"img/s; forward_logits_pixels {fwd_ms:.4f} ms [{card_line()}]")
     return kernel_row(label, f"{fused.KERNEL_2}[{tag}]", F2_SITE,
                       launches[fused.KERNEL_2], err, ms, plain_ms, nbytes,
-                      ops, md)
+                      ops, md, ops_ms=twolayer_ops_ms(args, md))
+
+
+def twolayer_shared_rows(label, cfg, params, x):
+    """The rows of the batch x on which ``fused2_fwd_train`` and its
+    order-free plain version fire the same spikes in both layers (TTFS,
+    ``params``); on every other row the kernel's forward must equal its
+    plain version in its order (``_fused2_fwd_ordered_reference``) bit for
+    bit."""
+    lat = pixels_to_firing_periods(
+        x, t_max=float(cfg.int_time_steps)).contiguous()
+    args, _ = twolayer_args(cfg, params, lat)
+    out = fused2._fused2_cuda(*args, True, False, True)
+    ref = fused2._fused2_reference(*args, True, False, True)
+    same = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
+    for i in (1, 3):  # each layer's delta: its sign is the spike
+        same &= ((out[i].float() >= 0) == (ref[i].float() >= 0)).all(2).all(0)
+    rest = torch.nonzero(~same).flatten()
+    if rest.numel():
+        want = fused2._fused2_fwd_ordered_reference(
+            lat[rest].contiguous(), *args[1:], True, False, True)
+        for g, w in zip(out, want):
+            if g is not None and not torch.equal(
+                    g[:, rest] if g.dim() == 3 else g[rest], w):
+                fail(f"{label}: on the {rest.numel()} rows whose spikes the "
+                     "plain version parts from, the forward differs from "
+                     "its ordered plain version")
+    return torch.nonzero(same).flatten()
 
 
 def phase_twolayer_train(matmul_dtype: str) -> list:
@@ -2756,8 +2928,12 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
     residuals), timed beside the composed kernels on the same batch, and a
     whole forward + backward of the loss through the pair and through the
     composed public functions; f32: at lr 1e-3 the first step's gradients
-    against the per-step loop's and ten steps' losses of both; 5 periodic
-    steps (times) and 3 with ``L2SpikesPerNeuron`` (launches)."""
+    against the per-step loop's on the rows whose spikes the kernel and its
+    plain version share (``twolayer_shared_rows``, at least 99.5 %), and on
+    every row against the plain backward fed the kernel's spikes
+    (``plain_backwards``), both 1e-4 of max|g|, and ten steps'
+    losses of both; 5 periodic steps (times) and 3 with
+    ``L2SpikesPerNeuron`` (launches)."""
     tag = "f32" if matmul_dtype == "float32" else "bf16"
     label = f"twolayer-train {tag}"
     md = getattr(torch, matmul_dtype)
@@ -2880,7 +3056,7 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
     rows = [
         kernel_row(label, f"{fused.KERNEL_2_TRAIN}[{tag}]", F2_SITE,
                    launches[fused.KERNEL_2_TRAIN], k1_err, k1_ms, k1_plain,
-                   fwd_bytes, fwd_ops, md),
+                   fwd_bytes, fwd_ops, md, ops_ms=twolayer_ops_ms(args, md)),
         kernel_row(label, f"{fused.KERNEL_2_BWD}[{tag}]", F2_BWD_SITE,
                    launches[fused.KERNEL_2_BWD], k2_err, k2_ms, k2_plain,
                    bwd_bytes, bwd_ops, md)]
@@ -2891,13 +3067,24 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
         # no two-layer code) from the same init on the same batches at the
         # flagship's lr 1e-3: the first step's gradients (gated) and ten
         # steps' losses (printed; both climb after a few steps, and a
-        # near-tie spike that flips parts them).
+        # near-tie spike that flips parts them).  The tensor-core body's
+        # k16-sliced sums part a near-tie spike from the loop's on a few
+        # rows, and a flip changes its row's traces and the gradients
+        # through them, so the gate takes the rows whose spikes the kernel
+        # and its plain version share (the others' forward held bit for bit
+        # in its order), and every row's gradients are held against the
+        # plain backward fed the kernel's spikes.
         loop_cfg = pt.SNNConfig(**{**cfg.__dict__, "use_kernels": False})
+        keep = twolayer_shared_rows(
+            label, cfg, Trainer(cfg, seed=0, device="cuda").params, x)
+        if keep.numel() < 0.995 * x.shape[0]:
+            fail(f"{label}: spikes equal on {keep.numel()} of {x.shape[0]} "
+                 "rows")
         runs = {}
         for name, c in (("pair", cfg), ("loop", loop_cfg)):
             t = Trainer(c, seed=0, lr=1e-3, weight_decay=1e-5,
                         encode_config=enc, device="cuda")
-            _, g = t.loss_and_grads(x, y)
+            _, g = t.loss_and_grads(x[keep], y[keep])
             runs[name] = ([g[n][k] for n in g for k in g[n]],
                           [round(float(v), 3)
                            for v in timed_steps(t, batches, 10)[0]])
@@ -2906,10 +3093,24 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
         if loop_err > 1e-4:
             fail(f"{label}: the first step's gradients differ from the "
                  f"per-step loop's by {loop_err:.3g} of max|g|")
+        t = Trainer(cfg, seed=0, lr=1e-3, weight_decay=1e-5,
+                    encode_config=enc, device="cuda")
+        _, g = t.loss_and_grads(x, y)
+        got = [g[n][k] for n in g for k in g[n]]
+        with plain_backwards(((fused2, "_fused2_bwd_cuda",
+                               fused2._fused2_bwd_reference),)):
+            _, g = t.loss_and_grads(x, y)
+        whole_err = grad_error(got, [g[n][k] for n in g for k in g[n]])
+        if whole_err > 1e-4:
+            fail(f"{label}: the first step's gradients differ from the plain "
+                 f"backward's by {whole_err:.3g} of max|g|")
         log(f"[{label}] lr 1e-3 from the same init: first step's gradients "
-            f"vs the per-step loop {loop_err:.3g} of max|g|; losses pair="
+            f"vs the per-step loop on the {keep.numel()} of {x.shape[0]} "
+            f"rows whose spikes the kernel and its plain version share "
+            f"{loop_err:.3g} of max|g|, on all rows vs the plain backward fed "
+            f"the kernel's spikes {whole_err:.3g}; losses pair="
             f"{runs['pair'][1]} loop={runs['loop'][1]}")
-        del runs
+        del runs, t, g, got
 
     # Periodic encoding (bench.py's), for the times and the launches.
     enc_p = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
@@ -3490,18 +3691,22 @@ def shared_spike_rows(label, cfg, x):
 
 
 @contextlib.contextmanager
-def plain_backwards():
-    """``rec_scan_bwd`` and ``encode_matmul_bwd`` replaced by their plain
-    versions while the block runs: a training step's forward kernels stay,
-    so its gradients are the plain backwards' on the kernels' own spikes
-    and residuals."""
-    saved = rec_scan._bwd_cuda, encode._bwd_cuda
-    rec_scan._bwd_cuda = rec_scan._bwd_reference
-    encode._bwd_cuda = encode._bwd_reference
+def plain_backwards(swaps=None):
+    """Backward kernels' wrappers replaced by their plain versions while the
+    block runs (``swaps``: (module, wrapper's name, plain version); by
+    default ``rec_scan_bwd`` and ``encode_matmul_bwd``): a training step's
+    forward kernels stay, so its gradients are the plain backwards' on the
+    kernels' own spikes and residuals."""
+    swaps = swaps or ((rec_scan, "_bwd_cuda", rec_scan._bwd_reference),
+                      (encode, "_bwd_cuda", encode._bwd_reference))
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
     try:
         yield
     finally:
-        rec_scan._bwd_cuda, encode._bwd_cuda = saved
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 def phase_wide_train(matmul_dtype: str) -> list:

@@ -17,9 +17,17 @@
 // layer 1 as a bit mask in shared memory; no (T, B, H1) trace exists (the
 // composed pair, fused_layer0_fwd + fused_mid_fwd, writes and reads one).
 //
-// Same sums as the composed pair, so the same bits: layer 0's input current
-// is head_fwd.cuh's (the step's features compacted in ascending f, the
-// period-1 rows summed once under periodic encoding), its recurrent current
+// Two bodies, chosen by shape (snn_fused2_body; ops/fused2.py:
+// fused2_bodies names it): the tensor-core body (fused2_mma_kernel, below;
+// O <= 16, the two layers' units at most 256 rounded up to 32 each, and
+// the weights' bf16 pieces within a block's shared memory, W1's from L2
+// where only they do not fit) and the per-unit body (fused2_fwd_kernel)
+// for the other shapes its plan accepts.  The per-unit body:
+//
+// Same sums as the composed per-unit pair, so the same bits: layer 0's
+// input current is head_fwd.cuh's (the step's features compacted in
+// ascending f, the period-1 rows summed once under periodic encoding), its
+// recurrent current
 // the walk of z0(t-1)'s set bits over W0r's rows; layer 1's input current is
 // the walk of z0(t)'s set bits over W1's rows in ascending index, as
 // fused_mid_fwd walks z_in(t); its recurrent sum and the readout the same
@@ -44,7 +52,7 @@
 // rounded up to a warp multiple); thread (h, r) owns unit h of both layers
 // of row r, and each warp holds 32 consecutive units of one row.
 
-#include "head_fwd.cuh"
+#include "head_mma_fwd.cuh"
 #include "lif_cell.cuh"
 
 namespace {
@@ -266,6 +274,327 @@ cudaError_t dispatch2(const Args2& a, int rec, int alif, int rows, int HP,
   return launch2<false, false, TRAIN, W>(a, rows, HP, smem, s);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (fused2_mma_kernel)
+//
+// A tile of 16 rows has NW0 = HP0 / 32 warps of layer 0 and NW1 = HP1 / 32
+// of layer 1, each warp 16 rows x 32 units in head_mma.cuh's accumulator
+// layout.  Layer 0 is the head body's layer (head_mma_fwd.cuh): the rows'
+// sorted feature lists (head_sort_kernel, a launch before), the
+// every-step run summed once, a dense product for a row firing at least
+// F / 16 features at a TTFS step (ListInput), its recurrent product on
+// W0r's B fragments; z0(t) goes to the tile's z0 exchange buffer, never to
+// device memory.  Layer 1 is the mid body's: z0(s) @ W1 on tensor cores
+// with z0(s) as the A operand from that buffer, its recurrent product and
+// the readout on z1(s - 1) from the z1 buffer.  The TPU kernel's software
+// pipeline (pallas_fused2.py:9-17): layer 1 runs one step behind layer 0
+// on its own warps, so iteration t holds layer 0's step t and layer 1's
+// step t - 1, independent chains, under one named barrier a step among the
+// tile's warps; T + 2 iterations (the last only the readout of T - 1).
+// Shared memory: W0r's, W1r's and W_out's bf16 pieces, and W1's where they
+// fit beside them (bf16: ~100 KB at 784-128-128-10); float32 W1's pieces
+// (96 KB more at 128-128, past the 227 KB of a block) are built once a
+// launch into device memory (frag_kernel) and read from L2: every step's
+// layer-1 product reads them, 96 KB a tile and step.  The two roles are
+// separate functions, so the registers of one do not count against the
+// other.
+struct Mma2Layout {
+  size_t w0r, w1, w1r, wout, b, z0, z1, total;
+};
+
+__host__ __device__ inline Mma2Layout mma2_layout(int H1, int H2, int rec,
+                                                  int P, int tpb, int w1s) {
+  const int HP0 = mma_hp(H1), HP1 = mma_hp(H2);
+  Mma2Layout L;
+  size_t off = 0;
+  L.w0r = off;
+  off = align16(off + (rec ? frag_bytes(HP0, HP0, P) : 0));
+  L.w1 = off;
+  off = align16(off + (w1s ? frag_bytes(HP0, HP1, P) : 0));
+  L.w1r = off;
+  off = align16(off + (rec ? frag_bytes(HP1, HP1, P) : 0));
+  L.wout = off;
+  off = align16(off + frag_bytes(HP1, MMA_OMAX, P));
+  L.b = off;
+  off = align16(off + MMA_OMAX * 4);
+  L.z0 = off;  // each tile's two (16, HP0) bf16 buffers of z0
+  off = align16(off + (size_t)tpb * 2 * 16 * mma_zs(HP0) * 2);
+  L.z1 = off;  // and of z1
+  off = align16(off + (size_t)tpb * 2 * 16 * mma_zs(HP1) * 2);
+  L.total = off;
+  return L;
+}
+
+// Whether the mma body takes the shape; *w1s = 1 where W1's pieces fit
+// shared memory beside the rest, 0: from L2.
+inline bool mma2_fits(int F, int H1, int H2, int O, int rec, int bf16,
+                      int max_smem, int* w1s) {
+  const int P = bf16 ? 1 : 3;
+  if (O < 1 || O > MMA_OMAX || H1 < 1 || H2 < 1 || F < 1 || F > 65535 ||
+      mma_hp(H1) + mma_hp(H2) > MMA_THREADS)
+    return false;
+  for (int w = 1; w >= 0; --w) {
+    if (mma2_layout(H1, H2, rec, P, 1, w).total <= (size_t)max_smem) {
+      *w1s = w;
+      return true;
+    }
+  }
+  return false;
+}
+
+// Layer 0's warps: steps 0 .. T-1 at iterations 0 .. T-1, then the
+// barriers of the last two iterations.
+template <bool REC, bool ALIF, bool TRAIN, typename W>
+__device__ void fused2_layer0(const Args2& a, const uint16_t* lists,
+                              const uint2* s_w0r, uint16_t* s_z0, int row0,
+                              int wu, int lane, int tsync, int tn) {
+  constexpr int P = pieces<W>();
+  const int H = a.H1, T = a.T, B = a.B, F = a.F, g = lane >> 2;
+  const int HP = mma_hp(H), KT = HP / 16, ZS = mma_zs(HP);
+  const W* w0 = static_cast<const W*>(a.w0);
+  const int col0 = MMA_NU * wu + 2 * (lane & 3);
+  const bool live[2] = {row0 + g < B, row0 + g + 8 < B};
+  ListInput<P, W> in;
+  in.start(lists, live, row0, g, F, T, a.periodic, w0, H, col0);
+  const LifMmaCell<ALIF> cell(a.p0);
+  typename LifMmaCell<ALIF>::State st[MMA_NT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[n][e] = cell.start(a.p0);
+  uint32_t cnt[MMA_NT][2] = {};
+  uint32_t zb = 0;
+  for (int t = 0; t < T; ++t) {
+    float rec[MMA_NT][4] = {};
+    if (REC && t > 0) {
+      const uint16_t* zp = s_z0 + ((t - 1) & 1) * 16 * ZS;
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t A[4];
+        load_a(A, zp, ZS, kk, lane);
+#pragma unroll
+        for (int n = 0; n < MMA_NT; ++n)
+          mma_exact_a<P>(rec[n], A, s_w0r, kk * (HP / 8) + MMA_NT * wu + n,
+                         lane);
+      }
+    }
+    float cur[MMA_NT][4];
+    in.current(cur, t, a.lat, F, row0, a.periodic, w0, H, lane, wu, col0);
+    if (REC && t > 0) {
+#pragma unroll
+      for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cur[n][e] = cur[n][e] + rec[n][e];
+    }
+    uint32_t zn = 0;
+    float zf[MMA_NT][4];
+#pragma unroll
+    for (int n = 0; n < MMA_NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + 8 * n + (e & 1);
+        const bool ok = live[e >> 1] && col < H;
+        const float zp = (zb >> (4 * n + e)) & 1u ? 1.f : 0.f;
+        const bool z = ok && cell.step(a.p0, st[n][e], cur[n][e], zp);
+        zn |= (uint32_t)z << (4 * n + e);
+        zf[n][e] = z ? 1.f : 0.f;
+        if (TRAIN) cnt[n][e >> 1] += (uint32_t)z << (16 * (e & 1));
+        if (TRAIN && (e & 1)) {
+          const int c = col0 + 8 * n;
+          if (live[e >> 1] && c < H)
+            cell.template store<W>(
+                a.p0, st[n][e - 1], st[n][e],
+                ((size_t)t * B + row0 + g + 8 * (e >> 1)) * H + c, c + 1 < H);
+        }
+      }
+    }
+    zb = zn;
+    put_slice(s_z0 + (t & 1) * 16 * ZS, ZS, wu, lane, zf);
+    tile_sync(tsync, tn);
+  }
+  tile_sync(tsync, tn);
+  tile_sync(tsync, tn);
+  if (TRAIN && a.cnt0) write_counts(cnt, a.cnt0, row0, B, H, col0, lane);
+}
+
+// Layer 1's warps: iteration 0 waits, iteration t = 1 .. T steps s = t - 1
+// on z0(s), iteration T + 1 only reads out z1(T - 1).
+template <bool REC, bool ALIF, bool TRAIN, typename W>
+__device__ void fused2_layer1(const Args2& a, const uint2* w1f,
+                              const uint2* s_w1r, const uint2* s_wout,
+                              const float* s_b, const uint16_t* s_z0,
+                              uint16_t* s_z1, int row0, int wu, int NWU,
+                              int lane, int tsync, int tn) {
+  constexpr int P = pieces<W>();
+  const int H = a.H2, O = a.O, T = a.T, B = a.B, g = lane >> 2;
+  const int HP = mma_hp(H), KT = HP / 16, ZS = mma_zs(HP);
+  const int HP0 = mma_hp(a.H1), KT0 = HP0 / 16, ZS0 = mma_zs(HP0);
+  const int col0 = MMA_NU * wu + 2 * (lane & 3);
+  const bool live[2] = {row0 + g < B, row0 + g + 8 < B};
+  MmaReadout ro(wu, NWU, O);
+  const LifMmaCell<ALIF> cell(a.p1);
+  typename LifMmaCell<ALIF>::State st[MMA_NT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[n][e] = cell.start(a.p1);
+  uint32_t cnt[MMA_NT][2] = {};
+  uint32_t zb = 0;
+  tile_sync(tsync, tn);  // iteration 0: layer 0's step 0
+  for (int s = 0; s <= T; ++s) {
+    float rec[MMA_NT][4] = {};
+    if (s > 0) {
+      // z1(s-1) as A: the readout of step s-1 and the recurrent current.
+      const uint16_t* zp = s_z1 + ((s - 1) & 1) * 16 * ZS;
+      float rp[2][4] = {};
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t A[4];
+        load_a(A, zp, ZS, kk, lane);
+        if (REC && s < T) {
+#pragma unroll
+          for (int n = 0; n < MMA_NT; ++n)
+            mma_exact_a<P>(rec[n], A, s_w1r, kk * (HP / 8) + MMA_NT * wu + n,
+                           lane);
+        }
+        ro.product<P>(rp, A, s_wout, kk, wu, NWU, lane);
+      }
+      ro.step<TRAIN>(rp, s_b, a.kappa, s - 1, wu, NWU, lane);
+    }
+    if (s == T) {
+      tile_sync(tsync, tn);
+      break;
+    }
+    // z0(s) @ W1, then the recurrent current added.
+    float cur[MMA_NT][4] = {};
+    const uint16_t* z0 = s_z0 + (s & 1) * 16 * ZS0;
+    for (int kk = 0; kk < KT0; ++kk) {
+      uint32_t A[4];
+      load_a(A, z0, ZS0, kk, lane);
+#pragma unroll
+      for (int n = 0; n < MMA_NT; ++n)
+        mma_exact_a<P>(cur[n], A, w1f, kk * (HP / 8) + MMA_NT * wu + n, lane);
+    }
+    if (REC && s > 0) {
+#pragma unroll
+      for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cur[n][e] = cur[n][e] + rec[n][e];
+    }
+    uint32_t zn = 0;
+    float zf[MMA_NT][4];
+#pragma unroll
+    for (int n = 0; n < MMA_NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + 8 * n + (e & 1);
+        const bool ok = live[e >> 1] && col < H;
+        const float zp = (zb >> (4 * n + e)) & 1u ? 1.f : 0.f;
+        const bool z = ok && cell.step(a.p1, st[n][e], cur[n][e], zp);
+        zn |= (uint32_t)z << (4 * n + e);
+        zf[n][e] = z ? 1.f : 0.f;
+        if (TRAIN) cnt[n][e >> 1] += (uint32_t)z << (16 * (e & 1));
+        if (TRAIN && (e & 1)) {
+          const int c = col0 + 8 * n;
+          if (live[e >> 1] && c < H)
+            cell.template store<W>(
+                a.p1, st[n][e - 1], st[n][e],
+                ((size_t)s * B + row0 + g + 8 * (e >> 1)) * H + c, c + 1 < H);
+        }
+      }
+    }
+    zb = zn;
+    put_slice(s_z1 + (s & 1) * 16 * ZS, ZS, wu, lane, zf);
+    tile_sync(tsync, tn);
+  }
+  ro.write(a.logits, TRAIN ? a.tstar : nullptr, row0, B, O, wu, NWU, lane);
+  if (TRAIN && a.cnt1) write_counts(cnt, a.cnt1, row0, B, H, col0, lane);
+}
+
+template <bool REC, bool ALIF, bool TRAIN, typename W>
+__global__ void __launch_bounds__(MMA_THREADS)
+    fused2_mma_kernel(Args2 a, const uint16_t* lists, const uint2* g_w1,
+                      int tpb) {
+  constexpr int P = pieces<W>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H1 = a.H1, H2 = a.H2, O = a.O;
+  const int HP0 = mma_hp(H1), HP1 = mma_hp(H2);
+  const int NW0 = HP0 / 32, NW1 = HP1 / 32, NWT = NW0 + NW1;
+  const Mma2Layout L = mma2_layout(H1, H2, REC, P, tpb, g_w1 == nullptr);
+  uint2* s_w0r = reinterpret_cast<uint2*>(smem + L.w0r);
+  uint2* s_w1 = reinterpret_cast<uint2*>(smem + L.w1);
+  uint2* s_w1r = reinterpret_cast<uint2*>(smem + L.w1r);
+  uint2* s_wout = reinterpret_cast<uint2*>(smem + L.wout);
+  float* s_b = reinterpret_cast<float*>(smem + L.b);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tile = warp / NWT, wt = warp % NWT;
+  auto fill = [&](uint2* dst, const void* src, int K, int N, int KP,
+                  int NP) {
+    const W* w = static_cast<const W*>(src);
+    fill_b<P>(dst, KP, NP, [&](int k, int n) {
+      return k < K && n < N ? to_f32(w[(size_t)k * N + n]) : 0.f;
+    }, tid, nthreads);
+  };
+  if (REC) {
+    fill(s_w0r, a.w0r, H1, H1, HP0, HP0);
+    fill(s_w1r, a.w1r, H2, H2, HP1, HP1);
+  }
+  if (!g_w1) fill(s_w1, a.w1, H1, H2, HP0, HP1);
+  fill(s_wout, a.w_out, H2, O, HP1, MMA_OMAX);
+  if (tid < MMA_OMAX) s_b[tid] = tid < O ? a.b_out[tid] : 0.f;
+  __syncthreads();
+  const int row0 = (blockIdx.x * tpb + tile) * 16;
+  if (row0 >= a.B) return;  // a tile past the batch; no block barrier below
+  uint16_t* s_z0 = reinterpret_cast<uint16_t*>(smem + L.z0) +
+                   (size_t)tile * 2 * 16 * mma_zs(HP0);
+  uint16_t* s_z1 = reinterpret_cast<uint16_t*>(smem + L.z1) +
+                   (size_t)tile * 2 * 16 * mma_zs(HP1);
+  const int tsync = 1 + tile, tn = NWT * 32;
+  if (wt < NW0)
+    fused2_layer0<REC, ALIF, TRAIN, W>(a, lists, s_w0r, s_z0, row0, wt, lane,
+                                       tsync, tn);
+  else
+    fused2_layer1<REC, ALIF, TRAIN, W>(a, g_w1 ? g_w1 : s_w1, s_w1r, s_wout,
+                                       s_b, s_z0, s_z1, row0, wt - NW0, NW1,
+                                       lane, tsync, tn);
+}
+
+template <bool REC, bool ALIF, bool TRAIN, typename W>
+cudaError_t launch2_mma(const Args2& a, const uint16_t* lists,
+                        const uint2* g_w1, int device, cudaStream_t stream) {
+  auto kernel = fused2_mma_kernel<REC, ALIF, TRAIN, W>;
+  const int NWT = (mma_hp(a.H1) + mma_hp(a.H2)) / 32;
+  const int tiles = (a.B + 15) / 16;
+  int tpb = 1;
+  auto smem = [&](int t) {
+    return mma2_layout(a.H1, a.H2, REC, pieces<W>(), t, g_w1 == nullptr)
+        .total;
+  };
+  cudaError_t err = mma_tiling(kernel, tiles, 1, NWT, device, smem, &tpb);
+  if (err != cudaSuccess) return err;
+  kernel<<<(tiles + tpb - 1) / tpb, tpb * NWT * 32, smem(tpb), stream>>>(
+      a, lists, g_w1, tpb);
+  return cudaGetLastError();
+}
+
+// The lists (head_sort_kernel), W1's fragments where they come from L2,
+// then the kernel.
+template <bool TRAIN, typename W>
+cudaError_t run2_mma(const Args2& a, int rec, int alif, uint16_t* lists,
+                     uint2* g_w1, int device, cudaStream_t s) {
+  cudaError_t err =
+      launch_sort(a.lat, lists, a.B, a.F, a.T, a.periodic, device, s);
+  if (err == cudaSuccess && g_w1)
+    err = launch_frags<pieces<W>(), W>(a.w1, a.H1, a.H2, mma_hp(a.H1),
+                                       mma_hp(a.H2), g_w1, s);
+  if (err != cudaSuccess) return err;
+  if (rec && alif)
+    return launch2_mma<true, true, TRAIN, W>(a, lists, g_w1, device, s);
+  if (rec) return launch2_mma<true, false, TRAIN, W>(a, lists, g_w1, device, s);
+  if (alif)
+    return launch2_mma<false, true, TRAIN, W>(a, lists, g_w1, device, s);
+  return launch2_mma<false, false, TRAIN, W>(a, lists, g_w1, device, s);
+}
+
 inline int hp_of(int H1, int H2) {
   return ((H1 > H2 ? H1 : H2) + 31) / 32 * 32;
 }
@@ -304,9 +633,33 @@ int snn_fused2_plan(int F, int H1, int H2, int O, int rec, int bf16,
   return 1;
 }
 
+// The body fused2_fwd runs a shape on: out[0] = 1 the tensor-core body (0:
+// the per-unit body), out[1] = 1 W1's pieces in shared memory (0: read
+// from L2), out[2] the bytes of scratch a launch of B rows needs (the
+// rows' feature lists, then W1's fragments where they come from L2).
+// Returns 0, or a CUDA error code.
+int snn_fused2_body(int F, int H1, int H2, int O, int rec, int bf16, int B,
+                    int device, long long* out) {
+  int max_smem = 0;
+  const int err = max_smem_of(device, &max_smem);
+  if (err != 0) return err;
+  int w1s = 0;
+  out[0] = mma2_fits(F, H1, H2, O, rec, bf16, max_smem, &w1s) ? 1 : 0;
+  out[1] = out[0] ? w1s : 0;
+  const size_t lists = align16((size_t)B * list_row_words(F) * 2);
+  out[2] = !out[0] ? 0
+                   : (long long)(lists + (w1s ? 0
+                                              : frag_bytes(mma_hp(H1),
+                                                           mma_hp(H2),
+                                                           bf16 ? 1 : 3)));
+  return 0;
+}
+
 // The training kernel where any of d0, tstar, cnt0, cnt1 is not null (each
 // output written where its pointer is not null), else the inference kernel
 // (logits only).  w0r and w1r are both given (recurrent) or both null.
+// `scratch` holds snn_fused2_body's bytes where it names the tensor-core
+// body (else null).
 int snn_fused2_fwd(const int* lat, const void* w0, const void* w0r,
                    const float* beta0, const void* w1, const void* w1r,
                    const float* beta1, const void* w_out, const float* b_out,
@@ -314,7 +667,7 @@ int snn_fused2_fwd(const int* lat, const void* w0, const void* w0r,
                    int* tstar, float* cnt0, float* cnt1, int B, int F, int H1,
                    int H2, int O, int T, int periodic, int alif, int bf16,
                    float alpha, float rho, float threshold, float kappa,
-                   int rows, int device, void* stream) {
+                   int rows, void* scratch, int device, void* stream) {
   if (B == 0) return 0;
   if ((w0r == nullptr) != (w1r == nullptr)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -327,10 +680,31 @@ int snn_fused2_fwd(const int* lat, const void* w0, const void* w0r,
   const int rec = w0r != nullptr;
   const int train = d0 != nullptr || tstar != nullptr || cnt0 != nullptr ||
                     cnt1 != nullptr;
-  const size_t smem =
-      layout2(F, H1, H2, O, rows, HP / 32, rec, bf16 ? 2 : 4).total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
+  long long body[3];
+  const int rc = snn_fused2_body(F, H1, H2, O, rec, bf16, B, device, body);
+  if (rc != 0) return rc;
+  if (body[0]) {  // the tensor-core body
+    if ((body[2] != 0) != (scratch != nullptr))
+      return (int)cudaErrorInvalidValue;
+    uint16_t* lists = static_cast<uint16_t*>(scratch);
+    uint2* g_w1 =
+        body[1] ? nullptr
+                : reinterpret_cast<uint2*>(
+                      static_cast<unsigned char*>(scratch) +
+                      align16((size_t)B * list_row_words(F) * 2));
+    if (train)
+      err = bf16 ? run2_mma<true, BF>(a, rec, alif, lists, g_w1, device, s)
+                 : run2_mma<true, float>(a, rec, alif, lists, g_w1, device, s);
+    else
+      err = bf16 ? run2_mma<false, BF>(a, rec, alif, lists, g_w1, device, s)
+                 : run2_mma<false, float>(a, rec, alif, lists, g_w1, device,
+                                          s);
+    return (int)err;
+  }
+  const size_t smem =
+      layout2(F, H1, H2, O, rows, HP / 32, rec, bf16 ? 2 : 4).total;
   if (train)
     err = bf16 ? dispatch2<true, BF>(a, rec, alif, rows, HP, smem, s)
                : dispatch2<true, float>(a, rec, alif, rows, HP, smem, s);

@@ -121,6 +121,31 @@ __device__ __forceinline__ uint2 load_b(const uint2* frags, int tile, int p,
   return frags[(tile * P + p) * 32 + lane];
 }
 
+// Bytes of fill_b's fragments of a (KP, NP) operand in P pieces.
+__host__ __device__ inline size_t frag_bytes(int KP, int NP, int P) {
+  return (size_t)KP * NP * P * 2;
+}
+
+// fill_b's fragments of a row-major (K, N) weight matrix, into device
+// memory: the operand of a body that reads it from L2 where its pieces do
+// not fit shared memory beside the others.
+template <int P, typename W>
+__global__ void frag_kernel(const W* w, int K, int N, int KP, int NP,
+                            uint2* dst) {
+  fill_b<P>(dst, KP, NP, [&](int k, int n) {
+    return k < K && n < N ? to_f32(w[(size_t)k * N + n]) : 0.f;
+  }, blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
+}
+
+template <int P, typename W>
+cudaError_t launch_frags(const void* w, int K, int N, int KP, int NP,
+                         uint2* dst, cudaStream_t stream) {
+  const int n = (KP / 16) * (NP / 8) * 32;
+  frag_kernel<P, W><<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const W*>(w), K, N, KP, NP, dst);
+  return cudaGetLastError();
+}
+
 // The tensor cores truncate what they add into a chained float32
 // accumulator, and over a long k the error grows past float32 noise (six
 // to ten times the small-shape bars on a dcur @ W_rec^T chain).  So each
@@ -201,6 +226,98 @@ __device__ __forceinline__ void put_slice(uint16_t* buf, int zs, int wu,
     *reinterpret_cast<uint32_t*>(buf + (g + 8) * zs + col + 8 * n) =
         pack_bf16(x[n][2], x[n][3]);
   }
+}
+
+// The readout of the tensor-core bodies: r = z(t) @ W_out + b, v_r = kappa
+// v_r + r, its running max with strict > (the first maximal step wins, as
+// torch.max) and that step, in the accumulator layout; a warp owns the
+// readout's n8 tiles j = wu and wu + NWU below ceil(O / 8) (none at O = 0).
+struct MmaReadout {
+  bool owns[2];
+  float vr[2][4], m[2][4];
+  int ts[2][4];
+
+  __device__ MmaReadout(int wu, int NWU, int O) {
+#pragma unroll
+    for (int jo = 0; jo < 2; ++jo) {
+      owns[jo] = wu + jo * NWU < (O + 7) / 8;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        vr[jo][e] = 0.f;
+        m[jo][e] = -INFINITY;
+        ts[jo][e] = 0;
+      }
+    }
+  }
+
+  // ro += slice kk of z(t) @ W_out, A that slice of z(t).
+  template <int P>
+  __device__ __forceinline__ void product(float (&ro)[2][4],
+                                          const uint32_t (&A)[4],
+                                          const uint2* s_wout, int kk,
+                                          int wu, int NWU, int lane) const {
+#pragma unroll
+    for (int jo = 0; jo < 2; ++jo)
+      if (owns[jo])
+        mma_exact_a<P>(ro[jo], A, s_wout, kk * 2 + wu + jo * NWU, lane);
+  }
+
+  // Step t from its product ro.
+  template <bool TRAIN>
+  __device__ __forceinline__ void step(const float (&ro)[2][4],
+                                       const float* s_b, float kappa, int t,
+                                       int wu, int NWU, int lane) {
+#pragma unroll
+    for (int jo = 0; jo < 2; ++jo) {
+      if (!owns[jo]) continue;
+      const int o0 = 8 * (wu + jo * NWU) + 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float r = ro[jo][e] + s_b[o0 + (e & 1)];
+        const float vv = kappa * vr[jo][e] + r;
+        vr[jo][e] = vv;
+        if (vv > m[jo][e]) {
+          m[jo][e] = vv;
+          if (TRAIN) ts[jo][e] = t;
+        }
+      }
+    }
+  }
+
+  // The logits (and where given tstar, (B, O)) of the lane's rows.
+  __device__ void write(float* logits, int* tstar, int row0, int B, int O,
+                        int wu, int NWU, int lane) const {
+    const int g = lane >> 2;
+#pragma unroll
+    for (int jo = 0; jo < 2; ++jo) {
+      if (!owns[jo]) continue;
+      const int o0 = 8 * (wu + jo * NWU) + 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + 8 * (e >> 1), o = o0 + (e & 1);
+        if (row >= B || o >= O) continue;
+        logits[(size_t)row * O + o] = m[jo][e];
+        if (tstar) tstar[(size_t)row * O + o] = ts[jo][e];
+      }
+    }
+  }
+};
+
+// The spike counts (B, H) of the lane's entries: cnt[n][hh] holds 16 bits
+// an entry, units col0 + 8 n and col0 + 8 n + 1 of row row0 + g + 8 hh.
+__device__ __forceinline__ void write_counts(const uint32_t (&cnt)[MMA_NT][2],
+                                             float* counts, int row0, int B,
+                                             int H, int col0, int lane) {
+  const int g = lane >> 2;
+#pragma unroll
+  for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1), col = col0 + 8 * n + (e & 1);
+      if (row < B && col < H)
+        counts[(size_t)row * H + col] =
+            (float)((cnt[n][e >> 1] >> (16 * (e & 1))) & 0xffffu);
+    }
 }
 
 // Tiles (16 rows each) a block takes: the fewest that put every block of

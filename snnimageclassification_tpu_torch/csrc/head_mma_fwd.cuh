@@ -298,6 +298,89 @@ __device__ void dense_input(float (&acc)[MMA_NT][4], const int* lat, int F,
   }
 }
 
+// The input current of an encoded layer on the tensor-core body (the
+// head's, and layer 0 of fused2.cu's two-layer body), for the lane's rows
+// g and g + 8 of a tile at row0 and its 32-unit slice at col0: each row's
+// sorted feature list (head_sort_kernel), its cursor into the runs, and
+// under periodic encoding the sum of the every-step run's weight rows,
+// taken once.
+template <int P, typename W>
+struct ListInput {
+  const uint16_t* lrow[2];
+  int nk[2], cursor[2], next[2];
+  int FA;
+  bool every_step;
+  float every[MMA_NT][4];
+
+  __device__ void start(const uint16_t* lists, const bool (&live)[2],
+                        int row0, int g, int F, int T, int periodic,
+                        const W* w_in, int H, int col0) {
+    FA = align8(F);
+    every_step = periodic && T >= 2;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + g + 8 * hh;
+      lrow[hh] = lists + (size_t)(live[hh] ? row : 0) * list_row_words(F);
+      nk[hh] = live[hh] ? lrow[hh][FA] : 0;
+      const uint16_t* keys = lrow[hh] + FA + 8;
+      cursor[hh] = every_step && nk[hh] > 0 && keys[0] == 1 ? 1 : 0;
+      next[hh] = cursor[hh] < nk[hh] ? keys[cursor[hh]] : NO_KEY;
+    }
+    // Periodic encoding: the weight rows of the features of period 1
+    // (every step t >= 1; the first run where present) are summed once and
+    // added first at each step.
+#pragma unroll
+    for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) every[n][e] = 0.f;
+    if (every_step) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (cursor[hh])
+          gather_rows(every, hh, w_in, H, col0, lrow[hh], 0,
+                      lrow[hh][2 * FA + 8]);
+    }
+  }
+
+  // cur = the input current of step t; then the cursors move past it.
+  __device__ void current(float (&cur)[MMA_NT][4], int t, const int* lat,
+                          int F, int row0, int periodic, const W* w_in, int H,
+                          int lane, int wu, int col0) {
+#pragma unroll
+    for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cur[n][e] = t >= 1 ? every[n][e] : 0.f;
+    // TTFS: a row that fires at least F / 16 features at step t takes the
+    // dense product, the others gather; the choice is the row's own.
+    // (Periodic steps past the every-step run, a few periods each, gather:
+    // their spike test, a division a feature, costs the dense product more
+    // than it saves.)
+    bool dense[2] = {false, false};
+    if (!periodic) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        int n = 0;
+        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, 0,
+                  [&](int k, int e) { n += e - k; });
+        dense[hh] = 16 * n >= F;
+      }
+    }
+    if (__any_sync(0xffffffffu, dense[0] || dense[1]))
+      dense_input<P>(cur, lat, F, row0, dense, w_in, H, lane, wu,
+                     [=](int L) { return L == t; });
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (!dense[hh])
+        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, periodic,
+                  [&](int k, int e) {
+                    gather_rows(cur, hh, w_in, H, col0, lrow[hh], k, e);
+                  });
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      advance(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, periodic);
+  }
+};
+
 // A cell of the tensor-core body.  The body keeps one State a (row, unit)
 // entry of the warp's tile, in registers in the accumulator layout
 // (head_mma.cuh), and calls
@@ -353,47 +436,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
   const W* w_in = static_cast<const W*>(a.w_in);
   const int col0 = MMA_NU * wu + 2 * (lane & 3);  // entry 0 of n8 tile 0
-  const int FA = align8(F);
-  const bool every_step = a.periodic && T >= 2;
-  const uint16_t* lrow[2];
-  int nk[2], cursor[2], next[2];
-  bool live[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + g + 8 * hh;
-    live[hh] = row < B;
-    lrow[hh] = lists + (size_t)(live[hh] ? row : 0) * list_row_words(F);
-    nk[hh] = live[hh] ? lrow[hh][FA] : 0;
-    const uint16_t* keys = lrow[hh] + FA + 8;
-    cursor[hh] = every_step && nk[hh] > 0 && keys[0] == 1 ? 1 : 0;
-    next[hh] = cursor[hh] < nk[hh] ? keys[cursor[hh]] : NO_KEY;
-  }
-  // Periodic encoding: the weight rows of the features of period 1 (every
-  // step t >= 1; the first run where present) are summed once and added
-  // first at each step.
-  float every[MMA_NT][4] = {};
-  if (every_step) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      if (cursor[hh])
-        gather_rows(every, hh, w_in, H, col0, lrow[hh], 0,
-                    lrow[hh][2 * FA + 8]);
-  }
-  // The readout's n8 tiles j = wu, wu + NWU below ceil(O / 8).
-  const int NTO = (O + 7) / 8;
-  bool owns[2];
-  float vr[2][4], m[2][4];
-  int ts[2][4];
-#pragma unroll
-  for (int jo = 0; jo < 2; ++jo) {
-    owns[jo] = wu + jo * NWU < NTO;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      vr[jo][e] = 0.f;
-      m[jo][e] = -INFINITY;
-      ts[jo][e] = 0;
-    }
-  }
+  const bool live[2] = {row0 + g < B, row0 + g + 8 < B};
+  ListInput<P, W> in;
+  in.start(lists, live, row0, g, F, T, a.periodic, w_in, H, col0);
+  MmaReadout ro(wu, NWU, O);
   const Cell cell(a.cell);
   typename Cell::State st[MMA_NT][4];
 #pragma unroll
@@ -408,7 +454,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     if (t > 0) {
       // z(t-1) as A: the readout of step t-1 and the recurrent current.
       const uint16_t* zp = s_z + ((t - 1) & 1) * 16 * ZS;
-      float ro[2][4] = {};
+      float rp[2][4] = {};
       for (int kk = 0; kk < KT; ++kk) {
         uint32_t A[4];
         load_a(A, zp, ZS, kk, lane);
@@ -418,64 +464,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
             mma_exact_a<P>(rec[n], A, s_wrec,
                            kk * (HP / 8) + MMA_NT * wu + n, lane);
         }
-#pragma unroll
-        for (int jo = 0; jo < 2; ++jo)
-          if (owns[jo])
-            mma_exact_a<P>(ro[jo], A, s_wout, kk * 2 + wu + jo * NWU, lane);
+        ro.product<P>(rp, A, s_wout, kk, wu, NWU, lane);
       }
-      // r = z @ W_out + b, v_r = kappa v_r + r, running max with strict >
-      // (the first maximal step wins, as torch.max).
-#pragma unroll
-      for (int jo = 0; jo < 2; ++jo) {
-        if (!owns[jo]) continue;
-        const int o0 = 8 * (wu + jo * NWU) + 2 * (lane & 3);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float r = ro[jo][e] + s_b[o0 + (e & 1)];
-          const float vv = a.kappa * vr[jo][e] + r;
-          vr[jo][e] = vv;
-          if (vv > m[jo][e]) {
-            m[jo][e] = vv;
-            if (TRAIN) ts[jo][e] = t - 1;
-          }
-        }
-      }
+      ro.step<TRAIN>(rp, s_b, a.kappa, t - 1, wu, NWU, lane);
     }
     if (t == T) break;
     // The input current of step t, then the recurrent one added.
     float cur[MMA_NT][4];
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cur[n][e] = t >= 1 ? every[n][e] : 0.f;
-    // TTFS: a row that fires at least F / 16 features at step t takes the
-    // dense product, the others gather; the choice is the row's own.
-    // (Periodic steps past the every-step run, a few periods each, gather:
-    // their spike test, a division a feature, costs the dense product more
-    // than it saves.)
-    bool dense[2] = {false, false};
-    if (!a.periodic) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        int n = 0;
-        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, 0,
-                  [&](int k, int e) { n += e - k; });
-        dense[hh] = 16 * n >= F;
-      }
-    }
-    if (__any_sync(0xffffffffu, dense[0] || dense[1]))
-      dense_input<P>(cur, a.lat, F, row0, dense, w_in, H, lane, wu,
-                     [=](int L) { return L == t; });
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      if (!dense[hh])
-        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, a.periodic,
-                  [&](int k, int e) {
-                    gather_rows(cur, hh, w_in, H, col0, lrow[hh], k, e);
-                  });
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      advance(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, a.periodic);
+    in.current(cur, t, a.lat, F, row0, a.periodic, w_in, H, lane, wu, col0);
     if (REC && t > 0) {
 #pragma unroll
       for (int n = 0; n < MMA_NT; ++n)
@@ -512,29 +508,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
     put_slice(s_z + (t & 1) * 16 * ZS, ZS, wu, lane, zf);
     tile_sync(1 + tile, NWU * 32);
   }
-#pragma unroll
-  for (int jo = 0; jo < 2; ++jo) {
-    if (!owns[jo]) continue;
-    const int o0 = 8 * (wu + jo * NWU) + 2 * (lane & 3);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + 8 * (e >> 1), o = o0 + (e & 1);
-      if (row >= B || o >= O) continue;
-      a.logits[(size_t)row * O + o] = m[jo][e];
-      if (TRAIN && a.tstar) a.tstar[(size_t)row * O + o] = ts[jo][e];
-    }
-  }
-  if (TRAIN && a.counts) {
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + g + 8 * (e >> 1), col = col0 + 8 * n + (e & 1);
-        if (row < B && col < H)
-          a.counts[(size_t)row * H + col] =
-              (float)((cnt[n][e >> 1] >> (16 * (e & 1))) & 0xffffu);
-      }
-  }
+  ro.write(a.logits, TRAIN ? a.tstar : nullptr, row0, B, O, wu, NWU, lane);
+  if (TRAIN && a.counts) write_counts(cnt, a.counts, row0, B, H, col0, lane);
 }
 
 template <class Cell, bool REC, bool TRAIN, typename W>

@@ -108,6 +108,7 @@ from ..ops.fused import (
     head_bodies,
 )
 from ..ops.fused2 import (
+    fused2_bodies,
     fused2_ff_head,
     fused2_ff_head_counts,
     fused2_head_supported,
@@ -130,6 +131,7 @@ from ..ops.fused_mid import (
     fused_mid_rec_scan_head,
     fused_mid_rec_scan_head_counts,
     fused_mid_supported,
+    mid_bodies,
 )
 from ..ops.izh import izh_kernel_params, izh_scan, izh_scan_supported
 from ..ops.rec_scan import (
@@ -1019,10 +1021,10 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     ``torch:fused_layer0_reference``, ``torch:fused_mid_reference``,
     ``torch:fused_mid_reference[head]``, ``torch:fused_izh_head_reference``,
     ``torch:fused_izh_layer0_reference``, ``torch:izh_scan_reference``.
-    The head kernels (LIF/ALIF and Izhikevich, single and stacked) name
-    their body on the card: the tensor-core body, "the tensor-core body
-    (mma)" in the reason; the per-unit body past its limits, a path
-    ending in ``[per-unit]``.
+    The head kernels (LIF/ALIF and Izhikevich, single and stacked), the
+    mid layer's and the two-layer forward name their body on the card: the
+    tensor-core body, "the tensor-core body (mma)" in the reason; the
+    per-unit body past its limits, a path ending in ``[per-unit]``.
     A two-hidden-layer network that takes the two-layer pair is one row:
     ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
     ``torch:fused2_reference`` on the CPU.  The unfused tier gives a layer
@@ -1088,6 +1090,26 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
 
     where = "" if on_card else " (plain version on the CPU)"
     izh = type(layer_cfgs[0][1]) is IzhikevichConfig
+
+    def forward_body(bodies, limits: str):
+        """(reason note, path mode) of a mid-layer or two-layer forward's
+        body on the card: the tensor-core body, or past its ``limits`` the
+        per-unit body, a path ending in ``[per-unit]``."""
+        if not on_card:
+            return "", ""
+        if bodies[0] == "mma":
+            return "; the tensor-core body (mma) in the forward", ""
+        return (f"; the per-unit body ({limits}) in the forward",
+                "[per-unit]")
+
+    def mid_body(n_in, lcfg, n_out):
+        if not on_card:
+            return "", ""
+        return forward_body(mid_bodies(
+            cfg.int_time_steps, n_in, lcfg.output_size, n_out,
+            recurrent=rec_of(lcfg), itemsize=md_size, device=dev),
+            "O > 16, H > 256, an input past about 1.5 H, or the weights' bf16 "
+            "pieces past a block's shared memory")
     if enc is not None and _head_fusible(cfg, enc, dev, training):
         if izh:
             kernels = (KERNEL_IZH_TRAIN if training else KERNEL_IZH,
@@ -1141,13 +1163,22 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
         return [dict(e, reason=e["reason"] + " (per replica)")
                 for e in explain_dispatch(cfg, enc, device, training)]
     if enc is not None and _twolayer_head_fusible(cfg, enc, dev, training):
+        body, mode = "", ""
+        if on_card:
+            (_, c0), (_, c1), (_, c2) = layer_cfgs
+            body, mode = forward_body(fused2_bodies(
+                cfg.int_time_steps, cfg.input_size, c0.output_size,
+                c1.output_size, c2.output_size, recurrent=rec_of(c0),
+                itemsize=md_size, device=dev), "O > 16, the two layers' "
+                "units past 256, or the weights' bf16 pieces past a block's "
+                "shared memory")
         return [{
             "layer": names,
             "path": path(KERNEL_2_TRAIN if training else KERNEL_2,
-                         KERNEL_2_BWD, "fused2_reference"),
+                         KERNEL_2_BWD, "fused2_reference", mode),
             "reason": "two-hidden-layer classifier with max-over-time "
                       "readout: encode + both hidden scans + readout + max "
-                      "in one call" + also + gwin_note() + gbits_note(
+                      "in one call" + also + body + gwin_note() + gbits_note(
                           "g_W1 and both g_W_rec" if rec_of(layer_cfgs[0][1])
                           else "g_W1", layer_cfgs[1][1].output_size,
                           md_size) + where,
@@ -1162,12 +1193,15 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     entries = []
     for idx, (name, lcfg) in enumerate(layer_cfgs):
         if deep and idx == len(layer_cfgs) - 2:
+            body, mode = mid_body(layer_cfgs[idx - 1][1].output_size, lcfg,
+                                  layer_cfgs[-1][1].output_size)
             entries.append({
                 "layer": (name, names[-1]),
                 "path": path(KERNEL_MID, KERNEL_MID_BWD,
-                             "fused_mid_reference", "[head]"),
+                             "fused_mid_reference", "[head]" + mode),
                 "reason": "deep network's last hidden layer + readout + "
-                          "max over time in one call" + also + gbits_note(
+                          "max over time in one call" + also + body
+                          + gbits_note(
                               "g_W_in and g_W_rec" if rec_of(lcfg)
                               else "g_W_in", lcfg.output_size, md_size)
                           + where,
@@ -1197,12 +1231,14 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
                           "in one call (no spike raster)" + also + where,
             })
         if idx > 0 and _mid_layer_fusible(cfg, lcfg, False, dev, training):
+            body, mode = mid_body(layer_cfgs[idx - 1][1].output_size, lcfg,
+                                  0)
             entries.append({
                 "layer": name,
                 "path": path(KERNEL_MID, KERNEL_MID_BWD,
-                             "fused_mid_reference"),
+                             "fused_mid_reference", mode),
                 "reason": "input product inside the scan call (no currents "
-                          "tensor)" + also + gbits_note(
+                          "tensor)" + also + body + gbits_note(
                               "g_W_in and g_W_rec" if rec_of(lcfg)
                               else "g_W_in", lcfg.output_size, md_size)
                           + where,

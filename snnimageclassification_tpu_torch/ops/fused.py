@@ -246,17 +246,21 @@ class _Cell:
 class _Readout:
     """The readout ``v = kappa v + z @ W_out + b`` and its running max with
     strict ``>`` (the first maximal step wins, as ``torch.max``); with
-    ``track`` also the step of that max, ``tstar``."""
+    ``track`` also the step of that max, ``tstar``.  ``sliced`` forms
+    ``z @ W_out`` as the tensor-core bodies do (:func:`_slice_product`)."""
 
-    def __init__(self, n_rows, w_out, b_out, kappa, dev):
+    def __init__(self, n_rows, w_out, b_out, kappa, dev, sliced=False):
         f32 = torch.float32
         self.w_out, self.b, self.kappa = w_out.to(f32), b_out.to(f32), kappa
+        self.pieces = _weight_pieces(w_out) if sliced else None
         self.v = torch.zeros((n_rows, w_out.shape[1]), dtype=f32, device=dev)
         self.m = torch.full_like(self.v, float("-inf"))
         self.tstar = torch.zeros(self.v.shape, dtype=torch.int32, device=dev)
 
     def step(self, z, t, track):
-        self.v = self.kappa * self.v + (z @ self.w_out + self.b)
+        r = (z @ self.w_out if self.pieces is None
+             else _slice_product(z, self.pieces))
+        self.v = self.kappa * self.v + (r + self.b)
         better = self.v > self.m
         self.m = torch.where(better, self.v, self.m)
         if track:
@@ -699,6 +703,13 @@ def _split_slice_product(a: torch.Tensor, w: torch.Tensor,
     return acc
 
 
+def _weight_pieces(w: torch.Tensor) -> list:
+    """The operand of a tensor-core product as the bodies hold it, float32
+    values: three bf16 pieces of a float32 ``w``, ``w`` itself in bf16."""
+    w32 = w.to(torch.float32)
+    return split_pieces(w32) if w.dtype == torch.float32 else [w32]
+
+
 def _ordered_rows(acc: torch.Tensor, mask: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """``acc`` plus the rows ``w[f]`` of the features set in ``mask (B,
@@ -720,7 +731,7 @@ def _ordered_currents(lat, w_in, n_steps, use_periods):
     f32 = torch.float32
     B, F = lat.shape
     w_in32 = w_in.to(f32)
-    in_p = split_pieces(w_in32) if w_in.dtype == f32 else [w_in32]
+    in_p = _weight_pieces(w_in)
     key = spike_keys(lat, n_steps, use_periods)
     periods = torch.unique(key[key >= 0]).tolist() if use_periods else []
     every_step = use_periods and n_steps >= 2
@@ -760,15 +771,9 @@ def _ordered_head(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
     and its step.  Returns ``(logits, tstar)``."""
     f32 = torch.float32
     B = lat.shape[0]
-    wd = w_in.dtype
-
-    def pieces(w):
-        w = w.to(f32)
-        return split_pieces(w) if wd == f32 else [w]
-
     cur_in = _ordered_currents(lat, w_in, n_steps, use_periods)
-    rec_p = None if w_rec is None else pieces(w_rec)
-    out_p = pieces(w_out)
+    rec_p = None if w_rec is None else _weight_pieces(w_rec)
+    out_p = _weight_pieces(w_out)
     b = b_out.to(f32)
     z = torch.zeros((B, w_in.shape[1]), dtype=f32, device=lat.device)
     vr = torch.zeros((B, w_out.shape[1]), dtype=f32, device=lat.device)

@@ -14,12 +14,15 @@ It computes what ``fused_encode_*_scan`` + ``fused_mid_*_scan_head`` compute
 (the composed pair), without layer 0's ``(T, B, H1)`` spike trace in device
 memory.  Two hand-written CUDA kernels stand behind the wrappers:
 
-* ``fused2_fwd`` / ``fused2_fwd_train`` (``csrc/fused2.cu``): one template;
-  inference writes the logits only, training the same logits bitwise plus
-  each layer's residual ``delta`` (and ``a`` for ALIF with Phi) as ``(T, B,
-  H)`` in the weights' dtype, ``tstar`` and on request both counts.  Its
-  sums are the composed kernels' sums in the same order, so on the card its
-  logits, ``tstar`` and counts equal theirs bit for bit.
+* ``fused2_fwd`` / ``fused2_fwd_train`` (``csrc/fused2.cu``): inference
+  writes the logits only, training the same logits bitwise plus each
+  layer's residual ``delta`` (and ``a`` for ALIF with Phi) as ``(T, B,
+  H)`` in the weights' dtype, ``tstar`` and on request both counts.  Two
+  bodies, chosen by shape (:func:`fused2_bodies`): the tensor-core body
+  (layer 0 the head's tensor-core layer, layer 1 one step behind on its own
+  warps with ``z0 @ W1`` on tensor cores; its bits are those of
+  ``_fused2_fwd_ordered_reference``) and, past its limits, the per-unit
+  body, whose sums are the composed per-unit kernels' in the same order.
 * ``fused2_bwd`` (``csrc/fused2_bwd.cu``): layer 1's reverse chain, ``dcur1
   @ W1^T`` as a tiled product, layer 0's chain, and the six weight
   gradients as slabs summed in a fixed order.
@@ -53,6 +56,7 @@ __all__ = [
     "fused2_rec_head_counts_reference",
     "fused2_ff_head_counts_reference",
     "fused2_head_supported",
+    "fused2_bodies",
 ]
 
 Counts = Tuple[torch.Tensor, torch.Tensor]
@@ -84,6 +88,51 @@ def _fused2_reference(lat, w0, w0r, beta0, w1, w1r, beta1, w_out, b_out,
         d0 = l0.step(spike_row(lat, t, n_steps, use_periods).to(f32) @ w0_32,
                      alpha, rho, threshold)
         d1 = l1.step(l0.z @ w1_32, alpha, rho, threshold)
+        readout.step(l1.z, t, train)
+        if train:  # rounded once, here
+            keep = (d0, d1, l0.a, l1.a) if store_a else (d0, d1)
+            for trace, x in zip(traces, keep):
+                trace.append(x.to(wd))
+    d0s, d1s, a0s, a1s = map(_f._stack, traces)
+    return (readout.m, d0s, a0s, d1s, a1s, readout.tstar if train else None,
+            l0.counts, l1.counts)
+
+
+def _fused2_fwd_ordered_reference(lat, w0, w0r, beta0, w1, w1r, beta1,
+                                  w_out, b_out, n_steps, use_periods, alif,
+                                  alpha, rho, threshold, kappa, train,
+                                  store_a, want_counts):
+    """Plain version of ``fused2_fwd[_train]``'s tensor-core body
+    (``csrc/fused2.cu:fused2_mma_kernel``) in its summation order; returns
+    as :func:`_fused2_reference`.  Layer 0's input current is the head
+    body's (``ops/fused.py:_ordered_currents``), every product k16-sliced
+    as the tensor cores form it (``_slice_product``): layer 0's recurrent
+    current added to its input current past step 0; layer 1's input
+    current ``z0(t) @ W1``, its recurrent current added past step 0; the
+    readout ``v_r = kappa v_r + (z1(t) @ W_out + b)``.  The cell steps are
+    the plain loop's (``fused._Cell``)."""
+    f32 = torch.float32
+    dev, wd = lat.device, w0.dtype
+    B = lat.shape[0]
+    pieces = _f._weight_pieces
+    cur0 = _f._ordered_currents(lat, w0, n_steps, use_periods)
+    w1_p = pieces(w1)
+    rec_p = None if w0r is None else (pieces(w0r), pieces(w1r))
+    l0 = _f._Cell(B, w0.shape[1], dev, None, beta0, alif, want_counts)
+    l1 = _f._Cell(B, w1.shape[1], dev, None, beta1, alif, want_counts)
+    readout = _f._Readout(B, w_out, b_out, kappa, dev, sliced=True)
+    traces = ([], [], [], [])  # d0, d1, a0, a1
+    for t in range(n_steps):
+        c0 = cur0(t)
+        c1_rec = None
+        if rec_p is not None and t > 0:
+            c0 = c0 + _f._slice_product(l0.z, rec_p[0])
+            c1_rec = _f._slice_product(l1.z, rec_p[1])
+        d0 = l0.step(c0, alpha, rho, threshold)
+        c1 = _f._slice_product(l0.z, w1_p)
+        if c1_rec is not None:
+            c1 = c1 + c1_rec
+        d1 = l1.step(c1, alpha, rho, threshold)
         readout.step(l1.z, t, train)
         if train:  # rounded once, here
             keep = (d0, d1, l0.a, l1.a) if store_a else (d0, d1)
@@ -133,8 +182,11 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.snn_fused2_plan.argtypes = [i] * 7 + [ip, ip]
         lib.snn_fused2_plan.restype = i
         lib.snn_fused2_fwd.argtypes = (
-            [vp] * 17 + [i] * 9 + [f] * 4 + [i, i, vp])
+            [vp] * 17 + [i] * 9 + [f] * 4 + [i, vp, i, vp])
         lib.snn_fused2_fwd.restype = i
+        lib.snn_fused2_body.argtypes = [i] * 8 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.snn_fused2_body.restype = i
     else:
         lib.snn_fused2_bwd_plan.argtypes = [i] * 10 + [ip]
         lib.snn_fused2_bwd_plan.restype = i
@@ -168,6 +220,43 @@ def _plan(device: torch.device, F: int, H1: int, H2: int, O: int,
         return None
     _f._raise_on(rc, lib, f"{KERNEL_2} plan")
     return rows.value, smem.value
+
+
+def _body(device: torch.device, F: int, H1: int, H2: int, O: int,
+          recurrent: bool, bf16: bool, B: int = 0) -> Tuple[bool, int]:
+    """``fused2_fwd``'s body for a shape it takes: (the tensor-core body,
+    bytes of scratch a launch of ``B`` rows needs: the rows' feature lists
+    and W1's fragments where its bf16 pieces do not fit shared memory and
+    come from L2)."""
+    lib = _lib()
+    out = (ctypes.c_longlong * 3)()
+    rc = lib.snn_fused2_body(F, H1, H2, O, int(recurrent), int(bf16), B,
+                             _f._index(device), out)
+    _f._raise_on(rc, lib, f"{KERNEL_2} body")
+    return bool(out[0]), int(out[2])
+
+
+def fused2_bodies(n_steps: int, n_features: int, h1: int, h2: int,
+                  n_out: int, recurrent: bool = True, itemsize: int = 4, *,
+                  device="cuda", training: bool = False,
+                  use_periods: bool = True) -> Tuple[str, ...]:
+    """The body each two-layer kernel runs a shape on, for a shape
+    :func:`fused2_head_supported` takes on a CUDA device: ``"mma"`` (the
+    tensor-core body: layer 0 the head body's layer, layer 1 the mid
+    body's, on their own warps of a tile, one step apart) or
+    ``"per-unit"`` (one thread a (row, unit) of both layers; O > 16, the
+    two layers' units past 256 (each rounded up to 32), or the weights'
+    bf16 pieces past a block's shared memory).  One entry for the forward,
+    a second for the backward's chains (``fused2_bwd``, the per-unit body)
+    with ``training``.  On the CPU the plain versions: ``"plain"``
+    entries."""
+    del n_steps, use_periods  # the bodies' limits depend on neither
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ("plain",) * (1 + int(training))
+    mma = _body(device, n_features, h1, h2, n_out, recurrent,
+                itemsize == 2)[0]
+    return ("mma" if mma else "per-unit",) + ("per-unit",) * int(training)
 
 
 def _plan_bwd(device: torch.device, B: int, F: int, H1: int, H2: int, O: int,
@@ -273,13 +362,18 @@ def _fused2_cuda(lat, w0, w0r, beta0, w1, w1r, beta1, w_out, b_out, n_steps,
                                                                   dev)
     lib = _lib()
     p = _f._ptr
+    bf16 = w0.dtype == torch.bfloat16
+    _, nbytes = _body(dev, F, H1, H2, O, w0r is not None, bf16, B)
+    # The rows' feature lists and W1's fragments, on the tensor-core body.
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
     rc = lib.snn_fused2_fwd(
         lat.data_ptr(), w0.data_ptr(), p(w0r), beta0_t.data_ptr(),
         w1.data_ptr(), p(w1r), beta1_t.data_ptr(), w_out.data_ptr(),
         b_out.data_ptr(), logits.data_ptr(), p(d0), p(a0), p(d1), p(a1),
         p(tstar), p(cnt0), p(cnt1), B, F, H1, H2, O, n_steps,
-        int(use_periods), int(alif), int(w0.dtype == torch.bfloat16), alpha,
-        rho, threshold, kappa, rows, dev.index,
+        int(use_periods), int(alif), int(bf16), alpha, rho, threshold,
+        kappa, rows, p(scratch), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _f._raise_on(rc, lib, f"{k} launch")

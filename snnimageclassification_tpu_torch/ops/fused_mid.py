@@ -19,13 +19,17 @@ spike-trace cotangent exists in device memory.
 
 Two hand-written CUDA kernels stand behind the wrappers:
 
-* ``fused_mid_fwd`` (``csrc/fused_mid.cu``): one template for both modes,
-  inference and training.  The z-emitting mode writes ``z`` and, for
-  training, the residuals of the JAX kernel (``delta`` for ALIF with
-  FastSigmoid, ``v`` for LIF, ``v`` and ``a`` for ALIF with Phi); the head
-  mode writes the logits and, for training, ``delta`` (and ``a`` for ALIF
-  with Phi), ``tstar`` and on request the counts.  Inference and training
-  logits are bitwise equal.
+* ``fused_mid_fwd`` (``csrc/fused_mid.cu``): both modes, inference and
+  training.  The z-emitting mode writes ``z`` and, for training, the
+  residuals of the JAX kernel (``delta`` for ALIF with FastSigmoid, ``v``
+  for LIF, ``v`` and ``a`` for ALIF with Phi); the head mode writes the
+  logits and, for training, ``delta`` (and ``a`` for ALIF with Phi),
+  ``tstar`` and on request the counts.  Inference and training logits are
+  bitwise equal.  Two bodies, chosen by shape (:func:`mid_bodies`): the
+  tensor-core body (the input, recurrent and readout products as k16
+  slices on bf16 tensor cores, the input product off the serial chain;
+  its bits are those of ``_mid_fwd_ordered_reference``) and, past its
+  limits, the per-unit body (sums as walks over spike bits).
 * ``fused_mid_bwd`` (``csrc/fused_mid_bwd.cu``): the reverse chain, the
   weight gradients as sums over set bits, and ``g_z_in = dcur @ W_in^T`` as
   a tiled product of its own.
@@ -66,6 +70,7 @@ __all__ = [
     "fused_mid_ff_scan_head_counts_reference",
     "fused_mid_supported",
     "fused_mid_head_supported",
+    "mid_bodies",
 ]
 
 
@@ -87,6 +92,51 @@ def _mid_reference(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif,
         z_in.device, w_in.dtype, w_rec, beta, w_out, b_out, n_steps, alif,
         alpha, rho, threshold, kappa, train, train, store_a, want_counts,
         res_is_v)
+
+
+def _mid_fwd_ordered_reference(z_in, w_in, w_rec, beta, w_out, b_out,
+                               n_steps, alif, alpha, rho, threshold, kappa,
+                               train, store_a, want_counts, res_is_v):
+    """Plain version of ``fused_mid_fwd``'s tensor-core body
+    (``csrc/fused_mid.cu:mid_mma_kernel``) in its summation order; returns
+    as :func:`_mid_reference`.  Every product is k16-sliced as the tensor
+    cores form it (``ops/fused.py:_slice_product``: float32 weights as
+    three bf16 pieces, each slice's product added in float32 in ascending
+    k): the input current ``z_in(t) @ W_in``, then, past step 0, the
+    recurrent current ``z(t-1) @ W_rec`` added to it, and the readout
+    ``v_r = kappa v_r + (z(t) @ W_out + b)``.  The cell step is the plain
+    loop's (``fused._Cell``)."""
+    f32 = torch.float32
+    wd = w_in.dtype
+    T, B, _ = z_in.shape
+    H = w_in.shape[1]
+    dev = z_in.device
+    pieces = _f._weight_pieces
+    in_p = pieces(w_in)
+    rec_p = None if w_rec is None else pieces(w_rec)
+    cell = _f._Cell(B, H, dev, None, beta, alif, want_counts)
+    readout = (None if w_out is None
+               else _f._Readout(B, w_out, b_out, kappa, dev, sliced=True))
+    zs, res, a_trace = [], [], []
+    for t in range(n_steps):
+        cur = _f._slice_product(z_in[t].to(f32), in_p)
+        if rec_p is not None and t > 0:
+            cur = cur + _f._slice_product(cell.z, rec_p)
+        delta = cell.step(cur, alpha, rho, threshold)
+        if readout is not None:
+            readout.step(cell.z, t, train)
+        else:
+            zs.append(cell.z.to(wd))
+        if train:
+            res.append((cell.v if res_is_v else delta).to(wd))
+            if store_a:
+                a_trace.append(cell.a.to(wd))
+    stack = _f._stack
+    if readout is None:
+        return None, stack(zs), stack(res), stack(a_trace), None, \
+            cell.counts
+    return (readout.m, None, stack(res), stack(a_trace), readout.tstar,
+            cell.counts)
 
 
 def _mid_bwd_reference(g_logits, g_counts, tstar, g_z, z, res, a_tr,
@@ -115,8 +165,10 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.snn_fused_mid_plan.argtypes = [i] * 6 + [ip, ip]
         lib.snn_fused_mid_plan.restype = i
         lib.snn_fused_mid_fwd.argtypes = (
-            [vp] * 12 + [i] * 8 + [f] * 4 + [i, i, vp])
+            [vp] * 12 + [i] * 8 + [f] * 4 + [i, vp, i, vp])
         lib.snn_fused_mid_fwd.restype = i
+        lib.snn_fused_mid_body.argtypes = [i] * 6 + [ip]
+        lib.snn_fused_mid_body.restype = i
     else:
         lib.snn_fused_mid_bwd_plan.argtypes = [i] * 8 + [ip]
         lib.snn_fused_mid_bwd_plan.restype = i
@@ -151,6 +203,19 @@ def _plan(device: torch.device, Hin: int, H: int, O: int, recurrent: bool,
         return None
     _f._raise_on(rc, lib, f"{KERNEL_MID} plan")
     return rows.value, smem.value
+
+
+def _body(device: torch.device, Hin: int, H: int, O: int, recurrent: bool,
+          bf16: bool) -> Tuple[bool, int]:
+    """``fused_mid_fwd``'s body for a shape it takes: (the tensor-core body,
+    bytes of scratch a launch needs: W_in's fragments where its bf16 pieces
+    do not fit shared memory and come from L2)."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    rc = lib.snn_fused_mid_body(Hin, H, O, int(recurrent), int(bf16),
+                                _f._index(device), out)
+    _f._raise_on(rc, lib, f"{KERNEL_MID} body")
+    return bool(out[0]), out[1]
 
 
 def _plan_bwd(device: torch.device, B: int, Hin: int, H: int, O: int, T: int,
@@ -213,6 +278,29 @@ def fused_mid_head_supported(n_steps: int, hidden_in: int, hidden: int,
                       device, training)
 
 
+def mid_bodies(n_steps: int, hidden_in: int, hidden: int, n_out: int = 0,
+               recurrent: bool = True, itemsize: int = 4, device="cuda",
+               training: bool = False) -> Tuple[str, ...]:
+    """The body each mid-layer kernel runs a shape on (``n_out == 0``: the
+    z-emitting mode), for a shape :func:`fused_mid_supported` /
+    :func:`fused_mid_head_supported` takes on a CUDA device: ``"mma"``
+    (the tensor-core body: a warp owns 16 rows x 32 units, the input,
+    recurrent and readout products on bf16 tensor cores, the input product
+    off the serial chain) or ``"per-unit"`` (one thread a (row, unit), the
+    sums as walks over spike bits; O > 16, H > 256, ``hidden_in`` past
+    about 1.5 ``hidden`` (the input values a thread stages a step), or the
+    weights' bf16 pieces past a block's shared memory).  One entry for the forward, a second for the backward's chain
+    (``fused_mid_bwd``, the per-unit body) with ``training``.  On the CPU
+    the plain versions: ``"plain"`` entries."""
+    del n_steps  # the bodies' limits do not depend on it
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ("plain",) * (1 + int(training))
+    mma = _body(device, hidden_in, hidden, n_out, recurrent,
+                itemsize == 2)[0]
+    return ("mma" if mma else "per-unit",) + ("per-unit",) * int(training)
+
+
 def _check_inputs(k, z_in, w_in, w_rec, w_out, b_out, n_steps):
     """Validate the forward's inputs; returns (B, Hin, H, O, rows)."""
     dev = z_in.device
@@ -261,13 +349,18 @@ def _mid_cuda(z_in, w_in, w_rec, beta, w_out, b_out, n_steps, alif, alpha,
             counts = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = _lib()
     p = _f._ptr
+    bf16 = w_in.dtype == torch.bfloat16
+    _, nbytes = _body(dev, Hin, H, O, w_rec is not None, bf16)
+    # W_in's fragments, where the tensor-core body reads them from L2.
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
+    beta_t = _f._beta_tensor(beta, dev)
     rc = lib.snn_fused_mid_fwd(
-        z_in.data_ptr(), w_in.data_ptr(), p(w_rec),
-        _f._beta_tensor(beta, dev).data_ptr(), p(w_out), p(b_out), p(z),
-        p(res), p(a_tr), p(logits), p(tstar), p(counts), B, Hin, H, O,
-        n_steps, int(alif), int(w_in.dtype == torch.bfloat16),
-        int(res_is_v), alpha, rho, threshold, kappa, rows, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        z_in.data_ptr(), w_in.data_ptr(), p(w_rec), beta_t.data_ptr(),
+        p(w_out), p(b_out), p(z), p(res), p(a_tr), p(logits), p(tstar),
+        p(counts), B, Hin, H, O, n_steps, int(alif), int(bf16),
+        int(res_is_v), alpha, rho, threshold, kappa, rows, p(scratch),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)

@@ -42,7 +42,8 @@ cores; the forward float32 up to H = 512 and bf16 up to 1024, the chain
 bf16 up to 1024) or, elsewhere, the CUDA-core body (every float32 chain:
 at H = 512 the cluster body's six piece products a slice ran slower).  ``_fwd_ordered_reference`` and ``_chain_ordered_reference`` are the
 plain versions in the cluster body's summation order: the forward's bits
-equal them on the card.
+equal them on the card.  ``_rec_chain_ordered_reference`` is the CUDA-core
+chain's, which the card tests hold it against.
 """
 from __future__ import annotations
 
@@ -59,7 +60,6 @@ from .fused import (
     MAX_STEPS,
     Beta,
 )
-from .head_mma import split_pieces
 from .surrogate import SpikeFuncType, surrogate_grad_from_delta
 
 __all__ = [
@@ -129,8 +129,7 @@ def _fwd_ordered_reference(currents, w_rec, beta, alif, alpha, rho,
     lo and mid, each slice's sum added in float32 in ascending k).  The
     body's plan does not enter: every unit sums all H inputs in that order.
     Returns as :func:`_fwd_reference`; the card's bits equal it."""
-    w32 = w_rec.to(torch.float32)
-    pieces = split_pieces(w32) if w_rec.dtype == torch.float32 else [w32]
+    pieces = _f._weight_pieces(w_rec)
     return _fwd_loop(currents, w_rec, beta, alif, alpha, rho, threshold,
                      train, store_a, res_is_v,
                      lambda z: _f._slice_product(z, pieces))
@@ -195,6 +194,31 @@ def _chain_ordered_reference(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
                      threshold, gamma, spike_func,
                      lambda d: _f._split_slice_product(d, w_t, wd, card=card),
                      False)[0]
+
+
+def _rec_chain_ordered_reference(g_z, z, res, a_tr, res_is_v, w_rec, beta,
+                                 alpha, threshold, gamma, spike_func):
+    """Plain version of the CUDA-core chain (``csrc/rec_scan.cu:
+    rec_chain_kernel``, every float32 chain) in its summation order: ``g_i
+    (T, B, H)`` float32, with ``round(dcur(t+1)) @ W_rec^T`` as the kernel's
+    j-chunk loop forms it, one fused multiply-add a term in ascending j
+    into one float32 accumulator started at zero (the chunks of W_rec^T
+    rows carry the accumulator on, so the chunking does not enter).  Each
+    multiply-add is taken in float64 (the product exact) and rounded to
+    float32: a single rounding except where the sum needs more than 53
+    bits, far below the bars."""
+    f64 = torch.float64
+    w_t = w_rec.to(f64).T.contiguous()
+
+    def product(d):
+        d = d.to(f64)
+        acc = torch.zeros(d.shape, dtype=f64, device=d.device)
+        for j in range(w_t.shape[0]):
+            acc = torch.addcmul(acc, d[:, j, None], w_t[j]).float().double()
+        return acc.float()
+
+    return _bwd_loop(g_z, z, res, a_tr, res_is_v, w_rec, beta, alpha,
+                     threshold, gamma, spike_func, product, False)[0]
 
 
 # ---------------------------------------------------------------------------

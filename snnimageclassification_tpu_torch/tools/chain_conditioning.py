@@ -38,7 +38,7 @@ def chain(bw, product, dtype):
     recurrent cotangent of ``dcur(t+1)``."""
     g_z, z, res, a_tr, res_is_v, _, beta, alpha, thr, gamma, spike = bw
     T, B, H = res.shape
-    dcur = torch.zeros((B, H), dtype=dtype)
+    dcur = torch.zeros((B, H), dtype=dtype, device=res.device)
     out = []
     for t in range(T - 1, -1, -1):
         th = thr + beta * a_tr[t].to(dtype) if a_tr is not None else thr

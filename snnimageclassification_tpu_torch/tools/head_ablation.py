@@ -10,6 +10,9 @@ Run on a CUDA card from the repository root::
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation --izh \
         [--bodies]
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation --wide
+    python3 -m snnimageclassification_tpu_torch.tools.head_ablation --mid
+    python3 -m snnimageclassification_tpu_torch.tools.head_ablation \
+        --twolayer
 
 Each variant is the kernel source (headers inlined) with one statement of
 its tensor-core body replaced: the readout product, the recurrent product,
@@ -48,6 +51,19 @@ global stores (``no_trace_stores``), and on the CUDA-core body
 (clusters of C blocks, clusters active at once) and each body's time on
 one cluster's rows alone (``one_cluster``: the step's latency, T steps).
 
+``--mid`` times the deep net's mid-layer forward (``csrc/fused_mid.cu``,
+784-ALIF128-ALIF128-ALIF96-10: the z-emitting 128 -> 128 call and the head
+128 -> 96 -> 10 call, training at B = 8192 and served at 4096, float32 and
+bfloat16) on its tensor-core body as built, without the input product
+(``no_input_product``), without the recurrent product
+(``no_recurrent_product``), without the exchange of z and the step's
+barrier (``no_exchange``), with W_in's pieces read from L2 instead of
+shared memory (``win_from_l2``) and on the per-unit body
+(``per_unit_body``); ``--twolayer`` the same for the two-layer forward
+(``csrc/fused2.cu``, 784-ALIF128-ALIF128-10; ``no_input_product`` is
+layer 1's z0 @ W1, ``w1_from_l2`` W1's pieces from L2 where they fit
+shared memory).
+
 ``--launch-order`` times the stacked kernel (six replicas of that
 flagship, seeds 0-5, on the same batch) as it is built, row tiles on the
 grid's fastest axis, against a variant with the replicas there; the two
@@ -83,13 +99,13 @@ VARIANTS = {  # name -> (statement of the kernel's source, its replacement)
     # sort and the every-step sum kept).
     "no_input": (
         "    if (__any_sync(0xffffffffu, dense[0] || dense[1]))\n"
-        "      dense_input<P>(cur, a.lat, F, row0, dense, w_in, H, lane, wu,\n"
+        "      dense_input<P>(cur, lat, F, row0, dense, w_in, H, lane, wu,\n"
         "                     [=](int L) { return L == t; });\n"
         "#pragma unroll\n"
         "    for (int hh = 0; hh < 2; ++hh)\n"
         "      if (!dense[hh])\n"
         "        step_runs(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, "
-        "a.periodic,\n"
+        "periodic,\n"
         "                  [&](int k, int e) {\n"
         "                    gather_rows(cur, hh, w_in, H, col0, lrow[hh], "
         "k, e);\n"
@@ -118,6 +134,55 @@ WIDE_VARIANTS = {
     "cuda_core_body": (
         ("(chain ? p->chain_mma : p->fwd_mma) = rc == 0;",
          "(chain ? p->chain_mma : p->fwd_mma) = false;"),),
+}
+
+# The named barrier of the tensor-core bodies (head_mma.cuh:tile_sync).
+NO_BARRIER = ('  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(n) : '
+              '"memory");', "")
+
+# The mid layer's variants (csrc/fused_mid.cu:mid_mma_kernel).
+MID_VARIANTS = {
+    "no_input_product": (
+        ("    if (t + 1 < T)\n"
+         "      mask_product<P>(cin, s_m + ((t + 1) & 1) * 16 * NW, NW, KI, "
+         "win, HP / 8,\n                      wu, lane);\n", ""),),
+    "no_recurrent_product": (
+        ("            mma_exact_a<P>(rec[n], A, s_wrec,\n"
+         "                           kk * (HP / 8) + MMA_NT * wu + n, lane);",
+         "            rec[n][0] += 0.f;"),),
+    "no_exchange": (
+        ("    if (REC || HEAD) put_slice(s_z + (t & 1) * 16 * ZS, ZS, wu, "
+         "lane, zf);", ""), NO_BARRIER),
+    "win_from_l2": (
+        ("  for (int w = 1; w >= 0; --w) {\n    if (mid_mma_layout(",
+         "  for (int w = 0; w >= 0; --w) {\n    if (mid_mma_layout("),),
+    "per_unit_body": (
+        ("  out[0] = mid_mma_fits(Hin, H, O, rec, bf16, max_smem, &win) ? 1 "
+         ": 0;", "  out[0] = 0;"),),
+}
+
+# The two-layer pair's variants (csrc/fused2.cu:fused2_mma_kernel).
+TWOLAYER_VARIANTS = {
+    "no_input_product": (
+        ("        mma_exact_a<P>(cur[n], A, w1f, kk * (HP / 8) + MMA_NT * wu + "
+         "n, lane);", "        cur[n][0] += 0.f;"),),
+    "no_recurrent_product": (
+        ("          mma_exact_a<P>(rec[n], A, s_w0r, kk * (HP / 8) + MMA_NT * "
+         "wu + n,\n                         lane);", "          rec[n][0] += "
+         "0.f;"),
+        ("            mma_exact_a<P>(rec[n], A, s_w1r, kk * (HP / 8) + MMA_NT "
+         "* wu + n,\n                           lane);", "            "
+         "rec[n][0] += 0.f;")),
+    "no_exchange": (
+        ("    put_slice(s_z0 + (t & 1) * 16 * ZS, ZS, wu, lane, zf);", ""),
+        ("    put_slice(s_z1 + (s & 1) * 16 * ZS, ZS, wu, lane, zf);", ""),
+        NO_BARRIER),
+    "w1_from_l2": (
+        ("  for (int w = 1; w >= 0; --w) {\n    if (mma2_layout(",
+         "  for (int w = 0; w >= 0; --w) {\n    if (mma2_layout("),),
+    "per_unit_body": (
+        ("  out[0] = mma2_fits(F, H1, H2, O, rec, bf16, max_smem, &w1s) ? 1 "
+         ": 0;", "  out[0] = 0;"),),
 }
 
 # The stacked launch with its grid's axes swapped: replicas on x (fastest),
@@ -246,12 +311,20 @@ def main() -> None:
     parser.add_argument("--wide", action="store_true",
                         help="the wide net's recurrent scan forward "
                              "(csrc/rec_scan.cu)")
+    parser.add_argument("--mid", action="store_true",
+                        help="the deep net's mid-layer forward "
+                             "(csrc/fused_mid.cu)")
+    parser.add_argument("--twolayer", action="store_true",
+                        help="the two-layer forward (csrc/fused2.cu)")
     ns = parser.parse_args()
     launch_order = ns.launch_order
     if not torch.cuda.is_available():
         raise SystemExit("head_ablation needs a CUDA card")
     if ns.wide:
         _wide_main()
+        return
+    if ns.mid or ns.twolayer:
+        _layers_main("fused_mid" if ns.mid else "fused2")
         return
     if ns.izh:
         _izh_main(ns.bodies)
@@ -395,6 +468,91 @@ def _wide_main() -> None:
                   flush=True)
     finally:
         _build._libs["rec_scan"] = libs["kernel"]
+    print(_card())
+
+
+def _time_variants(src: str, variants: dict, calls: dict, tag: dict,
+                   n: int = 5) -> None:
+    """Build ``csrc/<src>.cu``'s variants (one nvcc each, all at once) and
+    print each one's median ms of every call, as built first, two
+    rounds."""
+    source = _build.inlined_source(src)
+    libs = {"kernel": _build.load(src)}
+    with ThreadPoolExecutor(len(variants)) as pool:
+        built = pool.map(lambda kv: _variant_lib(
+            f"{src}_{kv[0]}", _replace(kv[0], source, kv[1])),
+            variants.items())
+        libs.update(zip(variants, built))
+    try:
+        for rnd in range(2):
+            for name, lib in libs.items():
+                _build._libs[src] = lib  # what the wrapper's _lib() loads
+                ms = {k: _median_ms(f, n) for k, f in calls.items()}
+                print(json.dumps({"variant": name, **tag, "round": rnd,
+                                  "ms": ms}), flush=True)
+    finally:
+        _build._libs[src] = libs["kernel"]
+
+
+def _layers_main(src: str) -> None:
+    """``--mid`` / ``--twolayer``: the variants of the mid layer's forward
+    (784-ALIF128-ALIF128-ALIF96-10, its z-emitting 128 -> 128 call on layer
+    0's spikes and its head 128 -> 96 -> 10 call on those of the z call) or
+    of the two-layer forward (784-ALIF128-ALIF128-10), recurrent, learn_beta,
+    T = 100, TTFS, params seed 0, on 8192 random uint8 rows (numpy seed 1)
+    for training and their first 4096 served, float32 and bfloat16."""
+    from ..ops import fused2, fused_mid
+
+    widths = [128, 128, 96] if src == "fused_mid" else [128, 128]
+    raw = np.random.default_rng(1).integers(0, 256, (8192, 784),
+                                            dtype=np.uint8)
+    x = torch.from_numpy(raw).cuda().to(torch.float32) / 255.0
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    for md in ("float32", "bfloat16"):
+        cfg = SNNConfig(input_size=784, output_size=10,
+                        n_hidden_neurons=widths,
+                        hidden_layer_type=LayerType.ALIF,
+                        use_recurrent_connection=True, learn_beta=True,
+                        int_time_steps=100, matmul_dtype=md)
+        params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                                device="cuda")
+        dt = getattr(torch, md)
+        layers = cfg.layer_configs
+        w = [(params[n]["w_in"].to(dt).contiguous(),
+              masked_recurrent(c, params[n]).to(dt).contiguous(),
+              params[n]["beta"].detach(), c) for n, c in layers[:-1]]
+        ro = params[layers[-1][0]]
+        w_out, b_out = ro["w_in"].to(dt).contiguous(), ro["b"].contiguous()
+        kappa = layers[-1][1].kappa
+        sc = (w[0][3].alpha, w[0][3].rho, w[0][3].threshold)
+        if src == "fused2":
+            def call(rows, train):
+                l_ = lat[:rows]
+                return lambda: fused2._fused2_cuda(
+                    l_, w[0][0], w[0][1], w[0][2], w[1][0], w[1][1],
+                    w[1][2], w_out, b_out, 100, False, True, *sc, kappa,
+                    train, False, False)
+            calls = {"train": call(8192, True), "serve": call(4096, False)}
+        else:
+            z0 = fused._layer0_cuda(lat, w[0][0], w[0][1], w[0][2], 100,
+                                    False, True, *sc, False, False, False)[0]
+            z1 = fused_mid._mid_cuda(z0, w[1][0], w[1][1], w[1][2], None,
+                                     None, 100, True, *sc, 0.0, False, False,
+                                     False, False)[1]
+
+            def call(z_in, rows, head, train):
+                z_in = z_in[:, :rows].contiguous()
+                wi, wr, beta, _ = w[2 if head else 1]
+                return lambda: fused_mid._mid_cuda(
+                    z_in, wi, wr, beta, w_out if head else None,
+                    b_out if head else None, 100, True, *sc,
+                    kappa if head else 0.0, train, False, False, False)
+            calls = {"z_train": call(z0, 8192, False, True),
+                     "head_train": call(z1, 8192, True, True),
+                     "z_serve": call(z0, 4096, False, False),
+                     "head_serve": call(z1, 4096, True, False)}
+        variants = MID_VARIANTS if src == "fused_mid" else TWOLAYER_VARIANTS
+        _time_variants(src, variants, calls, {src: True, "dtype": md})
     print(_card())
 
 

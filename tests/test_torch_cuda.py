@@ -1492,22 +1492,254 @@ def test_fused2_kernels_match_plain_versions(card, name, alif, rec,
 def test_fused2_equals_the_composed_kernels_bitwise(card, name, alif, rec,
                                                     use_periods, spike,
                                                     n_steps, wdtype):
-    """The same sums in the same order: logits, ``tstar`` and both counts of
-    ``fused2_fwd_train`` equal those of ``fused_layer0_fwd`` +
-    ``fused_mid_fwd[head]`` bit for bit."""
+    """``fused2_fwd_train`` against ``fused_layer0_fwd`` +
+    ``fused_mid_fwd[head]``.  Bit for bit where the three kernels sum in
+    one order: the two-layer and mid kernels on the per-unit bodies (the
+    shape here, two layers of 20 and 24 units and F = 30, is taken by both
+    tensor-core bodies, so it is run past them at O = 20, past their 16).
+    On their
+    tensor-core bodies, whose layer 0 sums in the head body's order while
+    ``fused_layer0_fwd`` keeps the per-unit order, at the full-width
+    bars: argmax equal on 99.5 % of rows, logits within 1e-4 of max|logit|
+    on 99 %, both layers' spikes (counts) equal on 99.5 %."""
     args, _ = _f2_args(card, n_steps, alif, rec, use_periods, wdtype, B=40)
-    lat, w0, w0r, b0, w1, w1r, b1, w_out, b_out = args[:9]
-    sc = args[12:15]
-    logits, _, _, _, _, tstar, c0, c1 = fused2._fused2_cuda(
-        *args, True, False, True)
-    z0 = fused._layer0_cuda(lat, w0, w0r, b0, n_steps, use_periods, alif,
-                            *sc, False, False, False)[0]
-    m = fused_mid._mid_cuda(z0, w1, w1r, b1, w_out, b_out, n_steps, alif,
-                            *sc, args[15], True, False, True, False)
-    torch.cuda.synchronize()
-    assert torch.equal(logits, m[0]) and torch.equal(tstar, m[4])
-    assert torch.equal(c1, m[5]) and torch.equal(c0, z0.float().sum(0))
-    assert float(c1.sum()) > 0
+    wide, _ = _f2_args(card, n_steps, alif, rec, use_periods, wdtype, B=40,
+                       O=20)
+    assert fused2.fused2_bodies(n_steps, 30, 20, 24, 10, rec,
+                                wdtype.itemsize, device=card)[0] == "mma"
+    assert fused2.fused2_bodies(n_steps, 30, 20, 24, 20, rec,
+                                wdtype.itemsize, device=card)[0] == "per-unit"
+    assert fused_mid.mid_bodies(n_steps, 20, 24, 20, rec, wdtype.itemsize,
+                                card)[0] == "per-unit"
+    for a, bitwise in ((wide, True), (args, False)):
+        lat, w0, w0r, b0, w1, w1r, b1, w_out, b_out = a[:9]
+        sc = a[12:15]
+        logits, _, _, _, _, tstar, c0, c1 = fused2._fused2_cuda(
+            *a, True, False, True)
+        z0 = fused._layer0_cuda(lat, w0, w0r, b0, n_steps, use_periods,
+                                alif, *sc, False, False, False)[0]
+        m = fused_mid._mid_cuda(z0, w1, w1r, b1, w_out, b_out, n_steps,
+                                alif, *sc, a[15], True, False, True, False)
+        torch.cuda.synchronize()
+        assert float(c1.sum()) > 0
+        if bitwise:
+            assert torch.equal(logits, m[0]) and torch.equal(tstar, m[4])
+            assert torch.equal(c1, m[5])
+            assert torch.equal(c0, z0.float().sum(0))
+            continue
+        scale = float(m[0].abs().max())
+        argmax = (logits.argmax(1) == m[0].argmax(1)).float().mean()
+        close = ((logits - m[0]).abs().amax(1) <= 1e-4 * scale).float()
+        spikes = ((c0 == z0.float().sum(0)).all(1)
+                  & (c1 == m[5]).all(1)).float()
+        assert float(argmax) >= 0.995
+        assert float(close.mean()) >= 0.99
+        assert float(spikes.mean()) >= 0.995
+
+
+def _mid_case(dev, T, Hin, H, O, alif, rec, wdtype, B=37, seed=11):
+    """``fused_mid`` arguments up to ``kappa`` (``O == 0``: the z-emitting
+    mode) at a scale where the layer fires: z_in 0/1 at 25 %, W_in of std
+    2 / sqrt(Hin) (the deep net's threshold scale), W_rec 1 / sqrt(H)
+    eye-masked."""
+    rng = np.random.default_rng(seed)
+    cfg = (ALIFConfig if alif else LIFConfig)(input_size=Hin, output_size=H)
+
+    def w(shape, std, mask=False):
+        t = torch.from_numpy(
+            (std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        if mask:
+            t = t * (1 - torch.eye(shape[0], device=dev))
+        return t.to(wdtype)
+
+    z_in = torch.from_numpy((rng.random((T, B, Hin)) < 0.25)
+                            .astype(np.float32)).to(dev).to(wdtype)
+    return (z_in, w((Hin, H), 2.0 / np.sqrt(Hin)),
+            w((H, H), 1.0 / np.sqrt(H), True) if rec else None,
+            1.6 if alif else 0.0, w((H, O), 1.0) if O else None,
+            w((O,), 0.1).float() if O else None, T, alif, cfg.alpha,
+            cfg.rho if alif else 0.0, cfg.threshold,
+            ReadoutConfig(input_size=H, output_size=max(O, 1)).kappa
+            if O else 0.0)
+
+
+MID_MMA_CASES = [  # name, alif, recurrent, surrogate
+    ("alif-rec-fs", True, True, FAST), ("alif-rec-phi", True, True, PHI),
+    ("lif-ff-fs", False, False, FAST), ("lif-rec-phi", False, True, PHI),
+]
+# (Hin, H, O): the z-emitting mode at H = 45 and 128, the head at 45 and
+# the deep net's 128 -> 96 -> 10.
+MID_MMA_SHAPES = {"z": [(45, 45, 0), (128, 128, 0)],
+                  "head": [(45, 45, 10), (128, 96, 10)]}
+
+
+def _assert_same(got, want, what):
+    for g, p, n in zip(got, want, what):
+        if g is None or p is None:
+            assert g is None or n == "tstar", n
+            continue
+        assert torch.equal(g, p.to(g.dtype)), (
+            f"{n}: {int((g.float() != p.float()).sum())} elements differ")
+
+
+MID_OUTS = ("logits", "z", "res", "a", "tstar", "counts")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("mode", ["z", "head"])
+@pytest.mark.parametrize("name,alif,rec,spike", MID_MMA_CASES,
+                         ids=[c[0] for c in MID_MMA_CASES])
+def test_mid_mma_body_matches_ordered_versions(card, name, alif, rec, spike,
+                                               mode, n_steps, wdtype):
+    """``fused_mid_fwd`` on its tensor-core body equals
+    ``_mid_fwd_ordered_reference`` bit for bit at B = 37: spikes,
+    residuals (v or delta, and a for ALIF with Phi), logits, tstar and
+    counts, training and inference (whose outputs equal training's)."""
+    head = mode == "head"
+    store_a = fused._stores_a(alif, spike)
+    res_is_v = not head and fused._residual_is_v(alif, spike)
+    for Hin, H, O in MID_MMA_SHAPES[mode]:
+        assert fused_mid.mid_bodies(n_steps, Hin, H, O, rec, wdtype.itemsize,
+                                    card, True) == ("mma", "per-unit")
+        args = _mid_case(card, n_steps, Hin, H, O, alif, rec, wdtype)
+        fused.reset_launch_counts()
+        got = fused_mid._mid_cuda(*args, True, store_a, head, res_is_v)
+        inf = fused_mid._mid_cuda(*args, False, False, head, False)
+        want = fused_mid._mid_fwd_ordered_reference(*args, True, store_a,
+                                                    head, res_is_v)
+        torch.cuda.synchronize()
+        assert _launched() == {fused.KERNEL_MID: 2}
+        _assert_same(got, want, MID_OUTS)
+        if head:
+            assert torch.equal(inf[0], got[0])
+            assert torch.equal(inf[5], got[5])
+            assert float(got[5].sum()) > 0
+        else:
+            assert torch.equal(inf[1], got[1])
+            assert 0.01 < float(got[1].float().mean()) < 0.6
+
+
+F2_OUTS = ("logits", "d0", "a0", "d1", "a1", "tstar", "cnt0", "cnt1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("name,alif,rec,use_periods,spike", F2_CASES,
+                         ids=[c[0] for c in F2_CASES])
+def test_fused2_mma_body_matches_ordered_versions(card, name, alif, rec,
+                                                  use_periods, spike,
+                                                  n_steps, wdtype):
+    """``fused2_fwd[_train]`` on its tensor-core body equals
+    ``_fused2_fwd_ordered_reference`` bit for bit at B = 37 with H1 = H2 =
+    45 and 128 (F = 30 and 784; W1's pieces from L2 in float32 at 128):
+    logits, both layers' residuals, tstar and both counts, training and
+    inference (whose logits equal training's)."""
+    store_a = fused._stores_a(alif, spike)
+    for F, H in ((30, 45), (784, 128)):
+        assert fused2.fused2_bodies(n_steps, F, H, H, 10, rec,
+                                    wdtype.itemsize, device=card,
+                                    training=True) == ("mma", "per-unit")
+        args, _ = _f2_args(card, n_steps, alif, rec, use_periods, wdtype,
+                           B=37, F=F, H1=H, H2=H)
+        fused.reset_launch_counts()
+        got = fused2._fused2_cuda(*args, True, store_a, True)
+        inf = fused2._fused2_cuda(*args, False, False, False)
+        want = fused2._fused2_fwd_ordered_reference(*args, True, store_a,
+                                                    True)
+        torch.cuda.synchronize()
+        assert _launched() == {fused.KERNEL_2: 1, fused.KERNEL_2_TRAIN: 1}
+        _assert_same(got, want, F2_OUTS)
+        assert torch.equal(inf[0], got[0])
+        assert float(got[6].sum()) > 0 and float(got[7].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mid_and_fused2_rows_do_not_depend_on_their_batch(card, wdtype):
+    """A row's outputs are the same bits whichever rows share its 16-row
+    tile: the batch whole and a shuffled subset of 23 rows, through the mid
+    layer's two modes and the two-layer pair (TTFS, where a row firing at
+    least F / 16 features at a step takes layer 0's dense product: rows
+    firing 0 to 7 of F = 48 features at t = 0)."""
+    rng = np.random.default_rng(12)
+    idx = torch.from_numpy(rng.permutation(37)[:23]).to(card)
+    for O in (0, 10):
+        args = _mid_case(card, 24, 45, 45, O, True, True, wdtype)
+        whole = fused_mid._mid_cuda(*args, True, True, O > 0, False)
+        sub = (args[0][:, idx].contiguous(),) + args[1:]
+        part = fused_mid._mid_cuda(*sub, True, True, O > 0, False)
+        for w, p, n in zip(whole, part, MID_OUTS):
+            if w is None:
+                continue
+            assert torch.equal(p, w[:, idx] if w.dim() == 3 else w[idx]), n
+    args, _ = _f2_args(card, 24, True, True, False, wdtype, B=37, F=48,
+                       H1=45, H2=45)
+    lat = rng.integers(1, 28, (37, 48)).astype(np.int32)
+    for r in range(37):
+        lat[r, rng.choice(48, r % 8, replace=False)] = 0
+    args = (torch.from_numpy(lat).to(card),) + args[1:]
+    whole = fused2._fused2_cuda(*args, True, True, True)
+    part = fused2._fused2_cuda(args[0][idx].contiguous(), *args[1:], True,
+                               True, True)
+    for w, p, n in zip(whole, part, F2_OUTS):
+        assert torch.equal(p, w[:, idx] if w.dim() == 3 else w[idx]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mid_and_fused2_per_unit_bodies_take_the_rest(card, wdtype):
+    """Shapes past the tensor-core bodies' limits run the per-unit bodies,
+    chosen by shape, which explain_dispatch names: the mid layer's head at
+    O = 20 (and bf16 at H = 288), the two-layer pair at O = 20 (and bf16 at
+    130 + 160 units); each against its order-free plain version at the
+    small bars."""
+    import snnimageclassification_tpu_torch as pt
+    from snnimageclassification_tpu_torch.models import snn as model_lib
+
+    T = 24
+    bf16 = wdtype == torch.bfloat16
+    for Hin, H, O in ((45, 45, 20),) + (((64, 288, 10),) if bf16 else ()):
+        assert fused_mid.mid_bodies(T, Hin, H, O, True, wdtype.itemsize,
+                                    card)[0] == "per-unit"
+        args = _mid_case(card, T, Hin, H, O, True, True, wdtype)
+        got = fused_mid._mid_cuda(*args, True, False, True, False)
+        want = fused_mid._mid_reference(*args, True, False, True, False)
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+        assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+    for H1, H2, O in ((45, 45, 20),) + (((130, 160, 10),) if bf16 else ()):
+        assert fused2.fused2_bodies(T, 30, H1, H2, O, True, wdtype.itemsize,
+                                    device=card)[0] == "per-unit"
+        args, _ = _f2_args(card, T, True, True, False, wdtype, B=21, H1=H1,
+                           H2=H2, O=O)
+        got = fused2._fused2_cuda(*args, True, False, True)
+        want = fused2._fused2_reference(*args, True, False, True)
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+        assert torch.equal(got[5], want[5])
+        assert torch.equal(got[6], want[6]) and torch.equal(got[7], want[7])
+    enc = pt.EncodeConfig(n_steps=100)
+    md = "float32" if wdtype == torch.float32 else "bfloat16"
+    for hidden, out, mma in (([128, 128, 96], 10, True),
+                             ([128, 128], 10, True),
+                             ([128, 128, 96], 20, False),
+                             ([128, 128], 20, False)):
+        cfg = pt.SNNConfig(input_size=784, output_size=out,
+                           n_hidden_neurons=hidden,
+                           hidden_layer_type=pt.LayerType.ALIF,
+                           use_recurrent_connection=True, int_time_steps=100,
+                           matmul_dtype=md)
+        for training in (False, True):
+            entries = model_lib.explain_dispatch(cfg, enc, device="cuda",
+                                                 training=training)
+            last = entries[-1]
+            assert ("(mma) in the forward" in last["reason"]) == mma, last
+            assert last["path"].endswith("[per-unit]") != mma, last
 
 
 @pytest.mark.cuda
@@ -1736,14 +1968,15 @@ def _rec_scalars(alif):
     return cfg.alpha, (cfg.rho if alif else 0.0), cfg.threshold, cfg.gamma
 
 
-def _rec_bwd_ordered(bw):
-    """The backward's plain version in the cluster body's order: g_i from
-    ``_chain_ordered_reference`` and g_W_rec = sum_t z(t-1)^T round(g_i(t))
-    (float32, cast to W's type), as ``_bwd_reference`` forms it."""
+def _rec_bwd_ordered(bw, chain=None):
+    """The backward's plain version in a chain body's order: g_i from
+    ``chain`` (the cluster body's ``_chain_ordered_reference`` by default)
+    and g_W_rec = sum_t z(t-1)^T round(g_i(t)) (float32, cast to W's
+    type), as ``_bwd_reference`` forms it."""
     from snnimageclassification_tpu_torch.ops import rec_scan
 
     g_z, z, _, _, _, w_rec = bw[:6]
-    g_i = rec_scan._chain_ordered_reference(*bw)
+    g_i = (chain or rec_scan._chain_ordered_reference)(*bw)
     z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).float()
     d = g_i.to(w_rec.dtype).float()
     g_w = torch.einsum("tbj,tbh->jh", z_prev, d)
@@ -1756,8 +1989,13 @@ def _rec_check(dev, B, H, T, alif, spike, wdtype, min_rows):
     bf16 one rounding, on those rows) and the backward on the training
     kernel's residuals (2e-6 of max|g|, 5e-6 at T = 100, bf16 2**-7; equal
     bits twice).  Where the chain runs the cluster body (bf16: k16-sliced
-    sums on tensor cores) the backward is also held at the same bar against
-    the plain version in that order (``_rec_bwd_ordered``)."""
+    sums on tensor cores) the backward is held at that bar against the
+    order-free plain version and against the plain version in that order
+    (``_rec_bwd_ordered``); where it runs the CUDA-core body (every float32
+    chain) against the plain version in that body's order
+    (``_rec_chain_ordered_reference``) at the same bar, and its g_i against
+    a float64 chain at most twice as far as the order-free plain
+    version's (``_within_float64_chain``)."""
     from snnimageclassification_tpu_torch.ops import rec_scan
 
     rng = np.random.default_rng(13)
@@ -1788,9 +2026,33 @@ def _rec_check(dev, B, H, T, alif, spike, wdtype, min_rows):
     bw = (g_z, z, res, a_tr, res_is_v, w, beta, alpha, thr, gamma, spike)
     got, again = rec_scan._bwd_cuda(*bw), rec_scan._bwd_cuda(*bw)
     bar = _izh_bar(T, wdtype)
-    _grads_close(got, again, rec_scan._bwd_reference(*bw), bar)
     if rec_scan.rec_bodies(T, H, itemsize=wdtype.itemsize)[1] == "mma":
+        _grads_close(got, again, rec_scan._bwd_reference(*bw), bar)
         _grads_close(got, again, _rec_bwd_ordered(bw), bar)
+        return
+    # The CUDA-core chain (every float32 chain): held at the same bar
+    # against the plain version in its own order, and against a float64
+    # chain no further than twice the order-free plain version.
+    _grads_close(got, again, _rec_bwd_ordered(
+        bw, rec_scan._rec_chain_ordered_reference), bar)
+    _within_float64_chain(got[0], rec_scan._bwd_reference(*bw)[0], bw)
+
+
+def _within_float64_chain(g_i, plain, bw):
+    """The kernel's g_i against the chain in float64 (``tools/
+    chain_conditioning.py:chain``) is at most twice as far, as a share of
+    max|g|, as the order-free plain version's."""
+    from snnimageclassification_tpu_torch.tools.chain_conditioning import (
+        chain,
+        share,
+    )
+
+    w64 = bw[5].double()
+    exact = chain(bw, lambda d: d @ w64.T, torch.float64)
+    err, plain_err = share(g_i, exact), share(plain, exact)
+    assert err <= 2 * plain_err, (
+        f"{err:.3g} of max|g| from the float64 chain, the plain version "
+        f"{plain_err:.3g}")
 
 
 @pytest.mark.cuda

@@ -142,3 +142,50 @@ def test_ordered_versions_match_jax_and_the_plain_versions(case, T, wd, H):
         label = f"{name} g_i card={card}"
         _close(_np(g_i), _np(jg[0]), bar, f"{label} vs JAX")
         _close(_np(g_i), plain, bar, f"{label} vs the plain version")
+
+
+@pytest.mark.parametrize("T", [24, 100])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_cuda_core_chain_ordered_version(case, T):
+    """``_rec_chain_ordered_reference`` (the float32 CUDA-core chain's
+    order: one fused multiply-add a term, ascending j) on the residuals of
+    the forward in the cluster body's order (the card's bits), at the card
+    tests' inputs (``_rec_check``: B = 37, currents 0.3 + 0.6 N(0, 1),
+    W_rec of std 1.3 / sqrt(H), seed 13), H = 20 (and H = 40 for LIF with
+    Phi at T = 100, the card case this chain once missed its bar on):
+    within float32 noise of ``_bwd_reference`` (2e-6 of max|g|, 5e-6 at T
+    = 100), and against the float64 chain at most twice as far as the
+    order-free plain version, which itself sits within that bar of it."""
+    from snnimageclassification_tpu_torch.tools.chain_conditioning import (
+        chain,
+        share,
+    )
+
+    name, alif, spike_name = case
+    spike = TSpike[spike_name]
+    bar = 2e-6 if T < 100 else 5e-6
+    for H in (20, 40) if (name, T) == ("lif-phi", 100) else (20,):
+        alpha, rho, thr, gamma = _scalars(alif, spike_name, H)
+        beta = BETA if alif else 0.0
+        rng = np.random.default_rng(13)
+        cur = torch.from_numpy(
+            (0.3 + 0.6 * rng.standard_normal((T, 37, H))).astype(np.float32))
+        w = (torch.from_numpy((1.3 / np.sqrt(H) * rng.standard_normal(
+            (H, H))).astype(np.float32)) * (1 - torch.eye(H)))
+        res_is_v = tfused._residual_is_v(alif, spike)
+        z, res, a_tr = trec._fwd_ordered_reference(
+            cur, w, beta, alif, alpha, rho, thr, True,
+            tfused._stores_a(alif, spike), res_is_v)
+        g_z = torch.from_numpy(
+            rng.standard_normal((T, 37, H)).astype(np.float32))
+        bw = (g_z, z, res, a_tr, res_is_v, w, beta, alpha, thr, gamma,
+              spike)
+        g_i = trec._rec_chain_ordered_reference(*bw)
+        plain = trec._bwd_reference(*bw)[0]
+        assert g_i.dtype == torch.float32 and g_i.shape == (T, 37, H)
+        assert share(g_i, plain) <= bar, f"{name} H={H} vs plain"
+        w64 = w.double()
+        exact = chain(bw, lambda d: d @ w64.T, torch.float64)
+        plain_err = share(plain, exact)
+        assert plain_err <= bar, f"{name} H={H}: plain vs float64"
+        assert share(g_i, exact) <= 2 * plain_err, f"{name} H={H}"
