@@ -57,8 +57,14 @@ Phases (any failure exits non-zero before the final line):
    bitwise, every trained leaf moves, three forward and three backward
    launches a step), each of the six kernels alone on a training batch
    against its plain version (the backward ones on the forward kernel's
-   residuals), 5 periodic steps and 3 with a count regularizer for times
-   and launches;
+   residuals), the mid backwards (their chains on the tensor-core chain
+   body) also on their first 1024 rows against their plain version in
+   their order (``_mid_bwd_ordered_reference``: dcur, ``g_z_in`` and the
+   gradients within 1e-4 of max|g|, 2**-7 bf16), and their ``g_z_in``
+   product ``gzin_mma`` alone on the whole batch against the ordered model
+   at the same bars, timed beside its plain version and one
+   ``torch.matmul`` (its row of the kernels line); 5 periodic steps and 3
+   with a count regularizer for times and launches;
 8. Izhikevich kernels -- ``izh_scan_fwd/bwd``, ``fused_izh_fwd[_train]``,
    ``fused_izh_layer0_fwd`` and ``fused_izh[_layer0]_bwd`` against their
    plain versions at the JAX tests' scale (W_in 3e6, W_rec 5e5, default
@@ -118,7 +124,11 @@ Phases (any failure exits non-zero before the final line):
    launch a step), each kernel against its plain version on the trained
    weights (the backward on the forward's residuals), timed beside the
    composed kernels and a forward + backward through the composed public
-   functions on the same batch; at lr 1e-3 the first step's gradients
+   functions on the same batch; the backward (both chains on the
+   tensor-core chain body) on its first 1024 rows against its plain version
+   in its order (``_fused2_bwd_ordered_reference``, the bars of phase 7)
+   and its ``dz0 = dcur1 @ W1^T`` product ``gzin_mma`` alone (held as in
+   phase 7, timed, its row); at lr 1e-3 the first step's gradients
    against the per-step loop's (1e-4 of max|g|) and both paths' losses; 5
    periodic steps (times), 3 with ``L2SpikesPerNeuron`` (launches);
 14. wide kernels -- the unfused tier's ``encode_matmul_fwd/bwd`` and
@@ -1487,7 +1497,7 @@ def phase_train(matmul_dtype: str) -> list:
     if launched(launches) != {fused.KERNEL_TRAIN: TIMED,
                               fused.KERNEL_BWD: TIMED}:
         fail(f"train {tag}: launches {launches} in {TIMED} steps")
-    if functions != {fused.KERNEL_GBITS: TIMED}:
+    if launched(functions) != {fused.KERNEL_GBITS: TIMED}:
         fail(f"train {tag}: gbits_mma launched {functions} in {TIMED} "
              "steps, not once a step")
     for n, g in trainer.params.items():
@@ -1650,14 +1660,85 @@ def twolayer_ops_ms(args, md):
     return tc_ops_ms(flop, md)
 
 
+# The dense product inside each TPU backward that gzin_mma ports.
+GZIN_SITES = {"mid": ("gzin_mma.cuh", "pallas_fused_mid.py:424"),
+              "fused2": ("gzin_mma.cuh", "pallas_fused2.py:628")}
+
+
+def ordered_backward_gate(label, got, keep, want, okeep, names, gz, md):
+    """A deep or two-layer backward on ORDERED_ROWS rows (its chains on the
+    tensor-core body) against its plain version in its order on the same
+    rows: every gradient and the chains' rounded dcur (``names`` of the
+    kept dicts) within 1e-4 of max|g| (2**-7 bf16), and g_z_in (``gz``: the
+    kernel's, the ordered model fed the kernel's own dcur) within the same
+    bar.  Returns the worst error and g_z_in's share of equal elements."""
+    bar = 1e-4 if md == torch.float32 else 2.0 ** -7
+    kernel, model = gz
+    errs = {"gradients": grad_error(got, want),
+            "g_z_in": grad_error([kernel], [model])}
+    errs.update({n: grad_error([keep[n]], [okeep[n]]) for n in names})
+    worst = max(errs.values())
+    if worst > bar:
+        fail(f"{label}: against the plain version in the kernel's order "
+             f"{errs} of max|g|, above {bar:.3g}")
+    return worst, float((kernel == model).float().mean())
+
+
+def gzin_row(label, name, site, launches, dcur, w, out_dtype, md, kernel):
+    """``gzin_mma`` alone on a training batch's dcur (``fused_mid.gzin``):
+    the same bits as the backward's own ``g_z_in`` (``kernel``), held on the
+    whole batch against the ordered model fed the same dcur within 1e-4 of
+    max|g_z_in| (2**-7 bf16), timed beside its plain version and
+    one ``torch.matmul`` of the same product on materialised operands laid
+    out (T, B, K) as the kernel writes (T, B, N); bound: dcur, w read and
+    the output written once, 2 B T K N FLOP on tensor cores (x6 for
+    float32's bf16 pieces)."""
+    B, T, K = dcur.shape
+    N = w.shape[0]
+    got = fused_mid.gzin(dcur, w, out_dtype)
+    if not torch.equal(got, kernel):
+        fail(f"{label} {name}: the backward's g_z_in differs from gzin_mma's "
+             "on the same dcur")
+    model = fused._gzin_ordered_reference(dcur, w, md, card=True).to(
+        out_dtype)
+    err = float((got.float() - model.float()).abs().max())
+    rel = grad_error([got], [model])
+    share = float((got == model).float().mean())
+    del got, model
+    bar = 1e-4 if md == torch.float32 else 2.0 ** -7
+    if rel > bar:
+        fail(f"{label} {name}: against the ordered model {rel:.3g} of "
+             f"max|g_z_in|, above {bar:.3g}")
+    ms = cuda_ms(lambda: fused_mid.gzin(dcur, w, out_dtype), 10)
+    plain_ms = cuda_ms(lambda: fused_mid._gzin_reference(dcur, w, out_dtype),
+                       3, 1)
+    d_tbk, wt = dcur.transpose(0, 1).contiguous(), w.T.contiguous()
+    lib_ms = cuda_ms(lambda: torch.matmul(d_tbk, wt), 10)
+    del d_tbk, wt
+    flop = 2 * B * T * K * N
+    nbytes = (B * T * K + N * K) * md.itemsize + \
+        B * T * N * torch.empty((), dtype=out_dtype).element_size()
+    log(f"[{label}] {name}: the backward's g_z_in bit for bit; against the "
+        f"ordered model fed the same dcur {rel:.3g} of max|g_z_in|, equal on "
+        f"{share:.5f} of elements")
+    return kernel_row(label, name, site, launches, err, ms, plain_ms, nbytes,
+                      flop, md, library_ms=lib_ms,
+                      ops_ms=tc_ops_ms(flop * (2 if md == torch.float32
+                                               else 1), md))
+
+
 def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
-                     launches):
+                     launches, functions=None):
     """Each kernel of the deep path alone on one batch, at the arguments
     ``forward_logits_pixels`` gives it: against its plain version on the
     same input (the forward kernels on the kernel's trace of the layer
     before, the backward kernels on the forward kernel's residuals and a
     random cotangent), timed, with its bound.  No single PyTorch call
-    computes any of them."""
+    computes any of them.  With ``functions`` (the training run's counts of
+    the functions counted inside the calls) the mid backwards are also held
+    against their plain version in their order on the first ORDERED_ROWS
+    rows (``ordered_backward_gate``), and their ``g_z_in`` product
+    ``gzin_mma`` is timed alone (``gzin_row``)."""
     md = getattr(torch, cfg.matmul_dtype_eff)
     f32 = md == torch.float32
     it = md.itemsize
@@ -1796,6 +1877,48 @@ def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
                         else launches[bname] // 2)
             rows.append(kernel_row(label, bfull, bsite, n_launch, gerr, bms,
                                    bplain, bbytes, bops, md))
+            if idx and functions is not None:
+                # The call's arguments, then its first R batch rows (the
+                # traces' and cotangents' before z_in, the weights whole).
+                full = ((g_logits, None, tstar, None, None, res, None, False)
+                        if head else (None, None, None, g_z, z, res, None,
+                                      False)) + (
+                    z_in, w_in, w_rec, beta, w_out if head else None, T,
+                    lcfg.alpha, lcfg.threshold, lcfg.gamma,
+                    kappa if head else 0.0, lcfg.spike_func)
+                R = ORDERED_ROWS
+                sub = tuple(
+                    (a[:, :R] if a.dim() == 3 else a[:R]).contiguous()
+                    if i < 9 and isinstance(a, torch.Tensor) else a
+                    for i, a in enumerate(full))
+                keep, okeep = {}, {}
+                got = fused_mid._mid_bwd_cuda(*sub, keep=keep)
+                order = fused_mid.gradient_plan(
+                    "cuda", R, n_in, H, O if head else 0, T, True,
+                    md == torch.bfloat16)
+                if not order["mma"]:
+                    fail(f"{label} {name}: the chain is not on its "
+                         "tensor-core body")
+                want = fused_mid._mid_bwd_ordered_reference(*sub, order,
+                                                            keep=okeep)
+                model = fused._gzin_ordered_reference(
+                    keep["dcur"], w_in, md, card=True).to(md)
+                oerr, share = ordered_backward_gate(
+                    f"{label} {name} backward", got,
+                    {"dcur": keep["dcur"].float()}, want, okeep, ("dcur",),
+                    (got[0], model), md)
+                log(f"[{label}] {name} backward on its first {R} rows vs "
+                    f"the plain version in its order: {oerr:.3g} of max|g| "
+                    f"(dcur, g_z_in, gradients); g_z_in equal to the "
+                    f"ordered model on {share:.5f} of elements")
+                del sub, got, want, model, keep, okeep
+                kf = {}
+                g_z_in = fused_mid._mid_bwd_cuda(*full, keep=kf)[0]
+                rows.append(gzin_row(
+                    label, f"{fused.KERNEL_GZIN}[{tag} {mode}]",
+                    GZIN_SITES["mid"], functions[fused.KERNEL_GZIN] // 2,
+                    kf["dcur"], w_in, md, md, g_z_in))
+                del kf, full, g_z_in
             del bwd
         z_in, in_spikes, n_in = z, (0 if head else hidden), H
         del out, ref, fwd
@@ -1848,6 +1971,7 @@ def phase_deep_train(matmul_dtype: str) -> list:
     fused.reset_launch_counts()
     timed, seconds = timed_steps(trainer, batches, DEEP_TIMED, start=WARMUP)
     launches = fused.launch_counts()
+    functions = fused.function_launch_counts()
     losses = [float(v) for v in warm + timed]
     if not all(np.isfinite(losses)):
         fail(f"{label}: non-finite loss {losses}")
@@ -1856,6 +1980,9 @@ def phase_deep_train(matmul_dtype: str) -> list:
         fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
     if launched(launches) != {k: n * DEEP_TIMED for k, n in a_step.items()}:
         fail(f"{label}: launches {launches} in {DEEP_TIMED} steps")
+    if functions[fused.KERNEL_GZIN] != 2 * DEEP_TIMED:
+        fail(f"{label}: gzin_mma launched {functions} in {DEEP_TIMED} steps, "
+             "not twice a step")
     for n, g in trainer.params.items():
         for k, v in g.items():
             same = torch.equal(v, before[n][k])
@@ -1872,7 +1999,7 @@ def phase_deep_train(matmul_dtype: str) -> list:
         f"{json.dumps(launched(launches))} [{card_line()}]")
     log(f"[{label}] ttfs losses={[round(v, 3) for v in losses]}")
     rows = deep_kernel_rows(f"{label} ttfs", tag, cfg, trainer.params, x,
-                            False, True, launches)
+                            False, True, launches, functions)
 
     # Periodic encoding, for the times and the launches.
     enc_p = pt.EncodeConfig(n_steps=cfg.int_time_steps, use_periods=True)
@@ -2954,6 +3081,7 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
     fused.reset_launch_counts()
     timed, seconds = timed_steps(trainer, batches, TWO_TIMED, start=WARMUP)
     launches = fused.launch_counts()
+    functions = fused.function_launch_counts()
     losses = [float(v) for v in warm + timed]
     log(f"[{label}] ttfs losses={[round(v, 3) for v in losses]}")
     if not all(np.isfinite(losses)):
@@ -2963,6 +3091,9 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
         fail(f"{label}: loss did not fall ({first:.4f} -> {last:.4f})")
     if launched(launches) != {k: n * TWO_TIMED for k, n in a_step.items()}:
         fail(f"{label}: launches {launches} in {TWO_TIMED} steps")
+    if functions[fused.KERNEL_GZIN] != TWO_TIMED:
+        fail(f"{label}: gzin_mma launched {functions} in {TWO_TIMED} steps, "
+             "not once a step")
     for n, g in trainer.params.items():
         for k, v in g.items():
             same = torch.equal(v, before[n][k])
@@ -2995,6 +3126,36 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
                          lambda: fused2._fused2_bwd_cuda(*bargs),
                          lambda: fused2._fused2_bwd_reference(*bargs),
                          1e-4 if md == torch.float32 else 2.0 ** -7)
+    # The backward on its first ORDERED_ROWS rows against its plain version
+    # in its order (both chains on the tensor-core body), and its dz0 =
+    # dcur1 @ W1^T product alone.
+    R = ORDERED_ROWS
+    sub = tuple((a[:, :R] if a.dim() == 3 else a[:R]).contiguous()
+                if i < 9 and isinstance(a, torch.Tensor) else a
+                for i, a in enumerate(bargs))
+    keep, okeep = {}, {}
+    got = fused2._fused2_bwd_cuda(*sub, keep=keep)
+    order = fused2.gradient_plan("cuda", R, 784, *TWO_WIDTHS, 10, 100, True,
+                                 md == torch.bfloat16, False)
+    if not order["mma"]:
+        fail(f"{label}: the chains are not on their tensor-core body")
+    want = fused2._fused2_bwd_ordered_reference(*sub, order, keep=okeep)
+    model = fused._gzin_ordered_reference(keep["dcur1"], args[4], md,
+                                          card=True)
+    oerr, share = ordered_backward_gate(
+        f"{label} backward", got, {k: keep[k].float() for k in
+                                   ("dcur0", "dcur1")}, want, okeep,
+        ("dcur0", "dcur1"), (keep["dz0"], model), md)
+    log(f"[{label}] backward on its first {R} rows vs the plain version in "
+        f"its order: {oerr:.3g} of max|g| (both dcur, dz0, gradients); dz0 "
+        f"equal to the ordered model on {share:.5f} of elements")
+    del sub, got, want, model, keep, okeep
+    kf = {}
+    fused2._fused2_bwd_cuda(*bargs, keep=kf)
+    gz_row = gzin_row(label, f"{fused.KERNEL_GZIN}[{tag} fused2]",
+                      GZIN_SITES["fused2"], functions[fused.KERNEL_GZIN],
+                      kf["dcur1"], args[4], torch.float32, md, kf["dz0"])
+    del kf
     k1_ms = cuda_ms(lambda: fused2._fused2_cuda(*args, True, False, False),
                     10)
     k2_ms = cuda_ms(lambda: fused2._fused2_bwd_cuda(*bargs), 10)
@@ -3059,7 +3220,7 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
                    fwd_bytes, fwd_ops, md, ops_ms=twolayer_ops_ms(args, md)),
         kernel_row(label, f"{fused.KERNEL_2_BWD}[{tag}]", F2_BWD_SITE,
                    launches[fused.KERNEL_2_BWD], k2_err, k2_ms, k2_plain,
-                   bwd_bytes, bwd_ops, md)]
+                   bwd_bytes, bwd_ops, md), gz_row]
     del out, bargs, trainer
 
     if md == torch.float32:
@@ -3812,7 +3973,7 @@ def phase_wide_train(matmul_dtype: str) -> list:
     functions = fused.function_launch_counts()
     if launched(launches) != {k: n * WIDE_TIMED for k, n in a_step.items()}:
         fail(f"{label}: launches {launches} in {WIDE_TIMED} steps")
-    if functions != {fused.KERNEL_GBITS: WIDE_TIMED}:
+    if launched(functions) != {fused.KERNEL_GBITS: WIDE_TIMED}:
         fail(f"{label}: gbits_mma launched {functions} in {WIDE_TIMED} "
              "steps, not once a step")
     for n, g in trainer.params.items():

@@ -41,8 +41,8 @@
 //   bwd_gout: g_W_out and g_b from the rows' z bits and their s chains: a
 //     batch of rows a block, the (row, output) chains in parallel, then
 //     z(t)^T s_r(t) as fused multiply-adds of the 0/1 z in ascending t.
-//   bwd_gzin: g_z_in = dcur @ W_in^T, the cotangent of a layer's input
-//     spikes, as a tiled dense product.
+//   g_z_in = dcur @ W_in^T, the cotangent of a layer's input spikes: a
+//     tensor-core product (gzin_mma.cuh).
 // The sums cross rows and blocks.  Blocks run in any order, so each block
 // walks its rows in ascending order and writes its partial sums to a slab
 // of its own; the host adds the slabs in a fixed order.  No atomics: the
@@ -294,78 +294,6 @@ __global__ void __launch_bounds__(1024) bwd_chain_kernel(Args a0, int rows) {
     if (zrow && (h & 31) == 0) zrow[(size_t)(t + 1) * HW] = zbits;
     d_t = d_prev;
     z_t = z_prev;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// g_z_in = dcur @ W_in^T: the cotangent of a layer's input spike trace
-// ---------------------------------------------------------------------------
-constexpr int GM = 128, GN = 64, GK = 16, GPAD = 4;
-
-// C[m, n] = sum_k A[m, k] Wn[n, k]: A = dcur as (B T, H) row-major (m = b T +
-// t), Wn = W_in (Hin, H) row-major.  C goes to g_z_in[t, b, n], rounded once
-// to OUT (the type of z_in in fused_mid_bwd.cu; float32 in fused2_bwd.cu).
-// 256 threads; thread (tx, ty) owns rows ty * 8 .. + 8 and columns
-// tx * 4 .. + 4 of the tile.
-template <typename W, typename OUT = W>
-__global__ void __launch_bounds__(256)
-    bwd_gzin_kernel(const void* dcur_, const void* w_in_, void* g_z_in_,
-                    int B, int T, int H, int Hin) {
-  __shared__ __align__(16) float s_a[GK][GM + GPAD];
-  __shared__ __align__(16) float s_b[GK][GN + GPAD];
-  const W* A = static_cast<const W*>(dcur_);
-  const W* Wn = static_cast<const W*>(w_in_);
-  OUT* C = static_cast<OUT*>(g_z_in_);
-  const size_t M = (size_t)B * T;
-  const size_t m0 = (size_t)blockIdx.x * GM;
-  const int n0 = blockIdx.y * GN;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < H; k0 += GK) {
-    // Tiles into shared memory, k-major, zero past the edges.
-    for (int i = tid; i < GM * GK; i += 256) {
-      const int m = i / GK, k = i % GK;
-      const size_t gm = m0 + m;
-      s_a[k][m] = (gm < M && k0 + k < H) ? to_f32(A[gm * H + k0 + k]) : 0.f;
-    }
-    for (int i = tid; i < GN * GK; i += 256) {
-      const int n = i / GK, k = i % GK;
-      s_b[k][n] = (n0 + n < Hin && k0 + k < H)
-                      ? to_f32(Wn[(size_t)(n0 + n) * H + k0 + k])
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&s_a[k][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&s_a[k][ty * 8 + 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&s_b[k][tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const size_t gm = m0 + ty * 8 + i;
-    if (gm >= M) continue;
-    const size_t b = gm / T, t = gm % T;
-    OUT* out = C + (t * B + b) * Hin;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < Hin) from_f32(acc[i][j], out + n);
-    }
   }
 }
 

@@ -1,6 +1,8 @@
-// The tensor-core body of the head backwards' reverse-time chain
-// (fused_head_bwd.cu for LIF/ALIF, fused_izh_bwd.cu for Izhikevich), one
-// template over the element-wise chain as a policy.
+// The tensor-core body of the backwards' reverse-time chains, one template
+// over the element-wise chain as a policy: the heads (fused_head_bwd.cu for
+// LIF/ALIF, fused_izh_bwd.cu for Izhikevich), a mid layer's head and
+// z-emitting modes (fused_mid_bwd.cu) and both layers of the two-layer
+// backward (fused2_bwd.cu).
 //
 // A warp owns 16 rows x 32 units in registers in mma.m16n8k16's
 // accumulator layout (head_mma.cuh) and walks t down.  s(t) is kept by
@@ -21,7 +23,14 @@
 // warps.  It takes O <= 16, H <= 256 and the weights' bf16 pieces within a
 // block's shared memory (chain_mma_fits).
 //
+// The z-layer mode (a policy with HEAD = false; O = 0): no s chain and no
+// s @ W_out^T, dz(t) = g_z(t) (+ g_counts) + cotangent(t+1) @ W_rec^T,
+// g_z(t) in the accumulator layout from the policy, which loads it a step
+// ahead (lif_chain.cuh:ZChain).
+//
 // A Chain policy has
+//   static constexpr bool HEAD             the head (s, W_out) or the
+//                                          z-layer mode;
 //   typename Chain::Args                   the launch's arguments (g_logits,
 //                                          tstar, g_counts, w_rec, w_out,
 //                                          dcur, zmask, B, H, O, T, kappa),
@@ -34,8 +43,10 @@
 //   float step(const Args&, State&, dz, t, at, ok, bool& z)
 //                                          step t from dz(t): returns the
 //                                          cotangent of the input current
-//                                          (0 where !ok) and sets z(t).
-// LifChain (fused_head_bwd.cu) and IzhChain (fused_izh_bwd.cu).
+//                                          (0 where !ok) and sets z(t);
+//   float input(const State&)              (z-layer mode) g_z(t) of an
+//                                          entry at step t.
+// LifChain and ZChain (lif_chain.cuh), IzhChain (fused_izh_bwd.cu).
 #pragma once
 
 #include "bwd_common.cuh"
@@ -48,23 +59,26 @@ struct MmaChainLayout {
 };
 
 __host__ __device__ inline MmaChainLayout mma_chain_layout(int H, int rec,
-                                                           int P, int tpb) {
+                                                           int P, int tpb,
+                                                           bool head = true) {
   const size_t HP = mma_hp(H);
   MmaChainLayout L;
   size_t off = 0;
   L.wrec = off;  // W_rec^T's B fragments, (HP, HP), P pieces
   off = align16(off + (rec ? 2 * P * HP * HP : 0));
-  L.wout = off;  // W_out^T's, (16, HP)
-  off = align16(off + 2 * P * HP * MMA_OMAX);
+  L.wout = off;  // W_out^T's, (16, HP); none in the z-layer mode
+  off = align16(off + (head ? 2 * P * HP * MMA_OMAX : 0));
   L.d = off;  // each tile's two buffers of P (16, HP) bf16 cotangent pieces
   off = align16(off + (size_t)tpb * 2 * P * 16 * mma_zs(HP) * 2);
   L.total = off;
   return L;
 }
 
+// O == 0: the z-layer mode.
 inline bool chain_mma_fits(int H, int O, int rec, int bf16, int max_smem) {
-  return O >= 1 && O <= MMA_OMAX && H >= 1 && mma_hp(H) <= MMA_HMAX &&
-         mma_chain_layout(H, rec, bf16 ? 1 : 3, 1).total <= (size_t)max_smem;
+  return O >= 0 && O <= MMA_OMAX && H >= 1 && mma_hp(H) <= MMA_HMAX &&
+         mma_chain_layout(H, rec, bf16 ? 1 : 3, 1, O > 0).total <=
+             (size_t)max_smem;
 }
 
 // Rounds x to the weights' type and packs its P bf16 pieces, entries (lo,
@@ -83,11 +97,12 @@ template <class Chain, bool REC, typename W>
 __global__ void __launch_bounds__(MMA_THREADS)
     bwd_chain_mma_kernel(typename Chain::Args a0, int tpb) {
   constexpr int P = pieces<W>();
+  constexpr bool HEAD = Chain::HEAD;
   extern __shared__ __align__(16) unsigned char smem[];
   const typename Chain::Args a = at_replica<W>(a0, blockIdx.z);
-  const int H = a.H, O = a.O, T = a.T, B = a.B;
+  const int H = a.H, O = HEAD ? a.O : 0, T = a.T, B = a.B;
   const int HP = mma_hp(H), NWU = HP / 32, KT = HP / 16, ZS = mma_zs(HP);
-  const MmaChainLayout L = mma_chain_layout(H, REC, P, tpb);
+  const MmaChainLayout L = mma_chain_layout(H, REC, P, tpb, HEAD);
   uint2* s_wrec = reinterpret_cast<uint2*>(smem + L.wrec);
   uint2* s_wout = reinterpret_cast<uint2*>(smem + L.wout);
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -102,7 +117,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
       return k < H && n < H ? to_f32(w[(size_t)n * H + k]) : 0.f;
     }, tid, nthreads);
   }
-  {  // B[o][h] = W_out[h, o]
+  if (HEAD) {  // B[o][h] = W_out[h, o]
     const W* w = static_cast<const W*>(a.w_out);
     fill_b<P>(s_wout, MMA_OMAX, HP, [&](int k, int n) {
       return k < O && n < H ? to_f32(w[(size_t)n * O + k]) : 0.f;
@@ -126,7 +141,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   for (int i = 0; i < 8; ++i) {
     const int row = row0 + g + 8 * ((i >> 1) & 1);
     const int o = 2 * q + (i & 1) + 8 * (i >> 2);
-    const bool ok = row < B && o < O;
+    const bool ok = HEAD && row < B && o < O;
     s[i] = 0.f;
     gl[i] = ok ? a.g_logits[(size_t)row * O + o] : 0.f;
     tsr[i] = ok ? a.tstar[(size_t)row * O + o] : -1;
@@ -158,22 +173,29 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 
   for (int t = T - 1; t >= 0; --t) {
-    // s(t), rounded to the weights' type, as P pieces of A.
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      s[i] = a.kappa * s[i] + gl[i] * (tsr[i] == t ? 1.f : 0.f);
-    uint32_t sa[P][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      uint32_t w[P];
-      pack_pieces<W, P>(w, s[2 * r], s[2 * r + 1]);
-#pragma unroll
-      for (int p = 0; p < P; ++p) sa[p][r] = w[p];
-    }
     float dz[MMA_NT][4] = {};
+    if constexpr (HEAD) {
+      // s(t), rounded to the weights' type, as P pieces of A.
 #pragma unroll
-    for (int n = 0; n < MMA_NT; ++n)
-      mma_split_a<P>(dz[n], sa, s_wout, MMA_NT * wu + n, lane);
+      for (int i = 0; i < 8; ++i)
+        s[i] = a.kappa * s[i] + gl[i] * (tsr[i] == t ? 1.f : 0.f);
+      uint32_t sa[P][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint32_t w[P];
+        pack_pieces<W, P>(w, s[2 * r], s[2 * r + 1]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) sa[p][r] = w[p];
+      }
+#pragma unroll
+      for (int n = 0; n < MMA_NT; ++n)
+        mma_split_a<P>(dz[n], sa, s_wout, MMA_NT * wu + n, lane);
+    } else {
+#pragma unroll
+      for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dz[n][e] = chain.input(st[n][e]);
+    }
     if (a.g_counts) {
 #pragma unroll
       for (int n = 0; n < MMA_NT; ++n)
@@ -244,7 +266,7 @@ cudaError_t launch_chain_mma(const typename Chain::Args& a, int S,
   const int NWU = mma_hp(a.H) / 32, tiles = (a.B + 15) / 16;
   int tpb = 1;
   auto smem = [&](int t) {
-    return mma_chain_layout(a.H, REC, pieces<W>(), t).total;
+    return mma_chain_layout(a.H, REC, pieces<W>(), t, Chain::HEAD).total;
   };
   cudaError_t err = mma_tiling(kernel, tiles, S, NWU, device, smem, &tpb);
   if (err != cudaSuccess) return err;

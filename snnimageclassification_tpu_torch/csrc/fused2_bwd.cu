@@ -7,20 +7,24 @@
 // (pl.pallas_call in _fused2_bwd_call), the backward of fused2_{rec,ff}_head
 // and of their _counts variants.
 //
-// One C entry point launches, in this order (the chain and the gradient
-// functions are bwd_common.cuh's; z(-1) = 0 for both layers):
-//   1. bwd_chain, head mode, layer 1: s(t) = kappa s(t+1) + g [t == tstar],
+// One C entry point launches, in this order (the gradient functions are
+// bwd_common.cuh's; z(-1) = 0 for both layers):
+//   1. the chain, head mode, layer 1: s(t) = kappa s(t+1) + g [t == tstar],
 //      dz1(t) = s(t) W_out^T + g_counts1 + dcur1(t+1) W1r^T,
 //      dcur1(t) = (dz1 surr(delta1) + alpha dcur1(t+1)) (1 - z1(t-1)), with
 //      z1 = [delta1 >= 0]: dcur1 (B, T, H2) and the bits of z1.
-//   2. bwd_gzin: dz0_in(t) = dcur1(t) W1^T as a separate tiled product into
-//      a (T, B, H1) float32 scratch (the TPU kernel's dz0 pipe, which it
-//      keeps in float32 too).
-//   3. bwd_chain, fused2's layer-0 mode: dz0(t) = dz0_in(t) + g_counts0 +
+//   2. gzin_mma (gzin_mma.cuh, tensor cores): dz0_in(t) = dcur1(t) W1^T
+//      into a (T, B, H1) float32 scratch (the TPU kernel's dz0 pipe, which
+//      it keeps in float32 too).
+//   3. the chain, fused2's layer-0 mode: dz0(t) = dz0_in(t) + g_counts0 +
 //      dcur0(t+1) W0r^T, the same step, z0 = [delta0 >= 0] (the forward
 //      stores delta for LIF too, so z0 is rebuilt from the sign, as in the
 //      head; the z-emitting layers of the composed pair keep v instead):
 //      dcur0 (B, T, H1) and the bits of z0, mask row k = z0(k - 1).
+//   Both chains run the tensor-core body (chain_mma.cuh:bwd_chain_mma_kernel
+//   with lif_chain.cuh's LifChain for layer 1, ZChain<., float, true> for
+//   layer 0) where chain_mma_fits holds for both layers, else
+//   bwd_common.cuh's per-unit bwd_chain_kernel.
 //   4. bwd_gwin: g_W0 from the latencies and dcur0 (the per-row period
 //      table under periodic encoding).
 //   5. gbits_mma (gbits_mma.cuh, tensor cores) three times: g_W0r = sum_t
@@ -32,18 +36,19 @@
 //   6. bwd_gout: g_W_out and g_b from z1's bits and the s chain.
 // Every block writes partial sums to a slab of its own, the host adds the
 // slabs in a fixed order: no atomics, a repeated call gives the same bits.
-// What bounds it on an H100: the two serial chains (dcur @ W_rec^T from
-// shared memory), then bwd_gzin, the one dense product, 2 B T H1 H2 FLOP
-// (26.8 GFLOP at B=8192, T=100, 128 x 128: 0.4 ms at the float32 peak), and
-// the traces: two residuals, dcur0, dcur1 and the float32 dz0_in scratch.
+// What bounds it on an H100: the two serial chains, then the one dense
+// product dz0_in, 2 B T H1 H2 FLOP (26.8 GFLOP at B=8192, T=100, 128 x 128;
+// x6 for float32's pieces), and the traces: two residuals, dcur0, dcur1 and
+// the float32 dz0_in scratch.
 
-#include "bwd_common.cuh"
 #include "gbits_mma.cuh"
+#include "gzin_mma.cuh"
+#include "lif_chain.cuh"
 
 namespace {
 
 struct Plan2 {
-  int rows0, smem_chain0, rows1, smem_chain1;
+  int rows0, smem_chain0, rows1, smem_chain1, mma;
   GwinPlan gw;
   GbitsPlan grec0, gw1, grec1;
   GoutPlan go;
@@ -67,6 +72,9 @@ int make_plan2(int B, int F, int H1, int H2, int O, int T, int rec, int bf16,
   p->rows0 = chain_rows(H1, 0, HP0, G0, rec, wsize, lim.max_smem,
                         &p->smem_chain0);
   if (p->rows0 == 0 || p->rows1 == 0) return 1;
+  p->mma = chain_mma_fits(H2, O, rec, bf16, lim.max_smem) &&
+           chain_mma_fits(H1, 0, rec, bf16, lim.max_smem);
+  if (!gzin_fits(H2, H1, bf16, lim.max_smem)) return 1;
   auto plan = [&](int J, int H, GbitsPlan* g) {
     return bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, J, H, lim, g)
                 : gbits_plan_rows<float>(B, T, J, H, lim, g);
@@ -90,28 +98,38 @@ struct Extra2 {
 // a1: layer 1 (head fields, slab_rec = g_W1r, slab_out = g_W_out, g_b).
 template <bool REC, typename W>
 cudaError_t launch_all2(const Args& a0, const Args& a1, const Extra2& x,
-                        const Plan2& p, cudaStream_t s) {
+                        const Plan2& p, int device, cudaStream_t s) {
   const int HP0 = (a0.H + 31) / 32 * 32, HP1 = (a1.H + 31) / 32 * 32;
   const int HW0 = HP0 / 32, HW1 = HP1 / 32;
   const int B = a0.B, T = a0.T;
-  cudaError_t err = opt_in(bwd_chain_kernel<REC, true, W>, p.smem_chain1);
+  cudaError_t err;
+  if (p.mma) {
+    err = launch_chain_mma<LifChain<W>, REC, W>(a1, 1, device, s);
+  } else {
+    if ((err = opt_in(bwd_chain_kernel<REC, true, W>, p.smem_chain1)) !=
+        cudaSuccess)
+      return err;
+    bwd_chain_kernel<REC, true, W>
+        <<<dim3((B + p.rows1 - 1) / p.rows1), dim3(HP1, p.rows1),
+           p.smem_chain1, s>>>(a1, p.rows1);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  bwd_chain_kernel<REC, true, W>
-      <<<dim3((B + p.rows1 - 1) / p.rows1), dim3(HP1, p.rows1),
-         p.smem_chain1, s>>>(a1, p.rows1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t M = (size_t)B * T;
-  bwd_gzin_kernel<W, float>
-      <<<dim3((unsigned)((M + GM - 1) / GM), (a0.H + GN - 1) / GN), 256, 0,
-         s>>>(a1.dcur, x.w1, x.dz0, B, T, a1.H, a0.H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in(bwd_chain_kernel<REC, false, W, true, float>,
-                    p.smem_chain0)) != cudaSuccess)
-    return err;
-  bwd_chain_kernel<REC, false, W, true, float>
-      <<<dim3((B + p.rows0 - 1) / p.rows0), dim3(HP0, p.rows0),
-         p.smem_chain0, s>>>(a0, p.rows0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_gzin_mma<W, float>(a1.dcur, x.w1, x.dz0, B, T, a1.H, a0.H,
+                                  device, s);
+  if (err != cudaSuccess) return err;
+  if (p.mma) {
+    err = launch_chain_mma<ZChain<W, float, true>, REC, W>(a0, 1, device, s);
+  } else {
+    if ((err = opt_in(bwd_chain_kernel<REC, false, W, true, float>,
+                      p.smem_chain0)) != cudaSuccess)
+      return err;
+    bwd_chain_kernel<REC, false, W, true, float>
+        <<<dim3((B + p.rows0 - 1) / p.rows0), dim3(HP0, p.rows0),
+           p.smem_chain0, s>>>(a0, p.rows0);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
   if ((err = launch_gwin<W>(a0, p.gw, 1, s)) != cudaSuccess) return err;
   if (REC) {
     // Mask row t of z0's masks holds z0(t - 1), the left operand of g_W0r.
@@ -138,8 +156,10 @@ extern "C" {
 
 // Slab counts for a shape on `device`: out[0] = blocks of g_W0 slabs, out[1]
 // = of g_W0r slabs, out[2] = of g_W1 slabs, out[3] = of g_W1r slabs (0 and 0
-// without recurrence), out[4] = of g_W_out/g_b slabs.  Returns 0 when the
-// shape fits the kernels, 1 when it does not, or a CUDA error code.
+// without recurrence), out[4] = of g_W_out/g_b slabs; out[5] = 1 where both
+// chains take the tensor-core body; out[6] and out[7] = rows a batch of
+// bwd_gwin and of bwd_gout.  Returns 0 when the shape fits the kernels, 1
+// when it does not, or a CUDA error code.
 int snn_fused2_bwd_plan(int B, int F, int H1, int H2, int O, int T, int rec,
                         int bf16, int periodic, int device, int* out) {
   Plan2 p;
@@ -151,6 +171,9 @@ int snn_fused2_bwd_plan(int B, int F, int H1, int H2, int O, int T, int rec,
     out[2] = p.gw1.groups;
     out[3] = p.grec1.groups;
     out[4] = p.go.groups;
+    out[5] = p.mma;
+    out[6] = p.gw.R;
+    out[7] = p.go.R;
   }
   return rc;
 }
@@ -189,11 +212,11 @@ int snn_fused2_bwd(const float* g_logits, const int* tstar,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16)
-    err = rec ? launch_all2<true, __nv_bfloat16>(l0, l1, x, p, s)
-              : launch_all2<false, __nv_bfloat16>(l0, l1, x, p, s);
+    err = rec ? launch_all2<true, __nv_bfloat16>(l0, l1, x, p, device, s)
+              : launch_all2<false, __nv_bfloat16>(l0, l1, x, p, device, s);
   else
-    err = rec ? launch_all2<true, float>(l0, l1, x, p, s)
-              : launch_all2<false, float>(l0, l1, x, p, s);
+    err = rec ? launch_all2<true, float>(l0, l1, x, p, device, s)
+              : launch_all2<false, float>(l0, l1, x, p, device, s);
   return (int)err;
 }
 

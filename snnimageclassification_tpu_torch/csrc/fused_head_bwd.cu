@@ -19,61 +19,19 @@
 // of selected rows.
 //
 // The chain's mma body (chain_mma.cuh: bwd_chain_mma_kernel with the
-// LifChain policy below; O <= 16, H <= 256 and the weights' bf16 pieces
-// within a block's shared memory; other shapes take bwd_common.cuh's
-// per-unit chain): a warp owns 16 rows x 32 units in registers and walks t
+// LifChain policy of lif_chain.cuh; O <= 16, H <= 256 and the weights'
+// bf16 pieces within a block's shared memory; other shapes take
+// bwd_common.cuh's per-unit chain): a warp owns 16 rows x 32 units in registers and walks t
 // down, dz = s @ W_out^T (+ g_counts) + dcur(t+1) @ W_rec^T on tensor
 // cores, the element-wise chain the per-unit chain's arithmetic.  dcur
 // (B, T, H) and the z bits (B, T + 1, HP / 32) leave as before, so the
 // three gradient functions keep their inputs.
 
-#include "chain_mma.cuh"
 #include "gbits_mma.cuh"
+#include "lif_chain.cuh"
 #include "gout_mma.cuh"
 
 namespace {
-
-// The LIF/ALIF chain as a policy of the tensor-core body (chain_mma.cuh):
-// per entry the residual delta of step t and dcur(t+1), the arithmetic of
-// bwd_common.cuh:bwd_chain_kernel.
-template <typename W>
-struct LifChain {
-  using Args = ::Args;
-  struct State {
-    float d_t, dcur;
-  };
-  const W* delta;
-  const W* a_tr;
-  float beta;
-
-  __device__ explicit LifChain(const Args& a)
-      : delta(static_cast<const W*>(a.delta)),
-        a_tr(static_cast<const W*>(a.a_tr)),
-        beta(a.a_tr ? *a.beta : 0.f) {}
-
-  __device__ State start(const Args& a, size_t at, bool ok) const {
-    return State{
-        ok ? to_f32(delta[(size_t)(a.T - 1) * a.B * a.H + at]) : 0.f, 0.f};
-  }
-
-  __device__ float step(const Args& a, State& s, float dz, int t, size_t at,
-                        bool ok, bool& z) const {
-    const size_t step_stride = (size_t)a.B * a.H;
-    const float d_prev =
-        ok && t > 0 ? to_f32(delta[(size_t)(t - 1) * step_stride + at]) : -1.f;
-    float thr = a.threshold;
-    if (a_tr)
-      thr = a.threshold +
-            beta * (ok ? to_f32(a_tr[(size_t)t * step_stride + at]) : 0.f);
-    const float surr = surrogate(a.phi, s.d_t, thr, a.gamma);
-    const float dv = dz * surr + a.alpha * s.dcur;
-    const float zp = d_prev >= 0.f ? 1.f : 0.f;
-    s.dcur = ok ? dv * (1.f - zp) : 0.f;
-    z = ok && s.d_t >= 0.f;
-    s.d_t = d_prev;
-    return s.dcur;
-  }
-};
 
 struct Plan {
   int rows, smem_chain, mma;

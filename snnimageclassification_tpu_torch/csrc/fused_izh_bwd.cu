@@ -41,6 +41,7 @@ namespace {
 // (chain_mma.cuh): per entry v(t) and the carries dv(t+1), du(t+1), stepped
 // by izh_chain_step as izh_chain_kernel does, with z(t) = v(t) >= v_peak.
 struct IzhChain {
+  static constexpr bool HEAD = true;
   using Args = IzhChainArgs;
   struct State {
     float v, dv, du;

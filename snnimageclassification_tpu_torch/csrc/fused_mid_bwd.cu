@@ -13,24 +13,29 @@
 // are set out in bwd_common.cuh):
 //   1. pack_bits: z_in (T, B, Hin), 0/1 in the weights' type, to bit masks
 //      (B, T, Hin / 32), one contiguous slab per batch row.
-//   2. bwd_chain, head or z-layer mode: dcur (B, T, H) and the bits of z.
-//   3. bwd_gzin: g_z_in(t) = dcur(t) @ W_in^T, a dense (B T, H) x (H, Hin)
-//      product on the CUDA cores: 128 x 64 tiles in shared memory, 8 x 4
-//      outputs a thread, float32 accumulation, the result rounded once to
-//      the weights' type (the type of z_in) and written (T, B, Hin).
+//   2. the chain, head or z-layer mode: dcur (B, T, H) and the bits of z.
+//      Where chain_mma_fits (O <= 16, H <= 256, the weights' bf16 pieces
+//      within a block's shared memory) the tensor-core body
+//      (chain_mma.cuh:bwd_chain_mma_kernel with lif_chain.cuh's LifChain in
+//      head mode, ZChain in z-layer mode), else bwd_common.cuh's per-unit
+//      bwd_chain_kernel.
+//   3. gzin_mma (gzin_mma.cuh): g_z_in(t) = dcur(t) @ W_in^T, a dense
+//      (B T, H) x (H, Hin) product on tensor cores (float32 weights as three
+//      bf16 pieces), rounded once to the weights' type (the type of z_in)
+//      and written (T, B, Hin).
 //   4. gbits_mma (gbits_mma.cuh, tensor cores) twice: g_W_in = sum_t
 //      z_in(t)^T dcur(t) from the packed bits and g_W_rec = sum_t z(t-1)^T
 //      dcur(t) from the bits of z.
 //   5. bwd_gout (head): g_W_out and g_b.
-// What bounds it on an H100: the chain as in the head's backward (serial,
-// dcur @ W_rec^T from shared memory); bwd_gzin is the one dense product, 2 B
-// T H Hin FLOP (26.8 GFLOP at B=8192, T=100, 128 x 128: 0.4 ms at the float32
-// peak, 0.03 ms at the bf16 tensor-core peak that this version does not use);
-// the traces read and written are 3-5 (T, B, H) tensors, ~0.5 ms at the
-// memory rate in f32.
+// What bounds it on an H100: the serial chain (a step's products on tensor
+// cores, one named barrier a step among a tile's warps); g_z_in, 2 B T H Hin
+// FLOP (26.8 GFLOP at B=8192, T=100, 128 x 128; x6 for float32's pieces),
+// reads dcur and writes g_z_in once; the traces read and written are 3-5
+// (T, B, H) tensors, ~0.5 ms at the memory rate in f32.
 
-#include "bwd_common.cuh"
 #include "gbits_mma.cuh"
+#include "gzin_mma.cuh"
+#include "lif_chain.cuh"
 
 namespace {
 
@@ -57,7 +62,7 @@ __global__ void pack_bits_kernel(const void* z_in_, unsigned* bits, int T,
 }
 
 struct Plan {
-  int rows, smem_chain;
+  int rows, smem_chain, mma;
   GbitsPlan gin, grec;
   GoutPlan go;
 };
@@ -75,6 +80,8 @@ int make_plan(int B, int Hin, int H, int O, int T, int rec, int bf16,
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
+  p->mma = chain_mma_fits(H, O, rec, bf16, lim.max_smem);
+  if (!gzin_fits(H, Hin, bf16, lim.max_smem)) return 1;
   auto plan = [&](int J, GbitsPlan* g) {
     return bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, J, H, lim, g)
                 : gbits_plan_rows<float>(B, T, J, H, lim, g);
@@ -96,25 +103,30 @@ struct MidArgs {
 
 template <bool REC, bool HEAD, typename W>
 cudaError_t launch_all(const Args& a, const MidArgs& m, const Plan& p,
-                       cudaStream_t s) {
+                       int device, cudaStream_t s) {
   const int HP = (a.H + 31) / 32 * 32, HinW = (m.Hin + 31) / 32;
   const size_t words = (size_t)a.T * a.B * HinW;
   pack_bits_kernel<W><<<(unsigned)((words + 7) / 8), 256, 0, s>>>(
       m.z_in, m.zinmask, a.T, a.B, m.Hin, HinW);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if ((err = opt_in(bwd_chain_kernel<REC, HEAD, W>, p.smem_chain)) !=
-      cudaSuccess)
-    return err;
-  bwd_chain_kernel<REC, HEAD, W>
-      <<<dim3((a.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
-         s>>>(a, p.rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t M = (size_t)a.B * a.T;
-  bwd_gzin_kernel<W>
-      <<<dim3((unsigned)((M + GM - 1) / GM), (m.Hin + GN - 1) / GN), 256, 0,
-         s>>>(a.dcur, m.w_in, m.g_z_in, a.B, a.T, a.H, m.Hin);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  using Chain = typename std::conditional<HEAD, LifChain<W>,
+                                          ZChain<W, W, false>>::type;
+  if (p.mma) {
+    err = launch_chain_mma<Chain, REC, W>(a, 1, device, s);
+  } else {
+    if ((err = opt_in(bwd_chain_kernel<REC, HEAD, W>, p.smem_chain)) !=
+        cudaSuccess)
+      return err;
+    bwd_chain_kernel<REC, HEAD, W>
+        <<<dim3((a.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
+           s>>>(a, p.rows);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  err = launch_gzin_mma<W, W>(a.dcur, m.w_in, m.g_z_in, a.B, a.T, a.H, m.Hin,
+                              device, s);
+  if (err != cudaSuccess) return err;
   // Mask row t of zinmask holds z_in(t), the left operand of g_W_in.
   err = launch_gbits_rows<W>(a.dcur, m.zinmask, a.slab_in, a.B, a.T, m.Hin,
                              a.H, a.T, HinW, 0, p.gin, 1, s);
@@ -133,12 +145,12 @@ cudaError_t launch_all(const Args& a, const MidArgs& m, const Plan& p,
 
 template <typename W>
 cudaError_t launch_modes(const Args& a, const MidArgs& m, const Plan& p,
-                         int rec, int head, cudaStream_t s) {
+                         int rec, int head, int device, cudaStream_t s) {
   if (head)
-    return rec ? launch_all<true, true, W>(a, m, p, s)
-               : launch_all<false, true, W>(a, m, p, s);
-  return rec ? launch_all<true, false, W>(a, m, p, s)
-             : launch_all<false, false, W>(a, m, p, s);
+    return rec ? launch_all<true, true, W>(a, m, p, device, s)
+               : launch_all<false, true, W>(a, m, p, device, s);
+  return rec ? launch_all<true, false, W>(a, m, p, device, s)
+             : launch_all<false, false, W>(a, m, p, device, s);
 }
 
 }  // namespace
@@ -147,8 +159,10 @@ extern "C" {
 
 // Slab counts for a shape on `device` (O == 0: the z-layer mode): out[0] =
 // blocks of g_W_in slabs, out[1] = of g_W_rec slabs (0 without recurrence),
-// out[2] = of g_W_out/g_b slabs (0 in the z-layer mode).  Returns 0 when the
-// shape fits the kernels, 1 when it does not, or a CUDA error code.
+// out[2] = of g_W_out/g_b slabs (0 in the z-layer mode); out[3] = 1 where
+// the chain takes its tensor-core body; out[4] = rows a batch of bwd_gout.
+// Returns 0 when the shape fits the kernels, 1 when it does not, or a CUDA
+// error code.
 int snn_fused_mid_bwd_plan(int B, int Hin, int H, int O, int T, int rec,
                            int bf16, int device, int* out) {
   Plan p;
@@ -157,6 +171,8 @@ int snn_fused_mid_bwd_plan(int B, int Hin, int H, int O, int T, int rec,
     out[0] = p.gin.groups;
     out[1] = p.grec.groups;
     out[2] = p.go.groups;
+    out[3] = p.mma;
+    out[4] = O > 0 ? p.go.R : 0;
   }
   return rc;
 }
@@ -186,8 +202,27 @@ int snn_fused_mid_bwd(const float* g_logits, const int* tstar,
   MidArgs m{z_in, w_in, static_cast<unsigned*>(zinmask), g_z_in, Hin};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_modes<__nv_bfloat16>(a, m, p, rec, head, s)
-           : launch_modes<float>(a, m, p, rec, head, s);
+      bf16 ? launch_modes<__nv_bfloat16>(a, m, p, rec, head, device, s)
+           : launch_modes<float>(a, m, p, rec, head, device, s);
+  return (int)err;
+}
+
+// gzin_mma alone: out (T, B, N) = dcur (B, T, K) @ w (N, K)^T, dcur and w
+// in the weights' type (bf16 or float32), out in that type or (out_f32)
+// float32.
+int snn_gzin(const void* dcur, const void* w, void* out, int B, int T, int K,
+             int N, int bf16, int out_f32, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || T == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    err = out_f32 ? launch_gzin_mma<__nv_bfloat16, float>(dcur, w, out, B, T,
+                                                          K, N, device, s)
+                  : launch_gzin_mma<__nv_bfloat16, __nv_bfloat16>(
+                        dcur, w, out, B, T, K, N, device, s);
+  else
+    err = launch_gzin_mma<float, float>(dcur, w, out, B, T, K, N, device, s);
   return (int)err;
 }
 

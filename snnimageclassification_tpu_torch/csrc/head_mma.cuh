@@ -189,28 +189,45 @@ __device__ __forceinline__ void mma_exact_a(float (&d)[4],
 // product (P = 1), or the six of pieces (i, j) with i + j <= 2, the five
 // cross terms smallest first (P = 3).
 template <int P>
-__device__ __forceinline__ void mma_split_a(float (&d)[4],
-                                            const uint32_t (&a)[P][4],
-                                            const uint2* frags, int tile,
-                                            int lane) {
-  const uint2 b0 = load_b(frags, tile, 0, P, lane);
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&a)[P][4],
+                                          const uint2 (&b)[P]) {
   float big[4] = {0.f, 0.f, 0.f, 0.f};
-  mma16816(big, a[0], b0);
+  mma16816(big, a[0], b[0]);
   if constexpr (P == 1) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[e] = d[e] + big[e];
   } else {
-    const uint2 b1 = load_b(frags, tile, 1, P, lane);
-    const uint2 b2 = load_b(frags, tile, 2, P, lane);
     float small[4] = {0.f, 0.f, 0.f, 0.f};
-    mma16816(small, a[2], b0);
-    mma16816(small, a[1], b1);
-    mma16816(small, a[0], b2);
-    mma16816(small, a[1], b0);
-    mma16816(small, a[0], b1);
+    mma16816(small, a[2], b[0]);
+    mma16816(small, a[1], b[1]);
+    mma16816(small, a[0], b[2]);
+    mma16816(small, a[1], b[0]);
+    mma16816(small, a[0], b[1]);
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[e] = d[e] + (small[e] + big[e]);
   }
+}
+
+// The same, b from shared-memory fragments.
+template <int P>
+__device__ __forceinline__ void mma_split_a(float (&d)[4],
+                                            const uint32_t (&a)[P][4],
+                                            const uint2* frags, int tile,
+                                            int lane) {
+  uint2 b[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) b[p] = load_b(frags, tile, p, P, lane);
+  mma_split<P>(d, a, b);
+}
+
+// Two adjacent outputs, rounded once each, as one store (8 / 4 bytes).
+__device__ __forceinline__ void store_pair(float* out, float x0, float x1) {
+  *reinterpret_cast<float2*>(out) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* out, float x0,
+                                           float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(x0, x1);
 }
 
 // Writes a warp's 16 x 32 slice of a bf16 (16, zs) exchange buffer from

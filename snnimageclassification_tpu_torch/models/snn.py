@@ -1022,9 +1022,11 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     ``torch:fused_mid_reference[head]``, ``torch:fused_izh_head_reference``,
     ``torch:fused_izh_layer0_reference``, ``torch:izh_scan_reference``.
     The head kernels (LIF/ALIF and Izhikevich, single and stacked), the
-    mid layer's and the two-layer forward name their body on the card: the
-    tensor-core body, "the tensor-core body (mma)" in the reason; the
-    per-unit body past its limits, a path ending in ``[per-unit]``.
+    mid layer's and the two-layer pairs name their bodies on the card (the
+    forward's and, training, the backward's chain's): the tensor-core body,
+    "the tensor-core body (mma)" in the reason; the per-unit body past its
+    limits, a path ending in ``[per-unit]``; training, the mid layer's and
+    the two-layer backward's input cotangent ``gzin_mma``.
     A two-hidden-layer network that takes the two-layer pair is one row:
     ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
     ``torch:fused2_reference`` on the CPU.  The unfused tier gives a layer
@@ -1091,23 +1093,37 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     where = "" if on_card else " (plain version on the CPU)"
     izh = type(layer_cfgs[0][1]) is IzhikevichConfig
 
-    def forward_body(bodies, limits: str):
-        """(reason note, path mode) of a mid-layer or two-layer forward's
-        body on the card: the tensor-core body, or past its ``limits`` the
-        per-unit body, a path ending in ``[per-unit]``."""
+    def pair_body(bodies, limits: str):
+        """(reason note, path mode) of a mid-layer or two-layer kernel pair's
+        bodies on the card: the forward's and (training) the backward's
+        chain, each the tensor-core body or, past its limits (the
+        forward's ``limits``), the per-unit body, a path ending in
+        ``[per-unit]``; training, the backward's input cotangent on tensor
+        cores."""
         if not on_card:
             return "", ""
-        if bodies[0] == "mma":
-            return "; the tensor-core body (mma) in the forward", ""
-        return (f"; the per-unit body ({limits}) in the forward",
-                "[per-unit]")
+        parts = zip(("the forward", "the backward's chain"), bodies,
+                    (limits, "O > 16, H > 256, or the weights' bf16 pieces "
+                     "past a block's shared memory"))
+        note, mode = "", ""
+        for part, body, why in parts:
+            if body == "mma":
+                note += f"; the tensor-core body (mma) in {part}"
+            else:
+                note += f"; the per-unit body ({why}) in {part}"
+                mode = "[per-unit]"
+        if training:
+            note += ("; the input's cotangent dcur @ W_in^T by gzin_mma on "
+                     "tensor cores")
+        return note, mode
 
     def mid_body(n_in, lcfg, n_out):
         if not on_card:
             return "", ""
-        return forward_body(mid_bodies(
+        return pair_body(mid_bodies(
             cfg.int_time_steps, n_in, lcfg.output_size, n_out,
-            recurrent=rec_of(lcfg), itemsize=md_size, device=dev),
+            recurrent=rec_of(lcfg), itemsize=md_size, device=dev,
+            training=training),
             "O > 16, H > 256, an input past about 1.5 H, or the weights' bf16 "
             "pieces past a block's shared memory")
     if enc is not None and _head_fusible(cfg, enc, dev, training):
@@ -1166,10 +1182,11 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
         body, mode = "", ""
         if on_card:
             (_, c0), (_, c1), (_, c2) = layer_cfgs
-            body, mode = forward_body(fused2_bodies(
+            body, mode = pair_body(fused2_bodies(
                 cfg.int_time_steps, cfg.input_size, c0.output_size,
                 c1.output_size, c2.output_size, recurrent=rec_of(c0),
-                itemsize=md_size, device=dev), "O > 16, the two layers' "
+                itemsize=md_size, device=dev, training=training,
+                use_periods=enc.use_periods), "O > 16, the two layers' "
                 "units past 256, or the weights' bf16 pieces past a block's "
                 "shared memory")
         return [{

@@ -142,6 +142,10 @@ KERNEL_IZH_BWD_STACKED = KERNEL_IZH_BWD + STACKED
 # __global__ function that every backward's call launches inside it, counted
 # apart from the calls (function_launch_counts).
 KERNEL_GBITS = "gbits_mma"
+# g_z_in = dcur @ W_in^T on tensor cores (csrc/gzin_mma.cuh), launched
+# inside fused_mid_bwd and fused2_bwd (and alone by fused_mid.gzin), counted
+# the same way.
+KERNEL_GZIN = "gzin_mma"
 MAX_STEPS = 32767  # the kernels stage latencies and steps as int16
 MAX_REPLICAS = 65535  # the replica grid axis (y forward, z backward)
 _counts_lock = threading.Lock()
@@ -164,13 +168,14 @@ def launch_counts() -> dict:
         return dict(_launches)
 
 
-_functions = {KERNEL_GBITS: 0}
+_functions = {KERNEL_GBITS: 0, KERNEL_GZIN: 0}
 
 
 def function_launch_counts() -> dict:
     """Launches of the ``__global__`` functions counted inside the calls
     (``gbits_mma``: every backward's ``g_W_rec`` and a mid layer's
-    ``g_W_in``) since the last reset."""
+    ``g_W_in``; ``gzin_mma``: ``g_z_in`` of ``fused_mid_bwd`` and
+    ``fused2_bwd``) since the last reset."""
     with _counts_lock:
         return dict(_functions)
 
@@ -701,6 +706,26 @@ def _split_slice_product(a: torch.Tensor, w: torch.Tensor,
         for j in range(part.shape[0]):
             acc = acc + part[j]
     return acc
+
+
+def _gzin_ordered_reference(dcur: torch.Tensor, w: torch.Tensor,
+                            wd: torch.dtype, card: bool = False,
+                            rows: int = 8192) -> torch.Tensor:
+    """Plain version of ``gzin_mma`` (``csrc/gzin_mma.cuh``) in its
+    summation order: ``g_z_in (T, B, N)`` float32 from the chain's rounded
+    ``dcur (B, T, K)`` and ``w (N, K)`` (a mid layer's ``W_in``, the
+    two-layer pair's ``W1``), each row ``b T + t`` as
+    :func:`_split_slice_product` forms ``dcur @ w^T`` (k16 slices in
+    ascending k, float32 weights as three bf16 pieces of both operands and
+    their six products; ``card``: the card's accumulation model), ``rows``
+    rows a pass.  The caller rounds the result once to the output's
+    type."""
+    B, T, K = dcur.shape
+    a = dcur.to(torch.float32).reshape(B * T, K)
+    wt = w.to(torch.float32).T.contiguous()
+    out = torch.cat([_split_slice_product(a[r:r + rows], wt, wd, card)
+                     for r in range(0, B * T, rows)])
+    return out.view(B, T, -1).transpose(0, 1)
 
 
 def _weight_pieces(w: torch.Tensor) -> list:

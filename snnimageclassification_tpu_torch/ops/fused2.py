@@ -23,9 +23,13 @@ memory.  Two hand-written CUDA kernels stand behind the wrappers:
   warps with ``z0 @ W1`` on tensor cores; its bits are those of
   ``_fused2_fwd_ordered_reference``) and, past its limits, the per-unit
   body, whose sums are the composed per-unit kernels' in the same order.
-* ``fused2_bwd`` (``csrc/fused2_bwd.cu``): layer 1's reverse chain, ``dcur1
-  @ W1^T`` as a tiled product, layer 0's chain, and the six weight
-  gradients as slabs summed in a fixed order.
+* ``fused2_bwd`` (``csrc/fused2_bwd.cu``): layer 1's reverse chain,
+  ``dcur1 @ W1^T`` as a tensor-core product (``csrc/gzin_mma.cuh``),
+  layer 0's chain, and the six weight gradients as slabs summed in a fixed
+  order.  Both chains run the tensor-core chain body
+  (``csrc/chain_mma.cuh``) where :func:`fused2_bodies` says ``"mma"``, else
+  the per-unit chain; ``_fused2_bwd_ordered_reference`` is its plain
+  version in its summation order.
 
 On a CUDA tensor a wrapper launches the kernels or raises; on the CPU it
 runs the plain PyTorch versions (``_fused2_reference``,
@@ -172,6 +176,74 @@ def _fused2_bwd_reference(g_logits, g_cnt0, g_cnt1, tstar, d0, a0, d1, a1,
             cast(g_w1r, w1r), cast(g_w_out, w_out), g_b)
 
 
+def _fused2_bwd_ordered_reference(g_logits, g_cnt0, g_cnt1, tstar, d0, a0,
+                                  d1, a1, lat, w0, w0r, beta0, w1, w1r, beta1,
+                                  w_out, n_steps, use_periods, alpha,
+                                  threshold, gamma, kappa, spike_func, order,
+                                  card=False, keep=None):
+    """Plain version of ``fused2_bwd`` in its summation order; returns as
+    :func:`_fused2_bwd_reference`.  Layer 1's chain (a head) and layer 0's
+    (from ``dz0_in + g_cnt0``) with the tensor-core chain body's products
+    (``fused._split_slice_product``); ``dz0_in = dcur1 @ W1^T`` through
+    ``fused._gzin_ordered_reference`` (float32, as the kernel's scratch;
+    ``card``: the card's accumulation model); ``g_W0`` through
+    ``fused._gwin_ordered_reference``, ``g_W0r``, ``g_W1`` (left operand
+    ``z0(t)``) and ``g_W1r`` through ``gbits._gbits_ordered_reference``,
+    ``g_W_out`` and ``g_b`` through ``fused._gout_ordered_reference``.
+    ``order`` is the kernel's plan (:func:`gradient_plan`).  A dict
+    ``keep`` receives both chains' rounded ``dcur0``, ``dcur1`` and
+    ``dz0`` (float32)."""
+    from .fused_mid import _step_rows
+    from .gbits import _gbits_ordered_reference
+
+    f32 = torch.float32
+    wd = w0.dtype
+    B = lat.shape[0]
+    T = n_steps
+    H1, H2 = w0.shape[1], w1.shape[1]
+    dev = lat.device
+
+    def mm(a, w):
+        return _f._split_slice_product(a, w.contiguous(), wd)
+
+    z0 = (d0.to(f32) >= 0).to(f32)
+    dcur1 = torch.zeros((B, T, H2), dtype=f32, device=dev)
+    _f._bwd_loop(lambda t: z0[t], None, g_logits, g_cnt1, tstar, None, d1,
+                 a1, None, False, w1r, beta1, w_out, n_steps, alpha,
+                 threshold, gamma, kappa, spike_func, wd, dcur_out=dcur1,
+                 matmul=mm)
+    dz0 = _f._gzin_ordered_reference(dcur1, w1, wd, card)
+    if g_cnt0 is not None:
+        dz0 = dz0 + g_cnt0
+    dcur0 = torch.zeros((B, T, H1), dtype=f32, device=dev)
+    _f._bwd_loop(lambda t: spike_row(lat, t, n_steps, use_periods).to(f32),
+                 None, None, None, None, dz0, d0, a0, z0, False, w0r, beta0,
+                 None, n_steps, alpha, threshold, gamma, 0.0, spike_func, wd,
+                 dcur_out=dcur0, matmul=mm)
+    if keep is not None:
+        keep.update(dcur0=dcur0, dcur1=dcur1, dz0=dz0)
+    d0r, d1r = dcur0.view(B * T, H1), dcur1.view(B * T, H2)
+    g_w0 = _f._gwin_ordered_reference(dcur0, lat, n_steps, use_periods,
+                                      order["groups_in"], order["rows_in"])
+    g_w1 = _gbits_ordered_reference(d1r, _step_rows(z0), B, T,
+                                    order["groups_w1"], wd)
+    g_w0r = g_w1r = None
+    if w0r is not None:
+        g_w0r = _gbits_ordered_reference(d0r, _f.z_prev_rows(d0), B, T,
+                                         order["groups_rec0"], wd)
+        g_w1r = _gbits_ordered_reference(d1r, _f.z_prev_rows(d1), B, T,
+                                         order["groups_rec1"], wd)
+    g_w_out, g_b = _f._gout_ordered_reference(
+        (d1 >= 0).to(f32), g_logits, tstar, kappa, wd, order["groups_out"],
+        order["rows_out"])
+
+    def cast(g, w):
+        return None if g is None else g.to(w.dtype)
+
+    return (cast(g_w0, w0), cast(g_w0r, w0r), cast(g_w1, w1),
+            cast(g_w1r, w1r), cast(g_w_out, w_out), g_b)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -247,25 +319,31 @@ def fused2_bodies(n_steps: int, n_features: int, h1: int, h2: int,
     ``"per-unit"`` (one thread a (row, unit) of both layers; O > 16, the
     two layers' units past 256 (each rounded up to 32), or the weights'
     bf16 pieces past a block's shared memory).  One entry for the forward,
-    a second for the backward's chains (``fused2_bwd``, the per-unit body)
-    with ``training``.  On the CPU the plain versions: ``"plain"``
-    entries."""
-    del n_steps, use_periods  # the bodies' limits depend on neither
+    a second for the backward's chains (``fused2_bwd``: the tensor-core
+    chain body, ``"mma"``, where both layers' units are at most 256, O <=
+    16 and the weights' bf16 pieces fit a block's shared memory, else the
+    per-unit chains) with ``training``.  On the CPU the plain versions:
+    ``"plain"`` entries."""
     device = torch.device(device)
     if device.type == "cpu":
         return ("plain",) * (1 + int(training))
-    mma = _body(device, n_features, h1, h2, n_out, recurrent,
-                itemsize == 2)[0]
-    return ("mma" if mma else "per-unit",) + ("per-unit",) * int(training)
+    bf16 = itemsize == 2
+    mma = _body(device, n_features, h1, h2, n_out, recurrent, bf16)[0]
+    out = ("mma" if mma else "per-unit",)
+    if training:
+        words = _plan_bwd_words(device, 1, n_features, h1, h2, n_out,
+                                n_steps, recurrent, bf16, use_periods)
+        out += ("mma" if words is not None and words[5] else "per-unit",)
+    return out
 
 
-def _plan_bwd(device: torch.device, B: int, F: int, H1: int, H2: int, O: int,
-              T: int, recurrent: bool, bf16: bool,
-              use_periods: bool) -> Optional[Tuple[int, ...]]:
-    """Blocks of (g_W0, g_W0r, g_W1, g_W1r, g_W_out/g_b) partial slabs of
-    ``fused2_bwd`` on ``device``, or None when the shape does not fit."""
+def _plan_bwd_words(device: torch.device, B: int, F: int, H1: int, H2: int,
+                    O: int, T: int, recurrent: bool, bf16: bool,
+                    use_periods: bool) -> Optional[Tuple[int, ...]]:
+    """``snn_fused2_bwd_plan``'s eight words on ``device``, or None when
+    the shape does not fit."""
     lib = _lib("fused2_bwd")
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 8)()
     rc = lib.snn_fused2_bwd_plan(B, F, H1, H2, O, T, int(recurrent),
                                  int(bf16), int(use_periods),
                                  _f._index(device), out)
@@ -273,6 +351,34 @@ def _plan_bwd(device: torch.device, B: int, F: int, H1: int, H2: int, O: int,
         return None
     _f._raise_on(rc, lib, f"{KERNEL_2_BWD} plan")
     return tuple(out)
+
+
+def _plan_bwd(device: torch.device, B: int, F: int, H1: int, H2: int, O: int,
+              T: int, recurrent: bool, bf16: bool,
+              use_periods: bool) -> Optional[Tuple[int, ...]]:
+    """Blocks of (g_W0, g_W0r, g_W1, g_W1r, g_W_out/g_b) partial slabs of
+    ``fused2_bwd`` on ``device``, or None when the shape does not fit."""
+    out = _plan_bwd_words(device, B, F, H1, H2, O, T, recurrent, bf16,
+                          use_periods)
+    return None if out is None else out[:5]
+
+
+def gradient_plan(device, B: int, F: int, H1: int, H2: int, O: int, T: int,
+                  recurrent: bool, bf16: bool, use_periods: bool) -> dict:
+    """The order of ``fused2_bwd`` on ``device`` for a shape: the blocks
+    (slabs) of ``bwd_gwin`` (``groups_in``, ``rows_in`` rows a batch),
+    ``gbits_mma`` (``groups_rec0``, ``groups_w1``, ``groups_rec1``) and
+    ``bwd_gout`` (``groups_out``, ``rows_out``), and ``mma``, whether both
+    chains take the tensor-core body.  :func:`_fused2_bwd_ordered_reference`
+    takes it."""
+    out = _plan_bwd_words(torch.device(device), B, F, H1, H2, O, T,
+                          recurrent, bf16, use_periods)
+    if out is None:
+        raise ValueError(f"{KERNEL_2_BWD}: shape T={T} F={F} H1={H1} "
+                         f"H2={H2} O={O} does not fit the kernel")
+    return {"groups_in": out[0], "groups_rec0": out[1], "groups_w1": out[2],
+            "groups_rec1": out[3], "groups_out": out[4], "mma": bool(out[5]),
+            "rows_in": out[6], "rows_out": out[7]}
 
 
 def fused2_head_supported(n_steps: int, n_features: int, h1: int, h2: int,
@@ -389,8 +495,9 @@ def _fused2_bwd_cuda(g_logits, g_cnt0, g_cnt1, tstar, d0, a0, d1, a1, lat,
     add the blocks' partial slabs in a fixed order; returns as
     :func:`_fused2_bwd_reference`.  A dict ``keep`` receives both chains'
     rounded ``dcur0``, ``dcur1``, their z bits (``zmask0`` with its padding
-    row, ``zmask1``) and the float32 sums of ``gbits_mma``'s ``g_W0r``,
-    ``g_W1``, ``g_W1r`` before their cast (for tests)."""
+    row, ``zmask1``), ``dz0 = dcur1 @ W1^T`` and the float32 sums of
+    ``gbits_mma``'s ``g_W0r``, ``g_W1``, ``g_W1r`` before their cast (for
+    tests)."""
     k = KERNEL_2_BWD
     dev = lat.device
     _f._check_weights(k, w0)
@@ -418,12 +525,12 @@ def _fused2_bwd_cuda(g_logits, g_cnt0, g_cnt1, tstar, d0, a0, d1, a1, lat,
         _f._check(k, "w1_rec", w1r, wdt, (H2, H2), dev)
     _f._check(k, "w_out", w_out, wdt, (H2, O), dev)
     bf16 = wdt == torch.bfloat16
-    plan = _plan_bwd(dev, B, F, H1, H2, O, T, rec, bf16, use_periods)
+    plan = _plan_bwd_words(dev, B, F, H1, H2, O, T, rec, bf16, use_periods)
     if plan is None:
         raise ValueError(
             f"{k}: shape T={T} F={F} H1={H1} H2={H2} O={O} does not fit the "
             "kernel (gate on fused2_head_supported(training=True))")
-    n_w0, n_w0r, n_w1, n_w1r, n_out = plan
+    n_w0, n_w0r, n_w1, n_w1r, n_out = plan[:5]
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     hw0, hw1 = (H1 + 31) // 32, (H2 + 31) // 32
@@ -459,13 +566,14 @@ def _fused2_bwd_cuda(g_logits, g_cnt0, g_cnt1, tstar, d0, a0, d1, a1, lat,
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
     _f._launched_function(_f.KERNEL_GBITS, 1 + 2 * int(rec))
+    _f._launched_function(_f.KERNEL_GZIN)
     gs = _f.gbits_sums
     sums = (gs(slab_w0r, None).view(H1, H1) if rec else None,
             gs(slab_w1, None).view(H1, H2),
             gs(slab_w1r, None).view(H2, H2) if rec else None)
     if keep is not None:
         keep.update(dcur0=dcur0, dcur1=dcur1, zmask0=zmask0, zmask1=zmask1,
-                    g_w0r=sums[0], g_w1=sums[1], g_w1r=sums[2])
+                    dz0=dz0, g_w0r=sums[0], g_w1=sums[1], g_w1r=sums[2])
     w0r_g, w1_g, w1r_g = (None if x is None else x.to(wdt) for x in sums)
     out_sum = slab_out.sum(0)
     return (slab_w0.sum(0).view(F, H1).to(wdt), w0r_g, w1_g, w1r_g,

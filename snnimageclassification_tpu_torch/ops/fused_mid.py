@@ -30,9 +30,14 @@ Two hand-written CUDA kernels stand behind the wrappers:
   slices on bf16 tensor cores, the input product off the serial chain;
   its bits are those of ``_mid_fwd_ordered_reference``) and, past its
   limits, the per-unit body (sums as walks over spike bits).
-* ``fused_mid_bwd`` (``csrc/fused_mid_bwd.cu``): the reverse chain, the
-  weight gradients as sums over set bits, and ``g_z_in = dcur @ W_in^T`` as
-  a tiled product of its own.
+* ``fused_mid_bwd`` (``csrc/fused_mid_bwd.cu``): the reverse chain (the
+  tensor-core chain body of ``csrc/chain_mma.cuh`` in both modes where
+  :func:`mid_bodies` says ``"mma"``, else the per-unit chain), ``g_z_in =
+  dcur @ W_in^T`` as a tensor-core product of its own
+  (``csrc/gzin_mma.cuh``), and the weight gradients (``gbits_mma``,
+  ``bwd_gout``).
+  ``_mid_bwd_ordered_reference`` is its plain version in its summation
+  order.
 
 On a CUDA tensor a wrapper launches the kernels or raises; on the CPU it
 runs the plain PyTorch versions (``_mid_reference``,
@@ -155,6 +160,63 @@ def _mid_bwd_reference(g_logits, g_counts, tstar, g_z, z, res, a_tr,
             None if g_w_out is None else g_w_out.to(w_out.dtype), g_b)
 
 
+def _step_rows(x: torch.Tensor) -> torch.Tensor:
+    """A ``(T, B, J)`` 0/1 trace as ``gbits_mma``'s left operand: ``(B T,
+    J)`` float32 with row ``b T + t`` holding ``x(t)`` of row ``b``."""
+    return x.to(torch.float32).transpose(0, 1).reshape(-1, x.shape[2])
+
+
+def _mid_bwd_ordered_reference(g_logits, g_counts, tstar, g_z, z, res, a_tr,
+                               res_is_v, z_in, w_in, w_rec, beta, w_out,
+                               n_steps, alpha, threshold, gamma, kappa,
+                               spike_func, order, card=False, keep=None):
+    """Plain version of ``fused_mid_bwd`` in its summation order; returns as
+    :func:`_mid_bwd_reference`.  The chain with the tensor-core chain
+    body's products (``fused._split_slice_product``: ``s @ W_out^T`` in
+    head mode, ``dcur(t+1) @ W_rec^T``), then from the chain's rounded
+    ``dcur``: ``g_z_in`` through ``fused._gzin_ordered_reference``
+    (``card``: the card's accumulation model), rounded once to the type of
+    ``z_in``; ``g_W_in`` (left operand ``z_in(t)``) and ``g_W_rec`` (``z(t -
+    1)``) through ``gbits._gbits_ordered_reference``; ``g_W_out`` and
+    ``g_b`` through ``fused._gout_ordered_reference``.  ``order`` is the
+    kernel's plan (:func:`gradient_plan`).  A dict ``keep`` receives the
+    chain's rounded ``dcur (B, T, H)`` float32."""
+    from .gbits import _gbits_ordered_reference
+
+    f32 = torch.float32
+    wd = w_in.dtype
+    T, B, _ = z_in.shape
+    H = w_in.shape[1]
+    head = w_out is not None
+    dcur = torch.zeros((B, n_steps, H), dtype=f32, device=z_in.device)
+    _f._bwd_loop(
+        lambda t: z_in[t].to(f32), None, g_logits, g_counts, tstar, g_z, res,
+        a_tr, z, res_is_v, w_rec, beta, w_out, n_steps, alpha, threshold,
+        gamma, kappa, spike_func, wd, dcur_out=dcur,
+        matmul=lambda a, w: _f._split_slice_product(a, w.contiguous(), wd))
+    if keep is not None:
+        keep["dcur"] = dcur
+    g_z_in = _f._gzin_ordered_reference(dcur, w_in, wd, card).to(z_in.dtype)
+    d = dcur.view(B * n_steps, H)
+    g_w_in = _gbits_ordered_reference(d, _step_rows(z_in), B, n_steps,
+                                      order["groups_in"], wd)
+    g_w_rec = None
+    if w_rec is not None:
+        z_prev = (_f.z_prev_rows(res) if head else _step_rows(torch.cat(
+            [torch.zeros_like(z[:1]), z[:-1]])))
+        g_w_rec = _gbits_ordered_reference(d, z_prev, B, n_steps,
+                                           order["groups_rec"], wd)
+    g_w_out = g_b = None
+    if head:
+        g_w_out, g_b = _f._gout_ordered_reference(
+            (res >= 0).to(f32), g_logits, tstar, kappa, wd,
+            order["groups_out"], order["rows_out"])
+        g_w_out = g_w_out.to(w_out.dtype)
+    return (g_z_in, g_w_in.to(wd),
+            None if g_w_rec is None else g_w_rec.to(w_rec.dtype), g_w_out,
+            g_b)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -175,6 +237,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.snn_fused_mid_bwd.argtypes = (
             [vp] * 19 + [i] * 8 + [f] * 4 + [i, vp])
         lib.snn_fused_mid_bwd.restype = i
+        lib.snn_gzin.argtypes = [vp] * 3 + [i] * 7 + [vp]
+        lib.snn_gzin.restype = i
     lib.snn_cuda_error_string.argtypes = [i]
     lib.snn_cuda_error_string.restype = ctypes.c_char_p
     lib._snn_declared = True
@@ -218,18 +282,44 @@ def _body(device: torch.device, Hin: int, H: int, O: int, recurrent: bool,
     return bool(out[0]), out[1]
 
 
-def _plan_bwd(device: torch.device, B: int, Hin: int, H: int, O: int, T: int,
-              recurrent: bool, bf16: bool) -> Optional[Tuple[int, int, int]]:
-    """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) partial slabs of
-    ``fused_mid_bwd`` on ``device``, or None when the shape does not fit."""
+def _plan_bwd_words(device: torch.device, B: int, Hin: int, H: int, O: int,
+                    T: int, recurrent: bool,
+                    bf16: bool) -> Optional[Tuple[int, ...]]:
+    """``snn_fused_mid_bwd_plan``'s five words on ``device``, or None when
+    the shape does not fit."""
     lib = _lib("fused_mid_bwd")
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     rc = lib.snn_fused_mid_bwd_plan(B, Hin, H, O, T, int(recurrent),
                                     int(bf16), _f._index(device), out)
     if rc == 1:
         return None
     _f._raise_on(rc, lib, f"{KERNEL_MID_BWD} plan")
-    return out[0], out[1], out[2]
+    return tuple(out)
+
+
+def _plan_bwd(device: torch.device, B: int, Hin: int, H: int, O: int, T: int,
+              recurrent: bool, bf16: bool) -> Optional[Tuple[int, int, int]]:
+    """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) partial slabs of
+    ``fused_mid_bwd`` on ``device``, or None when the shape does not fit."""
+    out = _plan_bwd_words(device, B, Hin, H, O, T, recurrent, bf16)
+    return None if out is None else out[:3]
+
+
+def gradient_plan(device, B: int, Hin: int, H: int, O: int, T: int,
+                  recurrent: bool, bf16: bool) -> dict:
+    """The order of ``fused_mid_bwd`` on ``device`` for a shape (``O ==
+    0``: the z-emitting mode): ``groups_in`` / ``groups_rec`` /
+    ``groups_out`` blocks (slabs) of ``gbits_mma`` (``g_W_in``, ``g_W_rec``)
+    and ``bwd_gout``, ``rows_out`` rows a batch of ``bwd_gout``, and
+    ``mma``, whether the chain takes its tensor-core body.
+    :func:`_mid_bwd_ordered_reference` takes it."""
+    out = _plan_bwd_words(torch.device(device), B, Hin, H, O, T, recurrent,
+                          bf16)
+    if out is None:
+        raise ValueError(f"{KERNEL_MID_BWD}: shape T={T} Hin={Hin} H={H} "
+                         f"O={O} does not fit the kernel")
+    return {"groups_in": out[0], "groups_rec": out[1], "groups_out": out[2],
+            "mma": bool(out[3]), "rows_out": out[4]}
 
 
 def _supported(n_steps, hidden_in, hidden, n_out, recurrent, itemsize,
@@ -289,16 +379,23 @@ def mid_bodies(n_steps: int, hidden_in: int, hidden: int, n_out: int = 0,
     off the serial chain) or ``"per-unit"`` (one thread a (row, unit), the
     sums as walks over spike bits; O > 16, H > 256, ``hidden_in`` past
     about 1.5 ``hidden`` (the input values a thread stages a step), or the
-    weights' bf16 pieces past a block's shared memory).  One entry for the forward, a second for the backward's chain
-    (``fused_mid_bwd``, the per-unit body) with ``training``.  On the CPU
-    the plain versions: ``"plain"`` entries."""
-    del n_steps  # the bodies' limits do not depend on it
+    weights' bf16 pieces past a block's shared memory).  One entry for the
+    forward, a second for the backward's chain (``fused_mid_bwd``: the
+    tensor-core chain body, ``"mma"``, where O <= 16, H <= 256 and the
+    weights' bf16 pieces fit a block's shared memory, else the per-unit
+    chain) with ``training``.  On the CPU the plain versions: ``"plain"``
+    entries."""
     device = torch.device(device)
     if device.type == "cpu":
         return ("plain",) * (1 + int(training))
-    mma = _body(device, hidden_in, hidden, n_out, recurrent,
-                itemsize == 2)[0]
-    return ("mma" if mma else "per-unit",) + ("per-unit",) * int(training)
+    bf16 = itemsize == 2
+    mma = _body(device, hidden_in, hidden, n_out, recurrent, bf16)[0]
+    out = ("mma" if mma else "per-unit",)
+    if training:
+        words = _plan_bwd_words(device, 1, hidden_in, hidden, n_out, n_steps,
+                                recurrent, bf16)
+        out += ("mma" if words is not None and words[3] else "per-unit",)
+    return out
 
 
 def _check_inputs(k, z_in, w_in, w_rec, w_out, b_out, n_steps):
@@ -400,12 +497,12 @@ def _mid_bwd_cuda(g_logits, g_counts, tstar, g_z, z, res, a_tr, res_is_v,
         _f._check(k, "g_z", g_z, wdt, (T, B, H), dev)
         _f._check(k, "z", z, wdt, (T, B, H), dev)
     bf16 = wdt == torch.bfloat16
-    plan = _plan_bwd(dev, B, Hin, H, O, T, w_rec is not None, bf16)
+    plan = _plan_bwd_words(dev, B, Hin, H, O, T, w_rec is not None, bf16)
     if plan is None:
         raise ValueError(
             f"{k}: shape T={T} Hin={Hin} H={H} O={O} does not fit the "
             "kernel (gate on fused_mid[_head]_supported(training=True))")
-    n_in, n_rec, n_out = plan
+    n_in, n_rec, n_out = plan[:3]
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     # Scratch of the call: dcur(t) per row, the bits of z and of z_in.
@@ -431,6 +528,7 @@ def _mid_bwd_cuda(g_logits, g_counts, tstar, g_z, z, res, a_tr, res_is_v,
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
     _f._launched_function(_f.KERNEL_GBITS, 1 + int(w_rec is not None))
+    _f._launched_function(_f.KERNEL_GZIN)
     in_sum = _f.gbits_sums(slab_in, None).view(Hin, H)
     rec_sum = (None if w_rec is None
                else _f.gbits_sums(slab_rec, None).view(H, H))
@@ -444,6 +542,46 @@ def _mid_bwd_cuda(g_logits, g_counts, tstar, g_z, z, res, a_tr, res_is_v,
     out_sum = slab_out.sum(0)
     return (g_z_in, g_w_in, g_w_rec, out_sum[:H * O].view(H, O).to(wdt),
             out_sum[H * O:].clone())
+
+
+def _gzin_reference(dcur: torch.Tensor, w: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of ``gzin_mma``: ``(dcur @ w^T)`` in float32, ``(T, B,
+    N)``, rounded once to ``out_dtype``."""
+    f32 = torch.float32
+    return (dcur.to(f32) @ w.to(f32).T).transpose(0, 1).to(out_dtype)
+
+
+def gzin(dcur: torch.Tensor, w: torch.Tensor,
+         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``g_z_in (T, B, N) = dcur @ w^T`` from the chain's rounded ``dcur (B,
+    T, K)`` and ``w (N, K)`` (a mid layer's ``W_in``, the two-layer pair's
+    ``W1``), both in the weights' dtype, rounded once to ``out_dtype`` (the
+    weights' dtype, or float32).  On a CUDA tensor ``gzin_mma``
+    (``csrc/gzin_mma.cuh``, the product ``fused_mid_bwd`` and ``fused2_bwd``
+    launch inside their calls), else the plain version."""
+    k = _f.KERNEL_GZIN
+    wd = w.dtype
+    out_dtype = out_dtype or wd
+    B, T, K = dcur.shape
+    N = w.shape[0]
+    if out_dtype not in (wd, torch.float32):
+        raise ValueError(f"{k}: out_dtype must be {wd} or float32")
+    if dcur.device.type != "cuda":
+        return _gzin_reference(dcur, w, out_dtype)
+    _f._check_weights(k, w)
+    _f._check(k, "dcur", dcur, wd, (B, T, K), dcur.device)
+    _f._check(k, "w", w, wd, (N, K), dcur.device)
+    dev = dcur.device
+    out = torch.empty((T, B, N), dtype=out_dtype, device=dev)
+    lib = _lib("fused_mid_bwd")
+    rc = lib.snn_gzin(dcur.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, K,
+                      N, int(wd == torch.bfloat16),
+                      int(out_dtype == torch.float32 and wd != torch.float32),
+                      dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _f._raise_on(rc, lib, f"{k} launch")
+    _f._launched_function(k)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,12 +24,25 @@ Izhikevich-128 recurrent -> 10 at dt = 30, B = 8192, T = 100, seed 0: the
 chain on tensor cores, ``bwd_gwin``, ``gbits_mma``, ``bwd_gout``), as built,
 with the chain's two products removed, and with its per-unit chain
 (``izh_chain_kernel``, the chain before the tensor-core body).
+``--mid`` times ``fused_mid_bwd``'s functions in both modes (the deep net
+784 -> 128 -> 128 -> 96 -> 10, B = 8192, T = 100, init weights from seed 0,
+random pixels: the z-emitting mode 128 -> 128 and the head mode 128 -> 96
+-> 10 on the residuals of ``fused_mid_fwd``: ``pack_bits``, the chain,
+``gzin_mma`` for ``g_z_in``, ``gbits_mma`` twice, ``bwd_gout``), and
+``--twolayer`` ``fused2_bwd``'s (784-ALIF128-ALIF128-10: both chains,
+``gzin_mma`` for ``dz0``, ``bwd_gwin``, ``gbits_mma`` three times,
+``bwd_gout``), each as built, with the chains on the per-unit body
+(``per_unit_chain``) and without the chains' recurrent product
+(``no_chain_rec_product``); with
+``--library`` ``dcur @ W_in^T`` as one ``torch.matmul`` on materialised
+operands laid out ``(T, B, Hin)`` as the kernel writes it, ``gzin_mma``
+alone (``fused_mid.gzin``) and its bound.
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.bwd_ablation \
         [--matmul-dtype float32|bfloat16] [--periodic] [--library] \
-        [--replicas 6] [--wide | --izh]
+        [--replicas 6] [--wide | --izh | --mid | --twolayer]
 
 The inputs are one training batch of the flagship (784 -> ALIF-128
 recurrent, learn_beta, T=100, batch 8192, init weights from seed 0, random
@@ -153,6 +166,16 @@ WIDE_VARIANTS = {  # name -> ((statement, its replacement), ...)
     "cuda_core_chain": ((
         "const bool cluster = !chain || bf16;",
         "const bool cluster = !chain;"),),
+}
+# The deep and two-layer backwards' variants (fused_mid_bwd.cu,
+# fused2_bwd.cu): name -> ((statement, its replacement), ...).
+MID_VARIANTS = {
+    "per_unit_chain": (("p->mma = chain_mma_fits(H, O, rec, bf16, "
+                        "lim.max_smem);", "p->mma = 0;"),),
+}
+TWO_VARIANTS = {
+    "per_unit_chain": (("p->mma = chain_mma_fits(H2, O, rec, bf16, "
+                        "lim.max_smem) &&", "p->mma = 0 &&"),),
 }
 CUDA_CORE_VARIANTS = {
     "cluster_chain": ((
@@ -468,6 +491,216 @@ def izh_bwd(md, periodic: bool) -> None:
                       * 1e3, **tag}), flush=True)
 
 
+def _variant_libs(name: str, extra: dict) -> dict:
+    """The kernel of ``csrc/<name>.cu`` as built and each variant (one
+    statement replaced: ``extra``, and the chain body's
+    ``no_chain_rec_product``) as a loaded library."""
+    source = _build.inlined_source(name)
+    variants = dict(extra, no_chain_rec_product=(VARIANTS[
+        "no_chain_rec_product"],))
+    for v, pairs in variants.items():
+        variant = source
+        for old, new in pairs:
+            if variant.count(old) != 1:
+                raise SystemExit(f"{v}: statement not found once in {name}")
+            variant = variant.replace(old, new)
+        variants[v] = variant
+    with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc a variant
+        paths = dict(zip(variants, pool.map(
+            _variant_so, [f"{name}_{v}" for v in variants],
+            variants.values())))
+    libs = {"kernel": _build.load(name)}
+    libs.update({v: ctypes.CDLL(str(p)) for v, p in paths.items()})
+    return libs
+
+
+def _run_variants(name: str, libs: dict, runs: dict, tag: dict) -> None:
+    """Each of ``runs`` (label -> a call of the kernel, returning its
+    gradients) under each library, one JSON line each: the ``__global__``
+    functions' ms, the whole call's by CUDA events, and whether its
+    gradients are the kernel's bits."""
+    def flat(out):
+        return [t for t in out if t is not None]
+
+    built: dict = {}
+    try:
+        for v, lib in libs.items():
+            _build._libs[name] = lib  # what the wrappers load
+            for label, run in runs.items():
+                got = flat(run())
+                if v == "kernel":
+                    built[label] = got
+                same = all(torch.equal(a, b)
+                           for a, b in zip(got, built[label]))
+                print(json.dumps({"variant": v, "call": label, **tag,
+                                  "same_bits": same,
+                                  "ms": _function_ms(run),
+                                  "whole_call_ms": _events_ms(run)}),
+                      flush=True)
+    finally:
+        _build._libs[name] = libs["kernel"]
+
+
+def _gzin_library(label, dcur, w, out_dtype, tag) -> None:
+    """``gzin_mma`` alone and ``dcur @ w^T`` as one ``torch.matmul`` on
+    materialised operands (dcur laid out ``(T, B, K)``, the output ``(T, B,
+    N)`` as the kernel writes it), and the bound: dcur read and the output
+    written once; 2 B T K N FLOP at 989 TFLOP/s, x6 for float32 weights'
+    pieces."""
+    from ..ops import fused_mid
+
+    B, T, K = dcur.shape
+    N = w.shape[0]
+    md = w.dtype
+    d_tbk = dcur.transpose(0, 1).contiguous()
+    wt = w.T.contiguous()
+    lib_ms = _events_ms(lambda: torch.matmul(d_tbk, wt))
+    ms = _events_ms(lambda: fused_mid.gzin(dcur, w, out_dtype))
+    got = fused_mid.gzin(dcur, w, out_dtype).float()
+    want = torch.matmul(d_tbk.float(), wt.float())
+    err = float((got - want).abs().max() / want.abs().max())
+    pieces = 6 if md == torch.float32 else 1
+    nbytes = B * T * K * md.itemsize + N * K * md.itemsize + \
+        B * T * N * torch.empty((), dtype=out_dtype).element_size()
+    print(json.dumps({"gzin": label, **tag, "gzin_ms": ms,
+                      "library_ms": lib_ms, "err_vs_library": err,
+                      "bound": _bound(nbytes, 2 * B * T * K * N * pieces,
+                                      BF16_FLOPS)}), flush=True)
+
+
+def _chain_bound(B, T, H, O, md, rec, traces_in, gz_f32=False):
+    """A tensor-core chain's bound: ``traces_in`` (T, B, H) traces read in
+    the weights' type (the residual, and in the z-layer mode g_z and z), a
+    float32 g_z where ``gz_f32`` (fused2's layer 0), dcur written and the
+    z bits; its products 2 B T H (H + O) (six bf16 piece products for
+    float32 weights) at 989 TFLOP/s."""
+    es, n = md.itemsize, B * T * H
+    nbytes = (n * es * (traces_in + 1) + n * 4 * int(gz_f32)
+              + B * (T + 1) * ((H + 31) // 32) * 4)
+    pieces = 6 if md == torch.float32 else 1
+    return _bound(nbytes, 2 * n * ((H if rec else 0) + O) * pieces,
+                  BF16_FLOPS)
+
+
+def mid_bwd(md, library: bool) -> None:
+    """``--mid``: ``fused_mid_bwd``'s functions in both modes on one training
+    batch of the deep network, as built and in each variant."""
+    from ..ops import fused_mid
+
+    cfg = SNNConfig(input_size=784, output_size=10,
+                    n_hidden_neurons=[128, 128, 96],
+                    hidden_layer_type=LayerType.ALIF,
+                    use_recurrent_connection=True, learn_beta=True,
+                    int_time_steps=100)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    B, T = 8192, 100
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (B, 784), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    layers = cfg.layer_configs
+    ro = params[layers[-1][0]]
+    kappa = layers[-1][1].kappa
+    w_out = ro["w_in"].detach().to(md).contiguous()
+    b_out = ro["b"].detach().contiguous()
+    lw = []
+    for name, lcfg in layers[:-1]:
+        p = params[name]
+        lw.append((p["w_in"].detach().to(md).contiguous(),
+                   masked_recurrent(lcfg, p).detach().to(md).contiguous(),
+                   p["beta"].detach(), lcfg))
+    (w0, r0, b0, c), (w1, r1, b1, _), (w2, r2, b2, _) = lw
+    sc = (c.alpha, c.rho, c.threshold)
+    z0 = fused._layer0_cuda(lat, w0, r0, b0, T, False, True, *sc, True,
+                            False, False)[0]
+    _, z1, res1, _, _, _ = fused_mid._mid_cuda(
+        z0, w1, r1, b1, None, None, T, True, *sc, 0.0, True, False, False,
+        False)
+    _, _, res2, _, tstar, _ = fused_mid._mid_cuda(
+        z1, w2, r2, b2, w_out, b_out, T, True, *sc, kappa, True, False,
+        False, False)
+    rng = np.random.default_rng(6)
+    g_z = (torch.from_numpy(rng.standard_normal(tuple(z1.shape)).astype(
+        np.float32)).cuda() / B).to(md)
+    g_logits = torch.full((B, 10), 1.0 / B, device="cuda")
+    tail = (c.alpha, c.threshold, c.gamma)
+    keep_z: dict = {}
+    keep_h: dict = {}
+    runs = {
+        "z": lambda: fused_mid._mid_bwd_cuda(
+            None, None, None, g_z, z1, res1, None, False, z0, w1, r1, b1,
+            None, T, *tail, 0.0, c.spike_func, keep=keep_z),
+        "head": lambda: fused_mid._mid_bwd_cuda(
+            g_logits, None, tstar, None, None, res2, None, False, z1, w2, r2,
+            b2, w_out, T, *tail, kappa, c.spike_func, keep=keep_h),
+    }
+    tag = {"mid": True, "matmul_dtype": str(md).split(".")[1]}
+    _run_variants("fused_mid_bwd", _variant_libs("fused_mid_bwd",
+                                                 MID_VARIANTS), runs, tag)
+    H1, H2 = w1.shape[1], w2.shape[1]
+    print(json.dumps({"chain_bound": {
+        "z": _chain_bound(B, T, H1, 0, md, True, 3),
+        "head": _chain_bound(B, T, H2, 10, md, True, 1)},
+        "pack_bits_bound": {m: _bound(
+            T * B * n * md.itemsize + B * T * ((n + 31) // 32) * 4, 0,
+            F32_FLOPS) for m, n in (("z", w1.shape[0]), ("head", H1))},
+        **tag}), flush=True)
+    if library:
+        for run in runs.values():
+            run()
+        _gzin_library("z", keep_z["dcur"], w1, md, tag)
+        _gzin_library("head", keep_h["dcur"], w2, md, tag)
+
+
+def twolayer_bwd(md, library: bool) -> None:
+    """``--twolayer``: ``fused2_bwd``'s functions on one training batch of
+    784-ALIF128-ALIF128-10, as built and in each variant."""
+    from ..ops import fused2
+
+    cfg = SNNConfig(input_size=784, output_size=10,
+                    n_hidden_neurons=[128, 128],
+                    hidden_layer_type=LayerType.ALIF,
+                    use_recurrent_connection=True, learn_beta=True,
+                    int_time_steps=100)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    B, T = 8192, 100
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (B, 784), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    (n0, c0), (n1, c1), (nl, cl) = cfg.layer_configs
+    p0, p1, ro = params[n0], params[n1], params[nl]
+
+    def cast(t):
+        return t.detach().to(md).contiguous()
+
+    args = (lat, cast(p0["w_in"]), cast(masked_recurrent(c0, p0)),
+            p0["beta"].detach(), cast(p1["w_in"]),
+            cast(masked_recurrent(c1, p1)), p1["beta"].detach(),
+            cast(ro["w_in"]), ro["b"].detach().contiguous(), T, False, True,
+            c0.alpha, c0.rho, c0.threshold, cl.kappa)
+    _, d0, a0, d1, a1, tstar, _, _ = fused2._fused2_cuda(*args, True, False,
+                                                         False)
+    g_logits = torch.full((B, 10), 1.0 / B, device="cuda")
+    keep: dict = {}
+    runs = {"twolayer": lambda: fused2._fused2_bwd_cuda(
+        g_logits, None, None, tstar, d0, a0, d1, a1, lat, args[1], args[2],
+        args[3], args[4], args[5], args[6], args[7], T, False, c0.alpha,
+        c0.threshold, c0.gamma, cl.kappa, c0.spike_func, keep=keep)}
+    tag = {"twolayer": True, "matmul_dtype": str(md).split(".")[1]}
+    _run_variants("fused2_bwd", _variant_libs("fused2_bwd", TWO_VARIANTS),
+                  runs, tag)
+    H1, H2 = args[1].shape[1], args[4].shape[1]
+    b1, b0 = (_chain_bound(B, T, H2, 10, md, True, 1),
+              _chain_bound(B, T, H1, 0, md, True, 1, gz_f32=True))
+    print(json.dumps({"chain_bound": {
+        "layer1": b1, "layer0": b0, "both_ms": b1["bound_ms"]
+        + b0["bound_ms"]}, **tag}), flush=True)
+    if library:
+        runs["twolayer"]()
+        _gzin_library("dz0", keep["dcur1"], args[4], torch.float32, tag)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--matmul-dtype", default="float32",
@@ -481,6 +714,10 @@ def main() -> None:
                     help="rec_scan_bwd at 784 -> ALIF-512 -> 10 instead")
     ap.add_argument("--izh", action="store_true",
                     help="fused_izh_bwd at 784 -> Izhikevich-128 -> 10")
+    ap.add_argument("--mid", action="store_true",
+                    help="fused_mid_bwd at 784 -> 128 -> 128 -> 96 -> 10")
+    ap.add_argument("--twolayer", action="store_true",
+                    help="fused2_bwd at 784 -> ALIF-128 -> ALIF-128 -> 10")
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bwd_ablation needs a CUDA card")
@@ -492,6 +729,10 @@ def main() -> None:
         return
     if ns.izh:
         izh_bwd(md, ns.periodic)
+        _print_card()
+        return
+    if ns.mid or ns.twolayer:
+        (mid_bwd if ns.mid else twolayer_bwd)(md, ns.library)
         _print_card()
         return
     cfg = SNNConfig(input_size=784, output_size=10, n_hidden_neurons=128,

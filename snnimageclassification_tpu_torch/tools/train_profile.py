@@ -30,9 +30,12 @@ After 3 warm-up steps it traces ``--steps`` steps with ``torch.profiler``
 includes the profiler's own cost), the device time per step of every
 device kernel by name (the ``__global__`` functions of a backward kernel
 appear apart, each template instance under its own name: the chain of the
-head mode is ``bwd_chain_mma_kernel`` (the per-unit
+head mode is ``bwd_chain_mma_kernel<LifChain..>`` (the per-unit
 ``bwd_chain_kernel<.., true, ..>`` past the tensor-core body's limits), of a
-z-emitting layer ``bwd_chain_kernel<.., false, ..>``; the head's forward is
+mid z-emitting layer and the two-layer pair's layer 0
+``bwd_chain_mma_kernel<ZChain..>``, of layer 0 of a deeper net
+``bwd_chain_kernel<.., false, ..>``; ``gzin_mma_kernel`` is a mid layer's
+``g_z_in`` and the two-layer pair's ``dz0``; the head's forward is
 ``head_mma_kernel`` after ``head_sort_kernel``; ``gbits_mma_kernel`` sums
 every backward's ``g_W_rec`` and a mid layer's ``g_W_in`` launches, the wide
 net's ``rec_scan_bwd`` being ``rec_chain_kernel`` + ``gbits_mma_kernel``),

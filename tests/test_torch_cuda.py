@@ -158,6 +158,12 @@ def _launched():
     return {k: n for k, n in fused.launch_counts().items() if n}
 
 
+def _functions_launched():
+    """The ``__global__`` functions counted inside the calls (``gbits_mma``,
+    ``gzin_mma``) launched since the last reset, with their counts."""
+    return {k: n for k, n in fused.function_launch_counts().items() if n}
+
+
 def _call(args, plain=False, counts=False):
     a = dict(args)
     w_rec = a.pop("w_rec")
@@ -1603,7 +1609,7 @@ def test_mid_mma_body_matches_ordered_versions(card, name, alif, rec, spike,
     res_is_v = not head and fused._residual_is_v(alif, spike)
     for Hin, H, O in MID_MMA_SHAPES[mode]:
         assert fused_mid.mid_bodies(n_steps, Hin, H, O, rec, wdtype.itemsize,
-                                    card, True) == ("mma", "per-unit")
+                                    card, True) == ("mma", "mma")
         args = _mid_case(card, n_steps, Hin, H, O, alif, rec, wdtype)
         fused.reset_launch_counts()
         got = fused_mid._mid_cuda(*args, True, store_a, head, res_is_v)
@@ -1643,7 +1649,7 @@ def test_fused2_mma_body_matches_ordered_versions(card, name, alif, rec,
     for F, H in ((30, 45), (784, 128)):
         assert fused2.fused2_bodies(n_steps, F, H, H, 10, rec,
                                     wdtype.itemsize, device=card,
-                                    training=True) == ("mma", "per-unit")
+                                    training=True) == ("mma", "mma")
         args, _ = _f2_args(card, n_steps, alif, rec, use_periods, wdtype,
                            B=37, F=F, H1=H, H2=H)
         fused.reset_launch_counts()
@@ -1656,6 +1662,152 @@ def test_fused2_mma_body_matches_ordered_versions(card, name, alif, rec,
         _assert_same(got, want, F2_OUTS)
         assert torch.equal(inf[0], got[0])
         assert float(got[6].sum()) > 0 and float(got[7].sum()) > 0
+
+
+def _rel_err(got, want):
+    scale = float(want.float().abs().max()) or 1.0
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def _held_to_ordered(record_property, label, got, again, want, keep,
+                     ordered_keep, gzin, bar):
+    """A deep or two-layer backward on its tensor-core chain body against
+    its plain version in its order: equal bits on a repeated call; the
+    chains' rounded dcur (``keep`` against ``ordered_keep``, by name) and
+    every gradient within ``bar`` of max|g|; ``g_z_in`` (``gzin``: the
+    kernel's, and the ordered model fed the kernel's own dcur) within
+    ``bar``, its share of equal elements recorded."""
+    for g, g2 in zip(got, again):
+        assert g is None or torch.equal(g, g2), f"{label}: not reproducible"
+    for name in ordered_keep:
+        err = _rel_err(keep[name], ordered_keep[name])
+        assert err <= bar, f"{label} {name}: {err:.3g} of max|dcur|"
+    err = _grad_err(got, want)
+    assert err <= bar, f"{label}: gradients {err:.3g} of max|g|"
+    kernel, model = gzin
+    assert kernel.dtype == model.dtype and kernel.shape == model.shape
+    err = _rel_err(kernel, model)
+    assert err <= bar, f"{label} g_z_in: {err:.3g} of max|g|"
+    record_property(f"{label} g_z_in equal",
+                    float((kernel == model).float().mean()))
+
+
+# Every cell, surrogate and type of the mid layer's cases (its input is a
+# 0/1 trace: no encoding), both modes, at the tensor-core body's shapes.
+MID_BWD_CASES = MID_MMA_CASES + [
+    ("alif-ff-phi", True, False, PHI), ("lif-ff-phi", False, False, PHI)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("mode", ["z", "head"])
+@pytest.mark.parametrize("name,alif,rec,spike", MID_BWD_CASES,
+                         ids=[c[0] for c in MID_BWD_CASES])
+def test_mid_bwd_mma_chain_matches_ordered_versions(
+        card, record_property, name, alif, rec, spike, mode, n_steps,
+        wdtype):
+    """``fused_mid_bwd`` with its chain on the tensor-core body
+    (``ZChain`` z-emitting, ``LifChain`` head) and ``g_z_in`` by
+    ``gzin_mma`` (the bits of ``fused_mid.gzin`` on the kept dcur), against
+    ``_mid_bwd_ordered_reference`` at B = 37: dcur, ``g_z_in`` and the
+    gradients within the chain's bars, equal bits twice."""
+    head = mode == "head"
+    store_a = fused._stores_a(alif, spike)
+    res_is_v = not head and fused._residual_is_v(alif, spike)
+    bar = _bwd_bar(wdtype, n_steps)
+    rng = np.random.default_rng(14)
+    for Hin, H, O in MID_MMA_SHAPES[mode]:
+        args = _mid_case(card, n_steps, Hin, H, O, alif, rec, wdtype)
+        z_in, w_in, w_rec, beta, w_out = args[:5]
+        _, z, res, a_tr, tstar, _ = fused_mid._mid_cuda(
+            *args, True, store_a, head, res_is_v)
+        B = z_in.shape[1]
+        cfg = (ALIFConfig if alif else LIFConfig)(input_size=Hin,
+                                                  output_size=H)
+        g_logits = g_counts = g_z = None
+        if head:
+            g_logits = torch.from_numpy(rng.standard_normal((B, O)).astype(
+                np.float32)).to(card)
+            g_counts = torch.from_numpy((0.01 * rng.standard_normal(
+                (B, H))).astype(np.float32)).to(card)
+        else:
+            g_z = torch.from_numpy(rng.standard_normal(tuple(z.shape)).astype(
+                np.float32)).to(card).to(wdtype)
+        bargs = (g_logits, g_counts, tstar, g_z, z, res, a_tr, res_is_v,
+                 z_in, w_in, w_rec, beta, w_out, n_steps, args[8], args[10],
+                 cfg.gamma, args[11], spike)
+        order = fused_mid.gradient_plan(card, B, Hin, H, O, n_steps, rec,
+                                        wdtype == torch.bfloat16)
+        assert order["mma"]
+        assert fused_mid.mid_bodies(n_steps, Hin, H, O, rec, wdtype.itemsize,
+                                    card, True)[1] == "mma"
+        keep, okeep = {}, {}
+        fused.reset_launch_counts()
+        got = fused_mid._mid_bwd_cuda(*bargs, keep=keep)
+        again = fused_mid._mid_bwd_cuda(*bargs)
+        assert _functions_launched()[fused.KERNEL_GZIN] == 2
+        # gzin_mma alone on the kept dcur: the call's g_z_in bit for bit.
+        assert torch.equal(got[0], fused_mid.gzin(keep["dcur"], w_in))
+        want = fused_mid._mid_bwd_ordered_reference(*bargs, order,
+                                                    keep=okeep)
+        model = fused._gzin_ordered_reference(keep["dcur"], w_in, wdtype,
+                                              card=True).to(wdtype)
+        torch.cuda.synchronize()
+        _held_to_ordered(record_property, f"{name} {mode} {Hin}-{H}", got,
+                         again, want, {"dcur": keep["dcur"].float()}, okeep,
+                         (got[0], model), bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("name,alif,rec,use_periods,spike", F2_CASES,
+                         ids=[c[0] for c in F2_CASES])
+def test_fused2_bwd_mma_chains_match_ordered_versions(
+        card, record_property, name, alif, rec, use_periods, spike, n_steps,
+        wdtype):
+    """``fused2_bwd`` with both chains on the tensor-core body and ``dz0 =
+    dcur1 @ W1^T`` by ``gzin_mma`` (the bits of ``fused_mid.gzin``), against
+    ``_fused2_bwd_ordered_reference`` at B = 37 with H1 = H2 = 45 and 128 (F
+    = 30 and 784), both counts' cotangents: both dcur, dz0 and the six
+    gradients within the chain's bars, equal bits twice."""
+    store_a = alif and spike == PHI
+    bar = _bwd_bar(wdtype, n_steps)
+    for F, H in ((30, 45), (784, 128)):
+        args, gamma = _f2_args(card, n_steps, alif, rec, use_periods, wdtype,
+                               B=37, F=F, H1=H, H2=H)
+        out = fused2._fused2_cuda(*args, True, store_a, True)
+        rng = np.random.default_rng(9)
+        g_logits = torch.from_numpy(rng.standard_normal(
+            out[0].shape).astype(np.float32)).to(card)
+        g_c0, g_c1 = (torch.from_numpy((0.01 * rng.standard_normal(
+            c.shape)).astype(np.float32)).to(card) for c in out[6:])
+        lat, w0, w0r, b0, w1, w1r, b1, w_out = args[:8]
+        bargs = (g_logits, g_c0, g_c1, out[5], out[1], out[2], out[3],
+                 out[4], lat, w0, w0r, b0, w1, w1r, b1, w_out, n_steps,
+                 use_periods, args[12], args[14], gamma, args[15], spike)
+        order = fused2.gradient_plan(card, 37, F, H, H, 10, n_steps, rec,
+                                     wdtype == torch.bfloat16, use_periods)
+        assert order["mma"]
+        keep, okeep = {}, {}
+        fused.reset_launch_counts()
+        got = fused2._fused2_bwd_cuda(*bargs, keep=keep)
+        again = fused2._fused2_bwd_cuda(*bargs)
+        assert _functions_launched()[fused.KERNEL_GZIN] == 2
+        assert torch.equal(keep["dz0"], fused_mid.gzin(keep["dcur1"], w1,
+                                                       torch.float32))
+        want = fused2._fused2_bwd_ordered_reference(*bargs, order,
+                                                    keep=okeep)
+        model = fused._gzin_ordered_reference(keep["dcur1"], w1, wdtype,
+                                              card=True)
+        torch.cuda.synchronize()
+        kept = {k: keep[k].float() for k in ("dcur0", "dcur1")}
+        _held_to_ordered(record_property, f"{name} {H}", got, again, want,
+                         kept, {k: okeep[k] for k in kept},
+                         (keep["dz0"], model), bar)
 
 
 @pytest.mark.cuda
@@ -1697,32 +1849,65 @@ def test_mid_and_fused2_rows_do_not_depend_on_their_batch(card, wdtype):
 def test_mid_and_fused2_per_unit_bodies_take_the_rest(card, wdtype):
     """Shapes past the tensor-core bodies' limits run the per-unit bodies,
     chosen by shape, which explain_dispatch names: the mid layer's head at
-    O = 20 (and bf16 at H = 288), the two-layer pair at O = 20 (and bf16 at
-    130 + 160 units); each against its order-free plain version at the
-    small bars."""
+    O = 20 (and bf16 at H = 288, both modes), the two-layer pair at O = 20
+    (and bf16 at 130 + 160 units, whose chains fit the tensor-core chain
+    body while its forward does not); each forward against its order-free
+    plain version at the small bars, and each backward (the per-unit
+    chains past O = 16 or H = 256) against its order-free plain version at
+    the backward's small bars."""
     import snnimageclassification_tpu_torch as pt
     from snnimageclassification_tpu_torch.models import snn as model_lib
 
     T = 24
     bf16 = wdtype == torch.bfloat16
-    for Hin, H, O in ((45, 45, 20),) + (((64, 288, 10),) if bf16 else ()):
+    bar = _bwd_bar(wdtype, T)
+    rng = np.random.default_rng(15)
+    gamma = ALIFConfig(input_size=1, output_size=1).gamma
+    mids = ((45, 45, 20),) + (((64, 288, 10), (64, 288, 0)) if bf16 else ())
+    for Hin, H, O in mids:
+        head = O > 0
         assert fused_mid.mid_bodies(T, Hin, H, O, True, wdtype.itemsize,
-                                    card)[0] == "per-unit"
+                                    card, True) == ("per-unit", "per-unit")
         args = _mid_case(card, T, Hin, H, O, True, True, wdtype)
-        got = fused_mid._mid_cuda(*args, True, False, True, False)
-        want = fused_mid._mid_reference(*args, True, False, True, False)
-        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
-        assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
-    for H1, H2, O in ((45, 45, 20),) + (((130, 160, 10),) if bf16 else ()):
+        got = fused_mid._mid_cuda(*args, True, False, head, False)
+        want = fused_mid._mid_reference(*args, True, False, head, False)
+        if head:
+            torch.testing.assert_close(got[0], want[0], atol=1e-5,
+                                       rtol=1e-5)
+            assert torch.equal(got[4], want[4])
+            assert torch.equal(got[5], want[5])
+        else:
+            assert torch.equal(got[1], want[1])
+        B = args[0].shape[1]
+        g_logits = (torch.from_numpy(rng.standard_normal((B, O)).astype(
+            np.float32)).to(card) if head else None)
+        g_z = (None if head else torch.from_numpy(rng.standard_normal(
+            tuple(got[1].shape)).astype(np.float32)).to(card).to(wdtype))
+        bargs = (g_logits, None, got[4], g_z, got[1], got[2], None, False,
+                 *args[:5], T, args[8], args[10], gamma, args[11], FAST)
+        err = _grad_err(fused_mid._mid_bwd_cuda(*bargs),
+                        fused_mid._mid_bwd_reference(*bargs))
+        assert err <= bar, f"mid {Hin}-{H}-{O} backward: {err:.3g}"
+    for H1, H2, O, chain in ((45, 45, 20, "per-unit"),) + (
+            ((130, 160, 10, "mma"),) if bf16 else ()):
         assert fused2.fused2_bodies(T, 30, H1, H2, O, True, wdtype.itemsize,
-                                    device=card)[0] == "per-unit"
-        args, _ = _f2_args(card, T, True, True, False, wdtype, B=21, H1=H1,
-                           H2=H2, O=O)
+                                    device=card, training=True,
+                                    use_periods=False) == ("per-unit", chain)
+        args, gamma = _f2_args(card, T, True, True, False, wdtype, B=21,
+                               H1=H1, H2=H2, O=O)
         got = fused2._fused2_cuda(*args, True, False, True)
         want = fused2._fused2_reference(*args, True, False, True)
         torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
         assert torch.equal(got[5], want[5])
         assert torch.equal(got[6], want[6]) and torch.equal(got[7], want[7])
+        g_logits = torch.from_numpy(rng.standard_normal(got[0].shape).astype(
+            np.float32)).to(card)
+        bargs = (g_logits, None, None, got[5], got[1], got[2], got[3],
+                 got[4], *args[:8], T, False, args[12], args[14], gamma,
+                 args[15], FAST)
+        err = _grad_err(fused2._fused2_bwd_cuda(*bargs),
+                        fused2._fused2_bwd_reference(*bargs))
+        assert err <= bar, f"fused2 {H1}-{H2}-{O} backward: {err:.3g}"
     enc = pt.EncodeConfig(n_steps=100)
     md = "float32" if wdtype == torch.float32 else "bfloat16"
     for hidden, out, mma in (([128, 128, 96], 10, True),
@@ -1740,6 +1925,11 @@ def test_mid_and_fused2_per_unit_bodies_take_the_rest(card, wdtype):
             last = entries[-1]
             assert ("(mma) in the forward" in last["reason"]) == mma, last
             assert last["path"].endswith("[per-unit]") != mma, last
+            chain = ("the tensor-core body (mma) in the backward's chain"
+                     if mma else "in the backward's chain")
+            assert (chain in last["reason"]) == training, last
+            assert ("by gzin_mma on tensor cores" in last["reason"]) \
+                == training, last
 
 
 @pytest.mark.cuda
@@ -2779,7 +2969,8 @@ def test_gbits_of_the_deep_layers(card, monkeypatch, record_property,
     fused.reset_launch_counts()
     _deep_chain(card, n_steps, True, True, False, FAST, wdtype, plain=False,
                 B=B)
-    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 5}
+    assert _functions_launched() == {fused.KERNEL_GBITS: 5,
+                                     fused.KERNEL_GZIN: 2}
     T = n_steps
     for label, k in [("layer0", l0[0])] + [(f"mid{i}", m)
                                              for i, m in enumerate(mids)]:
@@ -2821,7 +3012,8 @@ def test_gbits_of_the_two_layer_pair(card, monkeypatch, record_property,
         (B, 10)).astype(np.float32)).to(card)
     fused.reset_launch_counts()
     (fused2.fused2_rec_head(*a[:15], gamma, a[15]) * r).sum().backward()
-    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 3}
+    assert _functions_launched() == {fused.KERNEL_GBITS: 3,
+                                     fused.KERNEL_GZIN: 1}
     k, T = kept[0], n_steps
     H1, H2 = k["dcur0"].shape[2], k["dcur1"].shape[2]
     F = args[0].shape[1]
@@ -2871,7 +3063,7 @@ def test_gbits_of_the_izhikevich_kernels(card, monkeypatch, record_property,
     z1 = izh.izh_scan(3e6 + 1e7 * (z0.float() @ w1), w_rec.float(), IZH_KP,
                       IZH.gamma)
     (logits.sum() + 1e-3 * z1.sum(0).pow(2).sum()).backward()
-    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 3}
+    assert _functions_launched() == {fused.KERNEL_GBITS: 3}
     bf16 = wdtype == torch.bfloat16
     groups = fused_izh._plan_bwd(card, B, F, H, O, T, True, bf16, False)[1]
     scan_groups = izh._plan_bwd(card, B, H, T, True, False)
@@ -2908,7 +3100,7 @@ def test_gbits_of_the_stacked_head(card, record_property, use_periods, B,
     fused.reset_launch_counts()
     fused._head_bwd_cuda(*_bwd_args(a, g, None, delta, None, tstar),
                          keep=keep)
-    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 1}
+    assert _functions_launched() == {fused.KERNEL_GBITS: 1}
     order = fused.gradient_plan(card, B, 30, 20, 10, T, True,
                                 wdtype == torch.bfloat16, use_periods)
     for s in range(S):
@@ -2942,7 +3134,7 @@ def test_gbits_of_the_recurrent_scan(card, record_property, B, H, wdtype):
     fused.reset_launch_counts()
     g_i, _ = rec_scan._bwd_cuda(g_z, z, res, a_tr, False, w, 1.6, alpha, thr,
                                 gamma, FAST, keep=keep)
-    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 1}
+    assert _functions_launched() == {fused.KERNEL_GBITS: 1}
     d = g_i.reshape(T * B, H)
     left = gbits.unpack_bits(keep["zmask"].view(T * B, -1), H)
     z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]]).float()
@@ -2984,7 +3176,7 @@ def test_gbits_call_on_its_own(card, B, T, J, H, step_major, wd, d_dtype):
         words = words.view(B * nrows, -1)
     fused.reset_launch_counts()
     got = gbits.gbits(d, words, J, B, T, nrows, wd, step_major)
-    assert fused.function_launch_counts() == {fused.KERNEL_GBITS: 1}
+    assert _functions_launched() == {fused.KERNEL_GBITS: 1}
     p = gbits.plan(card, B, T, J, H, d_dtype, wd)
     row = H * d_dtype.itemsize
     assert p["ring"] == (row % 16 == 0 and row >= 128 and B >= 16)
