@@ -50,14 +50,18 @@ Phases (any failure exits non-zero before the final line):
 6. deep serve -- 784 -> 128 -> 128 -> 96 -> 10 (ALIF, recurrent,
    learn_beta, T=100) served as in 4: results bitwise equal to a direct
    forward, one ``fused_layer0_fwd`` and two ``fused_mid_fwd`` launches a
-   batch; then each of the three kernels alone on a 4096-row batch against
-   its plain version, timed, with its bound;
+   batch, ``explain_dispatch`` naming layer 0's tensor-core body; then each
+   of the three kernels alone on a 4096-row batch against its plain
+   version, timed, with its bound, ``fused_layer0_fwd`` also bit for bit
+   its plain version in the tensor-core body's order on the first 1024
+   rows (``_layer0_ordered_reference``, ``ordered_witness``);
 7. deep train -- the same network through ``Trainer`` at batch 8192 as in
    5: 3 warm-up and 20 timed TTFS steps (finite falling loss, every beta
    bitwise, every trained leaf moves, three forward and three backward
    launches a step), each of the six kernels alone on a training batch
    against its plain version (the backward ones on the forward kernel's
-   residuals), the mid backwards (their chains on the tensor-core chain
+   residuals; ``fused_layer0_fwd`` also against its ordered version on the
+   first 1024 rows, as in 6), the mid backwards (their chains on the tensor-core chain
    body) also on their first 1024 rows against their plain version in
    their order (``_mid_bwd_ordered_reference``: dcur, ``g_z_in`` and the
    gradients within 1e-4 of max|g|, 2**-7 bf16), and their ``g_z_in``
@@ -76,8 +80,10 @@ Phases (any failure exits non-zero before the final line):
    the head's tensor-core body also bit for bit its plain version in its
    order, ``fused_izh._izh_head_train_ordered_reference``: logits, ``v``,
    ``tstar``, counts, and its backward against
-   ``_izh_bwd_ordered_reference`` at the same bars; layer 0, the per-unit
-   body, within the ``v`` bars of the head), then 784-128-10 and
+   ``_izh_bwd_ordered_reference`` at the same bars; layer 0, the head's
+   body without the readout, bit for bit the head's ``v`` and its own
+   plain version in that order, ``_izh_layer0_ordered_reference``, on
+   every row), then 784-128-10 and
    784-128-128-10 at B = 8192, T = 100 (the share of rows with equal spikes,
    the head's row bars, gradients 1e-4 / 2**-7).  There dt a b = -6e-5,
    and the chain's u carry moves a gradient by less than those bars, so
@@ -101,7 +107,9 @@ Phases (any failure exits non-zero before the final line):
    ``izh_train_run``) and
    periodic (5 steps, times); then 784-128-128-10 (layer 0 + one scan call
    + the readout loop) the same way: one ``fused_izh_layer0_fwd/bwd`` and
-   one ``izh_scan_fwd/bwd`` launch a step.  Each backward kernel against
+   one ``izh_scan_fwd/bwd`` launch a step, ``explain_dispatch`` naming
+   layer 0's tensor-core body, ``fused_izh_layer0_fwd`` bit for bit its
+   ordered plain version on the first 1024 rows at dt = 30.  Each backward kernel against
    its plain version on the forward kernel's residuals with the trained
    weights (1e-4 of max|g| / 2**-7); each kernel alone on its phase's
    batch, timed, with its bound and its error on those inputs.
@@ -109,20 +117,25 @@ Phases (any failure exits non-zero before the final line):
 11. two-layer kernels -- ``fused2_fwd[_train]`` and ``fused2_bwd`` against
    their plain versions on phase 3b's grid (spikes, ``tstar`` and counts
    equal, logits 1e-5, gradients on the same residuals 2e-6 of max|g|, 5e-6
-   at T = 100, 2**-7 bf16, equal bits on a repeated call) and against the
-   composed kernels (``fused_layer0_fwd`` + ``fused_mid_fwd[head]``): logits,
-   ``tstar``, both counts and both residuals bit for bit, small and at
-   784-128-128-10, B = 8192 (there the gradients within 1e-4 of max|g| of
-   ``fused_mid_bwd`` + ``fused_layer0_bwd``, 2**-6 bf16);
+   at T = 100, 2**-7 bf16, equal bits on a repeated call), bit for bit its
+   plain version in its tensor-core body's order
+   (``_fused2_fwd_ordered_reference``; the first 1024 rows at full width)
+   and against the composed kernels (``fused_layer0_fwd`` +
+   ``fused_mid_fwd[head]``, whose layer 0 is the pair's code on the
+   tensor-core bodies, ``composed_gate``): logits, ``tstar``, both counts
+   and both layers' residuals bit for bit, small and at 784-128-128-10, B =
+   8192 (there the gradients within 1e-4 of max|g| of ``fused_mid_bwd`` +
+   ``fused_layer0_bwd``, 2**-6 bf16);
 12. two-layer serve -- 784-ALIF128-ALIF128-10 (``bench.py``'s twolayer leg)
    served as in 4: one ``fused2_fwd`` launch a batch and no layer-0 or mid
    kernel, results bitwise a direct forward; on a 4096-row batch the pair
-   equals the composed kernels bitwise, both timed;
+   equals the composed kernels bit for bit (``composed_gate``), both timed;
 13. two-layer train -- that network through ``Trainer`` at batch 8192, lr
    3e-5: 3 warm-up and 20 timed TTFS steps (finite falling loss, both betas bitwise,
    every trained leaf moves, one ``fused2_fwd_train`` and one ``fused2_bwd``
    launch a step), each kernel against its plain version on the trained
-   weights (the backward on the forward's residuals), timed beside the
+   weights (the backward on the forward's residuals), the forward bit for
+   bit the composed kernels' (as in 12), timed beside the
    composed kernels and a forward + backward through the composed public
    functions on the same batch; the backward (both chains on the
    tensor-core chain body) on its first 1024 rows against its plain version
@@ -924,8 +937,8 @@ def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
     sc0 = (T, per, alif, alpha, rho, thr)
     worst_rows, worst_grad = 1.0, 0.0
     gbar = 2.0 ** -7 if not f32 else (1e-4 if flagship else bar_small)
-    # The mid kernels' rows held against their plain version in the
-    # tensor-core body's order: every row small, 1024 at full width.
+    # Layer 0's and the mid kernels' rows held against their plain version
+    # in the tensor-core body's order: every row small, 1024 at full width.
     ordered_rows, witness_rows = 1.0, min(B, ORDERED_ROWS)
 
     # Layer 0.
@@ -943,6 +956,11 @@ def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
         lat, w0, wr0, beta, w_out0, b0, *sc0, kappa, True, False, False)[1]
     if not torch.equal(z, (delta_head.float() >= 0).to(wdtype)):
         fail(f"{label}: layer-0 spikes differ from the head kernel's")
+    ordered_rows = min(ordered_rows, ordered_witness(
+        f"{label} layer 0", (z, res, a_tr), lambda r: (
+            fused._layer0_ordered_reference(
+                lat[:r].contiguous(), w0, wr0, beta, *sc0, True, store_a,
+                res_is_v)), witness_rows, ((0, "z"),)))
     share = rows_equal(z, zp)
     worst_rows = min(worst_rows, share)
     if not flagship:
@@ -1059,8 +1077,9 @@ def phase_deep_kernels() -> None:
     times the terms: 5e-6) or 2**-7 (bfloat16).  Full width
     (784-128-128-96-10, B = 8192, T = 100): per layer the share of rows with
     equal spikes is printed, the mid head holds the head kernel's row bars,
-    gradients 1e-4 / 2**-7.  The mid kernels' tensor-core body against its
-    plain version in its order (``_mid_fwd_ordered_reference``): bit for
+    gradients 1e-4 / 2**-7.  Layer 0's and the mid kernels' tensor-core
+    body against its plain version in its order
+    (``_layer0_ordered_reference``, ``_mid_fwd_ordered_reference``): bit for
     bit on every row small, on the first 1024 rows at full width (or the
     row-share form, ``ordered_witness``)."""
     rng = np.random.default_rng(4)
@@ -1073,11 +1092,12 @@ def phase_deep_kernels() -> None:
                     label, rng, 37, 30, (20, 24, 18), 10, T, alif, rec,
                     spike, per, wdtype, False, 2e-6 if T < 100 else 5e-6)
                 if orows < 1.0:
-                    fail(f"{label}: the mid kernels differ from their plain "
-                         "version in their order")
+                    fail(f"{label}: layer 0 or the mid kernels differ from "
+                         "their plain version in their order")
                 log(f"[deep-kernels] {label}: spikes equal, logits err="
-                    f"{err:.3g}, grad_err={gerr:.3g}; the mid kernels "
-                    "bitwise their plain version in the body's order ok")
+                    f"{err:.3g}, grad_err={gerr:.3g}; layer 0 and the mid "
+                    "kernels bitwise their plain version in the body's "
+                    "order ok")
         for per in (False, True):
             label = (f"deep full alif-rec-fs {wname} "
                      f"{'periodic' if per else 'ttfs'}")
@@ -1088,8 +1108,8 @@ def phase_deep_kernels() -> None:
                 f"with equal spikes={rows:.5f}; mid head argmax_agree="
                 f"{agree:.5f} rows_within_1e-4max={close:.5f} max_abs_err="
                 f"{err:.3g}; grad_err={gerr:.3g} of max|g|, reproducible; "
-                f"the mid kernels bitwise their plain version in the body's "
-                f"order on {orows:.5f} of {ORDERED_ROWS} rows")
+                f"layer 0 and the mid kernels bitwise their plain version in "
+                f"the body's order on {orows:.5f} of {ORDERED_ROWS} rows")
             if rows < 0.995:
                 fail(f"{label}: spikes equal on {rows:.5f} of rows only")
             torch.cuda.empty_cache()
@@ -1580,6 +1600,12 @@ def deep_paths(training: bool):
             both(fused.KERNEL_MID, fused.KERNEL_MID_BWD) + "[head]"]
 
 
+def layer0_on_mma(row) -> bool:
+    """Whether ``explain_dispatch``'s row of a first layer names the
+    tensor-core body of its forward."""
+    return "the tensor-core body (mma) in the forward" in row["reason"]
+
+
 def bound_parts(nbytes, ops, md):
     """(ms to move ``nbytes`` at the memory rate, ms for ``ops`` at the peak
     rate of ``md``'s type); the bound is the larger."""
@@ -1628,6 +1654,20 @@ def mid_ops_ms(B, T, n_in, H, O, rec, md):
             != "mma":
         return None
     return tc_ops_ms(2 * B * T * H * (n_in + (H if rec else 0) + O), md)
+
+
+def layer0_ops_ms(lat, T, H, rec, use_periods, md, izh=False):
+    """:func:`tc_ops_ms` of a first layer on its tensor-core body (``z @
+    W_rec``, 2 B T H H, and the dense input product of the (row, step) pairs
+    that take it, 2 F H each), or None where the per-unit body runs the
+    shape."""
+    B, F = lat.shape
+    bodies = (fused_izh if izh else fused).layer0_bodies(
+        T, F, H, rec, md.itemsize, "cuda")
+    if bodies[0] != "mma":
+        return None
+    return tc_ops_ms(2 * B * T * H * H * int(rec)
+                     + 2 * dense_row_steps(lat, T, use_periods) * F * H, md)
 
 
 def dense_row_steps(lat, T, use_periods):
@@ -1789,6 +1829,15 @@ def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
             z, res = out[0], out[1]
             share = rows_equal(z, ref[0])
             err = float((z.float() - ref[0].float()).abs().max())
+            orows = ordered_witness(
+                f"{label} {name}", out, lambda r, tr=train: (
+                    fused._layer0_ordered_reference(
+                        lat[:r].contiguous(), w_in, w_rec, beta, T,
+                        use_periods, True, *sc, tr, False, False)),
+                min(B, ORDERED_ROWS), ((0, "z"),))
+            log(f"[{label}] {name}: {kname} bitwise its plain version in "
+                f"the tensor-core body's order on {orows:.5f} of "
+                f"{min(B, ORDERED_ROWS)} rows")
         elif not head:
             z, res = out[1], out[2]
             share = rows_equal(z, ref[1])
@@ -1827,7 +1876,7 @@ def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
         rows.append(kernel_row(
             label, full, site, n_launch, err, ms, plain_ms, nbytes, ops, md,
             ops_ms=mid_ops_ms(B, T, n_in, H, O if head else 0, True, md)
-            if idx else None))
+            if idx else layer0_ops_ms(lat, T, H, True, use_periods, md)))
         if train:
             if head:
                 tstar = out[4]
@@ -1933,10 +1982,10 @@ def phase_deep_serve(matmul_dtype: str) -> list:
     params = model_lib.init(cfg, torch.Generator().manual_seed(0),
                             device="cuda")
     enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
-    paths = [r["path"] for r in
-             model_lib.explain_dispatch(cfg, enc, device="cuda")]
-    if paths != deep_paths(False):
-        fail(f"{label}: dispatch is {paths}")
+    rows = model_lib.explain_dispatch(cfg, enc, device="cuda")
+    paths = [r["path"] for r in rows]
+    if paths != deep_paths(False) or not layer0_on_mma(rows[0]):
+        fail(f"{label}: dispatch is {rows}")
     reqs, launches = serve_requests(
         label, cfg, params, enc, {fused.KERNEL_L0: 1, fused.KERNEL_MID: 2})
     batch = np.concatenate(reqs[:4096 // ROWS])
@@ -1955,10 +2004,10 @@ def phase_deep_train(matmul_dtype: str) -> list:
     label = f"deep-train {tag}"
     cfg = deep_cfg(matmul_dtype)
     enc = pt.EncodeConfig(n_steps=cfg.int_time_steps)
-    paths = [r["path"] for r in model_lib.explain_dispatch(
-        cfg, enc, device="cuda", training=True)]
-    if paths != deep_paths(True):
-        fail(f"{label}: dispatch is {paths}")
+    rows = model_lib.explain_dispatch(cfg, enc, device="cuda", training=True)
+    paths = [r["path"] for r in rows]
+    if paths != deep_paths(True) or not layer0_on_mma(rows[0]):
+        fail(f"{label}: dispatch is {rows}")
     trainer = Trainer(cfg, seed=0, lr=1e-3, weight_decay=1e-5,
                       encode_config=enc, device="cuda")
     before = {n: {k: v.detach().clone() for k, v in g.items()}
@@ -2157,20 +2206,30 @@ def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
                 lambda: fused_izh._bwd_cuda(*hb),
                 lambda: izh_bwd_ordered(hb), bar))
 
-    # Layer 0: the per-unit body without the readout.  Where the head runs
-    # that body too, its v and z are the head's bits; where the head runs
-    # the tensor-core body (another summation order), its v is within
-    # v_close of the head's.
+    # Layer 0: the head's body without the readout (the same body at these
+    # shapes), so its v and z are the head's bits; on the tensor-core body
+    # also its plain version's in that order (every row small, the first
+    # ORDERED_ROWS at full width: ordered_witness).
     z0, v0 = fused_izh._layer0_cuda(lat, w_in, w_rec, T, per, IZH_KP, True)
     z0_inf = fused_izh._layer0_cuda(lat, w_in, w_rec, T, per, IZH_KP,
                                     False)[0]
     if not (torch.equal(z0, z0_inf)
             and torch.equal(z0, (v0 >= IZH.v_peak).float())):
         fail(f"{label}: layer 0's inference and training spikes differ")
-    if not mma and not torch.equal(v0, v):
-        fail(f"{label}: layer 0 differs from the head's per-unit scan")
-    if mma and not full:
-        v_close(f"{label} layer 0 against the head", v0, v)
+    l0_body = fused_izh.layer0_bodies(T, F, H0, rec, wdtype.itemsize,
+                                      "cuda")[0]
+    if l0_body != izh_bodies(head)[0] or not torch.equal(v0, v):
+        fail(f"{label}: layer 0 ({l0_body} body) differs from the head's "
+             "scan")
+    if l0_body == "mma":
+        shares["layer 0 ordered"] = ordered_witness(
+            f"{label} layer 0", (z0, v0), lambda r: (
+                fused_izh._izh_layer0_ordered_reference(
+                    lat[:r].contiguous(), w_in, w_rec, T, per, IZH_KP,
+                    True)), min(B, ORDERED_ROWS), ((0, "z"),))
+        if not full and shares["layer 0 ordered"] < 1.0:
+            fail(f"{label}: layer 0 differs from its plain version in the "
+                 "tensor-core body's order")
     del hb, v
     z0p, v0p = fused_izh._layer0_reference(lat, w_in, w_rec, T, per, IZH_KP,
                                            True)
@@ -2614,10 +2673,9 @@ def phase_izh_train(matmul_dtype: str) -> list:
     want = [f"cuda:{fused.KERNEL_IZH_L0}+{fused.KERNEL_IZH_L0_BWD}",
             f"cuda:{fused.KERNEL_IZH_SCAN}+{fused.KERNEL_IZH_SCAN_BWD}",
             "torch:loop"]
-    paths = [r["path"] for r in model_lib.explain_dispatch(
-        cfg, enc, training=True)]
-    if paths != want:
-        fail(f"{label}: dispatch is {paths}")
+    rows_d = model_lib.explain_dispatch(cfg, enc, training=True)
+    if [r["path"] for r in rows_d] != want or not layer0_on_mma(rows_d[0]):
+        fail(f"{label}: dispatch is {rows_d}")
     a_step = {fused.KERNEL_IZH_L0: 1, fused.KERNEL_IZH_L0_BWD: 1,
               fused.KERNEL_IZH_SCAN: 1, fused.KERNEL_IZH_SCAN_BWD: 1}
     trainer, launches = izh_train_run(label, cfg, enc, a_step,
@@ -2628,6 +2686,13 @@ def phase_izh_train(matmul_dtype: str) -> list:
     l0 = (lat, w_in, w_rec, T, False, kp, True)
     z0, v0 = fused_izh._layer0_cuda(*l0)
     z0p = fused_izh._layer0_reference(*l0)[0]
+    l0_rows = ordered_witness(
+        f"{label} layer 0", (z0, v0), lambda r: (
+            fused_izh._izh_layer0_ordered_reference(
+                lat[:r].contiguous(), *l0[1:])), ORDERED_ROWS, ((0, "z"),))
+    log(f"[{label}] {fused.KERNEL_IZH_L0} bitwise its plain version in the "
+        f"tensor-core body's order at dt=30 on {l0_rows:.5f} of "
+        f"{ORDERED_ROWS} rows")
     cur = (z0 @ w1.float()).contiguous()
     z1, v1 = izh._scan_cuda(cur, w_rec1, kp, True)
     z1p = izh._scan_reference(cur, w_rec1, kp, True)[0]
@@ -2676,8 +2741,10 @@ def phase_izh_train(matmul_dtype: str) -> list:
     for kernel, fn, plain_fn, nbytes, ops in timing:
         ms = cuda_ms(fn, 10)
         plain_ms = cuda_ms(plain_fn, 3, 1)
-        rows.append(izh_row(label, tag, kernel, launches[kernel],
-                            errs[kernel], ms, plain_ms, nbytes, ops, md))
+        rows.append(izh_row(
+            label, tag, kernel, launches[kernel], errs[kernel], ms, plain_ms,
+            nbytes, ops, md, layer0_ops_ms(lat, T, H, True, False, md, True)
+            if kernel == fused.KERNEL_IZH_L0 else None))
     del timing, lb, sb, z0, v0, z1, v1, cur, g_z, trainer
     izh_periodic_times(label, cfg, batches)
     torch.cuda.empty_cache()
@@ -2764,8 +2831,8 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
     against its plain version (small: logits 1e-5, tstar, counts and spikes
     equal, residuals 1e-5 / 2**-7; full width: the head's row bars),
     against its plain version in the tensor-core body's order (bit for bit;
-    full width the first 1024 rows, ``ordered_witness``) and against the
-    composed kernels (``composed_gate``), twice for equal bits; the
+    full width the first 1024 rows, ``ordered_witness``) and bit for bit
+    the composed kernels (``composed_gate``), twice for equal bits; the
     backward against its
     plain version on the same residuals and twice for equal bits, and at
     full width against ``fused_mid_bwd`` + ``fused_layer0_bwd`` (1e-4 of
@@ -2820,7 +2887,9 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
         fail(f"{label}: differs from its plain version in its order")
     z0, r0, ra0, m = composed_forward(args, True, store_a)
     torch.cuda.synchronize()
-    composed_gate(label, logits, c0, c1, z0, m)
+    if not composed_gate(label, args, out, z0, r0, ra0, m)[3]:
+        fail(f"{label}: the pair or a composed kernel is off its tensor-core "
+             "body")
     g_logits = rand_w(rng, (B, O), 1.0 / B)
     g_c0 = rand_w(rng, (B, H1), 1e-3 / B)
     g_c1 = rand_w(rng, (B, H2), 1e-3 / B)
@@ -2841,21 +2910,55 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
     return agree, close, err, gerr, cerr, fire, orows
 
 
-def composed_gate(label, logits, c0, c1, z0, m):
-    """The pair against the composed kernels (``fused_layer0_fwd`` +
-    ``fused_mid_fwd[head]``, whose outputs are ``z0`` and ``m``) at the
+def composed_bitwise(args) -> bool:
+    """Whether the pair and the composed kernels run the pair's arguments
+    on their tensor-core bodies: then the pair's layer 0 and
+    ``fused_layer0_fwd`` are one code (``head_mma_fwd.cuh:mma_layer``) and
+    the pair's layer 1 sums as the mid head."""
+    lat, w0, w0r = args[:3]
+    T, per = args[9], args[10]
+    F, H1, H2, O = lat.shape[1], w0.shape[1], args[4].shape[1], \
+        args[7].shape[1]
+    rec, it = w0r is not None, w0.dtype.itemsize
+    return (fused2.fused2_bodies(T, F, H1, H2, O, rec, it,
+                                 device="cuda")[0] == "mma"
+            and fused.layer0_bodies(T, F, H1, rec, it, "cuda")[0] == "mma"
+            and fused_mid.mid_bodies(T, H1, H2, O, rec, it,
+                                     "cuda")[0] == "mma")
+
+
+def composed_gate(label, args, out, z0, r0, ra0, m):
+    """The pair's forward ``out`` (``fused2._fused2_cuda``'s tuple, with
+    counts) on ``args`` against the composed kernels: ``fused_layer0_fwd``'s
+    ``z0``, its residual ``r0`` (delta, as the pair stores) and ``ra0``,
+    then ``fused_mid_fwd[head]``'s outputs ``m``.  Where all of them run
+    their tensor-core bodies (``composed_bitwise``) bit for bit: logits,
+    ``tstar``, both layers' counts and residuals, each where both runs
+    write it.  Elsewhere (the per-unit bodies sum in other orders) at the
     full-width bars: argmax equal on 99.5 % of rows, logits within 1e-4 of
     max|logit| on 99 %, both layers' spikes (counts) equal on 99.5 %.
-    (Bit for bit while the three kernels summed in one order; the pair's
-    layer 0 now sums in the head body's order, ``fused_layer0_fwd`` in the
-    per-unit order.)  Returns the three shares."""
+    Returns the three shares and whether the gate was bitwise."""
+    logits, d0, a0, d1, a1, tstar, c0, c1 = out
+    bitwise = composed_bitwise(args)
+    if bitwise:
+        for name, g, w in (("logits", logits, m[0]), ("tstar", tstar, m[4]),
+                           ("layer-0 counts", c0, z0.float().sum(0)),
+                           ("layer-1 counts", c1, m[5]),
+                           ("layer-0 residual", d0, r0),
+                           ("layer-0 a", a0, ra0),
+                           ("layer-1 residual", d1, m[2]),
+                           ("layer-1 a", a1, m[3])):
+            if g is not None and w is not None and not torch.equal(g, w):
+                fail(f"{label}: the pair's {name} differs from the composed "
+                     "kernels' (their tensor-core bodies: bit for bit)")
+        return 1.0, 1.0, 1.0, True
     agree, close, _, _ = compare_flagship(logits, m[0])
     spikes = float(((c0 == z0.float().sum(0)).all(1)
                     & (c1 == m[5]).all(1)).float().mean())
     if agree < 0.995 or close < 0.99 or spikes < 0.995:
         fail(f"{label}: the pair against the composed kernels below the bars "
              f"(argmax {agree:.5f}, logits {close:.5f}, spikes {spikes:.5f})")
-    return agree, close, spikes
+    return agree, close, spikes, False
 
 
 def phase_fused2_kernels() -> None:
@@ -2865,11 +2968,11 @@ def phase_fused2_kernels() -> None:
     B = 37, 30-20-24-10: forward 1e-5, backward 2e-6 of max|g| (5e-6 at T =
     100), 2**-7 bf16), the forward bit for bit its plain version in the
     tensor-core body's order (``_fused2_fwd_ordered_reference``), and
-    against the composed kernels at the full-width bars
-    (``composed_gate``); then 784-128-128-10 at B = 8192, T = 100, ALIF
-    recurrent, TTFS and periodic, f32 and bf16: the ordered version on the
-    first 1024 rows (``ordered_witness``), the composed kernels at the
-    same bars, their gradients within 1e-4 (2**-6 bf16) of max|g|."""
+    bit for bit the composed kernels (``composed_gate``); then
+    784-128-128-10 at B = 8192, T = 100, ALIF recurrent, TTFS and periodic,
+    f32 and bf16: the ordered version on the first 1024 rows
+    (``ordered_witness``), the composed kernels bit for bit, their
+    gradients within 1e-4 (2**-6 bf16) of max|g|."""
     rng = np.random.default_rng(12)
     for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         worst, worst_g = 0.0, 0.0
@@ -2883,8 +2986,8 @@ def phase_fused2_kernels() -> None:
                 worst, worst_g = max(worst, err), max(worst_g, gerr)
         log(f"[fused2-kernels] 24 small cases {wname}: bitwise the plain "
             f"version in the body's order; logits err <= {worst:.3g}, tstar, "
-            f"counts and spikes equal the plain version's; the composed "
-            f"kernels within the full-width bars; grad_err <= {worst_g:.3g} "
+            f"counts and spikes equal the plain version's; bit for bit the "
+            f"composed kernels; grad_err <= {worst_g:.3g} "
             f"of max|g|, reproducible")
         for per in (False, True):
             label = (f"fused2 full alif-rec-fs {wname} "
@@ -2895,7 +2998,7 @@ def phase_fused2_kernels() -> None:
             log(f"[fused2-kernels] {label} B={TRAIN_B}: firing shares "
                 f"{fire[0]:.4f} / {fire[1]:.4f}; bitwise the plain version "
                 f"in the body's order on {orows:.5f} of {ORDERED_ROWS} rows; "
-                f"the composed kernels within the full-width bars; vs plain "
+                f"bit for bit the composed kernels; vs plain "
                 f"argmax_agree={agree:.5f} rows_within_1e-4max={close:.5f} "
                 f"max_abs_err={err:.3g}; grad_err vs plain={gerr:.3g}, vs "
                 f"composed kernels={cerr:.3g} of max|g|, reproducible")
@@ -2957,8 +3060,8 @@ def phase_twolayer_serve(matmul_dtype: str) -> dict:
     """Phase 12: 784-ALIF128-ALIF128-10 served as in phase 4; one
     ``fused2_fwd`` launch a batch and no layer-0 or mid kernel; the kernel
     alone on a 4096-row batch against its plain version, against its plain
-    version in its order (the first 1024 rows) and against the composed
-    kernels (the full-width bars), each timed."""
+    version in its order (the first 1024 rows) and bit for bit the
+    composed kernels (``composed_gate``), each timed."""
     tag = "f32" if matmul_dtype == "float32" else "bf16"
     label = f"twolayer-serve {tag}"
     md = getattr(torch, matmul_dtype)
@@ -2978,7 +3081,7 @@ def phase_twolayer_serve(matmul_dtype: str) -> dict:
     out = fused2._fused2_cuda(*args, False, False, True)
     got = fused2._fused2_cuda(*args, False, False, False)[0]
     ref = fused2._fused2_reference(*args, False, False, False)[0]
-    z0, _, _, m = composed_forward(args, True, False)
+    z0, r0, ra0, m = composed_forward(args, True, False)
     torch.cuda.synchronize()
     if not torch.equal(out[0], got):
         fail(f"{label}: the counts variant's logits differ")
@@ -2986,8 +3089,9 @@ def phase_twolayer_serve(matmul_dtype: str) -> dict:
         fused2._fused2_fwd_ordered_reference(
             lat[:r].contiguous(), *args[1:], False, False, True)),
         ORDERED_ROWS, ((6, "counts"), (7, "counts")))
-    c_agree, c_close, c_spikes = composed_gate(label, got, out[6], out[7],
-                                               z0, m)
+    c_agree, c_close, c_spikes, c_bits = composed_gate(label, args, out, z0,
+                                                       r0, ra0, m)
+    del z0, r0, ra0, m
     agree, close, err, _ = compare_flagship(got, ref)
     if agree < 0.995 or close < 0.99:
         fail(f"{label}: kernel disagrees with its plain version")
@@ -3004,6 +3108,7 @@ def phase_twolayer_serve(matmul_dtype: str) -> dict:
     B = lat.shape[0]
     log(f"[{label}] the pair bitwise its plain version in its order on "
         f"{orows:.5f} of {ORDERED_ROWS} rows; against the composed kernels "
+        f"{'bit for bit (logits, counts)' if c_bits else ''} "
         f"argmax_agree={c_agree:.5f} rows_within_1e-4max={c_close:.5f} "
         f"spikes_equal={c_spikes:.5f}; vs plain argmax_agree={agree:.4f} "
         f"rows_within_1e-4max="
@@ -3111,7 +3216,7 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
     # Each kernel alone on the trained weights and batch 0.
     lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
     args, (gamma, spike) = twolayer_args(cfg, trainer.params, lat)
-    out = fused2._fused2_cuda(*args, True, False, False)
+    out = fused2._fused2_cuda(*args, True, False, True)
     ref = fused2._fused2_reference(*args, True, False, False)
     torch.cuda.synchronize()
     agree, close, k1_err, _ = compare_flagship(out[0], ref[0])
@@ -3163,6 +3268,11 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
         *args, True, False, False), 3, 1)
     k2_plain = cuda_ms(lambda: fused2._fused2_bwd_reference(*bargs), 3, 1)
     z0, r0, ra0, m = composed_forward(args, True, False)
+    c_bits = composed_gate(label, args, out, z0, r0, ra0, m)[3]
+    log(f"[{label}] the pair's forward against the composed kernels on the "
+        f"trained weights: "
+        f"{'bit for bit' if c_bits else 'within the full-width bars'} "
+        "(logits, tstar, both counts and residuals)")
     zeros0 = torch.zeros((TRAIN_B, TWO_WIDTHS[0]), device="cuda")
     c_fwd = cuda_ms(lambda: composed_forward(args, True, False), 10)
     c_bwd = cuda_ms(lambda: composed_backward(

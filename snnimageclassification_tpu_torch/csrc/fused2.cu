@@ -279,12 +279,13 @@ cudaError_t dispatch2(const Args2& a, int rec, int alif, int rows, int HP,
 //
 // A tile of 16 rows has NW0 = HP0 / 32 warps of layer 0 and NW1 = HP1 / 32
 // of layer 1, each warp 16 rows x 32 units in head_mma.cuh's accumulator
-// layout.  Layer 0 is the head body's layer (head_mma_fwd.cuh): the rows'
-// sorted feature lists (head_sort_kernel, a launch before), the
-// every-step run summed once, a dense product for a row firing at least
-// F / 16 features at a TTFS step (ListInput), its recurrent product on
-// W0r's B fragments; z0(t) goes to the tile's z0 exchange buffer, never to
-// device memory.  Layer 1 is the mid body's: z0(s) @ W1 on tensor cores
+// layout.  Layer 0 is the first layer of the head body
+// (head_mma_fwd.cuh:mma_layer, the code fused_layer0_fwd runs, so the
+// composed pair's layer 0 has its bits): the rows' sorted feature lists
+// (head_sort_kernel, a launch before), the every-step run summed once, a
+// dense product for a row firing at least F / 16 features at a TTFS step
+// (ListInput), its recurrent product on W0r's B fragments; z0(t) goes to
+// the tile's z0 exchange buffer, never to device memory.  Layer 1 is the mid body's: z0(s) @ W1 on tensor cores
 // with z0(s) as the A operand from that buffer, its recurrent product and
 // the readout on z1(s - 1) from the z1 buffer.  The TPU kernel's software
 // pipeline (pallas_fused2.py:9-17): layer 1 runs one step behind layer 0
@@ -342,78 +343,22 @@ inline bool mma2_fits(int F, int H1, int H2, int O, int rec, int bf16,
   return false;
 }
 
-// Layer 0's warps: steps 0 .. T-1 at iterations 0 .. T-1, then the
-// barriers of the last two iterations.
+// Layer 0's warps: steps 0 .. T-1 at iterations 0 .. T-1 (the first layer
+// of head_mma_fwd.cuh:mma_layer, the code of fused_layer0_fwd's tensor-core
+// body, with z0 left in the tile's exchange buffer and delta its
+// residual), then the barriers of the last two iterations.
 template <bool REC, bool ALIF, bool TRAIN, typename W>
 __device__ void fused2_layer0(const Args2& a, const uint16_t* lists,
                               const uint2* s_w0r, uint16_t* s_z0, int row0,
-                              int wu, int lane, int tsync, int tn) {
-  constexpr int P = pieces<W>();
-  const int H = a.H1, T = a.T, B = a.B, F = a.F, g = lane >> 2;
-  const int HP = mma_hp(H), KT = HP / 16, ZS = mma_zs(HP);
-  const W* w0 = static_cast<const W*>(a.w0);
-  const int col0 = MMA_NU * wu + 2 * (lane & 3);
-  const bool live[2] = {row0 + g < B, row0 + g + 8 < B};
-  ListInput<P, W> in;
-  in.start(lists, live, row0, g, F, T, a.periodic, w0, H, col0);
-  const LifMmaCell<ALIF> cell(a.p0);
-  typename LifMmaCell<ALIF>::State st[MMA_NT][4];
-#pragma unroll
-  for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st[n][e] = cell.start(a.p0);
-  uint32_t cnt[MMA_NT][2] = {};
-  uint32_t zb = 0;
-  for (int t = 0; t < T; ++t) {
-    float rec[MMA_NT][4] = {};
-    if (REC && t > 0) {
-      const uint16_t* zp = s_z0 + ((t - 1) & 1) * 16 * ZS;
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t A[4];
-        load_a(A, zp, ZS, kk, lane);
-#pragma unroll
-        for (int n = 0; n < MMA_NT; ++n)
-          mma_exact_a<P>(rec[n], A, s_w0r, kk * (HP / 8) + MMA_NT * wu + n,
-                         lane);
-      }
-    }
-    float cur[MMA_NT][4];
-    in.current(cur, t, a.lat, F, row0, a.periodic, w0, H, lane, wu, col0);
-    if (REC && t > 0) {
-#pragma unroll
-      for (int n = 0; n < MMA_NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) cur[n][e] = cur[n][e] + rec[n][e];
-    }
-    uint32_t zn = 0;
-    float zf[MMA_NT][4];
-#pragma unroll
-    for (int n = 0; n < MMA_NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + 8 * n + (e & 1);
-        const bool ok = live[e >> 1] && col < H;
-        const float zp = (zb >> (4 * n + e)) & 1u ? 1.f : 0.f;
-        const bool z = ok && cell.step(a.p0, st[n][e], cur[n][e], zp);
-        zn |= (uint32_t)z << (4 * n + e);
-        zf[n][e] = z ? 1.f : 0.f;
-        if (TRAIN) cnt[n][e >> 1] += (uint32_t)z << (16 * (e & 1));
-        if (TRAIN && (e & 1)) {
-          const int c = col0 + 8 * n;
-          if (live[e >> 1] && c < H)
-            cell.template store<W>(
-                a.p0, st[n][e - 1], st[n][e],
-                ((size_t)t * B + row0 + g + 8 * (e >> 1)) * H + c, c + 1 < H);
-        }
-      }
-    }
-    zb = zn;
-    put_slice(s_z0 + (t & 1) * 16 * ZS, ZS, wu, lane, zf);
-    tile_sync(tsync, tn);
-  }
+                              int wu, int NW0, int lane, int tsync, int tn) {
+  const FwdArgs<LifParams> l0{a.lat, a.w0, a.w0r, nullptr, nullptr, nullptr,
+                              nullptr, a.cnt0, a.B, a.F, a.H1, 0, a.T,
+                              a.periodic, 0.f, a.p0};
+  mma_layer<LifMmaCell<ALIF>, REC, TRAIN, false, W, false>(
+      l0, lists, s_w0r, nullptr, nullptr, s_z0, row0, wu, NW0, lane, tsync,
+      tn);
   tile_sync(tsync, tn);
   tile_sync(tsync, tn);
-  if (TRAIN && a.cnt0) write_counts(cnt, a.cnt0, row0, B, H, col0, lane);
 }
 
 // Layer 1's warps: iteration 0 waits, iteration t = 1 .. T steps s = t - 1
@@ -550,8 +495,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
                    (size_t)tile * 2 * 16 * mma_zs(HP1);
   const int tsync = 1 + tile, tn = NWT * 32;
   if (wt < NW0)
-    fused2_layer0<REC, ALIF, TRAIN, W>(a, lists, s_w0r, s_z0, row0, wt, lane,
-                                       tsync, tn);
+    fused2_layer0<REC, ALIF, TRAIN, W>(a, lists, s_w0r, s_z0, row0, wt, NW0,
+                                       lane, tsync, tn);
   else
     fused2_layer1<REC, ALIF, TRAIN, W>(a, g_w1 ? g_w1 : s_w1, s_w1r, s_wout,
                                        s_b, s_z0, s_z1, row0, wt - NW0, NW1,

@@ -36,13 +36,18 @@
 // and readout sums as walks over spike bits on CUDA cores) takes the other
 // shapes the plan accepts: O > 16, H > 256, float32 W_rec past H ~ 160.
 //
-// A third kernel, fused_layer0_fwd (head_fwd.cuh with HEAD = false): the
-// first layer of a deeper network, the per-unit body with the readout
-// compiled out.  It writes the spike trace z (T, B, H) in the weights' type
-// and, for training, the residual of the TPU kernel's head=False mode: delta
-// for ALIF with the FastSigmoid surrogate, the membrane v otherwise (and a
-// for ALIF with Phi).  It replaces that mode of the same TPU kernel
-// (fused_encode_{rec,ff}_scan).
+// A third kernel, fused_layer0_fwd (HEAD = false): the first layer of a
+// deeper network, the head's body with the readout compiled out.  It
+// writes the spike trace z (T, B, H) in the weights' type and, for
+// training, the residual of the TPU kernel's head=False mode: delta for
+// ALIF with the FastSigmoid surrogate, the membrane v otherwise (and a for
+// ALIF with Phi).  It replaces that mode of the same TPU kernel
+// (fused_encode_{rec,ff}_scan).  Its shapes take the mma body as the
+// head's do (O = 0: no W_out pieces in shared memory; each tile's z(t)
+// leaves from its exchange buffer in 16-byte stores, off the serial step),
+// so its spikes are those of fused2.cu's layer 0, the same code; the
+// per-unit body (head_fwd.cuh) takes H > 256 and float32 W_rec past H ~
+// 160.
 
 #include "head_mma_fwd.cuh"
 #include "lif_cell.cuh"
@@ -58,29 +63,31 @@ int run_lif(const FwdArgs<LifParams>& a, int alif, int bf16, int rows,
                                                  stream, S);
 }
 
-template <bool TRAIN, typename W>
+template <bool TRAIN, bool HEAD, typename W>
 cudaError_t run_mma(const FwdArgs<LifParams>& a, int alif, uint16_t* lists,
                     int S, int device, cudaStream_t s) {
-  return alif ? run_mma_body<LifMmaCell<true>, TRAIN, W>(a, lists, S, device,
-                                                         s)
-              : run_mma_body<LifMmaCell<false>, TRAIN, W>(a, lists, S,
-                                                          device, s);
+  return alif ? run_mma_body<LifMmaCell<true>, TRAIN, HEAD, W>(a, lists, S,
+                                                               device, s)
+              : run_mma_body<LifMmaCell<false>, TRAIN, HEAD, W>(a, lists, S,
+                                                                device, s);
 }
 
-// One launch of a head kernel (TRAIN: the training forward) for S
-// replicas, on the body the plan gives the shape (run_head_body).
-template <bool TRAIN>
+// One launch of a head kernel (HEAD; TRAIN: the training forward) for S
+// replicas, or of the first layer (!HEAD, S = 1; TRAIN: with its
+// residuals), on the body the plan gives the shape (run_head_body).
+template <bool TRAIN, bool HEAD>
 int run_head(const FwdArgs<LifParams>& a, int alif, int bf16, void* lists,
              int S, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_head_body(
       a, bf16, lists, S, device,
       [&](uint16_t* l) {
-        return bf16 ? run_mma<TRAIN, __nv_bfloat16>(a, alif, l, S, device, s)
-                    : run_mma<TRAIN, float>(a, alif, l, S, device, s);
+        return bf16 ? run_mma<TRAIN, HEAD, __nv_bfloat16>(a, alif, l, S,
+                                                          device, s)
+                    : run_mma<TRAIN, HEAD, float>(a, alif, l, S, device, s);
       },
       [&](int rows) {
-        return run_lif<TRAIN, true>(a, alif, bf16, rows, device, stream, S);
+        return run_lif<TRAIN, HEAD>(a, alif, bf16, rows, device, stream, S);
       });
 }
 
@@ -113,9 +120,12 @@ int snn_fused_head_lists(const int* lat, void* lists, int B, int F, int T,
   return (int)err;
 }
 
+// The first layer's plan, as snn_fused_head_plan's (*mma_out = 1: the mma
+// body, which needs the list scratch).
 int snn_fused_layer0_plan(int F, int H, int rec, int bf16, int device,
-                          int* rows_out, int* smem_out) {
-  return plan(F, H, 0, rec, bf16, device, rows_out, smem_out);
+                          int* mma_out) {
+  int rows = 0, smem = 0;
+  return head_plan(F, H, 0, rec, bf16, device, &rows, &smem, mma_out);
 }
 
 // S replicas (S = 1: one network; beta holds S values).  `lists`: the
@@ -130,7 +140,7 @@ int snn_fused_head_fwd(const int* lat, const void* w_in, const void* w_rec,
                        nullptr, B, F, H, O, T, periodic, kappa,
                        {beta, alpha, rho, threshold, nullptr, nullptr,
                         nullptr, 0}};
-  return run_head<false>(a, alif, bf16, lists, S, device, stream);
+  return run_head<false, true>(a, alif, bf16, lists, S, device, stream);
 }
 
 // The training forward: also writes delta, a_tr, tstar and counts, each
@@ -148,24 +158,26 @@ int snn_fused_head_fwd_train(const int* lat, const void* w_in,
                        counts, B, F, H, O, T, periodic, kappa,
                        {beta, alpha, rho, threshold, nullptr, delta, a_tr,
                         0}};
-  return run_head<true>(a, alif, bf16, lists, S, device, stream);
+  return run_head<true, true>(a, alif, bf16, lists, S, device, stream);
 }
 
 // The first layer of a deeper network: writes z (T, B, H) and, where `res`
 // is not null (training), the residual `res` (v where res_is_v, else
-// v - thr) and `a_tr` where that is not null.
+// v - thr) and `a_tr` where that is not null.  `lists`: the mma body's
+// scratch (snn_fused_layer0_plan), null for the per-unit body.
 int snn_fused_layer0_fwd(const int* lat, const void* w_in, const void* w_rec,
                          const float* beta, void* z, void* res, void* a_tr,
-                         int B, int F, int H, int T, int periodic, int alif,
-                         int bf16, int res_is_v, float alpha, float rho,
-                         float threshold, int rows, int device,
+                         void* lists, int B, int F, int H, int T,
+                         int periodic, int alif, int bf16, int res_is_v,
+                         float alpha, float rho, float threshold, int device,
                          void* stream) {
   FwdArgs<LifParams> a{lat, w_in, w_rec, nullptr, nullptr, nullptr,
                        nullptr, nullptr, B, F, H, 0, T, periodic, 0.f,
                        {beta, alpha, rho, threshold, z, res, a_tr,
                         res_is_v}};
-  return res ? run_lif<true, false>(a, alif, bf16, rows, device, stream)
-             : run_lif<false, false>(a, alif, bf16, rows, device, stream);
+  return res ? run_head<true, false>(a, alif, bf16, lists, 1, device, stream)
+             : run_head<false, false>(a, alif, bf16, lists, 1, device,
+                                      stream);
 }
 
 const char* snn_cuda_error_string(int err) {

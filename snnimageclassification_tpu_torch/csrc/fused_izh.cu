@@ -19,19 +19,21 @@
 // stacked-replica mode (:371-374, :450-463): S seeds of an ensemble in one
 // launch, one block per (row tile, replica), the latencies shared.
 //
-// Two bodies, as the LIF/ALIF head's (fused_head.cu).  The head's modes
-// take the tensor-core body of head_mma_fwd.cuh (head_sort_kernel +
-// head_mma_kernel) with the IzhMmaCell policy below wherever it fits (O <=
-// 16, H <= 256, W_rec's bf16 pieces within a block's shared memory): a
-// warp owns 16 rows x 32 units, each entry's v and u in registers in the
-// accumulator layout, z(t-1) @ W_rec and z(t-1) @ W_out on tensor cores,
-// the input current from each row's features sorted by spike key once.
-// What bounds it on an H100 is the serial T-chain, whose step the body
-// keeps on tensor cores and in registers; the Izhikevich step has about
-// twice the LIF step's element-wise work.  Other shapes and the first
-// layer take the per-unit body, head_fwd.cuh's kernel with the IzhCell
-// policy (one thread a (row, unit), the sums as walks over spike bits).
-// Both step the cell with izh_common.cuh's izh_step.
+// Two bodies, as the LIF/ALIF head's (fused_head.cu).  Every mode takes the
+// tensor-core body of head_mma_fwd.cuh (head_sort_kernel + head_mma_kernel)
+// with the IzhMmaCell policy below wherever it fits (O <= 16, O = 0 the
+// first layer, H <= 256, W_rec's bf16 pieces within a block's shared
+// memory): a warp owns 16 rows x 32 units, each entry's v and u in
+// registers in the accumulator layout, z(t-1) @ W_rec and z(t-1) @ W_out
+// on tensor cores, the input current from each row's features sorted by
+// spike key once; the first layer without the readout, its z(t) written
+// from the tile's exchange buffer in 16-byte float4 stores.  What bounds it
+// on an H100 is the serial T-chain, whose step the body keeps on tensor
+// cores and in registers; the Izhikevich step has about twice the LIF
+// step's element-wise work.  Other shapes take the per-unit body,
+// head_fwd.cuh's kernel with the IzhCell policy (one thread a (row, unit),
+// the sums as walks over spike bits).  Both step the cell with
+// izh_common.cuh's izh_step.
 
 #include "izh_common.cuh"
 #include "head_mma_fwd.cuh"
@@ -76,7 +78,8 @@ struct IzhCell {
 // The cell policy of the tensor-core body (head_mma_fwd.cuh): IzhCell's
 // step on one (v, u) State a (row, unit) entry; training stores v in
 // float32, each lane its two adjacent units of a row as one 8-byte store
-// where their address is 8-byte aligned.
+// where their address is 8-byte aligned; a first layer's z trace, float32
+// whatever the weights' type, is q.z.
 struct IzhMmaCell {
   using Params = IzhCellParams;
   struct State {
@@ -97,20 +100,18 @@ struct IzhMmaCell {
   template <typename W>
   __device__ void store(const Params& q, const State& s0, const State& s1,
                         size_t at, bool two) const {
-    if (!q.v_tr) return;
-    float* out = q.v_tr + at;
-    // A pair starts 8-byte aligned only where its address is: a stacked
-    // replica's trace starts at s T B H floats, odd when T B H is.
-    if (two && (reinterpret_cast<uintptr_t>(out) & 7) == 0) {
-      *reinterpret_cast<float2*>(out) = make_float2(s0.v, s1.v);
-    } else {
-      out[0] = s0.v;
-      if (two) out[1] = s1.v;
-    }
+    if (q.v_tr) store_pair(q.v_tr + at, s0.v, s1.v, two);
+  }
+
+  template <typename W>
+  __device__ float* z_out(const Params& q) const {
+    return q.z;
   }
 };
 
-template <bool TRAIN>
+// One launch of the head (HEAD) for S replicas or of the first layer
+// (!HEAD, S = 1) on the body the plan gives the shape (run_head_body).
+template <bool TRAIN, bool HEAD>
 int run_head(const FwdArgs<IzhCellParams>& a, int bf16, void* lists, int S,
              int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -118,13 +119,13 @@ int run_head(const FwdArgs<IzhCellParams>& a, int bf16, void* lists, int S,
       a, bf16, lists, S, device,
       [&](uint16_t* l) {
         return bf16
-                   ? run_mma_body<IzhMmaCell, TRAIN, __nv_bfloat16>(
+                   ? run_mma_body<IzhMmaCell, TRAIN, HEAD, __nv_bfloat16>(
                          a, l, S, device, s)
-                   : run_mma_body<IzhMmaCell, TRAIN, float>(a, l, S, device,
-                                                            s);
+                   : run_mma_body<IzhMmaCell, TRAIN, HEAD, float>(
+                         a, l, S, device, s);
       },
       [&](int rows) {
-        return run<IzhCell, TRAIN, true>(a, bf16, rows, device, stream, S);
+        return run<IzhCell, TRAIN, HEAD>(a, bf16, rows, device, stream, S);
       });
 }
 
@@ -133,13 +134,13 @@ int run_head(const FwdArgs<IzhCellParams>& a, int bf16, void* lists, int S,
 extern "C" {
 
 // Whether the Izhikevich kernels take a shape on `device`, and with which
-// body (O == 0: the first-layer mode, always the per-unit body): 0 when
-// they do (*mma_out = 1: the head's mma body, which needs the list
-// scratch; 0: the per-unit body, *rows_out rows and *smem_out bytes a
-// block), 1 when they do not, or a CUDA error code.
+// body (O == 0: the first-layer mode): 0 when they do (*mma_out = 1: the
+// mma body, which needs the list scratch; 0: the per-unit body), 1 when
+// they do not, or a CUDA error code.
 int snn_fused_izh_plan(int F, int H, int O, int rec, int bf16, int device,
-                       int* rows_out, int* smem_out, int* mma_out) {
-  return head_plan(F, H, O, rec, bf16, device, rows_out, smem_out, mma_out);
+                       int* mma_out) {
+  int rows = 0, smem = 0;
+  return head_plan(F, H, O, rec, bf16, device, &rows, &smem, mma_out);
 }
 
 // The head: logits, and where any of v_tr, tstar, counts is not null (the
@@ -161,25 +162,26 @@ int snn_fused_izh_fwd(const int* lat, const void* w_in, const void* w_rec,
       {IzhParams{dt, C, v_rest, v_th, k, a_, b_, c, d, v_peak}, nullptr,
        v_tr}};
   const bool train = v_tr || tstar || counts;
-  return train ? run_head<true>(a, bf16, lists, S, device, stream)
-               : run_head<false>(a, bf16, lists, S, device, stream);
+  return train ? run_head<true, true>(a, bf16, lists, S, device, stream)
+               : run_head<false, true>(a, bf16, lists, S, device, stream);
 }
 
 // The first layer of a deeper network: z (T, B, H), and v (T, B, H) where
-// v_tr is not null.
+// v_tr is not null.  `lists`: the mma body's scratch (snn_fused_izh_plan
+// with O = 0), null for the per-unit body.
 int snn_fused_izh_layer0_fwd(const int* lat, const void* w_in,
-                             const void* w_rec, float* z, float* v_tr, int B,
-                             int F, int H, int T, int periodic, int bf16,
-                             float dt, float C, float v_rest, float v_th,
-                             float k, float a_, float b_, float c, float d,
-                             float v_peak, int rows, int device,
-                             void* stream) {
+                             const void* w_rec, float* z, float* v_tr,
+                             void* lists, int B, int F, int H, int T,
+                             int periodic, int bf16, float dt, float C,
+                             float v_rest, float v_th, float k, float a_,
+                             float b_, float c, float d, float v_peak,
+                             int device, void* stream) {
   FwdArgs<IzhCellParams> a{
       lat, w_in, w_rec, nullptr, nullptr, nullptr, nullptr, nullptr, B, F, H,
       0, T, periodic, 0.f,
       {IzhParams{dt, C, v_rest, v_th, k, a_, b_, c, d, v_peak}, z, v_tr}};
-  return v_tr ? run<IzhCell, true, false>(a, bf16, rows, device, stream)
-              : run<IzhCell, false, false>(a, bf16, rows, device, stream);
+  return v_tr ? run_head<true, false>(a, bf16, lists, 1, device, stream)
+              : run_head<false, false>(a, bf16, lists, 1, device, stream);
 }
 
 const char* snn_cuda_error_string(int err) {

@@ -21,6 +21,24 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(x);
 }
 
+// A pair of adjacent entries (row, col) and (row, col + 1) at p: one 8- or
+// 4-byte access where `two` and p is aligned to it (a stacked replica's
+// trace starts at s T B H elements, odd when T B H is), else one at a time.
+template <typename W>
+__device__ __forceinline__ void store_pair(W* p, float x0, float x1,
+                                           bool two) {
+  if (two && reinterpret_cast<uintptr_t>(p) % (2 * sizeof(W)) == 0) {
+    if constexpr (sizeof(W) == 4) {
+      *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+    }
+    return;
+  }
+  from_f32(x0, p);
+  if (two) from_f32(x1, p + 1);
+}
+
 // x rounded through the weights' type, back in float.
 template <typename W>
 __device__ __forceinline__ float round_w(float x) {

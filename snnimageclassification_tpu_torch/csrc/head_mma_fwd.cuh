@@ -1,7 +1,11 @@
-// The tensor-core body of the head forwards (fused_head.cu for LIF/ALIF,
-// fused_izh.cu for Izhikevich), one template over a cell policy: the rows'
-// feature lists (head_sort_kernel) and the kernel (head_mma_kernel) that
-// steps the cell with its recurrent and readout products on tensor cores.
+// The tensor-core body of the head forwards and of the first layers of
+// deeper networks (fused_head.cu for LIF/ALIF: fused_head_fwd[_train],
+// fused_layer0_fwd; fused_izh.cu for Izhikevich: fused_izh_fwd[_train],
+// fused_izh_layer0_fwd), one template over a cell policy: the rows' feature
+// lists (head_sort_kernel) and the kernel (head_mma_kernel) that steps the
+// cell with its recurrent and readout products on tensor cores.  A first
+// layer (HEAD = false) is the head without its readout: no W_out pieces,
+// T steps, z(t) written to device memory from the tile's exchange buffer.
 //
 // What bounds it on an H100: the serial T-chain.  One add per selected
 // weight (spikes are 0/1) is ~10 G operations a flagship training batch,
@@ -35,8 +39,9 @@
 //     PyTorch versions.  The training traces are the policy's too.
 //   * Stacked replicas: grid axis y, a block offsets its weights, outputs
 //     and traces by its replica's stride (head_fwd.cuh:at_replica).
-// It takes O <= 16, H <= 256 and W_rec's bf16 pieces within a block's
-// shared memory (mma_fits); the per-unit body (head_fwd.cuh) the rest.
+// It takes O <= 16 (O = 0: a first layer), H <= 256 and W_rec's bf16
+// pieces within a block's shared memory (mma_fits); the per-unit body
+// (head_fwd.cuh) the rest.
 #pragma once
 
 #include "head_fwd.cuh"
@@ -139,28 +144,30 @@ struct MmaFwdLayout {
   size_t wrec, wout, b, z, total;
 };
 
+// A first layer (head = 0) has no W_out or b_out.
 __host__ __device__ inline MmaFwdLayout mma_fwd_layout(int H, int rec, int P,
-                                                       int tpb) {
+                                                       int tpb, int head) {
   const size_t HP = mma_hp(H);
   MmaFwdLayout L;
   size_t off = 0;
   L.wrec = off;  // W_rec's B fragments, (HP, HP), P pieces
   off = align16(off + (rec ? 2 * P * HP * HP : 0));
   L.wout = off;  // W_out's, (HP, 16)
-  off = align16(off + 2 * P * HP * MMA_OMAX);
+  off = align16(off + (head ? 2 * P * HP * MMA_OMAX : 0));
   L.b = off;
-  off = align16(off + MMA_OMAX * 4);
+  off = align16(off + (head ? MMA_OMAX * 4 : 0));
   L.z = off;  // each tile's two (16, HP) bf16 buffers of z
   off = align16(off + (size_t)tpb * 2 * 16 * mma_zs(HP) * 2);
   L.total = off;
   return L;
 }
 
-// Whether the mma body takes the shape on a card with `max_smem` bytes of
-// shared memory a block.
+// Whether the mma body takes the shape (O == 0: a first layer) on a card
+// with `max_smem` bytes of shared memory a block.
 inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) {
-  return O >= 1 && O <= MMA_OMAX && H >= 1 && mma_hp(H) <= MMA_HMAX &&
-         mma_fwd_layout(H, rec, bf16 ? 1 : 3, 1).total <= (size_t)max_smem;
+  return O >= 0 && O <= MMA_OMAX && H >= 1 && mma_hp(H) <= MMA_HMAX &&
+         mma_fwd_layout(H, rec, bf16 ? 1 : 3, 1, O > 0).total <=
+             (size_t)max_smem;
 }
 
 __device__ __forceinline__ void load_pair(const float* p, float& x0,
@@ -381,6 +388,63 @@ struct ListInput {
   }
 };
 
+// z(t) of a tile, as its exchange buffer holds it after the step's barrier
+// (bf16 1 or 0, row stride zs), to device memory: the tile's rows are one
+// contiguous block of rows x H elements of a (T, B, H) array, written by
+// the layer's n threads (thread i) in 16-byte stores where H is a multiple
+// of the elements a store holds (each thread's stores fixed for the launch,
+// their offsets packed once), else one element a store.
+template <typename Z>
+struct TileStore {
+  static constexpr int VEC = 16 / sizeof(Z);  // elements a 16-byte store
+  static constexpr int NC = 16 / VEC;  // stores a thread and step, at most
+  uint32_t off[NC];  // buffer offset << 16 | offset in the block; ~0u: none
+  bool vec;
+  int rows, H, zs, i, n;
+
+  __device__ TileStore(int H_, int zs_, int rows_, int i_, int n_)
+      : vec(H_ % VEC == 0), rows(rows_), H(H_), zs(zs_), i(i_), n(n_) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int e = (i + k * n) * VEC;
+      const int r = e / H;
+      off[k] = vec && e < rows * H
+                   ? (uint32_t)(r * zs + e - r * H) << 16 | (uint32_t)e
+                   : ~0u;
+    }
+  }
+
+  __device__ __forceinline__ void put(Z* z, const uint16_t* buf) const {
+    if (!vec) {
+      for (int e = i; e < rows * H; e += n) {
+        const int r = e / H;
+        put1(z + e, buf[r * zs + e - r * H]);
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      if (off[k] != ~0u) put16(z + (off[k] & 0xffffu), buf + (off[k] >> 16));
+  }
+
+  static __device__ __forceinline__ void put1(float* d, uint16_t b) {
+    *d = __uint_as_float((uint32_t)b << 16);
+  }
+  static __device__ __forceinline__ void put1(__nv_bfloat16* d, uint16_t b) {
+    *d = __ushort_as_bfloat16(b);
+  }
+  static __device__ __forceinline__ void put16(float* d, const uint16_t* s) {
+    const uint2 v = *reinterpret_cast<const uint2*>(s);
+    *reinterpret_cast<float4*>(d) = make_float4(
+        __uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+        __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ void put16(__nv_bfloat16* d,
+                                               const uint16_t* s) {
+    *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+  }
+};
+
 // A cell of the tensor-core body.  The body keeps one State a (row, unit)
 // entry of the warp's tile, in registers in the accumulator layout
 // (head_mma.cuh), and calls
@@ -395,52 +459,45 @@ struct ListInput {
 //                                          (row, unit) and (row, unit + 1)
 //                                          at element `at` of a (T, B, H)
 //                                          array; `two`: the second unit
-//                                          lies inside H.
+//                                          lies inside H;
+//   z_out<W>(Params)                       a first layer's spike trace z
+//                                          (T, B, H), or null.
 // lif_cell.cuh:LifMmaCell is the LIF/ALIF cell, fused_izh.cu:IzhMmaCell the
 // Izhikevich one.
-template <class Cell, bool REC, bool TRAIN, typename W>
-__global__ void __launch_bounds__(MMA_THREADS)
-    head_mma_kernel(FwdArgs<typename Cell::Params> a0, const uint16_t* lists,
-                    int tpb) {
+//
+// The steps of one encoded layer on the tensor-core body, for the lane's
+// rows g and g + 8 of the tile at row0 and the 32 units of its warp wu (of
+// the layer's NWU); the tile's warps meet at named barrier `tsync` over
+// `tn` threads once a step.  HEAD: the readout on W_out's and b_out's
+// pieces (s_wout, s_b), T + 1 iterations (the last the readout of step T -
+// 1), then the logits (and tstar) written.  A first layer (!HEAD): T
+// steps, no readout; z(t - 1) leaves from the exchange buffer at step t
+// (after the step's recurrent product, off the serial chain: TileStore)
+// where ZOUT and the cell names a z trace.  TRAIN: the cell's traces and,
+// where a.counts is given, the spike counts.  head_mma_kernel runs it for
+// a head or a first layer, fused2.cu:fused2_mma_kernel for its layer 0
+// (!ZOUT: z0 stays in the exchange buffer for layer 1), so the bits of a
+// first layer are one code's.
+template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W,
+          bool ZOUT = !HEAD>
+__device__ __forceinline__ void mma_layer(
+    const FwdArgs<typename Cell::Params>& a, const uint16_t* lists,
+    const uint2* s_wrec, const uint2* s_wout, const float* s_b,
+    uint16_t* s_z, int row0, int wu, int NWU, int lane, int tsync, int tn) {
   constexpr int P = pieces<W>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const FwdArgs<typename Cell::Params> a = at_replica<W>(a0, blockIdx.y);
-  const int H = a.H, O = a.O, F = a.F, T = a.T, B = a.B;
-  const int HP = mma_hp(H), NWU = HP / 32, KT = HP / 16, ZS = mma_zs(HP);
-  const MmaFwdLayout L = mma_fwd_layout(H, REC, P, tpb);
-  uint2* s_wrec = reinterpret_cast<uint2*>(smem + L.wrec);
-  uint2* s_wout = reinterpret_cast<uint2*>(smem + L.wout);
-  float* s_b = reinterpret_cast<float*>(smem + L.b);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2;
-  const int tile = warp / NWU, wu = warp % NWU;
-  uint16_t* s_z =
-      reinterpret_cast<uint16_t*>(smem + L.z) + (size_t)tile * 2 * 16 * ZS;
-
-  if (REC) {
-    const W* w = static_cast<const W*>(a.w_rec);
-    fill_b<P>(s_wrec, HP, HP, [&](int k, int n) {
-      return k < H && n < H ? to_f32(w[(size_t)k * H + n]) : 0.f;
-    }, tid, nthreads);
-  }
-  {
-    const W* w = static_cast<const W*>(a.w_out);
-    fill_b<P>(s_wout, HP, MMA_OMAX, [&](int k, int n) {
-      return k < H && n < O ? to_f32(w[(size_t)k * O + n]) : 0.f;
-    }, tid, nthreads);
-  }
-  if (tid < MMA_OMAX) s_b[tid] = tid < O ? a.b_out[tid] : 0.f;
-  __syncthreads();
-  const int row0 = (blockIdx.x * tpb + tile) * 16;
-  if (row0 >= B) return;  // a tile past the batch; no block barrier below
-
+  const int H = a.H, O = a.O, F = a.F, T = a.T, B = a.B, g = lane >> 2;
+  const int HP = mma_hp(H), KT = HP / 16, ZS = mma_zs(HP);
   const W* w_in = static_cast<const W*>(a.w_in);
   const int col0 = MMA_NU * wu + 2 * (lane & 3);  // entry 0 of n8 tile 0
   const bool live[2] = {row0 + g < B, row0 + g + 8 < B};
   ListInput<P, W> in;
   in.start(lists, live, row0, g, F, T, a.periodic, w_in, H, col0);
-  MmaReadout ro(wu, NWU, O);
+  MmaReadout ro(wu, NWU, HEAD ? O : 0);
   const Cell cell(a.cell);
+  auto* const zo = ZOUT ? cell.template z_out<W>(a.cell) : nullptr;
+  using Z = typename std::remove_pointer<decltype(zo)>::type;
+  const TileStore<Z> zst(H, ZS, min(16, B - row0), MMA_NU * wu + lane,
+                         NWU * 32);
   typename Cell::State st[MMA_NT][4];
 #pragma unroll
   for (int n = 0; n < MMA_NT; ++n)
@@ -449,9 +506,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
   uint32_t cnt[MMA_NT][2] = {};  // spike counts, 16 bits an entry
   uint32_t zb = 0;               // z(t-1), bit 4 n + e
 
-  for (int t = 0; t <= T; ++t) {
+  for (int t = 0; t < (HEAD ? T + 1 : T); ++t) {
     float rec[MMA_NT][4] = {};
-    if (t > 0) {
+    if (t > 0 && (HEAD || REC)) {
       // z(t-1) as A: the readout of step t-1 and the recurrent current.
       const uint16_t* zp = s_z + ((t - 1) & 1) * 16 * ZS;
       float rp[2][4] = {};
@@ -464,11 +521,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
             mma_exact_a<P>(rec[n], A, s_wrec,
                            kk * (HP / 8) + MMA_NT * wu + n, lane);
         }
-        ro.product<P>(rp, A, s_wout, kk, wu, NWU, lane);
+        if (HEAD) ro.product<P>(rp, A, s_wout, kk, wu, NWU, lane);
       }
-      ro.step<TRAIN>(rp, s_b, a.kappa, t - 1, wu, NWU, lane);
+      if (HEAD) ro.step<TRAIN>(rp, s_b, a.kappa, t - 1, wu, NWU, lane);
     }
-    if (t == T) break;
+    if (ZOUT && zo && t > 0)
+      zst.put(zo + ((size_t)(t - 1) * B + row0) * H,
+              s_z + ((t - 1) & 1) * 16 * ZS);
+    if (HEAD && t == T) break;
     // The input current of step t, then the recurrent one added.
     float cur[MMA_NT][4];
     in.current(cur, t, a.lat, F, row0, a.periodic, w_in, H, lane, wu, col0);
@@ -506,21 +566,71 @@ __global__ void __launch_bounds__(MMA_THREADS)
     }
     zb = zn;
     put_slice(s_z + (t & 1) * 16 * ZS, ZS, wu, lane, zf);
-    tile_sync(1 + tile, NWU * 32);
+    tile_sync(tsync, tn);
   }
-  ro.write(a.logits, TRAIN ? a.tstar : nullptr, row0, B, O, wu, NWU, lane);
+  if (ZOUT && zo)  // z(T - 1): its buffer is written no more
+    zst.put(zo + ((size_t)(T - 1) * B + row0) * H,
+            s_z + ((T - 1) & 1) * 16 * ZS);
+  if (HEAD)
+    ro.write(a.logits, TRAIN ? a.tstar : nullptr, row0, B, O, wu, NWU, lane);
   if (TRAIN && a.counts) write_counts(cnt, a.counts, row0, B, H, col0, lane);
 }
 
-template <class Cell, bool REC, bool TRAIN, typename W>
+// A head (HEAD) or a first layer on the tensor-core body: a block fills
+// W_rec's (and a head's W_out's and b_out's) pieces once, then each of its
+// tiles runs mma_layer.  One block an SM at least, said to ptxas: given the
+// threads alone it held some instances (a first layer's inference among
+// them) to 128 registers and spilled (tools/head_ablation.py --layer0,
+// ptxas_heuristic).
+template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    head_mma_kernel(FwdArgs<typename Cell::Params> a0, const uint16_t* lists,
+                    int tpb) {
+  constexpr int P = pieces<W>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const FwdArgs<typename Cell::Params> a = at_replica<W>(a0, blockIdx.y);
+  const int H = a.H, O = a.O, B = a.B;
+  const int HP = mma_hp(H), NWU = HP / 32, ZS = mma_zs(HP);
+  const MmaFwdLayout L = mma_fwd_layout(H, REC, P, tpb, HEAD);
+  uint2* s_wrec = reinterpret_cast<uint2*>(smem + L.wrec);
+  uint2* s_wout = reinterpret_cast<uint2*>(smem + L.wout);
+  float* s_b = reinterpret_cast<float*>(smem + L.b);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tile = warp / NWU, wu = warp % NWU;
+  uint16_t* s_z =
+      reinterpret_cast<uint16_t*>(smem + L.z) + (size_t)tile * 2 * 16 * ZS;
+
+  if (REC) {
+    const W* w = static_cast<const W*>(a.w_rec);
+    fill_b<P>(s_wrec, HP, HP, [&](int k, int n) {
+      return k < H && n < H ? to_f32(w[(size_t)k * H + n]) : 0.f;
+    }, tid, nthreads);
+  }
+  if (HEAD) {
+    const W* w = static_cast<const W*>(a.w_out);
+    fill_b<P>(s_wout, HP, MMA_OMAX, [&](int k, int n) {
+      return k < H && n < O ? to_f32(w[(size_t)k * O + n]) : 0.f;
+    }, tid, nthreads);
+    if (tid < MMA_OMAX) s_b[tid] = tid < O ? a.b_out[tid] : 0.f;
+  }
+  __syncthreads();
+  const int row0 = (blockIdx.x * tpb + tile) * 16;
+  if (row0 >= B) return;  // a tile past the batch; no block barrier below
+  mma_layer<Cell, REC, TRAIN, HEAD, W>(a, lists, s_wrec, s_wout, s_b, s_z,
+                                       row0, wu, NWU, lane, 1 + tile,
+                                       NWU * 32);
+}
+
+template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W>
 cudaError_t launch_mma(const FwdArgs<typename Cell::Params>& a,
                        const uint16_t* lists, int S, int device,
                        cudaStream_t stream) {
-  auto kernel = head_mma_kernel<Cell, REC, TRAIN, W>;
+  auto kernel = head_mma_kernel<Cell, REC, TRAIN, HEAD, W>;
   const int NWU = mma_hp(a.H) / 32, tiles = (a.B + 15) / 16;
   int tpb = 1;
   auto smem = [&](int t) {
-    return mma_fwd_layout(a.H, REC, pieces<W>(), t).total;
+    return mma_fwd_layout(a.H, REC, pieces<W>(), t, HEAD).total;
   };
   cudaError_t err = mma_tiling(kernel, tiles, S, NWU, device, smem, &tpb);
   if (err != cudaSuccess) return err;
@@ -529,17 +639,20 @@ cudaError_t launch_mma(const FwdArgs<typename Cell::Params>& a,
   return cudaGetLastError();
 }
 
-// The mma body of one head launch for S replicas: the rows' lists (shared
-// by the replicas) into `lists`, then the kernel of `Cell`.
-template <class Cell, bool TRAIN, typename W>
+// The mma body of one launch for S replicas (a head, or a first layer:
+// !HEAD, S = 1): the rows' lists (shared by the replicas) into `lists`,
+// then the kernel of `Cell`.
+template <class Cell, bool TRAIN, bool HEAD, typename W>
 cudaError_t run_mma_body(const FwdArgs<typename Cell::Params>& a,
                          uint16_t* lists, int S, int device,
                          cudaStream_t s) {
   cudaError_t err =
       launch_sort(a.lat, lists, a.B, a.F, a.T, a.periodic, device, s);
   if (err != cudaSuccess) return err;
-  return a.w_rec ? launch_mma<Cell, true, TRAIN, W>(a, lists, S, device, s)
-                 : launch_mma<Cell, false, TRAIN, W>(a, lists, S, device, s);
+  return a.w_rec
+             ? launch_mma<Cell, true, TRAIN, HEAD, W>(a, lists, S, device, s)
+             : launch_mma<Cell, false, TRAIN, HEAD, W>(a, lists, S, device,
+                                                       s);
 }
 
 int max_smem_of(int device, int* max_smem) {
@@ -550,10 +663,10 @@ int max_smem_of(int device, int* max_smem) {
   return (int)err;
 }
 
-// The body a head kernel runs a shape on: 0 when the kernels take the
-// shape (*mma_out = 1: the mma body; 0: the per-unit body), 1 when they do
-// not, or a CUDA error code.  *rows and *smem: the per-unit body's plan.
-// O == 0 (a first layer) is the per-unit body's.
+// The body a head kernel (O == 0: a first layer) runs a shape on: 0 when
+// the kernels take the shape (*mma_out = 1: the mma body; 0: the per-unit
+// body), 1 when they do not, or a CUDA error code.  *rows and *smem: the
+// per-unit body's plan.
 int head_plan(int F, int H, int O, int rec, int bf16, int device, int* rows,
               int* smem, int* mma_out) {
   const int rc = plan(F, H, O, rec, bf16, device, rows, smem);
@@ -565,10 +678,11 @@ int head_plan(int F, int H, int O, int rec, int bf16, int device, int* rows,
   return 0;
 }
 
-// One head launch for S replicas on the body its plan gives the shape: the
-// mma body, mma(lists), where `lists` (the wrapper's scratch of
-// list_row_words(F) 16-bit words a row) is given, which the plan must have
-// said; else the per-unit body, per_unit(rows a block).
+// One launch of a head (or a first layer, O == 0) for S replicas on the
+// body its plan gives the shape: the mma body, mma(lists), where `lists`
+// (the wrapper's scratch of list_row_words(F) 16-bit words a row) is
+// given, which the plan must have said; else the per-unit body,
+// per_unit(rows a block).
 template <class P, typename Mma, typename PerUnit>
 int run_head_body(const FwdArgs<P>& a, int bf16, void* lists, int S,
                   int device, Mma mma, PerUnit per_unit) {

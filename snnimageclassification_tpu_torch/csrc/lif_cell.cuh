@@ -74,7 +74,9 @@ struct LifCell {
 
 // The cell policy of the tensor-core body (head_mma_fwd.cuh): the same
 // step, one State a (row, unit) entry in the accumulator layout; training
-// stores delta (and a for ALIF with Phi) in the weights' type.
+// stores the residual (delta, or v for a first layer where res_is_v, as
+// LifCell) and a for ALIF with Phi in the weights' type; a first layer's z
+// trace is p.z.
 template <bool ALIF>
 struct LifMmaCell {
   using Params = LifParams;
@@ -97,13 +99,19 @@ struct LifMmaCell {
   __device__ void store(const Params& p, const State& s0, const State& s1,
                         size_t at, bool two) const {
     if (p.delta) {
-      from_f32(s0.delta, static_cast<W*>(p.delta) + at);
-      if (two) from_f32(s1.delta, static_cast<W*>(p.delta) + at + 1);
+      W* out = static_cast<W*>(p.delta) + at;
+      from_f32(p.res_is_v ? s0.v : s0.delta, out);
+      if (two) from_f32(p.res_is_v ? s1.v : s1.delta, out + 1);
     }
     if (ALIF && p.a_tr) {
       from_f32(s0.ad, static_cast<W*>(p.a_tr) + at);
       if (two) from_f32(s1.ad, static_cast<W*>(p.a_tr) + at + 1);
     }
+  }
+
+  template <typename W>
+  __device__ W* z_out(const Params& p) const {
+    return static_cast<W*>(p.z);
   }
 };
 

@@ -193,23 +193,6 @@ __device__ __forceinline__ uint32_t bits_bf16(uint32_t y) {
   return ((y & 1u) | ((y & 2u) << 15)) * 0x3F80u;
 }
 
-// A pair of adjacent entries (row, col) and (row, col + 1) at p: one 8- or
-// 4-byte access where `two` and p is aligned to it, else one at a time.
-template <typename W>
-__device__ __forceinline__ void store_pair(W* p, float x0, float x1,
-                                           bool two) {
-  if (two && reinterpret_cast<uintptr_t>(p) % (2 * sizeof(W)) == 0) {
-    if constexpr (sizeof(W) == 4) {
-      *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-    }
-    return;
-  }
-  from_f32(x0, p);
-  if (two) from_f32(x1, p + 1);
-}
-
 // A pair of adjacent entries as loaded, unconverted: a float2 for float32,
 // the bf16x2 word for bf16.  The conversion waits for the load, so it is
 // left to the step that uses the pair.

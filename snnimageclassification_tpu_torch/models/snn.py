@@ -106,6 +106,7 @@ from ..ops.fused import (
     fused_supported,
     gwin_copied_stage,
     head_bodies,
+    layer0_bodies,
 )
 from ..ops.fused2 import (
     fused2_bodies,
@@ -122,6 +123,7 @@ from ..ops.fused_izh import (
     fused_izh_supported,
 )
 from ..ops.fused_izh import head_bodies as izh_head_bodies
+from ..ops.fused_izh import layer0_bodies as izh_layer0_bodies
 from ..ops.fused_mid import (
     fused_mid_ff_scan,
     fused_mid_ff_scan_head,
@@ -1026,7 +1028,9 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     forward's and, training, the backward's chain's): the tensor-core body,
     "the tensor-core body (mma)" in the reason; the per-unit body past its
     limits, a path ending in ``[per-unit]``; training, the mid layer's and
-    the two-layer backward's input cotangent ``gzin_mma``.
+    the two-layer backward's input cotangent ``gzin_mma``.  A first layer
+    (LIF/ALIF and Izhikevich) names its forward's body the same way, and
+    training its backward's per-unit chain (in the reason only).
     A two-hidden-layer network that takes the two-layer pair is one row:
     ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
     ``torch:fused2_reference`` on the CPU.  The unfused tier gives a layer
@@ -1126,6 +1130,23 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             training=training),
             "O > 16, H > 256, an input past about 1.5 H, or the weights' bf16 "
             "pieces past a block's shared memory")
+    def layer0_body(lcfg):
+        """(reason note, path mode) of a first layer's kernels on the card:
+        the forward on the head's tensor-core body or, past its limits, the
+        per-unit body (a path ending in ``[per-unit]``); training, the
+        backward's per-unit chain."""
+        if not on_card:
+            return "", ""
+        fwd = (izh_layer0_bodies if izh else layer0_bodies)(
+            cfg.int_time_steps, cfg.input_size, lcfg.output_size,
+            recurrent=rec_of(lcfg), itemsize=md_size, device=dev)[0]
+        note = ("; the tensor-core body (mma) in the forward" if fwd == "mma"
+                else "; the per-unit body (H > 256, or W_rec's bf16 pieces "
+                "past a block's shared memory) in the forward")
+        if training:
+            note += "; the per-unit chain in the backward"
+        return note, "" if fwd == "mma" else "[per-unit]"
+
     if enc is not None and _head_fusible(cfg, enc, dev, training):
         if izh:
             kernels = (KERNEL_IZH_TRAIN if training else KERNEL_IZH,
@@ -1226,14 +1247,15 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             break
         if (idx == 0 and enc is not None
                 and _layer0_fusible(cfg, enc, False, dev, training)):
+            body, mode = layer0_body(lcfg)
             entries.append({
                 "layer": name,
                 "path": (path(KERNEL_IZH_L0, KERNEL_IZH_L0_BWD,
-                              "fused_izh_layer0_reference") if izh
+                              "fused_izh_layer0_reference", mode) if izh
                          else path(KERNEL_L0, KERNEL_L0_BWD,
-                                   "fused_layer0_reference")),
+                                   "fused_layer0_reference", mode)),
                 "reason": "encoding + input product + scan in one call"
-                          + also + gwin_note() + (gbits_note(
+                          + also + body + gwin_note() + (gbits_note(
                               "g_W_rec", lcfg.output_size, md_size)
                               if rec_of(lcfg) else "") + where,
             })

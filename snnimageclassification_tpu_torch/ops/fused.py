@@ -61,10 +61,13 @@ Layer 0 of a deeper network is the same computation without the readout:
 ``fused_encode_{rec,ff}_scan`` return the spike trace ``z (T, B, H)`` in
 the weights' dtype (JAX package: the ``head=False`` mode of the same two
 kernels).  ``fused_layer0_fwd`` (``csrc/fused_head.cu``, the head kernels'
-template with the readout compiled out, so its spikes are bitwise the
-spikes inside the head) writes ``z`` and, for training, the residuals of
-the JAX kernel: ``delta`` for ALIF with FastSigmoid, ``v`` for LIF, ``v``
-and ``a`` for ALIF with Phi.  ``fused_layer0_bwd``
+bodies with the readout compiled out, so its spikes are bitwise the spikes
+inside the head, and on the tensor-core body those of the two-layer
+pair's layer 0; :func:`layer0_bodies` names the body) writes ``z`` and,
+for training, the residuals of the JAX kernel: ``delta`` for ALIF with
+FastSigmoid, ``v`` for LIF, ``v`` and ``a`` for ALIF with Phi.
+:func:`_layer0_ordered_reference` is its plain version in the tensor-core
+body's order.  ``fused_layer0_bwd``
 (``csrc/fused_layer0_bwd.cu``) runs the reverse chain from the cotangent
 of ``z`` to ``g_W_in, g_W_rec``.
 """
@@ -95,6 +98,7 @@ __all__ = [
     "fused_encode_rec_scan_reference",
     "fused_encode_ff_scan_reference",
     "fused_supported",
+    "layer0_bodies",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -785,22 +789,43 @@ def _ordered_currents(lat, w_in, n_steps, use_periods):
     return cur_in
 
 
-def _ordered_head(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
-                  kappa, cell):
-    """The tensor-core body's head loop in its summation order: at each
-    step the input current (:func:`_ordered_currents`) plus, past step 0,
-    the recurrent current as a k16-sliced product of ``z(t - 1)``
-    (:func:`_slice_product`), then ``cell(cur)``, which steps the cell and
-    returns ``z(t)`` float32; the readout ``v_r = kappa v_r + (z @ W_out +
-    b)`` with its product k16-sliced, the running max with strict ``>``
-    and its step.  Returns ``(logits, tstar)``."""
-    f32 = torch.float32
-    B = lat.shape[0]
+def _ordered_input(lat, w_in, w_rec, n_steps, use_periods):
+    """``cur(t, z)``: the current ``(B, H)`` float32 of an encoded layer at
+    step ``t`` as the tensor-core body sums it (``csrc/head_mma_fwd.cuh:
+    mma_layer``): the input current (:func:`_ordered_currents`) plus, past
+    step 0, the recurrent current as a k16-sliced product
+    (:func:`_slice_product`) of ``z``, the layer's spikes of step ``t -
+    1``."""
     cur_in = _ordered_currents(lat, w_in, n_steps, use_periods)
     rec_p = None if w_rec is None else _weight_pieces(w_rec)
+
+    def cur(t, z):
+        c = cur_in(t)
+        if rec_p is not None and t > 0:
+            c = c + _slice_product(z, rec_p)
+        return c
+
+    return cur
+
+
+def _ordered_head(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
+                  kappa, cell):
+    """The tensor-core body's loop in its summation order: at each step the
+    current (:func:`_ordered_input`), then ``cell(cur)``, which steps the
+    cell and returns ``z(t)`` float32; a head's readout ``v_r = kappa v_r +
+    (z @ W_out + b)`` with its product k16-sliced, the running max with
+    strict ``>`` and its step.  Returns ``(logits, tstar)``; without
+    ``w_out`` (a first layer) ``(None, None)``."""
+    f32 = torch.float32
+    B = lat.shape[0]
+    cur = _ordered_input(lat, w_in, w_rec, n_steps, use_periods)
+    z = torch.zeros((B, w_in.shape[1]), dtype=f32, device=lat.device)
+    if w_out is None:
+        for t in range(n_steps):
+            z = cell(cur(t, z))
+        return None, None
     out_p = _weight_pieces(w_out)
     b = b_out.to(f32)
-    z = torch.zeros((B, w_in.shape[1]), dtype=f32, device=lat.device)
     vr = torch.zeros((B, w_out.shape[1]), dtype=f32, device=lat.device)
     m = torch.full_like(vr, float("-inf"))
     tstar = torch.zeros((B, w_out.shape[1]), dtype=torch.int32,
@@ -814,10 +839,7 @@ def _ordered_head(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
             tstar = torch.where(better, torch.full_like(tstar, t - 1), tstar)
         if t == n_steps:
             break
-        cur = cur_in(t)
-        if rec_p is not None and t > 0:
-            cur = cur + _slice_product(z, rec_p)
-        z = cell(cur)
+        z = cell(cur(t, z))
     return m, tstar
 
 
@@ -858,6 +880,30 @@ def _head_train_ordered_reference(lat, w_in, w_rec, beta, w_out, b_out,
                              use_periods, kappa, cell)
     return (m, _stack(deltas), _stack(a_trace), tstar,
             st["counts"] if want_counts else None)
+
+
+def _layer0_ordered_reference(lat, w_in, w_rec, beta, n_steps, use_periods,
+                              alif, alpha, rho, threshold, train, store_a,
+                              res_is_v):
+    """Plain version of ``fused_layer0_fwd``'s tensor-core body
+    (``csrc/head_mma_fwd.cuh:mma_layer`` without the readout) in its
+    summation order: each step's current from :func:`_ordered_input`, the
+    cell step the plain loop's (:class:`_Cell`); the two-layer pair's layer
+    0 (``ops/fused2.py:_fused2_fwd_ordered_reference``) is the same code.
+    Returns as :func:`_layer0_reference`."""
+    wd = w_in.dtype
+    cur = _ordered_input(lat, w_in, w_rec, n_steps, use_periods)
+    cell = _Cell(lat.shape[0], w_in.shape[1], lat.device, None, beta, alif,
+                 False)
+    zs, res, a_tr = [], [], []
+    for t in range(n_steps):
+        delta = cell.step(cur(t, cell.z), alpha, rho, threshold)
+        zs.append(cell.z.to(wd))
+        if train:  # rounded once, here
+            res.append((cell.v if res_is_v else delta).to(wd))
+            if store_a:
+                a_tr.append(cell.a.to(wd))
+    return _stack(zs), _stack(res), _stack(a_tr)
 
 
 def z_prev_rows(delta: torch.Tensor) -> torch.Tensor:
@@ -995,10 +1041,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.snn_fused_head_fwd_train.argtypes = (
             [vp] * 12 + [i] * 8 + [f] * 4 + [i] * 2 + [vp])
         lib.snn_fused_head_fwd_train.restype = i
-        lib.snn_fused_layer0_plan.argtypes = [i, i, i, i, i, ip, ip]
+        lib.snn_fused_layer0_plan.argtypes = [i, i, i, i, i, ip]
         lib.snn_fused_layer0_plan.restype = i
         lib.snn_fused_layer0_fwd.argtypes = (
-            [vp] * 7 + [i] * 8 + [f] * 3 + [i, i, vp])
+            [vp] * 8 + [i] * 8 + [f] * 3 + [i, vp])
         lib.snn_fused_layer0_fwd.restype = i
     elif name == "fused_head_bwd":
         lib.snn_fused_head_bwd_plan.argtypes = [i] * 9 + [ip]
@@ -1449,18 +1495,18 @@ def _check_weights(kernel, w_in):
 
 
 def _plan_layer0(device: torch.device, F: int, H: int, recurrent: bool,
-                 bf16: bool) -> Optional[Tuple[int, int]]:
-    """(rows per block, shared-memory bytes) of ``fused_layer0_fwd`` on
-    ``device``, or None when the shape does not fit it."""
+                 bf16: bool) -> Optional[bool]:
+    """Whether ``fused_layer0_fwd`` runs the shape on ``device`` on its
+    tensor-core body (True) or its per-unit body (False), or None when the
+    shape does not fit it."""
     lib = _lib()
-    rows, smem = ctypes.c_int(0), ctypes.c_int(0)
+    mma = ctypes.c_int(0)
     rc = lib.snn_fused_layer0_plan(F, H, int(recurrent), int(bf16),
-                                   _index(device), ctypes.byref(rows),
-                                   ctypes.byref(smem))
+                                   _index(device), ctypes.byref(mma))
     if rc == 1:
         return None
     _raise_on(rc, lib, f"{KERNEL_L0} plan")
-    return rows.value, smem.value
+    return bool(mma.value)
 
 
 def _plan_layer0_bwd(device: torch.device, B: int, F: int, H: int, T: int,
@@ -1501,6 +1547,25 @@ def fused_supported(
         use_periods) is not None
 
 
+def layer0_bodies(n_steps: int, n_features: int, hidden: int,
+                  recurrent: bool = True, itemsize: int = 4, device="cuda",
+                  training: bool = False,
+                  use_periods: bool = True) -> Tuple[str, ...]:
+    """The body each first-layer kernel runs a shape on, for a shape
+    :func:`fused_supported` takes on a CUDA device, as :func:`head_bodies`
+    names the head's: ``"mma"`` (``fused_layer0_fwd`` on the head's
+    tensor-core body without the readout) or ``"per-unit"`` (H > 256, or
+    W_rec's bf16 pieces past a block's shared memory).  A second entry with
+    ``training``: ``fused_layer0_bwd``'s chain, the per-unit chain.  On the
+    CPU the plain versions: ``"plain"`` entries."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ("plain",) * (1 + int(training))
+    fwd = _plan_layer0(device, n_features, hidden, recurrent, itemsize == 2)
+    return ("mma" if fwd else "per-unit",) + (("per-unit",) if training
+                                              else ())
+
+
 def _layer0_cuda(lat, w_in, w_rec, beta, n_steps, use_periods, alif, alpha,
                  rho, threshold, train, store_a, res_is_v):
     """Launch ``fused_layer0_fwd``; returns as :func:`_layer0_reference`."""
@@ -1517,8 +1582,8 @@ def _layer0_cuda(lat, w_in, w_rec, beta, n_steps, use_periods, alif, alpha,
     if not 1 <= n_steps <= MAX_STEPS:
         raise ValueError(
             f"{k}: n_steps must be in [1, {MAX_STEPS}], got {n_steps}")
-    plan = _plan_layer0(dev, F, H, w_rec is not None, wdt == torch.bfloat16)
-    if plan is None:
+    mma = _plan_layer0(dev, F, H, w_rec is not None, wdt == torch.bfloat16)
+    if mma is None:
         raise ValueError(f"{k}: shape F={F} H={H} does not fit the kernel "
                          "(gate on fused_supported)")
     trace = dict(dtype=wdt, device=dev)
@@ -1526,13 +1591,17 @@ def _layer0_cuda(lat, w_in, w_rec, beta, n_steps, use_periods, alif, alpha,
     res = torch.empty((n_steps, B, H), **trace) if train else None
     a_tr = torch.empty((n_steps, B, H), **trace) if train and store_a \
         else None
+    # Each row's features ordered by spike key (head_mma.head_lists).
+    lists = (torch.empty((B, list_row_words(F)), dtype=torch.int16,
+                         device=dev) if mma else None)
+    beta_t = _beta_tensor(beta, dev)
     lib = _lib()
     rc = lib.snn_fused_layer0_fwd(
-        lat.data_ptr(), w_in.data_ptr(), _ptr(w_rec),
-        _beta_tensor(beta, dev).data_ptr(), z.data_ptr(), _ptr(res),
-        _ptr(a_tr), B, F, H, n_steps, int(use_periods), int(alif),
-        int(wdt == torch.bfloat16), int(res_is_v), alpha, rho, threshold,
-        plan[0], dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        lat.data_ptr(), w_in.data_ptr(), _ptr(w_rec), beta_t.data_ptr(),
+        z.data_ptr(), _ptr(res), _ptr(a_tr), _ptr(lists), B, F, H, n_steps,
+        int(use_periods), int(alif), int(wdt == torch.bfloat16),
+        int(res_is_v), alpha, rho, threshold, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, f"{k} launch")
     _launched(k)

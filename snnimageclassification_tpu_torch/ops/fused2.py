@@ -108,31 +108,29 @@ def _fused2_fwd_ordered_reference(lat, w0, w0r, beta0, w1, w1r, beta1,
                                   store_a, want_counts):
     """Plain version of ``fused2_fwd[_train]``'s tensor-core body
     (``csrc/fused2.cu:fused2_mma_kernel``) in its summation order; returns
-    as :func:`_fused2_reference`.  Layer 0's input current is the head
-    body's (``ops/fused.py:_ordered_currents``), every product k16-sliced
-    as the tensor cores form it (``_slice_product``): layer 0's recurrent
-    current added to its input current past step 0; layer 1's input
-    current ``z0(t) @ W1``, its recurrent current added past step 0; the
-    readout ``v_r = kappa v_r + (z1(t) @ W_out + b)``.  The cell steps are
-    the plain loop's (``fused._Cell``)."""
-    f32 = torch.float32
+    as :func:`_fused2_reference`.  Layer 0 is the head body's first layer
+    (``ops/fused.py:_ordered_input``, the code of
+    ``fused._layer0_ordered_reference``), every product k16-sliced as the
+    tensor cores form it (``_slice_product``): layer 0's recurrent current
+    added to its input current past step 0; layer 1's input current ``z0(t)
+    @ W1``, its recurrent current added past step 0; the readout ``v_r =
+    kappa v_r + (z1(t) @ W_out + b)``.  The cell steps are the plain loop's
+    (``fused._Cell``)."""
     dev, wd = lat.device, w0.dtype
     B = lat.shape[0]
     pieces = _f._weight_pieces
-    cur0 = _f._ordered_currents(lat, w0, n_steps, use_periods)
+    cur0 = _f._ordered_input(lat, w0, w0r, n_steps, use_periods)
     w1_p = pieces(w1)
-    rec_p = None if w0r is None else (pieces(w0r), pieces(w1r))
+    rec1_p = None if w1r is None else pieces(w1r)
     l0 = _f._Cell(B, w0.shape[1], dev, None, beta0, alif, want_counts)
     l1 = _f._Cell(B, w1.shape[1], dev, None, beta1, alif, want_counts)
     readout = _f._Readout(B, w_out, b_out, kappa, dev, sliced=True)
     traces = ([], [], [], [])  # d0, d1, a0, a1
     for t in range(n_steps):
-        c0 = cur0(t)
         c1_rec = None
-        if rec_p is not None and t > 0:
-            c0 = c0 + _f._slice_product(l0.z, rec_p[0])
-            c1_rec = _f._slice_product(l1.z, rec_p[1])
-        d0 = l0.step(c0, alpha, rho, threshold)
+        if rec1_p is not None and t > 0:
+            c1_rec = _f._slice_product(l1.z, rec1_p)
+        d0 = l0.step(cur0(t, l0.z), alpha, rho, threshold)
         c1 = _f._slice_product(l0.z, w1_p)
         if c1_rec is not None:
             c1 = c1 + c1_rec

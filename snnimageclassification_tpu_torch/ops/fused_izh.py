@@ -31,15 +31,17 @@ Three hand-written CUDA kernels stand behind the wrappers:
   one source, head and first-layer mode): the two-carry chain, then the
   LIF/ALIF weight-gradient functions of ``csrc/bwd_common.cuh``.
 
-The head's forward and its backward's chain run the LIF/ALIF head's
-tensor-core body (``csrc/head_mma_fwd.cuh``, ``csrc/chain_mma.cuh``) with
-the Izhikevich cell and chain as its policies wherever it fits (O <= 16,
-H <= 256, the weights' bf16 pieces within a block's shared memory);
-other shapes and the first layer run the per-unit body (one thread a (row,
-unit)).  :func:`head_bodies` names the body of a shape;
-:func:`_izh_head_train_ordered_reference` and
+The forwards (head and first layer) and the head backward's chain run the
+LIF/ALIF head's tensor-core body (``csrc/head_mma_fwd.cuh``,
+``csrc/chain_mma.cuh``) with the Izhikevich cell and chain as its policies
+wherever it fits (O <= 16, H <= 256, the weights' bf16 pieces within a
+block's shared memory); other shapes and the first layer's chain run the
+per-unit body (one thread a (row, unit)).  :func:`head_bodies` and
+:func:`layer0_bodies` name the body of a shape;
+:func:`_izh_head_train_ordered_reference`,
+:func:`_izh_layer0_ordered_reference` and
 :func:`_izh_bwd_ordered_reference` are the plain versions in the
-tensor-core body's summation order, the forward's bit for bit on the card.
+tensor-core body's summation order, the forwards' bit for bit on the card.
 
 The head also runs stacked replicas (an ensemble of S seeds on one batch,
 the JAX package's stacked-replica mode): ``W_in (S, F, H)`` and a leading S
@@ -89,6 +91,7 @@ __all__ = [
     "fused_encode_izh_scan_head_counts_reference",
     "fused_izh_supported",
     "fused_izh_head_supported",
+    "layer0_bodies",
 ]
 
 
@@ -164,7 +167,8 @@ def _izh_head_train_ordered_reference(lat, w_in, w_rec, w_out, b_out,
     from each row's features in key order, TTFS rows at >= F / 16 spikes
     as a k16-sliced product, the recurrent and readout products per k16
     slice); the cell step is the plain loop's (``ops/izh.py:_cell_step``).
-    Returns as :func:`_head_reference`."""
+    Returns as :func:`_head_reference` (without ``w_out``: a first layer,
+    ``(None, v | None, None, counts | None)``)."""
     f32 = torch.float32
     v_rest = dict(kernel_params)["v_rest"]
     shape = (lat.shape[0], w_in.shape[1])
@@ -185,6 +189,20 @@ def _izh_head_train_ordered_reference(lat, w_in, w_rec, w_out, b_out,
                                      use_periods, kappa, cell)
     return (logits, torch.stack(vs) if train else None,
             tstar if train else None, st["counts"] if want_counts else None)
+
+
+def _izh_layer0_ordered_reference(lat, w_in, w_rec, n_steps, use_periods,
+                                  kernel_params, train):
+    """Plain version of ``fused_izh_layer0_fwd``'s tensor-core body
+    (``csrc/head_mma_fwd.cuh:mma_layer`` with the Izhikevich cell, no
+    readout) in its summation order: :func:`_izh_head_train_ordered_reference`
+    without the readout (``ops/fused.py:_ordered_head``).  Returns as
+    :func:`_layer0_reference`: ``(z, v | None)`` float32."""
+    _, v, _, _ = _izh_head_train_ordered_reference(
+        lat, w_in, w_rec, None, None, n_steps, use_periods, kernel_params,
+        0.0, True, False)
+    z = (v >= dict(kernel_params)["v_peak"]).to(torch.float32)
+    return z, v if train else None
 
 
 def _izh_bwd_ordered_reference(g_logits, g_counts, tstar, g_z, z, v, lat,
@@ -230,13 +248,13 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(i)
     if name == "fused_izh":
-        lib.snn_fused_izh_plan.argtypes = [i] * 6 + [ip, ip, ip]
+        lib.snn_fused_izh_plan.argtypes = [i] * 6 + [ip]
         lib.snn_fused_izh_plan.restype = i
         lib.snn_fused_izh_fwd.argtypes = (
             [vp] * 10 + [i] * 7 + [f] * 11 + [i, i, vp])
         lib.snn_fused_izh_fwd.restype = i
         lib.snn_fused_izh_layer0_fwd.argtypes = (
-            [vp] * 5 + [i] * 6 + [f] * 10 + [i, i, vp])
+            [vp] * 6 + [i] * 6 + [f] * 10 + [i, vp])
         lib.snn_fused_izh_layer0_fwd.restype = i
     else:
         lib.snn_fused_izh_bwd_plan.argtypes = [i] * 9 + [ip]
@@ -259,20 +277,18 @@ def _lib(name: str = "fused_izh") -> ctypes.CDLL:
 
 
 def _plan(device: torch.device, F: int, H: int, O: int, recurrent: bool,
-          bf16: bool) -> Optional[Tuple[int, int, bool]]:
-    """(rows per block, shared-memory bytes) of the forward kernels'
-    per-unit body and whether the head runs the shape on its tensor-core
-    body instead (``O == 0``: the first-layer mode, always the per-unit
-    body), or None when the shape does not fit."""
+          bf16: bool) -> Optional[bool]:
+    """Whether the forward kernels run the shape on their tensor-core body
+    (True) or their per-unit body (False; ``O == 0``: the first-layer
+    mode), or None when the shape does not fit."""
     lib = _lib()
-    rows, smem, mma = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    mma = ctypes.c_int(0)
     rc = lib.snn_fused_izh_plan(F, H, O, int(recurrent), int(bf16),
-                                _f._index(device), ctypes.byref(rows),
-                                ctypes.byref(smem), ctypes.byref(mma))
+                                _f._index(device), ctypes.byref(mma))
     if rc == 1:
         return None
     _f._raise_on(rc, lib, f"{KERNEL_IZH} plan")
-    return rows.value, smem.value, bool(mma.value)
+    return bool(mma.value)
 
 
 def _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16, use_periods):
@@ -362,12 +378,31 @@ def head_bodies(n_steps: int, n_features: int, hidden: int, n_out: int,
     device = torch.device(device)
     bf16 = itemsize == 2
     fwd = _plan(device, n_features, hidden, n_out, recurrent, bf16)
-    bodies = ["mma" if fwd and fwd[2] else "per-unit"]
+    bodies = ["mma" if fwd else "per-unit"]
     if training:
         bwd = _plan_bwd(device, 1, n_features, hidden, n_out, n_steps,
                         recurrent, bf16, use_periods)
         bodies.append("mma" if bwd and bwd[3] else "per-unit")
     return tuple(bodies)
+
+
+def layer0_bodies(n_steps: int, n_features: int, hidden: int,
+                  recurrent: bool = True, itemsize: int = 4, device="cuda",
+                  training: bool = False,
+                  use_periods: bool = True) -> Tuple[str, ...]:
+    """The body each Izhikevich first-layer kernel runs a shape on, for a
+    shape :func:`fused_izh_supported` takes on a CUDA device:
+    ``"mma"`` (``fused_izh_layer0_fwd`` on the tensor-core body without the
+    readout) or ``"per-unit"`` (H > 256, or W_rec's bf16 pieces past a
+    block's shared memory); a second entry with ``training``:
+    ``fused_izh_layer0_bwd``'s chain, the per-unit chain.  On the CPU the
+    plain versions: ``"plain"`` entries."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ("plain",) * (1 + int(training))
+    fwd = _plan(device, n_features, hidden, 0, recurrent, itemsize == 2)
+    return ("mma" if fwd else "per-unit",) + (
+        ("per-unit",) if training else ())
 
 
 def fused_izh_head_supported(n_steps: int, n_features: int, hidden: int,
@@ -385,9 +420,8 @@ def fused_izh_head_supported(n_steps: int, n_features: int, hidden: int,
 
 def _check_forward(k, lat, w_in, w_rec, w_out, b_out, n_steps, S=None):
     """Validate the forward kernels' inputs (a leading S on the weights of
-    ``S`` stacked replicas); returns (B, F, H, O, rows a block of the
-    per-unit body, the list scratch of the head's tensor-core body or
-    None)."""
+    ``S`` stacked replicas); returns (B, F, H, O, the list scratch of the
+    tensor-core body or None)."""
     dev = lat.device
     _f._check_weights(k, w_in)
     wdt = w_in.dtype
@@ -405,14 +439,14 @@ def _check_forward(k, lat, w_in, w_rec, w_out, b_out, n_steps, S=None):
     if not 1 <= n_steps <= MAX_STEPS:
         raise ValueError(
             f"{k}: n_steps must be in [1, {MAX_STEPS}], got {n_steps}")
-    plan = _plan(dev, F, H, O, w_rec is not None, wdt == torch.bfloat16)
-    if plan is None:
+    mma = _plan(dev, F, H, O, w_rec is not None, wdt == torch.bfloat16)
+    if mma is None:
         raise ValueError(f"{k}: shape F={F} H={H} O={O} does not fit the "
                          "kernel (gate on fused_izh[_head]_supported)")
     # Each row's features ordered by spike key (head_mma.head_lists).
     lists = (torch.empty((B, list_row_words(F)), dtype=torch.int16,
-                         device=dev) if plan[2] else None)
-    return B, F, H, O, plan[0], lists
+                         device=dev) if mma else None)
+    return B, F, H, O, lists
 
 
 def _head_cuda(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
@@ -428,8 +462,8 @@ def _head_cuda(lat, w_in, w_rec, w_out, b_out, n_steps, use_periods,
             raise ValueError(f"{k}: the stacked head has no spike counts")
         k = KERNEL_IZH_TRAIN_STACKED if train else KERNEL_IZH_STACKED
     dev = lat.device
-    B, F, H, O, _, lists = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
-                                          n_steps, S)
+    B, F, H, O, lists = _check_forward(k, lat, w_in, w_rec, w_out, b_out,
+                                       n_steps, S)
     lead = _f._lead(S)
     f32 = dict(dtype=torch.float32, device=dev)
     logits = torch.empty((*lead, B, O), **f32)
@@ -457,16 +491,16 @@ def _layer0_cuda(lat, w_in, w_rec, n_steps, use_periods, kernel_params,
     :func:`_layer0_reference`."""
     k = KERNEL_IZH_L0
     dev = lat.device
-    B, F, H, _, rows, _ = _check_forward(k, lat, w_in, w_rec, None, None,
-                                         n_steps)
+    B, F, H, _, lists = _check_forward(k, lat, w_in, w_rec, None, None,
+                                       n_steps)
     z = torch.empty((n_steps, B, H), dtype=torch.float32, device=dev)
     v = torch.empty_like(z) if train else None
     lib = _lib()
     rc = lib.snn_fused_izh_layer0_fwd(
         lat.data_ptr(), w_in.data_ptr(), _f._ptr(w_rec), z.data_ptr(),
-        _f._ptr(v), B, F, H, n_steps, int(use_periods),
+        _f._ptr(v), _f._ptr(lists), B, F, H, n_steps, int(use_periods),
         int(w_in.dtype == torch.bfloat16), *_izh._consts(kernel_params),
-        rows, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
     return z, v

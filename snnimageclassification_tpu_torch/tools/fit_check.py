@@ -47,14 +47,14 @@ from ..parallel import EnsembleTrainer
 # csrc/chain_mma.cuh), and the same made false.
 _FWD_TEST = (
     "inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) "
-    "{\n  return O >= 1",
+    "{\n  return O >= 0",
     "inline bool mma_fits(int H, int O, int rec, int bf16, int max_smem) "
-    "{\n  return false && O >= 1")
+    "{\n  return false && O >= 0")
 _CHAIN_TEST = (
     "inline bool chain_mma_fits(int H, int O, int rec, int bf16, "
-    "int max_smem) {\n  return O >= 1",
+    "int max_smem) {\n  return O >= 0",
     "inline bool chain_mma_fits(int H, int O, int rec, int bf16, "
-    "int max_smem) {\n  return false && O >= 1")
+    "int max_smem) {\n  return false && O >= 0")
 # source -> its shape test: the LIF/ALIF head pair and the Izhikevich one.
 SHAPE_TESTS = {"fused_head": _FWD_TEST, "fused_head_bwd": _CHAIN_TEST,
                "fused_izh": _FWD_TEST, "fused_izh_bwd": _CHAIN_TEST}

@@ -13,6 +13,7 @@ Run on a CUDA card from the repository root::
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation --mid
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation \
         --twolayer
+    python3 -m snnimageclassification_tpu_torch.tools.head_ablation --layer0
 
 Each variant is the kernel source (headers inlined) with one statement of
 its tensor-core body replaced: the readout product, the recurrent product,
@@ -63,6 +64,20 @@ shared memory (``win_from_l2``) and on the per-unit body
 (``csrc/fused2.cu``, 784-ALIF128-ALIF128-10; ``no_input_product`` is
 layer 1's z0 @ W1, ``w1_from_l2`` W1's pieces from L2 where they fit
 shared memory).
+
+``--layer0`` times the first layers' forwards on the head's tensor-core
+body without the readout: ``fused_layer0_fwd`` (``csrc/fused_head.cu``,
+784 -> ALIF-128 recurrent, learn_beta, the deep network's layer 0:
+training TTFS and periodic at B = 8192, served TTFS at 4096) and
+``fused_izh_layer0_fwd`` (``csrc/fused_izh.cu``, 784 -> Izhikevich-128
+recurrent at dt = 30, training TTFS at 8192), params seed 0, random uint8
+rows (numpy seed 1; periodic also at tau = 20 steps, where every row walks
+its periods a step), float32 and bfloat16: as built (z(t) leaves from the
+tile's exchange buffer in 16-byte stores), with each lane storing its pair
+of z values from the accumulator layout instead (``per_lane_z``), with no
+z store (``no_z_store``), with the launch bound of the threads alone
+(``ptxas_heuristic``: ptxas then held some instances to 128 registers and
+spilled) and on the per-unit body (``per_unit_body``).
 
 ``--launch-order`` times the stacked kernel (six replicas of that
 flagship, seeds 0-5, on the same batch) as it is built, row tiles on the
@@ -167,14 +182,14 @@ TWOLAYER_VARIANTS = {
         ("        mma_exact_a<P>(cur[n], A, w1f, kk * (HP / 8) + MMA_NT * wu + "
          "n, lane);", "        cur[n][0] += 0.f;"),),
     "no_recurrent_product": (
-        ("          mma_exact_a<P>(rec[n], A, s_w0r, kk * (HP / 8) + MMA_NT * "
-         "wu + n,\n                         lane);", "          rec[n][0] += "
-         "0.f;"),
+        ("            mma_exact_a<P>(rec[n], A, s_wrec,\n"
+         "                           kk * (HP / 8) + MMA_NT * wu + n, lane);",
+         "            rec[n][0] += 0.f;"),
         ("            mma_exact_a<P>(rec[n], A, s_w1r, kk * (HP / 8) + MMA_NT "
          "* wu + n,\n                           lane);", "            "
          "rec[n][0] += 0.f;")),
     "no_exchange": (
-        ("    put_slice(s_z0 + (t & 1) * 16 * ZS, ZS, wu, lane, zf);", ""),
+        ("    put_slice(s_z + (t & 1) * 16 * ZS, ZS, wu, lane, zf);", ""),
         ("    put_slice(s_z1 + (s & 1) * 16 * ZS, ZS, wu, lane, zf);", ""),
         NO_BARRIER),
     "w1_from_l2": (
@@ -183,6 +198,42 @@ TWOLAYER_VARIANTS = {
     "per_unit_body": (
         ("  out[0] = mma2_fits(F, H1, H2, O, rec, bf16, max_smem, &w1s) ? 1 "
          ": 0;", "  out[0] = 0;"),),
+}
+
+# The first layers' variants (csrc/head_mma_fwd.cuh:mma_layer without the
+# readout): z(t) stored by each lane from the accumulator layout, a pair of
+# units a store, as the cell step makes it (instead of from the tile's
+# exchange buffer in 16-byte stores after the step's barrier); no z store;
+# the kernel's launch bound; the per-unit body (the first layer's plan made
+# not to take the tensor-core body).
+Z_FROM_BUFFER = (
+    ("    if (ZOUT && zo && t > 0)\n"
+     "      zst.put(zo + ((size_t)(t - 1) * B + row0) * H,\n"
+     "              s_z + ((t - 1) & 1) * 16 * ZS);\n", ""),
+    ("  if (ZOUT && zo)  // z(T - 1): its buffer is written no more\n"
+     "    zst.put(zo + ((size_t)(T - 1) * B + row0) * H,\n"
+     "            s_z + ((T - 1) & 1) * 16 * ZS);\n", ""))
+LAYER0_VARIANTS = {
+    "per_lane_z": Z_FROM_BUFFER + (
+        ("        zf[n][e] = z ? 1.f : 0.f;\n",
+         "        zf[n][e] = z ? 1.f : 0.f;\n"
+         "        if (ZOUT && zo && (e & 1) && live[e >> 1] && "
+         "col0 + 8 * n < H)\n"
+         "          store_pair(zo + ((size_t)t * B + row0 + g + 8 * (e >> 1))"
+         " * H + col0 + 8 * n,\n"
+         "                     zf[n][e - 1], zf[n][e], col0 + 8 * n + 1 < H);"
+         "\n"),),
+    "no_z_store": Z_FROM_BUFFER,
+    # The bound the kernel had: the threads alone, from which ptxas held
+    # some instances to 128 registers and spilled.
+    "ptxas_heuristic": (
+        ("__global__ void __launch_bounds__(MMA_THREADS, 1)\n"
+         "    head_mma_kernel(",
+         "__global__ void __launch_bounds__(MMA_THREADS)\n"
+         "    head_mma_kernel("),),
+    "per_unit_body": (
+        ("  *mma_out = mma_fits(H, O, rec, bf16, max_smem) ? 1 : 0;",
+         "  *mma_out = O > 0 && mma_fits(H, O, rec, bf16, max_smem) ? 1 : 0;"),),
 }
 
 # The stacked launch with its grid's axes swapped: replicas on x (fastest),
@@ -316,6 +367,9 @@ def main() -> None:
                              "(csrc/fused_mid.cu)")
     parser.add_argument("--twolayer", action="store_true",
                         help="the two-layer forward (csrc/fused2.cu)")
+    parser.add_argument("--layer0", action="store_true",
+                        help="the first layers' forwards (csrc/fused_head.cu"
+                             ", csrc/fused_izh.cu)")
     ns = parser.parse_args()
     launch_order = ns.launch_order
     if not torch.cuda.is_available():
@@ -325,6 +379,9 @@ def main() -> None:
         return
     if ns.mid or ns.twolayer:
         _layers_main("fused_mid" if ns.mid else "fused2")
+        return
+    if ns.layer0:
+        _layer0_main()
         return
     if ns.izh:
         _izh_main(ns.bodies)
@@ -553,6 +610,57 @@ def _layers_main(src: str) -> None:
                      "head_serve": call(z1, 4096, True, False)}
         variants = MID_VARIANTS if src == "fused_mid" else TWOLAYER_VARIANTS
         _time_variants(src, variants, calls, {src: True, "dtype": md})
+    print(_card())
+
+
+def _layer0_main() -> None:
+    """``--layer0``: the variants of both first layers' forwards."""
+    raw = np.random.default_rng(1).integers(0, 256, (8192, 784),
+                                            dtype=np.uint8)
+    x = torch.from_numpy(raw).cuda().to(torch.float32) / 255.0
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    spread = pixels_to_firing_periods(x, t_max=100.0, tau=20.0).contiguous()
+    for md in ("float32", "bfloat16"):
+        dt = getattr(torch, md)
+        cfg = SNNConfig(input_size=784, output_size=10,
+                        n_hidden_neurons=[128, 128, 96],
+                        hidden_layer_type=LayerType.ALIF,
+                        use_recurrent_connection=True, learn_beta=True,
+                        int_time_steps=100, matmul_dtype=md)
+        params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                                device="cuda")
+        name, lcfg = cfg.layer_configs[0]
+        p = params[name]
+        w_in = p["w_in"].to(dt).contiguous()
+        w_rec = masked_recurrent(lcfg, p).to(dt).contiguous()
+        beta = p["beta"].detach()
+        sc = (True, lcfg.alpha, lcfg.rho, lcfg.threshold)
+
+        def lif(lat_, per, train):
+            return lambda: fused._layer0_cuda(lat_, w_in, w_rec, beta, 100,
+                                              per, *sc, train, False, False)
+
+        _time_variants("fused_head", LAYER0_VARIANTS, {
+            "train": lif(lat, False, True),
+            "train_periodic": lif(lat, True, True),
+            "train_periodic_tau20": lif(spread, True, True),
+            "serve": lif(lat[:4096].contiguous(), False, False)},
+            {"layer0": "fused_layer0_fwd", "dtype": md}, n=10)
+        icfg = SNNConfig(input_size=784, output_size=10,
+                         n_hidden_neurons=[128, 128],
+                         hidden_layer_type=LayerType.Izhikevich,
+                         use_recurrent_connection=True, int_time_steps=100,
+                         dt=30.0, matmul_dtype=md)
+        iparams = model_lib.init(icfg, torch.Generator().manual_seed(0),
+                                 device="cuda")
+        name, lcfg = icfg.layer_configs[0]
+        ip = iparams[name]
+        l0 = (lat, ip["w_in"].to(dt).contiguous(),
+              masked_recurrent(lcfg, ip).to(dt).contiguous(), 100, False,
+              izh.izh_kernel_params(lcfg), True)
+        _time_variants("fused_izh", LAYER0_VARIANTS, {
+            "train": lambda: fused_izh._layer0_cuda(*l0)},
+            {"layer0": "fused_izh_layer0_fwd", "dtype": md}, n=10)
     print(_card())
 
 

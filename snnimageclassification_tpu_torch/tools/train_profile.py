@@ -36,7 +36,9 @@ mid z-emitting layer and the two-layer pair's layer 0
 ``bwd_chain_mma_kernel<ZChain..>``, of layer 0 of a deeper net
 ``bwd_chain_kernel<.., false, ..>``; ``gzin_mma_kernel`` is a mid layer's
 ``g_z_in`` and the two-layer pair's ``dz0``; the head's forward is
-``head_mma_kernel`` after ``head_sort_kernel``; ``gbits_mma_kernel`` sums
+``head_mma_kernel`` after ``head_sort_kernel``, and so is a deeper net's
+first layer on that body (the instance whose fourth template argument,
+``HEAD``, is false); ``gbits_mma_kernel`` sums
 every backward's ``g_W_rec`` and a mid layer's ``g_W_in`` launches, the wide
 net's ``rec_scan_bwd`` being ``rec_chain_kernel`` + ``gbits_mma_kernel``),
 the device's busy and idle share of the window, and the card's

@@ -41,14 +41,21 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   a row's bits independent of its batch, the backward against both plain
   versions at the bars above, the stacked mode bitwise S single launches;
   shapes past its limits run the per-unit body (``head_bodies``); layer 0
-  keeps the per-unit body, within the ``v`` bars of the head.
+  runs the same body without the readout, its ``v`` the head's bit for
+  bit.
+* the first layers on the tensor-core body (``fused_layer0_fwd``,
+  ``fused_izh_layer0_fwd``) bit for bit their plain versions in its order
+  (``_layer0_ordered_reference``, ``_izh_layer0_ordered_reference``),
+  their spikes the heads'; past its limits the per-unit body against the
+  order-free plain versions; ``explain_dispatch`` names both.
 * the two-layer pair (``fused2_fwd[_train]``, ``fused2_bwd``) at T = 24 and
   100: logits 1e-5, ``tstar``, counts and spikes equal to the plain
   version's, residuals 1e-5 (bf16 2**-7), training logits bitwise the
   inference kernel's; the backward on the forward kernel's residuals within
   2e-6 of max|g| (5e-6 at T = 100, 2e-5 ALIF with Phi, bf16 2**-7), equal
-  bits on a second run; logits, ``tstar`` and counts bitwise those of the
-  composed kernels (``fused_layer0_fwd`` + ``fused_mid_fwd[head]``); the
+  bits on a second run; logits, ``tstar``, counts and residuals bitwise
+  those of the composed kernels (``fused_layer0_fwd`` +
+  ``fused_mid_fwd[head]``, on the tensor-core bodies and past them); the
   public functions under autograd and the model's dispatch launch the pair
   once.
 * the feedforward scan (``scan_fwd[_train]``, ``scan_bwd``) at T = 23, 24
@@ -907,6 +914,187 @@ def test_deep_inference_launches_one_kernel_a_layer(card):
 
 
 # ---------------------------------------------------------------------------
+# First layers on the tensor-core body
+# ---------------------------------------------------------------------------
+L0_STEPS = [(1, PROD_TAU), (24, 20.0), (24, PROD_TAU), (100, 20.0),
+            (100, PROD_TAU)]
+L0_CASES = [(*net, n, tau) for net in MMA_NETS for n, tau in L0_STEPS]
+
+
+def _layer0_args(a):
+    """``fused._layer0_cuda``'s arguments up to ``threshold`` from
+    :func:`_args`'s dict."""
+    return (a["latencies"], a["w_in"], a["w_rec"], a["beta"], a["n_steps"],
+            a["use_periods"], a["alif"], a["alpha"], a["rho"],
+            a["threshold"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "name,alif,rec,use_periods,spike,n_steps,tau", L0_CASES,
+    ids=[f"{c[0]}-{c[5]}{'-prod' if c[6] == PROD_TAU else ''}"
+         for c in L0_CASES])
+def test_layer0_mma_body_matches_ordered_versions(card, name, alif, rec,
+                                                  use_periods, spike,
+                                                  n_steps, tau, wdtype):
+    """``fused_layer0_fwd`` on its tensor-core body (the head's body without
+    the readout) equals ``_layer0_ordered_reference`` bit for bit at B = 37
+    and H = 20, 45, 128: spikes and residuals (``v`` and ``delta``:
+    ``res_is_v`` both ways; ``a`` for ALIF with Phi), equal bits on a
+    repeated call, inference's spikes training's; the spikes are the head
+    kernel's on the same inputs."""
+    store_a = alif and spike == PHI
+    for H in (20, 45, 128):
+        a = _args(card, 37, 30, H, 10, n_steps, alif, rec, use_periods,
+                  wdtype, spike, tau=tau)
+        assert fused.layer0_bodies(n_steps, 30, H, rec, wdtype.itemsize,
+                                   card, True, use_periods) == ("mma",
+                                                                "per-unit")
+        l0 = _layer0_args(a)
+        fused.reset_launch_counts()
+        for res_is_v in (False, True):
+            got = fused._layer0_cuda(*l0, True, store_a, res_is_v)
+            again = fused._layer0_cuda(*l0, True, store_a, res_is_v)
+            want = fused._layer0_ordered_reference(*l0, True, store_a,
+                                                   res_is_v)
+            torch.cuda.synchronize()
+            for k, (g, g2, w) in enumerate(zip(got, again, want)):
+                assert (g is None) == (w is None)
+                assert g is None or (torch.equal(g, g2)
+                                     and torch.equal(g, w)), (H, res_is_v, k)
+        inf = fused._layer0_cuda(*l0, False, False, False)
+        assert inf[1] is None and torch.equal(inf[0], got[0])
+        assert _launched() == {fused.KERNEL_L0: 5}
+        assert float(got[0].float().sum()) > 0  # the units fire
+        delta = fused._head_train_cuda(*_train_args(a), True, False,
+                                       False)[1]
+        assert torch.equal(got[0], (delta.float() >= 0).to(wdtype))
+
+
+IZH_L0_CASES = [(dt, rec, per, T) for dt in (1e-3, 30.0)
+                for rec in (True, False) for per in (False, True)
+                for T in (1, 24, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "dt,rec,use_periods,n_steps", IZH_L0_CASES,
+    ids=[f"dt{c[0]:g}-{'rec' if c[1] else 'ff'}-"
+         f"{'periodic' if c[2] else 'ttfs'}-{c[3]}" for c in IZH_L0_CASES])
+def test_izh_layer0_mma_body_matches_ordered_versions(card, dt, rec,
+                                                      use_periods, n_steps,
+                                                      wdtype):
+    """``fused_izh_layer0_fwd`` on its tensor-core body equals
+    ``_izh_layer0_ordered_reference`` bit for bit (``z``, ``v``) at dt =
+    1e-3 (the JAX suite's scale) and dt = 30, equal bits on a repeated
+    call, inference's spikes training's; its ``v`` is the head kernel's on
+    the same inputs."""
+    head = _izh_head(card, dt, rec, use_periods, n_steps, wdtype)
+    lat, w_in, w_rec = head[:3]
+    F, H = w_in.shape
+    assert fused_izh.layer0_bodies(n_steps, F, H, rec, wdtype.itemsize,
+                                   card, True, use_periods) == ("mma",
+                                                                "per-unit")
+    l0 = (lat, w_in, w_rec, n_steps, use_periods, head[7])
+    fused.reset_launch_counts()
+    got = fused_izh._layer0_cuda(*l0, True)
+    again = fused_izh._layer0_cuda(*l0, True)
+    inf = fused_izh._layer0_cuda(*l0, False)
+    want = fused_izh._izh_layer0_ordered_reference(*l0, True)
+    v_head = fused_izh._head_cuda(*head, True, False)[1]
+    torch.cuda.synchronize()
+    assert _launched() == {fused.KERNEL_IZH_L0: 3,
+                           fused.KERNEL_IZH_TRAIN: 1}
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2) and torch.equal(g, w)
+    assert inf[1] is None and torch.equal(inf[0], got[0])
+    assert torch.equal(got[1], v_head)
+    if n_steps > 2:
+        assert float(got[0].sum()) > 0  # the units fire
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_periods", [False, True],
+                         ids=["ttfs", "periodic"])
+@pytest.mark.parametrize("H,wdtype,rec", [(192, torch.float32, True),
+                                          (288, torch.bfloat16, True),
+                                          (288, torch.float32, False)],
+                         ids=["f32-rec-H192", "bf16-rec-H288",
+                              "f32-ff-H288"])
+def test_layer0_per_unit_body_takes_the_rest(card, H, wdtype, rec,
+                                             use_periods):
+    """Shapes past the tensor-core body's limits (float32 W_rec's pieces
+    past a block's shared memory from H = 161, H > 256) run the first
+    layers' per-unit body, which ``layer0_bodies`` and ``explain_dispatch``
+    name, against the order-free plain versions: spikes equal, residuals
+    1e-5 (bf16 2**-7); the Izhikevich ``v`` 1e-6 relative and 1e-3 mV."""
+    import snnimageclassification_tpu_torch as pt
+    from snnimageclassification_tpu_torch.models import snn as model_lib
+
+    T, B, it = 24, 21, wdtype.itemsize
+    assert fused.fused_supported(T, 30, H, rec, it, card, True, use_periods)
+    assert fused.layer0_bodies(T, 30, H, rec, it, card) == ("per-unit",)
+    a = _args(card, B, 30, H, 10, T, True, rec, use_periods, wdtype, PHI,
+              w_scale=(0.5, 0.05))
+    got = fused._layer0_cuda(*_layer0_args(a), True, True, True)
+    want = fused._layer0_reference(*_layer0_args(a), True, True, True)
+    assert torch.equal(got[0], want[0]) and float(got[0].float().sum()) > 0
+    tol = 1e-5 if wdtype == torch.float32 else 2.0 ** -7
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    head = _izh_head(card, 1e-3, rec, use_periods, T, wdtype, B=B, H=H)
+    assert fused_izh.layer0_bodies(T, 30, H, rec, it, card) == ("per-unit",)
+    l0 = (*head[:3], T, use_periods, head[7], True)
+    (z, v), (zp, vp) = fused_izh._layer0_cuda(*l0), \
+        fused_izh._layer0_reference(*l0)
+    assert torch.equal(z, zp) and float(z.sum()) > 0
+    torch.testing.assert_close(v, vp, rtol=1e-6, atol=1e-3)
+    for kind in ("ALIF", "Izhikevich"):
+        cfg = pt.SNNConfig(input_size=30, output_size=10,
+                           n_hidden_neurons=[H, 32, 16],
+                           hidden_layer_type=kind,
+                           use_recurrent_connection=rec, int_time_steps=T,
+                           matmul_dtype=str(wdtype)[6:])
+        row = model_lib.explain_dispatch(
+            cfg, pt.EncodeConfig(n_steps=T, use_periods=use_periods),
+            device="cuda")[0]
+        assert row["path"].endswith("[per-unit]"), row
+        assert "per-unit body" in row["reason"], row
+
+
+@pytest.mark.cuda
+def test_explain_dispatch_names_the_layer0_bodies(card):
+    """The first layers of the deep network (784-128-128-96-10) and of the
+    deep Izhikevich network (784-Izh128-Izh128-10) name the tensor-core body
+    of their forward, f32 and bf16, and training their backward's per-unit
+    chain; their paths carry no ``[per-unit]``."""
+    import snnimageclassification_tpu_torch as pt
+    from snnimageclassification_tpu_torch.models import snn as model_lib
+
+    enc = pt.EncodeConfig(n_steps=100)
+    for kind, widths, extra in (("ALIF", [128, 128, 96], {}),
+                                ("Izhikevich", [128, 128], {"dt": 30.0})):
+        for md in ("float32", "bfloat16"):
+            cfg = pt.SNNConfig(input_size=784, output_size=10,
+                               n_hidden_neurons=widths,
+                               hidden_layer_type=kind,
+                               use_recurrent_connection=True,
+                               int_time_steps=100, matmul_dtype=md, **extra)
+            for training in (False, True):
+                row = model_lib.explain_dispatch(cfg, enc, device="cuda",
+                                                 training=training)[0]
+                assert "[per-unit]" not in row["path"], row
+                assert ("the tensor-core body (mma) in the forward"
+                        in row["reason"]), row
+                assert ("the per-unit chain in the backward"
+                        in row["reason"]) == training, row
+
+
+# ---------------------------------------------------------------------------
 # Izhikevich
 # ---------------------------------------------------------------------------
 IZH = IzhikevichConfig(input_size=1, output_size=1)
@@ -1015,11 +1203,13 @@ def test_fused_izh_kernels_match_plain_versions(card, name, rec, use_periods,
     assert float(counts.sum()) > 0
     assert v.dtype == torch.float32  # whatever the weights' type
     torch.testing.assert_close(v, want[1], rtol=1e-6, atol=1e-3)
-    # The first layer runs the per-unit body; the head its tensor-core body
-    # (another summation order), so their v agree within the v bars.
+    # The first layer runs the head's tensor-core body without the readout:
+    # its v is the head's, bit for bit.
     assert fused_izh.head_bodies(n_steps, F, H, O, rec, wdtype.itemsize,
                                  card, True, use_periods) == ("mma", "mma")
-    torch.testing.assert_close(v0, v, rtol=1e-6, atol=1e-3)
+    assert fused_izh.layer0_bodies(n_steps, F, H, rec, wdtype.itemsize,
+                                   card)[0] == "mma"
+    assert torch.equal(v0, v)
     assert torch.equal(z0, (v0 >= IZH.v_peak).float())
     assert torch.equal(z0, (v >= IZH.v_peak).float())
     assert torch.equal(z0, z0p)
@@ -1350,8 +1540,9 @@ def test_izh_per_unit_body_takes_the_rest(card, H, O, wdtype, use_periods):
 def test_explain_dispatch_names_the_izh_bodies(card):
     """The Izhikevich head names its body: the tensor-core body ("mma") in
     the forward and the backward's chain at 784-Izh128-10, f32 and bf16,
-    single and stacked; the per-unit body at O = 40; layer 0 keeps the
-    per-unit body (``fused_izh_layer0_fwd``, no body named)."""
+    single and stacked; the per-unit body at O = 40; layer 0
+    (``fused_izh_layer0_fwd``) names the tensor-core body of its forward
+    (its backward's chain the per-unit one)."""
     import snnimageclassification_tpu_torch as pt
     from snnimageclassification_tpu_torch.models import snn as model_lib
 
@@ -1384,7 +1575,8 @@ def test_explain_dispatch_names_the_izh_bodies(card):
                                       training=True)
     assert deep[0]["path"] == (f"cuda:{fused.KERNEL_IZH_L0}+"
                                f"{fused.KERNEL_IZH_L0_BWD}")
-    assert "(mma)" not in deep[0]["reason"]
+    assert "the tensor-core body (mma) in the forward" in deep[0]["reason"]
+    assert "the per-unit chain in the backward" in deep[0]["reason"]
 
 
 # ---------------------------------------------------------------------------
@@ -1499,48 +1691,43 @@ def test_fused2_equals_the_composed_kernels_bitwise(card, name, alif, rec,
                                                     use_periods, spike,
                                                     n_steps, wdtype):
     """``fused2_fwd_train`` against ``fused_layer0_fwd`` +
-    ``fused_mid_fwd[head]``.  Bit for bit where the three kernels sum in
-    one order: the two-layer and mid kernels on the per-unit bodies (the
-    shape here, two layers of 20 and 24 units and F = 30, is taken by both
-    tensor-core bodies, so it is run past them at O = 20, past their 16).
-    On their
-    tensor-core bodies, whose layer 0 sums in the head body's order while
-    ``fused_layer0_fwd`` keeps the per-unit order, at the full-width
-    bars: argmax equal on 99.5 % of rows, logits within 1e-4 of max|logit|
-    on 99 %, both layers' spikes (counts) equal on 99.5 %."""
+    ``fused_mid_fwd[head]``, bit for bit: logits, ``tstar``, both counts
+    and both layers' residuals.  On the tensor-core bodies (two layers of
+    20 and 24 units, F = 30) the pair's layer 0 and ``fused_layer0_fwd``
+    are one code (``head_mma_fwd.cuh:mma_layer``) and its layer 1 sums as
+    the mid head's body; past them (layers of 192 and 48 float32 recurrent
+    units, else of 288 and 72, where each of the three kernels runs its
+    per-unit body) the per-unit bodies sum in one order."""
+    H1p, H2p = (192, 48) if rec and wdtype == torch.float32 else (288, 72)
     args, _ = _f2_args(card, n_steps, alif, rec, use_periods, wdtype, B=40)
     wide, _ = _f2_args(card, n_steps, alif, rec, use_periods, wdtype, B=40,
-                       O=20)
-    assert fused2.fused2_bodies(n_steps, 30, 20, 24, 10, rec,
-                                wdtype.itemsize, device=card)[0] == "mma"
-    assert fused2.fused2_bodies(n_steps, 30, 20, 24, 20, rec,
-                                wdtype.itemsize, device=card)[0] == "per-unit"
-    assert fused_mid.mid_bodies(n_steps, 20, 24, 20, rec, wdtype.itemsize,
-                                card)[0] == "per-unit"
-    for a, bitwise in ((wide, True), (args, False)):
+                       H1=H1p, H2=H2p)
+    it = wdtype.itemsize
+    for a, body in ((args, "mma"), (wide, "per-unit")):
+        H1, H2 = a[4].shape
+        assert fused2.fused2_bodies(n_steps, 30, H1, H2, 10, rec, it,
+                                    device=card)[0] == body
+        assert fused.layer0_bodies(n_steps, 30, H1, rec, it, card)[0] == body
+        assert fused_mid.mid_bodies(n_steps, H1, H2, 10, rec, it,
+                                    card)[0] == body
         lat, w0, w0r, b0, w1, w1r, b1, w_out, b_out = a[:9]
         sc = a[12:15]
-        logits, _, _, _, _, tstar, c0, c1 = fused2._fused2_cuda(
-            *a, True, False, True)
-        z0 = fused._layer0_cuda(lat, w0, w0r, b0, n_steps, use_periods,
-                                alif, *sc, False, False, False)[0]
+        store_a = alif and spike == PHI
+        logits, d0, a0, d1, a1, tstar, c0, c1 = fused2._fused2_cuda(
+            *a, True, store_a, True)
+        z0, r0, ra0 = fused._layer0_cuda(lat, w0, w0r, b0, n_steps,
+                                         use_periods, alif, *sc, True,
+                                         store_a, False)
         m = fused_mid._mid_cuda(z0, w1, w1r, b1, w_out, b_out, n_steps,
-                                alif, *sc, a[15], True, False, True, False)
+                                alif, *sc, a[15], True, store_a, True, False)
         torch.cuda.synchronize()
         assert float(c1.sum()) > 0
-        if bitwise:
-            assert torch.equal(logits, m[0]) and torch.equal(tstar, m[4])
-            assert torch.equal(c1, m[5])
-            assert torch.equal(c0, z0.float().sum(0))
-            continue
-        scale = float(m[0].abs().max())
-        argmax = (logits.argmax(1) == m[0].argmax(1)).float().mean()
-        close = ((logits - m[0]).abs().amax(1) <= 1e-4 * scale).float()
-        spikes = ((c0 == z0.float().sum(0)).all(1)
-                  & (c1 == m[5]).all(1)).float()
-        assert float(argmax) >= 0.995
-        assert float(close.mean()) >= 0.99
-        assert float(spikes.mean()) >= 0.995
+        assert torch.equal(logits, m[0]) and torch.equal(tstar, m[4]), body
+        assert torch.equal(c0, z0.float().sum(0)) and torch.equal(c1, m[5])
+        assert torch.equal(d0, r0) and torch.equal(d1, m[2]), body
+        for g, w in ((a0, ra0), (a1, m[3])):
+            assert (g is None) == (not store_a) == (w is None)
+            assert g is None or torch.equal(g, w)
 
 
 def _mid_case(dev, T, Hin, H, O, alif, rec, wdtype, B=37, seed=11):

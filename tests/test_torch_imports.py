@@ -80,3 +80,40 @@ def test_ablation_statements_exist_in_the_sources(source, name, statement):
     text = _build.inlined_source(source)
     assert '#include "' not in text and "#pragma once" not in text
     assert text.count(statement) == 1, f"{source} {name}"
+
+
+def _layer0_variants():
+    from snnimageclassification_tpu_torch.tools import head_ablation
+
+    return [(src, f"{name}-{i}", old)
+            for src in ("fused_head", "fused_izh")
+            for name, pairs in head_ablation.LAYER0_VARIANTS.items()
+            for i, (old, _) in enumerate(pairs)]
+
+
+@pytest.mark.parametrize("source,name,statement", _layer0_variants(),
+                         ids=lambda v: v if " " not in str(v) else "stmt")
+def test_layer0_ablation_statements_exist_in_the_sources(source, name,
+                                                         statement):
+    """``head_ablation.py --layer0`` replaces statements of both first
+    layers' sources; each must be found exactly once."""
+    from snnimageclassification_tpu_torch.ops import _build
+
+    assert _build.inlined_source(source).count(statement) == 1, name
+
+
+def _shape_tests():
+    from snnimageclassification_tpu_torch.tools import fit_check
+
+    return sorted(fit_check.SHAPE_TESTS.items())
+
+
+@pytest.mark.parametrize("source,test", _shape_tests(),
+                         ids=lambda v: v if isinstance(v, str) else "test")
+def test_per_unit_builds_find_their_shape_tests(source, test):
+    """``tools/fit_check.py`` (and the tools that take its per-unit build)
+    make a tensor-core body's shape test false; the test must be found
+    exactly once in the source."""
+    from snnimageclassification_tpu_torch.ops import _build
+
+    assert _build.inlined_source(source).count(test[0]) == 1, source
