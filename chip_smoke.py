@@ -61,10 +61,11 @@ Phases (any failure exits non-zero before the final line):
    launches a step), each of the six kernels alone on a training batch
    against its plain version (the backward ones on the forward kernel's
    residuals; ``fused_layer0_fwd`` also against its ordered version on the
-   first 1024 rows, as in 6), the mid backwards (their chains on the tensor-core chain
-   body) also on their first 1024 rows against their plain version in
-   their order (``_mid_bwd_ordered_reference``: dcur, ``g_z_in`` and the
-   gradients within 1e-4 of max|g|, 2**-7 bf16), and their ``g_z_in``
+   first 1024 rows, as in 6), every backward (each chain on the
+   tensor-core chain body) also on its first 1024 rows against its plain
+   version in its order (``_layer0_bwd_ordered_reference``: dcur and the
+   gradients; ``_mid_bwd_ordered_reference``: dcur, ``g_z_in`` and the
+   gradients; within 1e-4 of max|g|, 2**-7 bf16), and the mid ``g_z_in``
    product ``gzin_mma`` alone on the whole batch against the ordered model
    at the same bars, timed beside its plain version and one
    ``torch.matmul`` (its row of the kernels line); 5 periodic steps and 3
@@ -83,14 +84,16 @@ Phases (any failure exits non-zero before the final line):
    ``_izh_bwd_ordered_reference`` at the same bars; layer 0, the head's
    body without the readout, bit for bit the head's ``v`` and its own
    plain version in that order, ``_izh_layer0_ordered_reference``, on
-   every row), then 784-128-10 and
-   784-128-128-10 at B = 8192, T = 100 (the share of rows with equal spikes,
-   the head's row bars, gradients 1e-4 / 2**-7).  There dt a b = -6e-5,
-   and the chain's u carry moves a gradient by less than those bars, so
-   the three backward kernels are also held at dt = 30 (dt a b = -1.8),
-   with init-scale weights, ff/rec, on their forward kernels' residuals:
-   1e-4 of max|g| float32, 2**-7 bf16 (the head's also against its ordered
-   plain version);
+   every row; its backward, the chain on the tensor-core chain body, against
+   ``_izh_bwd_ordered_reference``'s first-layer mode at the same bars),
+   then 784-128-10 and 784-128-128-10 at B = 8192, T = 100 (the share of
+   rows with equal spikes, the head's row bars, gradients 1e-4 / 2**-7;
+   layer 0's backward against its ordered version on the first 1024
+   rows).  There dt a b = -6e-5, and the chain's u carry moves a gradient
+   by less than those bars, so the three backward kernels are also held at
+   dt = 30 (dt a b = -1.8), with init-scale weights, ff/rec, on their
+   forward kernels' residuals: 1e-4 of max|g| float32, 2**-7 bf16 (the
+   head's and layer 0's also against their ordered plain versions);
 9. Izhikevich serve -- 784 -> Izhikevich-128 recurrent -> 10, T = 100,
    dt = 30 (at the default dt = 1e-3 no unit fires at the init scale)
    served as in 4, f32 and bf16: results bitwise equal to a direct forward,
@@ -109,10 +112,12 @@ Phases (any failure exits non-zero before the final line):
    + the readout loop) the same way: one ``fused_izh_layer0_fwd/bwd`` and
    one ``izh_scan_fwd/bwd`` launch a step, ``explain_dispatch`` naming
    layer 0's tensor-core body, ``fused_izh_layer0_fwd`` bit for bit its
-   ordered plain version on the first 1024 rows at dt = 30.  Each backward kernel against
-   its plain version on the forward kernel's residuals with the trained
-   weights (1e-4 of max|g| / 2**-7); each kernel alone on its phase's
-   batch, timed, with its bound and its error on those inputs.
+   ordered plain version on the first 1024 rows at dt = 30.  Each backward
+   kernel against its plain version on the forward kernel's residuals with
+   the trained weights (1e-4 of max|g| / 2**-7; ``fused_izh_layer0_bwd``
+   also against its ordered version on the first 1024 rows); each kernel
+   alone on its phase's batch, timed, with its bound and its error on
+   those inputs.
 
 11. two-layer kernels -- ``fused2_fwd[_train]`` and ``fused2_bwd`` against
    their plain versions on phase 3b's grid (spikes, ``tstar`` and counts
@@ -124,8 +129,9 @@ Phases (any failure exits non-zero before the final line):
    ``fused_mid_fwd[head]``, whose layer 0 is the pair's code on the
    tensor-core bodies, ``composed_gate``): logits, ``tstar``, both counts
    and both layers' residuals bit for bit, small and at 784-128-128-10, B =
-   8192 (there the gradients within 1e-4 of max|g| of ``fused_mid_bwd`` +
-   ``fused_layer0_bwd``, 2**-6 bf16);
+   8192, and the six gradients against ``fused_mid_bwd`` +
+   ``fused_layer0_bwd`` (``composed_backward_gate``: bit for bit float32,
+   every chain on the tensor-core chain body; 2**-6 of max|g| bf16);
 12. two-layer serve -- 784-ALIF128-ALIF128-10 (``bench.py``'s twolayer leg)
    served as in 4: one ``fused2_fwd`` launch a batch and no layer-0 or mid
    kernel, results bitwise a direct forward; on a 4096-row batch the pair
@@ -135,7 +141,8 @@ Phases (any failure exits non-zero before the final line):
    every trained leaf moves, one ``fused2_fwd_train`` and one ``fused2_bwd``
    launch a step), each kernel against its plain version on the trained
    weights (the backward on the forward's residuals), the forward bit for
-   bit the composed kernels' (as in 12), timed beside the
+   bit the composed kernels' (as in 12) and the backward against the
+   composed backwards (as in 11: float32 bit for bit), timed beside the
    composed kernels and a forward + backward through the composed public
    functions on the same batch; the backward (both chains on the
    tensor-core chain body) on its first 1024 rows against its plain version
@@ -258,7 +265,9 @@ Phase 3 also holds the deep-network kernels (``fused_layer0_fwd/bwd``,
 ``fused_mid_fwd/bwd``) against their plain versions: LIF/ALIF x ff/rec x
 FastSigmoid/Phi x {float32, bfloat16} at small shapes with T = 24 (TTFS and
 periodic) and T = 100, and ALIF recurrent at the deep network's full width
-with B = 8192 (``phase_deep_kernels``).
+with B = 8192 (``phase_deep_kernels``); ``fused_layer0_bwd`` also against
+its plain version in its order (every small row, 1024 rows at full
+width).
 
 Beside each head row's bound (LIF/ALIF and Izhikevich) the log states the
 dense tensor-core work its mma body issues (2 B T H (H + O) FLOP a product,
@@ -910,6 +919,52 @@ def check_grads(label, fn, plain_fn, bar):
     return err
 
 
+def layer0_bwd_ordered(label, bargs, rows, bar, izh=False):
+    """A first layer's backward (``fused._layer0_bwd_cuda``'s arguments
+    ``bargs``, or with ``izh`` ``fused_izh._bwd_cuda``'s) on its first
+    ``rows`` batch rows (a row's chain depends on its own inputs only)
+    against its plain version in its order with the kernel's plan
+    (``_layer0_bwd_ordered_reference``, ``_izh_bwd_ordered_reference``):
+    the chain's rounded cotangent and both gradients within ``bar`` of
+    max|g|.  Fails where the chain is not on its tensor-core body.  Returns
+    the worst error."""
+    def cut(x):
+        return (x[:, :rows] if x.dim() == 3 else x[:rows]).contiguous()
+
+    if izh:
+        g_z, z, v, lat, w_in, w_rec = bargs[3:9]
+        T, per = bargs[10:12]
+        sub = (None, None, None, cut(g_z), cut(z), cut(v), cut(lat),
+               *bargs[7:])
+        order = fused_izh.gradient_plan(
+            "cuda", rows, lat.shape[1], w_in.shape[1], 0, T,
+            w_rec is not None, w_in.dtype == torch.bfloat16, per)
+        kernel = fused_izh._bwd_cuda
+        ordered = fused_izh._izh_bwd_ordered_reference
+    else:
+        lat, w_in, w_rec = bargs[5:8]
+        T, per = bargs[9:11]
+        sub = tuple(cut(a) if i in (0, 1, 2, 3, 5) and a is not None else a
+                    for i, a in enumerate(bargs))
+        order = fused.layer0_gradient_plan(
+            "cuda", rows, lat.shape[1], w_in.shape[1], T, w_rec is not None,
+            w_in.dtype == torch.bfloat16, per)
+        kernel = fused._layer0_bwd_cuda
+        ordered = fused._layer0_bwd_ordered_reference
+    if not order["mma"]:
+        fail(f"{label}: the chain is not on its tensor-core body")
+    keep, okeep = {}, {}
+    got = kernel(*sub, keep=keep)
+    want = ordered(*sub, order, keep=okeep)
+    errs = {"gradients": grad_error(got, want),
+            "dcur": grad_error([keep["dcur"]], [okeep["dcur"]])}
+    worst = max(errs.values())
+    if worst > bar:
+        fail(f"{label}: against the plain version in the kernel's order "
+             f"{errs} of max|g|, above {bar:.3g}")
+    return worst
+
+
 def layer_scalars(alif):
     cfg = (ALIFConfig if alif else LIFConfig)(input_size=1, output_size=1)
     return cfg.alpha, (cfg.rho if alif else 0.0), cfg.threshold, cfg.gamma
@@ -975,6 +1030,11 @@ def check_deep_stack(label, rng, B, F, widths, O, T, alif, rec, spike, per,
         lambda: fused._layer0_bwd_cuda(g_z, z, res, a_tr, res_is_v, *bw),
         lambda: fused._layer0_bwd_reference(g_z, z, res, a_tr, res_is_v,
                                             *bw), gbar))
+    # Its chain on the tensor-core chain body against its plain version in
+    # its order: every row small, the first ORDERED_ROWS at full width.
+    worst_grad = max(worst_grad, layer0_bwd_ordered(
+        f"{label} layer-0 backward", (g_z, z, res, a_tr, res_is_v, *bw),
+        witness_rows, gbar))
     del res, a_tr, zp, resp, ap, delta_head, z_inf, g_z
 
     # Mid layers, then the mid head, each fed the kernel's trace.
@@ -1081,7 +1141,9 @@ def phase_deep_kernels() -> None:
     body against its plain version in its order
     (``_layer0_ordered_reference``, ``_mid_fwd_ordered_reference``): bit for
     bit on every row small, on the first 1024 rows at full width (or the
-    row-share form, ``ordered_witness``)."""
+    row-share form, ``ordered_witness``); ``fused_layer0_bwd``, its chain on
+    the tensor-core chain body, against ``_layer0_bwd_ordered_reference`` on
+    the same rows at the gradient bars (``layer0_bwd_ordered``)."""
     rng = np.random.default_rng(4)
     for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for name, alif, rec, spike in DEEP_CASES:
@@ -1910,6 +1972,17 @@ def deep_kernel_rows(label, tag, cfg, params, x, use_periods, train,
                                   0.0, lcfg.spike_func)
             gerr = check_grads(f"{label} {name} backward",
                                lambda: bwd(False), lambda: bwd(True), gbar)
+            if idx == 0 and functions is not None:
+                R = ORDERED_ROWS
+                oerr = layer0_bwd_ordered(
+                    f"{label} {name} backward",
+                    (g_z, z, res, None, False, lat, w_in, w_rec, beta, T,
+                     use_periods, lcfg.alpha, lcfg.threshold, lcfg.gamma,
+                     lcfg.spike_func), R, gbar)
+                log(f"[{label}] {name} backward (its chain on the "
+                    f"tensor-core chain body) on its first {R} rows vs the "
+                    f"plain version in its order: {oerr:.3g} of max|g| "
+                    "(dcur, gradients)")
             bms = cuda_ms(lambda: bwd(False), n_fwd)
             bplain = cuda_ms(lambda: bwd(True), n_plain, warmup=1)
             # Read: the residual, and g_z and z (z-layer) or g_logits and
@@ -2246,6 +2319,12 @@ def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
     errs[fused.KERNEL_IZH_L0_BWD] = check_grads(
         f"{label} layer-0 backward", lambda: fused_izh._bwd_cuda(*lb),
         lambda: fused_izh._bwd_reference(*lb), bar)
+    # Its chain on the tensor-core chain body against its plain version in
+    # its order: every row small, the first ORDERED_ROWS at full width.
+    errs[fused.KERNEL_IZH_L0_BWD] = max(
+        errs[fused.KERNEL_IZH_L0_BWD], layer0_bwd_ordered(
+            f"{label} layer-0 backward", lb, min(B, ORDERED_ROWS), bar,
+            izh=True))
     del lb, g_z, v0
 
     # izh_scan on the currents of a layer past the first.
@@ -2316,6 +2395,12 @@ def izh30_bwd_checks(label, fwd, kp, gamma, spike, f32, rng):
             f"{label} layer-0 backward dt=30",
             lambda: fused_izh._bwd_cuda(*lb),
             lambda: fused_izh._bwd_reference(*lb), bar)
+        # Against its plain version in its order: every row small, the
+        # first ORDERED_ROWS of a full-width batch.
+        errs[fused.KERNEL_IZH_L0_BWD] = max(
+            errs[fused.KERNEL_IZH_L0_BWD], layer0_bwd_ordered(
+                f"{label} layer-0 backward dt=30", lb,
+                min(z0.shape[1], ORDERED_ROWS), bar, izh=True))
     if "scan" in fwd:
         w_rec1, z1, v1 = fwd["scan"]
         sb = (rand_w(rng, tuple(z1.shape), 1.0 / z1.shape[1]), z1, v1, w_rec1,
@@ -2713,8 +2798,9 @@ def phase_izh_train(matmul_dtype: str) -> list:
     bwd_errs = {k: errs[k] for k in (fused.KERNEL_IZH_L0_BWD,
                                      fused.KERNEL_IZH_SCAN_BWD)}
     log(f"[{label}] backward kernels vs plain on the forward kernels' "
-        f"residuals at dt=30 (the trained weights): {json.dumps(bwd_errs)} "
-        f"of max|g| ok")
+        f"residuals at dt=30 (the trained weights; layer 0's also vs its "
+        f"plain version in its order on the first {ORDERED_ROWS} rows): "
+        f"{json.dumps(bwd_errs)} of max|g| ok")
     g_z = rand_w(rng, (T, B, H), 1.0 / B)
     lb = (None, None, None, g_z, z0, v0, lat, w_in, w_rec, None, T, False,
           kp, lcfg.gamma, 0.0, lcfg.spike_func)
@@ -2812,17 +2898,47 @@ def composed_forward(args, train, store_a):
 def composed_backward(args, z0, r0, a0, m, g_logits, g_c0, g_c1, gamma,
                       spike):
     """``fused_mid_bwd[head]`` then ``fused_layer0_bwd`` on the composed
-    forward's residuals, the counts' cotangent of layer 0 added to its
-    ``g_z`` as autograd adds it: the pair's six gradients."""
+    forward's residuals, the counts' cotangent of layer 0 (where given)
+    added to its ``g_z`` as autograd adds it: the pair's six gradients."""
     lat, w0, w0r, b0, w1, w1r, b1, w_out, _, T, per = args[:11]
     alpha, thr, kappa = args[12], args[14], args[15]
     g_z_in, g_w1, g_w1r, g_wout, g_b = fused_mid._mid_bwd_cuda(
         g_logits, g_c1, m[4], None, None, m[2], m[3], False, z0, w1, w1r, b1,
         w_out, T, alpha, thr, gamma, kappa, spike)
-    g_z = (g_z_in.float() + g_c0).to(z0.dtype).contiguous()
+    g_z = g_z_in.float() if g_c0 is None else g_z_in.float() + g_c0
+    g_z = g_z.to(z0.dtype).contiguous()
     g_w0, g_w0r = fused._layer0_bwd_cuda(g_z, z0, r0, a0, False, lat, w0, w0r,
                                          b0, T, per, alpha, thr, gamma, spike)
     return g_w0, g_w0r, g_w1, g_w1r, g_wout, g_b
+
+
+F2_GRADS = ("g_W0", "g_W0r", "g_W1", "g_W1r", "g_W_out", "g_b")
+
+
+def composed_backward_gate(label, args, got, want):
+    """The pair's six gradients ``got`` (``fused2_bwd``) against the
+    composed kernels' ``want`` (``composed_backward``) on the same inputs,
+    every kernel on its tensor-core bodies (``composed_bitwise(args,
+    backward=True)``; the shapes of phases 11 and 13).  Float32: bit for
+    bit, the chains one body and the pair's dz0 + g_cnt0 the same float32
+    sum as layer 0's g_z = g_z_in + g_c0.  bfloat16 within 2**-6 of max|g|
+    (the composed pair rounds layer 0's g_z to bfloat16, the pair keeps it
+    float32, and each gradient is rounded once more).  Returns the error of
+    max|g|."""
+    if not composed_bitwise(args, backward=True):
+        fail(f"{label}: the pair or a composed kernel is off its tensor-core "
+             "bodies")
+    err = grad_error(got, want)
+    if args[1].dtype == torch.float32:
+        diff = [n for n, g, w in zip(F2_GRADS, got, want)
+                if g is not None and not torch.equal(g, w)]
+        if diff:
+            fail(f"{label}: the pair's {diff} differ from the composed "
+                 f"kernels' by {err:.3g} of max|g| (bit for bit expected)")
+    elif err > 2.0 ** -6:
+        fail(f"{label}: gradients differ from the composed kernels' by "
+             f"{err:.3g} of max|g|")
+    return err
 
 
 def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
@@ -2833,13 +2949,11 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
     against its plain version in the tensor-core body's order (bit for bit;
     full width the first 1024 rows, ``ordered_witness``) and bit for bit
     the composed kernels (``composed_gate``), twice for equal bits; the
-    backward against its
-    plain version on the same residuals and twice for equal bits, and at
-    full width against ``fused_mid_bwd`` + ``fused_layer0_bwd`` (1e-4 of
-    max|g| float32; bfloat16 2**-6: the composed pair rounds layer 0's
-    ``g_z`` to bfloat16, the pair keeps it float32, and each gradient is
-    rounded once more).  Returns (agree, close, logit error,
-    gradient error vs plain, gradient error vs composed, firing shares)."""
+    backward against its plain version on the same residuals and twice for
+    equal bits, and against ``fused_mid_bwd`` + ``fused_layer0_bwd``
+    (``composed_backward_gate``: float32 bit for bit, bfloat16 2**-6 of
+    max|g|).  Returns (agree, close, logit error, gradient error vs plain,
+    gradient error vs composed, firing shares)."""
     f32 = wdtype == torch.float32
     store_a = alif and spike == PHI
     args, gamma = f2_random_args(rng, B, F, H1, H2, O, T, alif, rec, per,
@@ -2898,33 +3012,31 @@ def check_fused2(label, rng, B, F, H1, H2, O, T, alif, rec, spike, per,
     gerr = check_grads(f"{label} backward",
                        lambda: fused2._fused2_bwd_cuda(*bargs),
                        lambda: fused2._fused2_bwd_reference(*bargs), gbar)
-    cerr = 0.0
-    if flagship:
-        got = fused2._fused2_bwd_cuda(*bargs)
-        want = composed_backward(args, z0, r0, ra0, m, g_logits, g_c0, g_c1,
-                                 gamma, spike)
-        cerr = grad_error(got, want)
-        if cerr > (1e-4 if f32 else 2.0 ** -6):
-            fail(f"{label}: gradients differ from the composed kernels' by "
-                 f"{cerr:.3g} of max|g|")
+    got = fused2._fused2_bwd_cuda(*bargs)
+    want = composed_backward(args, z0, r0, ra0, m, g_logits, g_c0, g_c1,
+                             gamma, spike)
+    cerr = composed_backward_gate(label, args, got, want)
     return agree, close, err, gerr, cerr, fire, orows
 
 
-def composed_bitwise(args) -> bool:
+def composed_bitwise(args, backward=False) -> bool:
     """Whether the pair and the composed kernels run the pair's arguments
     on their tensor-core bodies: then the pair's layer 0 and
     ``fused_layer0_fwd`` are one code (``head_mma_fwd.cuh:mma_layer``) and
-    the pair's layer 1 sums as the mid head."""
+    the pair's layer 1 sums as the mid head.  With ``backward`` their
+    backwards' chains too (``chain_mma.cuh``: the pair's layer 0 and
+    ``fused_layer0_bwd`` on ``ZChain``, its layer 1 and the mid head on
+    ``LifChain``)."""
     lat, w0, w0r = args[:3]
     T, per = args[9], args[10]
     F, H1, H2, O = lat.shape[1], w0.shape[1], args[4].shape[1], \
         args[7].shape[1]
     rec, it = w0r is not None, w0.dtype.itemsize
-    return (fused2.fused2_bodies(T, F, H1, H2, O, rec, it,
-                                 device="cuda")[0] == "mma"
-            and fused.layer0_bodies(T, F, H1, rec, it, "cuda")[0] == "mma"
-            and fused_mid.mid_bodies(T, H1, H2, O, rec, it,
-                                     "cuda")[0] == "mma")
+    bodies = (fused2.fused2_bodies(T, F, H1, H2, O, rec, it, device="cuda",
+                                   training=backward, use_periods=per),
+              fused.layer0_bodies(T, F, H1, rec, it, "cuda", backward, per),
+              fused_mid.mid_bodies(T, H1, H2, O, rec, it, "cuda", backward))
+    return all(set(b) == {"mma"} for b in bodies)
 
 
 def composed_gate(label, args, out, z0, r0, ra0, m):
@@ -2968,11 +3080,12 @@ def phase_fused2_kernels() -> None:
     B = 37, 30-20-24-10: forward 1e-5, backward 2e-6 of max|g| (5e-6 at T =
     100), 2**-7 bf16), the forward bit for bit its plain version in the
     tensor-core body's order (``_fused2_fwd_ordered_reference``), and
-    bit for bit the composed kernels (``composed_gate``); then
-    784-128-128-10 at B = 8192, T = 100, ALIF recurrent, TTFS and periodic,
-    f32 and bf16: the ordered version on the first 1024 rows
-    (``ordered_witness``), the composed kernels bit for bit, their
-    gradients within 1e-4 (2**-6 bf16) of max|g|."""
+    bit for bit the composed kernels (``composed_gate``), the backward
+    against the composed backwards (``composed_backward_gate``: float32 bit
+    for bit, bf16 2**-6 of max|g|); then 784-128-128-10 at B = 8192, T =
+    100, ALIF recurrent, TTFS and periodic, f32 and bf16: the ordered
+    version on the first 1024 rows (``ordered_witness``), the composed
+    kernels bit for bit forward and (float32) backward."""
     rng = np.random.default_rng(12)
     for wname, wdtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         worst, worst_g = 0.0, 0.0
@@ -2984,11 +3097,12 @@ def phase_fused2_kernels() -> None:
                     label, rng, 37, 30, 20, 24, 10, T, alif, rec, spike, per,
                     wdtype, False, 2e-6 if T < 100 else 5e-6)
                 worst, worst_g = max(worst, err), max(worst_g, gerr)
+        cbits = "bit for bit" if wname == "f32" else "within 2**-6"
         log(f"[fused2-kernels] 24 small cases {wname}: bitwise the plain "
             f"version in the body's order; logits err <= {worst:.3g}, tstar, "
             f"counts and spikes equal the plain version's; bit for bit the "
-            f"composed kernels; grad_err <= {worst_g:.3g} "
-            f"of max|g|, reproducible")
+            f"composed kernels (backward: {cbits}); grad_err <= "
+            f"{worst_g:.3g} of max|g|, reproducible")
         for per in (False, True):
             label = (f"fused2 full alif-rec-fs {wname} "
                      f"{'periodic' if per else 'ttfs'}")
@@ -3001,7 +3115,8 @@ def phase_fused2_kernels() -> None:
                 f"bit for bit the composed kernels; vs plain "
                 f"argmax_agree={agree:.5f} rows_within_1e-4max={close:.5f} "
                 f"max_abs_err={err:.3g}; grad_err vs plain={gerr:.3g}, vs "
-                f"composed kernels={cerr:.3g} of max|g|, reproducible")
+                f"composed kernels={cerr:.3g} of max|g| ({cbits}), "
+                "reproducible")
             torch.cuda.empty_cache()
 
 
@@ -3273,6 +3388,14 @@ def phase_twolayer_train(matmul_dtype: str) -> list:
         f"trained weights: "
         f"{'bit for bit' if c_bits else 'within the full-width bars'} "
         "(logits, tstar, both counts and residuals)")
+    c_err = composed_backward_gate(
+        f"{label} backward", args, fused2._fused2_bwd_cuda(*bargs),
+        composed_backward(args, z0, r0, ra0, m, g_logits, None, None, gamma,
+                          spike))
+    log(f"[{label}] the pair's backward against fused_mid_bwd + "
+        f"fused_layer0_bwd on the trained weights: "
+        f"{'bit for bit' if md == torch.float32 else f'{c_err:.3g} of max|g|'}"
+        " (the six gradients)")
     zeros0 = torch.zeros((TRAIN_B, TWO_WIDTHS[0]), device="cuda")
     c_fwd = cuda_ms(lambda: composed_forward(args, True, False), 10)
     c_bwd = cuda_ms(lambda: composed_backward(

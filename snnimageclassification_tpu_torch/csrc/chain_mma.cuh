@@ -1,8 +1,9 @@
 // The tensor-core body of the backwards' reverse-time chains, one template
 // over the element-wise chain as a policy: the heads (fused_head_bwd.cu for
-// LIF/ALIF, fused_izh_bwd.cu for Izhikevich), a mid layer's head and
-// z-emitting modes (fused_mid_bwd.cu) and both layers of the two-layer
-// backward (fused2_bwd.cu).
+// LIF/ALIF, fused_izh_bwd.cu for Izhikevich), the first layers
+// (fused_layer0_bwd.cu, fused_izh_bwd.cu's first-layer mode), a mid layer's
+// head and z-emitting modes (fused_mid_bwd.cu) and both layers of the
+// two-layer backward (fused2_bwd.cu).
 //
 // A warp owns 16 rows x 32 units in registers in mma.m16n8k16's
 // accumulator layout (head_mma.cuh) and walks t down.  s(t) is kept by
@@ -26,7 +27,7 @@
 // The z-layer mode (a policy with HEAD = false; O = 0): no s chain and no
 // s @ W_out^T, dz(t) = g_z(t) (+ g_counts) + cotangent(t+1) @ W_rec^T,
 // g_z(t) in the accumulator layout from the policy, which loads it a step
-// ahead (lif_chain.cuh:ZChain).
+// ahead (lif_chain.cuh:ZChain, fused_izh_bwd.cu:IzhZChain).
 //
 // A Chain policy has
 //   static constexpr bool HEAD             the head (s, W_out) or the
@@ -46,7 +47,8 @@
 //                                          (0 where !ok) and sets z(t);
 //   float input(const State&)              (z-layer mode) g_z(t) of an
 //                                          entry at step t.
-// LifChain and ZChain (lif_chain.cuh), IzhChain (fused_izh_bwd.cu).
+// LifChain and ZChain (lif_chain.cuh), IzhChain and IzhZChain
+// (fused_izh_bwd.cu).
 #pragma once
 
 #include "bwd_common.cuh"

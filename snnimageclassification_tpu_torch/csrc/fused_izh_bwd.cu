@@ -22,13 +22,15 @@
 // fused_head_bwd.cu, the serial chain with its dense gi @ W_rec^T and s @
 // W_out^T per step; the rest are sums of selected rows.
 //
-// The head's chain takes the tensor-core body (chain_mma.cuh:
-// bwd_chain_mma_kernel with the IzhChain policy below) wherever it fits
-// (O <= 16, H <= 256, the weights' bf16 pieces within a block's shared
-// memory): dv(t+1) and du(t+1) in registers in the accumulator layout, dz
-// = s @ W_out^T (+ g_counts) + round(gi(t+1)) @ W_rec^T on tensor cores
-// (float32 weights: the six split products), the rest izh_chain_kernel's
-// arithmetic (both step with izh_common.cuh:izh_chain_step).  A first layer and the other shapes take izh_chain_kernel
+// The chain takes the tensor-core body (chain_mma.cuh:bwd_chain_mma_kernel)
+// wherever it fits (O <= 16, H <= 256, the weights' bf16 pieces within a
+// block's shared memory): the head with the IzhChain policy below, dz = s @
+// W_out^T (+ g_counts) + round(gi(t+1)) @ W_rec^T; a first layer with
+// IzhZChain, the z-layer mode (O = 0), dz = g_z(t) + round(gi(t+1)) @
+// W_rec^T.  dv(t+1) and du(t+1) sit in registers in the accumulator layout,
+// the products on tensor cores (float32 weights: the six split products),
+// the rest is izh_chain_kernel's arithmetic (all three step with
+// izh_common.cuh:izh_chain_step).  The other shapes take izh_chain_kernel
 // (izh_common.cuh), one thread a (row, unit).
 
 #include "izh_common.cuh"
@@ -71,6 +73,53 @@ struct IzhChain {
   }
 };
 
+// A first layer's Izhikevich chain as a policy of the tensor-core body in
+// its z-layer mode (O = 0): per entry v(t), z(t) as stored and g_z(t), each
+// loaded a step ahead (at step t + 1) off the serial chain, and the carries
+// dv(t+1), du(t+1), stepped by izh_chain_step as izh_chain_kernel's
+// first-layer mode does; dz(t) = g_z(t) + round(gi(t+1)) @ W_rec^T.
+struct IzhZChain {
+  static constexpr bool HEAD = false;
+  using Args = IzhChainArgs;
+  struct State {
+    float v, dv, du, gz;
+    bool z_t;
+  };
+
+  __device__ explicit IzhZChain(const Args&) {}
+
+  __device__ State start(const Args& a, size_t at, bool ok) const {
+    const size_t last = (size_t)(a.T - 1) * a.B * a.H + at;
+    State s{0.f, 0.f, 0.f, 0.f, false};
+    if (ok) {
+      s.v = a.v[last];
+      s.z_t = a.z[last] != 0.f;
+      s.gz = a.g_z[last];
+    }
+    return s;
+  }
+
+  __device__ float input(const State& s) const { return s.gz; }
+
+  __device__ float step(const Args& a, State& s, float dz, int t, size_t at,
+                        bool ok, bool& z) const {
+    const bool prev = ok && t > 0;
+    const size_t at_prev = prev ? (size_t)(t - 1) * a.B * a.H + at : 0;
+    const float v_prev = prev ? a.v[at_prev] : 0.f;
+    const bool z_prev = prev && a.z[at_prev] != 0.f;
+    const float gz_prev = prev ? a.g_z[at_prev] : 0.f;
+    z = ok && s.z_t;
+    float dv = s.dv, du = s.du;
+    const float gi = izh_chain_step(a.p, s.v, s.z_t, z_prev, dz, dv, du);
+    s.dv = ok ? dv : 0.f;
+    s.du = ok ? du : 0.f;
+    s.v = v_prev;
+    s.z_t = z_prev;
+    s.gz = gz_prev;
+    return ok ? gi : 0.f;
+  }
+};
+
 struct Plan {
   int rows, smem_chain, mma;
   GwinPlan gw;
@@ -91,7 +140,7 @@ int make_plan(int B, int F, int H, int O, int T, int rec, int bf16,
   p->rows = chain_rows(H, O, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
-  p->mma = O > 0 && chain_mma_fits(H, O, rec, bf16, lim.max_smem);
+  p->mma = chain_mma_fits(H, O, rec, bf16, lim.max_smem);
   p->gb.groups = 0;
   if (gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
       (rec && (bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, H, H, lim, &p->gb)
@@ -108,8 +157,10 @@ cudaError_t launch_all(const IzhChainArgs& c, const Args& g, const Plan& p,
                        int S, int device, cudaStream_t s) {
   const int HP = (c.H + 31) / 32 * 32;
   cudaError_t err;
-  if (HEAD && p.mma) {
-    err = launch_chain_mma<IzhChain, REC, W>(c, S, device, s);
+  if (p.mma) {
+    using Chain =
+        typename std::conditional<HEAD, IzhChain, IzhZChain>::type;
+    err = launch_chain_mma<Chain, REC, W>(c, S, device, s);
   } else {
     err = opt_in(izh_chain_kernel<REC, HEAD, W>, p.smem_chain);
     if (err != cudaSuccess) return err;

@@ -7,23 +7,42 @@
 // (head=False; pl.pallas_call in _fused_bwd_call), the backward of
 // fused_encode_{rec,ff}_scan.
 //
-// The chain of bwd_common.cuh in its z-layer mode: dz(t) = g_z(t) read from
-// device memory, z(t-1) read from the stored spike trace, the surrogate from
-// the residual the forward kept (delta for ALIF with FastSigmoid, the
-// membrane v otherwise, with a for ALIF with Phi).  Then g_W_in through the
-// per-row table of bwd_gwin and g_W_rec through gbits_mma (tensor cores,
-// gbits_mma.cuh); slabs, no atomics.
-// What bounds it on an H100: as the head's backward, the serial chain and
-// dcur @ W_rec^T in shared memory; the traces it reads are 4 (T, B, H)
-// tensors against the head's one.
+// One call launches, in this order:
+//   1. the chain in its z-layer mode: dz(t) = g_z(t) + dcur(t+1) @ W_rec^T,
+//      z(t-1) as stored, the surrogate from the residual the forward kept
+//      (delta for ALIF with FastSigmoid, the membrane v otherwise, with a
+//      for ALIF with Phi); dcur (B, T, H) in the weights' type and the bits
+//      of z.  Where chain_mma_fits (H <= 256, the weights' bf16 pieces
+//      within a block's shared memory) the tensor-core body
+//      (chain_mma.cuh:bwd_chain_mma_kernel with lif_chain.cuh's ZChain, z as
+//      stored, as Layer0Chain: the mid layer's z-emitting mode and the
+//      two-layer pair's layer 0 run the same body), else bwd_common.cuh's
+//      per-unit bwd_chain_kernel.  A feedforward layer takes the same body
+//      without the product.
+//   2. bwd_gwin (bwd_common.cuh): g_W_in through the per-row table.
+//   3. gbits_mma (gbits_mma.cuh, tensor cores): g_W_rec from the bits of
+//      z(t-1).
+// Slabs, no atomics.
+// What bounds it on an H100: as the head's backward, the serial chain (a
+// step's dcur(t+1) @ W_rec^T on tensor cores, one named barrier a step among
+// a tile's warps); the traces it reads are 3-4 (T, B, H) tensors against the
+// head's one.
 
-#include "bwd_common.cuh"
 #include "gbits_mma.cuh"
+#include "lif_chain.cuh"
 
 namespace {
 
+// ZChain (z as stored) under a name of its own, so that a profile tells
+// layer 0's chain from a mid layer's z-emitting one, the same instance
+// otherwise.
+template <typename W>
+struct Layer0Chain : ZChain<W, W, false> {
+  using ZChain<W, W, false>::ZChain;
+};
+
 struct Plan {
-  int rows, smem_chain;
+  int rows, smem_chain, mma;
   GwinPlan gw;
   GbitsPlan gb;
 };
@@ -40,6 +59,7 @@ int make_plan(int B, int F, int H, int T, int rec, int bf16, int periodic,
   p->rows = chain_rows(H, 0, HP, G, rec, bf16 ? 2 : 4, lim.max_smem,
                        &p->smem_chain);
   if (p->rows == 0) return 1;
+  p->mma = chain_mma_fits(H, 0, rec, bf16, lim.max_smem);
   p->gb.groups = 0;
   if (gwin_plan(B, F, H, T, periodic, bf16 ? 2 : 4, lim, &p->gw) != 0 ||
       (rec && (bf16 ? gbits_plan_rows<__nv_bfloat16>(B, T, H, H, lim, &p->gb)
@@ -49,14 +69,22 @@ int make_plan(int B, int F, int H, int T, int rec, int bf16, int periodic,
 }
 
 template <bool REC, typename W>
-cudaError_t launch_all(const Args& a, const Plan& p, cudaStream_t s) {
+cudaError_t launch_all(const Args& a, const Plan& p, int device,
+                       cudaStream_t s) {
   const int HP = (a.H + 31) / 32 * 32;
-  cudaError_t err = opt_in(bwd_chain_kernel<REC, false, W>, p.smem_chain);
+  cudaError_t err;
+  if (p.mma) {
+    err = launch_chain_mma<Layer0Chain<W>, REC, W>(a, 1, device, s);
+  } else {
+    if ((err = opt_in(bwd_chain_kernel<REC, false, W>, p.smem_chain)) !=
+        cudaSuccess)
+      return err;
+    bwd_chain_kernel<REC, false, W>
+        <<<dim3((a.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
+           s>>>(a, p.rows);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  bwd_chain_kernel<REC, false, W>
-      <<<dim3((a.B + p.rows - 1) / p.rows), dim3(HP, p.rows), p.smem_chain,
-         s>>>(a, p.rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_gwin<W>(a, p.gw, 1, s)) != cudaSuccess) return err;
   if (REC) {
     // Mask row t of zmask holds z(t - 1), the left operand of g_W_rec.
@@ -72,9 +100,11 @@ cudaError_t launch_all(const Args& a, const Plan& p, cudaStream_t s) {
 
 extern "C" {
 
-// Slab counts for a shape on `device`: out[0] = blocks of g_W_in slabs,
-// out[1] = of g_W_rec slabs (0 without recurrence).  Returns 0 when the
-// shape fits the kernels, 1 when it does not, or a CUDA error code.
+// The plan for a shape on `device`: out[0] = blocks of g_W_in slabs,
+// out[1] = of g_W_rec slabs (0 without recurrence); out[2] = 1 where the
+// chain takes its tensor-core body; out[3] = rows a batch of bwd_gwin.
+// Returns 0 when the shape fits the kernels, 1 when it does not, or a CUDA
+// error code.
 int snn_fused_layer0_bwd_plan(int B, int F, int H, int T, int rec, int bf16,
                               int periodic, int device, int* out) {
   Plan p;
@@ -82,6 +112,8 @@ int snn_fused_layer0_bwd_plan(int B, int F, int H, int T, int rec, int bf16,
   if (rc == 0) {
     out[0] = p.gw.groups;
     out[1] = p.gb.groups;
+    out[2] = p.mma;
+    out[3] = p.gw.R;
   }
   return rc;
 }
@@ -105,11 +137,11 @@ int snn_fused_layer0_bwd(const void* g_z, const void* z, const void* res,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16)
-    err = rec ? launch_all<true, __nv_bfloat16>(a, p, s)
-              : launch_all<false, __nv_bfloat16>(a, p, s);
+    err = rec ? launch_all<true, __nv_bfloat16>(a, p, device, s)
+              : launch_all<false, __nv_bfloat16>(a, p, device, s);
   else
-    err = rec ? launch_all<true, float>(a, p, s)
-              : launch_all<false, float>(a, p, s);
+    err = rec ? launch_all<true, float>(a, p, device, s)
+              : launch_all<false, float>(a, p, device, s);
   return (int)err;
 }
 

@@ -3,10 +3,11 @@
 // bwd_common.cuh:bwd_chain_kernel per (row, unit) entry:
 //   LifChain  the head mode (fused_head_bwd.cu, fused_mid_bwd.cu's head
 //             mode, fused2_bwd.cu's layer 1): z(t) = [delta(t) >= 0];
-//   ZChain    the z-layer mode (fused_mid_bwd.cu's z-emitting mode, and
-//             fused2_bwd.cu's layer 0 with ZD): dz(t) = g_z(t) (+ g_counts)
-//             + dcur(t+1) @ W_rec^T; z as stored, or (ZD) the residual's
-//             sign; the residual the membrane v where res_is_v.
+//   ZChain    the z-layer mode (fused_layer0_bwd.cu, fused_mid_bwd.cu's
+//             z-emitting mode, and fused2_bwd.cu's layer 0 with ZD): dz(t)
+//             = g_z(t) (+ g_counts) + dcur(t+1) @ W_rec^T; z as stored, or
+//             (ZD) the residual's sign; the residual the membrane v where
+//             res_is_v.
 #pragma once
 
 #include "chain_mma.cuh"

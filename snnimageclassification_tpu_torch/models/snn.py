@@ -1029,8 +1029,8 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     "the tensor-core body (mma)" in the reason; the per-unit body past its
     limits, a path ending in ``[per-unit]``; training, the mid layer's and
     the two-layer backward's input cotangent ``gzin_mma``.  A first layer
-    (LIF/ALIF and Izhikevich) names its forward's body the same way, and
-    training its backward's per-unit chain (in the reason only).
+    (LIF/ALIF and Izhikevich) names its forward's and, training, its
+    backward's chain's body the same way.
     A two-hidden-layer network that takes the two-layer pair is one row:
     ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
     ``torch:fused2_reference`` on the CPU.  The unfused tier gives a layer
@@ -1132,20 +1132,24 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             "pieces past a block's shared memory")
     def layer0_body(lcfg):
         """(reason note, path mode) of a first layer's kernels on the card:
-        the forward on the head's tensor-core body or, past its limits, the
-        per-unit body (a path ending in ``[per-unit]``); training, the
-        backward's per-unit chain."""
+        the forward on the head's tensor-core body and, training, the
+        backward's chain on the tensor-core chain body, or past their
+        limits the per-unit bodies (a path ending in ``[per-unit]``)."""
         if not on_card:
             return "", ""
-        fwd = (izh_layer0_bodies if izh else layer0_bodies)(
+        bodies = (izh_layer0_bodies if izh else layer0_bodies)(
             cfg.int_time_steps, cfg.input_size, lcfg.output_size,
-            recurrent=rec_of(lcfg), itemsize=md_size, device=dev)[0]
-        note = ("; the tensor-core body (mma) in the forward" if fwd == "mma"
-                else "; the per-unit body (H > 256, or W_rec's bf16 pieces "
-                "past a block's shared memory) in the forward")
-        if training:
-            note += "; the per-unit chain in the backward"
-        return note, "" if fwd == "mma" else "[per-unit]"
+            recurrent=rec_of(lcfg), itemsize=md_size, device=dev,
+            training=training,
+            use_periods=enc is not None and enc.use_periods)
+        why = "H > 256, or W_rec's bf16 pieces past a block's shared memory"
+        note = ""
+        for part, body in zip(("the forward", "the backward's chain"),
+                              bodies):
+            note += (f"; the tensor-core body (mma) in {part}"
+                     if body == "mma" else
+                     f"; the per-unit body ({why}) in {part}")
+        return note, "" if set(bodies) == {"mma"} else "[per-unit]"
 
     if enc is not None and _head_fusible(cfg, enc, dev, training):
         if izh:

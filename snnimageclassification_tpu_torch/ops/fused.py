@@ -67,9 +67,12 @@ pair's layer 0; :func:`layer0_bodies` names the body) writes ``z`` and,
 for training, the residuals of the JAX kernel: ``delta`` for ALIF with
 FastSigmoid, ``v`` for LIF, ``v`` and ``a`` for ALIF with Phi.
 :func:`_layer0_ordered_reference` is its plain version in the tensor-core
-body's order.  ``fused_layer0_bwd``
-(``csrc/fused_layer0_bwd.cu``) runs the reverse chain from the cotangent
-of ``z`` to ``g_W_in, g_W_rec``.
+body's order.  ``fused_layer0_bwd`` (``csrc/fused_layer0_bwd.cu``) runs the
+reverse chain from the cotangent of ``z`` to ``g_W_in, g_W_rec``, the
+chain on the tensor-core chain body in its z-layer mode (that of the mid
+layer's z-emitting mode and of the two-layer pair's layer 0) wherever it
+fits, else per unit; :func:`_layer0_bwd_ordered_reference` is its plain
+version in that body's order, :func:`layer0_gradient_plan` its plan.
 """
 from __future__ import annotations
 
@@ -1022,6 +1025,44 @@ def _layer0_bwd_reference(g_z, z, res, a_tr, res_is_v, lat, w_in, w_rec,
             None if g_w_rec is None else g_w_rec.to(w_rec.dtype))
 
 
+def _layer0_bwd_ordered_reference(g_z, z, res, a_tr, res_is_v, lat, w_in,
+                                  w_rec, beta, n_steps, use_periods, alpha,
+                                  threshold, gamma, spike_func, order,
+                                  keep=None):
+    """Plain version of ``fused_layer0_bwd`` in its order; returns as
+    :func:`_layer0_bwd_reference`.  The chain with the tensor-core chain
+    body's product (:func:`_split_slice_product`: ``dcur(t+1) @
+    W_rec^T``), then from the chain's rounded ``dcur`` ``g_W_in`` through
+    :func:`_gwin_ordered_reference` and ``g_W_rec`` (left operand the
+    stored ``z(t - 1)``) through ``gbits._gbits_ordered_reference``, as the
+    kernel launches them.  ``order`` is the kernel's plan
+    (:func:`layer0_gradient_plan`).  A dict ``keep`` receives the chain's
+    rounded ``dcur (B, T, H)`` float32."""
+    from .fused_mid import _step_rows
+    from .gbits import _gbits_ordered_reference
+
+    f32 = torch.float32
+    wd = w_in.dtype
+    B, H = res.shape[1:]
+    dcur = torch.zeros((B, n_steps, H), dtype=f32, device=res.device)
+    _bwd_loop(
+        lambda t: spike_row(lat, t, n_steps, use_periods).to(f32), None,
+        None, None, None, g_z, res, a_tr, z, res_is_v, w_rec, beta, None,
+        n_steps, alpha, threshold, gamma, 0.0, spike_func, wd, dcur_out=dcur,
+        matmul=lambda a, w: _split_slice_product(a, w.contiguous(), wd))
+    if keep is not None:
+        keep["dcur"] = dcur
+    g_w_in = _gwin_ordered_reference(dcur, lat, n_steps, use_periods,
+                                     order["groups_in"], order["rows_in"])
+    g_w_rec = None
+    if w_rec is not None:
+        z_prev = _step_rows(torch.cat([torch.zeros_like(z[:1]), z[:-1]]))
+        g_w_rec = _gbits_ordered_reference(
+            dcur.view(B * n_steps, H), z_prev, B, n_steps,
+            order["groups_rec"], wd).to(w_rec.dtype)
+    return g_w_in.to(wd), g_w_rec
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -1509,19 +1550,46 @@ def _plan_layer0(device: torch.device, F: int, H: int, recurrent: bool,
     return bool(mma.value)
 
 
-def _plan_layer0_bwd(device: torch.device, B: int, F: int, H: int, T: int,
-                     recurrent: bool, bf16: bool,
-                     use_periods: bool) -> Optional[Tuple[int, int]]:
-    """Blocks of (g_W_in, g_W_rec) partial slabs of ``fused_layer0_bwd``
-    on ``device``, or None when the shape does not fit."""
+def _plan_layer0_bwd_words(device, B, F, H, T, recurrent, bf16,
+                           use_periods):
+    """``snn_fused_layer0_bwd_plan``'s four words on ``device``, or None when
+    the shape does not fit."""
     lib = _lib("fused_layer0_bwd")
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 4)()
     rc = lib.snn_fused_layer0_bwd_plan(B, F, H, T, int(recurrent), int(bf16),
                                        int(use_periods), _index(device), out)
     if rc == 1:
         return None
     _raise_on(rc, lib, f"{KERNEL_L0_BWD} plan")
-    return out[0], out[1]
+    return list(out)
+
+
+def _plan_layer0_bwd(device: torch.device, B: int, F: int, H: int, T: int,
+                     recurrent: bool, bf16: bool,
+                     use_periods: bool) -> Optional[Tuple[int, int]]:
+    """Blocks of (g_W_in, g_W_rec) partial slabs of ``fused_layer0_bwd``
+    on ``device``, or None when the shape does not fit."""
+    out = _plan_layer0_bwd_words(device, B, F, H, T, recurrent, bf16,
+                                 use_periods)
+    return None if out is None else (out[0], out[1])
+
+
+def layer0_gradient_plan(device, B: int, F: int, H: int, T: int,
+                         recurrent: bool, bf16: bool,
+                         use_periods: bool) -> dict:
+    """The order of ``fused_layer0_bwd`` on ``device`` for a shape:
+    ``groups_in`` / ``groups_rec`` blocks (slabs) of ``bwd_gwin`` /
+    ``gbits_mma`` (``g_W_rec``, 0 without recurrence), ``rows_in`` rows a
+    batch of ``bwd_gwin``, and ``mma``, whether the chain takes the
+    tensor-core chain body.
+    :func:`_layer0_bwd_ordered_reference` takes it."""
+    out = _plan_layer0_bwd_words(torch.device(device), B, F, H, T, recurrent,
+                                 bf16, use_periods)
+    if out is None:
+        raise ValueError(f"{KERNEL_L0_BWD}: shape T={T} F={F} H={H} does not "
+                         "fit the kernel")
+    return {"groups_in": out[0], "groups_rec": out[1], "mma": bool(out[2]),
+            "rows_in": out[3]}
 
 
 def fused_supported(
@@ -1556,14 +1624,21 @@ def layer0_bodies(n_steps: int, n_features: int, hidden: int,
     names the head's: ``"mma"`` (``fused_layer0_fwd`` on the head's
     tensor-core body without the readout) or ``"per-unit"`` (H > 256, or
     W_rec's bf16 pieces past a block's shared memory).  A second entry with
-    ``training``: ``fused_layer0_bwd``'s chain, the per-unit chain.  On the
-    CPU the plain versions: ``"plain"`` entries."""
+    ``training``: ``fused_layer0_bwd``'s chain, ``"mma"`` on the
+    tensor-core chain body (its z-layer mode) or ``"per-unit"`` past the
+    same limits, from the kernel's plan.  On the CPU the plain versions:
+    ``"plain"`` entries."""
     device = torch.device(device)
     if device.type == "cpu":
         return ("plain",) * (1 + int(training))
-    fwd = _plan_layer0(device, n_features, hidden, recurrent, itemsize == 2)
-    return ("mma" if fwd else "per-unit",) + (("per-unit",) if training
-                                              else ())
+    bf16 = itemsize == 2
+    fwd = _plan_layer0(device, n_features, hidden, recurrent, bf16)
+    out = ("mma" if fwd else "per-unit",)
+    if training:
+        words = _plan_layer0_bwd_words(device, 1, n_features, hidden,
+                                       n_steps, recurrent, bf16, use_periods)
+        out += ("mma" if words is not None and words[2] else "per-unit",)
+    return out
 
 
 def _layer0_cuda(lat, w_in, w_rec, beta, n_steps, use_periods, alif, alpha,

@@ -31,12 +31,13 @@ Three hand-written CUDA kernels stand behind the wrappers:
   one source, head and first-layer mode): the two-carry chain, then the
   LIF/ALIF weight-gradient functions of ``csrc/bwd_common.cuh``.
 
-The forwards (head and first layer) and the head backward's chain run the
+The forwards and the backwards' chains (head and first layer) run the
 LIF/ALIF head's tensor-core body (``csrc/head_mma_fwd.cuh``,
 ``csrc/chain_mma.cuh``) with the Izhikevich cell and chain as its policies
 wherever it fits (O <= 16, H <= 256, the weights' bf16 pieces within a
-block's shared memory); other shapes and the first layer's chain run the
-per-unit body (one thread a (row, unit)).  :func:`head_bodies` and
+block's shared memory; a first layer's chain is the body's z-layer mode);
+other shapes run the per-unit body (one thread a (row, unit)).
+:func:`head_bodies` and
 :func:`layer0_bodies` name the body of a shape;
 :func:`_izh_head_train_ordered_reference`,
 :func:`_izh_layer0_ordered_reference` and
@@ -208,25 +209,33 @@ def _izh_layer0_ordered_reference(lat, w_in, w_rec, n_steps, use_periods,
 def _izh_bwd_ordered_reference(g_logits, g_counts, tstar, g_z, z, v, lat,
                                w_in, w_rec, w_out, n_steps, use_periods,
                                kernel_params, gamma, kappa, spike_func,
-                               order):
-    """Plain version of ``fused_izh_bwd`` (the head) in its order: the
-    two-carry chain with the tensor-core body's products
-    (``ops/fused.py:_split_slice_product``), and from the chain's rounded
-    ``gi`` ``g_W_in`` through ``_gwin_ordered_reference``, ``g_W_rec``
-    through ``gbits._gbits_ordered_reference``, ``g_W_out`` and ``g_b``
-    through ``_gout_ordered_reference``.  ``order`` is the kernel's plan
-    (:func:`gradient_plan`).  Returns as :func:`_bwd_reference`."""
+                               order, keep=None):
+    """Plain version of ``fused_izh_bwd`` (the head, ``w_out`` given) and
+    ``fused_izh_layer0_bwd`` (a first layer: ``g_z`` and the stored ``z``,
+    no readout) in their order: the two-carry chain with the tensor-core
+    body's products (``ops/fused.py:_split_slice_product``), and from the
+    chain's rounded ``gi`` ``g_W_in`` through ``_gwin_ordered_reference``,
+    ``g_W_rec`` through ``gbits._gbits_ordered_reference``, the head's
+    ``g_W_out`` and ``g_b`` through ``_gout_ordered_reference``.  ``order``
+    is the kernel's plan (:func:`gradient_plan`, ``O == 0`` for a first
+    layer).  Returns as :func:`_bwd_reference`.  A dict ``keep`` receives
+    the chain's rounded ``gi (B, T, H)`` float32 as ``dcur``."""
     from .gbits import _gbits_ordered_reference
 
     f32 = torch.float32
     wd = w_in.dtype
     T, B, H = v.shape
+    head = w_out is not None
     gi = torch.zeros((B, T, H), dtype=f32, device=v.device)
     _izh._izh_bwd_loop(
-        None, g_logits, g_counts, tstar, None, v, None, w_rec, w_out,
-        kernel_params, gamma, kappa, spike_func, wd, gi_out=gi,
+        None, g_logits, g_counts, tstar, None if head else g_z, v,
+        None if head else z, w_rec, w_out, kernel_params, gamma, kappa,
+        spike_func, wd, gi_out=gi,
         matmul=lambda a, w: _f._split_slice_product(a, w.contiguous(), wd))
-    zv = (v >= dict(kernel_params)["v_peak"]).to(f32)
+    if keep is not None:
+        keep["dcur"] = gi
+    zv = ((v >= dict(kernel_params)["v_peak"]).to(f32) if head
+          else z.to(f32))
     g_w_rec = None
     if w_rec is not None:
         z_prev = torch.cat([torch.zeros_like(zv[:1]), zv[:-1]])
@@ -235,6 +244,8 @@ def _izh_bwd_ordered_reference(g_logits, g_counts, tstar, g_z, z, v, lat,
             T, order["groups_rec"], wd).to(w_rec.dtype)
     g_w_in = _f._gwin_ordered_reference(gi, lat, n_steps, use_periods,
                                         order["groups_in"], order["rows_in"])
+    if not head:
+        return g_w_in.to(wd), g_w_rec, None, None
     g_w_out, g_b = _f._gout_ordered_reference(
         zv, g_logits, tstar, kappa, wd, order["groups_out"],
         order["rows_out"])
@@ -309,8 +320,8 @@ def _plan_bwd(device: torch.device, B: int, F: int, H: int, O: int, T: int,
               use_periods: bool) -> Optional[Tuple[int, int, int, bool]]:
     """Blocks of (g_W_in, g_W_rec, g_W_out/g_b) slabs of the backward
     kernel and whether its chain takes the tensor-core body (``O == 0``:
-    the first-layer mode, the per-unit chain), or None when the shape does
-    not fit."""
+    the first-layer mode, the body's z-layer mode), or None when the shape
+    does not fit."""
     out = _plan_bwd_words(device, B, F, H, O, T, recurrent, bf16,
                           use_periods)
     return None if out is None else (out[0], out[1], out[2], bool(out[3]))
@@ -319,17 +330,19 @@ def _plan_bwd(device: torch.device, B: int, F: int, H: int, O: int, T: int,
 def gradient_plan(device, B: int, F: int, H: int, O: int, T: int,
                   recurrent: bool, bf16: bool, use_periods: bool) -> dict:
     """The order of ``fused_izh_bwd``'s gradient functions on ``device``
-    for a head's shape, as ``ops.fused.gradient_plan`` gives the LIF/ALIF
-    head's (the same functions): ``groups_in`` / ``groups_rec`` /
-    ``groups_out`` blocks of ``bwd_gwin`` / ``gbits_mma`` / ``bwd_gout``,
-    ``rows_in`` / ``rows_out`` rows a batch, ``gwin_ring`` /
-    ``gbits_ring``.  :func:`_izh_bwd_ordered_reference` takes it."""
+    for a head's shape (``O == 0``: ``fused_izh_layer0_bwd``'s), as
+    ``ops.fused.gradient_plan`` gives the LIF/ALIF head's (the same
+    functions): ``groups_in`` / ``groups_rec`` / ``groups_out`` blocks of
+    ``bwd_gwin`` / ``gbits_mma`` / ``bwd_gout``, ``rows_in`` / ``rows_out``
+    rows a batch, ``gwin_ring`` / ``gbits_ring``, and ``mma``, whether the
+    chain takes the tensor-core body.  :func:`_izh_bwd_ordered_reference`
+    takes it."""
     out = _plan_bwd_words(torch.device(device), B, F, H, O, T, recurrent,
                           bf16, use_periods)
     if out is None:
         raise ValueError(f"{KERNEL_IZH_BWD}: shape T={T} F={F} H={H} O={O} "
                          "does not fit the kernel")
-    return _f.plan_order(out)
+    return dict(_f.plan_order(out), mma=bool(out[3]))
 
 
 def _supported(n_steps, n_features, hidden, n_out, recurrent, itemsize,
@@ -395,14 +408,20 @@ def layer0_bodies(n_steps: int, n_features: int, hidden: int,
     ``"mma"`` (``fused_izh_layer0_fwd`` on the tensor-core body without the
     readout) or ``"per-unit"`` (H > 256, or W_rec's bf16 pieces past a
     block's shared memory); a second entry with ``training``:
-    ``fused_izh_layer0_bwd``'s chain, the per-unit chain.  On the CPU the
-    plain versions: ``"plain"`` entries."""
+    ``fused_izh_layer0_bwd``'s chain, ``"mma"`` on the tensor-core chain
+    body (its z-layer mode) or ``"per-unit"`` past the same limits, from the
+    kernel's plan.  On the CPU the plain versions: ``"plain"`` entries."""
     device = torch.device(device)
     if device.type == "cpu":
         return ("plain",) * (1 + int(training))
-    fwd = _plan(device, n_features, hidden, 0, recurrent, itemsize == 2)
-    return ("mma" if fwd else "per-unit",) + (
-        ("per-unit",) if training else ())
+    bf16 = itemsize == 2
+    fwd = _plan(device, n_features, hidden, 0, recurrent, bf16)
+    out = ("mma" if fwd else "per-unit",)
+    if training:
+        bwd = _plan_bwd(device, 1, n_features, hidden, 0, n_steps, recurrent,
+                        bf16, use_periods)
+        out += ("mma" if bwd and bwd[3] else "per-unit",)
+    return out
 
 
 def fused_izh_head_supported(n_steps: int, n_features: int, hidden: int,

@@ -37,12 +37,21 @@ random pixels: the z-emitting mode 128 -> 128 and the head mode 128 -> 96
 ``--library`` ``dcur @ W_in^T`` as one ``torch.matmul`` on materialised
 operands laid out ``(T, B, Hin)`` as the kernel writes it, ``gzin_mma``
 alone (``fused_mid.gzin``) and its bound.
+``--layer0`` times ``fused_layer0_bwd``'s functions (layer 0 of the deep
+net 784 -> ALIF-128 recurrent -> 128 -> 96 -> 10 on the residuals of
+``fused_layer0_fwd``: the chain, ``bwd_gwin``, ``gbits_mma``) and, with
+``--izh``, ``fused_izh_layer0_bwd``'s (layer 0 of 784 -> Izhikevich-128
+recurrent -> Izhikevich-128 -> 10 at dt = 30), each as built (the chain on
+the tensor-core chain body), with the per-unit chain (``per_unit_chain``:
+``bwd_chain_kernel``, ``izh_chain_kernel``) and without the chain's
+recurrent product (``no_chain_rec_product``), and the chain's bound.
 
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.bwd_ablation \
         [--matmul-dtype float32|bfloat16] [--periodic] [--library] \
-        [--replicas 6] [--wide | --izh | --mid | --twolayer]
+        [--replicas 6] [--wide | --izh | --mid | --twolayer | --layer0
+        [--izh]]
 
 The inputs are one training batch of the flagship (784 -> ALIF-128
 recurrent, learn_beta, T=100, batch 8192, init weights from seed 0, random
@@ -701,6 +710,75 @@ def twolayer_bwd(md, library: bool) -> None:
         _gzin_library("dz0", keep["dcur1"], args[4], torch.float32, tag)
 
 
+def layer0_bwd(md, izh_layer: bool, periodic: bool) -> None:
+    """``--layer0 [--izh]``: a first layer's backward on one training batch
+    of its deep network (init weights from seed 0, random pixels, B = 8192,
+    T = 100), as built and in each variant."""
+    from .fit_check import SHAPE_TESTS
+
+    kind = LayerType.Izhikevich if izh_layer else LayerType.ALIF
+    cfg = SNNConfig(input_size=784, output_size=10,
+                    n_hidden_neurons=[128, 128] if izh_layer
+                    else [128, 128, 96], hidden_layer_type=kind,
+                    use_recurrent_connection=True, learn_beta=not izh_layer,
+                    int_time_steps=100, **({"dt": 30.0} if izh_layer else {}))
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    B, T = 8192, 100
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (B, 784), dtype=np.float32)).cuda()
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    name, c = cfg.layer_configs[0]
+    p = params[name]
+    w_in = p["w_in"].detach().to(md).contiguous()
+    w_rec = masked_recurrent(c, p).detach().to(md).contiguous()
+    H = w_in.shape[1]
+    g_z = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (T, B, H)).astype(np.float32)).cuda() / B
+    if izh_layer:
+        kp = izh.izh_kernel_params(c)
+        z, v = fused_izh._layer0_cuda(lat, w_in, w_rec, T, periodic, kp,
+                                      True)
+        source, traces = "fused_izh_bwd", (g_z, z, v)
+
+        def run():
+            return fused_izh._bwd_cuda(None, None, None, g_z, z, v, lat,
+                                       w_in, w_rec, None, T, periodic, kp,
+                                       c.gamma, 0.0, c.spike_func)
+    else:
+        spike = c.spike_func
+        res_is_v = fused._residual_is_v(True, spike)
+        z, res, a_tr = fused._layer0_cuda(
+            lat, w_in, w_rec, p["beta"].detach(), T, periodic, True, c.alpha,
+            c.rho, c.threshold, True, fused._stores_a(True, spike), res_is_v)
+        g_z = g_z.to(md)
+        source, traces = "fused_layer0_bwd", (g_z, z, res, a_tr)
+
+        def run():
+            return fused._layer0_bwd_cuda(
+                g_z, z, res, a_tr, res_is_v, lat, w_in, w_rec,
+                p["beta"].detach(), T, periodic, c.alpha, c.threshold,
+                c.gamma, spike)
+    tag = {"layer0": True, "izh": izh_layer,
+           "matmul_dtype": str(md).split(".")[1],
+           "encoding": "periodic" if periodic else "ttfs",
+           "firing": float(z.float().mean())}
+    libs = _variant_libs(source, {"per_unit_chain": (
+        SHAPE_TESTS["fused_izh_bwd"],)})
+    _run_variants(source, libs, {"layer0": run}, tag)
+    # The chain's bound: its traces read once (g_z, z, the residual and a;
+    # Izhikevich g_z, z, v, all float32), the rounded cotangent and the z
+    # bits written; dcur(t+1) @ W_rec^T on tensor cores (six bf16 piece
+    # products for float32 weights) at 989 TFLOP/s.
+    n = B * T * H
+    nbytes = (sum(t.numel() * t.element_size() for t in traces
+                  if t is not None) + n * md.itemsize
+              + B * (T + 1) * ((H + 31) // 32) * 4 + H * H * md.itemsize)
+    pieces = 6 if md == torch.float32 else 1
+    print(json.dumps({"chain_bound": _bound(nbytes, 2 * n * H * pieces,
+                                            BF16_FLOPS), **tag}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--matmul-dtype", default="float32",
@@ -713,7 +791,11 @@ def main() -> None:
     ap.add_argument("--wide", action="store_true",
                     help="rec_scan_bwd at 784 -> ALIF-512 -> 10 instead")
     ap.add_argument("--izh", action="store_true",
-                    help="fused_izh_bwd at 784 -> Izhikevich-128 -> 10")
+                    help="fused_izh_bwd at 784 -> Izhikevich-128 -> 10 "
+                         "(with --layer0: fused_izh_layer0_bwd)")
+    ap.add_argument("--layer0", action="store_true",
+                    help="fused_layer0_bwd at layer 0 of 784 -> 128 -> 128 "
+                         "-> 96 -> 10")
     ap.add_argument("--mid", action="store_true",
                     help="fused_mid_bwd at 784 -> 128 -> 128 -> 96 -> 10")
     ap.add_argument("--twolayer", action="store_true",
@@ -725,6 +807,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     if ns.wide:
         wide(md, ns.library)
+        _print_card()
+        return
+    if ns.layer0:
+        layer0_bwd(md, ns.izh, ns.periodic)
         _print_card()
         return
     if ns.izh:

@@ -34,7 +34,10 @@ head mode is ``bwd_chain_mma_kernel<LifChain..>`` (the per-unit
 ``bwd_chain_kernel<.., true, ..>`` past the tensor-core body's limits), of a
 mid z-emitting layer and the two-layer pair's layer 0
 ``bwd_chain_mma_kernel<ZChain..>``, of layer 0 of a deeper net
-``bwd_chain_kernel<.., false, ..>``; ``gzin_mma_kernel`` is a mid layer's
+``bwd_chain_mma_kernel<Layer0Chain..>`` (an Izhikevich one
+``bwd_chain_mma_kernel<IzhZChain..>``; past the body's limits the per-unit
+``bwd_chain_kernel<.., false, ..>``, ``izh_chain_kernel``);
+``gzin_mma_kernel`` is a mid layer's
 ``g_z_in`` and the two-layer pair's ``dz0``; the head's forward is
 ``head_mma_kernel`` after ``head_sort_kernel``, and so is a deeper net's
 first layer on that body (the instance whose fourth template argument,

@@ -46,8 +46,13 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
 * the first layers on the tensor-core body (``fused_layer0_fwd``,
   ``fused_izh_layer0_fwd``) bit for bit their plain versions in its order
   (``_layer0_ordered_reference``, ``_izh_layer0_ordered_reference``),
-  their spikes the heads'; past its limits the per-unit body against the
-  order-free plain versions; ``explain_dispatch`` names both.
+  their spikes the heads'; their backwards' chains on the tensor-core chain
+  body (``fused_layer0_bwd``, ``fused_izh_layer0_bwd``) against their plain
+  versions in its order (``_layer0_bwd_ordered_reference``,
+  ``_izh_bwd_ordered_reference``'s first-layer mode: dcur / gi and both
+  gradients at the chain's bars, the Izhikevich one at dt = 1e-3 and 30);
+  past their limits the per-unit bodies against the order-free plain
+  versions; ``explain_dispatch`` names both.
 * the two-layer pair (``fused2_fwd[_train]``, ``fused2_bwd``) at T = 24 and
   100: logits 1e-5, ``tstar``, counts and spikes equal to the plain
   version's, residuals 1e-5 (bf16 2**-7), training logits bitwise the
@@ -55,9 +60,10 @@ Elsewhere every case skips.  Shapes are the JAX suite's head cases
   2e-6 of max|g| (5e-6 at T = 100, 2e-5 ALIF with Phi, bf16 2**-7), equal
   bits on a second run; logits, ``tstar``, counts and residuals bitwise
   those of the composed kernels (``fused_layer0_fwd`` +
-  ``fused_mid_fwd[head]``, on the tensor-core bodies and past them); the
-  public functions under autograd and the model's dispatch launch the pair
-  once.
+  ``fused_mid_fwd[head]``, on the tensor-core bodies and past them), its
+  six gradients bitwise those of ``fused_mid_bwd`` + ``fused_layer0_bwd``
+  in float32 (2**-6 bf16); the public functions under autograd and the
+  model's dispatch launch the pair once.
 * the feedforward scan (``scan_fwd[_train]``, ``scan_bwd``) at T = 23, 24
   and 100, small and at B = 8192: spikes equal to the plain version's,
   residuals 1e-5 (bf16 2**-7), the backward on the training kernel's
@@ -951,7 +957,7 @@ def test_layer0_mma_body_matches_ordered_versions(card, name, alif, rec,
                   wdtype, spike, tau=tau)
         assert fused.layer0_bodies(n_steps, 30, H, rec, wdtype.itemsize,
                                    card, True, use_periods) == ("mma",
-                                                                "per-unit")
+                                                                "mma")
         l0 = _layer0_args(a)
         fused.reset_launch_counts()
         for res_is_v in (False, True):
@@ -998,7 +1004,7 @@ def test_izh_layer0_mma_body_matches_ordered_versions(card, dt, rec,
     F, H = w_in.shape
     assert fused_izh.layer0_bodies(n_steps, F, H, rec, wdtype.itemsize,
                                    card, True, use_periods) == ("mma",
-                                                                "per-unit")
+                                                                "mma")
     l0 = (lat, w_in, w_rec, n_steps, use_periods, head[7])
     fused.reset_launch_counts()
     got = fused_izh._layer0_cuda(*l0, True)
@@ -1027,17 +1033,23 @@ def test_izh_layer0_mma_body_matches_ordered_versions(card, dt, rec,
                               "f32-ff-H288"])
 def test_layer0_per_unit_body_takes_the_rest(card, H, wdtype, rec,
                                              use_periods):
-    """Shapes past the tensor-core body's limits (float32 W_rec's pieces
+    """Shapes past the tensor-core bodies' limits (float32 W_rec's pieces
     past a block's shared memory from H = 161, H > 256) run the first
-    layers' per-unit body, which ``layer0_bodies`` and ``explain_dispatch``
-    name, against the order-free plain versions: spikes equal, residuals
-    1e-5 (bf16 2**-7); the Izhikevich ``v`` 1e-6 relative and 1e-3 mV."""
+    layers' per-unit body and per-unit chain, which ``layer0_bodies``
+    (training too) and ``explain_dispatch`` name, against the order-free
+    plain versions: spikes equal, residuals 1e-5 (bf16 2**-7); the
+    Izhikevich ``v`` 1e-6 relative and 1e-3 mV."""
     import snnimageclassification_tpu_torch as pt
     from snnimageclassification_tpu_torch.models import snn as model_lib
 
     T, B, it = 24, 21, wdtype.itemsize
     assert fused.fused_supported(T, 30, H, rec, it, card, True, use_periods)
     assert fused.layer0_bodies(T, 30, H, rec, it, card) == ("per-unit",)
+    assert fused.layer0_bodies(T, 30, H, rec, it, card, True,
+                               use_periods) == ("per-unit", "per-unit")
+    assert not fused.layer0_gradient_plan(card, B, 30, H, T, rec,
+                                          wdtype == torch.bfloat16,
+                                          use_periods)["mma"]
     a = _args(card, B, 30, H, 10, T, True, rec, use_periods, wdtype, PHI,
               w_scale=(0.5, 0.05))
     got = fused._layer0_cuda(*_layer0_args(a), True, True, True)
@@ -1048,6 +1060,8 @@ def test_layer0_per_unit_body_takes_the_rest(card, H, wdtype, rec,
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
     head = _izh_head(card, 1e-3, rec, use_periods, T, wdtype, B=B, H=H)
     assert fused_izh.layer0_bodies(T, 30, H, rec, it, card) == ("per-unit",)
+    assert fused_izh.layer0_bodies(T, 30, H, rec, it, card, True,
+                                   use_periods) == ("per-unit", "per-unit")
     l0 = (*head[:3], T, use_periods, head[7], True)
     (z, v), (zp, vp) = fused_izh._layer0_cuda(*l0), \
         fused_izh._layer0_reference(*l0)
@@ -1070,7 +1084,7 @@ def test_layer0_per_unit_body_takes_the_rest(card, H, wdtype, rec,
 def test_explain_dispatch_names_the_layer0_bodies(card):
     """The first layers of the deep network (784-128-128-96-10) and of the
     deep Izhikevich network (784-Izh128-Izh128-10) name the tensor-core body
-    of their forward, f32 and bf16, and training their backward's per-unit
+    of their forward, f32 and bf16, and training that of their backward's
     chain; their paths carry no ``[per-unit]``."""
     import snnimageclassification_tpu_torch as pt
     from snnimageclassification_tpu_torch.models import snn as model_lib
@@ -1090,8 +1104,129 @@ def test_explain_dispatch_names_the_layer0_bodies(card):
                 assert "[per-unit]" not in row["path"], row
                 assert ("the tensor-core body (mma) in the forward"
                         in row["reason"]), row
-                assert ("the per-unit chain in the backward"
-                        in row["reason"]) == training, row
+                assert ("the tensor-core body (mma) in the backward's "
+                        "chain" in row["reason"]) == training, row
+                assert "per-unit" not in row["reason"], row
+
+
+L0_BWD_STEPS = [(24, 20.0), (24, PROD_TAU), (100, 20.0), (100, PROD_TAU)]
+L0_BWD_CASES = [(*net, n, tau) for net in MMA_NETS for n, tau in L0_BWD_STEPS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "name,alif,rec,use_periods,spike,n_steps,tau", L0_BWD_CASES,
+    ids=[f"{c[0]}-{c[5]}{'-prod' if c[6] == PROD_TAU else ''}"
+         for c in L0_BWD_CASES])
+def test_layer0_bwd_mma_chain_matches_ordered_versions(
+        card, name, alif, rec, use_periods, spike, n_steps, tau, wdtype):
+    """``fused_layer0_bwd`` with its chain on the tensor-core chain body
+    (``lif_chain.cuh:ZChain``, z as stored) against
+    ``_layer0_bwd_ordered_reference`` at B = 37 and H = 20, 45, 128 on the
+    forward kernel's residuals (``res_is_v`` both ways; ``a`` for ALIF with
+    Phi; W_rec of std 0.3 sqrt(20 / H), whose chain neither dies nor
+    overflows over T = 100): the chain's rounded dcur and both gradients
+    within the chain's bars, equal bits twice, one launch a call; its plan
+    and ``layer0_bodies`` name the body."""
+    store_a = alif and spike == PHI
+    bar = _bwd_bar(wdtype, n_steps)
+    bf16 = wdtype == torch.bfloat16
+    rng = np.random.default_rng(15)
+    for H in (20, 45, 128):
+        a = _args(card, 37, 30, H, 10, n_steps, alif, rec, use_periods,
+                  wdtype, spike, tau=tau,
+                  w_scale=(0.5, 0.3 * np.sqrt(20.0 / H)))
+        assert fused.layer0_bodies(n_steps, 30, H, rec, wdtype.itemsize,
+                                   card, True, use_periods) == ("mma", "mma")
+        order = fused.layer0_gradient_plan(card, 37, 30, H, n_steps, rec,
+                                           bf16, use_periods)
+        assert order["mma"]
+        l0 = _layer0_args(a)
+        for res_is_v in (False, True):
+            z, res, a_tr = fused._layer0_cuda(*l0, True, store_a, res_is_v)
+            g_z = torch.from_numpy(rng.standard_normal(tuple(z.shape)).astype(
+                np.float32)).to(card).to(wdtype)
+            bargs = (g_z, z, res, a_tr, res_is_v, a["latencies"], a["w_in"],
+                     a["w_rec"], a["beta"], n_steps, use_periods, a["alpha"],
+                     a["threshold"], a["gamma"], spike)
+            keep, okeep = {}, {}
+            fused.reset_launch_counts()
+            got = fused._layer0_bwd_cuda(*bargs, keep=keep)
+            again = fused._layer0_bwd_cuda(*bargs)
+            assert _launched() == {fused.KERNEL_L0_BWD: 2}
+            want = fused._layer0_bwd_ordered_reference(*bargs, order,
+                                                       keep=okeep)
+            torch.cuda.synchronize()
+            label = f"H={H} res_is_v={res_is_v}"
+            for g, g2 in zip(got, again):
+                assert g is None or torch.equal(g, g2), f"{label}: not " \
+                    "reproducible"
+            for g in got:
+                assert g is None or bool(torch.isfinite(g.float()).all())
+            err = _rel_err(keep["dcur"], okeep["dcur"])
+            assert err <= bar, f"{label} dcur: {err:.3g} of max|dcur|"
+            err = _grad_err(got, want)
+            assert err <= bar, f"{label}: gradients {err:.3g} of max|g|"
+
+
+IZH_L0_BWD_CASES = [(dt, rec, per, spike, T) for dt in (1e-3, 30.0)
+                    for rec in (True, False) for per in (False, True)
+                    for spike, T in ((FAST, 24), (PHI, 100))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "dt,rec,use_periods,spike,n_steps", IZH_L0_BWD_CASES,
+    ids=[f"dt{c[0]:g}-{'rec' if c[1] else 'ff'}-"
+         f"{'periodic' if c[2] else 'ttfs'}-{c[3].name}-{c[4]}"
+         for c in IZH_L0_BWD_CASES])
+def test_izh_layer0_bwd_mma_chain_matches_ordered_versions(
+        card, dt, rec, use_periods, spike, n_steps, wdtype):
+    """``fused_izh_layer0_bwd`` with its chain on the tensor-core chain body
+    (``fused_izh_bwd.cu:IzhZChain``) against
+    ``_izh_bwd_ordered_reference``'s first-layer mode at B = 37 and H = 20,
+    128 on the forward kernel's residuals, at dt = 1e-3 (the JAX suite's
+    scale) and dt = 30 (init-scale weights, where the u carry moves the
+    chain): the chain's rounded gi and both gradients within 2e-6 of max|g|
+    (5e-6 at T = 100) at dt = 1e-3, 1e-4 at dt = 30, bf16 2**-7; equal bits
+    twice; its plan and ``layer0_bodies`` name the body."""
+    bf16 = wdtype == torch.bfloat16
+    bar = _izh_bar(n_steps, wdtype) if dt < 1 else (
+        2.0 ** -7 if bf16 else 1e-4)
+    gamma = IzhikevichConfig(input_size=1, output_size=1).gamma
+    rng = np.random.default_rng(16)
+    for H in (20, 128):
+        head = _izh_head(card, dt, rec, use_periods, n_steps, wdtype, H=H)
+        lat, w_in, w_rec = head[:3]
+        B, F = lat.shape
+        assert fused_izh.layer0_bodies(n_steps, F, H, rec, wdtype.itemsize,
+                                       card, True, use_periods) == ("mma",
+                                                                    "mma")
+        order = fused_izh.gradient_plan(card, B, F, H, 0, n_steps, rec, bf16,
+                                        use_periods)
+        assert order["mma"]
+        z, v = fused_izh._layer0_cuda(lat, w_in, w_rec, n_steps, use_periods,
+                                      head[7], True)
+        assert float(z.sum()) > 0  # the units fire
+        g_z = torch.from_numpy(rng.standard_normal(tuple(z.shape)).astype(
+            np.float32)).to(card) / B
+        bargs = (None, None, None, g_z, z, v, lat, w_in, w_rec, None,
+                 n_steps, use_periods, head[7], gamma, 0.0, spike)
+        keep, okeep = {}, {}
+        fused.reset_launch_counts()
+        got = fused_izh._bwd_cuda(*bargs, keep=keep)
+        again = fused_izh._bwd_cuda(*bargs)
+        assert _launched() == {fused.KERNEL_IZH_L0_BWD: 2}
+        want = fused_izh._izh_bwd_ordered_reference(*bargs, order,
+                                                    keep=okeep)
+        torch.cuda.synchronize()
+        _grads_close(got, again, want, bar)
+        err = _rel_err(keep["dcur"], okeep["dcur"])
+        assert err <= bar, f"H={H} gi: {err:.3g} of max|gi|"
 
 
 # ---------------------------------------------------------------------------
@@ -1542,7 +1677,7 @@ def test_explain_dispatch_names_the_izh_bodies(card):
     the forward and the backward's chain at 784-Izh128-10, f32 and bf16,
     single and stacked; the per-unit body at O = 40; layer 0
     (``fused_izh_layer0_fwd``) names the tensor-core body of its forward
-    (its backward's chain the per-unit one)."""
+    and of its backward's chain."""
     import snnimageclassification_tpu_torch as pt
     from snnimageclassification_tpu_torch.models import snn as model_lib
 
@@ -1576,7 +1711,9 @@ def test_explain_dispatch_names_the_izh_bodies(card):
     assert deep[0]["path"] == (f"cuda:{fused.KERNEL_IZH_L0}+"
                                f"{fused.KERNEL_IZH_L0_BWD}")
     assert "the tensor-core body (mma) in the forward" in deep[0]["reason"]
-    assert "the per-unit chain in the backward" in deep[0]["reason"]
+    assert ("the tensor-core body (mma) in the backward's chain"
+            in deep[0]["reason"])
+    assert "per-unit" not in deep[0]["reason"]
 
 
 # ---------------------------------------------------------------------------
@@ -1728,6 +1865,69 @@ def test_fused2_equals_the_composed_kernels_bitwise(card, name, alif, rec,
         for g, w in ((a0, ra0), (a1, m[3])):
             assert (g is None) == (not store_a) == (w is None)
             assert g is None or torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [24, 100])
+@pytest.mark.parametrize("name,alif,rec,use_periods,spike", F2_CASES,
+                         ids=[c[0] for c in F2_CASES])
+def test_fused2_bwd_equals_the_composed_kernels(card, name, alif, rec,
+                                                use_periods, spike, n_steps,
+                                                wdtype):
+    """``fused2_bwd`` against ``fused_mid_bwd[head]`` + ``fused_layer0_bwd``
+    on the composed forward's residuals (two layers of 20 and 24 units, F =
+    30, B = 40, both counts' cotangents; layer 0's ``g_z = g_z_in + g_c0``
+    as autograd adds it): in float32 the six gradients bit for bit (every
+    chain on the tensor-core chain body, the pair's dz0 + g_cnt0 the same
+    float32 sum); bfloat16 within 2**-6 of max|g| (the composed pair rounds
+    layer 0's ``g_z`` to bfloat16, the pair keeps it float32)."""
+    args, gamma = _f2_args(card, n_steps, alif, rec, use_periods, wdtype,
+                           B=40)
+    lat, w0, w0r, b0, w1, w1r, b1, w_out, b_out = args[:9]
+    H1, H2 = w1.shape
+    it = wdtype.itemsize
+    assert fused.layer0_bodies(n_steps, 30, H1, rec, it, card, True,
+                               use_periods) == ("mma", "mma")
+    assert fused_mid.mid_bodies(n_steps, H1, H2, 10, rec, it, card,
+                                True) == ("mma", "mma")
+    assert fused2.fused2_bodies(n_steps, 30, H1, H2, 10, rec, it,
+                                device=card, training=True,
+                                use_periods=use_periods) == ("mma", "mma")
+    sc, kappa = args[12:15], args[15]
+    store_a = alif and spike == PHI
+    out = fused2._fused2_cuda(*args, True, store_a, True)
+    z0, r0, ra0 = fused._layer0_cuda(lat, w0, w0r, b0, n_steps, use_periods,
+                                     alif, *sc, True, store_a, False)
+    m = fused_mid._mid_cuda(z0, w1, w1r, b1, w_out, b_out, n_steps, alif,
+                            *sc, kappa, True, store_a, True, False)
+    rng = np.random.default_rng(23)
+    g_logits = torch.from_numpy(rng.standard_normal(
+        (40, 10)).astype(np.float32)).to(card) / 40
+    g_c0, g_c1 = (torch.from_numpy((1e-3 * rng.standard_normal(
+        (40, n))).astype(np.float32)).to(card) / 40 for n in (H1, H2))
+    alpha, thr = args[12], args[14]
+    got = fused2._fused2_bwd_cuda(
+        g_logits, g_c0, g_c1, out[5], out[1], out[2], out[3], out[4], lat,
+        w0, w0r, b0, w1, w1r, b1, w_out, n_steps, use_periods, alpha, thr,
+        gamma, kappa, spike)
+    g_z_in, g_w1, g_w1r, g_wout, g_b = fused_mid._mid_bwd_cuda(
+        g_logits, g_c1, m[4], None, None, m[2], m[3], False, z0, w1, w1r, b1,
+        w_out, n_steps, alpha, thr, gamma, kappa, spike)
+    g_z = (g_z_in.float() + g_c0).to(wdtype).contiguous()
+    g_w0, g_w0r = fused._layer0_bwd_cuda(g_z, z0, r0, ra0, False, lat, w0,
+                                         w0r, b0, n_steps, use_periods,
+                                         alpha, thr, gamma, spike)
+    want = (g_w0, g_w0r, g_w1, g_w1r, g_wout, g_b)
+    torch.cuda.synchronize()
+    if wdtype == torch.float32:
+        names = ("g_w0", "g_w0r", "g_w1", "g_w1r", "g_wout", "g_b")
+        for what, g, w in zip(names, got, want):
+            assert (g is None) == (w is None), what
+            assert g is None or torch.equal(g, w), what
+    else:
+        assert _grad_err(got, want) <= 2.0 ** -6
 
 
 def _mid_case(dev, T, Hin, H, O, alif, rec, wdtype, B=37, seed=11):
