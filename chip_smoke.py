@@ -85,15 +85,22 @@ Phases (any failure exits non-zero before the final line):
    body without the readout, bit for bit the head's ``v`` and its own
    plain version in that order, ``_izh_layer0_ordered_reference``, on
    every row; its backward, the chain on the tensor-core chain body, against
-   ``_izh_bwd_ordered_reference``'s first-layer mode at the same bars),
-   then 784-128-10 and 784-128-128-10 at B = 8192, T = 100 (the share of
-   rows with equal spikes, the head's row bars, gradients 1e-4 / 2**-7;
-   layer 0's backward against its ordered version on the first 1024
-   rows).  There dt a b = -6e-5, and the chain's u carry moves a gradient
-   by less than those bars, so the three backward kernels are also held at
-   dt = 30 (dt a b = -1.8), with init-scale weights, ff/rec, on their
-   forward kernels' residuals: 1e-4 of max|g| float32, 2**-7 bf16 (the
-   head's and layer 0's also against their ordered plain versions);
+   ``_izh_bwd_ordered_reference``'s first-layer mode at the same bars;
+   ``izh_scan_fwd``, on the same tensor-core body with the currents as its
+   input, bit for bit ``izh._scan_ordered_reference``, z and v on every
+   row, and its backward, the chain on the tensor-core chain body, against
+   ``izh._scan_bwd_ordered_reference`` at the same bars, equal bits
+   twice), then 784-128-10 and 784-128-128-10 at B = 8192, T = 100 (the
+   share of rows with equal spikes, the head's row bars, gradients 1e-4 /
+   2**-7; layer 0's and the scan's forwards and backwards against their
+   ordered versions on the first 1024 rows).  There dt a b = -6e-5, and
+   the chain's u carry moves a gradient by less than those bars, so the
+   three backward kernels are also held at dt = 30 (dt a b = -1.8), with
+   init-scale weights, ff/rec, on their forward kernels' residuals: 1e-4
+   of max|g| float32, 2**-7 bf16 (each also against its ordered plain
+   version, the scan's forward bit for bit); ``izh_scan`` past the
+   tensor-core bodies' limits (float32 H = 192, bf16 H = 288) on its
+   per-unit kernels against the plain versions;
 9. Izhikevich serve -- 784 -> Izhikevich-128 recurrent -> 10, T = 100,
    dt = 30 (at the default dt = 1e-3 no unit fires at the init scale)
    served as in 4, f32 and bf16: results bitwise equal to a direct forward,
@@ -111,11 +118,14 @@ Phases (any failure exits non-zero before the final line):
    periodic (5 steps, times); then 784-128-128-10 (layer 0 + one scan call
    + the readout loop) the same way: one ``fused_izh_layer0_fwd/bwd`` and
    one ``izh_scan_fwd/bwd`` launch a step, ``explain_dispatch`` naming
-   layer 0's tensor-core body, ``fused_izh_layer0_fwd`` bit for bit its
-   ordered plain version on the first 1024 rows at dt = 30.  Each backward
-   kernel against its plain version on the forward kernel's residuals with
-   the trained weights (1e-4 of max|g| / 2**-7; ``fused_izh_layer0_bwd``
-   also against its ordered version on the first 1024 rows); each kernel
+   layer 0's and the scan's tensor-core bodies (forward and chain),
+   ``fused_izh_layer0_fwd`` bit for bit its ordered plain version on the
+   first 1024 rows at dt = 30 (row-share form), ``izh_scan_fwd`` on every
+   one of them.
+   Each backward kernel against its plain version on the forward kernel's
+   residuals with the trained weights (1e-4 of max|g| / 2**-7;
+   ``fused_izh_layer0_bwd`` and ``izh_scan_bwd`` also against their
+   ordered versions on the first 1024 rows); each kernel
    alone on its phase's batch, timed, with its bound and its error on
    those inputs.
 
@@ -2209,6 +2219,89 @@ def v_close(label, got, want):
         fail(f"{label}: v differs by {float((got - want).abs().max()):.3g}")
 
 
+def scan_ordered_fwd(label, z1, v1, cur, w_rec1, kp, rows):
+    """``izh_scan_fwd``'s z and v against its plain version in the
+    tensor-core body's order (``izh._scan_ordered_reference``) on the first
+    ``rows`` rows of the same currents (a row's bits depend on its own
+    currents only): bit for bit on every row.  Fails where the forward is
+    not on its tensor-core body.  Returns the share of rows equal (1)."""
+    T, B, H = cur.shape
+    if izh.scan_bodies(T, H, w_rec1 is not None, w_rec1.dtype.itemsize
+                       if w_rec1 is not None else 4, "cuda")[0] != "mma":
+        fail(f"{label}: the scan's forward is not on its tensor-core body")
+    share = ordered_witness(
+        f"{label} scan", (z1, v1), lambda r: izh._scan_ordered_reference(
+            cur[:, :r].contiguous(), w_rec1, kp, True), rows, ((0, "z"),))
+    if share < 1.0:
+        fail(f"{label}: the scan differs from its plain version in the "
+             f"tensor-core body's order on {1.0 - share:.5f} of {rows} rows")
+    return share
+
+
+def scan_bwd_ordered(label, sb, rows, bar):
+    """``izh._scan_bwd_cuda``'s arguments ``sb`` (g_z, z, v, w_rec, kp,
+    gamma, spike) on the first ``rows`` batch rows against its plain
+    version in its order with the kernel's plan
+    (``izh._scan_bwd_ordered_reference``): g_i, g_W_rec and its float32 sum
+    within ``bar`` of max|g|, equal bits on two runs.  Fails where the
+    chain is not on its tensor-core chain body.  Returns the worst
+    error."""
+    g_z, z, v, w_rec = sb[:4]
+    T, _, H = v.shape
+    sub = tuple(x[:, :rows].contiguous() for x in (g_z, z, v)) + sb[3:]
+    order = izh.gradient_plan("cuda", rows, H, T, w_rec is not None,
+                              w_rec is not None
+                              and w_rec.dtype == torch.bfloat16)
+    if not order["mma"]:
+        fail(f"{label}: the scan's chain is not on its tensor-core body")
+    keep, okeep = {}, {}
+    got = izh._scan_bwd_cuda(*sub, keep=keep)
+    again = izh._scan_bwd_cuda(*sub)
+    want = izh._scan_bwd_ordered_reference(*sub, order, keep=okeep)
+    torch.cuda.synchronize()
+    for g, g2 in zip(got, again):
+        if g is not None and not torch.equal(g, g2):
+            fail(f"{label}: the scan's backward is not reproducible bit for "
+                 "bit")
+    errs = {"g_i, g_W_rec": grad_error(got, want)}
+    if w_rec is not None:
+        errs["g_W_rec sum"] = grad_error([keep["g_w_rec"]],
+                                         [okeep["g_w_rec"]])
+    worst = max(errs.values())
+    if worst > bar:
+        fail(f"{label}: the scan's backward against its plain version in "
+             f"the kernel's order {errs} of max|g|, above {bar:.3g}")
+    return worst
+
+
+def check_izh_scan_per_unit(rng) -> None:
+    """``izh_scan`` past the tensor-core bodies' limits (float32 recurrent
+    H = 192, bfloat16 H = 288): both kernels on their per-unit bodies
+    against the order-free plain versions at the small bars."""
+    B, T = 37, 24
+    for wdtype, H in ((torch.float32, 192), (torch.bfloat16, 288)):
+        label = f"izh scan per-unit H={H} {str(wdtype)[6:]}"
+        if izh.scan_bodies(T, H, True, wdtype.itemsize, "cuda", True) != (
+                "per-unit", "per-unit"):
+            fail(f"{label}: not on the per-unit bodies")
+        cur = (3e6 + 1e6 * rand_w(rng, (T, B, H), 1.0)).contiguous()
+        w_rec = izh_weights(rng, 1, H, 1, True, wdtype)[1]
+        z, v = izh._scan_cuda(cur, w_rec, IZH_KP, True)
+        zp, vp = izh._scan_reference(cur, w_rec, IZH_KP, True)
+        torch.cuda.synchronize()
+        if not torch.equal(z, zp) or not 0 < float(z.mean()) < 1:
+            fail(f"{label}: spikes differ from the plain version's")
+        v_close(label, v, vp)
+        sb = (rand_w(rng, (T, B, H), 1.0 / B), z, v, w_rec, IZH_KP,
+              IZH.gamma, FS)
+        err = check_grads(f"{label} backward",
+                          lambda: izh._scan_bwd_cuda(*sb),
+                          lambda: izh._scan_bwd_reference(*sb),
+                          izh_bar(T, wdtype == torch.float32, False))
+        log(f"[izh-kernels] {label}: per-unit bodies, spikes equal, "
+            f"backward error {err:.3g} of max|g| ok")
+
+
 def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
     """The three Izhikevich kernel pairs at one shape: the head, layer 0,
     and ``izh_scan`` on layer 1's currents ``z0 @ W1``.  Each forward
@@ -2341,6 +2434,10 @@ def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
         fail(f"{label}: no unit of the scan fires")
     shares["scan"] = rows_equal(z1, z1p)
     errs[fused.KERNEL_IZH_SCAN] = float((z1 - z1p).abs().max())
+    # On the tensor-core body: bit for bit its plain version in its order
+    # on every row, every row small, the first ORDERED_ROWS at full width.
+    shares["scan ordered"] = scan_ordered_fwd(
+        label, z1, v1, cur, w_rec1, IZH_KP, min(B, ORDERED_ROWS))
     if not full:
         if shares["scan"] < 1.0:
             fail(f"{label}: scan spikes differ from the plain version's")
@@ -2353,6 +2450,11 @@ def check_izh(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype, full):
     errs[fused.KERNEL_IZH_SCAN_BWD] = check_grads(
         f"{label} scan backward", lambda: izh._scan_bwd_cuda(*sb),
         lambda: izh._scan_bwd_reference(*sb), bar)
+    # Its chain on the tensor-core chain body against its plain version in
+    # its order: every row small, the first ORDERED_ROWS at full width.
+    errs[fused.KERNEL_IZH_SCAN_BWD] = max(
+        errs[fused.KERNEL_IZH_SCAN_BWD], scan_bwd_ordered(
+            f"{label} scan backward", sb, min(B, ORDERED_ROWS), bar))
     return errs, shares, fire
 
 
@@ -2408,6 +2510,12 @@ def izh30_bwd_checks(label, fwd, kp, gamma, spike, f32, rng):
         errs[fused.KERNEL_IZH_SCAN_BWD] = check_grads(
             f"{label} scan backward dt=30", lambda: izh._scan_bwd_cuda(*sb),
             lambda: izh._scan_bwd_reference(*sb), bar)
+        # Against its plain version in its order: every row small, the
+        # first ORDERED_ROWS of a full-width batch.
+        errs[fused.KERNEL_IZH_SCAN_BWD] = max(
+            errs[fused.KERNEL_IZH_SCAN_BWD], scan_bwd_ordered(
+                f"{label} scan backward dt=30", sb,
+                min(z1.shape[1], ORDERED_ROWS), bar))
     return errs
 
 
@@ -2430,8 +2538,10 @@ def check_izh_dt30(label, rng, B, F, H0, H1, O, T, rec, spike, per, wdtype):
     w1 = rand_w(rng, (H0, H1), 1.0, wdtype)
     w_rec1 = ((rand_w(rng, (H1, H1), 1.0) * (1 - torch.eye(H1, device="cuda")))
               .to(wdtype) if rec else None)
-    z1, v1 = izh._scan_cuda((z0 @ w1.float()).contiguous(), w_rec1, IZH30_KP,
-                            True)
+    cur = (z0 @ w1.float()).contiguous()
+    z1, v1 = izh._scan_cuda(cur, w_rec1, IZH30_KP, True)
+    # Bit for bit its plain version in the body's order at dt = 30.
+    scan_ordered_fwd(label, z1, v1, cur, w_rec1, IZH30_KP, B)
     fire = min(float(counts.sum()) / (B * T * H0), float(z0.mean()),
                float(z1.mean()))
     if fire == 0 or not bool(torch.isfinite(v).all()):
@@ -2490,6 +2600,7 @@ def phase_izh_kernels() -> None:
             f"weights): backward errors of max|g| {json.dumps(worst)} within "
             f"{IZH30_BAR if wname == 'f32' else 2.0 ** -7:.3g}, lowest firing "
             f"share {lowest:.4f} ok")
+    check_izh_scan_per_unit(rng)
 
 
 def izh_cfg(matmul_dtype, hidden=128):
@@ -2759,7 +2870,10 @@ def phase_izh_train(matmul_dtype: str) -> list:
             f"cuda:{fused.KERNEL_IZH_SCAN}+{fused.KERNEL_IZH_SCAN_BWD}",
             "torch:loop"]
     rows_d = model_lib.explain_dispatch(cfg, enc, training=True)
-    if [r["path"] for r in rows_d] != want or not layer0_on_mma(rows_d[0]):
+    if ([r["path"] for r in rows_d] != want or not layer0_on_mma(rows_d[0])
+            or not all(f"the tensor-core body (mma) in {part}"
+                       in rows_d[1]["reason"]
+                       for part in ("the forward", "the backward's chain"))):
         fail(f"{label}: dispatch is {rows_d}")
     a_step = {fused.KERNEL_IZH_L0: 1, fused.KERNEL_IZH_L0_BWD: 1,
               fused.KERNEL_IZH_SCAN: 1, fused.KERNEL_IZH_SCAN_BWD: 1}
@@ -2781,6 +2895,11 @@ def phase_izh_train(matmul_dtype: str) -> list:
     cur = (z0 @ w1.float()).contiguous()
     z1, v1 = izh._scan_cuda(cur, w_rec1, kp, True)
     z1p = izh._scan_reference(cur, w_rec1, kp, True)[0]
+    scan_rows = scan_ordered_fwd(label, z1, v1, cur, w_rec1, kp,
+                                 ORDERED_ROWS)
+    log(f"[{label}] {fused.KERNEL_IZH_SCAN} bitwise its plain version in the "
+        f"tensor-core body's order at dt=30 on {scan_rows:.5f} of "
+        f"{ORDERED_ROWS} rows")
     torch.cuda.synchronize()
     spikes0, spikes1 = int(z0.sum()), int(z1.sum())
     log(f"[{label}] firing shares: layer 0 {spikes0 / (B * T * H):.4f}, "
@@ -2798,8 +2917,8 @@ def phase_izh_train(matmul_dtype: str) -> list:
     bwd_errs = {k: errs[k] for k in (fused.KERNEL_IZH_L0_BWD,
                                      fused.KERNEL_IZH_SCAN_BWD)}
     log(f"[{label}] backward kernels vs plain on the forward kernels' "
-        f"residuals at dt=30 (the trained weights; layer 0's also vs its "
-        f"plain version in its order on the first {ORDERED_ROWS} rows): "
+        f"residuals at dt=30 (the trained weights; each also vs its plain "
+        f"version in its order on the first {ORDERED_ROWS} rows): "
         f"{json.dumps(bwd_errs)} of max|g| ok")
     g_z = rand_w(rng, (T, B, H), 1.0 / B)
     lb = (None, None, None, g_z, z0, v0, lat, w_in, w_rec, None, T, False,
@@ -2824,13 +2943,26 @@ def phase_izh_train(matmul_dtype: str) -> list:
          4 * trace + 2 * H * H * it,
          2 * B * T * H * H + spikes1 * H + IZH_CHAIN_OPS * B * T * H),
     ]
+    # Each row's products on tensor cores where the tensor-core bodies run
+    # them (the scan's: checked above), 2 B T H H each: layer 0's forward
+    # (z @ W_rec and its dense input product), the scan's z(t-1) @ W_rec,
+    # and both chains' round(gi(t+1)) @ W_rec^T (six products for float32
+    # weights, not three).
+    flop = 2 * B * T * H * H
+    chain_tc = tc_ops_ms(flop * (2 if md == torch.float32 else 1), md)
+    l0_bwd_mma = fused_izh.layer0_bodies(T, F, H, True, it, "cuda", True,
+                                         False)[1] == "mma"
+    tc = {fused.KERNEL_IZH_L0: layer0_ops_ms(lat, T, H, True, False, md,
+                                             True),
+          fused.KERNEL_IZH_L0_BWD: chain_tc if l0_bwd_mma else None,
+          fused.KERNEL_IZH_SCAN: tc_ops_ms(flop, md),
+          fused.KERNEL_IZH_SCAN_BWD: chain_tc}
     for kernel, fn, plain_fn, nbytes, ops in timing:
         ms = cuda_ms(fn, 10)
         plain_ms = cuda_ms(plain_fn, 3, 1)
         rows.append(izh_row(
             label, tag, kernel, launches[kernel], errs[kernel], ms, plain_ms,
-            nbytes, ops, md, layer0_ops_ms(lat, T, H, True, False, md, True)
-            if kernel == fused.KERNEL_IZH_L0 else None))
+            nbytes, ops, md, tc[kernel]))
     del timing, lb, sb, z0, v0, z1, v1, cur, g_z, trainer
     izh_periodic_times(label, cfg, batches)
     torch.cuda.empty_cache()

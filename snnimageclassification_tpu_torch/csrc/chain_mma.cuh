@@ -2,8 +2,9 @@
 // over the element-wise chain as a policy: the heads (fused_head_bwd.cu for
 // LIF/ALIF, fused_izh_bwd.cu for Izhikevich), the first layers
 // (fused_layer0_bwd.cu, fused_izh_bwd.cu's first-layer mode), a mid layer's
-// head and z-emitting modes (fused_mid_bwd.cu) and both layers of the
-// two-layer backward (fused2_bwd.cu).
+// head and z-emitting modes (fused_mid_bwd.cu), both layers of the
+// two-layer backward (fused2_bwd.cu) and the Izhikevich scan of a layer
+// past the first (izh_scan.cu).
 //
 // A warp owns 16 rows x 32 units in registers in mma.m16n8k16's
 // accumulator layout (head_mma.cuh) and walks t down.  s(t) is kept by
@@ -18,16 +19,19 @@
 // chain is the policy's, the per-unit chain's arithmetic.  The cotangent
 // (B, T, H) in the weights' type and the z bits (B, T + 1, HP / 32) leave
 // as the per-unit chains write them, so the gradient functions keep their
-// inputs.  What bounds it on an H100: the serial T-chain, a step's two
-// dense products and its element-wise work; the body keeps the step on
-// tensor cores and in registers, one named barrier a step among a tile's
-// warps.  It takes O <= 16, H <= 256 and the weights' bf16 pieces within a
-// block's shared memory (chain_mma_fits).
+// inputs; the Izhikevich scan's policy (ScanOut) writes the cotangent
+// unrounded to a float32 g_i (T, B, H) in place of dcur, and its zmask may
+// be null (no W_rec: izh_scan.cu).  What bounds it on an
+// H100: the serial T-chain, a step's two dense products and its
+// element-wise work; the body keeps the step on tensor cores and in
+// registers, one named barrier a step among a tile's warps.  It takes O <=
+// 16, H <= 256 and the weights' bf16 pieces within a block's shared memory
+// (chain_mma_fits).
 //
 // The z-layer mode (a policy with HEAD = false; O = 0): no s chain and no
 // s @ W_out^T, dz(t) = g_z(t) (+ g_counts) + cotangent(t+1) @ W_rec^T,
 // g_z(t) in the accumulator layout from the policy, which loads it a step
-// ahead (lif_chain.cuh:ZChain, fused_izh_bwd.cu:IzhZChain).
+// ahead (lif_chain.cuh:ZChain, izh_chain.cuh:IzhZChain, IzhScanChain).
 //
 // A Chain policy has
 //   static constexpr bool HEAD             the head (s, W_out) or the
@@ -47,8 +51,10 @@
 //                                          (0 where !ok) and sets z(t);
 //   float input(const State&)              (z-layer mode) g_z(t) of an
 //                                          entry at step t.
-// LifChain and ZChain (lif_chain.cuh), IzhChain and IzhZChain
-// (fused_izh_bwd.cu).
+// LifChain and ZChain (lif_chain.cuh), IzhChain, IzhZChain and
+// IzhScanChain (izh_chain.cuh); a policy may also name
+//   static constexpr bool SCAN_OUT         the Izhikevich scan's outputs
+//                                          (ScanOut below).
 #pragma once
 
 #include "bwd_common.cuh"
@@ -82,6 +88,15 @@ inline bool chain_mma_fits(int H, int O, int rec, int bf16, int max_smem) {
          mma_chain_layout(H, rec, bf16 ? 1 : 3, 1, O > 0).total <=
              (size_t)max_smem;
 }
+
+// Whether a chain policy writes the cotangent as the Izhikevich scan's
+// does (izh_chain.cuh:IzhScanChain, SCAN_OUT): the float32 a.g_i (T, B, H)
+// unrounded, and no dcur.  The other policies write dcur alone, always.
+template <class C, class = void>
+struct ScanOut : std::false_type {};
+template <class C>
+struct ScanOut<C, std::void_t<decltype(C::SCAN_OUT)>>
+    : std::bool_constant<C::SCAN_OUT> {};
 
 // Rounds x to the weights' type and packs its P bf16 pieces, entries (lo,
 // hi) of a fragment register.
@@ -130,7 +145,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   if (row0 >= B) return;  // a tile past the batch; no block barrier below
 
   const int col0 = MMA_NU * wu + 2 * q;  // entry 0 of n8 tile 0
-  W* dcur_out = static_cast<W*>(a.dcur);
+  [[maybe_unused]] W* dcur_out = static_cast<W*>(a.dcur);  // !ScanOut
   bool live[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) live[hh] = row0 + g + 8 * hh < B;
@@ -168,7 +183,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   unsigned* zrow[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    zrow[hh] = live[hh]
+    zrow[hh] = live[hh] && a.zmask
                    ? a.zmask + (size_t)(row0 + g + 8 * hh) * (T + 1) * HW + wu
                    : nullptr;
     if (zrow[hh] && q == 0) zrow[hh][0] = 0u;  // z(-1)
@@ -226,6 +241,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     // The element-wise chain of each (row, unit) entry.
     float piece[P][MMA_NT][4];
     uint32_t zw[2] = {0u, 0u};
+    [[maybe_unused]] float gi_even = 0.f;  // ScanOut: g_i of entry e - 1
 #pragma unroll
     for (int n = 0; n < MMA_NT; ++n) {
 #pragma unroll
@@ -235,7 +251,16 @@ __global__ void __launch_bounds__(MMA_THREADS)
         const size_t at = (size_t)row * H + col;
         bool z;
         const float d = chain.step(a, st[n][e], dz[n][e], t, at, ok, z);
-        if (ok) from_f32(d, dcur_out + ((size_t)row * T + t) * H + col);
+        if constexpr (ScanOut<Chain>::value) {
+          // g_i: the pair (row, col - 1), (row, col) at e odd.
+          if ((e & 1) == 0)
+            gi_even = d;
+          else if (live[e >> 1] && col - 1 < H)
+            store_pair(a.g_i + ((size_t)t * B + row) * H + col - 1, gi_even,
+                       d, col < H);
+        } else {
+          if (ok) from_f32(d, dcur_out + ((size_t)row * T + t) * H + col);
+        }
         float pc[P];
         split<P>(round_w<W>(d), pc);
 #pragma unroll

@@ -109,6 +109,9 @@ struct FwdArgs {
   int B, F, H, O, T, periodic;
   float kappa;
   P cell;
+  // (T, B, H) float32: a layer's input currents where they are given
+  // (izh_scan.cu on head_mma_fwd.cuh:DenseCurrent), else null.
+  const float* cur = nullptr;
 };
 
 // The arguments of replica s of a stacked launch: each per-replica pointer

@@ -34,7 +34,7 @@
 //     the tile, not once a row, the other rows' spikes zero.  The choice is
 //     each row's own, so a row's bits do not depend on its batch.
 //   * The cell step is the policy's (lif_cell.cuh:LifMmaCell,
-//     fused_izh.cu:IzhMmaCell), the arithmetic of the per-unit body's cell;
+//     izh_cell.cuh:IzhMmaCell), the arithmetic of the per-unit body's cell;
 //     built with --fmad=false, so a*b+c rounds twice, as in the plain
 //     PyTorch versions.  The training traces are the policy's too.
 //   * Stacked replicas: grid axis y, a block offsets its weights, outputs
@@ -319,9 +319,12 @@ struct ListInput {
   bool every_step;
   float every[MMA_NT][4];
 
-  __device__ void start(const uint16_t* lists, const bool (&live)[2],
-                        int row0, int g, int F, int T, int periodic,
-                        const W* w_in, int H, int col0) {
+  template <class A>
+  __device__ void start(const A& a, const uint16_t* lists,
+                        const bool (&live)[2], int row0, int lane, int col0) {
+    const int g = lane >> 2, F = a.F, T = a.T, periodic = a.periodic;
+    const int H = a.H;
+    const W* w_in = static_cast<const W*>(a.w_in);
     FA = align8(F);
     every_step = periodic && T >= 2;
 #pragma unroll
@@ -350,9 +353,12 @@ struct ListInput {
   }
 
   // cur = the input current of step t; then the cursors move past it.
-  __device__ void current(float (&cur)[MMA_NT][4], int t, const int* lat,
-                          int F, int row0, int periodic, const W* w_in, int H,
-                          int lane, int wu, int col0) {
+  template <class A>
+  __device__ void current(float (&cur)[MMA_NT][4], int t, const A& a,
+                          int row0, int lane, int wu, int col0) {
+    const int F = a.F, periodic = a.periodic, H = a.H;
+    const int* lat = a.lat;
+    const W* w_in = static_cast<const W*>(a.w_in);
 #pragma unroll
     for (int n = 0; n < MMA_NT; ++n)
 #pragma unroll
@@ -385,6 +391,67 @@ struct ListInput {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
       advance(lrow[hh], FA, nk[hh], cursor[hh], next[hh], t, periodic);
+  }
+};
+
+// The input current of a layer whose currents are given (izh_scan.cu: the
+// currents z_in @ W_in of all steps, one torch.matmul outside the kernel),
+// a.cur (T, B, H) float32: the lane's entries of rows g and g + 8 and its
+// units in the accumulator layout, two adjacent units a load where H is
+// even and the rows 8-byte aligned, step t + 1's loaded while step t
+// computes (as chain_mma.cuh's z-layer policies load g_z).
+struct DenseCurrent {
+  const float* at[2];  // rows g, g + 8 at step 0, unit col0; null past B
+  size_t step;         // B H
+  int H, T, col0;
+  bool pair;
+  float nxt[MMA_NT][4];
+
+  __device__ void load(int t) {
+#pragma unroll
+    for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = col0 + 8 * n;
+        float x0 = 0.f, x1 = 0.f;
+        if (at[hh] && c < H) {
+          const float* p = at[hh] + (size_t)t * step + 8 * n;
+          if (pair) {
+            load_pair(p, x0, x1);
+          } else {
+            x0 = p[0];
+            if (c + 1 < H) x1 = p[1];
+          }
+        }
+        nxt[n][2 * hh] = x0;
+        nxt[n][2 * hh + 1] = x1;
+      }
+  }
+
+  template <class A>
+  __device__ void start(const A& a, const uint16_t*, const bool (&live)[2],
+                        int row0, int lane, int col0_) {
+    H = a.H;
+    T = a.T;
+    col0 = col0_;
+    step = (size_t)a.B * H;
+    pair = (H & 1) == 0 && reinterpret_cast<uintptr_t>(a.cur) % 8 == 0;
+    const int g = lane >> 2;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      at[hh] = live[hh] ? a.cur + (size_t)(row0 + g + 8 * hh) * H + col0
+                        : nullptr;
+    load(0);
+  }
+
+  template <class A>
+  __device__ void current(float (&cur)[MMA_NT][4], int t, const A&, int,
+                          int, int, int) {
+#pragma unroll
+    for (int n = 0; n < MMA_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cur[n][e] = nxt[n][e];
+    if (t + 1 < T) load(t + 1);
   }
 };
 
@@ -462,7 +529,7 @@ struct TileStore {
 //                                          lies inside H;
 //   z_out<W>(Params)                       a first layer's spike trace z
 //                                          (T, B, H), or null.
-// lif_cell.cuh:LifMmaCell is the LIF/ALIF cell, fused_izh.cu:IzhMmaCell the
+// lif_cell.cuh:LifMmaCell is the LIF/ALIF cell, izh_cell.cuh:IzhMmaCell the
 // Izhikevich one.
 //
 // The steps of one encoded layer on the tensor-core body, for the lane's
@@ -477,21 +544,24 @@ struct TileStore {
 // where a.counts is given, the spike counts.  head_mma_kernel runs it for
 // a head or a first layer, fused2.cu:fused2_mma_kernel for its layer 0
 // (!ZOUT: z0 stays in the exchange buffer for layer 1), so the bits of a
-// first layer are one code's.
+// first layer are one code's.  The input current is the Input policy's:
+// ListInput (an encoded layer, from the rows' feature lists) or
+// DenseCurrent (izh_scan.cu: given currents, no lists), each with
+//   start(a, lists, live, row0, lane, col0)   before step 0;
+//   current(cur, t, a, row0, lane, wu, col0)  cur = step t's current.
 template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W,
-          bool ZOUT = !HEAD>
+          bool ZOUT = !HEAD, class Input = ListInput<pieces<W>(), W>>
 __device__ __forceinline__ void mma_layer(
     const FwdArgs<typename Cell::Params>& a, const uint16_t* lists,
     const uint2* s_wrec, const uint2* s_wout, const float* s_b,
     uint16_t* s_z, int row0, int wu, int NWU, int lane, int tsync, int tn) {
   constexpr int P = pieces<W>();
-  const int H = a.H, O = a.O, F = a.F, T = a.T, B = a.B, g = lane >> 2;
+  const int H = a.H, O = a.O, T = a.T, B = a.B, g = lane >> 2;
   const int HP = mma_hp(H), KT = HP / 16, ZS = mma_zs(HP);
-  const W* w_in = static_cast<const W*>(a.w_in);
   const int col0 = MMA_NU * wu + 2 * (lane & 3);  // entry 0 of n8 tile 0
   const bool live[2] = {row0 + g < B, row0 + g + 8 < B};
-  ListInput<P, W> in;
-  in.start(lists, live, row0, g, F, T, a.periodic, w_in, H, col0);
+  Input in;
+  in.start(a, lists, live, row0, lane, col0);
   MmaReadout ro(wu, NWU, HEAD ? O : 0);
   const Cell cell(a.cell);
   auto* const zo = ZOUT ? cell.template z_out<W>(a.cell) : nullptr;
@@ -531,7 +601,7 @@ __device__ __forceinline__ void mma_layer(
     if (HEAD && t == T) break;
     // The input current of step t, then the recurrent one added.
     float cur[MMA_NT][4];
-    in.current(cur, t, a.lat, F, row0, a.periodic, w_in, H, lane, wu, col0);
+    in.current(cur, t, a, row0, lane, wu, col0);
     if (REC && t > 0) {
 #pragma unroll
       for (int n = 0; n < MMA_NT; ++n)
@@ -582,7 +652,8 @@ __device__ __forceinline__ void mma_layer(
 // threads alone it held some instances (a first layer's inference among
 // them) to 128 registers and spilled (tools/head_ablation.py --layer0,
 // ptxas_heuristic).
-template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W>
+template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W,
+          class Input = ListInput<pieces<W>(), W>>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
     head_mma_kernel(FwdArgs<typename Cell::Params> a0, const uint16_t* lists,
                     int tpb) {
@@ -617,16 +688,17 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   __syncthreads();
   const int row0 = (blockIdx.x * tpb + tile) * 16;
   if (row0 >= B) return;  // a tile past the batch; no block barrier below
-  mma_layer<Cell, REC, TRAIN, HEAD, W>(a, lists, s_wrec, s_wout, s_b, s_z,
-                                       row0, wu, NWU, lane, 1 + tile,
-                                       NWU * 32);
+  mma_layer<Cell, REC, TRAIN, HEAD, W, !HEAD, Input>(
+      a, lists, s_wrec, s_wout, s_b, s_z, row0, wu, NWU, lane, 1 + tile,
+      NWU * 32);
 }
 
-template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W>
+template <class Cell, bool REC, bool TRAIN, bool HEAD, typename W,
+          class Input = ListInput<pieces<W>(), W>>
 cudaError_t launch_mma(const FwdArgs<typename Cell::Params>& a,
                        const uint16_t* lists, int S, int device,
                        cudaStream_t stream) {
-  auto kernel = head_mma_kernel<Cell, REC, TRAIN, HEAD, W>;
+  auto kernel = head_mma_kernel<Cell, REC, TRAIN, HEAD, W, Input>;
   const int NWU = mma_hp(a.H) / 32, tiles = (a.B + 15) / 16;
   int tpb = 1;
   auto smem = [&](int t) {

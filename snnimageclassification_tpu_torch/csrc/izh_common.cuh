@@ -57,7 +57,7 @@ struct IzhBwd {
 // One entry's reverse step t of the chain above: from v(t), z(t), z(t-1),
 // dz(t) and the carries dv(t+1), du(t+1), which it replaces by dv(t), du(t);
 // returns gi(t).  The per-unit chain (izh_chain_kernel) and the tensor-core
-// body's (fused_izh_bwd.cu:IzhChain) both step with it.
+// body's (izh_chain.cuh:IzhChain, IzhZChain, IzhScanChain) step with it.
 __device__ __forceinline__ float izh_chain_step(const IzhBwd& p, float v_t,
                                                 bool z_t, bool z_prev,
                                                 float dz, float& dv_next,

@@ -135,7 +135,12 @@ from ..ops.fused_mid import (
     fused_mid_supported,
     mid_bodies,
 )
-from ..ops.izh import izh_kernel_params, izh_scan, izh_scan_supported
+from ..ops.izh import (
+    izh_kernel_params,
+    izh_scan,
+    izh_scan_supported,
+    scan_bodies as izh_scan_bodies,
+)
 from ..ops.rec_scan import (
     rec_alif_scan,
     rec_bodies,
@@ -1029,8 +1034,9 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
     "the tensor-core body (mma)" in the reason; the per-unit body past its
     limits, a path ending in ``[per-unit]``; training, the mid layer's and
     the two-layer backward's input cotangent ``gzin_mma``.  A first layer
-    (LIF/ALIF and Izhikevich) names its forward's and, training, its
-    backward's chain's body the same way.
+    (LIF/ALIF and Izhikevich) and an Izhikevich layer past the first
+    (``izh_scan``) name their forward's and, training, their backward's
+    chain's body the same way.
     A two-hidden-layer network that takes the two-layer pair is one row:
     ``cuda:fused2_fwd`` (``cuda:fused2_fwd_train+fused2_bwd`` training),
     ``torch:fused2_reference`` on the CPU.  The unfused tier gives a layer
@@ -1142,6 +1148,25 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             recurrent=rec_of(lcfg), itemsize=md_size, device=dev,
             training=training,
             use_periods=enc is not None and enc.use_periods)
+        why = "H > 256, or W_rec's bf16 pieces past a block's shared memory"
+        note = ""
+        for part, body in zip(("the forward", "the backward's chain"),
+                              bodies):
+            note += (f"; the tensor-core body (mma) in {part}"
+                     if body == "mma" else
+                     f"; the per-unit body ({why}) in {part}")
+        return note, "" if set(bodies) == {"mma"} else "[per-unit]"
+
+    def izh_scan_body(lcfg):
+        """(reason note, path mode) of ``izh_scan``'s kernels on the card:
+        the forward on the first layers' tensor-core body and, training,
+        the backward's chain on the tensor-core chain body, or past their
+        limits the per-unit bodies (a path ending in ``[per-unit]``)."""
+        if not on_card:
+            return "", ""
+        bodies = izh_scan_bodies(
+            cfg.int_time_steps, lcfg.output_size, recurrent=rec_of(lcfg),
+            itemsize=md_size, device=dev, training=training)
         why = "H > 256, or W_rec's bf16 pieces past a block's shared memory"
         note = ""
         for part, body in zip(("the forward", "the backward's chain"),
@@ -1292,8 +1317,10 @@ def explain_dispatch(cfg: SNNConfig, enc=None, device="cuda",
             if type(lcfg) is IzhikevichConfig:
                 kernels = (KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD,
                            "izh_scan_reference")
+                gb, mode = izh_scan_body(lcfg)
                 if rec_of(lcfg):
-                    gb = gbits_note("g_W_rec", lcfg.output_size, md_size)
+                    # g_W_rec reads the chain's float32 g_i.
+                    gb += gbits_note("g_W_rec", lcfg.output_size, 4)
             elif lcfg.use_recurrent_connection:
                 kernels = (KERNEL_REC_TRAIN if training else KERNEL_REC,
                            KERNEL_REC_BWD, "rec_scan_reference")

@@ -19,13 +19,23 @@ the float32 ``z`` and ``v`` traces.
 
 Two hand-written CUDA kernels stand behind :func:`izh_scan`
 (``csrc/izh_scan.cu``): ``izh_scan_fwd`` and ``izh_scan_bwd`` (the chain,
-then ``g_W_rec`` as a sum over spike bits).  On a CUDA tensor the wrapper
-launches them or raises; on the CPU it runs the plain PyTorch versions
-(``_scan_reference``, ``_scan_bwd_reference``), which the tests hold
-against the JAX kernels.  :func:`izh_scan_reference` runs the plain
-versions on any device.  The plain loops here (:func:`_izh_loop`,
-:func:`_izh_bwd_loop`) also serve the encoded Izhikevich calls of
-ops/fused_izh.py.
+then ``g_W_rec`` as a sum over spike bits, ``gbits_mma``).  Where the shape
+fits (H <= 256, W_rec's bf16 pieces within a block's shared memory) both
+run the tensor-core bodies of the first layers: the forward
+``head_mma_kernel`` with the Izhikevich cell and the currents as its input
+(``csrc/head_mma_fwd.cuh:DenseCurrent``), the chain
+``bwd_chain_mma_kernel`` with ``csrc/izh_chain.cuh:IzhScanChain``;
+other shapes the per-unit kernels.  :func:`scan_bodies` names the bodies,
+:func:`gradient_plan` gives the backward's order;
+:func:`_scan_ordered_reference` and :func:`_scan_bwd_ordered_reference`
+are the plain versions in the tensor-core bodies' summation order (the
+forward's bit for bit on the card).  On a CUDA tensor the wrapper
+launches the kernels or raises; on the CPU it runs the order-free plain
+PyTorch versions (``_scan_reference``, ``_scan_bwd_reference``), which
+the tests hold against the JAX kernels.  :func:`izh_scan_reference` runs
+the plain versions on any device.  The plain loops here
+(:func:`_izh_loop`, :func:`_izh_bwd_loop`) also serve the encoded
+Izhikevich calls of ops/fused_izh.py.
 
 Rounding: currents, state and traces are float32; ``W_rec`` may be
 bfloat16, with ``z`` (exact) and the backward's ``gi`` rounded to it before
@@ -45,10 +55,12 @@ from .fused import KERNEL_IZH_SCAN, KERNEL_IZH_SCAN_BWD, MAX_STEPS
 from .surrogate import SpikeFuncType, surrogate_grad_from_delta
 
 __all__ = [
+    "gradient_plan",
     "izh_kernel_params",
     "izh_scan",
     "izh_scan_reference",
     "izh_scan_supported",
+    "scan_bodies",
 ]
 
 _NAMES = ("dt", "C", "v_rest", "v_th", "k", "a", "b", "c", "d", "v_peak")
@@ -254,19 +266,80 @@ def _scan_bwd_reference(g_z, z, v, w_rec, kernel_params, gamma, spike_func):
     return g_i, None if g_w_rec is None else g_w_rec.to(w_rec.dtype)
 
 
+def _scan_ordered_reference(currents, w_rec, kernel_params, train):
+    """Plain version of ``izh_scan_fwd``'s tensor-core body
+    (``csrc/head_mma_fwd.cuh:mma_layer`` with the Izhikevich cell and the
+    currents as its input) in its summation order: at each step the
+    current ``cur(t)`` plus, past step 0, ``z(t-1) @ W_rec`` k16-sliced as
+    the body forms it (``ops/fused.py:_slice_product`` on the weights'
+    pieces), in that order, then the cell step of :func:`_cell_step`.
+    Returns as :func:`_scan_reference`."""
+    f32 = torch.float32
+    T, B, H = currents.shape
+    dev = currents.device
+    step = _cell_step(kernel_params, dev)
+    rec_p = None if w_rec is None else _f._weight_pieces(w_rec)
+    v = torch.full((B, H), dict(kernel_params)["v_rest"], dtype=f32,
+                   device=dev)
+    u = torch.zeros_like(v)
+    z = torch.zeros_like(v)
+    zs, vs = [], []
+    for t in range(T):
+        cur = currents[t].to(f32)
+        if rec_p is not None and t > 0:
+            cur = cur + _f._slice_product(z, rec_p)
+        v, u, z = step(v, u, z, cur)
+        zs.append(z)
+        if train:
+            vs.append(v)
+    return torch.stack(zs), torch.stack(vs) if train else None
+
+
+def _scan_bwd_ordered_reference(g_z, z, v, w_rec, kernel_params, gamma,
+                                spike_func, order, keep=None):
+    """Plain version of ``izh_scan_bwd`` in its order: the two-carry chain
+    with the tensor-core chain body's product ``round(gi(t+1)) @ W_rec^T``
+    (``ops/fused.py:_split_slice_product``), then ``g_W_rec`` from the
+    chain's ``g_i`` through ``gbits._gbits_ordered_reference`` (the plan's
+    row groups, ``order`` of :func:`gradient_plan`; g_i read step-major,
+    as ``gbits_mma`` reads it).  Returns as
+    :func:`_scan_bwd_reference`; a dict ``keep`` receives ``g_w_rec``, the
+    float32 sum before its cast."""
+    from .gbits import _gbits_ordered_reference
+
+    f32 = torch.float32
+    wd = f32 if w_rec is None else w_rec.dtype
+    g_i, _, _, _, _ = _izh_bwd_loop(
+        None, None, None, None, g_z, v, z, w_rec, None, kernel_params,
+        gamma, 0.0, spike_func, wd, want_gi=True,
+        matmul=lambda a, w: _f._split_slice_product(a, w.contiguous(), wd))
+    if w_rec is None:
+        return g_i, None
+    T, B, H = v.shape
+    zf = z.to(f32)
+    z_prev = torch.cat([torch.zeros_like(zf[:1]), zf[:-1]])
+    g_w_rec = _gbits_ordered_reference(
+        g_i.reshape(T * B, H), z_prev.reshape(T * B, H), B, T,
+        order["groups_rec"], wd, step_major=True)
+    if keep is not None:
+        keep["g_w_rec"] = g_w_rec
+    return g_i, g_w_rec.to(w_rec.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(i)
-    lib.snn_izh_scan_plan.argtypes = [i] * 4 + [ip, ip]
+    lib.snn_izh_scan_plan.argtypes = [i] * 4 + [ip, ip, ip]
     lib.snn_izh_scan_plan.restype = i
-    lib.snn_izh_scan_fwd.argtypes = [vp] * 4 + [i] * 4 + [f] * 10 + [i, i, vp]
+    lib.snn_izh_scan_fwd.argtypes = (
+        [vp] * 4 + [i] * 4 + [f] * 10 + [i, i, i, vp])
     lib.snn_izh_scan_fwd.restype = i
     lib.snn_izh_scan_bwd_plan.argtypes = [i] * 6 + [ip]
     lib.snn_izh_scan_bwd_plan.restype = i
-    lib.snn_izh_scan_bwd.argtypes = [vp] * 8 + [i] * 5 + [f] * 8 + [i, vp]
+    lib.snn_izh_scan_bwd.argtypes = [vp] * 7 + [i] * 5 + [f] * 8 + [i, vp]
     lib.snn_izh_scan_bwd.restype = i
     lib.snn_cuda_error_string.argtypes = [i]
     lib.snn_cuda_error_string.restype = ctypes.c_char_p
@@ -283,32 +356,79 @@ def _lib() -> ctypes.CDLL:
 
 
 def _plan(device: torch.device, H: int, recurrent: bool,
-          bf16: bool) -> Optional[Tuple[int, int]]:
-    """(rows per block, shared-memory bytes) of ``izh_scan_fwd``, or None
-    when the shape does not fit."""
+          bf16: bool) -> Optional[Tuple[int, int, bool]]:
+    """(rows per block, shared-memory bytes, tensor-core body) of
+    ``izh_scan_fwd``: the tensor-core body where the third is True, else
+    the per-unit body at those rows and bytes; None when the shape does
+    not fit."""
     lib = _lib()
-    rows, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rows, smem, mma = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     rc = lib.snn_izh_scan_plan(H, int(recurrent), int(bf16),
                                _f._index(device), ctypes.byref(rows),
-                               ctypes.byref(smem))
+                               ctypes.byref(smem), ctypes.byref(mma))
     if rc == 1:
         return None
     _f._raise_on(rc, lib, f"{KERNEL_IZH_SCAN} plan")
-    return rows.value, smem.value
+    return rows.value, smem.value, bool(mma.value)
+
+
+def _plan_bwd_words(device: torch.device, B: int, H: int, T: int,
+                    recurrent: bool, bf16: bool) -> Optional[list]:
+    """``snn_izh_scan_bwd_plan``'s words (blocks of ``g_W_rec`` slabs, 0
+    without recurrence; 1 where the chain takes the tensor-core chain
+    body), or None when the shape does not fit."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    rc = lib.snn_izh_scan_bwd_plan(B, H, T, int(recurrent), int(bf16),
+                                   _f._index(device), out)
+    if rc == 1:
+        return None
+    _f._raise_on(rc, lib, f"{KERNEL_IZH_SCAN_BWD} plan")
+    return list(out)
 
 
 def _plan_bwd(device: torch.device, B: int, H: int, T: int, recurrent: bool,
               bf16: bool) -> Optional[int]:
     """Blocks of ``g_W_rec`` slabs of ``izh_scan_bwd`` (0 without
     recurrence), or None when the shape does not fit."""
-    lib = _lib()
-    out = (ctypes.c_int * 1)()
-    rc = lib.snn_izh_scan_bwd_plan(B, H, T, int(recurrent), int(bf16),
-                                   _f._index(device), out)
-    if rc == 1:
-        return None
-    _f._raise_on(rc, lib, f"{KERNEL_IZH_SCAN_BWD} plan")
-    return out[0]
+    out = _plan_bwd_words(device, B, H, T, recurrent, bf16)
+    return None if out is None else out[0]
+
+
+def gradient_plan(device, B: int, H: int, T: int, recurrent: bool,
+                  bf16: bool) -> dict:
+    """The order of ``izh_scan_bwd`` on ``device`` for a shape:
+    ``groups_rec``, blocks of ``gbits_mma`` (0 without recurrence),
+    and ``mma``, whether the chain takes the tensor-core chain body.
+    :func:`_scan_bwd_ordered_reference` takes it."""
+    out = _plan_bwd_words(torch.device(device), B, H, T, recurrent, bf16)
+    if out is None:
+        raise ValueError(f"{KERNEL_IZH_SCAN_BWD}: shape T={T} H={H} does "
+                         "not fit the kernel")
+    return dict(groups_rec=out[0], mma=bool(out[1]))
+
+
+def scan_bodies(n_steps: int, hidden: int, recurrent: bool = True,
+                itemsize: int = 4, device="cuda",
+                training: bool = False) -> Tuple[str, ...]:
+    """The body each scan kernel runs a shape on, for a shape
+    :func:`izh_scan_supported` takes: ``"mma"`` (``izh_scan_fwd`` on the
+    first layers' tensor-core body, ``csrc/head_mma_fwd.cuh``) or
+    ``"per-unit"`` (H > 256, or W_rec's bf16 pieces past a block's shared
+    memory: float32 recurrent from H = 161); a second entry with
+    ``training``: ``izh_scan_bwd``'s chain, ``"mma"`` on the tensor-core
+    chain body (``csrc/chain_mma.cuh``) or ``"per-unit"`` past the same
+    limits.  On the CPU the plain versions: ``"plain"`` entries."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ("plain",) * (1 + int(training))
+    bf16 = itemsize == 2
+    fwd = _plan(device, hidden, recurrent, bf16)
+    out = ("mma" if fwd and fwd[2] else "per-unit",)
+    if training:
+        bwd = _plan_bwd_words(device, 1, hidden, n_steps, recurrent, bf16)
+        out += ("mma" if bwd and bwd[1] else "per-unit",)
+    return out
 
 
 def izh_scan_supported(n_steps: int, hidden: int, recurrent: bool = True,
@@ -316,10 +436,10 @@ def izh_scan_supported(n_steps: int, hidden: int, recurrent: bool = True,
                        training: bool = False) -> bool:
     """Whether :func:`izh_scan` covers this shape on ``device``.  On the CPU
     the plain versions cover every shape.  On a CUDA device the kernels need
-    ``W_rec`` in float32 or bfloat16, ``hidden <= 1024`` (one thread per
-    unit), ``n_steps <= MAX_STEPS`` and ``W_rec`` within the block's shared
-    memory; with ``training`` the backward (one row's ``(n_steps, hidden)``
-    float32 table in shared memory for ``g_W_rec``) too."""
+    ``W_rec`` in float32 or bfloat16, ``n_steps <= MAX_STEPS`` and either
+    the tensor-core bodies' limits (:func:`scan_bodies`) or the per-unit
+    bodies' (``hidden <= 1024``, one thread per unit, ``W_rec`` within a
+    block's shared memory); with ``training`` the backward's too."""
     device = torch.device(device)
     if n_steps < 1 or hidden < 1:
         return False
@@ -361,8 +481,8 @@ def _scan_cuda(currents, w_rec, kernel_params, train):
     lib = _lib()
     rc = lib.snn_izh_scan_fwd(
         currents.data_ptr(), _f._ptr(w_rec), z.data_ptr(), _f._ptr(v), B, H,
-        T, int(bf16), *_consts(kernel_params), plan[0], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        T, int(bf16), *_consts(kernel_params), plan[0], int(plan[2]),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _f._raise_on(rc, lib, f"{k} launch")
     _f._launched(k)
     return z, v
@@ -372,8 +492,9 @@ def _scan_bwd_cuda(g_z, z, v, w_rec, kernel_params, gamma, spike_func,
                    keep=None):
     """Launch ``izh_scan_bwd`` (the chain and, with ``W_rec``, its gradient
     over spike bits) and add the blocks' slabs in a fixed order.  A dict
-    ``keep`` receives the chain's rounded ``gi`` (``dcur``), the z bits
-    (``zmask``) and the float32 sum of ``g_W_rec`` (for tests)."""
+    ``keep`` receives ``g_W_rec``'s operand as ``dcur`` (B, T, H), a view
+    of the float32 ``g_i``, which ``gbits_mma`` rounds as it reads; the z
+    bits (``zmask``) and the float32 sum of ``g_W_rec`` (for tests)."""
     k = KERNEL_IZH_SCAN_BWD
     dev = v.device
     T, B, H = v.shape
@@ -389,9 +510,8 @@ def _scan_bwd_cuda(g_z, z, v, w_rec, kernel_params, gamma, spike_func,
         raise ValueError(f"{k}: shape T={T} H={H} does not fit the kernel "
                          "(gate on izh_scan_supported(training=True))")
     g_i = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    dcur = zmask = slab = None
+    zmask = slab = None
     if rec:
-        dcur = torch.empty((B, T, H), dtype=w_rec.dtype, device=dev)
         zmask = torch.empty((B, T + 1, (H + 31) // 32), dtype=torch.int32,
                             device=dev)
         slab = torch.empty((n_rec, H * H), dtype=torch.float32, device=dev)
@@ -399,7 +519,7 @@ def _scan_bwd_cuda(g_z, z, v, w_rec, kernel_params, gamma, spike_func,
     p = _f._ptr
     rc = lib.snn_izh_scan_bwd(
         g_z.data_ptr(), z.data_ptr(), v.data_ptr(), p(w_rec), g_i.data_ptr(),
-        p(dcur), p(zmask), p(slab), B, H, T,
+        p(zmask), p(slab), B, H, T,
         int(spike_func == SpikeFuncType.Phi), int(bf16),
         *_bwd_consts(kernel_params), float(gamma), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -408,7 +528,7 @@ def _scan_bwd_cuda(g_z, z, v, w_rec, kernel_params, gamma, spike_func,
     _f._launched_function(_f.KERNEL_GBITS, int(rec))
     rec_sum = _f.gbits_sums(slab, None).view(H, H) if rec else None
     if keep is not None:
-        keep.update(dcur=dcur, zmask=zmask, g_w_rec=rec_sum)
+        keep.update(dcur=g_i.transpose(0, 1), zmask=zmask, g_w_rec=rec_sum)
     return g_i, None if not rec else rec_sum.to(w_rec.dtype)
 
 

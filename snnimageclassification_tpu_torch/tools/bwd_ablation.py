@@ -46,12 +46,22 @@ the tensor-core chain body), with the per-unit chain (``per_unit_chain``:
 ``bwd_chain_kernel``, ``izh_chain_kernel``) and without the chain's
 recurrent product (``no_chain_rec_product``), and the chain's bound.
 
+``--izh-scan`` times ``izh_scan_bwd``'s functions (``csrc/izh_scan.cu``:
+the chain and ``gbits_mma`` for ``g_W_rec``) on the deep Izhikevich
+network's second layer (784-Izh128-Izh128-10 at dt = 30, params seed 0,
+B = 8192, T = 100: the residuals of ``izh_scan_fwd`` on its currents, as
+``head_ablation.py --izh-scan`` makes them), as built (the chain on the
+tensor-core chain body, ``gbits_mma`` reading the chain's float32 g_i),
+with the per-unit chain (``per_unit_chain``: ``izh_chain_kernel``) and without the
+chain's recurrent product (``no_chain_rec_product``), and the chain's
+bound.
+
 Run on a CUDA card from the repository root::
 
     python3 -m snnimageclassification_tpu_torch.tools.bwd_ablation \
         [--matmul-dtype float32|bfloat16] [--periodic] [--library] \
         [--replicas 6] [--wide | --izh | --mid | --twolayer | --layer0
-        [--izh]]
+        [--izh] | --izh-scan]
 
 The inputs are one training batch of the flagship (784 -> ALIF-128
 recurrent, learn_beta, T=100, batch 8192, init weights from seed 0, random
@@ -779,6 +789,38 @@ def layer0_bwd(md, izh_layer: bool, periodic: bool) -> None:
                                             BF16_FLOPS), **tag}), flush=True)
 
 
+def izh_scan_bwd(md) -> None:
+    """``--izh-scan``: ``izh_scan_bwd``'s functions on the deep Izhikevich
+    network's second layer, as built and in each variant."""
+    from .head_ablation import izh_scan_inputs
+
+    cur, w_rec, kp, c = izh_scan_inputs(md)
+    z, v = izh._scan_cuda(cur, w_rec, kp, True)
+    T, B, H = z.shape
+    g_z = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (T, B, H)).astype(np.float32)).cuda() / B
+
+    def run():
+        return izh._scan_bwd_cuda(g_z, z, v, w_rec, kp, c.gamma,
+                                  c.spike_func)
+
+    tag = {"izh_scan": True, "matmul_dtype": str(md).split(".")[1],
+           "firing": float(z.mean())}
+    libs = _variant_libs("izh_scan", {"per_unit_chain": ((
+        "  p->mma = chain_mma_fits(H, 0, rec, bf16, lim.max_smem);",
+        "  p->mma = 0;"),)})
+    _run_variants("izh_scan", libs, {"scan": run}, tag)
+    # The chain's bound: g_z, z and v (float32) read once, g_i (float32)
+    # and the z bits written; round(gi(t+1)) @ W_rec^T on tensor cores (six
+    # bf16 piece products for float32 weights) at 989 TFLOP/s.
+    n = B * T * H
+    nbytes = (4 * n * 4 + B * (T + 1) * ((H + 31) // 32) * 4
+              + H * H * md.itemsize)
+    pieces = 6 if md == torch.float32 else 1
+    print(json.dumps({"chain_bound": _bound(nbytes, 2 * n * H * pieces,
+                                            BF16_FLOPS), **tag}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--matmul-dtype", default="float32",
@@ -800,6 +842,9 @@ def main() -> None:
                     help="fused_mid_bwd at 784 -> 128 -> 128 -> 96 -> 10")
     ap.add_argument("--twolayer", action="store_true",
                     help="fused2_bwd at 784 -> ALIF-128 -> ALIF-128 -> 10")
+    ap.add_argument("--izh-scan", action="store_true",
+                    help="izh_scan_bwd at layer 1 of 784 -> Izhikevich-128 "
+                         "-> Izhikevich-128 -> 10")
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bwd_ablation needs a CUDA card")
@@ -811,6 +856,10 @@ def main() -> None:
         return
     if ns.layer0:
         layer0_bwd(md, ns.izh, ns.periodic)
+        _print_card()
+        return
+    if ns.izh_scan:
+        izh_scan_bwd(md)
         _print_card()
         return
     if ns.izh:

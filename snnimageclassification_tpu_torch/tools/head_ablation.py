@@ -14,6 +14,8 @@ Run on a CUDA card from the repository root::
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation \
         --twolayer
     python3 -m snnimageclassification_tpu_torch.tools.head_ablation --layer0
+    python3 -m snnimageclassification_tpu_torch.tools.head_ablation \
+        --izh-scan
 
 Each variant is the kernel source (headers inlined) with one statement of
 its tensor-core body replaced: the readout product, the recurrent product,
@@ -78,6 +80,15 @@ of z values from the accumulator layout instead (``per_lane_z``), with no
 z store (``no_z_store``), with the launch bound of the threads alone
 (``ptxas_heuristic``: ptxas then held some instances to 128 registers and
 spilled) and on the per-unit body (``per_unit_body``).
+
+``--izh-scan`` times ``izh_scan_fwd`` (``csrc/izh_scan.cu``) on the
+deep Izhikevich network's second layer (784-Izh128-Izh128-10 at dt = 30,
+params seed 0: its currents z0 @ W1, z0 from ``fused_izh_layer0_fwd`` on
+8192 random uint8 rows, numpy seed 1, TTFS), training at B = 8192 and
+inference on the first 4096 rows, float32 and bfloat16: as built (the
+first layers' tensor-core body with the currents as its input) and on the
+per-unit body (``per_unit_body``: the scan's plan made not to take the
+tensor-core body).
 
 ``--launch-order`` times the stacked kernel (six replicas of that
 flagship, seeds 0-5, on the same batch) as it is built, row tiles on the
@@ -236,6 +247,14 @@ LAYER0_VARIANTS = {
          "  *mma_out = O > 0 && mma_fits(H, O, rec, bf16, max_smem) ? 1 : 0;"),),
 }
 
+# izh_scan_fwd on its per-unit body (the scan's plan made not to take the
+# tensor-core body).
+IZH_SCAN_VARIANTS = {
+    "per_unit_body": (
+        ("  *mma_out = mma_fits(H, 0, rec, bf16, max_smem) ? 1 : 0;",
+         "  *mma_out = 0;"),),
+}
+
 # The stacked launch with its grid's axes swapped: replicas on x (fastest),
 # row tiles on y.
 LAUNCH_ORDER = (
@@ -370,6 +389,9 @@ def main() -> None:
     parser.add_argument("--layer0", action="store_true",
                         help="the first layers' forwards (csrc/fused_head.cu"
                              ", csrc/fused_izh.cu)")
+    parser.add_argument("--izh-scan", action="store_true",
+                        help="the Izhikevich scan's forward "
+                             "(csrc/izh_scan.cu)")
     ns = parser.parse_args()
     launch_order = ns.launch_order
     if not torch.cuda.is_available():
@@ -382,6 +404,9 @@ def main() -> None:
         return
     if ns.layer0:
         _layer0_main()
+        return
+    if ns.izh_scan:
+        _izh_scan_main()
         return
     if ns.izh:
         _izh_main(ns.bodies)
@@ -661,6 +686,49 @@ def _layer0_main() -> None:
         _time_variants("fused_izh", LAYER0_VARIANTS, {
             "train": lambda: fused_izh._layer0_cuda(*l0)},
             {"layer0": "fused_izh_layer0_fwd", "dtype": md}, n=10)
+    print(_card())
+
+
+def izh_scan_inputs(md: torch.dtype):
+    """The deep Izhikevich network's second layer as ``izh_scan`` takes it
+    (784-Izh128-Izh128-10, dt = 30, params seed 0, W_in, W1 and W_rec in
+    ``md``): its currents ``z0 @ W1`` (T, B, H) float32, z0 from
+    ``fused_izh_layer0_fwd`` on 8192 random uint8 rows (numpy seed 1,
+    TTFS), its masked W_rec, kernel params and layer config."""
+    raw = np.random.default_rng(1).integers(0, 256, (8192, 784),
+                                            dtype=np.uint8)
+    x = torch.from_numpy(raw).cuda().to(torch.float32) / 255.0
+    lat = pixels_to_firing_periods(x, t_max=100.0).contiguous()
+    cfg = SNNConfig(input_size=784, output_size=10,
+                    n_hidden_neurons=[128, 128],
+                    hidden_layer_type=LayerType.Izhikevich,
+                    use_recurrent_connection=True, int_time_steps=100,
+                    dt=30.0)
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    (n0, c0), (n1, c1) = cfg.layer_configs[:2]
+    p0, p1 = params[n0], params[n1]
+    z0 = fused_izh._layer0_cuda(
+        lat, p0["w_in"].detach().to(md).contiguous(),
+        masked_recurrent(c0, p0).detach().to(md).contiguous(), 100, False,
+        izh.izh_kernel_params(c0), False)[0]
+    cur = (z0 @ p1["w_in"].detach().to(md).float()).contiguous()
+    return (cur, masked_recurrent(c1, p1).detach().to(md).contiguous(),
+            izh.izh_kernel_params(c1), c1)
+
+
+def _izh_scan_main() -> None:
+    """``--izh-scan``: ``izh_scan_fwd`` as built and on its per-unit
+    body."""
+    for md in ("float32", "bfloat16"):
+        cur, w_rec, kp, _ = izh_scan_inputs(getattr(torch, md))
+        served = cur[:, :4096].contiguous()
+        _time_variants("izh_scan", IZH_SCAN_VARIANTS, {
+            "train": lambda: izh._scan_cuda(cur, w_rec, kp, True),
+            "serve": lambda: izh._scan_cuda(served, w_rec, kp, False)},
+            {"izh_scan": "izh_scan_fwd", "dtype": md,
+             "firing": float(izh._scan_cuda(cur, w_rec, kp, False)[0]
+                             .mean())}, n=10)
     print(_card())
 
 

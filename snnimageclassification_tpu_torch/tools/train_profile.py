@@ -36,16 +36,24 @@ mid z-emitting layer and the two-layer pair's layer 0
 ``bwd_chain_mma_kernel<ZChain..>``, of layer 0 of a deeper net
 ``bwd_chain_mma_kernel<Layer0Chain..>`` (an Izhikevich one
 ``bwd_chain_mma_kernel<IzhZChain..>``; past the body's limits the per-unit
-``bwd_chain_kernel<.., false, ..>``, ``izh_chain_kernel``);
+``bwd_chain_kernel<.., false, ..>``, ``izh_chain_kernel``), of the
+Izhikevich scan of a layer past the first (``izh_scan_bwd``)
+``bwd_chain_mma_kernel<IzhScanChain..>`` (per-unit ``izh_chain_kernel``)
+and its ``g_W_rec`` ``gbits_mma_kernel<float, ..>`` on the chain's float32
+g_i;
 ``gzin_mma_kernel`` is a mid layer's
 ``g_z_in`` and the two-layer pair's ``dz0``; the head's forward is
 ``head_mma_kernel`` after ``head_sort_kernel``, and so is a deeper net's
 first layer on that body (the instance whose fourth template argument,
-``HEAD``, is false); ``gbits_mma_kernel`` sums
-every backward's ``g_W_rec`` and a mid layer's ``g_W_in`` launches, the wide
+``HEAD``, is false; its input ``ListInput``), and the Izhikevich scan's
+forward (``izh_scan_fwd``) is ``head_mma_kernel<IzhMmaCell, .., false, ..,
+DenseCurrent>`` with no sort (per-unit ``izh_scan_fwd_kernel``);
+``gbits_mma_kernel`` sums every backward's ``g_W_rec`` and a mid layer's ``g_W_in`` launches, the wide
 net's ``rec_scan_bwd`` being ``rec_chain_kernel`` + ``gbits_mma_kernel``),
 the device's busy and idle share of the window, and the card's
-name and power limit.  ``port_kernels_ms_per_step`` sums the kernels of
+name and power limit; each kernel is named without namespaces and
+parameters, its template arguments kept.  ``port_kernels_ms_per_step``
+sums the kernels of
 ``csrc/``; ``other_kernels_ms_per_step`` is PyTorch's own (with ``--wide``
 mostly the readout's per-step loop, forward and backward; with ``--ff``
 also the input product and its ``g_W``).
@@ -175,9 +183,17 @@ def main() -> None:
         "port_kernels_ms_per_step": port_ms,
         "other_kernels_ms_per_step": busy_ms - port_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-        "kernel_ms_per_step": {k[:90]: v / 1e3 / ns.steps for k, v in top},
+        "kernel_ms_per_step": {_short(k): v / 1e3 / ns.steps
+                               for k, v in top},
         "card": card,
     }))
+
+
+def _short(key: str) -> str:
+    """A kernel's profiler name without namespaces and parameters, its
+    template arguments kept (the instances of one template apart)."""
+    key = key.replace("(anonymous namespace)::", "")
+    return (key.split(">(", 1)[0] + ">" if ">(" in key else key)[:160]
 
 
 if __name__ == "__main__":

@@ -1187,7 +1187,7 @@ IZH_L0_BWD_CASES = [(dt, rec, per, spike, T) for dt in (1e-3, 30.0)
 def test_izh_layer0_bwd_mma_chain_matches_ordered_versions(
         card, dt, rec, use_periods, spike, n_steps, wdtype):
     """``fused_izh_layer0_bwd`` with its chain on the tensor-core chain body
-    (``fused_izh_bwd.cu:IzhZChain``) against
+    (``izh_chain.cuh:IzhZChain``) against
     ``_izh_bwd_ordered_reference``'s first-layer mode at B = 37 and H = 20,
     128 on the forward kernel's residuals, at dt = 1e-3 (the JAX suite's
     scale) and dt = 30 (init-scale weights, where the u carry moves the
@@ -1287,6 +1287,9 @@ def test_izh_scan_kernels_match_plain_versions(card, name, rec, use_periods,
     cur = torch.from_numpy((3e6 + 1e6 * rng.standard_normal(
         (n_steps, B, H))).astype(np.float32)).to(card)
     w_rec = _izh_weights(card, rng, 1, H, 1, rec, wdtype)[1]
+    # Both kernels on the first layers' tensor-core bodies at this shape.
+    assert izh.scan_bodies(n_steps, H, rec, wdtype.itemsize, card,
+                           True) == ("mma", "mma")
     fused.reset_launch_counts()
     z, v = izh._scan_cuda(cur, w_rec, IZH_KP, True)
     z_inf, v_inf = izh._scan_cuda(cur, w_rec, IZH_KP, False)
@@ -1305,6 +1308,173 @@ def test_izh_scan_kernels_match_plain_versions(card, name, rec, use_periods,
                  izh._scan_bwd_reference(*args), _izh_bar(n_steps, wdtype))
     assert _launched() == {fused.KERNEL_IZH_SCAN: 2,
                            fused.KERNEL_IZH_SCAN_BWD: 2}
+
+
+def _scan_inputs(dev, dt, rec, T, wdtype, H, B=37, seed=41):
+    """(currents (T, B, H) float32, masked W_rec | None, kernel params) of
+    ``izh_scan``: at dt = 1e-3 the JAX suite's scale (currents 3e6 + 1e6
+    N(0, 1), W_rec 5e5 N(0, 1) at H = 20, scaled by sqrt(20 / H): at 5e5
+    the chain overflows at H = 128); at dt = 30 a second layer's currents
+    ``z0 @ W1`` (z0 from ``fused_izh_layer0_fwd`` at init scale, W1 N(0,
+    1)) and W_rec of std 0.3 sqrt(20 / H) (0.3 at H = 128 overflows the
+    float32 chain at T = 100)."""
+    rng = np.random.default_rng(seed)
+
+    def w(shape, std=1.0):
+        return torch.from_numpy(
+            (std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    eye = 1 - torch.eye(H, device=dev)
+    if dt < 1:
+        cur = 3e6 + w((T, B, H), 1e6)
+        w_rec = ((w((H, H), 5e5 * (20 / H) ** 0.5) * eye).to(wdtype) if rec
+                 else None)
+        return cur.contiguous(), w_rec, IZH_KP
+    head = _izh_head(dev, dt, rec, False, T, wdtype, B=B, H=H, seed=seed)
+    z0 = fused_izh._layer0_cuda(head[0], head[1], head[2], T, False, head[7],
+                                False)[0]
+    cur = (z0 @ w((H, H))).contiguous()
+    w_rec = ((w((H, H), 0.3 * (20 / H) ** 0.5) * eye).to(wdtype) if rec
+             else None)
+    return cur, w_rec, head[7]
+
+
+IZH_SCAN_CASES = [(dt, rec, T) for dt in (1e-3, 30.0) for rec in (True, False)
+                  for T in (1, 24, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "dt,rec,n_steps", IZH_SCAN_CASES,
+    ids=[f"dt{c[0]:g}-{'rec' if c[1] else 'ff'}-{c[2]}"
+         for c in IZH_SCAN_CASES])
+def test_izh_scan_mma_body_matches_ordered_versions(card, dt, rec, n_steps,
+                                                    wdtype):
+    """``izh_scan_fwd`` on the first layers' tensor-core body (the currents
+    as its input) equals ``izh._scan_ordered_reference`` bit for bit (z,
+    v) at H = 20 and 128, dt = 1e-3 and dt = 30; equal bits on a repeated
+    call, inference's spikes training's; ``scan_bodies`` names the
+    body."""
+    for H in (20, 128):
+        cur, w_rec, kp = _scan_inputs(card, dt, rec, n_steps, wdtype, H)
+        assert izh.scan_bodies(n_steps, H, rec, wdtype.itemsize,
+                               card) == ("mma",)
+        fused.reset_launch_counts()
+        got = izh._scan_cuda(cur, w_rec, kp, True)
+        again = izh._scan_cuda(cur, w_rec, kp, True)
+        inf = izh._scan_cuda(cur, w_rec, kp, False)
+        want = izh._scan_ordered_reference(cur, w_rec, kp, True)
+        torch.cuda.synchronize()
+        assert _launched() == {fused.KERNEL_IZH_SCAN: 3}
+        for g, g2, w in zip(got, again, want):
+            assert torch.equal(g, g2) and torch.equal(g, w), f"H={H}"
+        assert inf[1] is None and torch.equal(inf[0], got[0])
+        if n_steps > 2:
+            assert 0 < float(got[0].mean()) < 1  # the units fire
+
+
+IZH_SCAN_BWD_CASES = [(dt, rec, spike, T) for dt in (1e-3, 30.0)
+                      for rec in (True, False)
+                      for spike, T in ((FAST, 24), (PHI, 100))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "dt,rec,spike,n_steps", IZH_SCAN_BWD_CASES,
+    ids=[f"dt{c[0]:g}-{'rec' if c[1] else 'ff'}-{c[2].name}-{c[3]}"
+         for c in IZH_SCAN_BWD_CASES])
+def test_izh_scan_bwd_mma_chain_matches_ordered_versions(card, dt, rec, spike,
+                                                         n_steps, wdtype):
+    """``izh_scan_bwd`` with its chain on the tensor-core chain body
+    (``izh_chain.cuh:IzhScanChain``) against
+    ``izh._scan_bwd_ordered_reference`` at H = 20 and 128 on the forward
+    kernel's residuals: g_i, g_W_rec and its float32 sum within 2e-6 of
+    max|g| (5e-6 at T = 100) at dt = 1e-3, 1e-4 at dt = 30, bf16 2**-7;
+    equal bits twice; the feedforward scan takes no scratch; its plan and
+    ``scan_bodies`` name the chain's body."""
+    bf16 = wdtype == torch.bfloat16
+    bar = _izh_bar(n_steps, wdtype) if dt < 1 else (
+        2.0 ** -7 if bf16 else 1e-4)
+    gamma = IzhikevichConfig(input_size=1, output_size=1).gamma
+    rng = np.random.default_rng(17)
+    for H in (20, 128):
+        cur, w_rec, kp = _scan_inputs(card, dt, rec, n_steps, wdtype, H)
+        B = cur.shape[1]
+        assert izh.scan_bodies(n_steps, H, rec, wdtype.itemsize, card,
+                               True) == ("mma", "mma")
+        order = izh.gradient_plan(card, B, H, n_steps, rec, bf16)
+        assert order["mma"] and (order["groups_rec"] > 0) == rec
+        z, v = izh._scan_cuda(cur, w_rec, kp, True)
+        assert float(z.sum()) > 0  # the units fire
+        g_z = torch.from_numpy(rng.standard_normal(tuple(z.shape)).astype(
+            np.float32)).to(card) / B
+        sargs = (g_z, z, v, w_rec, kp, gamma, spike)
+        keep, okeep = {}, {}
+        fused.reset_launch_counts()
+        got = izh._scan_bwd_cuda(*sargs, keep=keep)
+        again = izh._scan_bwd_cuda(*sargs)
+        assert _launched() == {fused.KERNEL_IZH_SCAN_BWD: 2}
+        want = izh._scan_bwd_ordered_reference(*sargs, order, keep=okeep)
+        torch.cuda.synchronize()
+        _grads_close(got, again, want, bar)
+        if rec:
+            err = _rel_err(keep["g_w_rec"], okeep["g_w_rec"])
+            assert err <= bar, f"H={H} g_W_rec sum: {err:.3g} of max|g|"
+        else:
+            assert keep["zmask"] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,wdtype,rec", [(192, torch.float32, True),
+                                          (288, torch.bfloat16, True),
+                                          (288, torch.float32, False)],
+                         ids=["f32-rec-H192", "bf16-rec-H288",
+                              "f32-ff-H288"])
+def test_izh_scan_per_unit_body_takes_the_rest(card, H, wdtype, rec):
+    """Shapes past the tensor-core bodies' limits (float32 W_rec's pieces
+    past a block's shared memory from H = 161, H > 256) run the scan's
+    per-unit kernels, which ``scan_bodies`` (training too),
+    ``gradient_plan`` and ``explain_dispatch`` name, against the
+    order-free plain versions: spikes equal, ``v`` 1e-6 relative and 1e-3
+    mV (bitwise feedforward), gradients at the small bars, equal bits
+    twice."""
+    import snnimageclassification_tpu_torch as pt
+    from snnimageclassification_tpu_torch.models import snn as model_lib
+
+    T, it = 24, wdtype.itemsize
+    assert izh.izh_scan_supported(T, H, rec, it, card, True)
+    assert izh.scan_bodies(T, H, rec, it, card, True) == ("per-unit",
+                                                          "per-unit")
+    cur, w_rec, kp = _scan_inputs(card, 1e-3, rec, T, wdtype, H, B=21)
+    assert not izh.gradient_plan(card, 21, H, T, rec,
+                                 wdtype == torch.bfloat16)["mma"]
+    z, v = izh._scan_cuda(cur, w_rec, kp, True)
+    zp, vp = izh._scan_reference(cur, w_rec, kp, True)
+    torch.cuda.synchronize()
+    assert torch.equal(z, zp) and 0 < float(z.mean()) < 1
+    if rec:
+        torch.testing.assert_close(v, vp, rtol=1e-6, atol=1e-3)
+    else:
+        assert torch.equal(v, vp)
+    g_z = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (T, 21, H)).astype(np.float32)).to(card) / 21
+    sargs = (g_z, z, v, w_rec, kp, IZH.gamma, FAST)
+    _grads_close(izh._scan_bwd_cuda(*sargs), izh._scan_bwd_cuda(*sargs),
+                 izh._scan_bwd_reference(*sargs), _izh_bar(T, wdtype))
+    cfg = pt.SNNConfig(input_size=784, output_size=10,
+                       n_hidden_neurons=[128, H],
+                       hidden_layer_type="Izhikevich",
+                       use_recurrent_connection=rec, int_time_steps=100,
+                       dt=30.0, matmul_dtype=str(wdtype)[6:])
+    row = model_lib.explain_dispatch(cfg, pt.EncodeConfig(n_steps=100),
+                                     device="cuda", training=True)[1]
+    assert row["path"] == (f"cuda:{fused.KERNEL_IZH_SCAN}+"
+                           f"{fused.KERNEL_IZH_SCAN_BWD}[per-unit]"), row
+    assert "(mma)" not in row["reason"]
 
 
 @pytest.mark.cuda
@@ -1676,8 +1846,9 @@ def test_explain_dispatch_names_the_izh_bodies(card):
     """The Izhikevich head names its body: the tensor-core body ("mma") in
     the forward and the backward's chain at 784-Izh128-10, f32 and bf16,
     single and stacked; the per-unit body at O = 40; layer 0
-    (``fused_izh_layer0_fwd``) names the tensor-core body of its forward
-    and of its backward's chain."""
+    (``fused_izh_layer0_fwd``) and the scan of the layer past it
+    (``izh_scan_fwd``) name the tensor-core body of their forwards and of
+    their backwards' chains."""
     import snnimageclassification_tpu_torch as pt
     from snnimageclassification_tpu_torch.models import snn as model_lib
 
@@ -1710,10 +1881,14 @@ def test_explain_dispatch_names_the_izh_bodies(card):
                                       training=True)
     assert deep[0]["path"] == (f"cuda:{fused.KERNEL_IZH_L0}+"
                                f"{fused.KERNEL_IZH_L0_BWD}")
-    assert "the tensor-core body (mma) in the forward" in deep[0]["reason"]
-    assert ("the tensor-core body (mma) in the backward's chain"
-            in deep[0]["reason"])
-    assert "per-unit" not in deep[0]["reason"]
+    assert deep[1]["path"] == (f"cuda:{fused.KERNEL_IZH_SCAN}+"
+                               f"{fused.KERNEL_IZH_SCAN_BWD}")
+    for row in deep[:2]:
+        assert "the tensor-core body (mma) in the forward" in row["reason"]
+        assert ("the tensor-core body (mma) in the backward's chain"
+                in row["reason"])
+        assert "per-unit" not in row["reason"]
+    assert izh.scan_bodies(100, 128, True, 4, card, True) == ("mma", "mma")
 
 
 # ---------------------------------------------------------------------------
